@@ -1,26 +1,44 @@
-"""Drive the PyTorch/CUDA port's headline frame on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's fused DI frames on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check: a CUDA card is required; nothing runs on the CPU;
-  2. build: nvcc compiles restir_tpu_torch/csrc into the kernel library;
-  3. kernel vs twin: each kernel (B1 fused DI, B2 spatial + shade, B3
-     EAW level) against its plain PyTorch twin on the card, at the
-     headline shapes (1920x1080, many_light_scene(64, 24)), on a frame
-     with live temporal history; kernel and twin times by CUDA events;
-  4. small-frame parity: three whole frames through the kernels vs the
+  2. build: nvcc compiles restir_tpu_torch/csrc, one process per source,
+     and prints each kernel's registers and spills (ptxas);
+  3. headline kernels vs twins: B1 fused DI, B2 spatial + shade, B3 EAW
+     level against their plain PyTorch twins on the card at the headline
+     shapes (1920x1080, many_light_scene(64, 24)), on a frame with live
+     temporal history; kernel and twin times by CUDA events;
+  4. MTBVH on the headline scene: its 426 triangles forced through B6
+     (MTBVH closest hit) + B7 (RIS + MTBVH any hit) + B1b, held against
+     B1's packs under the parity gates;
+  5. small-frame parity: three whole frames through the kernels vs the
      plain twins on the CPU, at 256x64;
-  5. main path: renderer.init_state / step at 1920x1080 with the EAW
-     denoiser, 8 warm-up + 32 timed frames, launch counts checked.
-The last two stdout lines are the per-kernel JSON record and
-{"ok": true, "device": {...}}; the card's name and power limit (from
-nvidia-smi) come on the line before them.
+  6. headline main path: renderer.init_state / step at 1920x1080 with the
+     EAW denoiser, 8 warm-up + 32 timed frames, launch counts checked;
+  7. hall kernels vs twins: scenes/hall.txt (81,036 triangles) loaded by
+     the port's own loader; B6 and B7 against their brute twins on 32
+     whole 1024-pixel tiles spread over the 1080p frame, B1b against its
+     twin over the whole frame; kernel times, twin times over the whole
+     frame, and the walks' box / triangle tests per ray (kernel counters
+     over the frame, the lockstep twin on the tiles);
+  8. hall main path: renderer.init_state / step at 1920x1080, 8 warm-up +
+     32 timed frames, launch counts per frame checked (gbuffer 1, reuse 1,
+     temporal 1, spatial 1, atrous 5).
+After each main path, torch.profiler traces 4 more frames and prints the
+device busy time per frame and the kernels that take it.
+The last three stdout lines are the card's name and power limit (from
+nvidia-smi), the per-kernel JSON record and {"ok": true, "device": ...}.
+Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s
+float32 (non-tensor); operation counts per test are counted from the
+CUDA sources (constants below).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -36,12 +54,34 @@ from restir_tpu_torch.config import (
     mat_flags,
 )
 from restir_tpu_torch.ops.camera import make_camera, pack_camera
-from restir_tpu_torch.ops.kernels import _build, atrous, fused_di, spatial
-from restir_tpu_torch.ops.kernels.fused_di import P_M, PT_CH
+from restir_tpu_torch.ops.kernels import (
+    _build,
+    atrous,
+    bvh_walk,
+    fused_di,
+    gbuffer,
+    reuse,
+    spatial,
+)
+from restir_tpu_torch.ops.kernels.fused_di import (
+    G_DIR,
+    G_POS,
+    G_PRIM,
+    P_M,
+    PT_CH,
+    RS_DIST,
+    RS_LI,
+    RS_W,
+    RS_WI,
+    TILE,
+)
+from restir_tpu_torch.scene.loader import parse_scene_file
 from restir_tpu_torch.scene.procedural import many_light_scene
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 8, 32
+SAMPLE_TILES = 32
 SOURCES = {
     "fused_di": ("restir_tpu_torch/csrc/fused_di.cu",
                  "restir_tpu/ops/pallas/fused_di.py:2778"),
@@ -49,7 +89,22 @@ SOURCES = {
                 "restir_tpu/ops/pallas/fused_di.py:3106"),
     "atrous_eaw": ("restir_tpu_torch/csrc/atrous.cu",
                    "restir_tpu/ops/pallas/atrous_kernel.py:90"),
+    "gbuffer_bvh": ("restir_tpu_torch/csrc/gbuffer_bvh.cu",
+                    "restir_tpu/ops/pallas/fused_di.py:907"),
+    "reuse_bvh": ("restir_tpu_torch/csrc/reuse_bvh.cu",
+                  "restir_tpu/ops/pallas/fused_di.py:1558"),
 }
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+# floating-point operations per unit of work, counted from csrc/ (an FMA
+# counts 2, a division or square root 1, min / max 1)
+FLOP_PLANE = 39  # plane_hit: 3 four-term + 3 three-term dots, div, u, v
+FLOP_BOX = 24  # slab: 6 sub, 6 mul, 12 min / max
+FLOP_LIGHT = 32  # light_target
+FLOP_CAND = 120  # one RIS candidate: sample point, pdf, BSDF, weight
+FLOP_PIXEL = 150  # raygen + G-buffer epilogue
+FLOP_TEMPORAL = 40  # B1b's merge
 
 
 class PhaseError(RuntimeError):
@@ -66,9 +121,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls (after one warm-up)."""
-    fn()
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean device time of fn() over `reps` calls."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -80,7 +136,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def headline_config(scene_arrays, width=None, height=None):
+def bound(nbytes: float, flops: float):
+    """(least ms on the card, what binds it)."""
+    ms_b = nbytes / PEAK_BYTES * 1e3
+    ms_f = flops / PEAK_FLOPS * 1e3
+    return (ms_b, "bytes") if ms_b >= ms_f else (ms_f, "operations")
+
+
+def table_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def render_config(scene_arrays, width=None, height=None):
     return RenderConfig(width=width or WIDTH, height=height or HEIGHT,
                         tracer=TracerType.RESTIR_DI,
                         denoiser=DenoiserType.EAW, **mat_flags(scene_arrays))
@@ -88,12 +155,49 @@ def headline_config(scene_arrays, width=None, height=None):
 
 def reset_counts():
     fused_di.launches = 0
+    fused_di.temporal_launches = 0
     spatial.launches = 0
     atrous.launches = 0
+    gbuffer.launches = 0
+    reuse.launches = 0
+
+
+def read_counts():
+    return {"fused_di": fused_di.launches,
+            "temporal": fused_di.temporal_launches,
+            "spatial": spatial.launches, "atrous_eaw": atrous.launches,
+            "gbuffer_bvh": gbuffer.launches, "reuse_bvh": reuse.launches}
+
+
+def gate(fails, what):
+    if fails:
+        raise PhaseError(f"{what}: " + "; ".join(fails))
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.build_seconds} s) -> {os.path.basename(path)}")
+    if _build.build_log is None:
+        print("ptxas: the library was cached, no register report")
+        return
+    # registers and spills: ptxas's report of every kernel
+    src = name = None
+    for ln in _build.build_log.splitlines():
+        if ln.startswith("--- "):
+            src = ln[4:]
+        elif "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "registers" in ln and name:
+            print(f"ptxas {src} {name[:72]}:{ln.split(':', 1)[1]}")
+        elif "spill" in ln and name:
+            print(f"ptxas {src}   {ln.strip()}")
 
 
 def phase_kernels(scene, cfg, cam, dev, record):
-    """Each kernel against its plain twin on the card at 1080p."""
+    """B1, B2 and B3 against their plain twins on the card at 1080p."""
     w, h, r = cfg.width, cfg.height, cfg.num_pixels
     cam2 = make_camera(position=(0.25, 4.5, 15.0),
                        rotation=(-90.5, -10.0, 0.0), fov_y=30.0)
@@ -112,8 +216,7 @@ def phase_kernels(scene, cfg, cam, dev, record):
     torch.cuda.synchronize()
     fails, stats = parity.gb_pt_report(gb_r, pt_r, gb_k, pt_k)
     print(f"B1 fused_di vs twin: {json.dumps(stats)}")
-    if fails:
-        raise PhaseError("B1 disagrees with its twin: " + "; ".join(fails))
+    gate(fails, "B1 disagrees with its twin")
     m_live = float(pt_k[P_M].max())
     if m_live <= cfg.cdf_candidates:
         raise PhaseError(f"B1 temporal merge inactive (max M {m_live})")
@@ -122,9 +225,17 @@ def phase_kernels(scene, cfg, cam, dev, record):
                                                       **kw), 10)
     ms_b1_ref = cuda_ms(lambda: fused_di.di_resident_ref(cv2, cv, 1, pt0, t,
                                                          **kw), 2)
+    n_pad, l_pad = t.planes.shape[0], t.psi.shape[0]
+    b1 = bound(r * (14 + 24 + 16) * 4 + table_bytes(t.planes, t.attr, t.mat,
+                                                    t.lights, t.psi),
+               r * (2 * n_pad * FLOP_PLANE + 2 * l_pad * FLOP_LIGHT
+                    + cfg.cdf_candidates * FLOP_CAND + FLOP_PIXEL
+                    + FLOP_TEMPORAL))
     record["fused_di"] = dict(max_abs_err=err_b1, ms=ms_b1,
-                              plain_ms=ms_b1_ref)
-    print(f"B1 fused_di: kernel {ms_b1:.4f} ms, twin {ms_b1_ref:.4f} ms")
+                              plain_ms=ms_b1_ref, bound_ms=b1[0],
+                              bound_by=b1[1], library_ms=None)
+    print(f"B1 fused_di: kernel {ms_b1:.4f} ms, twin {ms_b1_ref:.4f} ms, "
+          f"bound {b1[0]:.4f} ms ({b1[1]})")
 
     # B2 on the same packs, a random accumulator, iteration 3
     offs = spatial.spatial_offsets(1, r, w, cfg.spatial_neighbors,
@@ -147,9 +258,14 @@ def phase_kernels(scene, cfg, cam, dev, record):
         offs, gb_k, pt_k, scratch, 1, 3, **skw), 20)
     ms_b2_ref = cuda_ms(lambda: spatial.spatial_shade_ref(
         offs, gb_k, pt_k, scratch, 1, 3, **skw), 2)
+    # 20 gb + 13 pt channels read, accum read and written
+    b2 = bound(r * (20 + 13 + 3 + 3) * 4,
+               r * cfg.spatial_neighbors * 60 + r * 80)
     record["spatial"] = dict(max_abs_err=err_b2, ms=ms_b2,
-                             plain_ms=ms_b2_ref)
-    print(f"B2 spatial: kernel {ms_b2:.4f} ms, twin {ms_b2_ref:.4f} ms")
+                             plain_ms=ms_b2_ref, bound_ms=b2[0],
+                             bound_by=b2[1], library_ms=None)
+    print(f"B2 spatial: kernel {ms_b2:.4f} ms, twin {ms_b2_ref:.4f} ms, "
+          f"bound {b2[0]:.4f} ms ({b2[1]})")
 
     # B3: every level on the demodulated frame
     alb = torch.clamp(gb_k[fused_di.G_ALB:fused_di.G_ALB + 3], min=0.0)
@@ -172,17 +288,48 @@ def phase_kernels(scene, cfg, cam, dev, record):
         ms_b3_ref.append(cuda_ms(lambda: atrous.atrous_level_ref(
             color, gb_k, level=level, **akw), 2))
         color = out_k
+    # color 3 + gb prim / normal / position 7 read, 3 written; 25 taps
+    b3 = bound(r * (3 + 7 + 3) * 4, r * 25 * 30)
     record["atrous_eaw"] = dict(max_abs_err=err_b3,
                                 ms=float(np.mean(ms_b3)),
-                                plain_ms=float(np.mean(ms_b3_ref)))
+                                plain_ms=float(np.mean(ms_b3_ref)),
+                                bound_ms=b3[0], bound_by=b3[1],
+                                library_ms=None)
     print("B3 atrous per level: kernel "
           + ", ".join(f"{x:.4f}" for x in ms_b3) + " ms; twin "
-          + ", ".join(f"{x:.4f}" for x in ms_b3_ref) + " ms")
+          + ", ".join(f"{x:.4f}" for x in ms_b3_ref) + f" ms; bound "
+          f"{b3[0]:.4f} ms ({b3[1]})")
+    return cv, cv2, pt0, gb_k, pt_k
+
+
+def phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1):
+    """The resident scene through B6 + B7 + B1b, held against B1."""
+    w, h = cfg.width, cfg.height
+    gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=w, height=h,
+                              aa_jitter=cfg.aa_jitter,
+                              single_sided=cfg.single_sided_lights)
+    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh,
+                          k=cfg.cdf_candidates,
+                          single_sided=cfg.single_sided_lights,
+                          temporal_clamp=cfg.temporal_clamp,
+                          has_met=cfg.scene_has_metallic)
+    torch.cuda.synchronize()
+    fails, stats = parity.gb_pt_report(gb_b1, pt_b1, gb, pt)
+    print(f"MTBVH (B6 + B7 + B1b) vs B1 on the {scene.num_tris}-triangle "
+          f"headline scene at {w}x{h}: {json.dumps(stats)}")
+    gate(fails, "B6 + B7 + B1b disagree with B1")
+    ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(
+        cv2, cv, 1, scene.bvh, width=w, height=h), 10)
+    ms7 = cuda_ms(lambda: reuse.candidates_cuda(
+        gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
+        has_met=cfg.scene_has_metallic), 10)
+    print(f"headline scene: B6 {ms6:.4f} ms, B7 {ms7:.4f} ms "
+          f"(B1 resident path for comparison above)")
 
 
 def phase_small_frames(arrays, cam, dev):
     """Three whole frames through the kernels vs the twins on the CPU."""
-    cfg = headline_config(arrays, width=256, height=64)
+    cfg = render_config(arrays, width=256, height=64)
     out = {}
     for where in (dev, "cpu"):
         scene = convert.scene_from_numpy(arrays, where)
@@ -199,8 +346,10 @@ def phase_small_frames(arrays, cam, dev):
         raise PhaseError("small-frame parity failed")
 
 
-def phase_main(scene, cfg, cam, dev):
-    """The headline main path through renderer.init_state / step."""
+def phase_main(name, scene, cfg, cam, dev, per_frame):
+    """A main path through renderer.init_state / step; returns the launch
+    counts of the run. per_frame: the expected launches of each kernel
+    per frame."""
     reset_counts()
     state = renderer.init_state(cfg, cam, scene, device=dev)
     frame = None
@@ -217,14 +366,12 @@ def phase_main(scene, cfg, cam, dev):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
     dev_ms = start.elapsed_time(end) / TIMED
-    counts = {"fused_di": fused_di.launches, "spatial": spatial.launches,
-              "atrous_eaw": atrous.launches}
+    counts = read_counts()
     frames = WARMUP + TIMED
-    expect = {"fused_di": 2 * frames, "spatial": frames,
-              "atrous_eaw": cfg.eaw_levels * frames}
-    print(f"main path launches {counts} (expected {expect})")
+    expect = {k: per_frame.get(k, 0) * frames for k in counts}
+    print(f"main path {name} launches {counts} (expected {expect})")
     if counts != expect:
-        raise PhaseError(f"launch counts {counts} != {expect}")
+        raise PhaseError(f"{name}: launch counts {counts} != {expect}")
 
     if tuple(frame.shape) != (3, cfg.num_pixels):
         raise PhaseError(f"frame shape {tuple(frame.shape)}")
@@ -242,12 +389,180 @@ def phase_main(scene, cfg, cam, dev):
     if not m_mean > 2 * cfg.cdf_candidates:
         raise PhaseError(f"temporal reuse not alive: mean M {m_mean}")
     fps = 1e3 / wall_ms
-    print(f"main path {cfg.width}x{cfg.height} RESTIR_DI+EAW: "
+    print(f"main path {name} {cfg.width}x{cfg.height} RESTIR_DI+EAW: "
           f"{wall_ms:.3f} ms/frame wall, {dev_ms:.3f} ms/frame device, "
           f"{fps:.3f} fps, {2 * cfg.num_pixels * fps / 1e6:.3f} Mrays/s; "
           f"frame mean {mean:.5f}, mean M {m_mean:.2f}, "
           f"image mean {float(img.float().mean()):.2f}")
     return counts
+
+
+def profile_frames(name, scene, cfg, cam, dev, frames=4):
+    """Device busy time per frame and its largest kernels, from a
+    torch.profiler trace of `frames` frames after 2 warm-up frames."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = renderer.init_state(cfg, cam, scene, device=dev)
+    for _ in range(2):
+        state, _ = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            state, _ = renderer.step(scene, state, cam, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / frames
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / frames)
+    if not by_name:
+        print(f"profile {name}: the trace holds no device events; device "
+              "busy share not measured")
+        return
+    busy = sum(by_name.values())
+    print(f"profile {name}: {wall:.3f} ms/frame wall (profiled), device "
+          f"busy {busy:.3f} ms/frame, idle share {1.0 - busy / wall:.3f}")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {v:9.4f} ms/frame  {k[:90]}")
+
+
+def load_hall():
+    sys.path.insert(0, os.path.join(REPO, "scenes"))
+    from make_hall import ensure_assets  # numpy only; writes scenes/generated
+
+    t0 = time.perf_counter()
+    ensure_assets()
+    sf = parse_scene_file(os.path.join(REPO, "scenes", "hall.txt"))
+    arrays = sf.build()
+    print(f"hall: loaded and built (SAH + MTBVH) in "
+          f"{time.perf_counter() - t0:.2f} s on the host: "
+          f"{arrays.verts.shape[0]} triangles, {arrays.bounds_lo.shape[0]} "
+          f"nodes, {arrays.light_verts.shape[0]} light triangles")
+    return arrays, sf.make_camera()
+
+
+def sample_pixels(r, dev):
+    """SAMPLE_TILES whole 1024-pixel tiles spread evenly over the frame."""
+    tiles = np.linspace(0, r // TILE - 1, SAMPLE_TILES).round().astype(int)
+    pix = (tiles[:, None] * TILE + np.arange(TILE)[None, :]).reshape(-1)
+    return torch.as_tensor(pix, dtype=torch.int64, device=dev)
+
+
+def walk_report(what, kernel_counts, pix, twin_boxes, twin_tris):
+    """Print the kernel's mean tests per ray (whole frame) and the
+    lockstep twin's agreement on the sample; returns the frame totals."""
+    kb, kt = kernel_counts[0], kernel_counts[1]
+    same_b = float((kb[pix] == twin_boxes).float().mean())
+    same_t = float((kt[pix] == twin_tris).float().mean())
+    print(f"{what}: kernel mean {float(kb.float().mean()):.2f} box + "
+          f"{float(kt.float().mean()):.2f} triangle tests per ray over the "
+          f"frame (max {int(kb.max())} boxes); on the sample kernel "
+          f"{float(kb[pix].float().mean()):.2f} / "
+          f"{float(kt[pix].float().mean()):.2f}, lockstep twin "
+          f"{float(twin_boxes.float().mean()):.2f} / "
+          f"{float(twin_tris.float().mean()):.2f}, per-ray equal on "
+          f"{same_b:.5f} / {same_t:.5f}")
+    if same_b < 0.99 or same_t < 0.99:
+        raise PhaseError(f"{what}: the kernel's walk differs from the "
+                         "lockstep twin's (table choice or culling)")
+    return float(kb.double().sum()), float(kt.double().sum())
+
+
+def phase_hall_kernels(scene, cfg, cam, dev, record):
+    """B6, B7 and B1b on the hall at 1080p against their twins."""
+    w, h, r = cfg.width, cfg.height, cfg.num_pixels
+    bvh, t = scene.bvh, scene.tables
+    cam2 = make_camera(position=(0.3, 4.2, 20.3),
+                       rotation=(-90.5, -4.0, 0.0), fov_y=19.5)
+    cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
+    gkw = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
+               single_sided=cfg.single_sided_lights)
+    rkw = dict(k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
+               temporal=True, temporal_clamp=cfg.temporal_clamp,
+               has_met=cfg.scene_has_metallic)
+    zeros = torch.zeros((PT_CH, r), device=dev)
+    # frame 0, then frame 1 from a moved camera: live temporal history
+    gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, bvh, **gkw)
+    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, **rkw)
+    gb_k, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, stats=True, **gkw)
+    rs_k, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=rkw["k"],
+                                       single_sided=rkw["single_sided"],
+                                       has_met=rkw["has_met"], stats=True)
+    pt_k = fused_di.temporal_cuda(gb_k, rs_k, pt0, 1, k=rkw["k"],
+                                  temporal_clamp=rkw["temporal_clamp"])
+    pix = sample_pixels(r, dev)
+
+    # B6 on the sample tiles
+    gb_r = gbuffer.gbuffer_ref(cv2, cv, 1, bvh, pix=pix, **gkw)
+    torch.cuda.synchronize()
+    fails, st6 = parity.gb_report(gb_r, gb_k[:, pix])
+    print(f"B6 gbuffer_bvh vs brute twin on {SAMPLE_TILES} tiles "
+          f"({pix.numel()} px): {json.dumps(st6)}")
+    gate(fails, "B6 disagrees with its twin")
+    # B7 (+ B1b) on the sample tiles
+    pt_r = reuse.reuse_ref(gb_k[:, pix], pt0, 1, t, pix=pix, **rkw)
+    fails, st7 = parity.pt_report(pt_r, pt_k[:, pix])
+    print(f"B7 reuse_bvh + B1b vs twin on the same tiles: {json.dumps(st7)}")
+    gate(fails, "B7 disagrees with its twin")
+    if float(pt_k[P_M].max()) <= cfg.cdf_candidates:
+        raise PhaseError("hall temporal merge inactive")
+    # B1b alone over the whole frame, on the kernel's candidates
+    pt_tw = fused_di.temporal_pixels(
+        gb_k, rs_k[RS_LI:RS_LI + 3], rs_k[RS_WI:RS_WI + 3], rs_k[RS_DIST],
+        rs_k[RS_W], torch.arange(r, device=dev), 1, pt0, k=rkw["k"],
+        temporal=True, temporal_clamp=rkw["temporal_clamp"])
+    close = parity.close_fraction(pt_tw, pt_k, 1e-6, 0.0)
+    print(f"B1b temporal vs twin over the frame: exact-close {close:.6f}")
+    if close < 0.9999:
+        raise PhaseError(f"B1b disagrees with its twin on {1 - close:.6f}")
+
+    # the walks' work: kernel counters over the frame, lockstep on tiles
+    o = tuple(cv2[i].expand(pix.numel()) for i in range(3))
+    d = tuple(gb_k[G_DIR + i][pix] for i in range(3))
+    _, _, _, _, wb, wt = bvh_walk.closest_walk(bvh, o, d)
+    boxes6, tris6 = walk_report("B6 closest-hit walk", cnt6, pix, wb, wt)
+    wi = tuple(rs_k[RS_WI + i][pix] for i in range(3))
+    o = tuple(gb_k[G_POS + i][pix] + wi[i] * 1e-5 for i in range(3))
+    limit = rs_k[RS_DIST][pix] * (1.0 - 1e-3) - 1e-4
+    _, wb, wt = bvh_walk.occluded_walk(bvh, o, wi, limit, gb_k[G_PRIM][pix])
+    boxes7, tris7 = walk_report("B7 any-hit walk", cnt7, pix, wb, wt)
+
+    # times at 1080p: kernels by CUDA events, twins once over the frame
+    ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw), 10)
+    ms7 = cuda_ms(lambda: reuse.candidates_cuda(
+        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"]), 10)
+    ms1b = cuda_ms(lambda: fused_di.temporal_cuda(gb_k, rs_k, pt0, 1), 20)
+    ms6_ref = cuda_ms(lambda: gbuffer.gbuffer_ref(cv2, cv, 1, bvh, **gkw),
+                      1, warmup=False)
+    ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
+                      warmup=False)
+    tables6 = table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.bounds,
+                          bvh.nodes)
+    print(f"hall MTBVH tables on the card: {tables6 / 2**20:.1f} MiB "
+          f"(planes, attributes, materials, padded boxes, node rows)")
+    b6 = bound(tables6 + r * 24 * 4,
+               r * FLOP_PIXEL + boxes6 * FLOP_BOX + tris6 * FLOP_PLANE)
+    l_pad = t.psi.shape[0]
+    b7 = bound(table_bytes(t.lights, t.psi, bvh.planes, bvh.bounds,
+                           bvh.nodes) + r * (24 + 8) * 4,
+               r * (2 * l_pad * FLOP_LIGHT + rkw["k"] * FLOP_CAND)
+               + boxes7 * FLOP_BOX + tris7 * FLOP_PLANE)
+    record["gbuffer_bvh"] = dict(
+        max_abs_err=max(st6["pos_max_abs_err"], st6["norm_max_abs_err"]),
+        ms=ms6, plain_ms=ms6_ref, bound_ms=b6[0], bound_by=b6[1],
+        library_ms=None)
+    record["reuse_bvh"] = dict(
+        max_abs_err=st7["weight_max_abs_err"], ms=ms7, plain_ms=ms7_ref,
+        bound_ms=b7[0], bound_by=b7[1], library_ms=None)
+    print(f"hall B6 gbuffer_bvh: kernel {ms6:.4f} ms, twin {ms6_ref:.1f} ms,"
+          f" bound {b6[0]:.4f} ms ({b6[1]})")
+    print(f"hall B7 reuse_bvh: kernel {ms7:.4f} ms, twin (with B1b) "
+          f"{ms7_ref:.1f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
+    print(f"hall B1b temporal: kernel {ms1b:.4f} ms")
 
 
 def main() -> int:
@@ -256,33 +571,43 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    card = card_line()
-    print(card)
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    _build.build(verbose=True)
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds} s)")
+    phase_build()
 
     arrays, camkw = many_light_scene(64, 24)
-    cfg = headline_config(arrays)
+    cfg = render_config(arrays)
     cam = make_camera(**camkw)
     scene = convert.scene_from_numpy(arrays, dev)
-    print(f"scene: {scene.num_tris} triangles, "
+    print(f"headline scene: {scene.num_tris} triangles, "
           f"{scene.tables.n_lights} light triangles")
 
     record = {}
-    phase_kernels(scene, cfg, cam, dev, record)
+    cv, cv2, pt0, gb_b1, pt_b1 = phase_kernels(scene, cfg, cam, dev, record)
+    phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1)
     phase_small_frames(arrays, cam, dev)
-    counts = phase_main(scene, cfg, cam, dev)
+    levels = cfg.eaw_levels
+    counts = phase_main("headline", scene, cfg, cam, dev, {
+        "fused_di": 2, "spatial": 1, "atrous_eaw": levels})
+    launches = {k: counts[k] for k in ("fused_di", "spatial", "atrous_eaw")}
+    profile_frames("headline", scene, cfg, cam, dev)
+
+    hall_arrays, hall_cam = load_hall()
+    hall_cfg = render_config(hall_arrays)
+    hall = convert.scene_from_numpy(hall_arrays, dev)
+    phase_hall_kernels(hall, hall_cfg, hall_cam, dev, record)
+    counts = phase_main("hall", hall, hall_cfg, hall_cam, dev, {
+        "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
+        "atrous_eaw": levels})
+    launches.update(gbuffer_bvh=counts["gbuffer_bvh"],
+                    reuse_bvh=counts["reuse_bvh"])
+    profile_frames("hall", hall, hall_cfg, hall_cam, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": counts[name],
+         "replaces": SOURCES[name][1], "launches": launches[name],
          **record[name]}
-        for name in ("fused_di", "spatial", "atrous_eaw")
+        for name in SOURCES
     ]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
 """restir_tpu_torch — the ReSTIR renderer on PyTorch and CUDA.
 
 The port of `restir_tpu` (JAX/Pallas on a TPU) to an NVIDIA Hopper card.
-This slice carries the fused spatiotemporal ReSTIR DI frame with the
-EAW denoiser on resident scenes (at most 1024 triangles): three CUDA C++
-kernels in `csrc/` (the fused DI kernel, the spatial merge + shade, one
-à-trous level), each with a plain PyTorch twin that CPU tensors take.
+It carries the fused spatiotemporal ReSTIR DI frame with the EAW denoiser
+on scenes of any size, loaded from scene files (`scene.loader`) or built
+procedurally: CUDA C++ kernels in `csrc/` (the fused resident DI kernel
+for scenes of at most 1024 triangles; the MTBVH G-buffer and RIS +
+shadow-ray kernels above that; the spatial merge + shade; one à-trous
+level), each with a plain PyTorch twin that CPU tensors take.
 
 The package imports `torch` and never `jax`.
 """

@@ -19,13 +19,13 @@ from .config import RenderConfig
 from .models.restir_di_fused import FusedDIState
 from .ops.camera import Camera
 from .ops.kernels.fused_di import PT_CH
-from .ops.kernels.tables import build_resident_tables
+from .ops.kernels.tables import build_bvh_tables, build_resident_tables
 from .scene.scene_data import SceneTensors
 
 N_STATE_LEAVES = 7 + len(Camera._fields)
 
 
-def scene_from_numpy(d, device) -> SceneTensors:
+def scene_from_numpy(d, device="cuda") -> SceneTensors:
     """SceneTensors (and its kernel tables) on `device` from numpy
     scene arrays keyed by the JAX `SceneData` field names."""
     if not isinstance(d, Mapping):
@@ -33,8 +33,11 @@ def scene_from_numpy(d, device) -> SceneTensors:
 
     def dev(name, dtype=torch.float32):
         return torch.tensor(np.asarray(d[name]), dtype=dtype,
-                               device=device)
+                            device=device)
 
+    tables = build_resident_tables(d, device)
+    env = np.asarray(d["env_map"])
+    maps = np.asarray(d["mat_attr"])[:, 7:11]  # base/metal/rough/normal
     return SceneTensors(
         tri_xform=dev("tri_xform"),
         prim_attr=dev("prim_attr"),
@@ -46,7 +49,10 @@ def scene_from_numpy(d, device) -> SceneTensors:
         light_area=dev("light_area"),
         light_center=dev("light_center"),
         light_radius=dev("light_radius"),
-        tables=build_resident_tables(d, device),
+        tables=tables,
+        bvh=build_bvh_tables(d, tables, device),
+        has_env_map=bool(env.shape[0] > 1 or env.shape[1] > 1),
+        has_textures=bool((maps >= 0).any()),
     )
 
 
@@ -67,7 +73,7 @@ def _pack(a, channels: int, r: int, device) -> torch.Tensor:
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], cfg: RenderConfig,
-                     device) -> FusedDIState:
+                     device="cuda") -> FusedDIState:
     """Port state from the leaves of a JAX `FusedDIState` (DI, no SVGF)."""
     if len(leaves) != N_STATE_LEAVES:
         raise ValueError(f"expected {N_STATE_LEAVES} leaves, got "

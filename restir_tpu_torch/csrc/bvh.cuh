@@ -1,0 +1,140 @@
+// Stackless MTBVH walks over global memory (the CUDA original's
+// scene.h:245-316; the tables of restir_tpu/scene/bvh.py).
+//
+// One thread walks one ray. Table t = get_mtbvh_id(-d) orders every
+// node's children near-to-far for the ray's dominant axis; a node whose
+// padded box the ray misses (or enters beyond the current limit) jumps to
+// its `miss` index, past its subtree, so the walk is one loop with no
+// stack. Leaves run the unit-plane test of di_core.cuh on the triangle's
+// plane row, the same test B1 runs on every triangle.
+//
+// Exactness against B1's brute-force loop: node boxes are padded outward
+// at upload (ops/kernels/tables.py), a box is entered while its entry
+// distance is at most CULL_SLACK times the current best (or shadow
+// limit), and equal distances keep the lowest primitive id. So the walk
+// visits every triangle that could win and returns the brute-force hit.
+//
+// The COUNT variants also return the boxes and triangles tested, for
+// the measurement of the walk's work (tests and chip_smoke.py).
+#pragma once
+
+#include "di_core.cuh"
+
+namespace restir {
+
+// 1 + 2^-13: entry distances within this factor of the best hit are
+// still entered.
+#define RESTIR_CULL_SLACK 1.0001220703125f
+
+struct BvhView {
+  const float4* bounds;  // [B, 2] (lo, 0) (hi, 0), padded
+  const int4* nodes;     // [6B] (prim, box, miss, 0)
+  const float* planes;   // [n_pad, 12] unit-plane rows
+  int size;              // B
+};
+
+// Table index for direction (dx, dy, dz) (scene.h:101-119); callers pass
+// the negated ray direction, as scene.h:250 does.
+__device__ __forceinline__ int mtbvh_id(float dx, float dy, float dz) {
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  if (ax > ay && ax > az) return dx > 0.0f ? 0 : 1;
+  if (ay >= ax && ay > az) return dy > 0.0f ? 2 : 3;
+  return dz > 0.0f ? 4 : 5;
+}
+
+// 1 / d with |d| clamped to 1e-12 (ops/intersect.py::intersect_aabb), so
+// (lo - o) * inv is never 0 * inf.
+__device__ __forceinline__ float safe_inv(float d) {
+  const float ds = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
+  return 1.0f / ds;
+}
+
+// Slab test; t_near may be negative when the origin is inside the box.
+__device__ __forceinline__ bool slab(float4 lo, float4 hi, float ox, float oy,
+                                     float oz, float ix, float iy, float iz,
+                                     float& t_near) {
+  const float tx1 = (lo.x - ox) * ix, tx2 = (hi.x - ox) * ix;
+  const float ty1 = (lo.y - oy) * iy, ty2 = (hi.y - oy) * iy;
+  const float tz1 = (lo.z - oz) * iz, tz2 = (hi.z - oz) * iz;
+  t_near = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  const float t_far =
+      fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return t_far >= 0.0f && t_far >= t_near;
+}
+
+struct WalkCount {
+  int boxes, tris;
+};
+
+// Closest hit along (o, d): returns the distance (RESTIR_BIG on a miss)
+// and sets prim (-1 on a miss) and the barycentrics (0 on a miss).
+template <bool COUNT>
+__device__ __forceinline__ float closest_walk(const BvhView& bvh, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz, int& prim,
+                                              float& bu, float& bv,
+                                              WalkCount& n) {
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const int4* nodes = bvh.nodes + (size_t)mtbvh_id(-dx, -dy, -dz) * bvh.size;
+  float best = RESTIR_BIG;
+  prim = -1;
+  bu = bv = 0.0f;
+  int node = 0;
+  while (node < bvh.size) {
+    const int4 nd = __ldg(nodes + node);
+    const float4 lo = __ldg(bvh.bounds + 2 * nd.y);
+    const float4 hi = __ldg(bvh.bounds + 2 * nd.y + 1);
+    float t_near;
+    const bool descend = slab(lo, hi, ox, oy, oz, ix, iy, iz, t_near) &&
+                         t_near <= best * RESTIR_CULL_SLACK;
+    if (COUNT) ++n.boxes;
+    if (descend && nd.x >= 0) {
+      if (COUNT) ++n.tris;
+      float u, v;
+      const float t = plane_hit(bvh.planes + (size_t)nd.x * 12, ox, oy, oz,
+                                dx, dy, dz, u, v);
+      if (t >= 0.0f && (t < best || (t == best && nd.x < prim))) {
+        best = t;
+        prim = nd.x;
+        bu = u;
+        bv = v;
+      }
+    }
+    node = descend ? node + 1 : nd.z;
+  }
+  return best;
+}
+
+// Any hit at 0 < t < limit on a triangle other than `self`; stops at the
+// first one. A limit <= 0 (a lane without a live winner) tests nothing.
+template <bool COUNT>
+__device__ __forceinline__ bool occluded_walk(const BvhView& bvh, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz, float limit,
+                                              int self, WalkCount& n) {
+  if (!(limit > 0.0f)) return false;
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const int4* nodes = bvh.nodes + (size_t)mtbvh_id(-dx, -dy, -dz) * bvh.size;
+  const float cull = limit * RESTIR_CULL_SLACK;
+  int node = 0;
+  while (node < bvh.size) {
+    const int4 nd = __ldg(nodes + node);
+    const float4 lo = __ldg(bvh.bounds + 2 * nd.y);
+    const float4 hi = __ldg(bvh.bounds + 2 * nd.y + 1);
+    float t_near;
+    const bool descend =
+        slab(lo, hi, ox, oy, oz, ix, iy, iz, t_near) && t_near <= cull;
+    if (COUNT) ++n.boxes;
+    if (descend && nd.x >= 0 && nd.x != self) {
+      if (COUNT) ++n.tris;
+      float u, v;
+      const float t = plane_hit(bvh.planes + (size_t)nd.x * 12, ox, oy, oz,
+                                dx, dy, dz, u, v);
+      if (t >= 0.0f && t < limit) return true;
+    }
+    node = descend ? node + 1 : nd.z;
+  }
+  return false;
+}
+
+}  // namespace restir

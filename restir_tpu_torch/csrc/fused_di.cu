@@ -22,55 +22,20 @@
 // CDF array is stored). Memory traffic is ~(24 + 8) + (8 + 16 + 16)
 // floats per pixel, well under the compute time.
 //
+// The per-pixel stages (raygen, plane test, epilogue, RIS core, shadow
+// ray limit) live in di_core.cuh, shared with B6 (gbuffer_bvh.cu) and B7
+// (reuse_bvh.cu); on scenes over 1024 triangles B6 + B7 replace launch
+// (a) and launch (b) runs unchanged after them.
+//
 // The RNG counters are the JAX package's: candidate j draws
 // pcg4d(p, looper, 8 + j, SALT_RESTIR), the jitter pcg4d(p, looper, 0,
 // SALT_CAMERA), the temporal draw pcg4d(p, looper, 0, SALT_RESTIR); the
 // winner-selection draw is candidate 0's fourth uniform.
-#include "common.cuh"
+#include "di_core.cuh"
 
 using namespace restir;
 
 namespace {
-
-constexpr int MAX_K = 8;
-
-// RIS target weight of light row `ps` at a shading point (identical math
-// to fused_di._ris_select_core's three psi products).
-__device__ __forceinline__ float light_target(const float* ps, float nx,
-                                              float ny, float nz, float ndx,
-                                              float px, float py, float pz,
-                                              float x2, int single_sided) {
-  const float a = ps[0] * nx + ps[1] * ny + ps[2] * nz + ps[3] * (-ndx);
-  const float bb = ps[4] * px + ps[5] * py + ps[6] * pz + ps[7];
-  float d2 = ps[8] * (-2.0f * px) + ps[9] * (-2.0f * py) +
-             ps[10] * (-2.0f * pz) + ps[11] + ps[12] * x2;
-  d2 = fmaxf(d2, 1e-8f);
-  const bool side = single_sided ? bb > 0.0f : fabsf(bb) > 0.0f;
-  const float rad = ps[14];
-  const bool above = (a + rad) > 0.0f;
-  const float a_eff = fmaxf(a, 0.1f * rad);
-  return (above && side) ? ps[13] * a_eff * fabsf(bb) / (d2 * d2) : 0.0f;
-}
-
-// Ray vs unit-triangle plane row q (xu 0:4, xv 4:8, xw 8:12): returns the
-// hit distance (or -1) and the barycentrics.
-__device__ __forceinline__ float plane_hit(const float* q, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float& u, float& v) {
-  const float oou = q[0] * ox + q[1] * oy + q[2] * oz + q[3];
-  const float oov = q[4] * ox + q[5] * oy + q[6] * oz + q[7];
-  const float oow = q[8] * ox + q[9] * oy + q[10] * oz + q[11];
-  const float ddu = q[0] * dx + q[1] * dy + q[2] * dz;
-  const float ddv = q[4] * dx + q[5] * dy + q[6] * dz;
-  const float ddw = q[8] * dx + q[9] * dy + q[10] * dz;
-  const bool nondeg = fabsf(ddw) >= 1e-12f;
-  const float t = -oow / (nondeg ? ddw : 1.0f);
-  u = oou + t * ddu;
-  v = oov + t * ddv;
-  const bool hit =
-      nondeg && t > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
-  return hit ? t : -1.0f;
-}
 
 __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
@@ -95,40 +60,15 @@ __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
   const int r = width * height;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= r) return;
-  const uint32_t pu = (uint32_t)p;
-
-  // ---- raygen (Camera::sample)
-  const float x = (float)(p % width);
-  const float y = (float)(p / width);
-  float rx = 0.5f, ry = 0.5f;
-  if (aa_jitter) {
-    uint32_t h[4];
-    pcg4d(pu, looper, 0u, SALT_CAMERA, h);
-    rx = unit(h[0]);
-    ry = unit(h[1]);
-  }
-  const float inv_w = (float)(1.0 / (double)width);
-  const float inv_h = (float)(1.0 / (double)height);
-  const float tanf_ = cam[12], focal = cam[13];
-  const float ruv_x = 1.0f - 2.0f * (x + rx) * inv_w;
-  const float ruv_y = 1.0f - 2.0f * (y + ry) * inv_h;
-  const float fx = ruv_x * (aspect * tanf_ * focal);
-  const float fy = ruv_y * (tanf_ * focal);
-  float dx = cam[3] * fx + cam[6] * fy + cam[9] * focal;
-  float dy = cam[4] * fx + cam[7] * fy + cam[10] * focal;
-  float dz = cam[5] * fx + cam[8] * fy + cam[11] * focal;
-  const float dinv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
-  dx *= dinv;
-  dy *= dinv;
-  dz *= dinv;
-  const float ox = cam[0], oy = cam[1], oz = cam[2];
+  const Ray ray = raygen(cam, p, looper, width, height, aspect, aa_jitter);
 
   // ---- closest hit; strict < keeps the lowest index on ties
   float best = RESTIR_BIG, bu = 0.0f, bv = 0.0f;
   int bprim = -1;
   for (int i = 0; i < n_pad; ++i) {
     float u, v;
-    const float t = plane_hit(planes + i * 12, ox, oy, oz, dx, dy, dz, u, v);
+    const float t = plane_hit(planes + i * 12, ray.ox, ray.oy, ray.oz, ray.dx,
+                              ray.dy, ray.dz, u, v);
     if (t >= 0.0f && t < best) {
       best = t;
       bprim = i;
@@ -137,236 +77,25 @@ __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
     }
   }
 
-  // ---- G-buffer epilogue (fused_di._gbuffer_epilogue)
-  const bool valid0 = best < RESTIR_BIG;
-  const float* at = attr + (valid0 ? bprim : 0) * 32;
-  auto A = [&](int j) { return valid0 ? at[j] : 0.0f; };
-  const float pxp = A(0) + bu * A(3) + bv * A(6);
-  const float pyp = A(1) + bu * A(4) + bv * A(7);
-  const float pzp = A(2) + bu * A(5) + bv * A(8);
-  float nxp = A(9) + bu * A(12) + bv * A(15);
-  float nyp = A(10) + bu * A(13) + bv * A(16);
-  float nzp = A(11) + bu * A(14) + bv * A(17);
-  const float nlen =
-      1.0f / sqrtf(fmaxf(nxp * nxp + nyp * nyp + nzp * nzp, 1e-20f));
-  nxp *= nlen;
-  nyp *= nlen;
-  nzp *= nlen;
-  const float mat_id_f = A(24);
-  const int mat_id = __float2int_rz(mat_id_f);
-  const bool mat_ok = mat_id >= 0 && mat_id < n_mat;
-  const float* mr = mat + (mat_ok ? mat_id : 0) * 16;
-  auto M = [&](int j) { return mat_ok ? mr[j] : 0.0f; };
-
-  const float mtype = M(0);
-  bool is_light = valid0 && mtype == 4.0f;
-  const bool front = (nxp * dx + nyp * dy + nzp * dz) < 0.0f;
-  const bool valid = single_sided ? valid0 && !(is_light && !front) : valid0;
-  is_light = is_light && valid;
-  const bool shade = valid && !is_light;
-  const float prim_remap = valid ? (is_light ? -2.0f : mat_id_f) : -1.0f;
-
-  const float px = valid ? pxp : 0.0f;
-  const float py = valid ? pyp : 0.0f;
-  const float pz = valid ? pzp : 0.0f;
-  const float tox = px - ox, toy = py - oy, toz = pz - oz;
-  const float depth =
-      valid ? sqrtf(tox * tox + toy * toy + toz * toz) : 1.0f;
-
-  // motion: reproject through the last camera (Camera::getRasterUV)
-  float lx = px - lcam[0], ly = py - lcam[1], lz = pz - lcam[2];
-  const float linv = 1.0f / sqrtf(fmaxf(lx * lx + ly * ly + lz * lz, 1e-20f));
-  lx *= linv;
-  ly *= linv;
-  lz *= linv;
-  const float ldep = lx * lcam[9] + ly * lcam[10] + lz * lcam[11];
-  const float ldep_inv = 1.0f / (fabsf(ldep) < 1e-20f ? 1e-20f : ldep);
-  const float prx = (lx * lcam[3] + ly * lcam[4] + lz * lcam[5]) * ldep_inv;
-  const float pry = (lx * lcam[6] + ly * lcam[7] + lz * lcam[8]) * ldep_inv;
-  const float ltan = lcam[12];
-  const float un = (-(prx / (aspect * ltan))) * 0.5f + 0.5f;
-  const float vn = (-(pry / ltan)) * 0.5f + 0.5f;
-  const int mx = __float2int_rz(un * (float)width);
-  const int my = __float2int_rz(vn * (float)height);
-  const bool in_b = mx >= 0 && mx < width && my >= 0 && my < height;
-  const float motion =
-      valid ? (in_b ? (float)(my * width + mx) : -1.0f) : 0.0f;
-
-  const float gnx = valid ? nxp : 0.0f;
-  const float gny = valid ? nyp : 0.0f;
-  const float gnz = valid ? nzp : 0.0f;
-  const float metallic = M(4), roughness = M(5);
-  const float prim_f = valid ? (float)bprim : -1.0f;
-  float* g = gb + p;
-  g[(size_t)(G_POS + 0) * r] = px;
-  g[(size_t)(G_POS + 1) * r] = py;
-  g[(size_t)(G_POS + 2) * r] = pz;
-  g[(size_t)(G_NORM + 0) * r] = gnx;
-  g[(size_t)(G_NORM + 1) * r] = gny;
-  g[(size_t)(G_NORM + 2) * r] = gnz;
-  g[(size_t)(G_DIR + 0) * r] = dx;
-  g[(size_t)(G_DIR + 1) * r] = dy;
-  g[(size_t)(G_DIR + 2) * r] = dz;
-  g[(size_t)(G_ALB + 0) * r] = valid ? M(1) : 0.0f;
-  g[(size_t)(G_ALB + 1) * r] = valid ? M(2) : 0.0f;
-  g[(size_t)(G_ALB + 2) * r] = valid ? M(3) : 0.0f;
-  g[(size_t)G_DEPTH * r] = depth;
-  g[(size_t)G_MOTION * r] = motion;
-  g[(size_t)G_PRIMR * r] = prim_remap;
-  g[(size_t)G_MTYPE * r] = mtype;
-  g[(size_t)G_METAL * r] = metallic;
-  g[(size_t)G_ROUGH * r] = roughness;
-  g[(size_t)G_SHADE * r] = shade ? 1.0f : 0.0f;
-  g[(size_t)G_LIGHT * r] = is_light ? 1.0f : 0.0f;
-  g[(size_t)G_MISS * r] = valid ? 0.0f : 1.0f;
-  g[(size_t)G_PRIM * r] = prim_f;
-  g[(size_t)G_X * r] = x;
-  g[(size_t)G_Y * r] = y;
-
-  // ---- RIS over the per-pixel light CDF (fused_di._ris_select_core)
-  const float wox = -dx, woy = -dy, woz = -dz;
-  float nx = gnx, ny = gny, nz = gnz;
-  if (mtype != 2.0f && (nx * wox + ny * woy + nz * woz) < 0.0f) {
-    nx = -nx;
-    ny = -ny;
-    nz = -nz;
-  }
-  const float ndx = nx * px + ny * py + nz * pz;
-  const float x2 = px * px + py * py + pz * pz;
-
-  float total = 0.0f;
-  for (int l = 0; l < l_pad; ++l)
-    total += light_target(psi + l * 16, nx, ny, nz, ndx, px, py, pz, x2,
-                          single_sided);
-
-  float r2[MAX_K], r3[MAX_K], thr[MAX_K], tq[MAX_K], r4_0 = 0.0f;
-  int idx[MAX_K];
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    r2[j] = r3[j] = thr[j] = tq[j] = 0.0f;
-    idx[j] = -1;
-    if (j < k) {
-      uint32_t h[4];
-      pcg4d(pu, looper, (uint32_t)(CTR_RIS + j), SALT_RESTIR, h);
-      thr[j] = unit(h[0]) * total;
-      r2[j] = unit(h[1]);
-      r3[j] = unit(h[2]);
-      if (j == 0) r4_0 = unit(h[3]);
-    }
-  }
-  // idx_j = min(#(cdf <= thr_j), l_pad - 1): the cdf is non-decreasing,
-  // so that is the first row whose cdf exceeds thr_j
-  float cdf = 0.0f, t_last = 0.0f;
-  for (int l = 0; l < l_pad; ++l) {
-    const float t = light_target(psi + l * 16, nx, ny, nz, ndx, px, py, pz,
-                                 x2, single_sided);
-    cdf += t;
-    t_last = t;
-#pragma unroll
-    for (int j = 0; j < MAX_K; ++j) {
-      if (j < k && idx[j] < 0 && cdf > thr[j]) {
-        idx[j] = l;
-        tq[j] = t;
-      }
-    }
-  }
-
-  float w[MAX_K], cli[MAX_K][3], cwi[MAX_K][3], cdist[MAX_K];
-  const float total_safe = fmaxf(total, 1e-20f);
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    w[j] = 0.0f;
-    cli[j][0] = cli[j][1] = cli[j][2] = 0.0f;
-    cwi[j][0] = cwi[j][1] = cwi[j][2] = 0.0f;
-    cdist[j] = 0.0f;
-    if (j >= k) continue;
-    if (idx[j] < 0) {
-      idx[j] = l_pad - 1;
-      tq[j] = t_last;
-    }
-    const float* L = lights + idx[j] * 16;
-    const float q = tq[j] / total_safe;
-    const float sr = sqrtf(fmaxf(r3[j], 0.0f));
-    const float b_u = 1.0f - sr;
-    const float b_v = r2[j] * sr;
-    const float sx = L[0] + b_u * L[3] + b_v * L[6];
-    const float sy = L[1] + b_u * L[4] + b_v * L[7];
-    const float sz = L[2] + b_u * L[5] + b_v * L[8];
-    const float tx = sx - px, ty = sy - py, tz = sz - pz;
-    const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
-    const float inv_dist = 1.0f / sqrtf(dist2);
-    const float wix = tx * inv_dist, wiy = ty * inv_dist, wiz = tz * inv_dist;
-    const float cos_l = L[9] * wix + L[10] * wiy + L[11] * wiz;
-    float pdf = q * dist2 / fmaxf(L[15] * fabsf(cos_l), 1e-20f);
-    if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
-    pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
-    const float f_lum = bsdf_lum(mtype, metallic, roughness, nx, ny, nz, wox,
-                                 woy, woz, wix, wiy, wiz, has_met);
-    const float li_lum = 0.2126f * L[12] + 0.7152f * L[13] + 0.0722f * L[14];
-    const float cos_s = fmaxf(nx * wix + ny * wiy + nz * wiz, 0.0f);
-    const float wj = li_lum * f_lum * cos_s / pdf;
-    const bool bad = isnan(wj) || isinf(wj) || pdf <= 0.0f;
-    w[j] = (bad || !shade) ? 0.0f : wj;
-    cli[j][0] = L[12];
-    cli[j][1] = L[13];
-    cli[j][2] = L[14];
-    cwi[j][0] = wix;
-    cwi[j][1] = wiy;
-    cwi[j][2] = wiz;
-    cdist[j] = dist2 * inv_dist;
-  }
-
-  // single-draw winner over the cumulative candidate weights
-  float c = w[0], cums[MAX_K];
-#pragma unroll
-  for (int j = 1; j < MAX_K; ++j) {
-    cums[j - 1] = c;
-    if (j < k) c += w[j];
-  }
-  const float r_weight = c;
-  const float thresh = r4_0 * r_weight;
-  int jsel = 0;
-#pragma unroll
-  for (int j = 0; j < MAX_K - 1; ++j)
-    if (j < k - 1 && cums[j] <= thresh) ++jsel;
-  const bool gate = r_weight > 0.0f && shade;
-  float li[3] = {0.0f, 0.0f, 0.0f}, wi[3] = {0.0f, 0.0f, 0.0f}, dist = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    if (gate && j == jsel) {
-      li[0] = cli[j][0];
-      li[1] = cli[j][1];
-      li[2] = cli[j][2];
-      wi[0] = cwi[j][0];
-      wi[1] = cwi[j][1];
-      wi[2] = cwi[j][2];
-      dist = cdist[j];
-    }
-  }
+  const Surface s = gbuffer_epilogue(gb, p, r, ray, best, bprim, bu, bv, attr,
+                                     mat, n_mat, lcam, width, height, aspect,
+                                     single_sided);
+  const Candidate c = ris_select(psi, lights, l_pad, (uint32_t)p, looper, k,
+                                 single_sided, has_met, s);
 
   // ---- winner visibility: any hit before the light, own triangle excluded
-  const float vox = px + wi[0] * 1e-5f;
-  const float voy = py + wi[1] * 1e-5f;
-  const float voz = pz + wi[2] * 1e-5f;
-  const float limit = dist * 0.999f - 1e-4f;
-  const int prim_o = valid ? bprim : -1;
+  const float vox = s.px + c.wi[0] * 1e-5f;
+  const float voy = s.py + c.wi[1] * 1e-5f;
+  const float voz = s.pz + c.wi[2] * 1e-5f;
+  const float limit = shadow_limit(c);
   bool occluded = false;
   for (int i = 0; i < n_pad && !occluded; ++i) {
     float u, v;
-    const float t =
-        plane_hit(planes + i * 12, vox, voy, voz, wi[0], wi[1], wi[2], u, v);
-    occluded = t >= 0.0f && t < limit && i != prim_o;
+    const float t = plane_hit(planes + i * 12, vox, voy, voz, c.wi[0],
+                              c.wi[1], c.wi[2], u, v);
+    occluded = t >= 0.0f && t < limit && i != s.prim;
   }
-
-  float* o = rs + p;
-  o[(size_t)(RS_LI + 0) * r] = li[0];
-  o[(size_t)(RS_LI + 1) * r] = li[1];
-  o[(size_t)(RS_LI + 2) * r] = li[2];
-  o[(size_t)(RS_WI + 0) * r] = wi[0];
-  o[(size_t)(RS_WI + 1) * r] = wi[1];
-  o[(size_t)(RS_WI + 2) * r] = wi[2];
-  o[(size_t)RS_DIST * r] = dist;
-  o[(size_t)RS_W * r] = occluded ? 0.0f : r_weight;
+  write_rs(rs, p, r, c, occluded);
 }
 
 __global__ void __launch_bounds__(TILE) di_temporal_kernel(

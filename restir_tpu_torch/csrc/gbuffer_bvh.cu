@@ -1,0 +1,81 @@
+// Kernel B6: G-buffer of a scene of any size, through an MTBVH closest-hit
+// walk.
+//
+// Replaces restir_tpu/ops/pallas/fused_di.py::gbuffer_pack_pallas on
+// scenes over 1024 triangles: _gbuffer_kernel_sub (32-triangle sub-block
+// work lists) and _gbuffer_kernel (128-triangle cluster work lists), and
+// on resident scenes _gbuffer_kernel_resident (the split-chain brute
+// loop). The TPU kernels stream frustum-culled triangle blocks through
+// VMEM for 8x128-pixel tiles; here one thread per pixel walks the stackless
+// MTBVH (bvh.cuh) straight from global memory, through the read-only
+// cache, and writes the gb pack [GB_CH, R] in linear pixel order.
+//
+// Per pixel: raygen with AA jitter, the closest-hit walk (padded-box slab
+// tests, unit-plane leaf tests), then B1's G-buffer epilogue
+// (di_core.cuh), so the pack equals B1's wherever the hit does.
+//
+// Bound: neither bytes nor FMAs. The tables (hall: 81,036 planes, 162,071
+// nodes, ~35 MB) sit in the 50 MB L2 and the pack write is 96 B/pixel;
+// the walk is a chain of dependent loads (node -> box -> next node) whose
+// latency each warp waits out, with the warp's rays diverging across the
+// tree. The design keeps one thread per ray with no stack (the walk state
+// is one int) so many warps fit per SM to hide that latency; node packing
+// and ray sorting are later work.
+#include "bvh.cuh"
+
+using namespace restir;
+
+namespace {
+
+template <bool COUNT>
+__global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
+    const float* __restrict__ cam, const float* __restrict__ lcam,
+    uint32_t looper, BvhView bvh, const float* __restrict__ attr,
+    const float* __restrict__ mat, int n_mat, float* __restrict__ gb,
+    int* __restrict__ stats, int width, int height, float aspect,
+    int aa_jitter, int single_sided) {
+  const int r = width * height;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= r) return;
+  const Ray ray = raygen(cam, p, looper, width, height, aspect, aa_jitter);
+  WalkCount n = {0, 0};
+  int prim;
+  float bu, bv;
+  const float best = closest_walk<COUNT>(bvh, ray.ox, ray.oy, ray.oz, ray.dx,
+                                         ray.dy, ray.dz, prim, bu, bv, n);
+  gbuffer_epilogue(gb, p, r, ray, best, prim, bu, bv, attr, mat, n_mat, lcam,
+                   width, height, aspect, single_sided);
+  if (COUNT) {
+    stats[p] = n.boxes;
+    stats[(size_t)r + p] = n.tris;
+  }
+}
+
+}  // namespace
+
+// stats: null, or int32 [2, R] that receives each ray's box and triangle
+// test counts.
+extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
+                                  uint32_t looper, const float* bounds,
+                                  const int* nodes, int size,
+                                  const float* planes, const float* attr,
+                                  const float* mat, int n_mat, float* gb,
+                                  int* stats, int width, int height,
+                                  float aspect, int aa_jitter,
+                                  int single_sided, void* stream) {
+  const int r = width * height;
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhView bvh = {reinterpret_cast<const float4*>(bounds),
+                       reinterpret_cast<const int4*>(nodes), planes, size};
+  const int block = 256;
+  const int grid = (r + block - 1) / block;
+  if (stats)
+    gbuffer_bvh_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        cam, lcam, looper, bvh, attr, mat, n_mat, gb, stats, width, height,
+        aspect, aa_jitter, single_sided);
+  else
+    gbuffer_bvh_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        cam, lcam, looper, bvh, attr, mat, n_mat, gb, stats, width, height,
+        aspect, aa_jitter, single_sided);
+  return (int)cudaGetLastError();
+}

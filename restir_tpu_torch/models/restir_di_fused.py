@@ -1,12 +1,16 @@
-"""Fused ReSTIR DI frame on resident scenes, as
-`restir_tpu.models.restir_di_fused` (the EAW denoiser included).
+"""Fused ReSTIR DI frame, as `restir_tpu.models.restir_di_fused` (the EAW
+denoiser included).
 
-One frame is three kernels: B1 (`di_resident`: hit, G-buffer, RIS,
-visibility, temporal merge), B2 (`spatial_shade`: spatial merge, shade,
-running mean into the accumulator) and B3 (`atrous_level`, once per EAW
-level). State packs are flat channel-major [C, R] float32 tensors with
-the JAX package's channel layout; `looper` and `iteration` are Python
-ints, so a frame never waits on the device for them.
+A frame on a scene of at most 1024 triangles runs B1 (`di_resident`: hit,
+G-buffer, RIS, visibility, temporal merge, brute force over the resident
+triangles); a larger scene runs B6 (`gbuffer_pack`: MTBVH closest hit +
+G-buffer) and B7 (`reuse`: RIS + MTBVH any-hit shadow ray, then B1's
+temporal merge) in its place, as the JAX step switches to its streaming
+kernels. Then B2 (`spatial_shade`: spatial merge, shade, running mean
+into the accumulator) and B3 (`atrous_level`, once per EAW level).
+State packs are flat channel-major [C, R] float32 tensors with the JAX
+package's channel layout; `looper` and `iteration` are Python ints, so a
+frame never waits on the device for them.
 
 The temporal window and the per-tile spatial offsets work on 1024-pixel
 tiles, so the pixel count must be a multiple of 1024.
@@ -20,11 +24,11 @@ import torch
 
 from ..config import DenoiserType, RenderConfig, ReuseMode, TracerType
 from ..ops.camera import Camera, pack_camera
-from ..ops.kernels import atrous, fused_di, spatial
+from ..ops.kernels import atrous, fused_di, gbuffer, reuse, spatial
 from ..ops.kernels.fused_di import G_ALB, PT_CH, TILE
 from ..scene.scene_data import SceneTensors
 
-RESIDENT_MAX_TRIS = 1024
+RESIDENT_MAX_TRIS = 1024  # larger scenes take the MTBVH kernels B6 + B7
 
 
 class FusedDIState(NamedTuple):
@@ -51,7 +55,8 @@ def ineligibility(scene: Optional[SceneTensors], cfg: RenderConfig):
         reasons.append(f"sampler {cfg.sampler!r} (ROADMAP Queue A 7)")
     if cfg.denoiser not in (DenoiserType.NONE, DenoiserType.EAW):
         reasons.append("SVGF denoiser (ROADMAP Queue A 4)")
-    if cfg.has_env_map or cfg.with_textures:
+    if cfg.has_env_map or cfg.with_textures or (
+            scene is not None and (scene.has_env_map or scene.has_textures)):
         reasons.append("env map / textures (ROADMAP: B1 env/texture "
                        "branches)")
     if cfg.enable_dof:
@@ -60,9 +65,6 @@ def ineligibility(scene: Optional[SceneTensors], cfg: RenderConfig):
         reasons.append(f"{cfg.num_pixels} pixels, not a multiple of {TILE}")
     if cfg.intersector not in ("auto", "brute", "clustered"):
         reasons.append(f"intersector {cfg.intersector!r} (ROADMAP Queue A 5)")
-    if scene is not None and scene.num_tris > RESIDENT_MAX_TRIS:
-        reasons.append(f"{scene.num_tris} triangles > {RESIDENT_MAX_TRIS} "
-                       "(ROADMAP Queue A 5: large scenes on the MTBVH)")
     return "; ".join(reasons) or None
 
 
@@ -75,7 +77,8 @@ def _copy_camera(cam: Camera) -> Camera:
                     for x in cam))
 
 
-def init_state(cfg: RenderConfig, cam: Camera, device) -> FusedDIState:
+def init_state(cfg: RenderConfig, cam: Camera,
+               device="cuda") -> FusedDIState:
     r = cfg.num_pixels
     dev = torch.device(device)
     return FusedDIState(
@@ -115,13 +118,20 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
 
     cam_vec = pack_camera(cam, dev)
     lcam_vec = pack_camera(state.last_camera, dev)
-    gb, pt = fused_di.di_resident(
-        cam_vec, lcam_vec, looper, state.pt_pack, scene.tables,
-        width=w, height=h, aa_jitter=cfg.aa_jitter,
-        single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
-        temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
-        temporal_clamp=cfg.temporal_clamp, has_met=cfg.scene_has_metallic,
-        has_env=cfg.has_env_map, with_textures=cfg.with_textures)
+    kw = dict(single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
+              temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
+              temporal_clamp=cfg.temporal_clamp,
+              has_met=cfg.scene_has_metallic)
+    if scene.num_tris <= RESIDENT_MAX_TRIS:
+        gb, pt = fused_di.di_resident(
+            cam_vec, lcam_vec, looper, state.pt_pack, scene.tables,
+            width=w, height=h, aa_jitter=cfg.aa_jitter, **kw)
+    else:
+        gb = gbuffer.gbuffer_pack(
+            cam_vec, lcam_vec, looper, scene.bvh, width=w, height=h,
+            aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights)
+        pt = reuse.reuse(gb, state.pt_pack, looper, scene.tables, scene.bvh,
+                         **kw)
 
     reuse_spatial = bool(cfg.reuse & ReuseMode.SPATIAL)
     offs = spatial.spatial_offsets(looper, r, w, cfg.spatial_neighbors,

@@ -2,7 +2,8 @@
 
 All `*.cu` sources in `restir_tpu_torch/csrc/` compile, on first use, with
 nvcc into one shared library with a plain C interface, which `ctypes`
-loads. Nothing includes PyTorch's headers, so the build takes seconds.
+loads: one nvcc per source, all started together, then one link. Nothing
+includes PyTorch's headers, so the build takes seconds.
 The library is cached under `restir_tpu_torch/_build/`, keyed by a hash
 of the sources and flags; a changed source builds a new library.
 
@@ -31,11 +32,12 @@ BUILD_DIR = _PKG / "_build"
 # sm_90a: Hopper. No --use_fast_math: the kernels hold the reference's
 # float32 numerics (IEEE division and sqrt, accurate expf).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas=-v"]
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
+build_log = None  # nvcc / ptxas output of that build (registers, spills)
 
 
 def _nvcc() -> str:
@@ -62,30 +64,47 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile the kernels if the cached library is missing; return its
-    path. `verbose` adds ptxas register/spill reports to the output."""
-    global build_seconds
+    path. The compiler's output (ptxas's registers and spills per kernel)
+    lands in `build_log`."""
+    global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"librestir_kernels_{_digest()}.so"
     if out.exists():
         return out
-    cu = [str(f) for f in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", obj,
+                   str(src)]
+            procs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            log = proc.communicate()[0]
+            logs.append(f"--- {name}\n{log}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        fd, lib = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", lib, *(obj for _, obj, _ in procs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            os.unlink(lib)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    build_log = "".join(logs)
+    os.replace(lib, out)
     return out
 
 
@@ -104,14 +123,20 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _I, _I, _I, _U, _I, _I, _I, _VP],
     "restir_atrous_eaw": [
         _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
+    "restir_gbuffer_bvh": [
+        _VP, _VP, _U, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
+        _F, _I, _I, _VP],
+    "restir_reuse_bvh": [
+        _VP, _U, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I,
+        _VP],
 }
 
 
-def library(verbose: bool = False) -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build(verbose)))
+        lib = ctypes.CDLL(str(build()))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = args
@@ -128,8 +153,9 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
-def ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def ptr(t) -> int:
+    """Device pointer of a tensor; None -> a null pointer."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_of(device: torch.device) -> int:

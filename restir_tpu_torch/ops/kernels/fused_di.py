@@ -13,6 +13,11 @@ the plain twin `di_resident_ref`, CUDA tensors the hand-written kernel
 in `csrc/fused_di.cu` (two launches: hit + G-buffer + RIS + visibility,
 then the per-tile temporal merge). Nothing falls back.
 
+The twin's stages (`gbuffer_pixels`, `ris_pixels`, `shadow_pixels`,
+`temporal_pixels`) are also the twins of kernels B6 and B7
+(`gbuffer.py`, `reuse.py`), and `temporal_cuda` launches B1b alone after
+B7 on scenes over 1024 triangles.
+
 Pack layouts are the JAX package's channel indices, as flat [C, R].
 """
 
@@ -57,7 +62,11 @@ P_DEPTH = 13
 PT_CH = 16
 
 # ---- rs (candidate) pack between the two CUDA launches ([RS_CH, R]) ----
-RS_CH = 8  # li(3) wi(3) dist(1) weight after visibility(1)
+RS_LI = 0  # 3
+RS_WI = 3  # 3
+RS_DIST = 6
+RS_W = 7  # weight after visibility
+RS_CH = 8
 
 TILE = 1024  # pixels per temporal-window tile
 WINDOW = 2048  # temporal window (pixels) per tile
@@ -75,8 +84,16 @@ CTR_SPATIAL = 1
 CTR_RIS = 8
 
 launches = 0  # CUDA kernel launches (two per di_resident call)
+temporal_launches = 0  # B1b launches through temporal_cuda (split path)
 
-_CHUNK = 32768  # pixels per step of the plain twin (bounds its memory)
+_CHUNK_ELEMS = 2 ** 25  # pixels x triangle rows per step of the plain twins
+
+
+def chunk_pixels(n_rows: int) -> int:
+    """Pixels per step of a brute twin over `n_rows` triangle rows: whole
+    1024-pixel tiles, so its [pixels, rows] intermediates stay near 128 MB
+    each."""
+    return max(1, min(32768, _CHUNK_ELEMS // max(n_rows, 1)) // TILE) * TILE
 
 
 def eval_bsdf_lum(mtype, metallic, roughness, n, wo, wi, has_met=True):
@@ -150,9 +167,10 @@ def _hit_loop(planes, o, d):
     return oou, oov, oow, ddu, ddv, ddw
 
 
-def _closest(planes, o, d):
-    """Closest hit: (dist, prim, u, v), ties to the lowest triangle
-    index (argmin takes the first), BIG / -1 / 0 / 0 on a miss."""
+def closest_brute(planes, o, d):
+    """Closest hit over every plane row: (dist, prim, u, v), ties to the
+    lowest triangle index (argmin takes the first), BIG / -1 / 0 / 0 on a
+    miss."""
     oou, oov, oow, ddu, ddv, ddw = _hit_loop(planes, o, d)
     nondeg = torch.abs(ddw) >= 1e-12
     t = -oow / torch.where(nondeg, ddw, 1.0)
@@ -171,7 +189,8 @@ def _closest(planes, o, d):
     return d_best, prim, u_best, v_best
 
 
-def _occluded(planes, o, d, limit, prim_o):
+def occluded_brute(planes, o, d, limit, prim_o):
+    """Any hit at 0 < t < limit on a row other than prim_o."""
     oou, oov, oow, ddu, ddv, ddw = _hit_loop(planes, o, d)
     nondeg = torch.abs(ddw) >= 1e-12
     tt = -oow / torch.where(nondeg, ddw, 1.0)
@@ -185,9 +204,11 @@ def _occluded(planes, o, d, limit, prim_o):
     return blocked.any(dim=1)
 
 
-def _gbuffer(pix, cam, lcam, looper, tables, *, width, height, aa_jitter,
-             single_sided):
-    """Raygen + closest hit + G-buffer epilogue for pixels `pix`."""
+def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
+                   aa_jitter, single_sided):
+    """Raygen + brute closest hit + G-buffer epilogue for pixels `pix`
+    (int64): gb columns [GB_CH, len(pix)]. The plain twin of B1's first
+    stage and of kernel B6."""
     b = pix.shape[0]
     x = (pix % width).to(torch.float32)
     y = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
@@ -211,7 +232,7 @@ def _gbuffer(pix, cam, lcam, looper, tables, *, width, height, aa_jitter,
     oy = cam[1].expand(b)
     oz = cam[2].expand(b)
 
-    best_dist, best_prim, u, v = _closest(tables.planes, (ox, oy, oz),
+    best_dist, best_prim, u, v = closest_brute(tables.planes, (ox, oy, oz),
                                           (dx, dy, dz))
     valid0 = best_dist < BIG
     at = torch.where(valid0[:, None],
@@ -278,8 +299,9 @@ def _gbuffer(pix, cam, lcam, looper, tables, *, width, height, aa_jitter,
     return torch.stack(chans)
 
 
-def _ris(gb, pix, looper, tables, *, k, single_sided, has_met):
-    """K-candidate CDF RIS + single-draw winner -> (li, wi, dist, W)."""
+def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met):
+    """K-candidate CDF RIS + single-draw winner for the gb columns of
+    pixels `pix` -> (li [3, b], wi [3, b], dist [b], W [b])."""
     l_pad = tables.psi.shape[0]
     px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
     nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
@@ -389,9 +411,21 @@ def _window_start(gb_tile_motion, gb_tile_miss, r_prev):
     return torch.clamp(w0, 0, max(r_prev - WINDOW, 0))
 
 
-def _temporal(gb, rs_li, rs_wi, rs_dist, r_weight, pix, looper, prev, *,
-              k, temporal, temporal_clamp):
-    """Temporal merge (restir.cu:180-185) + pt-pack assembly."""
+def shadow_pixels(gb, wi, dist, r_weight, planes):
+    """The winner's shadow ray by brute force over every plane row (B1's
+    visibility, fused_di._vis_resident_core): W zeroed where occluded."""
+    o = tuple(gb[G_POS + c] + wi[c] * 1e-5 for c in range(3))
+    limit = dist * (1.0 - 1e-3) - 1e-4
+    occ = occluded_brute(planes, o, tuple(wi), limit,
+                         gb[G_PRIM].to(torch.int32))
+    return torch.where(occ, 0.0, r_weight)
+
+
+def temporal_pixels(gb, rs_li, rs_wi, rs_dist, r_weight, pix, looper, prev,
+                    *, k, temporal, temporal_clamp):
+    """Temporal merge (restir.cu:180-185) + pt-pack assembly for pixels
+    `pix`, which must be whole 1024-pixel tiles in order (each tile's
+    window start is the minimum over its own motion)."""
     shade = gb[G_SHADE] > 0.5
     r_m = torch.where(shade, float(k), 0.0)
     li, wi, dist = rs_li, rs_wi, rs_dist
@@ -450,22 +484,20 @@ def di_resident_ref(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
     dev = prev_pt.device
     gb_out = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     pt_out = torch.empty((PT_CH, r), dtype=torch.float32, device=dev)
-    for p0 in range(0, r, _CHUNK):
-        pix = torch.arange(p0, min(p0 + _CHUNK, r), device=dev,
+    chunk = chunk_pixels(tables.planes.shape[0])
+    for p0 in range(0, r, chunk):
+        pix = torch.arange(p0, min(p0 + chunk, r), device=dev,
                            dtype=torch.int64)
-        gb = _gbuffer(pix, cam_vec, lcam_vec, looper, tables, width=width,
-                      height=height, aa_jitter=aa_jitter,
-                      single_sided=single_sided)
-        li, wi, dist, w = _ris(gb, pix, looper, tables, k=k,
-                               single_sided=single_sided, has_met=has_met)
-        o = tuple(gb[G_POS + c] + wi[c] * 1e-5 for c in range(3))
-        limit = dist * (1.0 - 1e-3) - 1e-4
-        occ = _occluded(tables.planes, o, tuple(wi), limit,
-                        gb[G_PRIM].to(torch.int32))
-        w = torch.where(occ, 0.0, w)
-        pt_out[:, pix] = _temporal(gb, li, wi, dist, w, pix, looper, prev_pt,
-                                   k=k, temporal=temporal,
-                                   temporal_clamp=temporal_clamp)
+        gb = gbuffer_pixels(pix, cam_vec, lcam_vec, looper, tables,
+                            width=width, height=height, aa_jitter=aa_jitter,
+                            single_sided=single_sided)
+        li, wi, dist, w = ris_pixels(gb, pix, looper, tables, k=k,
+                                     single_sided=single_sided,
+                                     has_met=has_met)
+        w = shadow_pixels(gb, wi, dist, w, tables.planes)
+        pt_out[:, pix] = temporal_pixels(gb, li, wi, dist, w, pix, looper,
+                                         prev_pt, k=k, temporal=temporal,
+                                         temporal_clamp=temporal_clamp)
         gb_out[:, pix] = gb
     return gb_out, pt_out
 
@@ -501,25 +533,52 @@ def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
         _check(t, name, t.shape, dev)
     gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
-    pt = torch.empty((PT_CH, r), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    stream = _build.stream_of(dev)
     p = _build.ptr
-    err = lib.restir_di_resident_gbuffer_ris(
+    err = _build.library().restir_di_resident_gbuffer_ris(
         p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
         p(tables.planes), tables.planes.shape[0], p(tables.attr),
         p(tables.mat), tables.mat.shape[0], p(tables.lights), p(tables.psi),
         tables.psi.shape[0], p(gb), p(rs), width, height,
         ctypes.c_float(float(width) / float(height)), int(aa_jitter),
-        int(single_sided), k, int(has_met), stream)
+        int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_di_resident_gbuffer_ris")
     launches += 1
-    err = lib.restir_di_resident_temporal(
-        p(gb), p(rs), p(prev_pt), p(pt), r, ctypes.c_uint32(looper & 0xFFFFFFFF),
-        k, int(temporal), ctypes.c_float(float(temporal_clamp)), stream)
-    _build.check(err, "restir_di_resident_temporal")
+    pt = _launch_temporal(gb, rs, prev_pt, looper, k, temporal,
+                          temporal_clamp)
     launches += 1
     return gb, pt
+
+
+def _launch_temporal(gb, rs, prev_pt, looper, k, temporal, temporal_clamp):
+    """B1b (`di_temporal_kernel`) on checked packs -> pt [PT_CH, R]."""
+    r = gb.shape[1]
+    pt = torch.empty((PT_CH, r), dtype=torch.float32, device=gb.device)
+    p = _build.ptr
+    err = _build.library().restir_di_resident_temporal(
+        p(gb), p(rs), p(prev_pt), p(pt), r,
+        ctypes.c_uint32(looper & 0xFFFFFFFF), k, int(temporal),
+        ctypes.c_float(float(temporal_clamp)), _build.stream_of(gb.device))
+    _build.check(err, "restir_di_resident_temporal")
+    return pt
+
+
+def temporal_cuda(gb, rs, prev_pt, looper, *, k=4, temporal=True,
+                  temporal_clamp=20):
+    """Launch B1b (`di_temporal_kernel`) alone: merge the candidate pack
+    rs [RS_CH, R] with the previous frame's pt pack. The large-scene path
+    runs it after kernel B7."""
+    global temporal_launches
+    r = gb.shape[1]
+    dev = gb.device
+    if r % TILE != 0:
+        raise ValueError(f"pixel count {r} is not a multiple of {TILE}")
+    _check(gb, "gb", (GB_CH, r), dev)
+    _check(rs, "rs", (RS_CH, r), dev)
+    _check(prev_pt, "prev_pt", (PT_CH, r), dev)
+    pt = _launch_temporal(gb, rs, prev_pt, looper, k, temporal,
+                          temporal_clamp)
+    temporal_launches += 1
+    return pt
 
 
 def di_resident(cam_vec, lcam_vec, looper, prev_pt, tables: ResidentTables,

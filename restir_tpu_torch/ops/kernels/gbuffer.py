@@ -1,0 +1,95 @@
+"""Kernel B6: the G-buffer pack through an MTBVH closest-hit walk, and its
+plain PyTorch twin.
+
+Port of `restir_tpu.ops.pallas.fused_di.gbuffer_pack_pallas` (its kernels
+`_gbuffer_kernel_sub`, `_gbuffer_kernel` and `_gbuffer_kernel_resident`):
+per pixel, raygen with AA jitter, the closest hit, and the G-buffer
+epilogue with motion reprojection. Returns gb [GB_CH, R] in linear pixel
+order.
+
+`gbuffer_pack` dispatches on the device of its tensors: CPU tensors take
+the twin `gbuffer_ref` (B1's brute-force stage, `fused_di.gbuffer_pixels`,
+whose hits the walk reproduces), CUDA tensors the kernel in
+`csrc/gbuffer_bvh.cu`. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, fused_di
+from .fused_di import GB_CH, _check
+from .tables import BvhTables
+
+launches = 0  # gbuffer_bvh kernel launches
+
+
+def gbuffer_ref(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width, height,
+                aa_jitter=True, single_sided=True, pix=None):
+    """Plain twin: gb columns of pixels `pix` (int64; every pixel when
+    None), by brute force over all triangles."""
+    dev = cam_vec.device
+    if pix is None:
+        pix = torch.arange(width * height, device=dev, dtype=torch.int64)
+    out = torch.empty((GB_CH, pix.shape[0]), dtype=torch.float32,
+                      device=dev)
+    chunk = fused_di.chunk_pixels(bvh.planes.shape[0])
+    for p0 in range(0, pix.shape[0], chunk):
+        out[:, p0:p0 + chunk] = fused_di.gbuffer_pixels(
+            pix[p0:p0 + chunk], cam_vec, lcam_vec, looper, bvh, width=width,
+            height=height, aa_jitter=aa_jitter, single_sided=single_sided)
+    return out
+
+
+def _check_bvh(bvh: BvhTables, dev):
+    for name in ("planes", "attr", "mat", "bounds"):
+        t = getattr(bvh, name)
+        _check(t, name, t.shape, dev)
+    nodes = bvh.nodes
+    if (nodes.device != dev or nodes.dtype != torch.int32
+            or tuple(nodes.shape) != (6 * bvh.size, 4)
+            or not nodes.is_contiguous()):
+        raise ValueError(f"nodes must be contiguous int32 [{6 * bvh.size}, 4]"
+                         f" on {dev}")
+    if tuple(bvh.bounds.shape) != (bvh.size, 8):
+        raise ValueError(f"bounds must be [{bvh.size}, 8]")
+
+
+def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
+                 height, aa_jitter=True, single_sided=True, stats=False):
+    """Launch `csrc/gbuffer_bvh.cu`. With `stats`, also return the int32
+    [2, R] box and triangle test counts of each ray."""
+    global launches
+    r = width * height
+    dev = cam_vec.device
+    _check(cam_vec, "cam_vec", (16,), dev)
+    _check(lcam_vec, "lcam_vec", (16,), dev)
+    _check_bvh(bvh, dev)
+    gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
+    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
+              if stats else None)
+    p = _build.ptr
+    err = _build.library().restir_gbuffer_bvh(
+        p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
+        p(bvh.bounds), p(bvh.nodes), bvh.size, p(bvh.planes), p(bvh.attr),
+        p(bvh.mat), bvh.mat.shape[0], p(gb), p(counts), width, height,
+        ctypes.c_float(float(width) / float(height)), int(aa_jitter),
+        int(single_sided), _build.stream_of(dev))
+    _build.check(err, "restir_gbuffer_bvh")
+    launches += 1
+    return (gb, counts) if stats else gb
+
+
+def gbuffer_pack(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
+                 height, aa_jitter=True, single_sided=True):
+    """gb [GB_CH, R] for one frame: the twin on CPU tensors, the kernel on
+    CUDA tensors."""
+    kw = dict(width=width, height=height, aa_jitter=aa_jitter,
+              single_sided=single_sided)
+    if cam_vec.device.type == "cpu":
+        return gbuffer_ref(cam_vec, lcam_vec, looper, bvh, **kw)
+    if cam_vec.device.type == "cuda":
+        return gbuffer_cuda(cam_vec, lcam_vec, looper, bvh, **kw)
+    raise ValueError(f"unsupported device {cam_vec.device}")

@@ -1,4 +1,4 @@
-"""Scene tables of the resident DI kernels, built once per scene upload.
+"""Scene tables of the DI kernels, built once per scene upload.
 
 `restir_tpu.ops.pallas.fused_di` rebuilds these every frame inside its
 jitted step (`_resident_tables`, `ris_kernel.build_light_tables`); here
@@ -15,6 +15,20 @@ thread's fetch of one row is contiguous.
   lum*area and radius (2), pad(1); l_pad = round_up(max(nl, 128), 128)
   with zero rows, as `di_resident_pallas` pads them (a pick past the
   last light clamps to row l_pad - 1).
+
+`BvhTables` is the device layout the MTBVH kernels (B6 `gbuffer_bvh.cu`,
+B7 `reuse_bvh.cu`) walk, after the JAX tables' `box_id` indirection:
+
+- `planes`, `attr`, `mat`: the resident tables' rows (the same tensors);
+  a leaf's primitive id indexes them directly;
+- `bounds` [B, 8]: node box lo(3) 0 hi(3) 0, each face moved outward by
+  BOX_PAD_REL of the scene's largest coordinate and rounded outward to
+  float32, so the float32 slab test never culls a box whose triangle the
+  unit-plane leaf test hits (the leaf test and the slab test round
+  differently; an unpadded flat box, such as a floor's, can lose a hit
+  on its edge);
+- `nodes` [6B, 4] int32: (prim, box, miss, 0) of table t's node j at row
+  t * B + j, one 16-byte load per visited node.
 """
 
 from __future__ import annotations
@@ -27,6 +41,11 @@ import torch
 LIGHT_COLS = 16
 PSI_COLS = 16
 PLANE_COLS = 12
+
+
+BOX_PAD_REL = 2.0 ** -16  # box padding, relative to the scene's extent
+NODE_COLS = 4
+BOUND_COLS = 8
 
 
 class ResidentTables(NamedTuple):
@@ -107,4 +126,60 @@ def build_resident_tables(arrays, device) -> ResidentTables:
         lights=dev(lights),
         psi=dev(psi),
         n_lights=int(np.asarray(arrays["light_verts"]).shape[0]),
+    )
+
+
+class BvhTables(NamedTuple):
+    planes: torch.Tensor  # [n_pad, 12] f32 (ResidentTables.planes)
+    attr: torch.Tensor  # [n, 32] f32
+    mat: torch.Tensor  # [m, 16] f32
+    bounds: torch.Tensor  # [B, 8] f32 padded node boxes
+    nodes: torch.Tensor  # [6B, 4] i32 (prim, box, miss, 0)
+    size: int  # B
+
+
+def padded_bounds(bounds_lo, bounds_hi) -> np.ndarray:
+    """[B, 8] node boxes moved outward by BOX_PAD_REL of the scene's
+    largest coordinate, rounded outward to float32."""
+    lo = np.asarray(bounds_lo, np.float64)
+    hi = np.asarray(bounds_hi, np.float64)
+    scale = max(float(np.abs(lo).max()), float(np.abs(hi).max()), 1.0)
+    pad = BOX_PAD_REL * scale
+    lo32 = np.nextafter((lo - pad).astype(np.float32), np.float32(-np.inf))
+    hi32 = np.nextafter((hi + pad).astype(np.float32), np.float32(np.inf))
+    out = np.zeros((lo.shape[0], BOUND_COLS), np.float32)
+    out[:, 0:3] = lo32
+    out[:, 4:7] = hi32
+    return out
+
+
+def node_table(bvh_prim, bvh_box, bvh_miss) -> np.ndarray:
+    """[6B, 4] int32 rows (prim, box, miss, 0) from the flat MTBVH tables."""
+    prim = np.asarray(bvh_prim, np.int32).reshape(-1)
+    out = np.zeros((prim.shape[0], NODE_COLS), np.int32)
+    out[:, 0] = prim
+    out[:, 1] = np.asarray(bvh_box, np.int32).reshape(-1)
+    out[:, 2] = np.asarray(bvh_miss, np.int32).reshape(-1)
+    return out
+
+
+def build_bvh_tables(arrays, resident: ResidentTables, device) -> BvhTables:
+    """MTBVH tables from a mapping of scene arrays (numpy, SceneData
+    names), sharing the resident tables' plane, attribute and material
+    rows."""
+    size = int(np.asarray(arrays["bounds_lo"]).shape[0])
+    nodes = node_table(arrays["bvh_prim"], arrays["bvh_box"],
+                       arrays["bvh_miss"])
+    if nodes.shape[0] != 6 * size:
+        raise ValueError(f"MTBVH tables hold {nodes.shape[0]} rows, "
+                         f"expected 6 x {size}")
+    return BvhTables(
+        planes=resident.planes,
+        attr=resident.attr,
+        mat=resident.mat,
+        bounds=torch.tensor(padded_bounds(arrays["bounds_lo"],
+                                          arrays["bounds_hi"]),
+                            device=device),
+        nodes=torch.tensor(nodes, device=device),
+        size=size,
     )

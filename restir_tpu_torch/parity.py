@@ -41,10 +41,10 @@ def _np(a):
     return a.reshape(a.shape[0], -1)
 
 
-def gb_pt_report(gb_ref, pt_ref, gb, pt):
-    """Compare (gb, pt) against (gb_ref, pt_ref). Returns (failures,
-    stats): failures is a list of strings (empty = all gates pass)."""
-    gb_ref, pt_ref, gb, pt = (_np(a) for a in (gb_ref, pt_ref, gb, pt))
+def gb_report(gb_ref, gb):
+    """Compare a gb pack against gb_ref. Returns (failures, stats):
+    failures is a list of strings (empty = all gates pass)."""
+    gb_ref, gb = _np(gb_ref), _np(gb)
     fails = []
     stats = {}
 
@@ -79,7 +79,15 @@ def gb_pt_report(gb_ref, pt_ref, gb, pt):
                      ("miss", G_MISS)):
         if not np.array_equal(gb_ref[ch][same], gb[ch][same]):
             fails.append(f"{name} mask differs on matched lanes")
+    return fails, stats
 
+
+def pt_report(pt_ref, pt):
+    """Compare a pt (reuse) pack against pt_ref: RIS picks, the weights of
+    same-pick lanes and their M. Returns (failures, stats)."""
+    pt_ref, pt = _np(pt_ref), _np(pt)
+    fails = []
+    stats = {}
     pick = np.all(pt_ref[P_LI:P_LI + 3] == pt[P_LI:P_LI + 3], axis=0)
     stats["pick_match"] = float(pick.mean())
     if pick.mean() < PICK_MATCH_MIN:
@@ -101,6 +109,13 @@ def gb_pt_report(gb_ref, pt_ref, gb, pt):
         fails.append(f"M equal on {stats['m_match']:.6f} < {M_MATCH_MIN} "
                      "of same-pick lanes")
     return fails, stats
+
+
+def gb_pt_report(gb_ref, pt_ref, gb, pt):
+    """Both reports on one frame's packs. Returns (failures, stats)."""
+    fails_g, stats_g = gb_report(gb_ref, gb)
+    fails_p, stats_p = pt_report(pt_ref, pt)
+    return fails_g + fails_p, {**stats_g, **stats_p}
 
 
 def close_fraction(ref, got, rtol, atol) -> float:

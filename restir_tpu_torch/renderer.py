@@ -1,9 +1,11 @@
 """Frame orchestration of the port, as `restir_tpu.renderer`.
 
 This slice carries the fused ReSTIR DI state only: `init_state` returns
-a `FusedDIState` when the config and scene fit the ported path and
-raises `NotImplementedError` (naming the ROADMAP item) otherwise; there
-is no general pipeline to fall back to yet.
+a `FusedDIState` when the config and scene fit the ported path (any
+triangle count; no env map or textures yet) and raises
+`NotImplementedError` (naming the ROADMAP item) otherwise; there is no
+general pipeline to fall back to yet. Entry points run on the card
+(`device="cuda"`) unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def _host_materials(scene: SceneTensors):
 
 
 def init_state(cfg: RenderConfig, cam: Camera,
-               scene: Optional[SceneTensors] = None, *, device):
+               scene: Optional[SceneTensors] = None, *, device="cuda"):
     """Render state for `cfg` on `device`. With `scene`, also checks the
     config's material flags against the scene and the scene's size."""
     if scene is not None:
@@ -69,7 +71,7 @@ def save_checkpoint(path: str, state: FusedDIState) -> None:
 
 
 def load_checkpoint(path: str, cfg: RenderConfig, cam: Camera,
-                    scene: Optional[SceneTensors] = None, *, device):
+                    scene: Optional[SceneTensors] = None, *, device="cuda"):
     """Read a checkpoint of a fused DI state, written by this package or
     by `restir_tpu.renderer.save_checkpoint`."""
     template = convert.state_to_numpy(init_state(cfg, cam, scene,

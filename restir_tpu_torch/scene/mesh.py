@@ -17,6 +17,7 @@ DIELECTRIC = 2
 LIGHT = 4
 
 NULL_TEXTURE = -1
+PROCEDURAL_TEXTURE = -2
 
 
 @dataclasses.dataclass

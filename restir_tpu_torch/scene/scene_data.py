@@ -1,25 +1,29 @@
-"""Scene build (numpy, host) and the device scene of the resident DI path.
+"""Scene build (numpy, host) and the device scene of the fused DI path.
 
 `build_scene` follows `restir_tpu.scene.scene_data.build_scene` for the
-arrays the fused resident DI frame reads: the world-space triangle soup
-in the same Morton order (primitive ids appear in the G-buffer and in
-the shadow-ray self-exclusion, so the order must match), the unit-
-triangle transforms, the packed attribute and material rows, and the
-light geometry. The BVH, clusters, alias tables, env map and textures
-are not built: the port's slice does not read them.
+arrays the fused DI frame reads: the world-space triangle soup in the
+same Morton order (primitive ids appear in the G-buffer and in the
+shadow-ray self-exclusion, so the order must match), the SAH/MTBVH built
+on the permuted triangles (`scene.bvh`), the unit-triangle transforms,
+the packed attribute and material rows, the light geometry, and the raw
+env map and packed textures. The TPU cluster / sub-block work-list boxes,
+the alias tables, the env tiles and the texture atlas are not built: the
+port does not read them (env maps and textures are refused at render
+time until their kernel branches are ported).
 
 `SceneTensors` is the same data as torch tensors on one device, plus
 the kernel tables derived from it once at upload
-(`ops.kernels.tables.ResidentTables`).
+(`ops.kernels.tables.ResidentTables` and `BvhTables`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .bvh import build_bvh
 from .mesh import LIGHT, MaterialDesc, MeshInstance, build_transformation_matrix
 
 ATTR_COLS = 32  # v0(3) e01(3) e02(3) n0(3) n01(3) n02(3) t0(2) t01(2) t02(2) mat_id(1)
@@ -34,6 +38,11 @@ class SceneArrays(NamedTuple):
     norms: np.ndarray  # [N, 3, 3]
     uvs: np.ndarray  # [N, 3, 2]
     mat_ids: np.ndarray  # [N] i32
+    bounds_lo: np.ndarray  # [B, 3] f32 BVH node boxes, B = 2N - 1
+    bounds_hi: np.ndarray  # [B, 3]
+    bvh_prim: np.ndarray  # [6B] i32 MTBVH tables (scene.bvh), flat
+    bvh_box: np.ndarray  # [6B] i32
+    bvh_miss: np.ndarray  # [6B] i32
     tri_xform: np.ndarray  # [4, 3N] unit-triangle transforms
     prim_attr: np.ndarray  # [N, ATTR_COLS]
     mat_attr: np.ndarray  # [M, MAT_COLS]
@@ -45,10 +54,15 @@ class SceneArrays(NamedTuple):
     light_area: np.ndarray  # [L]
     light_center: np.ndarray  # [L, 3]
     light_radius: np.ndarray  # [L]
+    env_map: np.ndarray  # [Eh, Ew, 3] f32; [1, 1, 3] zeros when absent
+    tex_data: np.ndarray  # [K, 3] packed texels; [1, 3] zeros when none
+    tex_offset: np.ndarray  # [T] i32
+    tex_width: np.ndarray  # [T] i32
+    tex_height: np.ndarray  # [T] i32
 
 
 class SceneTensors(NamedTuple):
-    """Device scene of the resident DI path."""
+    """Device scene of the fused DI path."""
 
     tri_xform: torch.Tensor
     prim_attr: torch.Tensor
@@ -61,6 +75,9 @@ class SceneTensors(NamedTuple):
     light_center: torch.Tensor
     light_radius: torch.Tensor
     tables: "object"  # ops.kernels.tables.ResidentTables
+    bvh: "object"  # ops.kernels.tables.BvhTables
+    has_env_map: bool  # the scene has an environment map
+    has_textures: bool  # a material reads a texture
 
     @property
     def num_tris(self) -> int:
@@ -139,11 +156,33 @@ def build_mat_attr(materials: Sequence[MaterialDesc]) -> np.ndarray:
     return a
 
 
+def _pack_textures(textures):
+    """(tex_data, tex_offset, tex_width, tex_height) as the JAX build packs
+    them: row-major texels of every texture back to back."""
+    if not textures:
+        return (np.zeros((1, 3), np.float32), np.zeros(1, np.int32),
+                np.ones(1, np.int32), np.ones(1, np.int32))
+    offsets, widths, heights, datas = [], [], [], []
+    off = 0
+    for t in textures:
+        t = np.asarray(t, np.float32)  # [h, w, 3]
+        offsets.append(off)
+        widths.append(t.shape[1])
+        heights.append(t.shape[0])
+        datas.append(t.reshape(-1, 3))
+        off += t.shape[0] * t.shape[1]
+    return (np.concatenate(datas), np.asarray(offsets, np.int32),
+            np.asarray(widths, np.int32), np.asarray(heights, np.int32))
+
+
 def build_scene(
-    instances: Sequence[MeshInstance], materials: Sequence[MaterialDesc]
+    instances: Sequence[MeshInstance],
+    materials: Sequence[MaterialDesc],
+    env_map: Optional[np.ndarray] = None,
+    textures: Optional[Sequence[np.ndarray]] = None,
 ) -> SceneArrays:
     """Flatten instances to world space (the JAX `build_scene` minus the
-    structures this slice does not read)."""
+    structures the port does not read)."""
     all_v, all_n, all_uv, all_mid = [], [], [], []
     light_prim_ids, light_radiance = [], []
     prim_base = 0
@@ -201,11 +240,21 @@ def build_scene(
     lcenter = lverts.mean(axis=1)
     lradius = np.linalg.norm(lverts - lcenter[:, None, :], axis=-1).max(axis=1)
 
+    bvh = build_bvh(verts.reshape(-1, 3))
+    env = (np.zeros((1, 1, 3), np.float32) if env_map is None
+           else np.asarray(env_map, np.float32))
+    tex_data, tex_offset, tex_width, tex_height = _pack_textures(textures)
+
     return SceneArrays(
         verts=verts,
         norms=norms,
         uvs=uvs,
         mat_ids=mat_ids,
+        bounds_lo=bvh.bounds_lo,
+        bounds_hi=bvh.bounds_hi,
+        bvh_prim=bvh.prim_id.reshape(-1),
+        bvh_box=bvh.box_id.reshape(-1),
+        bvh_miss=bvh.miss.reshape(-1),
         tri_xform=build_tri_transforms(verts.reshape(-1, 3)),
         prim_attr=build_prim_attr(verts, norms, uvs, mat_ids),
         mat_attr=build_mat_attr(materials),
@@ -217,4 +266,9 @@ def build_scene(
         light_area=larea.astype(np.float32),
         light_center=lcenter.astype(np.float32),
         light_radius=lradius.astype(np.float32),
+        env_map=env,
+        tex_data=tex_data,
+        tex_offset=tex_offset,
+        tex_width=tex_width,
+        tex_height=tex_height,
     )

@@ -2,7 +2,9 @@
 
 A fresh interpreter imports restir_tpu_torch and chip_smoke, renders one
 128x8 RESTIR_DI + EAW frame on the CPU through the public entry points,
-and reports which modules got loaded.
+loads scenes/cornell.txt with the port's loader, renders a frame of a
+procedural scene over 1024 triangles (the MTBVH path's twins), and
+reports which modules got loaded.
 """
 
 import json
@@ -29,7 +31,23 @@ cam = make_camera(**camkw)
 state = renderer.init_state(cfg, cam, scene, device="cpu")
 state, frame = renderer.step(scene, state, cam, cfg)
 img = renderer.frame_to_image(frame, cfg)
+
+from restir_tpu_torch.scene.loader import parse_scene_file
+cornell = parse_scene_file("scenes/cornell.txt")
+c_arrays = cornell.build()
+c_scene = convert.scene_from_numpy(c_arrays, "cpu")
+big, big_kw = many_light_scene(4, 90)
+big_scene = convert.scene_from_numpy(big, "cpu")
+assert big_scene.num_tris > 1024, big_scene.num_tris
+big_cfg = RenderConfig(width=128, height=8, denoiser=DenoiserType.EAW,
+                       **mat_flags(big))
+big_cam = make_camera(**big_kw)
+big_state = renderer.init_state(big_cfg, big_cam, big_scene, device="cpu")
+big_state, big_frame = renderer.step(big_scene, big_state, big_cam, big_cfg)
 print(json.dumps({
+    "cornell_tris": c_scene.num_tris,
+    "big_finite": bool(np.isfinite(big_frame.numpy()).all()),
+    "big_mean": float(big_frame.mean()),
     "modules": sorted(m for m in sys.modules
                       if m == "jax" or m.startswith("jax.")
                       or m == "jaxlib" or m.startswith("jaxlib.")
@@ -50,3 +68,5 @@ def test_port_imports_no_jax():
     assert rep["modules"] == [], rep["modules"]
     assert rep["shape"] == [8, 128, 3]
     assert rep["finite"]
+    assert rep["cornell_tris"] == 36
+    assert rep["big_finite"] and rep["big_mean"] > 0.0

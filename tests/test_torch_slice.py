@@ -202,11 +202,20 @@ def test_unported_configs_raise(world, change):
 
 
 def test_large_scene_raises():
+    """Scenes over 1024 triangles take the MTBVH path now; a large scene
+    still raises when a material reads a texture (the env / texture
+    branches are not ported)."""
     arrays, camkw = t_scene(16, 120)
     scene = convert.scene_from_numpy(arrays, "cpu")
     assert scene.num_tris > tfused.RESIDENT_MAX_TRIS
     cfg = tconfig.RenderConfig(width=W, height=H, **tconfig.mat_flags(arrays))
     cam = convert.camera_from_numpy(
         [np.asarray(x) for x in make_camera(**camkw)])
-    with pytest.raises(NotImplementedError, match="triangles"):
-        trenderer.init_state(cfg, cam, scene, device="cpu")
+    state = trenderer.init_state(cfg, cam, scene, device="cpu")
+    assert state.pt_pack.shape == (tk.PT_CH, R)
+    mat_attr = arrays.mat_attr.copy()
+    mat_attr[0, 7] = 0.0  # the floor reads texture 0
+    textured = convert.scene_from_numpy(
+        arrays._replace(mat_attr=mat_attr), "cpu")
+    with pytest.raises(NotImplementedError, match="textures"):
+        trenderer.init_state(cfg, cam, textured, device="cpu")
