@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
   3. headline kernels vs twins: B1 fused DI, B2 spatial + shade, B3 EAW
      level against their plain PyTorch twins on the card at the headline
      shapes (1920x1080, many_light_scene(64, 24)), on a frame with live
-     temporal history; kernel and twin times by CUDA events;
+     temporal history; kernel and twin times by CUDA events; B1's packs
+     (env and texture branches off) must be bit-identical to those of the
+     build before those branches existed (SHA-256 below);
   4. MTBVH on the headline scene: its 426 triangles forced through B6
      (MTBVH closest hit) + B7 (RIS + MTBVH any hit) + B1b, held against
      B1's packs under the parity gates;
@@ -17,26 +19,40 @@ Phases (any failure exits non-zero and prints no result line):
      plain twins on the CPU, at 256x64;
   6. headline main path: renderer.init_state / step at 1920x1080 with the
      EAW denoiser, 8 warm-up + 32 timed frames, launch counts checked;
-  7. hall kernels vs twins: scenes/hall.txt (81,036 triangles) loaded by
+  7. SVGF on the headline scene: B5 (temporal accumulation), the two
+     variance kernels and B4 (SVGF level, all 5 levels) against their
+     twins on B1's G-buffer and a random history, then the main path with
+     denoiser=SVGF (launches per frame: fused_di 2, spatial 1,
+     svgf_temporal 1, svgf_variance 1 + 5, atrous_svgf 5);
+  8. env map and textures: env_scene (has_env_map) and
+     textured_scene(aux_maps=True) (with_textures) at 1080p: B1 against
+     its twin, the scene forced through B6 + B7 + B1b equal to B1 bit for
+     bit, and each scene's main path;
+  9. hall kernels vs twins: scenes/hall.txt (81,036 triangles) loaded by
      the port's own loader; B6 and B7 against their brute twins on 32
      whole 1024-pixel tiles spread over the 1080p frame, B1b against its
      twin over the whole frame; kernel times, twin times over the whole
      frame, and the walks' box / triangle tests per ray (kernel counters
      over the frame, the lockstep twin on the tiles);
-  8. hall main path: renderer.init_state / step at 1920x1080, 8 warm-up +
+ 10. hall main path: renderer.init_state / step at 1920x1080, 8 warm-up +
      32 timed frames, launch counts per frame checked (gbuffer 1, reuse 1,
-     temporal 1, spatial 1, atrous 5).
+     temporal 1, spatial 1, atrous 5);
+ 11. the hall under a sky: the same scene file with an equirect sky made
+     in code (env_scene's gradient at 512x1024; 512 env-tile light rows,
+     640 in all): B6 / B7 against their twins on the 32 tiles, then its
+     main path.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
 nvidia-smi), the per-kernel JSON record and {"ok": true, "device": ...}.
 Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s
 float32 (non-tensor); operation counts per test are counted from the
-CUDA sources (constants below).
+CUDA sources (constants below; a transcendental counts as one).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -47,6 +63,7 @@ import numpy as np
 import torch
 
 from restir_tpu_torch import convert, parity, renderer
+from restir_tpu_torch.models import denoiser
 from restir_tpu_torch.config import (
     DenoiserType,
     RenderConfig,
@@ -62,6 +79,7 @@ from restir_tpu_torch.ops.kernels import (
     gbuffer,
     reuse,
     spatial,
+    svgf,
 )
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
@@ -76,7 +94,12 @@ from restir_tpu_torch.ops.kernels.fused_di import (
     TILE,
 )
 from restir_tpu_torch.scene.loader import parse_scene_file
-from restir_tpu_torch.scene.procedural import many_light_scene
+from restir_tpu_torch.scene.procedural import (
+    env_scene,
+    gradient_sky,
+    many_light_scene,
+    textured_scene,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
@@ -93,7 +116,21 @@ SOURCES = {
                     "restir_tpu/ops/pallas/fused_di.py:907"),
     "reuse_bvh": ("restir_tpu_torch/csrc/reuse_bvh.cu",
                   "restir_tpu/ops/pallas/fused_di.py:1558"),
+    "fused_di_env": ("restir_tpu_torch/csrc/fused_di.cu",
+                     "restir_tpu/ops/pallas/fused_di.py:2778"),
+    "fused_di_textures": ("restir_tpu_torch/csrc/fused_di.cu",
+                          "restir_tpu/ops/pallas/fused_di.py:2778"),
+    "svgf_temporal": ("restir_tpu_torch/csrc/svgf.cu",
+                      "restir_tpu/ops/pallas/fused_di.py:2986"),
+    "svgf_variance": ("restir_tpu_torch/csrc/svgf.cu",
+                      "restir_tpu/models/denoiser.py:221"),
+    "atrous_svgf": ("restir_tpu_torch/csrc/atrous.cu",
+                    "restir_tpu/ops/pallas/atrous_kernel.py:90"),
 }
+# SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
+# 1920x1080), as the build of commit 4a151c4 wrote them on an H100: the
+# env-less, texture-less B1 must stay bit-identical to it.
+B1_DIGEST = "11194a5e87d400d93a9e80b1599928de6f5961e9ad32555f399ef46bf78219af"
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
@@ -105,6 +142,9 @@ FLOP_LIGHT = 32  # light_target
 FLOP_CAND = 120  # one RIS candidate: sample point, pdf, BSDF, weight
 FLOP_PIXEL = 150  # raygen + G-buffer epilogue
 FLOP_TEMPORAL = 40  # B1b's merge
+FLOP_B4_TAP = 50  # one SVGF tap: 3 weights (3 exp, 1 log), 4 sums
+FLOP_B5 = 40  # B5's test and blend
+FLOP_VAR = 40  # variance estimate + one prefilter, per pixel
 
 
 class PhaseError(RuntimeError):
@@ -147,10 +187,11 @@ def table_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def render_config(scene_arrays, width=None, height=None):
+def render_config(scene_arrays, width=None, height=None, **kw):
+    kw.setdefault("denoiser", DenoiserType.EAW)
     return RenderConfig(width=width or WIDTH, height=height or HEIGHT,
                         tracer=TracerType.RESTIR_DI,
-                        denoiser=DenoiserType.EAW, **mat_flags(scene_arrays))
+                        **mat_flags(scene_arrays), **kw)
 
 
 def reset_counts():
@@ -158,15 +199,28 @@ def reset_counts():
     fused_di.temporal_launches = 0
     spatial.launches = 0
     atrous.launches = 0
+    atrous.svgf_launches = 0
     gbuffer.launches = 0
     reuse.launches = 0
+    svgf.temporal_launches = 0
+    svgf.variance_launches = 0
 
 
 def read_counts():
     return {"fused_di": fused_di.launches,
             "temporal": fused_di.temporal_launches,
             "spatial": spatial.launches, "atrous_eaw": atrous.launches,
-            "gbuffer_bvh": gbuffer.launches, "reuse_bvh": reuse.launches}
+            "atrous_svgf": atrous.svgf_launches,
+            "gbuffer_bvh": gbuffer.launches, "reuse_bvh": reuse.launches,
+            "svgf_temporal": svgf.temporal_launches,
+            "svgf_variance": svgf.variance_launches}
+
+
+def packs_digest(*packs) -> str:
+    h = hashlib.sha256()
+    for t in packs:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def gate(fails, what):
@@ -214,6 +268,13 @@ def phase_kernels(scene, cfg, cam, dev, record):
     gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw)
     gb_r, pt_r = fused_di.di_resident_ref(cv2, cv, 1, pt0, t, **kw)
     torch.cuda.synchronize()
+    digest = packs_digest(gb_k, pt_k)
+    print(f"B1 packs SHA-256 {digest} (build before the env / texture "
+          f"branches: {B1_DIGEST}): "
+          f"{'bit-identical' if digest == B1_DIGEST else 'DIFFERENT'}")
+    if digest != B1_DIGEST:
+        raise PhaseError("the env-less B1 is not bit-identical to its build "
+                         "before the env / texture branches")
     fails, stats = parity.gb_pt_report(gb_r, pt_r, gb_k, pt_k)
     print(f"B1 fused_di vs twin: {json.dumps(stats)}")
     gate(fails, "B1 disagrees with its twin")
@@ -225,12 +286,7 @@ def phase_kernels(scene, cfg, cam, dev, record):
                                                       **kw), 10)
     ms_b1_ref = cuda_ms(lambda: fused_di.di_resident_ref(cv2, cv, 1, pt0, t,
                                                          **kw), 2)
-    n_pad, l_pad = t.planes.shape[0], t.psi.shape[0]
-    b1 = bound(r * (14 + 24 + 16) * 4 + table_bytes(t.planes, t.attr, t.mat,
-                                                    t.lights, t.psi),
-               r * (2 * n_pad * FLOP_PLANE + 2 * l_pad * FLOP_LIGHT
-                    + cfg.cdf_candidates * FLOP_CAND + FLOP_PIXEL
-                    + FLOP_TEMPORAL))
+    b1 = b1_bound(t, r, cfg.cdf_candidates, False)
     record["fused_di"] = dict(max_abs_err=err_b1, ms=ms_b1,
                               plain_ms=ms_b1_ref, bound_ms=b1[0],
                               bound_by=b1[1], library_ms=None)
@@ -323,8 +379,39 @@ def phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1):
     ms7 = cuda_ms(lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
         has_met=cfg.scene_has_metallic), 10)
-    print(f"headline scene: B6 {ms6:.4f} ms, B7 {ms7:.4f} ms "
+    # bounds from this frame's walk counts (kernel counters)
+    _, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=w, height=h,
+                                   stats=True)
+    _, cnt7 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                    k=cfg.cdf_candidates,
+                                    has_met=cfg.scene_has_metallic,
+                                    stats=True)
+    b6 = walk_bound6(scene.bvh, w * h, cnt6)
+    b7 = walk_bound7(scene.tables, scene.bvh, w * h, cfg.cdf_candidates,
+                     cnt7, False)
+    print(f"headline scene: B6 {ms6:.4f} ms (bound {b6[0]:.4f} ms, "
+          f"{b6[1]}), B7 {ms7:.4f} ms (bound {b7[0]:.4f} ms, {b7[1]}) "
           f"(B1 resident path for comparison above)")
+
+
+def walk_bound6(bvh, r, counts):
+    """(least ms, what binds it) of B6 over this frame's box / triangle
+    tests (kernel counters [2, R])."""
+    boxes, tris = (float(c.double().sum()) for c in counts)
+    return bound(table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.bounds,
+                             bvh.nodes) + r * 24 * 4,
+                 r * FLOP_PIXEL + boxes * FLOP_BOX + tris * FLOP_PLANE)
+
+
+def walk_bound7(t, bvh, r, k, counts, has_env):
+    """(least ms, what binds it) of B7 over this frame's shadow-walk
+    tests, with 2 x l_pad light targets per pixel."""
+    boxes, tris = (float(c.double().sum()) for c in counts)
+    lights, psi = t.light_rows(has_env)
+    return bound(table_bytes(lights, psi, bvh.planes, bvh.bounds, bvh.nodes)
+                 + r * (24 + 8) * 4,
+                 r * (2 * psi.shape[0] * FLOP_LIGHT + k * FLOP_CAND)
+                 + boxes * FLOP_BOX + tris * FLOP_PLANE)
 
 
 def phase_small_frames(arrays, cam, dev):
@@ -344,6 +431,18 @@ def phase_small_frames(arrays, cam, dev):
           f"mean rel diff {mean_rel:.3g}, within rtol 1e-3: {frac:.5f}")
     if not np.isfinite(got).all() or mean_rel > 0.01 or frac < 0.99:
         raise PhaseError("small-frame parity failed")
+
+
+def b1_bound(t, r, k, has_env):
+    """(least ms, what binds it) of one B1 call: the packs written and the
+    tables read once; 2 x n_pad plane tests and 2 x l_pad light targets
+    per pixel."""
+    lights, psi = t.light_rows(has_env)
+    n_pad, l_pad = t.planes.shape[0], psi.shape[0]
+    return bound(r * (14 + 24 + 16) * 4 + table_bytes(
+        t.planes, t.attr, t.mat, lights, psi),
+        r * (2 * n_pad * FLOP_PLANE + 2 * l_pad * FLOP_LIGHT
+             + k * FLOP_CAND + FLOP_PIXEL + FLOP_TEMPORAL))
 
 
 def phase_main(name, scene, cfg, cam, dev, per_frame):
@@ -389,7 +488,9 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
     if not m_mean > 2 * cfg.cdf_candidates:
         raise PhaseError(f"temporal reuse not alive: mean M {m_mean}")
     fps = 1e3 / wall_ms
-    print(f"main path {name} {cfg.width}x{cfg.height} RESTIR_DI+EAW: "
+    den = {DenoiserType.NONE: "", DenoiserType.EAW: "+EAW",
+           DenoiserType.SVGF: "+SVGF"}[cfg.denoiser]
+    print(f"main path {name} {cfg.width}x{cfg.height} RESTIR_DI{den}: "
           f"{wall_ms:.3f} ms/frame wall, {dev_ms:.3f} ms/frame device, "
           f"{fps:.3f} fps, {2 * cfg.num_pixels * fps / 1e6:.3f} Mrays/s; "
           f"frame mean {mean:.5f}, mean M {m_mean:.2f}, "
@@ -442,7 +543,7 @@ def load_hall():
           f"{time.perf_counter() - t0:.2f} s on the host: "
           f"{arrays.verts.shape[0]} triangles, {arrays.bounds_lo.shape[0]} "
           f"nodes, {arrays.light_verts.shape[0]} light triangles")
-    return arrays, sf.make_camera()
+    return sf, arrays, sf.make_camera()
 
 
 def sample_pixels(r, dev):
@@ -454,7 +555,7 @@ def sample_pixels(r, dev):
 
 def walk_report(what, kernel_counts, pix, twin_boxes, twin_tris):
     """Print the kernel's mean tests per ray (whole frame) and the
-    lockstep twin's agreement on the sample; returns the frame totals."""
+    lockstep twin's agreement on the sample."""
     kb, kt = kernel_counts[0], kernel_counts[1]
     same_b = float((kb[pix] == twin_boxes).float().mean())
     same_t = float((kt[pix] == twin_tris).float().mean())
@@ -469,7 +570,6 @@ def walk_report(what, kernel_counts, pix, twin_boxes, twin_tris):
     if same_b < 0.99 or same_t < 0.99:
         raise PhaseError(f"{what}: the kernel's walk differs from the "
                          "lockstep twin's (table choice or culling)")
-    return float(kb.double().sum()), float(kt.double().sum())
 
 
 def phase_hall_kernels(scene, cfg, cam, dev, record):
@@ -524,12 +624,12 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     o = tuple(cv2[i].expand(pix.numel()) for i in range(3))
     d = tuple(gb_k[G_DIR + i][pix] for i in range(3))
     _, _, _, _, wb, wt = bvh_walk.closest_walk(bvh, o, d)
-    boxes6, tris6 = walk_report("B6 closest-hit walk", cnt6, pix, wb, wt)
+    walk_report("B6 closest-hit walk", cnt6, pix, wb, wt)
     wi = tuple(rs_k[RS_WI + i][pix] for i in range(3))
     o = tuple(gb_k[G_POS + i][pix] + wi[i] * 1e-5 for i in range(3))
     limit = rs_k[RS_DIST][pix] * (1.0 - 1e-3) - 1e-4
     _, wb, wt = bvh_walk.occluded_walk(bvh, o, wi, limit, gb_k[G_PRIM][pix])
-    boxes7, tris7 = walk_report("B7 any-hit walk", cnt7, pix, wb, wt)
+    walk_report("B7 any-hit walk", cnt7, pix, wb, wt)
 
     # times at 1080p: kernels by CUDA events, twins once over the frame
     ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw), 10)
@@ -544,13 +644,10 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
                           bvh.nodes)
     print(f"hall MTBVH tables on the card: {tables6 / 2**20:.1f} MiB "
           f"(planes, attributes, materials, padded boxes, node rows)")
-    b6 = bound(tables6 + r * 24 * 4,
-               r * FLOP_PIXEL + boxes6 * FLOP_BOX + tris6 * FLOP_PLANE)
-    l_pad = t.psi.shape[0]
-    b7 = bound(table_bytes(t.lights, t.psi, bvh.planes, bvh.bounds,
-                           bvh.nodes) + r * (24 + 8) * 4,
-               r * (2 * l_pad * FLOP_LIGHT + rkw["k"] * FLOP_CAND)
-               + boxes7 * FLOP_BOX + tris7 * FLOP_PLANE)
+    b6 = walk_bound6(bvh, r, cnt6)
+    b7 = walk_bound7(t, bvh, r, rkw["k"], cnt7, False)
+    # B1b: gb 8 + rs 8 + the history's 14 channels read, pt 16 written
+    b1b = bound(r * (8 + 8 + 14 + PT_CH) * 4, r * FLOP_TEMPORAL)
     record["gbuffer_bvh"] = dict(
         max_abs_err=max(st6["pos_max_abs_err"], st6["norm_max_abs_err"]),
         ms=ms6, plain_ms=ms6_ref, bound_ms=b6[0], bound_by=b6[1],
@@ -562,10 +659,261 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
           f" bound {b6[0]:.4f} ms ({b6[1]})")
     print(f"hall B7 reuse_bvh: kernel {ms7:.4f} ms, twin (with B1b) "
           f"{ms7_ref:.1f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
-    print(f"hall B1b temporal: kernel {ms1b:.4f} ms")
+    print(f"hall B1b temporal: kernel {ms1b:.4f} ms, bound {b1b[0]:.4f} ms "
+          f"({b1b[1]})")
+
+
+def phase_svgf_kernels(cfg, gb, dev, record):
+    """B5, the variance kernels and B4 (all levels) against their twins
+    on B1's G-buffer gb with a random demodulated colour and history."""
+    w, h, r = cfg.width, cfg.height, cfg.num_pixels
+    g = np.random.default_rng(5)
+    prev = torch.as_tensor(g.random((svgf.SV_CH, r), dtype=np.float32),
+                           device=dev)
+    prev[svgf.SV_HIST] = torch.as_tensor(
+        g.integers(0, 8, r).astype(np.float32), device=dev)
+    # prim and normal history of this frame, so reprojected pixels blend
+    prev[svgf.SV_PRIM] = gb[fused_di.G_PRIMR]
+    prev[svgf.SV_NORM:svgf.SV_NORM + 3] = gb[fused_di.G_NORM:
+                                             fused_di.G_NORM + 3]
+    color = torch.as_tensor(g.random((3, r), dtype=np.float32), device=dev)
+
+    sv_k = svgf.svgf_temporal_cuda(gb, color, prev)
+    sv_r = svgf.svgf_temporal_ref(gb, color, prev)
+    torch.cuda.synchronize()
+    close = parity.close_fraction(sv_r, sv_k, 1e-6, 0.0)
+    err5 = float((sv_r - sv_k).abs().max())
+    blended = float((sv_k[svgf.SV_HIST] > 0).float().mean())
+    print(f"B5 svgf_temporal vs twin: within rtol 1e-6 {close:.6f}, max abs "
+          f"err {err5:.3g}; history blended on {blended:.4f} of pixels")
+    if close < 0.9999 or blended < 0.1:
+        raise PhaseError(f"B5 disagrees with its twin ({close:.6f}) or "
+                         f"never blends ({blended:.4f})")
+    ms5 = cuda_ms(lambda: svgf.svgf_temporal_cuda(gb, color, prev), 20)
+    ms5_ref = cuda_ms(lambda: svgf.svgf_temporal_ref(gb, color, prev), 5)
+    b5 = bound(r * (3 + 6 + 10 + svgf.SV_CH) * 4, r * FLOP_B5)
+    record["svgf_temporal"] = dict(max_abs_err=err5, ms=ms5,
+                                   plain_ms=ms5_ref, bound_ms=b5[0],
+                                   bound_by=b5[1], library_ms=None)
+    print(f"B5 svgf_temporal: kernel {ms5:.4f} ms, twin {ms5_ref:.4f} ms, "
+          f"bound {b5[0]:.4f} ms ({b5[1]})")
+
+    vkw = dict(width=w, height=h)
+    var_k = svgf.estimate_variance(sv_k, **vkw)
+    var_r = denoiser.svgf_estimate_variance(
+        sv_k[svgf.SV_M1:svgf.SV_M1 + 3].reshape(3, h, w)).reshape(r)
+    fv_k = svgf.filter_variance(var_k, **vkw)
+    fv_r = denoiser.svgf_filter_variance(var_k.reshape(h, w)).reshape(r)
+    closes = (parity.close_fraction(var_r[None], var_k[None], 1e-6, 1e-7),
+              parity.close_fraction(fv_r[None], fv_k[None], 1e-6, 1e-7))
+    err_v = max(float((var_r - var_k).abs().max()),
+                float((fv_r - fv_k).abs().max()))
+    print(f"variance kernels vs twins (estimate, prefilter): within rtol "
+          f"1e-6 {closes[0]:.6f}, {closes[1]:.6f}; max abs err {err_v:.3g}")
+    if min(closes) < 0.9999:
+        raise PhaseError("the variance kernels disagree with their twins")
+
+    def one_var_each():
+        svgf.filter_variance(svgf.estimate_variance(sv_k, **vkw), **vkw)
+
+    def one_var_each_ref():
+        v = denoiser.svgf_estimate_variance(
+            sv_k[svgf.SV_M1:svgf.SV_M1 + 3].reshape(3, h, w))
+        denoiser.svgf_filter_variance(v)
+
+    ms_v = cuda_ms(one_var_each, 20)
+    ms_v_ref = cuda_ms(one_var_each_ref, 5)
+    bv = bound(r * (3 + 1 + 1 + 1) * 4, r * FLOP_VAR)
+    record["svgf_variance"] = dict(max_abs_err=err_v, ms=ms_v,
+                                   plain_ms=ms_v_ref, bound_ms=bv[0],
+                                   bound_by=bv[1], library_ms=None)
+    print(f"variance estimate + one prefilter: kernels {ms_v:.4f} ms, twins "
+          f"{ms_v_ref:.4f} ms, bound {bv[0]:.4f} ms ({bv[1]})")
+
+    akw = dict(width=w, height=h, sig_l=cfg.sig_luminance,
+               sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
+    col, var = sv_k[svgf.SV_COL:svgf.SV_COL + 3].contiguous(), var_k
+    err4, ms4, ms4_ref = 0.0, [], []
+    for level in range(cfg.eaw_levels):
+        fv = svgf.filter_variance(var, **vkw)
+        ck, vk = atrous.atrous_svgf_cuda(col, var, fv, gb, level=level,
+                                         **akw)
+        cr, vr = atrous.atrous_svgf_ref(col, var, fv, gb, level=level, **akw)
+        fc = parity.close_fraction(cr, ck, 1e-5, 1e-6)
+        fvar = parity.close_fraction(vr[None], vk[None], 1e-5, 1e-6)
+        err = max(float((cr - ck).abs().max()), float((vr - vk).abs().max()))
+        err4 = max(err4, err)
+        print(f"B4 level {level} vs twin: colour close {fc:.6f}, variance "
+              f"close {fvar:.6f}, max abs err {err:.3g}")
+        if min(fc, fvar) < 0.999:
+            raise PhaseError(f"B4 level {level} disagrees with its twin")
+        c_in, v_in = col, var
+        ms4.append(cuda_ms(lambda: atrous.atrous_svgf_cuda(
+            c_in, v_in, fv, gb, level=level, **akw), 20))
+        ms4_ref.append(cuda_ms(lambda: atrous.atrous_svgf_ref(
+            c_in, v_in, fv, gb, level=level, **akw), 2))
+        col, var = ck, vk
+    # colour 3 + variance + fv + guide 7 read, colour 3 + variance written
+    b4 = bound(r * (3 + 1 + 1 + 7 + 4) * 4, r * 25 * FLOP_B4_TAP)
+    record["atrous_svgf"] = dict(max_abs_err=err4, ms=float(np.mean(ms4)),
+                                 plain_ms=float(np.mean(ms4_ref)),
+                                 bound_ms=b4[0], bound_by=b4[1],
+                                 library_ms=None)
+    print("B4 atrous_svgf per level: kernel "
+          + ", ".join(f"{x:.4f}" for x in ms4) + " ms; twin "
+          + ", ".join(f"{x:.4f}" for x in ms4_ref) + f" ms; bound "
+          f"{b4[0]:.4f} ms ({b4[1]})")
+
+
+def phase_env_tex(name, arrays, camkw, flags, dev, record):
+    """B1 with its env or texture branch against its twin, B6 + B7 + B1b
+    against B1 (bit for bit), and the scene's main path, at 1080p."""
+    cfg = render_config(arrays, has_env_map=flags.get("has_env", False),
+                        with_textures=flags.get("with_textures", False))
+    cam = make_camera(**camkw)
+    pos = camkw["position"]
+    cam2 = make_camera(**{**camkw, "position": (pos[0] + 0.25, pos[1],
+                                                pos[2])})
+    scene = convert.scene_from_numpy(arrays, dev)
+    r = cfg.num_pixels
+    t = scene.tables
+    cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
+    kw = dict(width=cfg.width, height=cfg.height, aa_jitter=cfg.aa_jitter,
+              single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
+              temporal=True, temporal_clamp=cfg.temporal_clamp,
+              has_met=cfg.scene_has_metallic, **flags)
+    zeros = torch.zeros((PT_CH, r), device=dev)
+    _, pt0 = fused_di.di_resident_cuda(cv, cv, 0, zeros, t, **kw)
+    gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw)
+    gb_r, pt_r = fused_di.di_resident_ref(cv2, cv, 1, pt0, t, **kw)
+    # the twin's RIS, visibility and merge on the kernel's G-buffer: a
+    # motion index that flips by an ulp moves its tile's window start
+    # and with it the merges of the whole tile, which on a sky-lit frame
+    # (tiles with few hits) outweighs the stage under test
+    rkw = {k: v for k, v in kw.items()
+           if k not in ("width", "height", "aa_jitter", "with_textures")}
+    pt_rk = reuse.reuse_ref(gb_k, pt0, 1, t, **rkw)
+    torch.cuda.synchronize()
+    _, chain = parity.pt_report(pt_r, pt_k)
+    print(f"B1 {name}: whole-chain twin's reuse pack vs kernel (not "
+          f"gated): {json.dumps(chain)}")
+    fails, stats = parity.gb_pt_report(gb_r, pt_rk, gb_k, pt_k)
+    hit = gb_r[fused_di.G_PRIM] == gb_k[fused_di.G_PRIM]
+    alb = slice(fused_di.G_ALB, fused_di.G_ALB + 3)
+    stats["albedo_close"] = parity.close_fraction(
+        gb_r[alb][:, hit], gb_k[alb][:, hit], 1e-4, 1e-5)
+    print(f"B1 {name} ({scene.num_tris} triangles, "
+          f"{t.light_rows(cfg.has_env_map)[1].shape[0]} light rows) vs twin "
+          f"at {cfg.width}x{cfg.height} (reuse pack from the kernel's "
+          f"G-buffer): {json.dumps(stats)}")
+    gate(fails, f"B1 ({name}) disagrees with its twin")
+    if stats["albedo_close"] < 0.99:
+        raise PhaseError(f"B1 ({name}) albedo disagrees with its twin")
+    if cfg.has_env_map:
+        env_win = float((pt_k[fused_di.P_DIST] > 1e7).float().mean())
+        print(f"B1 {name}: env winners on {env_win:.4f} of pixels, miss "
+              f"{float(gb_k[fused_di.G_MISS].mean()):.4f}")
+        if not env_win > 0.0:
+            raise PhaseError("no env-tile winner on the env scene")
+    ms = cuda_ms(lambda: fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw),
+                 10)
+    ms_ref = cuda_ms(lambda: fused_di.di_resident_ref(cv2, cv, 1, pt0, t,
+                                                      **kw), 2)
+    b1 = b1_bound(t, r, cfg.cdf_candidates, cfg.has_env_map)
+    record[f"fused_di_{name}"] = dict(
+        max_abs_err=max(stats["pos_max_abs_err"],
+                        stats["weight_max_abs_err"]),
+        ms=ms, plain_ms=ms_ref, bound_ms=b1[0], bound_by=b1[1],
+        library_ms=None)
+    print(f"B1 {name}: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
+          f"{b1[0]:.4f} ms ({b1[1]})")
+
+    has_env = flags.get("has_env", False)
+    gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=cfg.width,
+                              height=cfg.height, aa_jitter=cfg.aa_jitter,
+                              single_sided=cfg.single_sided_lights,
+                              has_env=has_env,
+                              with_textures=flags.get("with_textures",
+                                                      False))
+    pt = reuse.reuse_cuda(gb, pt0, 1, t, scene.bvh, k=cfg.cdf_candidates,
+                          single_sided=cfg.single_sided_lights,
+                          temporal_clamp=cfg.temporal_clamp,
+                          has_met=cfg.scene_has_metallic, has_env=has_env)
+    same = bool(torch.equal(gb, gb_k)) and bool(torch.equal(pt, pt_k))
+    print(f"MTBVH (B6 + B7 + B1b) vs B1 on {name}: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise PhaseError(f"B6 + B7 + B1b differ from B1 on {name}")
+    counts = phase_main(name, scene, cfg, cam, dev, {
+        "fused_di": 2, "spatial": 1, "atrous_eaw": cfg.eaw_levels})
+    profile_frames(name, scene, cfg, cam, dev)
+    return counts["fused_di"]
+
+
+def phase_sky_hall(sf, cam, dev):
+    """The hall under an equirect sky: B6 / B7 (640 light rows) against
+    their twins on the sample tiles, then its main path."""
+    t0 = time.perf_counter()
+    sf.env_map = gradient_sky(512, 1024)
+    arrays = sf.build()
+    print(f"hall under a sky: built in {time.perf_counter() - t0:.2f} s")
+    cfg = render_config(arrays, has_env_map=True)
+    scene = convert.scene_from_numpy(arrays, dev)
+    w, h, r = cfg.width, cfg.height, cfg.num_pixels
+    bvh, t = scene.bvh, scene.tables
+    cam2 = make_camera(position=(0.3, 4.2, 20.3),
+                       rotation=(-90.5, -4.0, 0.0), fov_y=19.5)
+    cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
+    gkw = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
+               single_sided=cfg.single_sided_lights, has_env=True)
+    rkw = dict(k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
+               temporal=True, temporal_clamp=cfg.temporal_clamp,
+               has_met=cfg.scene_has_metallic, has_env=True)
+    zeros = torch.zeros((PT_CH, r), device=dev)
+    gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, bvh, **gkw)
+    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, **rkw)
+    gb_k = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw)
+    pt_k = reuse.reuse_cuda(gb_k, pt0, 1, t, bvh, **rkw)
+    pix = sample_pixels(r, dev)
+    gb_r = gbuffer.gbuffer_ref(cv2, cv, 1, bvh, pix=pix, **gkw)
+    torch.cuda.synchronize()
+    fails, st6 = parity.gb_report(gb_r, gb_k[:, pix])
+    alb = slice(fused_di.G_ALB, fused_di.G_ALB + 3)
+    st6["albedo_close"] = parity.close_fraction(gb_r[alb], gb_k[alb][:, pix],
+                                                1e-6, 0.0)
+    print(f"sky hall B6 vs brute twin on {SAMPLE_TILES} tiles: "
+          f"{json.dumps(st6)}")
+    gate(fails, "B6 (sky hall) disagrees with its twin")
+    pt_r = reuse.reuse_ref(gb_k[:, pix], pt0, 1, t, pix=pix, **rkw)
+    fails, st7 = parity.pt_report(pt_r, pt_k[:, pix])
+    env_win = float((pt_k[fused_di.P_DIST] > 1e7).float().mean())
+    print(f"sky hall B7 + B1b vs twin on the same tiles: {json.dumps(st7)}; "
+          f"env winners on {env_win:.4f} of the frame")
+    gate(fails, "B7 (sky hall) disagrees with its twin")
+    l_pad = t.light_rows(True)[1].shape[0]
+    ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw), 10)
+    ms7 = cuda_ms(lambda: reuse.candidates_cuda(
+        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"], has_env=True),
+        10)
+    _, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, stats=True, **gkw)
+    _, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=rkw["k"],
+                                    has_met=rkw["has_met"], has_env=True,
+                                    stats=True)
+    b6 = walk_bound6(bvh, r, cnt6)
+    b7 = walk_bound7(t, bvh, r, rkw["k"], cnt7, True)
+    print(f"sky hall B6 gbuffer_bvh: kernel {ms6:.4f} ms, bound "
+          f"{b6[0]:.4f} ms ({b6[1]}); B7 reuse_bvh ({l_pad} light rows): "
+          f"kernel {ms7:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}); shadow "
+          f"walk {float(cnt7[0].double().mean()):.2f} box + "
+          f"{float(cnt7[1].double().mean()):.2f} triangle tests per ray")
+    phase_main("sky hall", scene, cfg, cam, dev, {
+        "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
+        "atrous_eaw": cfg.eaw_levels})
+    profile_frames("sky hall", scene, cfg, cam, dev)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -592,7 +940,24 @@ def main() -> int:
     launches = {k: counts[k] for k in ("fused_di", "spatial", "atrous_eaw")}
     profile_frames("headline", scene, cfg, cam, dev)
 
-    hall_arrays, hall_cam = load_hall()
+    svgf_cfg = cfg.replace(denoiser=DenoiserType.SVGF)
+    phase_svgf_kernels(svgf_cfg, gb_b1, dev, record)
+    counts = phase_main("headline SVGF", scene, svgf_cfg, cam, dev, {
+        "fused_di": 2, "spatial": 1, "svgf_temporal": 1,
+        "svgf_variance": 1 + levels, "atrous_svgf": levels})
+    launches.update({k: counts[k] for k in (
+        "svgf_temporal", "svgf_variance", "atrous_svgf")})
+    profile_frames("headline SVGF", scene, svgf_cfg, cam, dev)
+
+    env_arrays, env_kw = env_scene()
+    launches["fused_di_env"] = phase_env_tex(
+        "env", env_arrays, env_kw, dict(has_env=True), dev, record)
+    tex_arrays, tex_kw = textured_scene(aux_maps=True)
+    launches["fused_di_textures"] = phase_env_tex(
+        "textures", tex_arrays, tex_kw, dict(with_textures=True), dev,
+        record)
+
+    hall_sf, hall_arrays, hall_cam = load_hall()
     hall_cfg = render_config(hall_arrays)
     hall = convert.scene_from_numpy(hall_arrays, dev)
     phase_hall_kernels(hall, hall_cfg, hall_cam, dev, record)
@@ -602,6 +967,7 @@ def main() -> int:
     launches.update(gbuffer_bvh=counts["gbuffer_bvh"],
                     reuse_bvh=counts["reuse_bvh"])
     profile_frames("hall", hall, hall_cfg, hall_cam, dev)
+    phase_sky_hall(hall_sf, hall_cam, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -609,6 +975,7 @@ def main() -> int:
          **record[name]}
         for name in SOURCES
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

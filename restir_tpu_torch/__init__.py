@@ -1,12 +1,14 @@
 """restir_tpu_torch — the ReSTIR renderer on PyTorch and CUDA.
 
 The port of `restir_tpu` (JAX/Pallas on a TPU) to an NVIDIA Hopper card.
-It carries the fused spatiotemporal ReSTIR DI frame with the EAW denoiser
-on scenes of any size, loaded from scene files (`scene.loader`) or built
-procedurally: CUDA C++ kernels in `csrc/` (the fused resident DI kernel
-for scenes of at most 1024 triangles; the MTBVH G-buffer and RIS +
-shadow-ray kernels above that; the spatial merge + shade; one à-trous
-level), each with a plain PyTorch twin that CPU tensors take.
+It carries the fused spatiotemporal ReSTIR DI frame with the EAW or SVGF
+denoiser on scenes of any size, with env maps and textures, loaded from
+scene files (`scene.loader`) or built procedurally: CUDA C++ kernels in
+`csrc/` (the fused resident DI kernel for scenes of at most 1024
+triangles; the MTBVH G-buffer and RIS + shadow-ray kernels above that;
+the spatial merge + shade; one EAW or SVGF à-trous level; SVGF's
+temporal accumulation and variance passes), each with a plain PyTorch
+twin that CPU tensors take.
 
 The package imports `torch` and never `jax`.
 """

@@ -5,7 +5,8 @@
 - `state_from_numpy` / `state_to_numpy`: a fused DI state as the leaf
   list that `restir_tpu.renderer.save_checkpoint` writes (the
   `FusedDIState` fields in order, the 8 `Camera` leaves last; packs as
-  [C, R/128, 128]) <-> the port's `FusedDIState` ([C, R] packs).
+  [C, R/128, 128], the SVGF pack too) <-> the port's `FusedDIState`
+  ([C, R] packs).
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from .config import RenderConfig
 from .models.restir_di_fused import FusedDIState
 from .ops.camera import Camera
 from .ops.kernels.fused_di import PT_CH
-from .ops.kernels.tables import build_bvh_tables, build_resident_tables
+from .ops.kernels.svgf import SV_CH
+from .ops.kernels.tables import (
+    build_bvh_tables,
+    build_resident_tables,
+    has_env_map,
+)
 from .scene.scene_data import SceneTensors
 
 N_STATE_LEAVES = 7 + len(Camera._fields)
@@ -36,7 +42,6 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
                             device=device)
 
     tables = build_resident_tables(d, device)
-    env = np.asarray(d["env_map"])
     maps = np.asarray(d["mat_attr"])[:, 7:11]  # base/metal/rough/normal
     return SceneTensors(
         tri_xform=dev("tri_xform"),
@@ -51,7 +56,7 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
         light_radius=dev("light_radius"),
         tables=tables,
         bvh=build_bvh_tables(d, tables, device),
-        has_env_map=bool(env.shape[0] > 1 or env.shape[1] > 1),
+        has_env_map=has_env_map(d),
         has_textures=bool((maps >= 0).any()),
     )
 
@@ -74,18 +79,18 @@ def _pack(a, channels: int, r: int, device) -> torch.Tensor:
 
 def state_from_numpy(leaves: Sequence[np.ndarray], cfg: RenderConfig,
                      device="cuda") -> FusedDIState:
-    """Port state from the leaves of a JAX `FusedDIState` (DI, no SVGF)."""
+    """Port state from the leaves of a JAX `FusedDIState` (DI, with or
+    without SVGF)."""
     if len(leaves) != N_STATE_LEAVES:
         raise ValueError(f"expected {N_STATE_LEAVES} leaves, got "
                          f"{len(leaves)}")
     r = cfg.num_pixels
     looper, iteration, accum, pt, svgf, accum_ind, gi_q = leaves[:7]
-    for name, leaf in (("svgf_pack", svgf), ("accum_ind", accum_ind),
-                       ("gi_q", gi_q)):
+    for name, leaf in (("accum_ind", accum_ind), ("gi_q", gi_q)):
         if np.asarray(leaf).size != 1:
             raise NotImplementedError(
-                f"{name} of shape {np.asarray(leaf).shape}: SVGF and GI "
-                "states are not ported yet")
+                f"{name} of shape {np.asarray(leaf).shape}: GI states are "
+                "not ported yet (ROADMAP Queue A 6)")
 
     def scalar(x):
         return torch.tensor(np.asarray(x, np.float32).reshape(1, 1, 1),
@@ -96,7 +101,8 @@ def state_from_numpy(leaves: Sequence[np.ndarray], cfg: RenderConfig,
         iteration=int(np.asarray(iteration)),
         accum=_pack(accum, 3, r, device),
         pt_pack=_pack(pt, PT_CH, r, device),
-        svgf_pack=scalar(svgf),
+        svgf_pack=(scalar(svgf) if np.asarray(svgf).size == 1
+                   else _pack(svgf, SV_CH, r, device)),
         accum_ind=scalar(accum_ind),
         gi_q=scalar(gi_q),
         last_camera=camera_from_numpy(leaves[7:]),
@@ -118,7 +124,7 @@ def state_to_numpy(state: FusedDIState):
         np.int32(state.iteration),
         pack(state.accum),
         pack(state.pt_pack),
-        small(state.svgf_pack),
+        (small if state.svgf_pack.numel() == 1 else pack)(state.svgf_pack),
         small(state.accum_ind),
         small(state.gi_q),
         *camera_to_numpy(state.last_camera),

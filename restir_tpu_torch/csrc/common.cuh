@@ -1,5 +1,6 @@
 // Shared device code of the port's kernels: pack channel layouts, the
-// pcg4d counter RNG and the demodulated BSDF luminance.
+// pcg4d counter RNG, the temporal window start of a tile and the
+// demodulated BSDF luminance.
 //
 // Everything here mirrors restir_tpu (utils/rng.py, ops/pallas/fused_di.py
 // channel constants, ops/pallas/ris_kernel.py::_eval_bsdf_lum) in float32
@@ -67,6 +68,34 @@ __device__ __forceinline__ float unit(uint32_t bits) {
 
 __device__ __forceinline__ bool bad_weight(float w) {
   return isnan(w) || isinf(w) || w < 0.0f;
+}
+
+// Start of the 2048-pixel temporal window of a 1024-pixel tile
+// (fused_di._window_start): the minimum valid motion index over the tile
+// (miss pixels carry motion 0 and are excluded), rounded down to 128 and
+// clamped so the window stays inside the previous pack. Every thread of
+// a TILE-thread block calls it with its own pixel's motion.
+__device__ __forceinline__ int tile_window_start(float motion, bool miss,
+                                                 int r) {
+  __shared__ float warp_min[TILE / 32];
+  __shared__ int w0_s;
+  float mv = (motion >= 0.0f && !miss) ? motion : (float)r;
+  for (int off = 16; off > 0; off >>= 1)
+    mv = fminf(mv, __shfl_down_sync(0xffffffffu, mv, off));
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = mv;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = warp_min[threadIdx.x];
+    for (int off = 16; off > 0; off >>= 1)
+      v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
+    if (threadIdx.x == 0) {
+      int w0 = (__float2int_rz(v) / 128) * 128;
+      w0 = min(max(w0, 0), max(r - WINDOW, 0));
+      w0_s = w0;
+    }
+  }
+  __syncthreads();
+  return w0_s;
 }
 
 // Luminance of the demodulated BSDF (base colour 1): Lambert, GGX

@@ -1,12 +1,20 @@
 // Device code shared by the fused DI kernels: raygen, the unit-plane hit
-// test, the G-buffer epilogue, the K-candidate CDF RIS core and the winner
+// test, the G-buffer epilogue (with its texture and env branches), the
+// K-candidate CDF RIS core (with its env-tile candidates) and the winner
 // shadow ray's origin and limit.
 //
 // B1 (fused_di.cu, resident brute force), B6 (gbuffer_bvh.cu, MTBVH
 // closest hit) and B7 (reuse_bvh.cu, RIS + MTBVH any hit) all call these,
 // so a frame rendered through B6 + B7 + B1b runs the same arithmetic as
 // one rendered through B1. Mirrors restir_tpu/ops/pallas/fused_di.py
-// (_raygen, _gbuffer_epilogue, _ris_select_core, _vis_resident_core).
+// (_raygen, _gbuffer_epilogue, _tex_bilinear, _procedural_tex,
+// _env_tile_radiance, _ris_select_core, _vis_resident_core).
+//
+// The env and texture branches sit behind the compile-time flags HAS_ENV
+// and TEX; with both off the code is the env-less build's. Their float
+// arithmetic is written with round-to-nearest intrinsics (no FMA
+// contraction), so every operation rounds where the plain PyTorch twin's
+// does and each kernel that inlines them rounds the same way.
 #pragma once
 
 #include "common.cuh"
@@ -51,6 +59,159 @@ __device__ __forceinline__ float plane_hit(const float* q, float ox, float oy,
   const bool hit =
       nondeg && t > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
   return hit ? t : -1.0f;
+}
+
+// ---- env map and textures (HAS_ENV / TEX branches) ----
+
+// One op, rounded on its own (never contracted into an FMA).
+__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+
+#define RESTIR_ENV_DIST 1.0e8f  // shadow limit of an env winner (ENV_DIST)
+#define RESTIR_ENV_TH 16        // env tile grid (scene_data.ENV_TILE_H/W)
+#define RESTIR_ENV_TW 32
+
+// float32 roundings of cos(pi * t / 16), t = 1..15, and of the
+// pseudo-angle of 2 pi s / 32, s = 1..31 (fused_di._pseudo_angle_const),
+// both computed in double: the tile thresholds of _env_tile_radiance.
+__constant__ float kEnvCosY[RESTIR_ENV_TH - 1] = {
+    0.980785251f, 0.923879504f, 0.831469595f, 0.707106769f, 0.555570245f,
+    0.382683426f, 0.195090324f, 6.12323426e-17f, -0.195090324f,
+    -0.382683426f, -0.555570245f, -0.707106769f, -0.831469595f,
+    -0.923879504f, -0.980785251f};
+__constant__ float kEnvAngX[RESTIR_ENV_TW - 1] = {
+    0.165910676f, 0.292893231f, 0.400543809f, 0.5f, 0.599456191f,
+    0.707106769f, 0.834089339f, 1.0f, 1.16591072f, 1.29289317f,
+    1.40054381f, 1.5f, 1.59945619f, 1.70710683f, 1.83408928f, 2.0f,
+    2.16591072f, 2.29289317f, 2.40054393f, 2.5f, 2.59945607f, 2.70710683f,
+    2.83408928f, 3.0f, 3.16591072f, 3.29289317f, 3.40054393f, 3.5f,
+    3.59945607f, 3.70710683f, 3.83408928f};
+
+struct EnvTex {
+  const float4* env_rad;   // [512] tile radiance (r, g, b, 0)
+  const float4* atlas;     // [rows * 128] texels (r, g, b, 0)
+  const float4* tex_meta;  // [T] (row0, width, height, valid)
+  int n_tex;
+};
+
+// Piecewise-constant env radiance along a direction: the elevation tile
+// from 15 cosine compares on dy, the azimuth tile from 31 pseudo-angle
+// compares on (dx, dz), no trigonometry (_env_tile_radiance).
+__device__ __forceinline__ float4 env_tile_radiance(const float4* env_rad,
+                                                   float dx, float dy,
+                                                   float dz) {
+  int ty = 0;
+#pragma unroll
+  for (int t = 0; t < RESTIR_ENV_TH - 1; ++t) ty += dy <= kEnvCosY[t];
+  float p = __fdiv_rn(dz, fadd(fadd(fabsf(dx), fabsf(dz)), 1e-20f));
+  p = dx < 0.0f ? fsub(2.0f, p) : (dz < 0.0f ? fadd(4.0f, p) : p);
+  int tx = 0;
+#pragma unroll
+  for (int s = 0; s < RESTIR_ENV_TW - 1; ++s) tx += p >= kEnvAngX[s];
+  return __ldg(env_rad + ty * RESTIR_ENV_TW + tx);
+}
+
+// a - floor(a / m) * m, with a result of m (a float edge) folded to 0.
+__device__ __forceinline__ float tex_wrap(float a, float m) {
+  const float w = fsub(a, fmul(floorf(__fdiv_rn(a, m)), m));
+  return w >= m ? 0.0f : w;
+}
+
+// Wrap-mode bilinear fetch of texture `tid` at (u, v) from the
+// mip-clamped atlas (_tex_bilinear; image.h:41-74).
+__device__ __forceinline__ void tex_bilinear(const EnvTex& et, int tid,
+                                             float u_uv, float v_uv,
+                                             float out[3]) {
+  const float4 meta = __ldg(et.tex_meta + (tid < et.n_tex ? tid : 0));
+  const float row0 = tid < et.n_tex ? meta.x : 0.0f;
+  const float tw = fmaxf(tid < et.n_tex ? meta.y : 0.0f, 1.0f);
+  const float th = fmaxf(tid < et.n_tex ? meta.z : 0.0f, 1.0f);
+  const float u = fsub(u_uv, floorf(u_uv));
+  const float v = fsub(v_uv, floorf(v_uv));
+  const float fx = fsub(fmul(u, tw), 0.5f);
+  const float fy = fsub(fmul(v, th), 0.5f);
+  const float ix = floorf(fx), iy = floorf(fy);
+  const float lx = fsub(fx, ix), ly = fsub(fy, iy);
+  const float x0 = tex_wrap(ix, tw), y0 = tex_wrap(iy, th);
+  const float x1 = tex_wrap(fadd(x0, 1.0f), tw);
+  const float y1 = tex_wrap(fadd(y0, 1.0f), th);
+  const float4* r0 = et.atlas + (size_t)__float2int_rz(fadd(row0, y0)) * 128;
+  const float4* r1 = et.atlas + (size_t)__float2int_rz(fadd(row0, y1)) * 128;
+  const int ix0 = __float2int_rz(x0), ix1 = __float2int_rz(x1);
+  const float4 c00 = __ldg(r0 + ix0), c10 = __ldg(r0 + ix1);
+  const float4 c01 = __ldg(r1 + ix0), c11 = __ldg(r1 + ix1);
+  const float a00[3] = {c00.x, c00.y, c00.z}, a10[3] = {c10.x, c10.y, c10.z};
+  const float a01[3] = {c01.x, c01.y, c01.z}, a11[3] = {c11.x, c11.y, c11.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float cx0 = fadd(a00[c], fmul(fsub(a10[c], a00[c]), lx));
+    const float cx1 = fadd(a01[c], fmul(fsub(a11[c], a01[c]), lx));
+    out[c] = fadd(cx0, fmul(fsub(cx1, cx0), ly));
+  }
+}
+
+// Sine-grid procedural texture with its pcg4d jitter (_procedural_tex;
+// scene.h:68-76). The cell index wraps as uint32; the float -> int casts
+// truncate and saturate as XLA's do.
+__device__ __forceinline__ float procedural_tex(float u_uv, float v_uv) {
+  const uint32_t cell =
+      (uint32_t)__float2int_rz(fmul(u_uv, 1024.0f)) * 1024u +
+      (uint32_t)__float2int_rz(fmul(v_uv, 1024.0f));
+  uint32_t h[4];
+  pcg4d(cell, 0u, 0u, 0x7Fu, h);
+  const float two_pi = 6.28318548f;  // float32(2 * 3.14159265358979)
+  const float rx = unit(h[0]), ry = unit(h[1]);
+  const float f = fmul(
+      fadd(sinf(fadd(fmul(fmul(u_uv, 10.0f), two_pi), fmul(rx, two_pi))),
+           1.0f),
+      0.5f);
+  const float g = fmul(
+      fadd(sinf(fadd(fmul(fmul(v_uv, 10.0f), two_pi), fmul(ry, two_pi))),
+           1.0f),
+      0.5f);
+  return fmul(f, g);
+}
+
+// 1 / max(|(x, y, z)|, 1e-20) in the twin's rounding order.
+__device__ __forceinline__ float inv_len(float x, float y, float z) {
+  return __fdiv_rn(
+      1.0f,
+      fmaxf(__fsqrt_rn(fadd(fadd(fmul(x, x), fmul(y, y)), fmul(z, z))),
+            1e-20f));
+}
+
+// Tangent-space normal-map texel -> world normal around n
+// (local_to_world(n, normalize(texel - 0.5)), _gbuffer_epilogue).
+__device__ __forceinline__ void normal_map(const float t[3], float& nx,
+                                           float& ny, float& nz) {
+  float vx = fsub(t[0], 0.5f), vy = fsub(t[1], 0.5f), vz = fsub(t[2], 0.5f);
+  const float vinv = inv_len(vx, vy, vz);
+  vx = fmul(vx, vinv);
+  vy = fmul(vy, vinv);
+  vz = fmul(vz, vinv);
+  const bool usez = fabsf(ny) > 0.9999f;
+  float bx = usez ? ny : -nz, by = usez ? -nx : 0.0f, bz = usez ? 0.0f : nx;
+  const float binv = inv_len(bx, by, bz);
+  bx = fmul(bx, binv);
+  by = fmul(by, binv);
+  bz = fmul(bz, binv);
+  const float tx = fsub(fmul(by, nz), fmul(bz, ny));
+  const float ty = fsub(fmul(bz, nx), fmul(bx, nz));
+  const float tz = fsub(fmul(bx, ny), fmul(by, nx));
+  const float rx = fadd(fadd(fmul(tx, vx), fmul(bx, vy)), fmul(nx, vz));
+  const float ry = fadd(fadd(fmul(ty, vx), fmul(by, vy)), fmul(ny, vz));
+  const float rz = fadd(fadd(fmul(tz, vx), fmul(bz, vy)), fmul(nz, vz));
+  const float rinv = inv_len(rx, ry, rz);
+  nx = fmul(rx, rinv);
+  ny = fmul(ry, rinv);
+  nz = fmul(rz, rinv);
+}
+
+// The interpolated texture coordinate of a hit (a + u b + v c).
+__device__ __forceinline__ float bary(float a, float b, float c, float u,
+                                      float v) {
+  return fadd(fadd(a, fmul(u, b)), fmul(v, c));
 }
 
 struct Ray {
@@ -114,11 +275,15 @@ struct Surface {
 // (best, bprim, bu, bv; best == RESTIR_BIG on a miss), reproject it
 // through the last camera, write the pixel's gb column and return what
 // the RIS core reads.
+// With TEX, the material's base, metallic, roughness and normal maps
+// (and the procedural base colour) are read at the hit's uv; with HAS_ENV a
+// miss carries the env radiance along the ray in the albedo slot.
+template <bool HAS_ENV, bool TEX>
 __device__ __forceinline__ Surface gbuffer_epilogue(
     float* __restrict__ gb, int p, int r, const Ray& ray, float best,
     int bprim, float bu, float bv, const float* __restrict__ attr,
     const float* __restrict__ mat, int n_mat, const float* __restrict__ lcam,
-    int width, int height, float aspect, int single_sided) {
+    int width, int height, float aspect, int single_sided, const EnvTex& et) {
   const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
   const float ox = ray.ox, oy = ray.oy, oz = ray.oz;
   const bool valid0 = best < RESTIR_BIG;
@@ -140,6 +305,28 @@ __device__ __forceinline__ Surface gbuffer_epilogue(
   const bool mat_ok = mat_id >= 0 && mat_id < n_mat;
   const float* mr = mat + (mat_ok ? mat_id : 0) * 16;
   auto M = [&](int j) { return mat_ok ? mr[j] : 0.0f; };
+
+  // metallic / roughness / normal maps, before the front-face test reads
+  // the normal (a per-pixel form of the TPU kernel's per-tile lax.cond)
+  float u_uv = 0.0f, v_uv = 0.0f, met_map = 0.0f, rough_map = 0.0f;
+  if constexpr (TEX) {
+    u_uv = bary(A(18), A(20), A(22), bu, bv);
+    v_uv = bary(A(19), A(21), A(23), bu, bv);
+    const float met_id = M(8), rough_id = M(9), nrm_id = M(10);
+    float t[3];
+    if (valid0 && met_id > -0.5f) {
+      tex_bilinear(et, __float2int_rz(met_id), u_uv, v_uv, t);
+      met_map = t[0];
+    }
+    if (valid0 && rough_id > -0.5f) {
+      tex_bilinear(et, __float2int_rz(rough_id), u_uv, v_uv, t);
+      rough_map = t[0];
+    }
+    if (valid0 && nrm_id > -0.5f) {
+      tex_bilinear(et, __float2int_rz(nrm_id), u_uv, v_uv, t);
+      normal_map(t, nxp, nyp, nzp);
+    }
+  }
 
   const float mtype = M(0);
   bool is_light = valid0 && mtype == 4.0f;
@@ -178,7 +365,27 @@ __device__ __forceinline__ Surface gbuffer_epilogue(
   const float gnx = valid ? nxp : 0.0f;
   const float gny = valid ? nyp : 0.0f;
   const float gnz = valid ? nzp : 0.0f;
-  const float metallic = M(4), roughness = M(5);
+  float metallic = M(4), roughness = M(5);
+  float alb[3] = {valid ? M(1) : 0.0f, valid ? M(2) : 0.0f,
+                  valid ? M(3) : 0.0f};
+  if constexpr (TEX) {
+    if (valid0 && M(8) > -0.5f) metallic = met_map;
+    if (valid0 && M(9) > -0.5f) roughness = rough_map;
+    const float tid = M(7);  // base map: -1 none, -2 procedural
+    if (valid && tid > -0.5f) {
+      tex_bilinear(et, __float2int_rz(tid), u_uv, v_uv, alb);
+    } else if (valid && tid > -2.5f && tid < -1.5f) {
+      alb[0] = alb[1] = alb[2] = procedural_tex(u_uv, v_uv);
+    }
+  }
+  if constexpr (HAS_ENV) {
+    if (!valid) {
+      const float4 e = env_tile_radiance(et.env_rad, dx, dy, dz);
+      alb[0] = e.x;
+      alb[1] = e.y;
+      alb[2] = e.z;
+    }
+  }
   const float prim_f = valid ? (float)bprim : -1.0f;
   float* g = gb + p;
   g[(size_t)(G_POS + 0) * r] = px;
@@ -190,9 +397,9 @@ __device__ __forceinline__ Surface gbuffer_epilogue(
   g[(size_t)(G_DIR + 0) * r] = dx;
   g[(size_t)(G_DIR + 1) * r] = dy;
   g[(size_t)(G_DIR + 2) * r] = dz;
-  g[(size_t)(G_ALB + 0) * r] = valid ? M(1) : 0.0f;
-  g[(size_t)(G_ALB + 1) * r] = valid ? M(2) : 0.0f;
-  g[(size_t)(G_ALB + 2) * r] = valid ? M(3) : 0.0f;
+  g[(size_t)(G_ALB + 0) * r] = alb[0];
+  g[(size_t)(G_ALB + 1) * r] = alb[1];
+  g[(size_t)(G_ALB + 2) * r] = alb[2];
   g[(size_t)G_DEPTH * r] = depth;
   g[(size_t)G_MOTION * r] = motion;
   g[(size_t)G_PRIMR * r] = prim_remap;
@@ -253,10 +460,14 @@ struct Candidate {
 // K-candidate CDF RIS over the per-pixel light CDF with a single-draw
 // winner (fused_di._ris_select_core). psi / lights are the [l_pad, 16]
 // tables (shared memory in the kernels). Lanes without a winner get
-// li = wi = 0, dist = 0.
+// li = wi = 0, dist = 0. With HAS_ENV, rows from n_area on are env tiles:
+// a pick there samples a uv-uniform direction in the tile with its exact
+// solid-angle pdf, and its shadow ray runs to RESTIR_ENV_DIST.
+template <bool HAS_ENV>
 __device__ __forceinline__ Candidate ris_select(
-    const float* psi, const float* lights, int l_pad, uint32_t pu,
-    uint32_t looper, int k, int single_sided, int has_met, const Surface& s) {
+    const float* psi, const float* lights, int l_pad, int n_area,
+    uint32_t pu, uint32_t looper, int k, int single_sided, int has_met,
+    const Surface& s) {
   const float px = s.px, py = s.py, pz = s.pz;
   const float mtype = s.mtype;
   const float wox = -s.dx, woy = -s.dy, woz = -s.dz;
@@ -321,20 +532,41 @@ __device__ __forceinline__ Candidate ris_select(
     }
     const float* L = lights + idx[j] * 16;
     const float q = tq[j] / total_safe;
-    const float sr = sqrtf(fmaxf(r3[j], 0.0f));
-    const float b_u = 1.0f - sr;
-    const float b_v = r2[j] * sr;
-    const float sx = L[0] + b_u * L[3] + b_v * L[6];
-    const float sy = L[1] + b_u * L[4] + b_v * L[7];
-    const float sz = L[2] + b_u * L[5] + b_v * L[8];
-    const float tx = sx - px, ty = sy - py, tz = sz - pz;
-    const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
-    const float inv_dist = 1.0f / sqrtf(dist2);
-    const float wix = tx * inv_dist, wiy = ty * inv_dist, wiz = tz * inv_dist;
-    const float cos_l = L[9] * wix + L[10] * wiy + L[11] * wiz;
-    float pdf = q * dist2 / fmaxf(L[15] * fabsf(cos_l), 1e-20f);
-    if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
-    pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
+    float wix, wiy, wiz, pdf, dist;
+    if (HAS_ENV && idx[j] >= n_area) {
+      // env tile (u0, v0 | du | dv): uv-uniform point, to_sphere
+      const float u_s = fadd(L[0], fmul(r2[j], L[3]));
+      const float v_s = fadd(L[1], fmul(r3[j], L[6]));
+      const float phi = fmul(u_s, 6.28318548f);  // float32(2 pi)
+      const float th = fmul(v_s, 3.14159274f);
+      const float st = sinf(th);
+      wix = fmul(cosf(phi), st);
+      wiy = cosf(th);
+      wiz = fmul(sinf(phi), st);
+      pdf = __fdiv_rn(q, fmaxf(fmul(fmul(fmul(L[3], L[6]), 19.7392082f),
+                                    fmaxf(st, 1e-6f)),
+                               1e-20f));
+      pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
+      dist = RESTIR_ENV_DIST;
+    } else {
+      const float sr = sqrtf(fmaxf(r3[j], 0.0f));
+      const float b_u = 1.0f - sr;
+      const float b_v = r2[j] * sr;
+      const float sx = L[0] + b_u * L[3] + b_v * L[6];
+      const float sy = L[1] + b_u * L[4] + b_v * L[7];
+      const float sz = L[2] + b_u * L[5] + b_v * L[8];
+      const float tx = sx - px, ty = sy - py, tz = sz - pz;
+      const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
+      const float inv_dist = 1.0f / sqrtf(dist2);
+      wix = tx * inv_dist;
+      wiy = ty * inv_dist;
+      wiz = tz * inv_dist;
+      const float cos_l = L[9] * wix + L[10] * wiy + L[11] * wiz;
+      pdf = q * dist2 / fmaxf(L[15] * fabsf(cos_l), 1e-20f);
+      if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
+      pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
+      dist = dist2 * inv_dist;
+    }
     const float f_lum = bsdf_lum(mtype, s.metallic, s.roughness, nx, ny, nz,
                                  wox, woy, woz, wix, wiy, wiz, has_met);
     const float li_lum = 0.2126f * L[12] + 0.7152f * L[13] + 0.0722f * L[14];
@@ -348,7 +580,7 @@ __device__ __forceinline__ Candidate ris_select(
     cwi[j][0] = wix;
     cwi[j][1] = wiy;
     cwi[j][2] = wiz;
-    cdist[j] = dist2 * inv_dist;
+    cdist[j] = dist;
   }
 
   // single-draw winner over the cumulative candidate weights

@@ -25,7 +25,12 @@
 // The per-pixel stages (raygen, plane test, epilogue, RIS core, shadow
 // ray limit) live in di_core.cuh, shared with B6 (gbuffer_bvh.cu) and B7
 // (reuse_bvh.cu); on scenes over 1024 triangles B6 + B7 replace launch
-// (a) and launch (b) runs unchanged after them.
+// (a) and launch (b) runs unchanged after them. Launch (a) is built four
+// times, for the env map (HAS_ENV: 512 env-tile rows join the light
+// tables, l_pad 128 -> 640 on the headline scene, and misses read the env
+// radiance) and for textures (TEX: atlas fetches in the epilogue, from
+// global memory through the read-only cache); the env-less, texture-less
+// instance is the build without those branches.
 //
 // The RNG counters are the JAX package's: candidate j draws
 // pcg4d(p, looper, 8 + j, SALT_RESTIR), the jitter pcg4d(p, looper, 0,
@@ -37,14 +42,15 @@ using namespace restir;
 
 namespace {
 
+template <bool HAS_ENV, bool TEX>
 __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
     uint32_t looper, const float* __restrict__ planes_g, int n_pad,
     const float* __restrict__ attr, const float* __restrict__ mat, int n_mat,
     const float* __restrict__ lights_g, const float* __restrict__ psi_g,
-    int l_pad, float* __restrict__ gb, float* __restrict__ rs, int width,
-    int height, float aspect, int aa_jitter, int single_sided, int k,
-    int has_met) {
+    int l_pad, int n_area, EnvTex et, float* __restrict__ gb,
+    float* __restrict__ rs, int width, int height, float aspect,
+    int aa_jitter, int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
   float* planes = reinterpret_cast<float*>(smem4);
   float* psi = planes + n_pad * 12;
@@ -77,11 +83,12 @@ __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
     }
   }
 
-  const Surface s = gbuffer_epilogue(gb, p, r, ray, best, bprim, bu, bv, attr,
-                                     mat, n_mat, lcam, width, height, aspect,
-                                     single_sided);
-  const Candidate c = ris_select(psi, lights, l_pad, (uint32_t)p, looper, k,
-                                 single_sided, has_met, s);
+  const Surface s = gbuffer_epilogue<HAS_ENV, TEX>(
+      gb, p, r, ray, best, bprim, bu, bv, attr, mat, n_mat, lcam, width,
+      height, aspect, single_sided, et);
+  const Candidate c = ris_select<HAS_ENV>(psi, lights, l_pad, n_area,
+                                          (uint32_t)p, looper, k,
+                                          single_sided, has_met, s);
 
   // ---- winner visibility: any hit before the light, own triangle excluded
   const float vox = s.px + c.wi[0] * 1e-5f;
@@ -102,8 +109,6 @@ __global__ void __launch_bounds__(TILE) di_temporal_kernel(
     const float* __restrict__ gb, const float* __restrict__ rs,
     const float* __restrict__ prev, float* __restrict__ pt, int r,
     uint32_t looper, int k, int temporal, float cap) {
-  __shared__ float warp_min[TILE / 32];
-  __shared__ int w0_s;
   const int p = blockIdx.x * TILE + threadIdx.x;
   const float* g = gb + p;
   const float motion = g[(size_t)G_MOTION * r];
@@ -125,26 +130,7 @@ __global__ void __launch_bounds__(TILE) di_temporal_kernel(
   float r_m = shade ? (float)k : 0.0f;
 
   if (temporal) {
-    // window start: min valid motion over the tile (miss pixels carry
-    // motion 0 and are excluded), rounded down to 128, clamped so the
-    // 2048-pixel window stays inside the previous pack
-    float mv = (motion >= 0.0f && !miss) ? motion : (float)r;
-    for (int off = 16; off > 0; off >>= 1)
-      mv = fminf(mv, __shfl_down_sync(0xffffffffu, mv, off));
-    if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = mv;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      float v = warp_min[threadIdx.x];
-      for (int off = 16; off > 0; off >>= 1)
-        v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (threadIdx.x == 0) {
-        int w0 = (__float2int_rz(v) / 128) * 128;
-        w0 = min(max(w0, 0), max(r - WINDOW, 0));
-        w0_s = w0;
-      }
-    }
-    __syncthreads();
-    const int w0 = w0_s;
+    const int w0 = tile_window_start(motion, miss, r);
 
     const int mot = __float2int_rz(motion);
     const int rel = mot - w0;
@@ -214,27 +200,60 @@ extern "C" const char* restir_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-extern "C" int restir_di_resident_gbuffer_ris(
-    const float* cam, const float* lcam, uint32_t looper, const float* planes,
-    int n_pad, const float* attr, const float* mat, int n_mat,
-    const float* lights, const float* psi, int l_pad, float* gb, float* rs,
-    int width, int height, float aspect, int aa_jitter, int single_sided,
-    int k, int has_met, void* stream) {
-  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+namespace {
+
+template <bool HAS_ENV, bool TEX>
+int launch_gbuffer_ris(const float* cam, const float* lcam, uint32_t looper,
+                       const float* planes, int n_pad, const float* attr,
+                       const float* mat, int n_mat, const float* lights,
+                       const float* psi, int l_pad, int n_area,
+                       const EnvTex& et, float* gb, float* rs, int width,
+                       int height, float aspect, int aa_jitter,
+                       int single_sided, int k, int has_met,
+                       cudaStream_t stream) {
   const int r = width * height;
   const size_t smem = (size_t)(n_pad * 12 + l_pad * 32) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        di_gbuffer_ris_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        di_gbuffer_ris_kernel<HAS_ENV, TEX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int block = 256;
-  di_gbuffer_ris_kernel<<<(r + block - 1) / block, block, smem,
-                          (cudaStream_t)stream>>>(
-      cam, lcam, looper, planes, n_pad, attr, mat, n_mat, lights, psi, l_pad,
-      gb, rs, width, height, aspect, aa_jitter, single_sided, k, has_met);
+  di_gbuffer_ris_kernel<HAS_ENV, TEX>
+      <<<(r + block - 1) / block, block, smem, stream>>>(
+          cam, lcam, looper, planes, n_pad, attr, mat, n_mat, lights, psi,
+          l_pad, n_area, et, gb, rs, width, height, aspect, aa_jitter,
+          single_sided, k, has_met);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int restir_di_resident_gbuffer_ris(
+    const float* cam, const float* lcam, uint32_t looper, const float* planes,
+    int n_pad, const float* attr, const float* mat, int n_mat,
+    const float* lights, const float* psi, int l_pad, int n_area,
+    const float* env_rad, const float* atlas, const float* tex_meta,
+    int n_tex, int has_env, int with_textures, float* gb, float* rs,
+    int width, int height, float aspect, int aa_jitter, int single_sided,
+    int k, int has_met, void* stream) {
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  const EnvTex et = {reinterpret_cast<const float4*>(env_rad),
+                     reinterpret_cast<const float4*>(atlas),
+                     reinterpret_cast<const float4*>(tex_meta), n_tex};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define RESTIR_B1_LAUNCH(E, T)                                              \
+  launch_gbuffer_ris<E, T>(cam, lcam, looper, planes, n_pad, attr, mat,     \
+                           n_mat, lights, psi, l_pad, n_area, et, gb, rs,   \
+                           width, height, aspect, aa_jitter, single_sided,  \
+                           k, has_met, st)
+  if (has_env)
+    return with_textures ? RESTIR_B1_LAUNCH(true, true)
+                         : RESTIR_B1_LAUNCH(true, false);
+  return with_textures ? RESTIR_B1_LAUNCH(false, true)
+                       : RESTIR_B1_LAUNCH(false, false);
+#undef RESTIR_B1_LAUNCH
 }
 
 extern "C" int restir_di_resident_temporal(const float* gb, const float* rs,

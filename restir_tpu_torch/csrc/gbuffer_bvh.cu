@@ -12,7 +12,8 @@
 //
 // Per pixel: raygen with AA jitter, the closest-hit walk (padded-box slab
 // tests, unit-plane leaf tests), then B1's G-buffer epilogue
-// (di_core.cuh), so the pack equals B1's wherever the hit does.
+// (di_core.cuh), so the pack equals B1's wherever the hit does. The
+// epilogue's env and texture branches are template flags, as in B1.
 //
 // Bound: neither bytes nor FMAs. The tables (hall: 81,036 planes, 162,071
 // nodes, ~35 MB) sit in the 50 MB L2 and the pack write is 96 B/pixel;
@@ -27,13 +28,13 @@ using namespace restir;
 
 namespace {
 
-template <bool COUNT>
+template <bool COUNT, bool HAS_ENV, bool TEX>
 __global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
     uint32_t looper, BvhView bvh, const float* __restrict__ attr,
-    const float* __restrict__ mat, int n_mat, float* __restrict__ gb,
-    int* __restrict__ stats, int width, int height, float aspect,
-    int aa_jitter, int single_sided) {
+    const float* __restrict__ mat, int n_mat, EnvTex et,
+    float* __restrict__ gb, int* __restrict__ stats, int width, int height,
+    float aspect, int aa_jitter, int single_sided) {
   const int r = width * height;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= r) return;
@@ -43,12 +44,28 @@ __global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
   float bu, bv;
   const float best = closest_walk<COUNT>(bvh, ray.ox, ray.oy, ray.oz, ray.dx,
                                          ray.dy, ray.dz, prim, bu, bv, n);
-  gbuffer_epilogue(gb, p, r, ray, best, prim, bu, bv, attr, mat, n_mat, lcam,
-                   width, height, aspect, single_sided);
+  gbuffer_epilogue<HAS_ENV, TEX>(gb, p, r, ray, best, prim, bu, bv, attr,
+                                 mat, n_mat, lcam, width, height, aspect,
+                                 single_sided, et);
   if (COUNT) {
     stats[p] = n.boxes;
     stats[(size_t)r + p] = n.tris;
   }
+}
+
+template <bool COUNT, bool HAS_ENV, bool TEX>
+int launch_gbuffer_bvh(const float* cam, const float* lcam, uint32_t looper,
+                       const BvhView& bvh, const float* attr, const float* mat,
+                       int n_mat, const EnvTex& et, float* gb, int* stats,
+                       int width, int height, float aspect, int aa_jitter,
+                       int single_sided, cudaStream_t stream) {
+  const int r = width * height;
+  const int block = 256;
+  gbuffer_bvh_kernel<COUNT, HAS_ENV, TEX>
+      <<<(r + block - 1) / block, block, 0, stream>>>(
+          cam, lcam, looper, bvh, attr, mat, n_mat, et, gb, stats, width,
+          height, aspect, aa_jitter, single_sided);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -59,7 +76,10 @@ extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
                                   uint32_t looper, const float* bounds,
                                   const int* nodes, int size,
                                   const float* planes, const float* attr,
-                                  const float* mat, int n_mat, float* gb,
+                                  const float* mat, int n_mat,
+                                  const float* env_rad, const float* atlas,
+                                  const float* tex_meta, int n_tex,
+                                  int has_env, int with_textures, float* gb,
                                   int* stats, int width, int height,
                                   float aspect, int aa_jitter,
                                   int single_sided, void* stream) {
@@ -67,15 +87,20 @@ extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
   if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
   const BvhView bvh = {reinterpret_cast<const float4*>(bounds),
                        reinterpret_cast<const int4*>(nodes), planes, size};
-  const int block = 256;
-  const int grid = (r + block - 1) / block;
-  if (stats)
-    gbuffer_bvh_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        cam, lcam, looper, bvh, attr, mat, n_mat, gb, stats, width, height,
-        aspect, aa_jitter, single_sided);
-  else
-    gbuffer_bvh_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        cam, lcam, looper, bvh, attr, mat, n_mat, gb, stats, width, height,
-        aspect, aa_jitter, single_sided);
-  return (int)cudaGetLastError();
+  const EnvTex et = {reinterpret_cast<const float4*>(env_rad),
+                     reinterpret_cast<const float4*>(atlas),
+                     reinterpret_cast<const float4*>(tex_meta), n_tex};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define RESTIR_B6_LAUNCH(C, E, T)                                          \
+  launch_gbuffer_bvh<C, E, T>(cam, lcam, looper, bvh, attr, mat, n_mat, et, \
+                              gb, stats, width, height, aspect, aa_jitter, \
+                              single_sided, st)
+#define RESTIR_B6_FLAGS(C)                                                \
+  (has_env ? (with_textures ? RESTIR_B6_LAUNCH(C, true, true)             \
+                            : RESTIR_B6_LAUNCH(C, true, false))           \
+           : (with_textures ? RESTIR_B6_LAUNCH(C, false, true)            \
+                            : RESTIR_B6_LAUNCH(C, false, false)))
+  return stats ? RESTIR_B6_FLAGS(true) : RESTIR_B6_FLAGS(false);
+#undef RESTIR_B6_FLAGS
+#undef RESTIR_B6_LAUNCH
 }

@@ -16,18 +16,23 @@
 // Bound: FMA throughput for the RIS core (2 x l_pad light targets per
 // pixel, ~8 kFLOP at l_pad = 128), then the latency of the shadow walk's
 // dependent loads. Lanes without a live winner skip the walk.
+//
+// With an env map (template flag HAS_ENV) the 512 env tiles join the light
+// tables as virtual lights (l_pad 128 -> 640 on the hall: 80 KB of shared
+// memory per block, through the dynamic shared-memory opt-in), and an env
+// winner's shadow ray runs to RESTIR_ENV_DIST.
 #include "bvh.cuh"
 
 using namespace restir;
 
 namespace {
 
-template <bool COUNT>
+template <bool COUNT, bool HAS_ENV>
 __global__ void __launch_bounds__(256) reuse_bvh_kernel(
     const float* __restrict__ gb, uint32_t looper,
     const float* __restrict__ lights_g, const float* __restrict__ psi_g,
-    int l_pad, BvhView bvh, float* __restrict__ rs, int* __restrict__ stats,
-    int r, int single_sided, int k, int has_met) {
+    int l_pad, int n_area, BvhView bvh, float* __restrict__ rs,
+    int* __restrict__ stats, int r, int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
   float* psi = reinterpret_cast<float*>(smem4);
   float* lights = psi + l_pad * 16;
@@ -40,8 +45,9 @@ __global__ void __launch_bounds__(256) reuse_bvh_kernel(
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= r) return;
   const Surface s = load_surface(gb, p, r);
-  const Candidate c = ris_select(psi, lights, l_pad, (uint32_t)p, looper, k,
-                                 single_sided, has_met, s);
+  const Candidate c = ris_select<HAS_ENV>(psi, lights, l_pad, n_area,
+                                          (uint32_t)p, looper, k,
+                                          single_sided, has_met, s);
   WalkCount n = {0, 0};
   const bool occluded = occluded_walk<COUNT>(
       bvh, s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
@@ -54,41 +60,50 @@ __global__ void __launch_bounds__(256) reuse_bvh_kernel(
   }
 }
 
+template <bool COUNT, bool HAS_ENV>
+int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
+                     const float* psi, int l_pad, int n_area,
+                     const BvhView& bvh, float* rs, int* stats, int r,
+                     int single_sided, int k, int has_met,
+                     cudaStream_t stream) {
+  const size_t smem = (size_t)l_pad * 32 * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reuse_bvh_kernel<COUNT, HAS_ENV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int block = 256;
+  reuse_bvh_kernel<COUNT, HAS_ENV>
+      <<<(r + block - 1) / block, block, smem, stream>>>(
+          gb, looper, lights, psi, l_pad, n_area, bvh, rs, stats, r,
+          single_sided, k, has_met);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // stats: null, or int32 [2, R] that receives each shadow ray's box and
 // triangle test counts.
 extern "C" int restir_reuse_bvh(const float* gb, uint32_t looper,
                                 const float* lights, const float* psi,
-                                int l_pad, const float* bounds,
-                                const int* nodes, int size,
-                                const float* planes, float* rs, int* stats,
-                                int r, int single_sided, int k, int has_met,
-                                void* stream) {
+                                int l_pad, int n_area, int has_env,
+                                const float* bounds, const int* nodes,
+                                int size, const float* planes, float* rs,
+                                int* stats, int r, int single_sided, int k,
+                                int has_met, void* stream) {
   if (k < 1 || k > MAX_K || r <= 0 || size <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)l_pad * 32 * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        reuse_bvh_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(reuse_bvh_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const BvhView bvh = {reinterpret_cast<const float4*>(bounds),
                        reinterpret_cast<const int4*>(nodes), planes, size};
-  const int block = 256;
-  const int grid = (r + block - 1) / block;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define RESTIR_B7_LAUNCH(C, E)                                              \
+  launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, bvh, rs,   \
+                         stats, r, single_sided, k, has_met, st)
   if (stats)
-    reuse_bvh_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-        gb, looper, lights, psi, l_pad, bvh, rs, stats, r, single_sided, k,
-        has_met);
-  else
-    reuse_bvh_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
-        gb, looper, lights, psi, l_pad, bvh, rs, stats, r, single_sided, k,
-        has_met);
-  return (int)cudaGetLastError();
+    return has_env ? RESTIR_B7_LAUNCH(true, true)
+                   : RESTIR_B7_LAUNCH(true, false);
+  return has_env ? RESTIR_B7_LAUNCH(false, true)
+                 : RESTIR_B7_LAUNCH(false, false);
+#undef RESTIR_B7_LAUNCH
 }

@@ -7,7 +7,11 @@ triangles); a larger scene runs B6 (`gbuffer_pack`: MTBVH closest hit +
 G-buffer) and B7 (`reuse`: RIS + MTBVH any-hit shadow ray, then B1's
 temporal merge) in its place, as the JAX step switches to its streaming
 kernels. Then B2 (`spatial_shade`: spatial merge, shade, running mean
-into the accumulator) and B3 (`atrous_level`, once per EAW level).
+into the accumulator) and the denoiser: B3 (`atrous_level`, once per EAW
+level), or SVGF (B5 `svgf_temporal`, the variance estimate, then per
+level the variance prefilter and B4 `atrous_svgf_level`).
+`cfg.has_env_map` adds the env map (env-tile light rows, env background
+on misses) and `cfg.with_textures` the texture maps to B1 / B6 / B7.
 State packs are flat channel-major [C, R] float32 tensors with the JAX
 package's channel layout; `looper` and `iteration` are Python ints, so a
 frame never waits on the device for them.
@@ -18,14 +22,15 @@ tiles, so the pixel count must be a multiple of 1024.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from ..config import DenoiserType, RenderConfig, ReuseMode, TracerType
 from ..ops.camera import Camera, pack_camera
-from ..ops.kernels import atrous, fused_di, gbuffer, reuse, spatial
+from ..ops.kernels import atrous, fused_di, gbuffer, reuse, spatial, svgf
 from ..ops.kernels.fused_di import G_ALB, PT_CH, TILE
+from ..ops.kernels.svgf import SV_CH, SV_COL, SV_PRIM
 from ..scene.scene_data import SceneTensors
 
 RESIDENT_MAX_TRIS = 1024  # larger scenes take the MTBVH kernels B6 + B7
@@ -36,13 +41,13 @@ class FusedDIState(NamedTuple):
     iteration: int  # accumulation frame count
     accum: torch.Tensor  # [3, R] running-mean direct radiance
     pt_pack: torch.Tensor  # [PT_CH, R] post-temporal reuse pack
-    svgf_pack: torch.Tensor  # [1, 1, 1] (SVGF is not ported)
+    svgf_pack: torch.Tensor  # [SV_CH, R] with SVGF, else [1, 1, 1]
     accum_ind: torch.Tensor  # [1, 1, 1] (DI only)
     gi_q: torch.Tensor  # [1, 1, 1] (DI only)
     last_camera: Camera
 
 
-def ineligibility(scene: Optional[SceneTensors], cfg: RenderConfig):
+def ineligibility(cfg: RenderConfig):
     """Why `cfg` cannot run on the ported fused path (None if it can).
     Each reason names the ROADMAP item that will bring it."""
     reasons = []
@@ -53,12 +58,9 @@ def ineligibility(scene: Optional[SceneTensors], cfg: RenderConfig):
         reasons.append(f"ris_mode {cfg.ris_mode!r} (ROADMAP Queue A 7)")
     if cfg.sampler != "pcg4d":
         reasons.append(f"sampler {cfg.sampler!r} (ROADMAP Queue A 7)")
-    if cfg.denoiser not in (DenoiserType.NONE, DenoiserType.EAW):
-        reasons.append("SVGF denoiser (ROADMAP Queue A 4)")
-    if cfg.has_env_map or cfg.with_textures or (
-            scene is not None and (scene.has_env_map or scene.has_textures)):
-        reasons.append("env map / textures (ROADMAP: B1 env/texture "
-                       "branches)")
+    if cfg.denoiser not in (DenoiserType.NONE, DenoiserType.EAW,
+                            DenoiserType.SVGF):
+        reasons.append(f"denoiser {cfg.denoiser}")
     if cfg.enable_dof:
         reasons.append("thin-lens DoF (ROADMAP Queue A 7)")
     if cfg.num_pixels % TILE != 0:
@@ -77,6 +79,14 @@ def _copy_camera(cam: Camera) -> Camera:
                     for x in cam))
 
 
+def _svgf_history(r: int, device) -> torch.Tensor:
+    """An empty svgf pack: prim history NULL, so the next frame
+    disoccludes everywhere (0.0 would be a valid prim id)."""
+    sv = torch.zeros((SV_CH, r), dtype=torch.float32, device=device)
+    sv[SV_PRIM] = -1.0
+    return sv
+
+
 def init_state(cfg: RenderConfig, cam: Camera,
                device="cuda") -> FusedDIState:
     r = cfg.num_pixels
@@ -86,7 +96,8 @@ def init_state(cfg: RenderConfig, cam: Camera,
         iteration=0,
         accum=torch.zeros((3, r), dtype=torch.float32, device=dev),
         pt_pack=torch.zeros((PT_CH, r), dtype=torch.float32, device=dev),
-        svgf_pack=_empty(dev),
+        svgf_pack=(_svgf_history(r, dev)
+                   if cfg.denoiser == DenoiserType.SVGF else _empty(dev)),
         accum_ind=_empty(dev),
         gi_q=_empty(dev),
         last_camera=_copy_camera(cam),
@@ -94,10 +105,13 @@ def init_state(cfg: RenderConfig, cam: Camera,
 
 
 def reset_accumulation(state: FusedDIState) -> FusedDIState:
+    sv = state.svgf_pack
     return state._replace(
         iteration=0,
         accum=torch.zeros_like(state.accum),
         pt_pack=torch.zeros_like(state.pt_pack),
+        svgf_pack=(_svgf_history(sv.shape[1], sv.device)
+                   if sv.shape[0] == SV_CH else torch.zeros_like(sv)),
     )
 
 
@@ -108,7 +122,7 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
     The step consumes `state`, as the JAX step donates it: kernel B2
     updates `state.accum` in place and the new state holds that tensor.
     Without a denoiser the frame is that accumulator too."""
-    reason = ineligibility(scene, cfg)
+    reason = ineligibility(cfg)
     if reason is not None:
         raise NotImplementedError(f"fused DI path: {reason}")
     dev = state.pt_pack.device
@@ -121,15 +135,17 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
     kw = dict(single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
               temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
               temporal_clamp=cfg.temporal_clamp,
-              has_met=cfg.scene_has_metallic)
+              has_met=cfg.scene_has_metallic, has_env=cfg.has_env_map)
     if scene.num_tris <= RESIDENT_MAX_TRIS:
         gb, pt = fused_di.di_resident(
             cam_vec, lcam_vec, looper, state.pt_pack, scene.tables,
-            width=w, height=h, aa_jitter=cfg.aa_jitter, **kw)
+            width=w, height=h, aa_jitter=cfg.aa_jitter,
+            with_textures=cfg.with_textures, **kw)
     else:
         gb = gbuffer.gbuffer_pack(
             cam_vec, lcam_vec, looper, scene.bvh, width=w, height=h,
-            aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights)
+            aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights,
+            has_env=cfg.has_env_map, with_textures=cfg.with_textures)
         pt = reuse.reuse(gb, state.pt_pack, looper, scene.tables, scene.bvh,
                          **kw)
 
@@ -143,33 +159,65 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
         has_met=cfg.scene_has_metallic)
 
     frame = accum
+    svgf_pack = state.svgf_pack
     if cfg.denoiser == DenoiserType.EAW:
         frame = eaw_filter_packed(frame, gb, cfg)
+    elif cfg.denoiser == DenoiserType.SVGF:
+        frame, svgf_pack = svgf_filter_packed(frame, gb, svgf_pack, cfg)
 
     next_state = state._replace(
         looper=(looper + 1) & 0xFFFFFFFF,
         iteration=state.iteration + 1,
         accum=accum,
         pt_pack=pt,
+        svgf_pack=svgf_pack,
         last_camera=_copy_camera(cam),
     )
     return next_state, frame
+
+
+def _demod(frame, gb_pack, cfg: RenderConfig):
+    """(frame / albedo, albedo) with albedos <= 1e-4 read as 1, or
+    (frame, None) without `modulate_albedo`."""
+    if not cfg.modulate_albedo:
+        return frame, None
+    albedo = torch.clamp(gb_pack[G_ALB:G_ALB + 3], min=0.0)
+    safe = torch.where(albedo > 1e-4, albedo, 1.0)
+    return frame / safe, safe
 
 
 def eaw_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
                       cfg: RenderConfig) -> torch.Tensor:
     """EAW à-trous chain on [3, R]: demodulate by the G-buffer albedo,
     run `cfg.eaw_levels` levels of kernel B3, modulate back."""
-    albedo = torch.clamp(gb_pack[G_ALB:G_ALB + 3], min=0.0)
-    if cfg.modulate_albedo:
-        safe = torch.where(albedo > 1e-4, albedo, 1.0)
-        color = frame / safe
-    else:
-        safe = None
-        color = frame
+    color, safe = _demod(frame, gb_pack, cfg)
     for level in range(cfg.eaw_levels):
         color = atrous.atrous_level(
             color.contiguous(), gb_pack, level=level, width=cfg.width,
             height=cfg.height, sig_l=cfg.sig_luminance,
             sig_n=cfg.sig_normal, sig_d=cfg.sig_depth)
     return color if safe is None else color * safe
+
+
+def svgf_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
+                       svgf_prev: torch.Tensor, cfg: RenderConfig):
+    """SVGF on [3, R] (denoiser.cu:479-568): demodulate, accumulate with
+    the history (B5), estimate the variance, then per level prefilter it
+    and run B4. Returns (filtered frame, next svgf pack); the colour
+    history fed forward is the level-0 output (denoiser.cu:542-543)."""
+    w, h = cfg.width, cfg.height
+    demod, safe = _demod(frame, gb_pack, cfg)
+    sv = svgf.svgf_temporal(gb_pack, demod.contiguous(), svgf_prev)
+    var = svgf.estimate_variance(sv, width=w, height=h)
+    color = sv[SV_COL:SV_COL + 3]
+    history = color
+    for level in range(cfg.eaw_levels):
+        fv = svgf.filter_variance(var, width=w, height=h)
+        color, var = atrous.atrous_svgf_level(
+            color.contiguous(), var, fv, gb_pack, level=level, width=w,
+            height=h, sig_l=cfg.sig_luminance, sig_n=cfg.svgf_sig_normal,
+            sig_d=cfg.svgf_sig_depth)
+        if level == 0:
+            history = color
+    sv[SV_COL:SV_COL + 3] = history
+    return (color if safe is None else color * safe), sv

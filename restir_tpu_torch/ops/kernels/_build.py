@@ -115,7 +115,8 @@ _U = ctypes.c_uint32
 
 _SIGNATURES = {
     "restir_di_resident_gbuffer_ris": [
-        _VP, _VP, _U, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP,
+        _VP, _VP, _U, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I,
+        _VP, _VP, _VP, _I, _I, _I, _VP, _VP,
         _I, _I, _F, _I, _I, _I, _I, _VP],
     "restir_di_resident_temporal": [
         _VP, _VP, _VP, _VP, _I, _U, _I, _I, _F, _VP],
@@ -123,12 +124,18 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _I, _I, _I, _U, _I, _I, _I, _VP],
     "restir_atrous_eaw": [
         _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
+    "restir_atrous_svgf": [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
     "restir_gbuffer_bvh": [
-        _VP, _VP, _U, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
+        _VP, _VP, _U, _VP, _VP, _I, _VP, _VP, _VP, _I,
+        _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
         _F, _I, _I, _VP],
     "restir_reuse_bvh": [
-        _VP, _U, _VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I,
-        _VP],
+        _VP, _U, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _I,
+        _I, _I, _VP],
+    "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
+    "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
+    "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
 }
 
 

@@ -1,4 +1,5 @@
-"""Kernel B3: one EAW à-trous level, and its plain twin.
+"""Kernels B3 and B4: one à-trous level (EAW or SVGF), and their plain
+twins.
 
 Port of `restir_tpu.ops.pallas.atrous_kernel._atrous_kernel` in `eaw`
 mode (`atrous_level_pallas`): 5x5 Gaussian taps at stride 2^level with
@@ -7,6 +8,13 @@ colour, normal and position edge stops and primitive rejection
 normal, position) are read straight from the G-buffer pack, so no
 [10, R] concatenation is built per level. Taps run in the reference's
 order (rows outer, columns inner) so the sums round the same way.
+
+B4 (`atrous_svgf_level`) is `_atrous_kernel` in `svgf` mode
+(waveletFilter, denoiser.cu:139-216): the luminance edge stop divides by
+sigma_l * sqrt(prefiltered variance), the normal weight is
+max(n.n', 0)^sigma_n (as exp(sigma_n log(.)), the JAX kernel's form),
+every weight gets + 1e-4, and the variance is filtered with the squared
+weights. It returns colour [3, R] and variance [R].
 """
 
 from __future__ import annotations
@@ -18,7 +26,9 @@ import torch
 from . import _build
 from .fused_di import G_NORM, G_POS, G_PRIMR, GB_CH, NULL, _check
 
-launches = 0  # CUDA kernel launches
+launches = 0  # CUDA kernel launches (B3)
+svgf_launches = 0  # CUDA kernel launches (B4)
+F32_EPS = 1.1920928955078125e-07  # float32 machine epsilon
 
 # 5x5 Gaussian (denoiser.cu:11-17)
 GAUSSIAN_5 = (
@@ -111,4 +121,95 @@ def atrous_level(color, gb, *, level, width, height, sig_l, sig_n, sig_d):
         return atrous_level_ref(color, gb, **kw)
     if color.device.type == "cuda":
         return atrous_level_cuda(color, gb, **kw)
+    raise ValueError(f"unsupported device {color.device}")
+
+
+def _lum(c):
+    return 0.2126 * c[0] + 0.7152 * c[1] + 0.0722 * c[2]
+
+
+def atrous_svgf_ref(color, var, fv, gb, *, level, width, height, sig_l,
+                    sig_n, sig_d):
+    """Plain twin of B4: colour [3, R], variance [R], prefiltered
+    variance [R] -> (colour [3, R], variance [R])."""
+    h, w = height, width
+    c = color.view(3, h, w)
+    v = var.view(h, w)
+    f = fv.view(h, w)
+    prim = gb[G_PRIMR].view(h, w)
+    norm = gb[G_NORM:G_NORM + 3].view(3, h, w)
+    pos = gb[G_POS:G_POS + 3].view(3, h, w)
+    inb = torch.ones((h, w), dtype=torch.float32, device=color.device)
+    step = 1 << level
+    lum_p = _lum(c)
+    sum_c = torch.zeros_like(c)
+    sum_w = torch.zeros_like(prim)
+    sum_v = torch.zeros_like(prim)
+    sum_w2 = torch.zeros_like(prim)
+    for i in range(-2, 3):
+        if abs(i) * step >= h:
+            continue
+        for j in range(-2, 3):
+            if abs(j) * step >= w:
+                continue
+            gk = GAUSSIAN_5[i + 2][j + 2]
+            dy, dx = i * step, j * step
+            ok = (_shift(inb, dy, dx) > 0.0) & (_shift(prim, dy, dx) == prim)
+            cq = _shift(c, dy, dx)
+            nq = _shift(norm, dy, dx)
+            pq = _shift(pos, dy, dx)
+            d2p = ((pos[0] - pq[0]) ** 2 + (pos[1] - pq[1]) ** 2
+                   + (pos[2] - pq[2]) ** 2)
+            wp = torch.exp(-d2p / sig_d) + 1e-4
+            ndot = torch.clamp(norm[0] * nq[0] + norm[1] * nq[1]
+                               + norm[2] * nq[2], min=0.0)
+            wn = torch.exp(sig_n * torch.log(torch.clamp(ndot, min=1e-30)))
+            wn = wn + 1e-4
+            denom = sig_l * torch.sqrt(torch.clamp(_shift(f, dy, dx),
+                                                   min=0.0)) + 1e-4
+            wc = torch.exp(-torch.abs(lum_p - _lum(cq)) / denom) + 1e-4
+            weight = torch.where(ok, wc * wn * wp * gk, 0.0)
+            w2 = weight * weight
+            sum_v = sum_v + _shift(v, dy, dx) * w2
+            sum_w2 = sum_w2 + w2
+            sum_c = sum_c + cq * weight[None]
+            sum_w = sum_w + weight
+    keep = (sum_w < F32_EPS) | (prim <= NULL)
+    out_c = sum_c / torch.clamp(sum_w, min=1e-20)[None]
+    out_v = sum_v / torch.clamp(sum_w2, min=1e-20)
+    return (torch.where(keep[None], c, out_c).reshape(3, h * w),
+            torch.where(keep, v, out_v).reshape(h * w))
+
+
+def atrous_svgf_cuda(color, var, fv, gb, *, level, width, height, sig_l,
+                     sig_n, sig_d):
+    """Launch B4 (`atrous_svgf_kernel` of `csrc/atrous.cu`)."""
+    global svgf_launches
+    r = width * height
+    dev = color.device
+    _check(color, "color", (3, r), dev)
+    _check(var, "var", (r,), dev)
+    _check(fv, "fv", (r,), dev)
+    _check(gb, "gb", (GB_CH, r), dev)
+    out = torch.empty((4, r), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.library().restir_atrous_svgf(
+        p(color), p(var), p(fv), p(gb), p(out), width, height, level,
+        ctypes.c_float(sig_l), ctypes.c_float(sig_n), ctypes.c_float(sig_d),
+        _build.stream_of(dev))
+    _build.check(err, "restir_atrous_svgf")
+    svgf_launches += 1
+    return out[0:3], out[3]
+
+
+def atrous_svgf_level(color, var, fv, gb, *, level, width, height, sig_l,
+                      sig_n, sig_d):
+    """One SVGF level: (colour [3, R], variance [R]). CPU tensors take the
+    plain twin, CUDA tensors the kernel."""
+    kw = dict(level=level, width=width, height=height, sig_l=sig_l,
+              sig_n=sig_n, sig_d=sig_d)
+    if color.device.type == "cpu":
+        return atrous_svgf_ref(color, var, fv, gb, **kw)
+    if color.device.type == "cuda":
+        return atrous_svgf_cuda(color, var, fv, gb, **kw)
     raise ValueError(f"unsupported device {color.device}")

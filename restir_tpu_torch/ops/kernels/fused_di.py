@@ -13,6 +13,12 @@ the plain twin `di_resident_ref`, CUDA tensors the hand-written kernel
 in `csrc/fused_di.cu` (two launches: hit + G-buffer + RIS + visibility,
 then the per-tile temporal merge). Nothing falls back.
 
+`has_env` adds the env map (the 512 env tiles join the light CDF as
+virtual lights; a miss carries the tile radiance along the ray in the
+albedo slot) and `with_textures` the base / metallic / roughness / normal
+maps and the procedural base colour, as the JAX kernel's flags of the
+same names (`_env_tile_radiance`, `_tex_bilinear`, `_procedural_tex`).
+
 The twin's stages (`gbuffer_pixels`, `ris_pixels`, `shadow_pixels`,
 `temporal_pixels`) are also the twins of kernels B6 and B7
 (`gbuffer.py`, `reuse.py`), and `temporal_cuda` launches B1b alone after
@@ -24,7 +30,9 @@ Pack layouts are the JAX package's channel indices, as flat [C, R].
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from ...utils import rng
@@ -82,6 +90,10 @@ INV_PI = 1.0 / PI
 CTR_TEMPORAL = 0
 CTR_SPATIAL = 1
 CTR_RIS = 8
+
+ENV_DIST = 1.0e8  # shadow-ray limit of an env winner (ops/lights.ENV_DIST)
+ENV_TH, ENV_TW = 16, 32  # env tile grid (scene_data.ENV_TILE_H/W)
+SMEM_MAX = 232448  # shared memory a block can use on Hopper (bytes)
 
 launches = 0  # CUDA kernel launches (two per di_resident call)
 temporal_launches = 0  # B1b launches through temporal_cuda (split path)
@@ -143,9 +155,131 @@ def _bad(w):
 
 
 def _trunc_i32(x):
-    """float -> int32 toward zero, saturating (XLA/PTX cvt semantics)."""
-    x = torch.nan_to_num(x, nan=0.0)
-    return torch.clamp(x, -2147483648.0, 2147483520.0).to(torch.int32)
+    """float -> int32 toward zero, saturating, NaN -> 0 (XLA's convert and
+    PTX cvt.rzi.s32.f32)."""
+    x = torch.clamp(torch.nan_to_num(x, nan=0.0), -2147483648.0,
+                    2147483648.0)
+    return torch.clamp(x.to(torch.int64), -2147483648,
+                       2147483647).to(torch.int32)
+
+
+def check_env(env_rad, has_env: bool) -> None:
+    """Env branches read 512 env-tile rows; refuse a scene without them."""
+    if has_env and env_rad.shape[0] != ENV_TH * ENV_TW:
+        raise ValueError("has_env_map is set but the scene has no env map")
+
+
+def _pseudo_angle_const(phi: float) -> float:
+    """Monotone trig-free surrogate p(phi) in [0, 4) of an azimuth
+    (fused_di._pseudo_angle_const), in double."""
+    ax, az = math.cos(phi), math.sin(phi)
+    p = az / (abs(ax) + abs(az) + 1e-20)
+    if ax < 0:
+        p = 2.0 - p
+    elif az < 0:
+        p = 4.0 + p
+    return p
+
+
+# float32 tile thresholds of env_tile_radiance, computed in double (the
+# same constants as kEnvCosY / kEnvAngX in csrc/di_core.cuh)
+ENV_COS_Y = np.float32([math.cos(math.pi * t / ENV_TH)
+                        for t in range(1, ENV_TH)])
+ENV_ANG_X = np.float32([_pseudo_angle_const(2.0 * math.pi * s / ENV_TW)
+                        for s in range(1, ENV_TW)])
+
+
+def env_tile_radiance(env_rad, dx, dy, dz):
+    """Piecewise-constant env radiance [3, b] along (dx, dy, dz): the tile
+    from 15 cosine compares on dy and 31 pseudo-angle compares on
+    (dx, dz) (fused_di._env_tile_radiance)."""
+    cy = torch.as_tensor(ENV_COS_Y, device=dy.device)
+    ax = torch.as_tensor(ENV_ANG_X, device=dy.device)
+    ty = (dy[:, None] <= cy[None, :]).sum(dim=1)
+    p = dz / (torch.abs(dx) + torch.abs(dz) + 1e-20)
+    p = torch.where(dx < 0.0, 2.0 - p, torch.where(dz < 0.0, 4.0 + p, p))
+    tx = (p[:, None] >= ax[None, :]).sum(dim=1)
+    return env_rad[ty * ENV_TW + tx, 0:3].T
+
+
+def _wrap(a, m):
+    w = a - torch.floor(a / m) * m
+    return torch.where(w >= m, 0.0, w)
+
+
+def tex_bilinear(atlas, tex_meta, tid_f, u_uv, v_uv):
+    """Wrap-mode bilinear fetch [3, b] of texture ids `tid_f` (float; a
+    negative id reads texture 0) at (u, v) from the mip-clamped atlas
+    (fused_di._tex_bilinear; image.h:41-74)."""
+    n_tex = tex_meta.shape[0]
+    tid = _trunc_i32(torch.clamp(tid_f, min=0.0)).to(torch.int64)
+    ok = tid < n_tex
+    meta = tex_meta[torch.where(ok, tid, 0)].T
+    row0 = torch.where(ok, meta[0], 0.0)
+    tw = torch.clamp(torch.where(ok, meta[1], 0.0), min=1.0)
+    th = torch.clamp(torch.where(ok, meta[2], 0.0), min=1.0)
+    u = u_uv - torch.floor(u_uv)
+    v = v_uv - torch.floor(v_uv)
+    fx = u * tw - 0.5
+    fy = v * th - 0.5
+    ix = torch.floor(fx)
+    iy = torch.floor(fy)
+    lx = fx - ix
+    ly = fy - iy
+    x0 = _wrap(ix, tw)
+    y0 = _wrap(iy, th)
+    x1 = _wrap(x0 + 1.0, tw)
+    y1 = _wrap(y0 + 1.0, th)
+
+    def texel(y, x):
+        row = _trunc_i32(row0 + y).to(torch.int64)
+        return atlas[row * 128 + _trunc_i32(x).to(torch.int64), 0:3].T
+
+    c00, c10 = texel(y0, x0), texel(y0, x1)
+    c01, c11 = texel(y1, x0), texel(y1, x1)
+    cx0 = c00 + (c10 - c00) * lx
+    cx1 = c01 + (c11 - c01) * lx
+    return cx0 + (cx1 - cx0) * ly
+
+
+def procedural_tex(u_uv, v_uv):
+    """Sine-grid procedural texture (fused_di._procedural_tex; scene.h:
+    68-76): the cell index wraps as uint32, its pcg4d stream jitters the
+    phase."""
+    cell = (_trunc_i32(u_uv * 1024.0).to(torch.int64) * 1024
+            + _trunc_i32(v_uv * 1024.0).to(torch.int64))
+    h = rng.pcg4d(cell, 0, 0, rng.SALT_DEBUG)
+    rx, ry = rng._unit(h[0]), rng._unit(h[1])
+    two_pi = 2.0 * PI
+    f = (torch.sin(u_uv * 10.0 * two_pi + rx * two_pi) + 1.0) * 0.5
+    g = (torch.sin(v_uv * 10.0 * two_pi + ry * two_pi) + 1.0) * 0.5
+    return f * g
+
+
+def _inv_len(x, y, z):
+    return 1.0 / torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-20)
+
+
+def normal_map(rgb, nx, ny, nz):
+    """World normal from a tangent-space normal-map texel [3, b] around
+    (nx, ny, nz): local_to_world(n, normalize(texel - 0.5))."""
+    vx, vy, vz = rgb[0] - 0.5, rgb[1] - 0.5, rgb[2] - 0.5
+    vinv = _inv_len(vx, vy, vz)
+    vx, vy, vz = vx * vinv, vy * vinv, vz * vinv
+    usez = torch.abs(ny) > 0.9999  # helper axis z near the poles
+    bx = torch.where(usez, ny, -nz)
+    by = torch.where(usez, -nx, 0.0)
+    bz = torch.where(usez, 0.0, nx)
+    binv = _inv_len(bx, by, bz)
+    bx, by, bz = bx * binv, by * binv, bz * binv
+    tx = by * nz - bz * ny
+    ty = bz * nx - bx * nz
+    tz = bx * ny - by * nx
+    rx = tx * vx + bx * vy + nx * vz
+    ry = ty * vx + by * vy + ny * vz
+    rz = tz * vx + bz * vy + nz * vz
+    rinv = _inv_len(rx, ry, rz)
+    return rx * rinv, ry * rinv, rz * rinv
 
 
 def _hit_loop(planes, o, d):
@@ -205,10 +339,12 @@ def occluded_brute(planes, o, d, limit, prim_o):
 
 
 def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
-                   aa_jitter, single_sided):
+                   aa_jitter, single_sided, has_env=False,
+                   with_textures=False):
     """Raygen + brute closest hit + G-buffer epilogue for pixels `pix`
     (int64): gb columns [GB_CH, len(pix)]. The plain twin of B1's first
-    stage and of kernel B6."""
+    stage and of kernel B6. `tables` holds planes, attr, mat, env_rad,
+    atlas and tex_meta (ResidentTables or BvhTables)."""
     b = pix.shape[0]
     x = (pix % width).to(torch.float32)
     y = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
@@ -250,6 +386,26 @@ def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
     mat_id_f = at[24]
     matp = tables.mat[mat_id_f.to(torch.int64)].T  # [16, b]
 
+    metallic, roughness = matp[4], matp[5]
+    if with_textures:
+        # metallic / roughness / normal maps (scene.h:86-97), before the
+        # front-face test reads the normal
+        u_uv = at[18] + u * at[20] + v * at[22]
+        v_uv = at[19] + u * at[21] + v * at[23]
+
+        def fetch(tid_f):
+            return tex_bilinear(tables.atlas, tables.tex_meta, tid_f, u_uv,
+                                v_uv)
+
+        use = valid0 & (matp[8] > -0.5)
+        metallic = torch.where(use, fetch(matp[8])[0], metallic)
+        use = valid0 & (matp[9] > -0.5)
+        roughness = torch.where(use, fetch(matp[9])[0], roughness)
+        use = valid0 & (matp[10] > -0.5)
+        nm = normal_map(fetch(matp[10]), nxp, nyp, nzp)
+        nxp, nyp, nzp = (torch.where(use, a, b)
+                         for a, b in zip(nm, (nxp, nyp, nzp)))
+
     mtype = matp[0]
     is_light = valid0 & (mtype == LIGHT)
     front = (nxp * dx + nyp * dy + nzp * dz) < 0.0
@@ -283,14 +439,23 @@ def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
         valid, torch.where(in_b, (my * width + mx).to(torch.float32), NULL),
         0.0)
 
+    base = matp[1:4]
+    if with_textures:
+        tid = matp[7]  # base map: -1 none, -2 procedural
+        base = torch.where(
+            (tid > -0.5)[None], fetch(tid),
+            torch.where(((tid > -2.5) & (tid < -1.5))[None],
+                        procedural_tex(u_uv, v_uv)[None], base))
+    miss_alb = (env_tile_radiance(tables.env_rad, dx, dy, dz) if has_env
+                else torch.zeros_like(base))
+    alb = torch.where(valid[None], base, miss_alb)
     chans = [
         px, py, pz,
         torch.where(valid, nxp, 0.0), torch.where(valid, nyp, 0.0),
         torch.where(valid, nzp, 0.0),
         dx, dy, dz,
-        torch.where(valid, matp[1], 0.0), torch.where(valid, matp[2], 0.0),
-        torch.where(valid, matp[3], 0.0),
-        depth, motion, prim_remap, mtype, matp[4], matp[5],
+        alb[0], alb[1], alb[2],
+        depth, motion, prim_remap, mtype, metallic, roughness,
         shade.to(torch.float32), is_light.to(torch.float32),
         (~valid).to(torch.float32),
         torch.where(valid, best_prim.to(torch.float32), NULL),
@@ -299,10 +464,13 @@ def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
     return torch.stack(chans)
 
 
-def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met):
+def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
+               has_env=False):
     """K-candidate CDF RIS + single-draw winner for the gb columns of
-    pixels `pix` -> (li [3, b], wi [3, b], dist [b], W [b])."""
-    l_pad = tables.psi.shape[0]
+    pixels `pix` -> (li [3, b], wi [3, b], dist [b], W [b]). With
+    `has_env` the CDF runs over the area lights and the env tiles."""
+    lights, psi = tables.light_rows(has_env)
+    l_pad = psi.shape[0]
     px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
     nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
     wox, woy, woz = -gb[G_DIR], -gb[G_DIR + 1], -gb[G_DIR + 2]
@@ -314,7 +482,6 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met):
     sgn = torch.where(flip, -1.0, 1.0)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
-    psi = tables.psi
     ndx = nx * px + ny * py + nz * pz
     a = (psi[:, 0][None] * nx[:, None] + psi[:, 1][None] * ny[:, None]
          + psi[:, 2][None] * nz[:, None] + psi[:, 3][None] * (-ndx)[:, None])
@@ -347,7 +514,7 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met):
         idx = torch.clamp((cdf <= thresh[:, None]).sum(dim=1), max=l_pad - 1)
         t_pick = torch.gather(t, 1, idx[:, None])[:, 0]
         q = t_pick / torch.clamp(total, min=1e-20)
-        lrow = tables.lights[idx].T  # [16, b]
+        lrow = lights[idx].T  # [16, b]
         sr = torch.sqrt(torch.clamp(r3, min=0.0))
         bu = 1.0 - sr
         bv = r2 * sr
@@ -364,6 +531,21 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met):
         if single_sided:
             pdf = torch.where(cos_l <= -1e-6, pdf, -1.0)
         pdf = torch.where((total > 0.0) & (q > 0.0), pdf, -1.0)
+        if has_env:
+            # env tile rows (u0, v0 | du | dv): uv-uniform point, to_sphere
+            env_m = idx >= tables.n_lights
+            phi = (lrow[0] + r2 * lrow[3]) * (2.0 * PI)
+            th = (lrow[1] + r3 * lrow[6]) * PI
+            st = torch.sin(th)
+            pdf_env = q / torch.clamp(
+                lrow[3] * lrow[6] * (2.0 * PI * PI)
+                * torch.clamp(st, min=1e-6), min=1e-20)
+            pdf_env = torch.where((total > 0.0) & (q > 0.0), pdf_env, -1.0)
+            pdf = torch.where(env_m, pdf_env, pdf)
+            wix = torch.where(env_m, torch.cos(phi) * st, wix)
+            wiy = torch.where(env_m, torch.cos(th), wiy)
+            wiz = torch.where(env_m, torch.sin(phi) * st, wiz)
+            dist = torch.where(env_m, ENV_DIST, dist)
         f_lum = eval_bsdf_lum(mtype, metallic, roughness, (nx, ny, nz),
                               (wox, woy, woz), (wix, wiy, wiz), has_met)
         li_lum = 0.2126 * lrow[12] + 0.7152 * lrow[13] + 0.0722 * lrow[14]
@@ -478,8 +660,10 @@ def temporal_pixels(gb, rs_li, rs_wi, rs_dist, r_weight, pix, looper, prev,
 
 def di_resident_ref(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
                     height, aa_jitter=True, single_sided=True, k=4,
-                    temporal=True, temporal_clamp=20, has_met=True):
+                    temporal=True, temporal_clamp=20, has_met=True,
+                    has_env=False, with_textures=False):
     """Plain PyTorch twin of the fused resident DI kernel."""
+    check_env(tables.env_rad, has_env)
     r = width * height
     dev = prev_pt.device
     gb_out = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
@@ -490,10 +674,11 @@ def di_resident_ref(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
                            dtype=torch.int64)
         gb = gbuffer_pixels(pix, cam_vec, lcam_vec, looper, tables,
                             width=width, height=height, aa_jitter=aa_jitter,
-                            single_sided=single_sided)
+                            single_sided=single_sided, has_env=has_env,
+                            with_textures=with_textures)
         li, wi, dist, w = ris_pixels(gb, pix, looper, tables, k=k,
                                      single_sided=single_sided,
-                                     has_met=has_met)
+                                     has_met=has_met, has_env=has_env)
         w = shadow_pixels(gb, wi, dist, w, tables.planes)
         pt_out[:, pix] = temporal_pixels(gb, li, wi, dist, w, pix, looper,
                                          prev_pt, k=k, temporal=temporal,
@@ -516,7 +701,8 @@ def _check(t: torch.Tensor, name: str, shape, dev):
 
 def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
                      height, aa_jitter=True, single_sided=True, k=4,
-                     temporal=True, temporal_clamp=20, has_met=True):
+                     temporal=True, temporal_clamp=20, has_met=True,
+                     has_env=False, with_textures=False):
     """Launch the two B1 kernels of `csrc/fused_di.cu`."""
     global launches
     r = width * height
@@ -525,22 +711,34 @@ def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
         raise ValueError(f"pixel count {r} is not a multiple of {TILE}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    lights, psi = tables.light_rows(has_env)  # raises without an env map
+    n_pad, l_pad = tables.planes.shape[0], psi.shape[0]
+    smem = (n_pad * 12 + l_pad * 32) * 4
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"B1 holds {n_pad} triangle rows and {l_pad} light rows in "
+            f"shared memory: {smem} bytes, over the {SMEM_MAX} a block can "
+            "use")
     _check(cam_vec, "cam_vec", (16,), dev)
     _check(lcam_vec, "lcam_vec", (16,), dev)
     _check(prev_pt, "prev_pt", (PT_CH, r), dev)
-    for name in ("planes", "attr", "mat", "lights", "psi"):
+    for name in ("planes", "attr", "mat", "env_rad", "atlas", "tex_meta"):
         t = getattr(tables, name)
         _check(t, name, t.shape, dev)
+    _check(lights, "lights", psi.shape, dev)
+    _check(psi, "psi", psi.shape, dev)
     gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.library().restir_di_resident_gbuffer_ris(
         p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
-        p(tables.planes), tables.planes.shape[0], p(tables.attr),
-        p(tables.mat), tables.mat.shape[0], p(tables.lights), p(tables.psi),
-        tables.psi.shape[0], p(gb), p(rs), width, height,
-        ctypes.c_float(float(width) / float(height)), int(aa_jitter),
-        int(single_sided), k, int(has_met), _build.stream_of(dev))
+        p(tables.planes), n_pad, p(tables.attr), p(tables.mat),
+        tables.mat.shape[0], p(lights), p(psi), l_pad, tables.n_lights,
+        p(tables.env_rad), p(tables.atlas), p(tables.tex_meta),
+        tables.tex_meta.shape[0], int(has_env), int(with_textures), p(gb),
+        p(rs), width, height, ctypes.c_float(float(width) / float(height)),
+        int(aa_jitter), int(single_sided), k, int(has_met),
+        _build.stream_of(dev))
     _build.check(err, "restir_di_resident_gbuffer_ris")
     launches += 1
     pt = _launch_temporal(gb, rs, prev_pt, looper, k, temporal,
@@ -587,15 +785,11 @@ def di_resident(cam_vec, lcam_vec, looper, prev_pt, tables: ResidentTables,
                 has_env=False, with_textures=False):
     """(gb [GB_CH, R], pt [PT_CH, R]) for one frame of a resident scene.
 
-    CPU tensors take the plain twin, CUDA tensors the kernel. Env maps
-    and textures are not ported yet and raise."""
-    if has_env or with_textures:
-        raise NotImplementedError(
-            "env maps and textures in the fused DI kernel are not ported "
-            "yet (ROADMAP: B1 env/texture branches)")
+    CPU tensors take the plain twin, CUDA tensors the kernel."""
     kw = dict(width=width, height=height, aa_jitter=aa_jitter,
               single_sided=single_sided, k=k, temporal=temporal,
-              temporal_clamp=temporal_clamp, has_met=has_met)
+              temporal_clamp=temporal_clamp, has_met=has_met,
+              has_env=has_env, with_textures=with_textures)
     if prev_pt.device.type == "cpu":
         return di_resident_ref(cam_vec, lcam_vec, looper, prev_pt, tables,
                                **kw)

@@ -10,7 +10,8 @@ order.
 `gbuffer_pack` dispatches on the device of its tensors: CPU tensors take
 the twin `gbuffer_ref` (B1's brute-force stage, `fused_di.gbuffer_pixels`,
 whose hits the walk reproduces), CUDA tensors the kernel in
-`csrc/gbuffer_bvh.cu`. Nothing falls back.
+`csrc/gbuffer_bvh.cu`. Nothing falls back. `has_env` / `with_textures`
+select the epilogue's env and texture branches, as in B1.
 """
 
 from __future__ import annotations
@@ -27,9 +28,11 @@ launches = 0  # gbuffer_bvh kernel launches
 
 
 def gbuffer_ref(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width, height,
-                aa_jitter=True, single_sided=True, pix=None):
+                aa_jitter=True, single_sided=True, has_env=False,
+                with_textures=False, pix=None):
     """Plain twin: gb columns of pixels `pix` (int64; every pixel when
     None), by brute force over all triangles."""
+    fused_di.check_env(bvh.env_rad, has_env)
     dev = cam_vec.device
     if pix is None:
         pix = torch.arange(width * height, device=dev, dtype=torch.int64)
@@ -39,12 +42,14 @@ def gbuffer_ref(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width, height,
     for p0 in range(0, pix.shape[0], chunk):
         out[:, p0:p0 + chunk] = fused_di.gbuffer_pixels(
             pix[p0:p0 + chunk], cam_vec, lcam_vec, looper, bvh, width=width,
-            height=height, aa_jitter=aa_jitter, single_sided=single_sided)
+            height=height, aa_jitter=aa_jitter, single_sided=single_sided,
+            has_env=has_env, with_textures=with_textures)
     return out
 
 
 def _check_bvh(bvh: BvhTables, dev):
-    for name in ("planes", "attr", "mat", "bounds"):
+    for name in ("planes", "attr", "mat", "bounds", "env_rad", "atlas",
+                 "tex_meta"):
         t = getattr(bvh, name)
         _check(t, name, t.shape, dev)
     nodes = bvh.nodes
@@ -58,7 +63,8 @@ def _check_bvh(bvh: BvhTables, dev):
 
 
 def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
-                 height, aa_jitter=True, single_sided=True, stats=False):
+                 height, aa_jitter=True, single_sided=True, has_env=False,
+                 with_textures=False, stats=False):
     """Launch `csrc/gbuffer_bvh.cu`. With `stats`, also return the int32
     [2, R] box and triangle test counts of each ray."""
     global launches
@@ -67,6 +73,7 @@ def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
     _check(cam_vec, "cam_vec", (16,), dev)
     _check(lcam_vec, "lcam_vec", (16,), dev)
     _check_bvh(bvh, dev)
+    fused_di.check_env(bvh.env_rad, has_env)
     gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if stats else None)
@@ -74,7 +81,9 @@ def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
     err = _build.library().restir_gbuffer_bvh(
         p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
         p(bvh.bounds), p(bvh.nodes), bvh.size, p(bvh.planes), p(bvh.attr),
-        p(bvh.mat), bvh.mat.shape[0], p(gb), p(counts), width, height,
+        p(bvh.mat), bvh.mat.shape[0], p(bvh.env_rad), p(bvh.atlas),
+        p(bvh.tex_meta), bvh.tex_meta.shape[0], int(has_env),
+        int(with_textures), p(gb), p(counts), width, height,
         ctypes.c_float(float(width) / float(height)), int(aa_jitter),
         int(single_sided), _build.stream_of(dev))
     _build.check(err, "restir_gbuffer_bvh")
@@ -83,11 +92,13 @@ def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
 
 
 def gbuffer_pack(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
-                 height, aa_jitter=True, single_sided=True):
+                 height, aa_jitter=True, single_sided=True, has_env=False,
+                 with_textures=False):
     """gb [GB_CH, R] for one frame: the twin on CPU tensors, the kernel on
     CUDA tensors."""
     kw = dict(width=width, height=height, aa_jitter=aa_jitter,
-              single_sided=single_sided)
+              single_sided=single_sided, has_env=has_env,
+              with_textures=with_textures)
     if cam_vec.device.type == "cpu":
         return gbuffer_ref(cam_vec, lcam_vec, looper, bvh, **kw)
     if cam_vec.device.type == "cuda":

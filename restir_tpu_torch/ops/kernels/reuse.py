@@ -11,7 +11,7 @@ On CUDA tensors `reuse` launches `csrc/reuse_bvh.cu` (writes the candidate
 pack rs [RS_CH, R]) and then B1's `di_temporal_kernel` through
 `fused_di.temporal_cuda`; on CPU tensors it takes the twin `reuse_ref`
 (B1's stages: `ris_pixels`, the brute `shadow_pixels`, `temporal_pixels`).
-Nothing falls back.
+Nothing falls back. `has_env` adds the env tiles to the light CDF.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import _build, fused_di
-from .fused_di import GB_CH, PT_CH, RS_CH, MAX_K, _check
+from .fused_di import GB_CH, MAX_K, PT_CH, RS_CH, SMEM_MAX, _check
 from .gbuffer import _check_bvh
 from .tables import BvhTables, ResidentTables
 
@@ -30,7 +30,7 @@ launches = 0  # reuse_bvh kernel launches
 
 def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
               single_sided=True, temporal=True, temporal_clamp=20,
-              has_met=True, pix=None):
+              has_met=True, has_env=False, pix=None):
     """Plain twin: pt columns for the gb columns of pixels `pix` (whole
     1024-pixel tiles in order; every pixel when None). prev_pt is the
     whole previous pack."""
@@ -45,7 +45,7 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
         px = pix[p0:p0 + chunk]
         li, wi, dist, w = fused_di.ris_pixels(
             g, px, looper, tables, k=k, single_sided=single_sided,
-            has_met=has_met)
+            has_met=has_met, has_env=has_env)
         w = fused_di.shadow_pixels(g, wi, dist, w, tables.planes)
         out[:, p0:p0 + chunk] = fused_di.temporal_pixels(
             g, li, wi, dist, w, px, looper, prev_pt, k=k, temporal=temporal,
@@ -54,7 +54,8 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 
 
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
-                    k=4, single_sided=True, has_met=True, stats=False):
+                    k=4, single_sided=True, has_met=True, has_env=False,
+                    stats=False):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, R] (li, wi, dist, W
     after visibility). With `stats`, also return the int32 [2, R] box and
     triangle test counts of each shadow ray."""
@@ -63,18 +64,23 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     dev = gb.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    lights, psi = tables.light_rows(has_env)
+    l_pad = psi.shape[0]
+    if l_pad * 32 * 4 > SMEM_MAX:
+        raise ValueError(f"B7 holds {l_pad} light rows in shared memory: "
+                         f"{l_pad * 128} bytes, over the {SMEM_MAX} a block "
+                         "can use")
     _check(gb, "gb", (GB_CH, r), dev)
-    for name in ("lights", "psi"):
-        t = getattr(tables, name)
-        _check(t, name, t.shape, dev)
+    _check(lights, "lights", psi.shape, dev)
+    _check(psi, "psi", psi.shape, dev)
     _check_bvh(bvh, dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
     counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
     err = _build.library().restir_reuse_bvh(
-        p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(tables.lights),
-        p(tables.psi), tables.psi.shape[0], p(bvh.bounds), p(bvh.nodes),
+        p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
+        l_pad, tables.n_lights, int(has_env), p(bvh.bounds), p(bvh.nodes),
         bvh.size, p(bvh.planes), p(rs), p(counts), r, int(single_sided), k,
         int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
@@ -84,10 +90,11 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
 
 def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
                *, k=4, single_sided=True, temporal=True, temporal_clamp=20,
-               has_met=True):
+               has_met=True, has_env=False):
     """Kernel B7, then B1b: pt [PT_CH, R]."""
     rs = candidates_cuda(gb, looper, tables, bvh, k=k,
-                         single_sided=single_sided, has_met=has_met)
+                         single_sided=single_sided, has_met=has_met,
+                         has_env=has_env)
     return fused_di.temporal_cuda(gb, rs, prev_pt, looper, k=k,
                                   temporal=temporal,
                                   temporal_clamp=temporal_clamp)
@@ -95,11 +102,12 @@ def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
 
 def reuse(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables, *,
           k=4, single_sided=True, temporal=True, temporal_clamp=20,
-          has_met=True):
+          has_met=True, has_env=False):
     """pt [PT_CH, R] for one frame: the twin on CPU tensors, the kernels on
     CUDA tensors."""
     kw = dict(k=k, single_sided=single_sided, temporal=temporal,
-              temporal_clamp=temporal_clamp, has_met=has_met)
+              temporal_clamp=temporal_clamp, has_met=has_met,
+              has_env=has_env)
     if gb.device.type == "cpu":
         return reuse_ref(gb, prev_pt, looper, tables, **kw)
     if gb.device.type == "cuda":

@@ -15,12 +15,25 @@ thread's fetch of one row is contiguous.
   lum*area and radius (2), pad(1); l_pad = round_up(max(nl, 128), 128)
   with zero rows, as `di_resident_pallas` pads them (a pick past the
   last light clamps to row l_pad - 1).
+- `env_lights` / `env_psi`: the same tables with the scene's 512 env
+  tiles joined as virtual lights after the nl area rows
+  (`ris_kernel.build_light_tables`' env rows: psi_a = (d_tile, 0),
+  psi_b = (0, 0, 0, 1), psi_c = (0, 0, 0, 1, 0), lum * solid angle and
+  the tile's angular radius; light rows (u0, v0, 0 | du, 0, 0 | dv, 0, 0 |
+  0 | radiance | solid angle)), l_pad = round_up(nl + 512, 128); None
+  without an env map. A frame with `has_env_map` samples these.
+- `env_rad` [512, 4]: tile radiance (rgb, 0) for miss pixels ([1, 4]
+  zeros without an env map).
+- `atlas` [rows_pad * 128, 4]: the mip-clamped texel rows of
+  `scene_data._build_fused_atlas` as (r, g, b, 0) texels, row y of the
+  atlas at [y * 128, y * 128 + 128); `tex_meta` [T_pad, 4] (row0, width,
+  height, valid) per texture.
 
 `BvhTables` is the device layout the MTBVH kernels (B6 `gbuffer_bvh.cu`,
 B7 `reuse_bvh.cu`) walk, after the JAX tables' `box_id` indirection:
 
-- `planes`, `attr`, `mat`: the resident tables' rows (the same tensors);
-  a leaf's primitive id indexes them directly;
+- `planes`, `attr`, `mat`, `env_rad`, `atlas`, `tex_meta`: the resident
+  tables' tensors; a leaf's primitive id indexes the rows directly;
 - `bounds` [B, 8]: node box lo(3) 0 hi(3) 0, each face moved outward by
   BOX_PAD_REL of the scene's largest coordinate and rounded outward to
   float32, so the float32 slab test never culls a box whose triangle the
@@ -33,7 +46,7 @@ B7 `reuse_bvh.cu`) walk, after the JAX tables' `box_id` indirection:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,11 +54,16 @@ import torch
 LIGHT_COLS = 16
 PSI_COLS = 16
 PLANE_COLS = 12
+_PI = 3.14159265358979  # ris_kernel._PI
 
 
 BOX_PAD_REL = 2.0 ** -16  # box padding, relative to the scene's extent
 NODE_COLS = 4
 BOUND_COLS = 8
+
+
+ENV_COLS = 4
+TEX_W = 128  # texels per atlas row (scene_data.FUSED_TEX_MAX_W)
 
 
 class ResidentTables(NamedTuple):
@@ -55,6 +73,20 @@ class ResidentTables(NamedTuple):
     lights: torch.Tensor  # [l_pad, 16] f32
     psi: torch.Tensor  # [l_pad, 16] f32
     n_lights: int
+    env_lights: Optional[torch.Tensor]  # [l_pad_env, 16] f32, or None
+    env_psi: Optional[torch.Tensor]  # [l_pad_env, 16] f32, or None
+    env_rad: torch.Tensor  # [512, 4] f32 ([1, 4] zeros without env)
+    atlas: torch.Tensor  # [rows_pad * 128, 4] f32
+    tex_meta: torch.Tensor  # [T_pad, 4] f32
+
+    def light_rows(self, has_env: bool):
+        """(lights, psi) a frame samples: with the env tiles when
+        `has_env`, which needs a scene with an env map."""
+        if not has_env:
+            return self.lights, self.psi
+        if self.env_lights is None:
+            raise ValueError("has_env_map is set but the scene has no env map")
+        return self.env_lights, self.env_psi
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,11 +104,14 @@ def plane_table(tri_xform: np.ndarray) -> np.ndarray:
 
 
 def light_tables(light_verts, light_normal, light_radiance, light_area,
-                 light_center, light_radius):
+                 light_center, light_radius, env_tile_rad=None,
+                 env_tile_uv=None, env_tile_sa=None):
     """(lights [l_pad, 16], psi [l_pad, 16]) in float32, with the same
-    rows as `ris_kernel.build_light_tables` (no env tiles)."""
+    rows as `ris_kernel.build_light_tables`: the area lights, then the env
+    tiles when they are given."""
     nl = light_verts.shape[0]
-    l_pad = _round_up(max(nl, 128), 128)
+    n_env = 0 if env_tile_rad is None else env_tile_rad.shape[0]
+    l_pad = _round_up(max(nl + n_env, 128), 128)
     lv9 = np.asarray(light_verts, np.float32).reshape(nl, 9)
     ln = np.asarray(light_normal, np.float32)
     lr = np.asarray(light_radiance, np.float32)
@@ -104,20 +139,73 @@ def light_tables(light_verts, light_normal, light_radiance, light_area,
     psi[:nl, 13] = la * (0.2126 * lr[:, 0] + 0.7152 * lr[:, 1]
                          + 0.0722 * lr[:, 2])
     psi[:nl, 14] = lrad
+    if n_env:
+        euv = np.asarray(env_tile_uv, np.float32)
+        erad = np.asarray(env_tile_rad, np.float32)
+        esa = np.asarray(env_tile_sa, np.float32)
+        pi = np.float32(_PI)
+        # tile-centre directions (to_sphere), float32 as the JAX rows
+        uc = (euv[:, 0] + np.float32(0.5) * euv[:, 2]) * np.float32(2.0 * _PI)
+        vc = (euv[:, 1] + np.float32(0.5) * euv[:, 3]) * pi
+        st = np.sin(vc)
+        e = slice(nl, nl + n_env)
+        psi[e, 0] = np.cos(uc) * st  # psi_a = (d_tile, 0): a = n.d
+        psi[e, 1] = np.cos(vc)
+        psi[e, 2] = np.sin(uc) * st
+        psi[e, 7] = 1.0  # psi_b = (0, 0, 0, 1): b = 1
+        psi[e, 11] = 1.0  # psi_c = (0, 0, 0, 1, 0): d2 = 1
+        psi[e, 13] = (np.float32(0.2126) * erad[:, 0]
+                      + np.float32(0.7152) * erad[:, 1]
+                      + np.float32(0.0722) * erad[:, 2]) * esa
+        psi[e, 14] = np.float32(0.5) * np.sqrt(
+            (pi * euv[:, 3]) ** 2 + (np.float32(2.0 * _PI) * euv[:, 2]) ** 2)
+        lights[e, 0] = euv[:, 0]  # u0
+        lights[e, 1] = euv[:, 1]  # v0
+        lights[e, 3] = euv[:, 2]  # du
+        lights[e, 6] = euv[:, 3]  # dv
+        lights[e, 12:15] = erad
+        lights[e, 15] = esa
     return lights, psi
+
+
+def env_radiance_table(env_tile_rad) -> np.ndarray:
+    """[ET, 4] (r, g, b, 0) tile radiance rows."""
+    rad = np.asarray(env_tile_rad, np.float32)
+    out = np.zeros((rad.shape[0], ENV_COLS), np.float32)
+    out[:, 0:3] = rad
+    return out
+
+
+def atlas_texels(fused_atlas) -> np.ndarray:
+    """The JAX [384, rows_pad] atlas as [rows_pad * 128, 4] texel rows."""
+    a = np.asarray(fused_atlas, np.float32)
+    rows = a.shape[1]
+    out = np.zeros((rows, TEX_W, 4), np.float32)
+    out[..., 0:3] = a.reshape(3, TEX_W, rows).transpose(2, 1, 0)
+    return out.reshape(rows * TEX_W, 4)
+
+
+def has_env_map(arrays) -> bool:
+    env = np.asarray(arrays["env_map"])
+    return bool(env.shape[0] > 1 or env.shape[1] > 1)
 
 
 def build_resident_tables(arrays, device) -> ResidentTables:
     """Tables from a mapping of scene arrays (numpy, SceneData names)."""
-    lights, psi = light_tables(
-        arrays["light_verts"], arrays["light_normal"],
-        arrays["light_radiance"], arrays["light_area"],
-        arrays["light_center"], arrays["light_radius"])
+    light_args = [arrays[k] for k in (
+        "light_verts", "light_normal", "light_radiance", "light_area",
+        "light_center", "light_radius")]
+    lights, psi = light_tables(*light_args)
 
     def dev(a):
         return torch.tensor(np.asarray(a, np.float32),
                                device=device)
 
+    env_lights = env_psi = None
+    if has_env_map(arrays):
+        env_lights, env_psi = (dev(t) for t in light_tables(
+            *light_args, arrays["env_tile_rad"], arrays["env_tile_uv"],
+            arrays["env_tile_sa"]))
     tri_xform = np.asarray(arrays["tri_xform"], np.float32)
     return ResidentTables(
         planes=dev(plane_table(tri_xform)),
@@ -126,6 +214,11 @@ def build_resident_tables(arrays, device) -> ResidentTables:
         lights=dev(lights),
         psi=dev(psi),
         n_lights=int(np.asarray(arrays["light_verts"]).shape[0]),
+        env_lights=env_lights,
+        env_psi=env_psi,
+        env_rad=dev(env_radiance_table(arrays["env_tile_rad"])),
+        atlas=dev(atlas_texels(arrays["fused_atlas"])),
+        tex_meta=dev(arrays["fused_tex_meta"]),
     )
 
 
@@ -136,6 +229,9 @@ class BvhTables(NamedTuple):
     bounds: torch.Tensor  # [B, 8] f32 padded node boxes
     nodes: torch.Tensor  # [6B, 4] i32 (prim, box, miss, 0)
     size: int  # B
+    env_rad: torch.Tensor  # ResidentTables.env_rad
+    atlas: torch.Tensor  # ResidentTables.atlas
+    tex_meta: torch.Tensor  # ResidentTables.tex_meta
 
 
 def padded_bounds(bounds_lo, bounds_hi) -> np.ndarray:
@@ -182,4 +278,7 @@ def build_bvh_tables(arrays, resident: ResidentTables, device) -> BvhTables:
                             device=device),
         nodes=torch.tensor(nodes, device=device),
         size=size,
+        env_rad=resident.env_rad,
+        atlas=resident.atlas,
+        tex_meta=resident.tex_meta,
     )

@@ -1,10 +1,10 @@
 """Frame orchestration of the port, as `restir_tpu.renderer`.
 
 This slice carries the fused ReSTIR DI state only: `init_state` returns
-a `FusedDIState` when the config and scene fit the ported path (any
-triangle count; no env map or textures yet) and raises
-`NotImplementedError` (naming the ROADMAP item) otherwise; there is no
-general pipeline to fall back to yet. Entry points run on the card
+a `FusedDIState` when the config fits the ported path (any triangle
+count, env maps and textures, the EAW or SVGF denoiser or none) and
+raises `NotImplementedError` (naming the ROADMAP item) otherwise; there
+is no general pipeline to fall back to yet. Entry points run on the card
 (`device="cuda"`) unless the caller asks for the CPU.
 """
 
@@ -37,7 +37,10 @@ def init_state(cfg: RenderConfig, cam: Camera,
     config's material flags against the scene and the scene's size."""
     if scene is not None:
         validate_mat_flags(cfg, _host_materials(scene))
-    reason = restir_di_fused.ineligibility(scene, cfg)
+        if cfg.has_env_map and not scene.has_env_map:
+            raise ValueError("RenderConfig has_env_map is set but the scene "
+                             "has no env map")
+    reason = restir_di_fused.ineligibility(cfg)
     if reason is not None:
         raise NotImplementedError(
             f"restir_tpu_torch renders the fused ReSTIR DI path only: "

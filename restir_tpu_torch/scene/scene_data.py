@@ -5,11 +5,12 @@ arrays the fused DI frame reads: the world-space triangle soup in the
 same Morton order (primitive ids appear in the G-buffer and in the
 shadow-ray self-exclusion, so the order must match), the SAH/MTBVH built
 on the permuted triangles (`scene.bvh`), the unit-triangle transforms,
-the packed attribute and material rows, the light geometry, and the raw
-env map and packed textures. The TPU cluster / sub-block work-list boxes,
-the alias tables, the env tiles and the texture atlas are not built: the
-port does not read them (env maps and textures are refused at render
-time until their kernel branches are ported).
+the packed attribute and material rows, the light geometry, the raw env
+map and packed textures, and what the fused kernels sample of them: the
+16 x 32 piecewise-constant env tiles and the mip-clamped texture atlas
+(textures box-mipped to <= 128 texels wide within 256 rows), both equal
+to the JAX leaves. The TPU cluster / sub-block work-list boxes and the
+alias tables are not built: the port does not read them.
 
 `SceneTensors` is the same data as torch tensors on one device, plus
 the kernel tables derived from it once at upload
@@ -59,6 +60,11 @@ class SceneArrays(NamedTuple):
     tex_offset: np.ndarray  # [T] i32
     tex_width: np.ndarray  # [T] i32
     tex_height: np.ndarray  # [T] i32
+    env_tile_rad: np.ndarray  # [ET, 3] f32 tile mean radiance; [1, 3] zeros
+    env_tile_uv: np.ndarray  # [ET, 4] (u0, v0, du, dv); [1, 4] zeros
+    env_tile_sa: np.ndarray  # [ET] tile solid angle; [1] zeros
+    fused_atlas: np.ndarray  # [384, rows_pad]: [c*128 + x, row0 + y] = texel
+    fused_tex_meta: np.ndarray  # [T_pad, 4] (row0, w, h, valid)
 
 
 class SceneTensors(NamedTuple):
@@ -175,6 +181,85 @@ def _pack_textures(textures):
             np.asarray(widths, np.int32), np.asarray(heights, np.int32))
 
 
+ENV_TILE_H = 16  # env tile grid of the fused kernels
+ENV_TILE_W = 32
+
+
+def _build_env_tiles(env: np.ndarray):
+    """Solid-angle-weighted ENV_TILE_H x ENV_TILE_W downsample of the
+    equirect env map: per tile (mean radiance, uv rect, solid angle). The
+    fused kernels render and sample this piecewise-constant env."""
+    eh, ew = env.shape[0], env.shape[1]
+    th, tw = ENV_TILE_H, ENV_TILE_W
+    row = (np.arange(eh, dtype=np.float64) + 0.5) / eh
+    sin_theta = np.sin(row * np.pi)
+    ty = np.minimum((np.arange(eh) * th) // eh, th - 1).astype(np.int64)
+    tx = np.minimum((np.arange(ew) * tw) // ew, tw - 1).astype(np.int64)
+    tidx = (ty[:, None] * tw + tx[None, :]).reshape(-1)
+    w = np.broadcast_to(sin_theta[:, None], (eh, ew)).reshape(-1)
+    wsum = np.zeros(th * tw)
+    np.add.at(wsum, tidx, w)
+    rad = np.zeros((th * tw, 3))
+    for c in range(3):
+        np.add.at(rad[:, c], tidx, w * env[..., c].reshape(-1))
+    rad /= np.maximum(wsum, 1e-20)[:, None]
+
+    i = np.arange(th * tw)
+    v0 = (i // tw).astype(np.float64) / th
+    u0 = (i % tw).astype(np.float64) / tw
+    du = np.full(th * tw, 1.0 / tw)
+    dv = np.full(th * tw, 1.0 / th)
+    sa = (2.0 * np.pi / tw) * (np.cos(np.pi * v0) - np.cos(np.pi * (v0 + dv)))
+    uv = np.stack([u0, v0, du, dv], axis=-1)
+    return (rad.astype(np.float32), uv.astype(np.float32),
+            sa.astype(np.float32))
+
+
+FUSED_ATLAS_ROWS = 256  # texel rows of the fused atlas, all textures
+FUSED_TEX_MAX_W = 128  # texels per atlas row
+
+
+def _box_mip(t: np.ndarray) -> np.ndarray:
+    """One 2x box-filter mip level (odd tails fold into the last bin)."""
+    h, w = t.shape[0], t.shape[1]
+    h2, w2 = max(h // 2, 1), max(w // 2, 1)
+    t = t[: h2 * 2, : w2 * 2]
+    return 0.25 * (t[0::2, 0::2] + t[1::2, 0::2] + t[0::2, 1::2]
+                   + t[1::2, 1::2])
+
+
+def _build_fused_atlas(textures):
+    """Mip-clamped texture atlas of the fused kernels: each texture is
+    box-mipped until it is at most FUSED_TEX_MAX_W wide, then the tallest
+    is mipped until all fit FUSED_ATLAS_ROWS rows; textures that already
+    fit are stored exactly. Returns (atlas [384, rows_pad] with
+    [c*128 + x, row0 + y] = texel (y, x, c), meta [T_pad, 4] with
+    (row0, width, height, 1) per texture)."""
+    mips = [np.asarray(t, np.float32) for t in textures]
+    for i in range(len(mips)):
+        while mips[i].shape[1] > FUSED_TEX_MAX_W:
+            mips[i] = _box_mip(mips[i])
+    while sum(m.shape[0] for m in mips) > FUSED_ATLAS_ROWS:
+        i = int(np.argmax([m.shape[0] for m in mips]))
+        if mips[i].shape[0] <= 1:
+            break
+        mips[i] = _box_mip(mips[i])
+
+    rows = sum(m.shape[0] for m in mips)
+    rows_pad = max(-(-rows // 128) * 128, 128)
+    atlas = np.zeros((384, rows_pad), np.float32)
+    t_pad = max(-(-len(mips) // 8) * 8, 8)
+    meta = np.zeros((t_pad, 4), np.float32)
+    r0 = 0
+    for i, m in enumerate(mips):
+        h, w = m.shape[0], m.shape[1]
+        for c in range(3):
+            atlas[c * 128:c * 128 + w, r0:r0 + h] = m[..., c].T
+        meta[i] = (r0, w, h, 1.0)
+        r0 += h
+    return atlas, meta
+
+
 def build_scene(
     instances: Sequence[MeshInstance],
     materials: Sequence[MaterialDesc],
@@ -241,9 +326,19 @@ def build_scene(
     lradius = np.linalg.norm(lverts - lcenter[:, None, :], axis=-1).max(axis=1)
 
     bvh = build_bvh(verts.reshape(-1, 3))
-    env = (np.zeros((1, 1, 3), np.float32) if env_map is None
-           else np.asarray(env_map, np.float32))
+    if env_map is None:
+        env = np.zeros((1, 1, 3), np.float32)
+        env_tiles = (np.zeros((1, 3), np.float32),
+                     np.zeros((1, 4), np.float32), np.zeros((1,), np.float32))
+    else:
+        env = np.asarray(env_map, np.float32)
+        env_tiles = _build_env_tiles(env)
     tex_data, tex_offset, tex_width, tex_height = _pack_textures(textures)
+    if textures:
+        atlas, tex_meta = _build_fused_atlas(textures)
+    else:
+        atlas = np.zeros((384, 128), np.float32)
+        tex_meta = np.zeros((8, 4), np.float32)
 
     return SceneArrays(
         verts=verts,
@@ -271,4 +366,9 @@ def build_scene(
         tex_offset=tex_offset,
         tex_width=tex_width,
         tex_height=tex_height,
+        env_tile_rad=env_tiles[0],
+        env_tile_uv=env_tiles[1],
+        env_tile_sa=env_tiles[2],
+        fused_atlas=atlas,
+        fused_tex_meta=tex_meta,
     )

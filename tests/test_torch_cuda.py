@@ -1,4 +1,5 @@
-"""Kernel-vs-twin checks of B1, B2, B3, B6 and B7 on a CUDA card.
+"""Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
+B3, B4, B5, the SVGF variance kernels, B6 and B7 on a CUDA card.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -22,8 +23,13 @@ from restir_tpu_torch.ops.kernels import (
     gbuffer,
     reuse,
     spatial,
+    svgf,
 )
-from restir_tpu_torch.scene.procedural import many_light_scene
+from restir_tpu_torch.scene.procedural import (
+    env_scene,
+    many_light_scene,
+    textured_scene,
+)
 
 W, H = 256, 64
 R = W * H
@@ -165,3 +171,110 @@ def test_mtbvh_path_matches_b1_on_resident_scene(frame):
     pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh)
     fails, stats = parity.gb_pt_report(gb_b1, pt_b1, gb, pt)
     assert not fails, (fails, stats)
+
+
+# ---- env map, textures and SVGF (B1 / B6 / B7 branches, B4, B5) ----
+
+
+@pytest.fixture(scope="module", params=["env", "textures"])
+def env_tex(cuda_device, request):
+    """env_scene (has_env) or textured_scene(aux_maps=True) (with_textures)
+    on the card, with a frame-0 history from B1."""
+    if request.param == "env":
+        arrays, camkw = env_scene()
+        flags = dict(has_env=True)
+    else:
+        arrays, camkw = textured_scene(aux_maps=True)
+        flags = dict(with_textures=True)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam0 = make_camera(**camkw)
+    cam1 = make_camera(**{**camkw, "position": (0.2, camkw["position"][1],
+                                                camkw["position"][2])})
+    cv0, cv1 = pack_camera(cam0, cuda_device), pack_camera(cam1, cuda_device)
+    zeros = torch.zeros((fused_di.PT_CH, R), device=cuda_device)
+    _, pt0 = fused_di.di_resident_cuda(cv0, cv0, 0, zeros, scene.tables,
+                                       width=W, height=H, **flags)
+    return scene, cv0, cv1, pt0, flags
+
+
+def test_b1_env_tex_kernel_matches_twin(env_tex):
+    scene, cv0, cv1, pt0, flags = env_tex
+    kw = dict(width=W, height=H, **flags)
+    gb_k, pt_k = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
+                                           **kw)
+    gb_r, pt_r = fused_di.di_resident_ref(cv1, cv0, 1, pt0, scene.tables,
+                                          **kw)
+    fails, stats = parity.gb_pt_report(gb_r, pt_r, gb_k, pt_k)
+    assert not fails, (fails, stats)
+    hit = (gb_r[fused_di.G_PRIM] == gb_k[fused_di.G_PRIM])
+    alb = slice(fused_di.G_ALB, fused_di.G_ALB + 3)
+    assert parity.close_fraction(gb_r[alb][:, hit], gb_k[alb][:, hit],
+                                 1e-4, 1e-5) >= 0.99
+
+
+def test_b6_b7_env_tex_match_b1(env_tex):
+    """B6 + B7 + B1b on the env / textured scenes equal B1 exactly."""
+    scene, cv0, cv1, pt0, flags = env_tex
+    gb_b1, pt_b1 = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
+                                             width=W, height=H, **flags)
+    gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H,
+                              **flags)
+    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh,
+                          has_env=flags.get("has_env", False))
+    assert torch.equal(gb, gb_b1) and torch.equal(pt, pt_b1)
+
+
+@pytest.fixture(scope="module")
+def svgf_inputs(frame):
+    """A real gb pack from B1 and a random previous svgf pack whose prim /
+    normal history is the gb's own, so most pixels blend."""
+    scene, cv0, cv1, pt0 = frame
+    gb, _ = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
+                                      width=W, height=H)
+    g = np.random.default_rng(5)
+    prev = torch.as_tensor(g.random((svgf.SV_CH, R), dtype=np.float32),
+                           device=gb.device)
+    prev[svgf.SV_HIST] = torch.as_tensor(
+        g.integers(0, 8, R).astype(np.float32), device=gb.device)
+    prev[svgf.SV_PRIM] = gb[fused_di.G_PRIMR]
+    prev[svgf.SV_NORM:svgf.SV_NORM + 3] = gb[fused_di.G_NORM:
+                                             fused_di.G_NORM + 3]
+    color = torch.as_tensor(g.random((3, R), dtype=np.float32),
+                            device=gb.device)
+    return gb, color, prev
+
+
+def test_b5_kernel_matches_twin(svgf_inputs):
+    gb, color, prev = svgf_inputs
+    before = svgf.temporal_launches
+    k = svgf.svgf_temporal_cuda(gb, color, prev)
+    assert svgf.temporal_launches == before + 1
+    r = svgf.svgf_temporal_ref(gb, color, prev)
+    assert parity.close_fraction(r, k, 1e-6, 0.0) >= 0.9999
+    assert float(k[svgf.SV_HIST].max()) > 0.0  # history really blended
+
+
+def test_variance_kernels_match_twins(svgf_inputs):
+    gb, color, prev = svgf_inputs
+    sv = svgf.svgf_temporal_cuda(gb, color, prev)
+    var_k = svgf.estimate_variance(sv, width=W, height=H)
+    var_r = svgf.estimate_variance(sv.cpu(), width=W, height=H)
+    assert parity.close_fraction(var_r, var_k, 1e-6, 1e-7) >= 0.9999
+    fv_k = svgf.filter_variance(var_k, width=W, height=H)
+    fv_r = svgf.filter_variance(var_k.cpu(), width=W, height=H)
+    assert parity.close_fraction(fv_r, fv_k, 1e-6, 1e-7) >= 0.9999
+
+
+@pytest.mark.parametrize("level", [0, 2, 4])
+def test_b4_kernel_matches_twin(svgf_inputs, level):
+    gb, color, prev = svgf_inputs
+    var = prev[3].contiguous()
+    fv = prev[4].contiguous()
+    kw = dict(level=level, width=W, height=H, sig_l=1.0, sig_n=128.0,
+              sig_d=4.0)
+    before = atrous.svgf_launches
+    ck, vk = atrous.atrous_svgf_cuda(color, var, fv, gb, **kw)
+    assert atrous.svgf_launches == before + 1
+    cr, vr = atrous.atrous_svgf_ref(color, var, fv, gb, **kw)
+    assert parity.close_fraction(cr, ck, 1e-5, 1e-6) >= 0.999
+    assert parity.close_fraction(vr[None], vk[None], 1e-5, 1e-6) >= 0.999

@@ -89,12 +89,19 @@ def test_layout_constants_match():
 
 
 def test_di_resident_rejects_env_and_textures(setup):
+    """Env rows need a scene with an env map; on a scene without textures
+    or procedural materials the texture branch changes nothing."""
     _, tscene, cv0, _, prev = setup
     t = torch.tensor(np.asarray(cv0))
-    for kw in ({"has_env": True}, {"with_textures": True}):
-        with pytest.raises(NotImplementedError):
-            tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
-                           width=W, height=H, **kw)
+    kw = dict(width=W, height=H)
+    with pytest.raises(ValueError, match="no env map"):
+        tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
+                       has_env=True, **kw)
+    plain = tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
+                           **kw)
+    textured = tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
+                              with_textures=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(plain, textured))
 
 
 def test_cuda_wrapper_checks_before_launch(setup):

@@ -3,7 +3,7 @@
 `restir_tpu_torch.scene.loader` against `restir_tpu.scene.loader` on the
 repo's scene files and meshes, on glTF / GLB files written here (node
 transforms, indices, strides), and on a scene file with a texture and an
-env map (which the port loads but refuses to render). Every SceneArrays
+env map (which the port loads and renders). Every SceneArrays
 leaf and the camera must be equal: scene ids, the BVH and the Morton
 order all reach the kernels.
 """
@@ -210,8 +210,17 @@ def test_textured_env_scene_loads_but_does_not_render(tmp_path):
         assert got.shape == want.shape and np.array_equal(got, want), field
     scene = convert.scene_from_numpy(ts, "cpu")
     assert scene.has_env_map and scene.has_textures
-    cfg = tconfig.RenderConfig(width=256, height=64,
-                               **tconfig.mat_flags(ts))
-    with pytest.raises(NotImplementedError, match="env map / textures"):
-        trenderer.init_state(cfg, tsf.make_camera(), scene, device="cpu")
-    assert isinstance(tsf.make_camera().position, torch.Tensor)
+    cam = tsf.make_camera()
+    assert isinstance(cam.position, torch.Tensor)
+    # the env / texture branches are ported: the scene renders now, and
+    # a frame without the env map's flag is refused for a scene without one
+    cfg = tconfig.RenderConfig(width=256, height=64, has_env_map=True,
+                               with_textures=True, **tconfig.mat_flags(ts))
+    state = trenderer.init_state(cfg, cam, scene, device="cpu")
+    state, frame = trenderer.step(scene, state, cam, cfg)
+    assert tuple(frame.shape) == (3, 256 * 64)
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0
+    plain = convert.scene_from_numpy(
+        ts._replace(env_map=np.zeros((1, 1, 3), np.float32)), "cpu")
+    with pytest.raises(ValueError, match="no env map"):
+        trenderer.init_state(cfg, cam, plain, device="cpu")

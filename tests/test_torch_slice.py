@@ -27,8 +27,11 @@ from restir_tpu_torch import config as tconfig
 from restir_tpu_torch import convert, parity
 from restir_tpu_torch import renderer as trenderer
 from restir_tpu_torch.models import restir_di_fused as tfused
+from restir_tpu_torch.ops.camera import pack_camera
 from restir_tpu_torch.ops.kernels import fused_di as tk
+from restir_tpu_torch.ops.kernels import gbuffer
 from restir_tpu_torch.scene.procedural import many_light_scene as t_scene
+from restir_tpu_torch.scene.scene_data import _build_fused_atlas
 
 W, H = 128, 32
 R = W * H
@@ -188,9 +191,9 @@ def test_checkpoint_from_jax_state_loads(world, jax_run):
 
 
 @pytest.mark.parametrize("change", [
-    {"denoiser": DenoiserType.SVGF},
+    {"tracer": TracerType.PT_DIRECT},
     {"tracer": TracerType.RESTIR_GI},
-    {"has_env_map": True},
+    {"enable_dof": True},
     {"width": 100},
     {"sampler": "sobol"},
 ])
@@ -202,9 +205,9 @@ def test_unported_configs_raise(world, change):
 
 
 def test_large_scene_raises():
-    """Scenes over 1024 triangles take the MTBVH path now; a large scene
-    still raises when a material reads a texture (the env / texture
-    branches are not ported)."""
+    """Scenes over 1024 triangles take the MTBVH path, textured ones too:
+    a large scene whose floor reads a texture initialises and renders a
+    frame on the CPU, and the texture shows in the albedo."""
     arrays, camkw = t_scene(16, 120)
     scene = convert.scene_from_numpy(arrays, "cpu")
     assert scene.num_tris > tfused.RESIDENT_MAX_TRIS
@@ -213,9 +216,25 @@ def test_large_scene_raises():
         [np.asarray(x) for x in make_camera(**camkw)])
     state = trenderer.init_state(cfg, cam, scene, device="cpu")
     assert state.pt_pack.shape == (tk.PT_CH, R)
+    checker = (np.indices((32, 32)).sum(0) % 2).astype(np.float32)
+    tex = np.stack([checker, 0.5 * checker + 0.25,
+                    np.full_like(checker, 0.5)], axis=-1)
+    atlas, meta = _build_fused_atlas([tex])
     mat_attr = arrays.mat_attr.copy()
     mat_attr[0, 7] = 0.0  # the floor reads texture 0
     textured = convert.scene_from_numpy(
-        arrays._replace(mat_attr=mat_attr), "cpu")
-    with pytest.raises(NotImplementedError, match="textures"):
-        trenderer.init_state(cfg, cam, textured, device="cpu")
+        arrays._replace(mat_attr=mat_attr, fused_atlas=atlas,
+                        fused_tex_meta=meta), "cpu")
+    assert textured.has_textures
+    tcfg = cfg.replace(with_textures=True)
+    state = trenderer.init_state(tcfg, cam, textured, device="cpu")
+    state, frame = trenderer.step(textured, state, cam, tcfg)
+    assert tuple(frame.shape) == (3, R) and bool(torch.isfinite(frame).all())
+    assert float(frame.mean()) > 0.0
+    # the floor's albedo is the checker's texels, not its base colour
+    gb = gbuffer.gbuffer_pack(pack_camera(cam), pack_camera(cam), 0,
+                              textured.bvh, width=W, height=H,
+                              with_textures=True)
+    red = gb[tk.G_ALB][gb[tk.G_PRIMR] == 0.0]
+    assert red.numel() > 100
+    assert float(red.std()) > 0.1 and float(red.min()) < 0.5  # base is 0.65
