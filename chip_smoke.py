@@ -40,7 +40,24 @@ Phases (any failure exits non-zero and prints no result line):
  11. the hall under a sky: the same scene file with an equirect sky made
      in code (env_scene's gradient at 512x1024; 512 env-tile light rows,
      640 in all): B6 / B7 against their twins on the 32 tiles, then its
-     main path.
+     main path;
+ 12. general kernels vs twins on the headline scene at 1920x1080: B12
+     (primary hit) on frame 1's camera rays, B11 closest hit on the bounce
+     rays that sample_bsdf draws at those hits and its any-hit variant on
+     NEE segments, B10 (CDF RIS + winner visibility) on the general
+     G-buffer; gates: primitive match >= 99.8 %, pick match >= 99.5 %,
+     matched lanes within rtol 2e-4 on >= 99.9 %, M equal on >= 99.99 %;
+ 13. general main paths through renderer.init_state / step at 1920x1080:
+     PT_DIRECT (8 warm-up + 32 timed frames; launches per frame
+     primary_hit 2, any hit 1), PT_FULL at trace_depth 5 (2 + 6 frames;
+     primary_hit 7, any hit 5), general ReSTIR DI from init_state(cfg,
+     cam) without a scene, denoiser NONE, in cdf mode (primary_hit 1,
+     ris_cdf 1) and reference mode (primary_hit 1, any hit 1), 2 + 8
+     frames each;
+ 14. quality gate, as bench.py:49-80: many_light_scene(36, 10) at
+     384x384, 64 fused RESTIR_DI frames against 256 PT_DIRECT frames;
+     energy_ratio_vs_pt must lie within 5 % of 1.
+Phases 12-14 run right after the build, the others in their order.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -70,6 +87,8 @@ from restir_tpu_torch.config import (
     TracerType,
     mat_flags,
 )
+from restir_tpu_torch.models import gbuffer as general_gb
+from restir_tpu_torch.ops import bsdf, intersect, intersect_bf, lights
 from restir_tpu_torch.ops.camera import make_camera, pack_camera
 from restir_tpu_torch.ops.kernels import (
     _build,
@@ -78,9 +97,12 @@ from restir_tpu_torch.ops.kernels import (
     fused_di,
     gbuffer,
     reuse,
+    ris_cdf,
     spatial,
     svgf,
 )
+from restir_tpu_torch.ops.kernels import intersect as hits
+from restir_tpu_torch.utils import rng
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_POS,
@@ -126,7 +148,16 @@ SOURCES = {
                       "restir_tpu/models/denoiser.py:221"),
     "atrous_svgf": ("restir_tpu_torch/csrc/atrous.cu",
                     "restir_tpu/ops/pallas/atrous_kernel.py:90"),
+    "primary_hit": ("restir_tpu_torch/csrc/intersect.cu",
+                    "restir_tpu/ops/pallas/intersect_kernel.py:200"),
+    "closest_hit": ("restir_tpu_torch/csrc/intersect.cu",
+                    "restir_tpu/ops/pallas/intersect_kernel.py:162"),
+    "any_hit": ("restir_tpu_torch/csrc/intersect.cu",
+                "restir_tpu/ops/pallas/intersect_kernel.py:376"),
+    "ris_cdf": ("restir_tpu_torch/csrc/ris_cdf.cu",
+                "restir_tpu/ops/pallas/ris_kernel.py:138"),
 }
+GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
 # 1920x1080), as the build of commit 4a151c4 wrote them on an H100: the
 # env-less, texture-less B1 must stay bit-identical to it.
@@ -145,6 +176,7 @@ FLOP_TEMPORAL = 40  # B1b's merge
 FLOP_B4_TAP = 50  # one SVGF tap: 3 weights (3 exp, 1 log), 4 sums
 FLOP_B5 = 40  # B5's test and blend
 FLOP_VAR = 40  # variance estimate + one prefilter, per pixel
+FLOP_B12_EPI = 60  # B12's interpolation of pos / normal / uv
 
 
 class PhaseError(RuntimeError):
@@ -204,6 +236,10 @@ def reset_counts():
     reuse.launches = 0
     svgf.temporal_launches = 0
     svgf.variance_launches = 0
+    hits.primary_launches = 0
+    hits.closest_launches = 0
+    hits.any_launches = 0
+    ris_cdf.launches = 0
 
 
 def read_counts():
@@ -213,7 +249,10 @@ def read_counts():
             "atrous_svgf": atrous.svgf_launches,
             "gbuffer_bvh": gbuffer.launches, "reuse_bvh": reuse.launches,
             "svgf_temporal": svgf.temporal_launches,
-            "svgf_variance": svgf.variance_launches}
+            "svgf_variance": svgf.variance_launches,
+            "primary_hit": hits.primary_launches,
+            "closest_hit": hits.closest_launches,
+            "any_hit": hits.any_launches, "ris_cdf": ris_cdf.launches}
 
 
 def packs_digest(*packs) -> str:
@@ -389,9 +428,15 @@ def phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1):
     b6 = walk_bound6(scene.bvh, w * h, cnt6)
     b7 = walk_bound7(scene.tables, scene.bvh, w * h, cfg.cdf_candidates,
                      cnt7, False)
+    ms6_ref = cuda_ms(lambda: gbuffer.gbuffer_ref(
+        cv2, cv, 1, scene.bvh, width=w, height=h), 1, warmup=False)
+    ms7_ref = cuda_ms(lambda: reuse.reuse_ref(
+        gb, pt0, 1, scene.tables, k=cfg.cdf_candidates,
+        has_met=cfg.scene_has_metallic), 1, warmup=False)
     print(f"headline scene: B6 {ms6:.4f} ms (bound {b6[0]:.4f} ms, "
-          f"{b6[1]}), B7 {ms7:.4f} ms (bound {b7[0]:.4f} ms, {b7[1]}) "
-          f"(B1 resident path for comparison above)")
+          f"{b6[1]}; twin {ms6_ref:.2f} ms), B7 {ms7:.4f} ms (bound "
+          f"{b7[0]:.4f} ms, {b7[1]}; twin with B1b {ms7_ref:.2f} ms) (B1 "
+          f"resident path for comparison above)")
 
 
 def walk_bound6(bvh, r, counts):
@@ -403,14 +448,21 @@ def walk_bound6(bvh, r, counts):
                  r * FLOP_PIXEL + boxes * FLOP_BOX + tris * FLOP_PLANE)
 
 
+def light_count(t, has_env):
+    """The light rows that hold lights (area lights, then env tiles); the
+    tables' zero padding rows are no work of the function."""
+    return t.n_lights + (t.env_rad.shape[0] if has_env else 0)
+
+
 def walk_bound7(t, bvh, r, k, counts, has_env):
     """(least ms, what binds it) of B7 over this frame's shadow-walk
-    tests, with 2 x l_pad light targets per pixel."""
+    tests, with 2 light targets per light row and pixel."""
     boxes, tris = (float(c.double().sum()) for c in counts)
     lights, psi = t.light_rows(has_env)
-    return bound(table_bytes(lights, psi, bvh.planes, bvh.bounds, bvh.nodes)
-                 + r * (24 + 8) * 4,
-                 r * (2 * psi.shape[0] * FLOP_LIGHT + k * FLOP_CAND)
+    n_l = light_count(t, has_env)
+    return bound(table_bytes(lights[:n_l], psi[:n_l], bvh.planes, bvh.bounds,
+                             bvh.nodes) + r * (24 + 8) * 4,
+                 r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
                  + boxes * FLOP_BOX + tris * FLOP_PLANE)
 
 
@@ -435,13 +487,13 @@ def phase_small_frames(arrays, cam, dev):
 
 def b1_bound(t, r, k, has_env):
     """(least ms, what binds it) of one B1 call: the packs written and the
-    tables read once; 2 x n_pad plane tests and 2 x l_pad light targets
-    per pixel."""
+    tables read once; 2 plane tests per triangle and 2 light targets per
+    light row, per pixel."""
     lights, psi = t.light_rows(has_env)
-    n_pad, l_pad = t.planes.shape[0], psi.shape[0]
+    n_tris, n_l = t.attr.shape[0], light_count(t, has_env)
     return bound(r * (14 + 24 + 16) * 4 + table_bytes(
-        t.planes, t.attr, t.mat, lights, psi),
-        r * (2 * n_pad * FLOP_PLANE + 2 * l_pad * FLOP_LIGHT
+        t.planes[:n_tris], t.attr, t.mat, lights[:n_l], psi[:n_l]),
+        r * (2 * n_tris * FLOP_PLANE + 2 * n_l * FLOP_LIGHT
              + k * FLOP_CAND + FLOP_PIXEL + FLOP_TEMPORAL))
 
 
@@ -498,13 +550,15 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
     return counts
 
 
-def profile_frames(name, scene, cfg, cam, dev, frames=4):
-    """Device busy time per frame and its largest kernels, from a
-    torch.profiler trace of `frames` frames after 2 warm-up frames."""
+def profile_frames(name, scene, cfg, cam, dev, frames=4, with_scene=True):
+    """Device busy time per frame, split into the port's kernels and
+    PyTorch's own, and the largest kernels, from a torch.profiler trace of
+    `frames` frames after 2 warm-up frames."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state = renderer.init_state(cfg, cam, scene, device=dev)
+    state = renderer.init_state(cfg, cam, scene if with_scene else None,
+                                device=dev)
     for _ in range(2):
         state, _ = renderer.step(scene, state, cam, cfg)
     torch.cuda.synchronize()
@@ -525,8 +579,11 @@ def profile_frames(name, scene, cfg, cam, dev, frames=4):
               "busy share not measured")
         return
     busy = sum(by_name.values())
+    torch_ms = sum(v for k, v in by_name.items() if "at::native" in k)
     print(f"profile {name}: {wall:.3f} ms/frame wall (profiled), device "
-          f"busy {busy:.3f} ms/frame, idle share {1.0 - busy / wall:.3f}")
+          f"busy {busy:.3f} ms/frame (port kernels {busy - torch_ms:.3f}, "
+          f"PyTorch kernels {torch_ms:.3f}), idle share "
+          f"{1.0 - busy / wall:.3f}")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {v:9.4f} ms/frame  {k[:90]}")
 
@@ -912,6 +969,329 @@ def phase_sky_hall(sf, cam, dev):
     profile_frames("sky hall", scene, cfg, cam, dev)
 
 
+def first_blocker_tests(planes, n_tris, o, d, limit, exclude, active):
+    """Plane tests an early-exit any-hit walk over the scene's triangles
+    needs for these rays: the first blocking triangle's index + 1, or
+    every triangle (computed in chunks with the twins' plane products;
+    the table's zero padding rows are no work of the function)."""
+    planes = planes[:n_tris]
+    total = 0
+    chunk = fused_di.chunk_pixels(n_tris)
+    for p0 in range(0, o[0].shape[0], chunk):
+        sl = slice(p0, p0 + chunk)
+        act = active[sl]
+        if not bool(act.any()):
+            continue
+        oo = tuple(c[sl][act] for c in o)
+        dd = tuple(c[sl][act] for c in d)
+        oou, oov, oow, ddu, ddv, ddw = fused_di._hit_loop(planes, oo, dd)
+        nondeg = torch.abs(ddw) >= 1e-12
+        t = -oow / torch.where(nondeg, ddw, 1.0)
+        u, v = oou + t * ddu, oov + t * ddv
+        blocked = (nondeg & (t > 0) & (u >= 0) & (v >= 0) & (u + v <= 1)
+                   & (t < limit[sl][act][:, None]))
+        if exclude is not None:
+            ids = torch.arange(n_tris, device=planes.device)[None, :]
+            blocked &= ids != exclude[sl][act][:, None]
+        first = torch.where(blocked.any(1), blocked.int().argmax(1) + 1,
+                            n_tris)
+        total += int(first.sum())
+    return total
+
+
+def _facing(norm, wo, mtype):
+    flip = (mtype != 2) & ((norm * wo).sum(-1) < 0)
+    return torch.where(flip[:, None], -norm, norm)
+
+
+def phase_general_kernels(scene, cam, dev, record, launches):
+    """B12, B11 (closest and any hit) and B10 against their twins at 1080p
+    on the headline scene, and the ray-query entry point that launches
+    B11's closest hit."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, tracer=TracerType.PT_FULL)
+    r = cfg.num_pixels
+    trv = intersect.traversal_arrays(scene)
+    t = scene.tables
+    n_tris = scene.num_tris
+    planes = t.planes[:n_tris]  # the rows the kernels walk
+    _, o, d = general_gb.primary_rays(cam, cfg, 1, rng.SALT_CAMERA, dev)
+    o, d = o.contiguous(), d.contiguous()
+
+    # B12 on frame 1's camera rays
+    k12 = hits.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
+    r12 = hits.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d)
+    torch.cuda.synchronize()
+    same = k12[hits.CH_PRIM] == r12[hits.CH_PRIM]
+    hit = same & (r12[hits.CH_PRIM] >= 0)
+    close = float(torch.isclose(k12[:, hit], r12[:, hit], rtol=2e-4,
+                                atol=1e-6).all(0).float().mean())
+    err12 = float((k12[:, hit] - r12[:, hit]).abs().max())
+    print(f"B12 primary_hit vs twin at {WIDTH}x{HEIGHT}: primitive match "
+          f"{float(same.float().mean()):.6f}, matched lanes within rtol 2e-4 "
+          f"{close:.6f}, hits {float(hit.float().mean()):.4f}, max abs err "
+          f"{err12:.3g}")
+    if float(same.float().mean()) < 0.998 or close < 0.999:
+        raise PhaseError("B12 disagrees with its twin")
+    ms = cuda_ms(lambda: hits.primary_cuda(trv, scene.prim_attr,
+                                           scene.mat_attr, o, d), 10)
+    ms_ref = cuda_ms(lambda: hits.primary_ref(trv, scene.prim_attr,
+                                              scene.mat_attr, o, d), 2)
+    b = bound(r * (6 + hits.PRIMARY_CH) * 4 + table_bytes(
+        planes, scene.prim_attr, scene.mat_attr),
+        r * (n_tris * FLOP_PLANE + FLOP_B12_EPI))
+    record["primary_hit"] = dict(max_abs_err=err12, ms=ms, plain_ms=ms_ref,
+                                 bound_ms=b[0], bound_by=b[1],
+                                 library_ms=None)
+    print(f"B12 primary_hit: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]}), {n_tris} triangles")
+
+    # B11 closest hit on the bounce rays sample_bsdf draws at those hits
+    prim, dist, bary, pos, norm, uv, matp = hits.unpack_primary(k12)
+    valid = prim >= 0
+    mat = bsdf.SurfaceMaterial(
+        type=matp[:, 0].to(torch.int32), base_color=matp[:, 1:4],
+        metallic=matp[:, 4], roughness=matp[:, 5], ior=matp[:, 6])
+    wo = -d
+    n_f = _facing(norm, wo, mat.type)
+    pix = torch.arange(r, device=dev)
+    b1, b2, b3, _ = rng.uniform4(pix, 1, 2, rng.SALT_PT)
+    bs = bsdf.sample_bsdf(mat, n_f, wo, (b1, b2, b3))
+    ro, rd = intersect.make_offseted_ray(pos, bs.wi)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    pk, dk, bk = hits.closest_cuda(trv, ro, rd)
+    pr, dr, br = intersect_bf.intersect_closest_bf(scene.tri_xform, ro, rd)
+    torch.cuda.synchronize()
+    same = (pk == pr)[valid]
+    both = (pk == pr) & (pr >= 0) & valid
+    close = float((torch.isclose(dk[both], dr[both], rtol=2e-4)
+                   & torch.isclose(bk[both], br[both], rtol=2e-4,
+                                   atol=1e-5).all(1)).float().mean())
+    err11 = float((dk[both] - dr[both]).abs().max())
+    print(f"B11 closest_hit vs twin on {int(valid.sum())} bounce rays: "
+          f"primitive match {float(same.float().mean()):.6f}, matched hits "
+          f"within rtol 2e-4 {close:.6f}, max abs dist err {err11:.3g}")
+    if float(same.float().mean()) < 0.998 or close < 0.999:
+        raise PhaseError("B11 disagrees with its twin")
+    ms = cuda_ms(lambda: hits.closest_cuda(trv, ro, rd), 10)
+    ms_ref = cuda_ms(lambda: intersect_bf.intersect_closest_bf(
+        scene.tri_xform, ro, rd), 2)
+    b = bound(r * (24 + 16) * 4 + table_bytes(planes),
+              r * n_tris * FLOP_PLANE)
+    record["closest_hit"] = dict(max_abs_err=err11, ms=ms, plain_ms=ms_ref,
+                                 bound_ms=b[0], bound_by=b[1],
+                                 library_ms=None)
+    print(f"B11 closest_hit: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]})")
+    # No render path casts closest-hit rays on the card (bounces go through
+    # B12), so B11's closest hit is driven through the port's ray-query
+    # entry point, a main path of its own.
+    reset_counts()
+    hit = intersect.intersect_closest(trv, ro, rd)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect = {k: int(k == "closest_hit") for k in counts}
+    print(f"main path ray query (intersect_closest on {r} bounce rays) "
+          f"launches {counts}")
+    if counts != expect:
+        raise PhaseError(f"ray query: launch counts {counts} != {expect}")
+    if not torch.equal(hit.prim_id, pk):
+        raise PhaseError("ray query: intersect_closest != B11's closest hit")
+    launches["closest_hit"] = counts["closest_hit"]
+
+    # ... and its any-hit variant on NEE segments from the primary hits
+    l1, l2, l3, l4 = rng.uniform4(pix, 1, 1, rng.SALT_PT)
+    ls = lights.sample_direct_light_no_visibility(scene, pos, l1, l2, l3, l4,
+                                                  has_env=False)
+    target = (pos + ls.wi * torch.clamp(ls.dist, max=1e6)[:, None])
+    shoot = valid & (ls.pdf > 0)
+    occ_k = hits.any_cuda(trv, pos, target.contiguous(), shoot)
+    occ_r = intersect_bf.test_occlusion_bf(scene.tri_xform, pos, target,
+                                           shoot)
+    torch.cuda.synchronize()
+    agree = float((occ_k == occ_r)[shoot].float().mean())
+    print(f"B11 any hit vs twin on {int(shoot.sum())} NEE segments: agree "
+          f"{agree:.6f}, occluded {float(occ_k[shoot].float().mean()):.4f}")
+    if agree < 0.998:
+        raise PhaseError("B11's any hit disagrees with its twin")
+    ms_any = cuda_ms(lambda: hits.any_cuda(trv, pos, target.contiguous(),
+                                           shoot), 10)
+    ms_any_ref = cuda_ms(lambda: intersect_bf.test_occlusion_bf(
+        scene.tri_xform, pos, target, shoot), 2)
+    o_s, d_s, lim = intersect_bf.occlusion_ray(pos, target)
+    tests_any = first_blocker_tests(t.planes, n_tris, tuple(o_s.T),
+                                    tuple(d_s.T), lim, None, shoot)
+    b_any = bound(r * (24 + 1) * 4 + table_bytes(planes),
+                  tests_any * FLOP_PLANE)
+    record["any_hit"] = dict(
+        max_abs_err=float((occ_k != occ_r)[shoot].any()), ms=ms_any,
+        plain_ms=ms_any_ref, bound_ms=b_any[0], bound_by=b_any[1],
+        library_ms=None)
+    print(f"B11 any_hit: kernel {ms_any:.4f} ms, twin {ms_any_ref:.4f} ms, "
+          f"bound {b_any[0]:.4f} ms ({b_any[1]}, "
+          f"{tests_any / max(int(shoot.sum()), 1):.1f} plane tests per "
+          "segment)")
+
+    # B10 on the general G-buffer
+    dcfg = cfg.replace(tracer=TracerType.RESTIR_DI)
+    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, dcfg,
+                                                        1)
+    wo = -ray_dir
+    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
+                               gmat.type, gmat.metallic, gmat.roughness,
+                               shade, it.prim_id)
+    kw = dict(k=dcfg.cdf_candidates, single_sided=dcfg.single_sided_lights,
+              has_met=dcfg.scene_has_metallic)
+    k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, **kw)
+    r10 = ris_cdf.ris_cdf_ref(pack, 1, t, **kw)
+    torch.cuda.synchronize()
+    li, wi_, w_ = ris_cdf.OUT_LI, ris_cdf.OUT_WI, ris_cdf.OUT_W
+    pick = (torch.all(k10[li:li + 3] == r10[li:li + 3], 0)
+            & torch.all(torch.isclose(k10[wi_:wi_ + 3], r10[wi_:wi_ + 3],
+                                      rtol=2e-4, atol=1e-5), 0))
+    pm = float(pick[shade].float().mean())
+    ok = pick & shade
+    wclose = float(torch.isclose(k10[w_][ok], r10[w_][ok], rtol=2e-4,
+                                 atol=1e-7).float().mean())
+    m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
+    err10 = float((k10[w_][ok] - r10[w_][ok]).abs().max())
+    print(f"B10 ris_cdf vs twin on the general G-buffer: pick match {pm:.6f}, "
+          f"weights within rtol 2e-4 {wclose:.6f}, M equal {m_eq:.6f}, "
+          f"visible winners {float((k10[w_][shade] > 0).float().mean()):.4f}")
+    if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
+        raise PhaseError("B10 disagrees with its twin")
+    ms = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, **kw), 10)
+    ms_ref = cuda_ms(lambda: ris_cdf.ris_cdf_ref(pack, 1, t, **kw), 1)
+    # the shadow rays this run traces: live winners, first blocker
+    # (excluding the pixel's own triangle) or every row
+    gbv = ris_cdf._gb_view(pack)
+    _, rwi, rdist, rw = fused_di.ris_pixels(gbv, pix, 1, t, **kw)
+    o10 = tuple(gbv[fused_di.G_POS + c] + rwi[c] * 1e-5 for c in range(3))
+    tests10 = first_blocker_tests(
+        t.planes, n_tris, o10, tuple(rwi), rdist * (1.0 - 1e-3) - 1e-4,
+        gbv[fused_di.G_PRIM].to(torch.int64), rw > 0)
+    n_l = t.n_lights
+    b = bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
+              + table_bytes(t.lights[:n_l], t.psi[:n_l], planes),
+              r * (2 * n_l * FLOP_LIGHT + dcfg.cdf_candidates * FLOP_CAND)
+              + tests10 * FLOP_PLANE)
+    record["ris_cdf"] = dict(max_abs_err=err10, ms=ms, plain_ms=ms_ref,
+                             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    print(f"B10 ris_cdf: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}; {n_l} lights, "
+          f"{tests10 / r:.1f} plane tests per pixel)")
+
+
+def phase_general_main(name, scene, cfg, cam, dev, per_frame, warmup,
+                       timed, with_scene=True):
+    """A general main path through renderer.init_state / step; returns
+    the launch counts of the run."""
+    reset_counts()
+    state = renderer.init_state(cfg, cam, scene if with_scene else None,
+                                device=dev)
+    if not isinstance(state, renderer.RenderState):
+        raise PhaseError(f"{name}: init_state returned {type(state)}")
+    frame = None
+    for _ in range(warmup):
+        state, frame = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(timed):
+        state, frame = renderer.step(scene, state, cam, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    dev_ms = start.elapsed_time(end) / timed
+    counts = read_counts()
+    expect = {k: per_frame.get(k, 0) * (warmup + timed) for k in counts}
+    print(f"main path {name} launches {counts} (expected {expect})")
+    if counts != expect:
+        raise PhaseError(f"{name}: launch counts {counts} != {expect}")
+    if tuple(frame.shape) != (cfg.num_pixels, 3):
+        raise PhaseError(f"{name}: frame shape {tuple(frame.shape)}")
+    if not bool(torch.isfinite(frame).all()):
+        raise PhaseError(f"{name}: frame has non-finite values")
+    mean = float(frame.mean())
+    if not mean > 0.0:
+        raise PhaseError(f"{name}: frame is black (mean {mean})")
+    img = renderer.frame_to_image(frame, cfg)
+    if img.dtype != torch.uint8 or tuple(img.shape) != (cfg.height,
+                                                        cfg.width, 3):
+        raise PhaseError(f"{name}: image {img.dtype} {tuple(img.shape)}")
+    print(f"main path {name} {cfg.width}x{cfg.height}: {wall_ms:.3f} "
+          f"ms/frame wall, {dev_ms:.3f} ms/frame device, "
+          f"{1e3 / wall_ms:.3f} fps; frame mean {mean:.5f}, image mean "
+          f"{float(img.float().mean()):.2f}")
+    return counts
+
+
+def phase_quality_gate(dev):
+    """bench.py:49-80: fused spatiotemporal frames against the unbiased
+    PT-direct reference on many_light_scene(36, 10) at 384x384."""
+    arrays, camkw = many_light_scene(36, 10)
+    scene = convert.scene_from_numpy(arrays, dev)
+    cam = make_camera(**camkw)
+    cfg = RenderConfig(width=384, height=384, tracer=TracerType.RESTIR_DI,
+                       denoiser=DenoiserType.NONE)
+    t0 = time.perf_counter()
+    state = renderer.init_state(cfg, cam, scene, device=dev)
+    if not isinstance(state, renderer.FusedDIState):
+        raise PhaseError("quality gate: the 384x384 DI frame is not fused")
+    for _ in range(64):
+        state, frame = renderer.step(scene, state, cam, cfg)
+    got = frame.T.double()
+    ref_cfg = cfg.replace(tracer=TracerType.PT_DIRECT)
+    ref_state = renderer.init_state(ref_cfg, cam, scene, device=dev)
+    for _ in range(256):
+        ref_state, ref = renderer.step(scene, ref_state, cam, ref_cfg)
+    ref = ref.double()
+    torch.cuda.synchronize()
+    ratio = float(got.mean() / max(float(ref.mean()), 1e-9))
+    rel_rmse = float(torch.sqrt(((got - ref) ** 2).mean())
+                     / max(float(ref.mean()), 1e-9))
+    print(f"quality gate (384x384, 64 fused RESTIR_DI vs 256 PT_DIRECT "
+          f"frames, {time.perf_counter() - t0:.1f} s): energy_ratio_vs_pt "
+          f"{ratio:.4f}, rel_rmse_vs_pt_64f {rel_rmse:.4f}")
+    if not abs(ratio - 1.0) < 0.05:
+        raise PhaseError(f"quality gate: energy ratio {ratio:.4f} is not "
+                         "within 5 % of PT-direct")
+
+
+def phase_general(scene, cam, arrays, dev, record, launches):
+    """Phases 12-14: the general kernels, main paths and quality gate."""
+    phase_general_kernels(scene, cam, dev, record, launches)
+    flags = mat_flags(arrays)
+    base = RenderConfig(width=WIDTH, height=HEIGHT, **flags)
+    total = {"primary_hit": 0, "any_hit": 0, "ris_cdf": 0}
+    runs = [
+        ("PT_DIRECT", base.replace(tracer=TracerType.PT_DIRECT),
+         {"primary_hit": 2, "any_hit": 1}, WARMUP, TIMED, True),
+        ("PT_FULL", base.replace(tracer=TracerType.PT_FULL, trace_depth=5),
+         {"primary_hit": 7, "any_hit": 5}, GENERAL_WARMUP, GENERAL_TIMED,
+         True),
+        ("general DI cdf", base.replace(tracer=TracerType.RESTIR_DI,
+                                        denoiser=DenoiserType.NONE),
+         {"primary_hit": 1, "ris_cdf": 1}, GENERAL_WARMUP, GENERAL_TIMED,
+         False),
+        ("general DI reference",
+         base.replace(tracer=TracerType.RESTIR_DI, ris_mode="reference",
+                      denoiser=DenoiserType.NONE),
+         {"primary_hit": 1, "any_hit": 1}, GENERAL_WARMUP, GENERAL_TIMED,
+         False),
+    ]
+    for name, cfg, per_frame, warm, timed, with_scene in runs:
+        counts = phase_general_main(name, scene, cfg, cam, dev, per_frame,
+                                    warm, timed, with_scene)
+        for k in total:
+            total[k] += counts[k]
+        profile_frames(name, scene, cfg, cam, dev, with_scene=with_scene)
+    launches.update(total)
+    phase_quality_gate(dev)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -930,14 +1310,15 @@ def main() -> int:
     print(f"headline scene: {scene.num_tris} triangles, "
           f"{scene.tables.n_lights} light triangles")
 
-    record = {}
+    record, launches = {}, {}
     cv, cv2, pt0, gb_b1, pt_b1 = phase_kernels(scene, cfg, cam, dev, record)
     phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1)
     phase_small_frames(arrays, cam, dev)
     levels = cfg.eaw_levels
     counts = phase_main("headline", scene, cfg, cam, dev, {
         "fused_di": 2, "spatial": 1, "atrous_eaw": levels})
-    launches = {k: counts[k] for k in ("fused_di", "spatial", "atrous_eaw")}
+    launches.update({k: counts[k] for k in ("fused_di", "spatial",
+                                            "atrous_eaw")})
     profile_frames("headline", scene, cfg, cam, dev)
 
     svgf_cfg = cfg.replace(denoiser=DenoiserType.SVGF)
@@ -968,6 +1349,7 @@ def main() -> int:
                     reuse_bvh=counts["reuse_bvh"])
     profile_frames("hall", hall, hall_cfg, hall_cam, dev)
     phase_sky_hall(hall_sf, hall_cam, dev)
+    phase_general(scene, cam, arrays, dev, record, launches)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -7,6 +7,10 @@
   `FusedDIState` fields in order, the 8 `Camera` leaves last; packs as
   [C, R/128, 128], the SVGF pack too) <-> the port's `FusedDIState`
   ([C, R] packs).
+- `render_state_from_numpy` / `render_state_to_numpy`: the general
+  `RenderState` as the same writer's leaf list (JAX flatten order: looper
+  uint32, iteration int32, the two accumulators, both reservoirs, the
+  G-buffer, the camera, the SVGF history; [R, ...] leaves as they are).
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .models.gbuffer import GBufferFrame
 from .models.restir_di_fused import FusedDIState
+from .ops import reservoir as rsv
 from .ops.camera import Camera
 from .ops.kernels.fused_di import PT_CH
 from .ops.kernels.svgf import SV_CH
@@ -58,7 +64,20 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
         bvh=build_bvh_tables(d, tables, device),
         has_env_map=has_env_map(d),
         has_textures=bool((maps >= 0).any()),
+        **{name: dev(name) for name in _GENERAL_F32},
+        **{name: dev(name, torch.int32) for name in _GENERAL_I32},
     )
+
+
+# the SceneData leaves the general path reads, beside the kernel tables
+_GENERAL_F32 = (
+    "verts", "norms", "uvs", "light_prob", "sum_light_power_inv", "env_map",
+    "env_prob", "env_tile_rad", "env_tile_uv", "env_tile_sa", "tex_data",
+    "mat_base_color", "mat_metallic", "mat_roughness", "mat_ior")
+_GENERAL_I32 = (
+    "mat_ids", "light_prim_ids", "light_alias", "env_alias", "tex_offset",
+    "tex_width", "tex_height", "mat_base_map", "mat_metallic_map",
+    "mat_roughness_map", "mat_normal_map")
 
 
 def camera_from_numpy(leaves: Sequence[np.ndarray]) -> Camera:
@@ -129,3 +148,42 @@ def state_to_numpy(state: FusedDIState):
         small(state.gi_q),
         *camera_to_numpy(state.last_camera),
     ]
+
+
+def _render_state_template():
+    """A RenderState skeleton whose leaves are placeholders."""
+    from .renderer import RenderState, SVGFState
+
+    def tup(cls):
+        return cls(*([None] * len(cls._fields)))
+
+    return RenderState(
+        looper=None, iteration=None, direct_illum=None, indirect_illum=None,
+        dir_reservoir=rsv.Reservoir(tup(rsv.DirectSample), None, None),
+        gi_reservoir=rsv.Reservoir(tup(rsv.IndirectSample), None, None),
+        gbuffer=tup(GBufferFrame), last_camera=tup(Camera),
+        denoiser=tup(SVGFState))
+
+
+def render_state_to_numpy(state):
+    """Leaf list of a general RenderState in the JAX flatten order."""
+    cam = Camera(*camera_to_numpy(state.last_camera))
+    leaves = rsv.tree_leaves(state._replace(last_camera=cam))[2:]
+    return [np.uint32(state.looper & 0xFFFFFFFF), np.int32(state.iteration),
+            *(x if isinstance(x, np.ndarray) else x.detach().cpu().numpy()
+              for x in leaves)]
+
+
+def render_state_from_numpy(leaves: Sequence[np.ndarray], device="cuda"):
+    """A general RenderState from the JAX writer's leaf list."""
+    template = _render_state_template()
+    n = len(rsv.tree_leaves(template))
+    if len(leaves) != n:
+        raise ValueError(f"expected {n} leaves, got {len(leaves)}")
+    state = rsv.tree_unflatten(template, [
+        torch.as_tensor(np.array(x), device=device) for x in leaves])
+    return state._replace(
+        looper=int(np.asarray(leaves[0]).astype(np.uint32)),
+        iteration=int(np.asarray(leaves[1])),
+        last_camera=camera_from_numpy([x.cpu().numpy()
+                                       for x in state.last_camera]))

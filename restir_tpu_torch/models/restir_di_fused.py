@@ -17,7 +17,9 @@ package's channel layout; `looper` and `iteration` are Python ints, so a
 frame never waits on the device for them.
 
 The temporal window and the per-tile spatial offsets work on 1024-pixel
-tiles, so the pixel count must be a multiple of 1024.
+tiles; the gate (`ineligibility`) is the JAX package's: width a multiple
+of 128, height of 8. A config that fails it renders on the general path
+(`renderer`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from ..config import DenoiserType, RenderConfig, ReuseMode, TracerType
 from ..ops.camera import Camera, pack_camera
 from ..ops.kernels import atrous, fused_di, gbuffer, reuse, spatial, svgf
-from ..ops.kernels.fused_di import G_ALB, PT_CH, TILE
+from ..ops.kernels.fused_di import G_ALB, PT_CH
 from ..ops.kernels.svgf import SV_CH, SV_COL, SV_PRIM
 from ..scene.scene_data import SceneTensors
 
@@ -48,25 +50,28 @@ class FusedDIState(NamedTuple):
 
 
 def ineligibility(cfg: RenderConfig):
-    """Why `cfg` cannot run on the ported fused path (None if it can).
-    Each reason names the ROADMAP item that will bring it."""
+    """Why `cfg` does not take the fused path (None if it does), the
+    gate of `restir_tpu.models.restir_di_fused.eligible`."""
     reasons = []
     if cfg.tracer != TracerType.RESTIR_DI:
-        reasons.append(f"tracer {cfg.tracer} (ROADMAP Queue A 6/7: GI, "
-                       "PT and the general pipeline)")
+        reasons.append(f"tracer {cfg.tracer} (the general pipeline)")
     if cfg.ris_mode not in ("auto", "cdf"):
-        reasons.append(f"ris_mode {cfg.ris_mode!r} (ROADMAP Queue A 7)")
+        reasons.append(f"ris_mode {cfg.ris_mode!r}")
     if cfg.sampler != "pcg4d":
-        reasons.append(f"sampler {cfg.sampler!r} (ROADMAP Queue A 7)")
+        reasons.append(f"sampler {cfg.sampler!r}")
     if cfg.denoiser not in (DenoiserType.NONE, DenoiserType.EAW,
                             DenoiserType.SVGF):
         reasons.append(f"denoiser {cfg.denoiser}")
     if cfg.enable_dof:
-        reasons.append("thin-lens DoF (ROADMAP Queue A 7)")
-    if cfg.num_pixels % TILE != 0:
-        reasons.append(f"{cfg.num_pixels} pixels, not a multiple of {TILE}")
+        reasons.append("thin-lens DoF")
+    # the JAX gate's 8x128-pixel tiles (fused_di.eligible); they also make
+    # the pixel count a multiple of the 1024-pixel TILE
+    if cfg.width % 128 != 0:
+        reasons.append(f"width {cfg.width} not a multiple of 128")
+    if cfg.height % 8 != 0:
+        reasons.append(f"height {cfg.height} not a multiple of 8")
     if cfg.intersector not in ("auto", "brute", "clustered"):
-        reasons.append(f"intersector {cfg.intersector!r} (ROADMAP Queue A 5)")
+        reasons.append(f"intersector {cfg.intersector!r}")
     return "; ".join(reasons) or None
 
 

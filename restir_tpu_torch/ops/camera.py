@@ -61,3 +61,78 @@ def pack_camera(cam: Camera, device=None) -> torch.Tensor:
         torch.stack([tanf, _f32(cam.focal_dist), zero, zero]),
     ])
     return vec if device is None else vec.to(device)
+
+
+def _on(x, device) -> torch.Tensor:
+    return _f32(x).to(device)
+
+
+def pixel_centers(width: int, height: int, device="cuda"):
+    """(x, y) integer pixel coordinates, row-major, flattened [H*W]."""
+    ys, xs = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device),
+        indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+def sample_rays(cam: Camera, width: int, height: int, x, y, rx, ry,
+                ra=None, rb=None):
+    """Primary rays for pixels (x, y) with sub-pixel jitter (rx, ry) —
+    Camera::sample (sceneStructs.h:69-86). With lens uniforms (ra, rb)
+    and lens_radius > 0, the thin-lens model (camera.py:102-141).
+    Returns (o [R, 3], d [R, 3])."""
+    from ..utils import math as mathx
+
+    dev = x.device
+    pos, right, up, view = (_on(v, dev) for v in (
+        cam.position, cam.right, cam.up, cam.view))
+    focal = _on(cam.focal_dist, dev)
+    aspect = width / height
+    tan_fovy = torch.tan(torch.deg2rad(_on(cam.fov_y, dev)))
+    ruv_x = 1.0 - 2.0 * (x + rx) / width
+    ruv_y = 1.0 - 2.0 * (y + ry) / height
+    fx = ruv_x * aspect * tan_fovy * focal
+    fy = ruv_y * tan_fovy * focal
+    fz = focal.expand(fx.shape)
+    if ra is not None:
+        p = mathx.to_concentric_disk(ra, rb) * _on(cam.lens_radius, dev)
+        lx, ly = p[..., 0], p[..., 1]
+    else:
+        lx = torch.zeros_like(fx)
+        ly = torch.zeros_like(fy)
+    d = (right[None, :] * (fx - lx)[..., None]
+         + up[None, :] * (fy - ly)[..., None]
+         + view[None, :] * fz[..., None])
+    d = d / mathx.norm(d)[..., None]
+    o = (pos[None, :] + right[None, :] * lx[..., None]
+         + up[None, :] * ly[..., None])
+    return o.expand(d.shape), d
+
+
+def raster_uv(cam: Camera, width: int, height: int, pos):
+    """World pos -> this camera's raster uv in [0, 1]^2 —
+    Camera::getRasterUV (sceneStructs.h:23-41)."""
+    from ..utils import math as mathx
+
+    dev = pos.device
+    aspect = width / height
+    tan_fovy = torch.tan(torch.deg2rad(_on(cam.fov_y, dev)))
+    dirv = pos - _on(cam.position, dev)
+    dirv = dirv / mathx.norm(dirv)[..., None]
+    depth = mathx.dot(dirv, _on(cam.view, dev))
+    inv_depth = 1.0 / depth
+    px = mathx.dot(dirv, _on(cam.right, dev)) * inv_depth
+    py = mathx.dot(dirv, _on(cam.up, dev)) * inv_depth
+    ndc_x = -(px / (aspect * tan_fovy))
+    ndc_y = -(py / tan_fovy)
+    return ndc_x * 0.5 + 0.5, ndc_y * 0.5 + 0.5
+
+
+def raster_coord(cam: Camera, width: int, height: int, pos):
+    """Integer raster coordinates, truncated toward zero like the C
+    float -> int cast — Camera::getRasterCoord (sceneStructs.h:43-46)."""
+    from ..utils.math import trunc_i32
+
+    u, v = raster_uv(cam, width, height, pos)
+    return trunc_i32(u * width), trunc_i32(v * height)

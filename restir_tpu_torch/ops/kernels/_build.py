@@ -136,6 +136,11 @@ _SIGNATURES = {
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
     "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
+    "restir_closest_hit": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    "restir_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _I, _VP],
+    "restir_primary_hit": [_VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I, _VP],
+    "restir_ris_cdf": [
+        _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP],
 }
 
 

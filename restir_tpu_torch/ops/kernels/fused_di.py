@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ...utils import rng
+from ...utils.math import trunc_i32 as _trunc_i32
 from . import _build
 from .tables import ResidentTables
 
@@ -152,15 +153,6 @@ def eval_bsdf_lum(mtype, metallic, roughness, n, wo, wi, has_met=True):
 
 def _bad(w):
     return torch.isnan(w) | torch.isinf(w) | (w < 0.0)
-
-
-def _trunc_i32(x):
-    """float -> int32 toward zero, saturating, NaN -> 0 (XLA's convert and
-    PTX cvt.rzi.s32.f32)."""
-    x = torch.clamp(torch.nan_to_num(x, nan=0.0), -2147483648.0,
-                    2147483648.0)
-    return torch.clamp(x.to(torch.int64), -2147483648,
-                       2147483647).to(torch.int32)
 
 
 def check_env(env_rad, has_env: bool) -> None:

@@ -1,0 +1,146 @@
+"""Kernel B10: the general path's CDF RIS candidate stage with the
+winner's shadow ray, and its plain PyTorch version.
+
+Port of `restir_tpu.ops.pallas.ris_kernel.ris_cdf_pallas`
+(`_ris_kernel`): per pixel, K draws from the exact per-pixel CDF over all
+area lights, a single-draw winner, then a brute-force any hit of the
+winner's shadow ray with self-exclusion of the pixel's own triangle and a
+relative distance margin; an occluded winner's weight comes back zero.
+The math is B1's RIS core, so the CUDA kernel (`csrc/ris_cdf.cu`) calls
+`di_core.cuh`'s `ris_select` and the plain version calls B1's twins
+(`fused_di.ris_pixels`, `fused_di.shadow_pixels`) on a G-buffer-shaped
+view of the input pack. The light rows are `tables.light_tables`'s
+(`ris_kernel.build_light_tables`' rows, no env tiles).
+
+CUDA tensors launch the kernel, CPU tensors take the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, fused_di
+from .fused_di import (
+    G_DIR,
+    G_METAL,
+    G_MTYPE,
+    G_NORM,
+    G_POS,
+    G_PRIM,
+    G_ROUGH,
+    G_SHADE,
+    GB_CH,
+    MAX_K,
+    SMEM_MAX,
+)
+from .tables import ResidentTables
+
+launches = 0  # B10 launches
+
+# input pack [CIN, R] and output pack [COUT, R] (ris_kernel.py:37-41)
+IN_POS, IN_NORM, IN_WO = 0, 3, 6
+IN_MTYPE, IN_METAL, IN_ROUGH, IN_SHADE, IN_PRIM = 9, 10, 11, 12, 13
+CIN = 14
+OUT_LI, OUT_WI, OUT_DIST, OUT_W, OUT_M = 0, 3, 6, 7, 8
+COUT = 10  # li(3) wi(3) dist weight m pad
+PCHUNK = 256  # plane rows the kernel stages in shared memory
+
+
+def pack_inputs(pos, norm, wo, mtype, metallic, roughness, shade, prim_id):
+    """[CIN, R] float32 input pack in the TPU kernel's channel order."""
+    return torch.cat([
+        pos.T, norm.T, wo.T,
+        torch.stack([mtype.to(torch.float32), metallic, roughness,
+                     shade.to(torch.float32), prim_id.to(torch.float32)]),
+    ]).contiguous()
+
+
+def _gb_view(pack):
+    """The gb-pack channels that B1's RIS and shadow twins read."""
+    gb = torch.zeros((GB_CH, pack.shape[1]), dtype=torch.float32,
+                     device=pack.device)
+    gb[G_POS:G_POS + 3] = pack[IN_POS:IN_POS + 3]
+    gb[G_NORM:G_NORM + 3] = pack[IN_NORM:IN_NORM + 3]
+    gb[G_DIR:G_DIR + 3] = -pack[IN_WO:IN_WO + 3]
+    gb[G_MTYPE] = pack[IN_MTYPE]
+    gb[G_METAL] = pack[IN_METAL]
+    gb[G_ROUGH] = pack[IN_ROUGH]
+    gb[G_SHADE] = pack[IN_SHADE]
+    gb[G_PRIM] = pack[IN_PRIM]
+    return gb
+
+
+def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
+                single_sided=True, has_met=True):
+    """Plain B10: the [COUT, R] output pack."""
+    r = pack.shape[1]
+    out = torch.zeros((COUT, r), dtype=torch.float32, device=pack.device)
+    chunk = fused_di.chunk_pixels(max(tables.planes.shape[0],
+                                      tables.psi.shape[0]))
+    for p0 in range(0, r, chunk):
+        gb = _gb_view(pack[:, p0:p0 + chunk])
+        pix = torch.arange(p0, p0 + gb.shape[1], device=pack.device)
+        li, wi, dist, w = fused_di.ris_pixels(
+            gb, pix, looper, tables, k=k, single_sided=single_sided,
+            has_met=has_met)
+        w = fused_di.shadow_pixels(gb, wi, dist, w, tables.planes)
+        out[OUT_LI:OUT_LI + 3, p0:p0 + chunk] = li
+        out[OUT_WI:OUT_WI + 3, p0:p0 + chunk] = wi
+        out[OUT_DIST, p0:p0 + chunk] = dist
+        out[OUT_W, p0:p0 + chunk] = w
+        out[OUT_M, p0:p0 + chunk] = torch.where(gb[G_SHADE] > 0.5, float(k),
+                                                0.0)
+    return out
+
+
+def ris_cdf_cuda(pack, looper, tables: ResidentTables, *, k=4,
+                 single_sided=True, has_met=True):
+    """B10 on the card: the [COUT, R] output pack."""
+    global launches
+    r = pack.shape[1]
+    dev = pack.device
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if pack.dtype != torch.float32 or tuple(pack.shape) != (CIN, r):
+        raise ValueError(f"input pack: expected float32 [{CIN}, {r}]")
+    lights, psi, planes = tables.lights, tables.psi, tables.planes
+    for t in (lights, psi, planes):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("light and plane tables must be float32 on "
+                             f"{dev}")
+    l_pad = psi.shape[0]
+    smem = (l_pad * 32 + PCHUNK * 12) * 4
+    if smem > SMEM_MAX:
+        raise ValueError(f"B10 holds {l_pad} light rows in shared memory: "
+                         f"{smem} bytes, over the {SMEM_MAX} a block can use")
+    pack = pack.contiguous()
+    out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _build.library().restir_ris_cdf(
+        p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
+        l_pad, tables.n_lights, p(planes), planes.shape[0], p(out), r,
+        int(single_sided), k, int(has_met), _build.stream_of(dev))
+    _build.check(err, "restir_ris_cdf")
+    launches += 1
+    return out
+
+
+def ris_cdf(pos, norm, wo, mtype, metallic, roughness, shade, prim_id,
+            looper, tables: ResidentTables, *, k=4, single_sided=True,
+            has_met=True):
+    """(li [R, 3], wi [R, 3], dist [R], weight [R], m [R] int32) with the
+    weights of occluded winners zeroed, as `ris_cdf_pallas` returns them.
+    `norm` is the shading normal already turned toward wo."""
+    pack = pack_inputs(pos, norm, wo, mtype, metallic, roughness, shade,
+                       prim_id)
+    kw = dict(k=k, single_sided=single_sided, has_met=has_met)
+    if pack.device.type == "cpu":
+        out = ris_cdf_ref(pack, looper, tables, **kw)
+    elif pack.device.type == "cuda":
+        out = ris_cdf_cuda(pack, looper, tables, **kw)
+    else:
+        raise ValueError(f"unsupported device {pack.device}")
+    return (out[OUT_LI:OUT_LI + 3].T, out[OUT_WI:OUT_WI + 3].T,
+            out[OUT_DIST], out[OUT_W], out[OUT_M].to(torch.int32))

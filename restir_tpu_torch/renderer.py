@@ -1,28 +1,62 @@
 """Frame orchestration of the port, as `restir_tpu.renderer`.
 
-This slice carries the fused ReSTIR DI state only: `init_state` returns
-a `FusedDIState` when the config fits the ported path (any triangle
-count, env maps and textures, the EAW or SVGF denoiser or none) and
-raises `NotImplementedError` (naming the ROADMAP item) otherwise; there
-is no general pipeline to fall back to yet. Entry points run on the card
-(`device="cuda"`) unless the caller asks for the CPU.
+`init_state` routes as the JAX package does: with a scene whose config
+passes the fused gate (`restir_di_fused.ineligibility`) it returns a
+`FusedDIState`; with no scene, or when the gate fails, the general
+`RenderState`. `step` dispatches on the state's type. The general step
+carries RESTIR_DI, PT_DIRECT, PT_FULL, PT_INDIRECT and GBUFFER_PREVIEW;
+what it leaves out (RESTIR_GI, BVH_VISUALIZE, the general path's EAW and
+SVGF, the Sobol sampler, the MTBVH intersector) raises
+`NotImplementedError` naming its ROADMAP item. Entry points run on the
+card (`device="cuda"`) unless the caller asks for the CPU.
+
+`looper` and `iteration` are Python ints in both states, so a frame
+never waits on the device for them.
 """
 
 from __future__ import annotations
 
 import types
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import convert
-from .config import RenderConfig, validate_mat_flags
-from .models import restir_di_fused
-from .models.restir_di_fused import FusedDIState
+from .config import (
+    DenoiserType,
+    RenderConfig,
+    TracerType,
+    validate_mat_flags,
+)
+from .models import restir_di, restir_di_fused
+from .models import gbuffer as gbuf
+from .models.path_tracer import pt_direct, pt_indirect, pt_trace
+from .models.restir_di_fused import FusedDIState, _copy_camera
+from .ops import reservoir as rsv
 from .ops.camera import Camera
 from .ops.tonemap import to_uint8, tonemap
 from .scene.scene_data import SceneTensors
+
+
+class SVGFState(NamedTuple):
+    """The general path's SVGF history (denoiser.cu:479-492); carried for
+    checkpoints, read by no ported filter yet."""
+
+    accum_color: torch.Tensor  # [R, 3]
+    accum_moment: torch.Tensor  # [R, 3]
+
+
+class RenderState(NamedTuple):
+    looper: int  # RNG epoch (uint32)
+    iteration: int  # accumulation frame count
+    direct_illum: torch.Tensor  # [R, 3]
+    indirect_illum: torch.Tensor  # [R, 3]
+    dir_reservoir: rsv.Reservoir  # ReSTIR DI temporal feed
+    gi_reservoir: rsv.Reservoir  # ReSTIR GI temporal feed
+    gbuffer: gbuf.GBufferFrame  # previous frame's G-buffer
+    last_camera: Camera
+    denoiser: SVGFState
 
 
 def _host_materials(scene: SceneTensors):
@@ -31,54 +65,184 @@ def _host_materials(scene: SceneTensors):
                                  mat_attr=scene.mat_attr.cpu().numpy())
 
 
+def general_ineligibility(cfg: RenderConfig):
+    """Why the ported general path cannot render `cfg` (None if it can)."""
+    reasons = []
+    if cfg.tracer == TracerType.RESTIR_GI:
+        reasons.append("tracer RESTIR_GI (ROADMAP Queue A 6)")
+    if cfg.tracer == TracerType.BVH_VISUALIZE:
+        reasons.append("tracer BVH_VISUALIZE (ROADMAP Queue A 7)")
+    if cfg.denoiser != DenoiserType.NONE:
+        reasons.append(f"denoiser {cfg.denoiser} on the general path "
+                       "(ROADMAP Queue A 7)")
+    if cfg.sampler != "pcg4d":
+        reasons.append(f"sampler {cfg.sampler!r} (ROADMAP Queue A 7)")
+    if cfg.intersector not in ("auto", "brute"):
+        reasons.append(f"intersector {cfg.intersector!r} on the general "
+                       "path (ROADMAP Queue A 7)")
+    return "; ".join(reasons) or None
+
+
+def init_general(cfg: RenderConfig, cam: Camera, device="cuda"
+                 ) -> RenderState:
+    reason = general_ineligibility(cfg)
+    if reason is not None:
+        raise NotImplementedError(
+            f"restir_tpu_torch general path: {reason}")
+    r = cfg.num_pixels
+    dev = torch.device(device)
+
+    def z3():
+        return torch.zeros((r, 3), dtype=torch.float32, device=dev)
+
+    return RenderState(
+        looper=0, iteration=0, direct_illum=z3(), indirect_illum=z3(),
+        dir_reservoir=rsv.zeros_direct(r, dev),
+        gi_reservoir=rsv.zeros_indirect(r, dev),
+        gbuffer=gbuf.empty_gbuffer(r, dev), last_camera=_copy_camera(cam),
+        denoiser=SVGFState(z3(), z3()))
+
+
 def init_state(cfg: RenderConfig, cam: Camera,
                scene: Optional[SceneTensors] = None, *, device="cuda"):
-    """Render state for `cfg` on `device`. With `scene`, also checks the
-    config's material flags against the scene and the scene's size."""
+    """Render state for `cfg` on `device`: fused when a scene is given
+    and the fused gate passes, else general. With `scene`, also checks
+    the config's material and env flags against the scene."""
     if scene is not None:
         validate_mat_flags(cfg, _host_materials(scene))
         if cfg.has_env_map and not scene.has_env_map:
             raise ValueError("RenderConfig has_env_map is set but the scene "
                              "has no env map")
-    reason = restir_di_fused.ineligibility(cfg)
-    if reason is not None:
-        raise NotImplementedError(
-            f"restir_tpu_torch renders the fused ReSTIR DI path only: "
-            f"{reason}")
-    return restir_di_fused.init_state(cfg, cam, device)
+        if restir_di_fused.ineligibility(cfg) is None:
+            return restir_di_fused.init_state(cfg, cam, device)
+    return init_general(cfg, cam, device)
 
 
-def reset_accumulation(state: FusedDIState) -> FusedDIState:
+def reset_iteration(state):
+    """Restart the running average only (main.cpp:158-162)."""
+    return state._replace(iteration=0)
+
+
+def reset_accumulation(state):
     """Camera-change reset: restart averaging and temporal history, keep
     the RNG epoch monotonic."""
-    return restir_di_fused.reset_accumulation(state)
+    if isinstance(state, FusedDIState):
+        return restir_di_fused.reset_accumulation(state)
+    zero = torch.zeros_like
+    return state._replace(
+        iteration=0, direct_illum=zero(state.direct_illum),
+        indirect_illum=zero(state.indirect_illum),
+        dir_reservoir=rsv.tree_map(zero, state.dir_reservoir),
+        gi_reservoir=rsv.tree_map(zero, state.gi_reservoir),
+        denoiser=rsv.tree_map(zero, state.denoiser))
 
 
-def step(scene: SceneTensors, state: FusedDIState, cam: Camera,
-         cfg: RenderConfig):
-    """One frame. Returns (next state, frame [3, R]). Consumes `state`
-    (see `restir_di_fused.step_fused`)."""
-    return restir_di_fused.step_fused(scene, state, cam, cfg)
+def _accumulate(prev, new, iteration: int, accumulate: bool):
+    """Running mean (img * iter + x) / (iter + 1) — restir.cu:230."""
+    if not accumulate:
+        return new
+    it = float(iteration)
+    return (prev * it + new) / (it + 1.0)
+
+
+def step(scene: SceneTensors, state, cam: Camera, cfg: RenderConfig):
+    """One frame -> (next state, frame): [3, R] for a fused state (which
+    the step consumes, see `restir_di_fused.step_fused`), [R, 3] for a
+    general one."""
+    if isinstance(state, FusedDIState):
+        return restir_di_fused.step_fused(scene, state, cam, cfg)
+    return step_general(scene, state, cam, cfg)
+
+
+def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
+                 cfg: RenderConfig):
+    reason = general_ineligibility(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"restir_tpu_torch general path: {reason}")
+    looper = state.looper & 0xFFFFFFFF
+    gb, it, mat, ray_dir = gbuf.render_gbuffer(scene, cam, state.last_camera,
+                                               cfg, looper)
+    direct, indirect = state.direct_illum, state.indirect_illum
+    dir_res = state.dir_reservoir
+    n = state.iteration
+    if cfg.tracer == TracerType.RESTIR_DI:
+        out, dir_res = restir_di.restir_direct(
+            scene, gb, state.gbuffer, it, mat, ray_dir, state.dir_reservoir,
+            cfg, looper)
+        direct = _accumulate(direct, out, n, cfg.accumulate)
+    elif cfg.tracer == TracerType.PT_DIRECT:
+        direct = _accumulate(direct, pt_direct(scene, cam, cfg, looper), n,
+                             cfg.accumulate)
+    elif cfg.tracer == TracerType.PT_INDIRECT:
+        indirect = _accumulate(indirect, pt_indirect(scene, cam, cfg, looper),
+                               n, cfg.accumulate)
+    elif cfg.tracer == TracerType.PT_FULL:
+        d, ind = pt_trace(scene, cam, cfg, looper)
+        direct = _accumulate(direct, d, n, cfg.accumulate)
+        indirect = _accumulate(indirect, ind, n, cfg.accumulate)
+    elif cfg.tracer == TracerType.GBUFFER_PREVIEW:
+        # channel previews (preview.cpp:253-287)
+        if cfg.gbuffer_channel == "albedo":
+            direct = gb.albedo
+        elif cfg.gbuffer_channel == "depth":
+            d = gb.depth / torch.clamp(gb.depth.max(), min=1e-6)
+            direct = torch.stack([d] * 3, dim=-1)
+        elif cfg.gbuffer_channel == "position":
+            a = torch.abs(gb.pos)
+            direct = a / torch.clamp(a.max(), min=1e-6)
+        else:
+            direct = gb.norm * 0.5 + 0.5
+    else:
+        raise ValueError(f"unknown tracer {cfg.tracer}")
+
+    next_state = state._replace(
+        looper=(looper + 1) & 0xFFFFFFFF, iteration=n + 1,
+        direct_illum=direct, indirect_illum=indirect, dir_reservoir=dir_res,
+        gbuffer=gb, last_camera=_copy_camera(cam))
+    return next_state, direct + indirect
+
+
+def render(scene: SceneTensors, cam: Camera, cfg: RenderConfig,
+           num_frames: int, state=None, camera_fn=None, *, device="cuda"):
+    """Run `num_frames` steps (mainLoop semantics); `camera_fn(i)` animates
+    the camera. Returns (state, last frame)."""
+    if state is None:
+        state = init_state(cfg, cam, scene, device=device)
+    frame = None
+    for i in range(num_frames):
+        c = camera_fn(i) if camera_fn is not None else cam
+        state, frame = step(scene, state, c, cfg)
+    return state, frame
 
 
 def frame_to_image(frame: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
-    """Tonemap + quantize a [3, R] frame to uint8 [H, W, 3] (on the
-    frame's device)."""
+    """Tonemap + quantise a frame to uint8 [H, W, 3] on its device: a
+    general [R, 3] frame or a fused [3, R] one."""
     img = to_uint8(tonemap(frame, cfg.tone_mapping))
+    if tuple(frame.shape) == (cfg.num_pixels, 3):
+        return img.reshape(cfg.height, cfg.width, 3)
     return img.reshape(3, cfg.height, cfg.width).permute(1, 2, 0)
 
 
-def save_checkpoint(path: str, state: FusedDIState) -> None:
-    """Write the state as `restir_tpu.renderer.save_checkpoint` does."""
-    np.savez(path, *convert.state_to_numpy(state))
+def _to_numpy(state):
+    if isinstance(state, FusedDIState):
+        return convert.state_to_numpy(state)
+    return convert.render_state_to_numpy(state)
+
+
+def save_checkpoint(path: str, state) -> None:
+    """Write the state's leaves as `restir_tpu.renderer.save_checkpoint`
+    does, so either package reads the file."""
+    np.savez(path, *_to_numpy(state))
 
 
 def load_checkpoint(path: str, cfg: RenderConfig, cam: Camera,
                     scene: Optional[SceneTensors] = None, *, device="cuda"):
-    """Read a checkpoint of a fused DI state, written by this package or
-    by `restir_tpu.renderer.save_checkpoint`."""
-    template = convert.state_to_numpy(init_state(cfg, cam, scene,
-                                                 device="cpu"))
+    """Read a checkpoint written by this package or by
+    `restir_tpu.renderer.save_checkpoint`; the state kind follows
+    `init_state(cfg, cam, scene)`."""
+    state0 = init_state(cfg, cam, scene, device="cpu")
+    template = _to_numpy(state0)
     with np.load(path) as data:
         loaded = [data[f"arr_{i}"] for i in range(len(template))]
     for ref, got in zip(template, loaded):
@@ -86,4 +250,6 @@ def load_checkpoint(path: str, cfg: RenderConfig, cam: Camera,
             raise ValueError(
                 f"checkpoint shape mismatch: {got.shape} vs "
                 f"{np.shape(ref)} (different resolution or config?)")
-    return convert.state_from_numpy(loaded, cfg, device)
+    if isinstance(state0, FusedDIState):
+        return convert.state_from_numpy(loaded, cfg, device)
+    return convert.render_state_from_numpy(loaded, device)

@@ -1,7 +1,7 @@
-"""Scene build (numpy, host) and the device scene of the fused DI path.
+"""Scene build (numpy, host) and the device scene of the port.
 
 `build_scene` follows `restir_tpu.scene.scene_data.build_scene` for the
-arrays the fused DI frame reads: the world-space triangle soup in the
+arrays the port reads: the world-space triangle soup in the
 same Morton order (primitive ids appear in the G-buffer and in the
 shadow-ray self-exclusion, so the order must match), the SAH/MTBVH built
 on the permuted triangles (`scene.bvh`), the unit-triangle transforms,
@@ -9,8 +9,11 @@ the packed attribute and material rows, the light geometry, the raw env
 map and packed textures, and what the fused kernels sample of them: the
 16 x 32 piecewise-constant env tiles and the mip-clamped texture atlas
 (textures box-mipped to <= 128 texels wide within 256 rows), both equal
-to the JAX leaves. The TPU cluster / sub-block work-list boxes and the
-alias tables are not built: the port does not read them.
+to the JAX leaves; and what the general path reads: the light and env
+alias tables (`scene.alias_table`, light power = luminance * 2 pi *
+area), 1 / the summed power, and the per-material arrays. The TPU
+cluster / sub-block work-list boxes are not built: the port does not
+read them.
 
 `SceneTensors` is the same data as torch tensors on one device, plus
 the kernel tables derived from it once at upload
@@ -24,6 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .alias_table import build_alias_table
 from .bvh import build_bvh
 from .mesh import LIGHT, MaterialDesc, MeshInstance, build_transformation_matrix
 
@@ -65,10 +69,24 @@ class SceneArrays(NamedTuple):
     env_tile_sa: np.ndarray  # [ET] tile solid angle; [1] zeros
     fused_atlas: np.ndarray  # [384, rows_pad]: [c*128 + x, row0 + y] = texel
     fused_tex_meta: np.ndarray  # [T_pad, 4] (row0, w, h, valid)
+    light_prob: np.ndarray  # [Ls] f32 alias table over lights (+1 env)
+    light_alias: np.ndarray  # [Ls] i32
+    sum_light_power_inv: np.ndarray  # f32 scalar (0 without lights)
+    env_prob: np.ndarray  # [Eh*Ew] f32 env texel alias table
+    env_alias: np.ndarray  # [Eh*Ew] i32
+    mat_base_color: np.ndarray  # [M, 3] f32
+    mat_metallic: np.ndarray  # [M]
+    mat_roughness: np.ndarray  # [M]
+    mat_ior: np.ndarray  # [M]
+    mat_base_map: np.ndarray  # [M] i32 (-1 none, -2 procedural)
+    mat_metallic_map: np.ndarray  # [M] i32
+    mat_roughness_map: np.ndarray  # [M] i32
+    mat_normal_map: np.ndarray  # [M] i32
 
 
 class SceneTensors(NamedTuple):
-    """Device scene of the fused DI path."""
+    """Device scene: the fused kernels' tables and the arrays the general
+    path reads (JAX `SceneData` names)."""
 
     tri_xform: torch.Tensor
     prim_attr: torch.Tensor
@@ -84,6 +102,32 @@ class SceneTensors(NamedTuple):
     bvh: "object"  # ops.kernels.tables.BvhTables
     has_env_map: bool  # the scene has an environment map
     has_textures: bool  # a material reads a texture
+    verts: torch.Tensor  # [N, 3, 3]
+    norms: torch.Tensor  # [N, 3, 3]
+    uvs: torch.Tensor  # [N, 3, 2]
+    mat_ids: torch.Tensor  # [N] i32
+    light_prim_ids: torch.Tensor  # [L] i32
+    light_prob: torch.Tensor  # [Ls]
+    light_alias: torch.Tensor  # [Ls] i32
+    sum_light_power_inv: torch.Tensor  # f32 scalar
+    env_map: torch.Tensor  # [Eh, Ew, 3]
+    env_prob: torch.Tensor  # [Eh*Ew]
+    env_alias: torch.Tensor  # [Eh*Ew] i32
+    env_tile_rad: torch.Tensor  # [ET, 3]
+    env_tile_uv: torch.Tensor  # [ET, 4]
+    env_tile_sa: torch.Tensor  # [ET]
+    tex_data: torch.Tensor  # [K, 3]
+    tex_offset: torch.Tensor  # [T] i32
+    tex_width: torch.Tensor  # [T] i32
+    tex_height: torch.Tensor  # [T] i32
+    mat_base_color: torch.Tensor  # [M, 3]
+    mat_metallic: torch.Tensor  # [M]
+    mat_roughness: torch.Tensor  # [M]
+    mat_ior: torch.Tensor  # [M]
+    mat_base_map: torch.Tensor  # [M] i32
+    mat_metallic_map: torch.Tensor  # [M] i32
+    mat_roughness_map: torch.Tensor  # [M] i32
+    mat_normal_map: torch.Tensor  # [M] i32
 
     @property
     def num_tris(self) -> int:
@@ -181,6 +225,13 @@ def _pack_textures(textures):
             np.asarray(widths, np.int32), np.asarray(heights, np.int32))
 
 
+TWO_PI = 2.0 * np.pi
+
+
+def _luminance_np(c):
+    return c[..., 0] * 0.2126 + c[..., 1] * 0.7152 + c[..., 2] * 0.0722
+
+
 ENV_TILE_H = 16  # env tile grid of the fused kernels
 ENV_TILE_W = 32
 
@@ -269,7 +320,7 @@ def build_scene(
     """Flatten instances to world space (the JAX `build_scene` minus the
     structures the port does not read)."""
     all_v, all_n, all_uv, all_mid = [], [], [], []
-    light_prim_ids, light_radiance = [], []
+    light_prim_ids, light_radiance, light_power = [], [], []
     prim_base = 0
     for inst in instances:
         m = build_transformation_matrix(inst.translation, inst.rotation,
@@ -290,10 +341,16 @@ def build_scene(
         all_mid.append(np.full(n_prims, inst.material_id, np.int32))
         mat = materials[inst.material_id]
         if mat.type == LIGHT:
+            tri = wv.reshape(-1, 3, 3)
+            area = np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0],
+                                           tri[:, 2] - tri[:, 0]),
+                                  axis=-1) * 0.5
             radiance = np.asarray(mat.base_color, np.float32)
+            power = _luminance_np(radiance) * TWO_PI * area
             for i in range(n_prims):
                 light_prim_ids.append(prim_base + i)
                 light_radiance.append(radiance)
+                light_power.append(power[i])
         prim_base += n_prims
 
     verts = np.concatenate(all_v).reshape(-1, 3, 3)
@@ -326,19 +383,35 @@ def build_scene(
     lradius = np.linalg.norm(lverts - lcenter[:, None, :], axis=-1).max(axis=1)
 
     bvh = build_bvh(verts.reshape(-1, 3))
+    # light + env alias tables (createLightSampler, scene.cpp:136-157)
+    powers = list(light_power)
     if env_map is None:
         env = np.zeros((1, 1, 3), np.float32)
         env_tiles = (np.zeros((1, 3), np.float32),
                      np.zeros((1, 4), np.float32), np.zeros((1,), np.float32))
+        env_table = build_alias_table(np.ones(1))
     else:
         env = np.asarray(env_map, np.float32)
         env_tiles = _build_env_tiles(env)
+        row = (np.arange(env.shape[0], dtype=np.float32) + 0.5) / env.shape[0]
+        env_pdf = _luminance_np(env) * np.sin(row * np.pi)[:, None]
+        env_table = build_alias_table(env_pdf.reshape(-1))
+        powers.append(env_table.sum_all)
+    if powers:
+        light_table = build_alias_table(np.asarray(powers))
+        sum_power_inv = 1.0 / light_table.sum_all
+    else:
+        light_table = build_alias_table(np.ones(1))
+        sum_power_inv = 0.0  # no lights: the pdf guards handle it
     tex_data, tex_offset, tex_width, tex_height = _pack_textures(textures)
     if textures:
         atlas, tex_meta = _build_fused_atlas(textures)
     else:
         atlas = np.zeros((384, 128), np.float32)
         tex_meta = np.zeros((8, 4), np.float32)
+
+    def mat_arr(f, dtype):
+        return np.asarray([f(m) for m in materials], dtype)
 
     return SceneArrays(
         verts=verts,
@@ -371,4 +444,17 @@ def build_scene(
         env_tile_sa=env_tiles[2],
         fused_atlas=atlas,
         fused_tex_meta=tex_meta,
+        light_prob=light_table.prob,
+        light_alias=light_table.fail_id,
+        sum_light_power_inv=np.float32(sum_power_inv),
+        env_prob=env_table.prob,
+        env_alias=env_table.fail_id,
+        mat_base_color=mat_arr(lambda m: m.base_color, np.float32),
+        mat_metallic=mat_arr(lambda m: m.metallic, np.float32),
+        mat_roughness=mat_arr(lambda m: m.roughness, np.float32),
+        mat_ior=mat_arr(lambda m: m.ior, np.float32),
+        mat_base_map=mat_arr(lambda m: m.base_map, np.int32),
+        mat_metallic_map=mat_arr(lambda m: m.metallic_map, np.int32),
+        mat_roughness_map=mat_arr(lambda m: m.roughness_map, np.int32),
+        mat_normal_map=mat_arr(lambda m: m.normal_map, np.int32),
     )

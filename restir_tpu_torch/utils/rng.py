@@ -97,3 +97,13 @@ def uniform2(pixel_index, looper, ctr, salt=SALT_CAMERA):
 
 def uniform3(pixel_index, looper, ctr, salt=SALT_CAMERA):
     return uniform4(pixel_index, looper, ctr, salt)[:3]
+
+
+def draw4(sampler: str, pixel_index, looper, ctr, salt=SALT_CAMERA):
+    """uniform4 behind the config's sampler choice (rng.draw4): the port
+    carries "pcg4d" only."""
+    if sampler != "pcg4d":
+        raise NotImplementedError(
+            f"sampler {sampler!r}: the Sobol sampler is not ported yet "
+            "(ROADMAP Queue A 7)")
+    return uniform4(pixel_index, looper, ctr, salt)

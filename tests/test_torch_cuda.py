@@ -1,5 +1,6 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
-B3, B4, B5, the SVGF variance kernels, B6 and B7 on a CUDA card.
+B3, B4, B5, the SVGF variance kernels, B6, B7 and the general path's
+B10, B11 and B12 on a CUDA card.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -16,15 +17,21 @@ import torch
 
 from restir_tpu_torch import convert, parity
 from restir_tpu_torch.ops.camera import make_camera, pack_camera
+from restir_tpu_torch import renderer
+from restir_tpu_torch.config import RenderConfig, TracerType
+from restir_tpu_torch.ops import intersect as tix
+from restir_tpu_torch.ops.camera import pixel_centers, sample_rays
 from restir_tpu_torch.ops.kernels import (
     atrous,
     bvh_walk,
     fused_di,
     gbuffer,
     reuse,
+    ris_cdf,
     spatial,
     svgf,
 )
+from restir_tpu_torch.ops.kernels import intersect as ki
 from restir_tpu_torch.scene.procedural import (
     env_scene,
     many_light_scene,
@@ -278,3 +285,104 @@ def test_b4_kernel_matches_twin(svgf_inputs, level):
     cr, vr = atrous.atrous_svgf_ref(color, var, fv, gb, **kw)
     assert parity.close_fraction(cr, ck, 1e-5, 1e-6) >= 0.999
     assert parity.close_fraction(vr[None], vk[None], 1e-5, 1e-6) >= 0.999
+
+
+@pytest.fixture(scope="module")
+def general(cuda_device):
+    """Camera rays of a 256x64 frame of many_light_scene(16, 6), a quarter
+    reversed (misses)."""
+    arrays, camkw = many_light_scene(16, 6)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam = make_camera(**camkw)
+    x, y = pixel_centers(W, H, cuda_device)
+    half = torch.full_like(x, 0.5)
+    o, d = sample_rays(cam, W, H, x, y, half, half)
+    d = d.clone()
+    d[::4] = -d[::4]
+    return scene, cam, tix.traversal_arrays(scene), o.contiguous(), d
+
+
+def test_b12_kernel_matches_twin(general):
+    scene, _, trv, o, d = general
+    before = ki.primary_launches
+    k = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
+    r = ki.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d)
+    assert ki.primary_launches == before + 1
+    same = k[ki.CH_PRIM] == r[ki.CH_PRIM]
+    assert float(same.float().mean()) >= 0.998
+    assert torch.allclose(k[:, same], r[:, same], rtol=2e-4, atol=1e-5)
+    miss = same & (r[ki.CH_PRIM] < 0)
+    assert float(miss.float().mean()) > 0.2
+    row0 = scene.mat_attr[0, :11]
+    assert torch.equal(k[ki.CH_MAT:ki.CH_MAT + 11][:, miss],
+                       row0[:, None].expand(-1, int(miss.sum())))
+
+
+def test_b11_closest_kernel_matches_twin(general):
+    scene, _, trv, o, d = general
+    pk, dk, bk = ki.closest_cuda(trv, o, d)
+    pr, dr, br = ki.closest_hit(trv, o.cpu(), d.cpu())
+    pk, dk, bk = pk.cpu(), dk.cpu(), bk.cpu()
+    same = pk == pr
+    assert float(same.float().mean()) >= 0.998
+    hit = same & (pr >= 0)
+    assert torch.allclose(dk[hit], dr[hit], rtol=2e-4)
+    assert torch.allclose(bk[hit], br[hit], rtol=2e-4, atol=1e-5)
+    assert torch.all(torch.isinf(dk[pk < 0]))
+    assert torch.all(bk[pk < 0] == 0.0)
+
+
+def test_b11_any_kernel_matches_twin(general):
+    scene, _, trv, o, d = general
+    prim, dist, _ = ki.closest_cuda(trv, o, d)
+    pos = o + d * torch.where(torch.isfinite(dist), dist, 1.0)[:, None]
+    target = torch.tensor([0.0, 8.0, 0.0], device=o.device).expand_as(pos)
+    active = prim >= 0
+    occ = ki.any_cuda(trv, pos, target.contiguous(), active).cpu()
+    ref = ki.any_hit(trv, pos.cpu(), target.cpu(), active.cpu())
+    assert float((occ == ref).float().mean()) >= 0.998
+    assert not bool(occ[~active.cpu()].any())
+
+
+def test_b10_kernel_matches_twin(general):
+    scene, cam, _, _, _ = general
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_DI)
+    from restir_tpu_torch.models import gbuffer as tgb
+
+    gb, it, mat, ray_dir = tgb.render_gbuffer(scene, cam, cam, cfg, 5)
+    wo = -ray_dir
+    norm = torch.where(((mat.type != 2) & ((it.norm * wo).sum(-1) < 0))[
+        ..., None], -it.norm, it.norm)
+    shade = it.valid & (gb.prim_id != tgb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(it.pos, norm, wo, mat.type, mat.metallic,
+                               mat.roughness, shade, it.prim_id)
+    before = ris_cdf.launches
+    k = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables)
+    r = ris_cdf.ris_cdf_ref(pack, 5, scene.tables)
+    assert ris_cdf.launches == before + 1
+    s = shade
+    pick = torch.all(k[0:3] == r[0:3], 0) & torch.all(
+        torch.isclose(k[3:6], r[3:6], rtol=2e-4, atol=1e-5), 0)
+    assert float(pick[s].float().mean()) >= 0.995
+    ok = pick & s
+    close = torch.isclose(k[ris_cdf.OUT_W][ok], r[ris_cdf.OUT_W][ok],
+                          rtol=2e-4, atol=1e-7)
+    assert float(close.float().mean()) >= 0.999
+    assert torch.equal(k[ris_cdf.OUT_M], r[ris_cdf.OUT_M])
+
+
+@pytest.mark.parametrize("tracer,per_frame", [
+    (TracerType.PT_DIRECT, {"primary": 2, "any": 1, "ris": 0}),
+    (TracerType.RESTIR_DI, {"primary": 1, "any": 0, "ris": 1}),
+])
+def test_general_step_launches(general, tracer, per_frame):
+    scene, cam, _, _, _ = general
+    cfg = RenderConfig(width=W, height=H, tracer=tracer)
+    state = renderer.init_state(cfg, cam, device=scene.verts.device)
+    before = (ki.primary_launches, ki.any_launches, ris_cdf.launches)
+    state, frame = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    got = (ki.primary_launches - before[0], ki.any_launches - before[1],
+           ris_cdf.launches - before[2])
+    assert got == (per_frame["primary"], per_frame["any"], per_frame["ris"])
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0

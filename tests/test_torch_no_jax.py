@@ -1,23 +1,31 @@
-"""The port never imports JAX or the JAX package.
+"""The port never imports JAX or the JAX package, and its entry points
+run on the card unless the caller asks for the CPU.
 
-A fresh interpreter imports restir_tpu_torch and chip_smoke, renders one
-128x8 RESTIR_DI + EAW frame on the CPU through the public entry points,
-loads scenes/cornell.txt with the port's loader, renders a frame of a
-procedural scene over 1024 triangles (the MTBVH path's twins), and
-reports which modules got loaded.
+A fresh interpreter imports every module of restir_tpu_torch and
+chip_smoke, renders one 128x8 RESTIR_DI + EAW frame on the CPU through
+the public entry points, loads scenes/cornell.txt with the port's loader,
+renders a frame of a procedural scene over 1024 triangles (the MTBVH
+path's twins) and frames of the general path (PT_DIRECT, PT_FULL, general
+ReSTIR DI), and reports which modules got loaded.
 """
 
+import importlib
+import inspect
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import json, sys
+import importlib, json, pkgutil, sys
 import numpy as np
 import chip_smoke  # the on-card driver imports the same way
+import restir_tpu_torch
+for m in pkgutil.walk_packages(restir_tpu_torch.__path__, "restir_tpu_torch."):
+    importlib.import_module(m.name)
 from restir_tpu_torch import convert, renderer
 from restir_tpu_torch.config import DenoiserType, RenderConfig, mat_flags
 from restir_tpu_torch.ops.camera import make_camera
@@ -44,7 +52,17 @@ big_cfg = RenderConfig(width=128, height=8, denoiser=DenoiserType.EAW,
 big_cam = make_camera(**big_kw)
 big_state = renderer.init_state(big_cfg, big_cam, big_scene, device="cpu")
 big_state, big_frame = renderer.step(big_scene, big_state, big_cam, big_cfg)
+from restir_tpu_torch.config import TracerType
+general = {}
+for tracer in (TracerType.PT_DIRECT, TracerType.PT_FULL, TracerType.RESTIR_DI):
+    g_cfg = RenderConfig(width=32, height=8, tracer=tracer, trace_depth=2,
+                         **mat_flags(arrays))
+    g_state = renderer.init_state(g_cfg, cam, device="cpu")
+    g_state, g_frame = renderer.step(scene, g_state, cam, g_cfg)
+    general[str(tracer)] = [type(g_state).__name__,
+                            bool(np.isfinite(g_frame.numpy()).all())]
 print(json.dumps({
+    "general": general,
     "cornell_tris": c_scene.num_tris,
     "big_finite": bool(np.isfinite(big_frame.numpy()).all()),
     "big_mean": float(big_frame.mean()),
@@ -70,3 +88,24 @@ def test_port_imports_no_jax():
     assert rep["finite"]
     assert rep["cornell_tris"] == 36
     assert rep["big_finite"] and rep["big_mean"] > 0.0
+    assert rep["general"] == {str(t): ["RenderState", True]
+                              for t in (1, 2, 0)}
+
+
+def test_entry_points_default_to_the_card():
+    """No public function of the port defaults its `device` to the CPU: a
+    caller gets the CPU only by asking for it."""
+    import restir_tpu_torch
+
+    sys.path.insert(0, REPO)
+    cpu_defaults = []
+    for m in pkgutil.walk_packages(restir_tpu_torch.__path__,
+                                   "restir_tpu_torch."):
+        mod = importlib.import_module(m.name)
+        for name, fn in inspect.getmembers(mod, inspect.isfunction):
+            if fn.__module__ != mod.__name__ or name.startswith("_"):
+                continue
+            dev = inspect.signature(fn).parameters.get("device")
+            if dev is not None and str(dev.default) == "cpu":
+                cpu_defaults.append(f"{m.name}.{name}")
+    assert cpu_defaults == []
