@@ -57,6 +57,25 @@ Phases (any failure exits non-zero and prints no result line):
  14. quality gate, as bench.py:49-80: many_light_scene(36, 10) at
      384x384, 64 fused RESTIR_DI frames against 256 PT_DIRECT frames;
      energy_ratio_vs_pt must lie within 5 % of 1.
+ReSTIR GI (after phase 14):
+ 15. B8 (GI path trace) against its twin at 1920x1080 on the headline
+     scene, depth 5, on B1's own G-buffer, with the JAX GI tests' gates
+     (Lo within rtol 2e-3 on > 0.97 of lanes, mean Lo within 3 %, pdf and
+     delta > 0.995, valid > 0.985, xs and ns > 0.99, nv > 0.999), then at
+     depth 1 with test_gi_trace_depth1_exact's gates on every lane; B9
+     (GI resolve) against its twin over 3 frames on B8's packs (M equal,
+     W within rtol 1e-5 and the indirect within 1e-3, each on >= 0.9999);
+ 16. the fused GI main path, bench.py:239-243's config (RESTIR_GI at
+     1920x1080 on the headline scene, trace_depth 5, no denoiser), 8
+     warm-up + 32 timed frames (launches per frame: fused_di 2, spatial 1,
+     gi_trace 1, gi_resolve 1), its peak memory and profile; then
+     cornell_box() the same way;
+ 17. the general GI step: init_state(cfg, cam) without a scene at 1080p,
+     2 + 8 frames (primary_hit 1, ris_cdf 1, gi_trace 1), its peak memory
+     and profile; and at 384x384 the fused GI frame's mean indirect within
+     5 % of the general step's over the same 8 frames;
+ 18. the fallback notice: RESTIR_GI on env_scene() with has_env_map warns
+     once, naming the GI gate, and renders a general frame.
 Phases 12-14 run right after the build, the others in their order.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
@@ -75,6 +94,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -88,6 +108,8 @@ from restir_tpu_torch.config import (
     mat_flags,
 )
 from restir_tpu_torch.models import gbuffer as general_gb
+from restir_tpu_torch.models import restir_di_fused, restir_gi
+from restir_tpu_torch.ops import reservoir as rsv
 from restir_tpu_torch.ops import bsdf, intersect, intersect_bf, lights
 from restir_tpu_torch.ops.camera import make_camera, pack_camera
 from restir_tpu_torch.ops.kernels import (
@@ -96,6 +118,7 @@ from restir_tpu_torch.ops.kernels import (
     bvh_walk,
     fused_di,
     gbuffer,
+    gi,
     reuse,
     ris_cdf,
     spatial,
@@ -117,6 +140,7 @@ from restir_tpu_torch.ops.kernels.fused_di import (
 )
 from restir_tpu_torch.scene.loader import parse_scene_file
 from restir_tpu_torch.scene.procedural import (
+    cornell_box,
     env_scene,
     gradient_sky,
     many_light_scene,
@@ -156,6 +180,10 @@ SOURCES = {
                 "restir_tpu/ops/pallas/intersect_kernel.py:376"),
     "ris_cdf": ("restir_tpu_torch/csrc/ris_cdf.cu",
                 "restir_tpu/ops/pallas/ris_kernel.py:138"),
+    "gi_trace": ("restir_tpu_torch/csrc/gi_trace.cu",
+                 "restir_tpu/ops/pallas/gi_kernel.py:325"),
+    "gi_resolve": ("restir_tpu_torch/csrc/gi_resolve.cu",
+                   "restir_tpu/ops/pallas/gi_kernel.py:1106"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -177,6 +205,12 @@ FLOP_B4_TAP = 50  # one SVGF tap: 3 weights (3 exp, 1 log), 4 sums
 FLOP_B5 = 40  # B5's test and blend
 FLOP_VAR = 40  # variance estimate + one prefilter, per pixel
 FLOP_B12_EPI = 60  # B12's interpolation of pos / normal / uv
+# one B8 path vertex without its plane tests: a Lambert vertex's NEE
+# (light point, normal, pdf, shadow-ray set-up, BSDF eval and MIS ~200),
+# BSDF sample (~70), hit interpolation and light MIS (~70), throughput;
+# metallic vertices cost more, so the bound this gives is low
+FLOP_GI_VERTEX = 350
+FLOP_GI_RESOLVE = 120  # B9 per pixel: RIS, merge tests, cap, shade
 
 
 class PhaseError(RuntimeError):
@@ -240,6 +274,8 @@ def reset_counts():
     hits.closest_launches = 0
     hits.any_launches = 0
     ris_cdf.launches = 0
+    gi.trace_launches = 0
+    gi.resolve_launches = 0
 
 
 def read_counts():
@@ -252,7 +288,8 @@ def read_counts():
             "svgf_variance": svgf.variance_launches,
             "primary_hit": hits.primary_launches,
             "closest_hit": hits.closest_launches,
-            "any_hit": hits.any_launches, "ris_cdf": ris_cdf.launches}
+            "any_hit": hits.any_launches, "ris_cdf": ris_cdf.launches,
+            "gi_trace": gi.trace_launches, "gi_resolve": gi.resolve_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -539,10 +576,21 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
     m_mean = float(state.pt_pack[P_M][shade].mean())
     if not m_mean > 2 * cfg.cdf_candidates:
         raise PhaseError(f"temporal reuse not alive: mean M {m_mean}")
+    tracer = "RESTIR_DI"
+    if cfg.tracer == TracerType.RESTIR_GI:
+        tracer = "RESTIR_GI"
+        gm = state.gi_q[gi.Q_M]
+        m_gi = float(gm[gm > 0].mean())
+        ind_mean = float(state.accum_ind.mean())
+        print(f"main path {name}: GI mean M {m_gi:.2f}, indirect mean "
+              f"{ind_mean:.5f}")
+        if not (m_gi > 2.0 and ind_mean > 0.0):
+            raise PhaseError(f"{name}: GI reuse not alive (mean M {m_gi}, "
+                             f"indirect mean {ind_mean})")
     fps = 1e3 / wall_ms
     den = {DenoiserType.NONE: "", DenoiserType.EAW: "+EAW",
            DenoiserType.SVGF: "+SVGF"}[cfg.denoiser]
-    print(f"main path {name} {cfg.width}x{cfg.height} RESTIR_DI{den}: "
+    print(f"main path {name} {cfg.width}x{cfg.height} {tracer}{den}: "
           f"{wall_ms:.3f} ms/frame wall, {dev_ms:.3f} ms/frame device, "
           f"{fps:.3f} fps, {2 * cfg.num_pixels * fps / 1e6:.3f} Mrays/s; "
           f"frame mean {mean:.5f}, mean M {m_mean:.2f}, "
@@ -1292,6 +1340,230 @@ def phase_general(scene, cam, arrays, dev, record, launches):
     phase_quality_gate(dev)
 
 
+def max_err(a, b) -> float:
+    """Largest |a - b| where a and b differ (NaN in both is agreement; a
+    NaN or inf against a number reads 3.4e38)."""
+    d = (a - b).abs()
+    d = torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)), 0.0, d)
+    return float(torch.nan_to_num(d, nan=3.4e38, posinf=3.4e38).max())
+
+
+def lanes(a, b, rtol, atol, mask=None):
+    """Share of lanes of [C, R] tensors whose every channel agrees."""
+    ok = torch.isclose(a, b, rtol=rtol, atol=atol).all(0)
+    return float((ok if mask is None else ok[mask]).float().mean())
+
+
+def gi_trace_report(k, r, xv, depth):
+    """B8's pack against its twin's under the JAX GI tests' gates: those
+    of test_gi_trace_matches_xla at depth > 1, of
+    test_gi_trace_depth1_exact (every lane) at depth 1."""
+    _, _, kdelta, kvalid = restir_gi._sample_from_go(k, xv)
+    _, _, rdelta, rvalid = restir_gi._sample_from_go(r, xv)
+    lo, nv = slice(gi.GO_LO, gi.GO_LO + 3), slice(gi.GO_NV, gi.GO_NV + 3)
+    xs, ns = slice(gi.GO_XS, gi.GO_XS + 3), slice(gi.GO_NS, gi.GO_NS + 3)
+    pdf = slice(gi.GO_PDF, gi.GO_PDF + 1)
+    same = (k == r) | (torch.isnan(k) & torch.isnan(r))
+    st = {"exact_lanes": float(same.all(0).float().mean()),
+          "valid_eq": float((kvalid == rvalid).float().mean()),
+          "delta_eq": float((kdelta == rdelta).float().mean()),
+          "lo_mean": float(k[lo].mean()), "twin_lo_mean": float(r[lo].mean())}
+    if depth > 1:
+        st.update(lo=lanes(k[lo], r[lo], 2e-3, 2e-4),
+                  pdf=lanes(k[pdf], r[pdf], 2e-3, 1e-5),
+                  xs=lanes(k[xs], r[xs], 1e-3, 1e-4),
+                  ns=lanes(k[ns], r[ns], 1e-3, 1e-4),
+                  nv=lanes(k[nv], r[nv], 1e-4, 1e-5))
+        ref = max(st["twin_lo_mean"], 1e-9)
+        fails = [f"{n} {st[n]:.6f} <= {g}" for n, g in (
+            ("lo", 0.97), ("pdf", 0.995), ("delta_eq", 0.995),
+            ("valid_eq", 0.985), ("xs", 0.99), ("ns", 0.99), ("nv", 0.999))
+            if not st[n] > g]
+        if abs(st["lo_mean"] - ref) / ref >= 0.03:
+            fails.append("mean Lo off by 3 % or more")
+    else:
+        st.update(lo=lanes(k[lo], r[lo], 1e-4, 1e-6),
+                  pdf=lanes(k[pdf], r[pdf], 1e-3, 1e-6),
+                  nv=lanes(k[nv], r[nv], 1e-4, 1e-6),
+                  xs=lanes(k[xs], r[xs], 1e-3, 1e-4, rvalid),
+                  ns=lanes(k[ns], r[ns], 1e-5, 1e-6, rvalid))
+        fails = [f"{n} {st[n]:.6f} < 1" for n in (
+            "valid_eq", "delta_eq", "lo", "pdf", "nv", "xs", "ns")
+            if st[n] < 1.0]
+    return fails, st
+
+
+def phase_gi_kernels(scene, cfg, cam, dev, record):
+    """B8 and B9 against their twins at 1080p on B1's own G-buffer."""
+    w, h, r = cfg.width, cfg.height, cfg.num_pixels
+    t = scene.tables
+    cv = pack_camera(cam, dev)
+    kw1 = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
+               has_met=cfg.scene_has_metallic)
+    gb, _ = fused_di.di_resident_cuda(cv, cv, 1, torch.zeros(
+        (PT_CH, r), device=dev), t, **kw1)
+    in_pack, gq = restir_di_fused.gi_packs(scene, gb)
+    xv = in_pack[gi.IN_POS:gi.IN_POS + 3].T
+    kw = restir_gi.trace_kwargs(scene, cfg)
+    k8 = gi.gi_trace_cuda(in_pack, 1, scene, **kw)
+    r8 = gi.gi_trace_ref(in_pack, 1, scene, **kw)
+    torch.cuda.synchronize()
+    fails, st = gi_trace_report(k8, r8, xv, kw["depth"])
+    print(f"B8 gi_trace vs twin at {w}x{h}, depth {kw['depth']}, on B1's "
+          f"G-buffer: {json.dumps(st)}")
+    gate(fails, "B8 disagrees with its twin")
+    kw_d1 = {**kw, "depth": 1}
+    fails, st1 = gi_trace_report(gi.gi_trace_cuda(in_pack, 1, scene, **kw_d1),
+                                 gi.gi_trace_ref(in_pack, 1, scene, **kw_d1),
+                                 xv, 1)
+    print(f"B8 gi_trace vs twin at depth 1 (every lane): {json.dumps(st1)}")
+    gate(fails, "B8 disagrees with its twin at depth 1")
+    ms = cuda_ms(lambda: gi.gi_trace_cuda(in_pack, 1, scene, **kw), 10)
+    ms_ref = cuda_ms(lambda: gi.gi_trace_ref(in_pack, 1, scene, **kw), 1)
+    _, counts = gi.gi_trace_cuda(in_pack, 1, scene, stats=True, **kw)
+    tests, verts = (int(c) for c in counts.to(torch.int64).sum(1))
+    n_tris = scene.num_tris
+    b = bound(r * (gi.IN_CH + gi.GO_CH) * 4 + table_bytes(
+        t.planes[:n_tris], t.gi_tri, t.mat, t.gi_lights),
+        tests * FLOP_PLANE + verts * FLOP_GI_VERTEX)
+    record["gi_trace"] = dict(max_abs_err=max_err(k8, r8), ms=ms,
+                              plain_ms=ms_ref, bound_ms=b[0], bound_by=b[1],
+                              library_ms=None)
+    print(f"B8 gi_trace: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}; {tests / r:.1f} plane tests and "
+          f"{verts / r:.3f} path vertices per pixel)")
+
+    # B9 over three frames of B1 + B8, the camera still
+    q = torch.zeros((gi.Q_CH, r), device=dev)
+    pt = torch.zeros((PT_CH, r), device=dev)
+    worst = [1.0, 1.0, 1.0]
+    err9 = 0.0
+    for f in range(3):
+        gb, pt = fused_di.di_resident_cuda(cv, cv, f, pt, t, **kw1)
+        in_pack, gq = restir_di_fused.gi_packs(scene, gb)
+        go = gi.gi_trace_cuda(in_pack, f, scene, **kw)
+        ind_k, q_k = gi.gi_resolve_cuda(go, in_pack, gq, q, f)
+        ind_r, q_r = gi.gi_resolve_ref(go, in_pack, gq, q, f)
+        torch.cuda.synchronize()
+        m_eq = float((q_k[gi.Q_M] == q_r[gi.Q_M]).float().mean())
+        w_ok = lanes(q_k[gi.Q_W:gi.Q_W + 1], q_r[gi.Q_W:gi.Q_W + 1], 1e-5,
+                     1e-7)
+        i_ok = lanes(ind_k, ind_r, 1e-3, 1e-6)
+        worst = [min(a, b) for a, b in zip(worst, (m_eq, w_ok, i_ok))]
+        err9 = max(err9, max_err(q_k, q_r), max_err(ind_k, ind_r))
+        print(f"B9 gi_resolve vs twin, frame {f}: M equal {m_eq:.6f}, W "
+              f"within rtol 1e-5 {w_ok:.6f}, indirect within rtol 1e-3 "
+              f"{i_ok:.6f}, exact lanes "
+              f"{float((q_k == q_r).all(0).float().mean()):.6f}, max M "
+              f"{float(q_k[gi.Q_M].max()):.0f}")
+        q = q_k
+    if min(worst) < 0.9999:
+        raise PhaseError("B9 disagrees with its twin")
+    ms9 = cuda_ms(lambda: gi.gi_resolve_cuda(go, in_pack, gq, q, 2), 20)
+    ms9_ref = cuda_ms(lambda: gi.gi_resolve_ref(go, in_pack, gq, q, 2), 2)
+    # GO 14, IN 10, GQ 10 and the previous pack's 22 channels read; the
+    # next pack's 24 and the indirect's 3 written
+    b9 = bound(r * (14 + 10 + 10 + 22 + 24 + 3) * 4, r * FLOP_GI_RESOLVE)
+    record["gi_resolve"] = dict(max_abs_err=err9, ms=ms9, plain_ms=ms9_ref,
+                                bound_ms=b9[0], bound_by=b9[1],
+                                library_ms=None)
+    print(f"B9 gi_resolve: kernel {ms9:.4f} ms, twin {ms9_ref:.4f} ms, "
+          f"bound {b9[0]:.4f} ms ({b9[1]})")
+
+
+def phase_gi_main(name, scene, cfg, cam, dev):
+    """A fused GI main path, its peak memory and its profile."""
+    torch.cuda.reset_peak_memory_stats()
+    counts = phase_main(name, scene, cfg, cam, dev, {
+        "fused_di": 2, "spatial": 1, "gi_trace": 1, "gi_resolve": 1})
+    print(f"main path {name}: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_frames(name, scene, cfg, cam, dev)
+    return counts
+
+
+def phase_gi_agreement(scene, arrays, cam, dev):
+    """The fused GI frame's mean indirect against the general GI step's
+    (test_gi_fused_pipeline_step's 5 % gate) at 384x384, 8 frames."""
+    cfg = RenderConfig(width=384, height=384, tracer=TracerType.RESTIR_GI,
+                       **mat_flags(arrays))
+    means = {}
+    for kind, with_scene in (("fused", True), ("general", False)):
+        state = renderer.init_state(cfg, cam, scene if with_scene else None,
+                                    device=dev)
+        for _ in range(8):
+            state, _ = renderer.step(scene, state, cam, cfg)
+        ind = (state.accum_ind if isinstance(state, renderer.FusedDIState)
+               else state.indirect_illum)
+        means[kind] = float(ind.double().mean())
+    ratio = means["fused"] / max(means["general"], 1e-12)
+    print(f"GI agreement (384x384, 8 frames): mean indirect fused "
+          f"{means['fused']:.6f}, general {means['general']:.6f}, ratio "
+          f"{ratio:.4f}")
+    if not abs(ratio - 1.0) < 0.05:
+        raise PhaseError(f"fused and general GI differ: ratio {ratio:.4f}")
+
+
+def phase_gi_fallback(dev):
+    """RESTIR_GI with an env map falls off the fused path: one notice,
+    naming the GI gate, then a general frame."""
+    arrays, camkw = env_scene()
+    scene = convert.scene_from_numpy(arrays, dev)
+    cam = make_camera(**camkw)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                       tracer=TracerType.RESTIR_GI, has_env_map=True,
+                       **mat_flags(arrays))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = renderer.init_state(cfg, cam, scene, device=dev)
+        renderer.init_state(cfg, cam, scene, device=dev)
+    notes = [str(w.message) for w in caught]
+    print(f"fallback notice (env_scene, has_env_map): {notes}")
+    if (len(notes) != 1 or "gi_resolve_fused_eligible" not in notes[0]
+            or "has_env_map" not in notes[0]):
+        raise PhaseError("RESTIR_GI with an env map did not warn once, "
+                         "naming the GI gate")
+    if not isinstance(state, renderer.RenderState) or not isinstance(
+            state.gi_reservoir, rsv.Reservoir):
+        raise PhaseError("RESTIR_GI with an env map is not the general state")
+    reset_counts()
+    t0 = time.perf_counter()
+    state, frame = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    print(f"general GI frame with the env map: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first frame), "
+          f"launches {read_counts()}, mean {float(frame.mean()):.5f}")
+    if not bool(torch.isfinite(frame).all()) or not float(frame.mean()) > 0:
+        raise PhaseError("the env-lit general GI frame is not finite and lit")
+
+
+def phase_gi(scene, arrays, cam, dev, record, launches):
+    """Phases 15-18: ReSTIR GI."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                       tracer=TracerType.RESTIR_GI, **mat_flags(arrays))
+    phase_gi_kernels(scene, cfg, cam, dev, record)
+    counts = phase_gi_main("GI headline", scene, cfg, cam, dev)
+    cb_arrays, cb_kw = cornell_box()
+    cb_scene = convert.scene_from_numpy(cb_arrays, dev)
+    cb_cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                          tracer=TracerType.RESTIR_GI, **mat_flags(cb_arrays))
+    cb_counts = phase_gi_main("GI cornell", cb_scene, cb_cfg,
+                              make_camera(**cb_kw), dev)
+    torch.cuda.reset_peak_memory_stats()
+    g_counts = phase_general_main(
+        "general GI", scene, cfg, cam, dev,
+        {"primary_hit": 1, "ris_cdf": 1, "gi_trace": 1}, GENERAL_WARMUP,
+        GENERAL_TIMED, with_scene=False)
+    print(f"main path general GI: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_frames("general GI", scene, cfg, cam, dev, with_scene=False)
+    launches["gi_trace"] = (counts["gi_trace"] + cb_counts["gi_trace"]
+                            + g_counts["gi_trace"])
+    launches["gi_resolve"] = counts["gi_resolve"] + cb_counts["gi_resolve"]
+    phase_gi_agreement(scene, arrays, cam, dev)
+    phase_gi_fallback(dev)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1350,6 +1622,7 @@ def main() -> int:
     profile_frames("hall", hall, hall_cfg, hall_cam, dev)
     phase_sky_hall(hall_sf, hall_cam, dev)
     phase_general(scene, cam, arrays, dev, record, launches)
+    phase_gi(scene, arrays, cam, dev, record, launches)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

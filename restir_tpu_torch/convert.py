@@ -2,15 +2,18 @@
 
 - `scene_from_numpy`: the JAX `SceneData` leaves (as numpy, by field
   name; a port `SceneArrays` works too) -> the port's `SceneTensors`.
-- `state_from_numpy` / `state_to_numpy`: a fused DI state as the leaf
-  list that `restir_tpu.renderer.save_checkpoint` writes (the
+- `state_from_numpy` / `state_to_numpy`: a fused DI or DI + GI state as
+  the leaf list that `restir_tpu.renderer.save_checkpoint` writes (the
   `FusedDIState` fields in order, the 8 `Camera` leaves last; packs as
-  [C, R/128, 128], the SVGF pack too) <-> the port's `FusedDIState`
+  [C, R/128, 128], the SVGF pack, `accum_ind` and `gi_q` too, or
+  [1, 1, 1] where the config has none) <-> the port's `FusedDIState`
   ([C, R] packs).
 - `render_state_from_numpy` / `render_state_to_numpy`: the general
   `RenderState` as the same writer's leaf list (JAX flatten order: looper
   uint32, iteration int32, the two accumulators, both reservoirs, the
   G-buffer, the camera, the SVGF history; [R, ...] leaves as they are).
+  The GI reservoir is either a `Reservoir` (7 leaves) or the [Q_CH, R]
+  resolve pack (1 leaf); the leaf count tells which.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .models.restir_di_fused import FusedDIState
 from .ops import reservoir as rsv
 from .ops.camera import Camera
 from .ops.kernels.fused_di import PT_CH
+from .ops.kernels.gi import Q_CH
 from .ops.kernels.svgf import SV_CH
 from .ops.kernels.tables import (
     build_bvh_tables,
@@ -98,32 +102,29 @@ def _pack(a, channels: int, r: int, device) -> torch.Tensor:
 
 def state_from_numpy(leaves: Sequence[np.ndarray], cfg: RenderConfig,
                      device="cuda") -> FusedDIState:
-    """Port state from the leaves of a JAX `FusedDIState` (DI, with or
-    without SVGF)."""
+    """Port state from the leaves of a JAX `FusedDIState` (DI or DI + GI,
+    with or without SVGF)."""
     if len(leaves) != N_STATE_LEAVES:
         raise ValueError(f"expected {N_STATE_LEAVES} leaves, got "
                          f"{len(leaves)}")
     r = cfg.num_pixels
     looper, iteration, accum, pt, svgf, accum_ind, gi_q = leaves[:7]
-    for name, leaf in (("accum_ind", accum_ind), ("gi_q", gi_q)):
-        if np.asarray(leaf).size != 1:
-            raise NotImplementedError(
-                f"{name} of shape {np.asarray(leaf).shape}: GI states are "
-                "not ported yet (ROADMAP Queue A 6)")
 
-    def scalar(x):
-        return torch.tensor(np.asarray(x, np.float32).reshape(1, 1, 1),
-                               device=device)
+    def optional(x, channels):
+        """A [channels, R] pack, or the [1, 1, 1] placeholder."""
+        if np.asarray(x).size == 1:
+            return torch.tensor(np.asarray(x, np.float32).reshape(1, 1, 1),
+                                device=device)
+        return _pack(x, channels, r, device)
 
     return FusedDIState(
         looper=int(np.asarray(looper).astype(np.uint32)),
         iteration=int(np.asarray(iteration)),
         accum=_pack(accum, 3, r, device),
         pt_pack=_pack(pt, PT_CH, r, device),
-        svgf_pack=(scalar(svgf) if np.asarray(svgf).size == 1
-                   else _pack(svgf, SV_CH, r, device)),
-        accum_ind=scalar(accum_ind),
-        gi_q=scalar(gi_q),
+        svgf_pack=optional(svgf, SV_CH),
+        accum_ind=optional(accum_ind, 3),
+        gi_q=optional(gi_q, Q_CH),
         last_camera=camera_from_numpy(leaves[7:]),
     )
 
@@ -138,20 +139,24 @@ def state_to_numpy(state: FusedDIState):
     def small(t):
         return t.detach().cpu().numpy().reshape(1, 1, 1)
 
+    def optional(t):
+        return (small if t.numel() == 1 else pack)(t)
+
     return [
         np.uint32(state.looper & 0xFFFFFFFF),
         np.int32(state.iteration),
         pack(state.accum),
         pack(state.pt_pack),
-        (small if state.svgf_pack.numel() == 1 else pack)(state.svgf_pack),
-        small(state.accum_ind),
-        small(state.gi_q),
+        optional(state.svgf_pack),
+        optional(state.accum_ind),
+        optional(state.gi_q),
         *camera_to_numpy(state.last_camera),
     ]
 
 
-def _render_state_template():
-    """A RenderState skeleton whose leaves are placeholders."""
+def _render_state_template(gi_pack: bool = False):
+    """A RenderState skeleton whose leaves are placeholders; `gi_pack`
+    makes the GI reservoir the one-leaf resolve pack."""
     from .renderer import RenderState, SVGFState
 
     def tup(cls):
@@ -160,7 +165,8 @@ def _render_state_template():
     return RenderState(
         looper=None, iteration=None, direct_illum=None, indirect_illum=None,
         dir_reservoir=rsv.Reservoir(tup(rsv.DirectSample), None, None),
-        gi_reservoir=rsv.Reservoir(tup(rsv.IndirectSample), None, None),
+        gi_reservoir=(None if gi_pack else
+                      rsv.Reservoir(tup(rsv.IndirectSample), None, None)),
         gbuffer=tup(GBufferFrame), last_camera=tup(Camera),
         denoiser=tup(SVGFState))
 
@@ -176,10 +182,12 @@ def render_state_to_numpy(state):
 
 def render_state_from_numpy(leaves: Sequence[np.ndarray], device="cuda"):
     """A general RenderState from the JAX writer's leaf list."""
-    template = _render_state_template()
-    n = len(rsv.tree_leaves(template))
-    if len(leaves) != n:
-        raise ValueError(f"expected {n} leaves, got {len(leaves)}")
+    counts = {len(rsv.tree_leaves(_render_state_template(p))): p
+              for p in (False, True)}
+    if len(leaves) not in counts:
+        raise ValueError(f"expected {' or '.join(map(str, counts))} leaves, "
+                         f"got {len(leaves)}")
+    template = _render_state_template(counts[len(leaves)])
     state = rsv.tree_unflatten(template, [
         torch.as_tensor(np.array(x), device=device) for x in leaves])
     return state._replace(

@@ -16,10 +16,17 @@ State packs are flat channel-major [C, R] float32 tensors with the JAX
 package's channel layout; `looper` and `iteration` are Python ints, so a
 frame never waits on the device for them.
 
+RESTIR_GI adds the GI stage after B2 (`_gi_stage`): B8 traces one path
+per pixel from B1's G-buffer, B9 resolves it against the previous
+frame's resolve pack; its running mean `accum_ind` joins the frame
+before the denoiser.
+
 The temporal window and the per-tile spatial offsets work on 1024-pixel
 tiles; the gate (`ineligibility`) is the JAX package's: width a multiple
-of 128, height of 8. A config that fails it renders on the general path
-(`renderer`).
+of 128, height of 8, and for RESTIR_GI the GI gate
+(`restir_gi.gi_resolve_fused_eligible`: pcg4d, no env map, no textures,
+at most 1024 triangles, whole 1024-pixel tiles). A config that fails it
+renders on the general path (`renderer`).
 """
 
 from __future__ import annotations
@@ -30,10 +37,24 @@ import torch
 
 from ..config import DenoiserType, RenderConfig, ReuseMode, TracerType
 from ..ops.camera import Camera, pack_camera
-from ..ops.kernels import atrous, fused_di, gbuffer, reuse, spatial, svgf
-from ..ops.kernels.fused_di import G_ALB, PT_CH
+from ..ops.kernels import atrous, fused_di, gbuffer, gi, reuse, spatial, svgf
+from ..ops.kernels.fused_di import (
+    G_ALB,
+    G_DEPTH,
+    G_DIR,
+    G_METAL,
+    G_MOTION,
+    G_MTYPE,
+    G_NORM,
+    G_POS,
+    G_PRIMR,
+    G_ROUGH,
+    G_SHADE,
+    PT_CH,
+)
 from ..ops.kernels.svgf import SV_CH, SV_COL, SV_PRIM
 from ..scene.scene_data import SceneTensors
+from . import restir_gi
 
 RESIDENT_MAX_TRIS = 1024  # larger scenes take the MTBVH kernels B6 + B7
 
@@ -44,16 +65,25 @@ class FusedDIState(NamedTuple):
     accum: torch.Tensor  # [3, R] running-mean direct radiance
     pt_pack: torch.Tensor  # [PT_CH, R] post-temporal reuse pack
     svgf_pack: torch.Tensor  # [SV_CH, R] with SVGF, else [1, 1, 1]
-    accum_ind: torch.Tensor  # [1, 1, 1] (DI only)
-    gi_q: torch.Tensor  # [1, 1, 1] (DI only)
+    accum_ind: torch.Tensor  # [3, R] indirect running mean ([1, 1, 1] DI)
+    gi_q: torch.Tensor  # [Q_CH, R] GI resolve pack ([1, 1, 1] DI)
     last_camera: Camera
 
 
-def ineligibility(cfg: RenderConfig):
+def ineligibility(cfg: RenderConfig, scene=None):
     """Why `cfg` does not take the fused path (None if it does), the
-    gate of `restir_tpu.models.restir_di_fused.eligible`."""
+    gate of `restir_tpu.models.restir_di_fused.eligible`. RESTIR_GI's
+    gate reads the scene (its triangle count and textures)."""
     reasons = []
-    if cfg.tracer != TracerType.RESTIR_DI:
+    if cfg.tracer == TracerType.RESTIR_GI:
+        if scene is None:
+            reasons.append("RESTIR_GI without a scene (its gate reads it)")
+        else:
+            gate = restir_gi.gi_gate_failures(scene, cfg, cfg.num_pixels)
+            if gate:
+                reasons.append("GI resolve gate (gi_resolve_fused_eligible): "
+                               + ", ".join(gate))
+    elif cfg.tracer != TracerType.RESTIR_DI:
         reasons.append(f"tracer {cfg.tracer} (the general pipeline)")
     if cfg.ris_mode not in ("auto", "cdf"):
         reasons.append(f"ris_mode {cfg.ris_mode!r}")
@@ -73,6 +103,19 @@ def ineligibility(cfg: RenderConfig):
     if cfg.intersector not in ("auto", "brute", "clustered"):
         reasons.append(f"intersector {cfg.intersector!r}")
     return "; ".join(reasons) or None
+
+
+def ineligibility_reason(cfg: RenderConfig, scene, device):
+    """The notice `renderer.init_state` gives when a RESTIR_DI or
+    RESTIR_GI config falls off the fused path on the card (None when it
+    does not, for other tracers, which have no fused variant, and off
+    the card, where the general path is the intended one), as
+    `restir_tpu.models.restir_di_fused.ineligibility_reason`."""
+    if cfg.tracer not in (TracerType.RESTIR_DI, TracerType.RESTIR_GI):
+        return None
+    if torch.device(device).type != "cuda":
+        return None
+    return ineligibility(cfg, scene)
 
 
 def _empty(device):
@@ -96,15 +139,20 @@ def init_state(cfg: RenderConfig, cam: Camera,
                device="cuda") -> FusedDIState:
     r = cfg.num_pixels
     dev = torch.device(device)
+    with_gi = cfg.tracer == TracerType.RESTIR_GI
+
+    def zeros(c):
+        return torch.zeros((c, r), dtype=torch.float32, device=dev)
+
     return FusedDIState(
         looper=0,
         iteration=0,
-        accum=torch.zeros((3, r), dtype=torch.float32, device=dev),
-        pt_pack=torch.zeros((PT_CH, r), dtype=torch.float32, device=dev),
+        accum=zeros(3),
+        pt_pack=zeros(PT_CH),
         svgf_pack=(_svgf_history(r, dev)
                    if cfg.denoiser == DenoiserType.SVGF else _empty(dev)),
-        accum_ind=_empty(dev),
-        gi_q=_empty(dev),
+        accum_ind=zeros(3) if with_gi else _empty(dev),
+        gi_q=zeros(gi.Q_CH) if with_gi else _empty(dev),
         last_camera=_copy_camera(cam),
     )
 
@@ -117,6 +165,8 @@ def reset_accumulation(state: FusedDIState) -> FusedDIState:
         pt_pack=torch.zeros_like(state.pt_pack),
         svgf_pack=(_svgf_history(sv.shape[1], sv.device)
                    if sv.shape[0] == SV_CH else torch.zeros_like(sv)),
+        accum_ind=torch.zeros_like(state.accum_ind),
+        gi_q=torch.zeros_like(state.gi_q),
     )
 
 
@@ -126,8 +176,9 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
 
     The step consumes `state`, as the JAX step donates it: kernel B2
     updates `state.accum` in place and the new state holds that tensor.
-    Without a denoiser the frame is that accumulator too."""
-    reason = ineligibility(cfg)
+    Without a denoiser (and without GI) the frame is that accumulator
+    too."""
+    reason = ineligibility(cfg, scene)
     if reason is not None:
         raise NotImplementedError(f"fused DI path: {reason}")
     dev = state.pt_pack.device
@@ -164,6 +215,15 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
         has_met=cfg.scene_has_metallic)
 
     frame = accum
+    accum_ind, gi_q = state.accum_ind, state.gi_q
+    if cfg.tracer == TracerType.RESTIR_GI:
+        ind, gi_q = _gi_stage(scene, gb, state.gi_q, cfg, looper)
+        if cfg.accumulate:
+            it_f = float(state.iteration)
+            accum_ind = (state.accum_ind * it_f + ind) / (it_f + 1.0)
+        else:
+            accum_ind = ind
+        frame = accum + accum_ind
     svgf_pack = state.svgf_pack
     if cfg.denoiser == DenoiserType.EAW:
         frame = eaw_filter_packed(frame, gb, cfg)
@@ -176,9 +236,48 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
         accum=accum,
         pt_pack=pt,
         svgf_pack=svgf_pack,
+        accum_ind=accum_ind,
+        gi_q=gi_q,
         last_camera=_copy_camera(cam),
     )
     return next_state, frame
+
+
+def gi_packs(scene: SceneTensors, gb):
+    """(IN pack [IN_CH, R], GQ pack [GQ_CH, R]) of the GI stage from the
+    fused G-buffer pack (restir_di_fused.py:297-334)."""
+    # the gb pack has no ior: read the material row of the lane's matId
+    # (0 for NULL and LIGHT_ID lanes, as the JAX where chain leaves them)
+    matid = gb[G_PRIMR]
+    n_mat = scene.mat_attr.shape[0]
+    ior = torch.where((matid >= 0.0) & (matid < n_mat),
+                      scene.mat_attr[:, 6][matid.clamp(0, n_mat - 1).long()],
+                      0.0)
+    zero = torch.zeros_like(ior)
+    in_pack = torch.cat([
+        gb[G_POS:G_POS + 3], gb[G_NORM:G_NORM + 3], gb[G_DIR:G_DIR + 3],
+        gb[G_MTYPE:G_MTYPE + 1], gb[G_METAL:G_METAL + 1],
+        gb[G_ROUGH:G_ROUGH + 1], ior[None],
+        gb[G_SHADE:G_SHADE + 1],  # alive = valid & ~is_light
+        zero[None], zero[None]])
+    gq = torch.cat([
+        gb[G_MOTION:G_MOTION + 1], gb[G_PRIMR:G_PRIMR + 1],
+        gb[G_DEPTH:G_DEPTH + 1], gb[G_NORM:G_NORM + 3],
+        gb[G_ALB:G_ALB + 3], gb[G_SHADE:G_SHADE + 1]])
+    return in_pack, gq
+
+
+def _gi_stage(scene: SceneTensors, gb, gi_q, cfg: RenderConfig, looper):
+    """ReSTIR GI on the fused G-buffer pack (restir_di_fused.py:286-340):
+    B8 traces from B1's hits, B9 resolves -> (indirect [3, R], next
+    resolve pack [Q_CH, R])."""
+    in_pack, gq = gi_packs(scene, gb)
+    go = gi.gi_trace(in_pack, looper, scene,
+                     **restir_gi.trace_kwargs(scene, cfg))
+    return gi.gi_resolve(go, in_pack, gq, gi_q, looper,
+                         temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
+                         temporal_clamp=cfg.temporal_clamp,
+                         has_met=cfg.scene_has_metallic)
 
 
 def _demod(frame, gb_pack, cfg: RenderConfig):

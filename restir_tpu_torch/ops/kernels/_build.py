@@ -34,6 +34,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v"]
+# Sources that round as their plain twins do on the card: no product is
+# contracted into an FMA unless the code says fmaf (csrc/gi_core.cuh).
+SOURCE_FLAGS = {"gi_trace.cu": ["-fmad=false"],
+                "gi_resolve.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
@@ -61,6 +65,7 @@ def _digest() -> str:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -79,8 +84,8 @@ def build() -> Path:
         procs = []
         for src in sorted(SRC_DIR.glob("*.cu")):
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", obj,
-                   str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, []), "-I",
+                   str(SRC_DIR), "-c", "-o", obj, str(src)]
             procs.append((src.name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -141,6 +146,11 @@ _SIGNATURES = {
     "restir_primary_hit": [_VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I, _VP],
     "restir_ris_cdf": [
         _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP],
+    "restir_gi_trace": [
+        _VP, _I, _U, _U, _VP, _I, _VP, _VP, _I, _VP, _I, _F, _I, _I, _I, _I,
+        _I, _VP, _VP, _VP],
+    "restir_gi_resolve": [
+        _VP, _VP, _VP, _VP, _I, _I, _U, _I, _I, _I, _VP, _VP, _VP],
 }
 
 

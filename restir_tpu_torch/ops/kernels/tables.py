@@ -28,6 +28,14 @@ thread's fetch of one row is contiguous.
   `scene_data._build_fused_atlas` as (r, g, b, 0) texels, row y of the
   atlas at [y * 128, y * 128 + 128); `tex_meta` [T_pad, 4] (row0, width,
   height, valid) per texture.
+- `gi_tri` [n, 32]: the rows kernel B8 interpolates at a hit, as
+  `ops.surface.make_interaction` reads them: vertices v0 v1 v2 (0:9),
+  vertex normals (9:18), vertex uvs (18:24), material id (24), pad.
+- `gi_lights` [Ls, 8]: B8's alias-table light rows, one per alias slot i:
+  probability, alias, the light's triangle `light_prim_ids[min(i, L-1)]`,
+  its radiance `light_radiance[min(i, Lr-1)]` (3), pad: the clamps of
+  `ops.lights.sample_direct_light_no_visibility`, applied once here.
+- `sum_light_power_inv`: the scene's float32 scalar, on the host.
 
 `BvhTables` is the device layout the MTBVH kernels (B6 `gbuffer_bvh.cu`,
 B7 `reuse_bvh.cu`) walk, after the JAX tables' `box_id` indirection:
@@ -78,6 +86,9 @@ class ResidentTables(NamedTuple):
     env_rad: torch.Tensor  # [512, 4] f32 ([1, 4] zeros without env)
     atlas: torch.Tensor  # [rows_pad * 128, 4] f32
     tex_meta: torch.Tensor  # [T_pad, 4] f32
+    gi_tri: torch.Tensor  # [n, 32] f32
+    gi_lights: torch.Tensor  # [Ls, 8] f32
+    sum_light_power_inv: float
 
     def light_rows(self, has_env: bool):
         """(lights, psi) a frame samples: with the env tiles when
@@ -190,6 +201,33 @@ def has_env_map(arrays) -> bool:
     return bool(env.shape[0] > 1 or env.shape[1] > 1)
 
 
+GI_TRI_COLS = 32
+GI_LIGHT_COLS = 8
+
+
+def gi_tables(arrays):
+    """(gi_tri, gi_lights) in float32 from scene arrays."""
+    verts = np.asarray(arrays["verts"], np.float32)
+    n = verts.shape[0]
+    tri = np.zeros((n, GI_TRI_COLS), np.float32)
+    tri[:, 0:9] = verts.reshape(n, 9)
+    tri[:, 9:18] = np.asarray(arrays["norms"], np.float32).reshape(n, 9)
+    tri[:, 18:24] = np.asarray(arrays["uvs"], np.float32).reshape(n, 6)
+    tri[:, 24] = np.asarray(arrays["mat_ids"])
+    prob = np.asarray(arrays["light_prob"], np.float32)
+    prims = np.asarray(arrays["light_prim_ids"])
+    rad = np.asarray(arrays["light_radiance"], np.float32)
+    slots = np.arange(prob.shape[0])
+    lights = np.zeros((prob.shape[0], GI_LIGHT_COLS), np.float32)
+    lights[:, 0] = prob
+    lights[:, 1] = np.asarray(arrays["light_alias"])
+    if prims.shape[0]:
+        lights[:, 2] = prims[np.minimum(slots, prims.shape[0] - 1)]
+    if rad.shape[0]:
+        lights[:, 3:6] = rad[np.minimum(slots, rad.shape[0] - 1)]
+    return tri, lights
+
+
 def build_resident_tables(arrays, device) -> ResidentTables:
     """Tables from a mapping of scene arrays (numpy, SceneData names)."""
     light_args = [arrays[k] for k in (
@@ -207,6 +245,7 @@ def build_resident_tables(arrays, device) -> ResidentTables:
             *light_args, arrays["env_tile_rad"], arrays["env_tile_uv"],
             arrays["env_tile_sa"]))
     tri_xform = np.asarray(arrays["tri_xform"], np.float32)
+    gi_tri, gi_lights = gi_tables(arrays)
     return ResidentTables(
         planes=dev(plane_table(tri_xform)),
         attr=dev(arrays["prim_attr"]),
@@ -219,6 +258,10 @@ def build_resident_tables(arrays, device) -> ResidentTables:
         env_rad=dev(env_radiance_table(arrays["env_tile_rad"])),
         atlas=dev(atlas_texels(arrays["fused_atlas"])),
         tex_meta=dev(arrays["fused_tex_meta"]),
+        gi_tri=dev(gi_tri),
+        gi_lights=dev(gi_lights),
+        sum_light_power_inv=float(np.float32(
+            arrays["sum_light_power_inv"])),
     )
 
 

@@ -17,6 +17,7 @@ import torch
 from ..scene.alias_table import sample_alias
 from ..utils import math as mathx
 from . import intersect as ix
+from . import intersect_bf
 from .texture import env_sample_bilinear
 
 INVALID_PDF = -1.0
@@ -197,9 +198,10 @@ def sample_from_targets(scene, t, pos, r1, r2, r3, single_sided=True,
 
 def sample_direct_light(scene, trv: ix.TraversalArrays, pos, r1, r2, r3, r4,
                         has_env: bool, single_sided: bool = True,
-                        active=None) -> LightSample:
+                        active=None, plain: bool = False) -> LightSample:
     """DevScene::sampleDirectLight (scene.h:427-459): an NEE sample and
-    its shadow ray; occluded samples get INVALID_PDF."""
+    its shadow ray; occluded samples get INVALID_PDF. `plain` casts the
+    shadow ray with `intersect_bf` on any device (kernel twins)."""
     ls = sample_direct_light_no_visibility(scene, pos, r1, r2, r3, r4,
                                            has_env=has_env,
                                            single_sided=single_sided)
@@ -207,5 +209,9 @@ def sample_direct_light(scene, trv: ix.TraversalArrays, pos, r1, r2, r3, r4,
     target = mathx.muladd(ls.wi, torch.clamp(ls.dist, max=1e6)[..., None],
                           pos)
     shoot = ls.pdf > 0 if active is None else active & (ls.pdf > 0)
-    occluded = ix.test_occlusion(trv, pos, target, active=shoot)
+    if plain:
+        occluded = intersect_bf.test_occlusion_bf(trv.tri_xform, pos, target,
+                                                  shoot)
+    else:
+        occluded = ix.test_occlusion(trv, pos, target, active=shoot)
     return ls._replace(pdf=torch.where(occluded, INVALID_PDF, ls.pdf))

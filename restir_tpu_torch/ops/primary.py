@@ -6,7 +6,8 @@ On CUDA tensors it runs kernel B12 (`ops.kernels.intersect.primary_hit`:
 closest hit, attribute interpolation and material row in one launch),
 then the procedural, texture and normal-map branches as tensor ops, as
 the JAX function does after its Pallas kernel (primary.py:34-90). On CPU
-tensors it composes `intersect_closest`, `make_interaction` and
+tensors, or with `plain` (the kernel twins on the card), it composes the
+brute-force closest hit of `intersect_bf`, `make_interaction` and
 `fetch_textured_material` (primary.py:92-98), the JAX package's CPU
 route.
 """
@@ -17,6 +18,7 @@ import torch
 
 from ..scene.mesh import PROCEDURAL_TEXTURE
 from . import intersect as ix
+from . import intersect_bf
 from . import surface as surf
 from .bsdf import SurfaceMaterial
 from .kernels import intersect as kernels
@@ -28,12 +30,13 @@ from .texture import (
 
 
 def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
-                  active=None):
+                  active=None, plain: bool = False):
     """-> (Interaction, SurfaceMaterial, Hit). With `active`, inactive
     lanes miss; on the kernel route only their primitive and distance
     are masked (pos, normal and material stay the real hit's)."""
-    if not o.is_cuda:
-        hit = ix.intersect_closest(trv, o, d, active=active)
+    if plain or not o.is_cuda:
+        hit = ix.Hit(*intersect_bf.intersect_closest_bf(trv.tri_xform, o, d,
+                                                        active))
         it = surf.make_interaction(scene, hit)
         mat, mapped = fetch_textured_material(scene, it.mat_id, it.uv,
                                               it.norm, with_textures)

@@ -3,12 +3,18 @@
 `init_state` routes as the JAX package does: with a scene whose config
 passes the fused gate (`restir_di_fused.ineligibility`) it returns a
 `FusedDIState`; with no scene, or when the gate fails, the general
-`RenderState`. `step` dispatches on the state's type. The general step
-carries RESTIR_DI, PT_DIRECT, PT_FULL, PT_INDIRECT and GBUFFER_PREVIEW;
-what it leaves out (RESTIR_GI, BVH_VISUALIZE, the general path's EAW and
-SVGF, the Sobol sampler, the MTBVH intersector) raises
+`RenderState`, and on the card a RESTIR_DI or RESTIR_GI config that
+falls off the fused path is announced once per config. `step`
+dispatches on the state's type. The general step carries RESTIR_DI,
+RESTIR_GI (DI and GI in one frame), PT_DIRECT, PT_FULL, PT_INDIRECT and
+GBUFFER_PREVIEW; what it leaves out (BVH_VISUALIZE, the general path's
+EAW and SVGF, the Sobol sampler, the MTBVH intersector) raises
 `NotImplementedError` naming its ROADMAP item. Entry points run on the
 card (`device="cuda"`) unless the caller asks for the CPU.
+
+The JAX package renders a 1080p general GI frame as two programs to fit
+the TPU's memory (`restir_tpu.renderer.step_jit`); the port runs it as
+one step.
 
 `looper` and `iteration` are Python ints in both states, so a frame
 never waits on the device for them.
@@ -17,6 +23,7 @@ never waits on the device for them.
 from __future__ import annotations
 
 import types
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,7 +36,7 @@ from .config import (
     TracerType,
     validate_mat_flags,
 )
-from .models import restir_di, restir_di_fused
+from .models import restir_di, restir_di_fused, restir_gi
 from .models import gbuffer as gbuf
 from .models.path_tracer import pt_direct, pt_indirect, pt_trace
 from .models.restir_di_fused import FusedDIState, _copy_camera
@@ -53,7 +60,7 @@ class RenderState(NamedTuple):
     direct_illum: torch.Tensor  # [R, 3]
     indirect_illum: torch.Tensor  # [R, 3]
     dir_reservoir: rsv.Reservoir  # ReSTIR DI temporal feed
-    gi_reservoir: rsv.Reservoir  # ReSTIR GI temporal feed
+    gi_reservoir: object  # ReSTIR GI feed: Reservoir, or [Q_CH, R] pack
     gbuffer: gbuf.GBufferFrame  # previous frame's G-buffer
     last_camera: Camera
     denoiser: SVGFState
@@ -68,8 +75,6 @@ def _host_materials(scene: SceneTensors):
 def general_ineligibility(cfg: RenderConfig):
     """Why the ported general path cannot render `cfg` (None if it can)."""
     reasons = []
-    if cfg.tracer == TracerType.RESTIR_GI:
-        reasons.append("tracer RESTIR_GI (ROADMAP Queue A 6)")
     if cfg.tracer == TracerType.BVH_VISUALIZE:
         reasons.append("tracer BVH_VISUALIZE (ROADMAP Queue A 7)")
     if cfg.denoiser != DenoiserType.NONE:
@@ -83,8 +88,13 @@ def general_ineligibility(cfg: RenderConfig):
     return "; ".join(reasons) or None
 
 
-def init_general(cfg: RenderConfig, cam: Camera, device="cuda"
-                 ) -> RenderState:
+def init_general(cfg: RenderConfig, cam: Camera, device="cuda",
+                 scene: Optional[SceneTensors] = None) -> RenderState:
+    """The general state. A RESTIR_GI config whose scene passes the GI
+    gate carries its reservoir as the fused [Q_CH, R] resolve pack (B8 +
+    B9 each frame), as the JAX package does on the TPU
+    (`restir_tpu/renderer.py:80-92`); the port's kernels have CPU twins,
+    so the choice is the same on either device."""
     reason = general_ineligibility(cfg)
     if reason is not None:
         raise NotImplementedError(
@@ -95,27 +105,42 @@ def init_general(cfg: RenderConfig, cam: Camera, device="cuda"
     def z3():
         return torch.zeros((r, 3), dtype=torch.float32, device=dev)
 
+    if (cfg.tracer == TracerType.RESTIR_GI and scene is not None
+            and restir_gi.gi_resolve_fused_eligible(scene, cfg, r)):
+        gi_res = restir_gi.init_gi_resolve_pack(r, dev)
+    else:
+        gi_res = rsv.zeros_indirect(r, dev)
     return RenderState(
         looper=0, iteration=0, direct_illum=z3(), indirect_illum=z3(),
         dir_reservoir=rsv.zeros_direct(r, dev),
-        gi_reservoir=rsv.zeros_indirect(r, dev),
+        gi_reservoir=gi_res,
         gbuffer=gbuf.empty_gbuffer(r, dev), last_camera=_copy_camera(cam),
         denoiser=SVGFState(z3(), z3()))
+
+
+_warned_fallback: set = set()
 
 
 def init_state(cfg: RenderConfig, cam: Camera,
                scene: Optional[SceneTensors] = None, *, device="cuda"):
     """Render state for `cfg` on `device`: fused when a scene is given
     and the fused gate passes, else general. With `scene`, also checks
-    the config's material and env flags against the scene."""
+    the config's material and env flags against the scene, and on the
+    card warns once per config when RESTIR_DI or RESTIR_GI falls off the
+    fused path, naming the gate that failed."""
     if scene is not None:
         validate_mat_flags(cfg, _host_materials(scene))
         if cfg.has_env_map and not scene.has_env_map:
             raise ValueError("RenderConfig has_env_map is set but the scene "
                              "has no env map")
-        if restir_di_fused.ineligibility(cfg) is None:
+        if restir_di_fused.ineligibility(cfg, scene) is None:
             return restir_di_fused.init_state(cfg, cam, device)
-    return init_general(cfg, cam, device)
+        reason = restir_di_fused.ineligibility_reason(cfg, scene, device)
+        if reason is not None and cfg not in _warned_fallback:
+            _warned_fallback.add(cfg)
+            warnings.warn("restir_tpu_torch: falling back to the general "
+                          f"(slower) pipeline — {reason}", stacklevel=2)
+    return init_general(cfg, cam, device, scene)
 
 
 def reset_iteration(state):
@@ -163,13 +188,19 @@ def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
     gb, it, mat, ray_dir = gbuf.render_gbuffer(scene, cam, state.last_camera,
                                                cfg, looper)
     direct, indirect = state.direct_illum, state.indirect_illum
-    dir_res = state.dir_reservoir
+    dir_res, gi_res = state.dir_reservoir, state.gi_reservoir
     n = state.iteration
-    if cfg.tracer == TracerType.RESTIR_DI:
+    if cfg.tracer in (TracerType.RESTIR_DI, TracerType.RESTIR_GI):
         out, dir_res = restir_di.restir_direct(
             scene, gb, state.gbuffer, it, mat, ray_dir, state.dir_reservoir,
             cfg, looper)
         direct = _accumulate(direct, out, n, cfg.accumulate)
+        if cfg.tracer == TracerType.RESTIR_GI:
+            # the DI + GI frame the reference sketches (main.cpp:167-168)
+            ind, gi_res = restir_gi.restir_indirect(
+                scene, gb, state.gbuffer, it, mat, ray_dir,
+                state.gi_reservoir, cfg, looper)
+            indirect = _accumulate(indirect, ind, n, cfg.accumulate)
     elif cfg.tracer == TracerType.PT_DIRECT:
         direct = _accumulate(direct, pt_direct(scene, cam, cfg, looper), n,
                              cfg.accumulate)
@@ -198,17 +229,22 @@ def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
     next_state = state._replace(
         looper=(looper + 1) & 0xFFFFFFFF, iteration=n + 1,
         direct_illum=direct, indirect_illum=indirect, dir_reservoir=dir_res,
-        gbuffer=gb, last_camera=_copy_camera(cam))
+        gi_reservoir=gi_res, gbuffer=gb, last_camera=_copy_camera(cam))
     return next_state, direct + indirect
 
 
 def render(scene: SceneTensors, cam: Camera, cfg: RenderConfig,
            num_frames: int, state=None, camera_fn=None, *, device="cuda"):
     """Run `num_frames` steps (mainLoop semantics); `camera_fn(i)` animates
-    the camera. Returns (state, last frame)."""
+    the camera. Returns (state, last frame); with no frames the frame is
+    zero, [3, R] for a fused state and [R, 3] for a general one."""
     if state is None:
         state = init_state(cfg, cam, scene, device=device)
-    frame = None
+    r = cfg.num_pixels
+    if isinstance(state, FusedDIState):
+        frame = torch.zeros((3, r), device=state.accum.device)
+    else:
+        frame = torch.zeros((r, 3), device=state.direct_illum.device)
     for i in range(num_frames):
         c = camera_fn(i) if camera_fn is not None else cam
         state, frame = step(scene, state, c, cfg)

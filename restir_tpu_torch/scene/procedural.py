@@ -99,6 +99,69 @@ def many_light_scene(n_lights: int = 64, n_blocks: int = 24, seed: int = 0):
     return scene, camera_kwargs
 
 
+def cornell_box(light_radiance=(12.0, 12.0, 12.0), light_size=1.6,
+                with_blocks=True, block_materials=("lambert", "lambert")):
+    """Cornell box: 5.5-unit cube interior, an area light under the
+    ceiling, two blocks ("lambert", "metal" or "glass"). Returns
+    (SceneArrays, camera_kwargs); the camera looks down -z through the
+    open front face."""
+    W = 2.75  # half width
+    H = 5.5  # height
+    materials = [
+        MaterialDesc(type=LAMBERTIAN, base_color=(0.725, 0.71, 0.68)),
+        MaterialDesc(type=LAMBERTIAN, base_color=(0.63, 0.065, 0.05)),
+        MaterialDesc(type=LAMBERTIAN, base_color=(0.14, 0.45, 0.091)),
+        MaterialDesc(type=LIGHT, base_color=tuple(light_radiance)),
+    ]
+
+    def block_mat(kind):
+        if kind == "metal":
+            materials.append(MaterialDesc(
+                type=METALLIC_WORKFLOW, base_color=(0.8, 0.8, 0.85),
+                metallic=1.0, roughness=0.15))
+        elif kind == "glass":
+            materials.append(MaterialDesc(
+                type=DIELECTRIC, base_color=(1.0, 1.0, 1.0), ior=1.5))
+        else:
+            materials.append(MaterialDesc(type=LAMBERTIAN,
+                                          base_color=(0.725, 0.71, 0.68)))
+        return len(materials) - 1
+
+    instances = []
+
+    def add_quad(p0, p1, p2, p3, mid):
+        v, n, t = quad_mesh(p0, p1, p2, p3)
+        instances.append(MeshInstance(vertices=v, normals=n, uvs=t,
+                                      material_id=mid))
+
+    add_quad([-W, 0, W], [W, 0, W], [W, 0, -W], [-W, 0, -W], 0)  # floor
+    add_quad([-W, H, -W], [W, H, -W], [W, H, W], [-W, H, W], 0)  # ceiling
+    add_quad([-W, 0, -W], [W, 0, -W], [W, H, -W], [-W, H, -W], 0)  # back
+    add_quad([-W, 0, W], [-W, 0, -W], [-W, H, -W], [-W, H, W], 1)  # red
+    add_quad([W, 0, -W], [W, 0, W], [W, H, W], [W, H, -W], 2)  # green
+    s, y = light_size / 2, H - 1e-2  # the light, facing down
+    add_quad([-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s], 3)
+
+    if with_blocks:
+        v, n, t = cube_mesh(0.5)
+        m0 = block_mat(block_materials[0])
+        instances.append(MeshInstance(
+            vertices=v, normals=n, uvs=t, material_id=m0,
+            translation=(-0.95, 1.65, -0.85), rotation=(0, 18, 0),
+            scale=(1.65, 3.3, 1.65)))
+        m1 = block_mat(block_materials[1])
+        instances.append(MeshInstance(
+            vertices=v, normals=n, uvs=t, material_id=m1,
+            translation=(0.95, 0.82, 0.55), rotation=(0, -15, 0),
+            scale=(1.65, 1.65, 1.65)))
+
+    scene = build_scene(instances, materials)
+    camera_kwargs = dict(position=(0.0, 2.75, 9.5),
+                         rotation=(-90.0, 0.0, 0.0),  # view (0, 0, -1)
+                         fov_y=19.5, focal_dist=1.0)
+    return scene, camera_kwargs
+
+
 def env_scene(n_blocks: int = 4, n_lights: int = 2, env_size=(64, 128),
               seed: int = 3):
     """Open scene under a smooth gradient sky: a floor, scattered blocks,

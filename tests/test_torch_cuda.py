@@ -1,6 +1,6 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
-B3, B4, B5, the SVGF variance kernels, B6, B7 and the general path's
-B10, B11 and B12 on a CUDA card.
+B3, B4, B5, the SVGF variance kernels, B6, B7, the general path's B10,
+B11 and B12, and ReSTIR GI's B8 and B9 on a CUDA card.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -26,6 +26,7 @@ from restir_tpu_torch.ops.kernels import (
     bvh_walk,
     fused_di,
     gbuffer,
+    gi,
     reuse,
     ris_cdf,
     spatial,
@@ -33,6 +34,7 @@ from restir_tpu_torch.ops.kernels import (
 )
 from restir_tpu_torch.ops.kernels import intersect as ki
 from restir_tpu_torch.scene.procedural import (
+    cornell_box,
     env_scene,
     many_light_scene,
     textured_scene,
@@ -386,3 +388,111 @@ def test_general_step_launches(general, tracer, per_frame):
            ris_cdf.launches - before[2])
     assert got == (per_frame["primary"], per_frame["any"], per_frame["ris"])
     assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0
+
+
+@pytest.fixture(scope="module")
+def gi_world(cuda_device):
+    from restir_tpu_torch.config import mat_flags
+
+    arrays, camkw = cornell_box(block_materials=("metal", "glass"))
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_GI,
+                       **mat_flags(arrays))
+    return scene, make_camera(**camkw), cfg
+
+
+def _gi_in_pack(scene, cam, cfg, looper):
+    from restir_tpu_torch.models import gbuffer as tgb
+    from restir_tpu_torch.models import restir_gi
+
+    gb, it, mat, d = tgb.render_gbuffer(scene, cam, cam, cfg, looper)
+    return gb, it, restir_gi._build_gi_in_pack(it, mat, d)
+
+
+def _lanes(a, b, rtol, atol):
+    return float(torch.isclose(a, b, rtol=rtol, atol=atol).all(0).float()
+                 .mean())
+
+
+@pytest.mark.parametrize("depth", [1, 5])
+def test_b8_kernel_matches_twin(gi_world, depth):
+    """B8 rounds as its twin does on the card: lane for lane."""
+    scene, cam, cfg = gi_world
+    _, _, in_pack = _gi_in_pack(scene, cam, cfg, 5)
+    kw = dict(depth=depth, single_sided=True,
+              n_lights=int(scene.light_prob.shape[0]))
+    before = gi.trace_launches
+    k = gi.gi_trace_cuda(in_pack, 5, scene, **kw)
+    r = gi.gi_trace_ref(in_pack, 5, scene, **kw)
+    assert gi.trace_launches == before + 1
+    lo = slice(gi.GO_LO, gi.GO_LO + 3)
+    assert _lanes(k[lo], r[lo], 2e-3, 2e-4) >= 0.999
+    for c in (gi.GO_NV, gi.GO_XS, gi.GO_NS):
+        assert _lanes(k[c:c + 3], r[c:c + 3], 1e-3, 1e-4) >= 0.999
+    assert _lanes(k[gi.GO_PDF:gi.GO_PDF + 1], r[gi.GO_PDF:gi.GO_PDF + 1],
+                  2e-3, 1e-5) >= 0.999
+    assert float((k[gi.GO_DELTA] == r[gi.GO_DELTA]).float().mean()) >= 0.999
+    assert float(k[lo].mean()) > 0.0
+
+
+def test_b9_kernel_matches_twin(gi_world):
+    """Three frames of B9 and its twin on B8's packs and the same
+    previous pack."""
+    from restir_tpu_torch.models import restir_gi
+
+    scene, cam, cfg = gi_world
+    q = torch.zeros((gi.Q_CH, R), device=scene.verts.device)
+    for f in range(3):
+        gb, it, in_pack = _gi_in_pack(scene, cam, cfg, f)
+        go = gi.gi_trace_cuda(in_pack, f, scene,
+                              **restir_gi.trace_kwargs(scene, cfg))
+        gq = restir_gi._gq_pack(gb, it)
+        before = gi.resolve_launches
+        ind_k, q_k = gi.gi_resolve_cuda(go, in_pack, gq, q, f)
+        ind_r, q_r = gi.gi_resolve_ref(go, in_pack, gq, q, f)
+        assert gi.resolve_launches == before + 1
+        assert float((q_k[gi.Q_M] == q_r[gi.Q_M]).float().mean()) >= 0.9999
+        assert _lanes(q_k[gi.Q_W:gi.Q_W + 1], q_r[gi.Q_W:gi.Q_W + 1], 1e-5,
+                      1e-7) >= 0.9999
+        assert _lanes(ind_k, ind_r, 1e-3, 1e-6) >= 0.9999
+        q = q_k
+    assert float(q[gi.Q_M].max()) == 3.0
+
+
+@pytest.mark.parametrize("with_scene", [True, False])
+def test_gi_step_launches(gi_world, with_scene):
+    """The fused GI frame runs B1 (two launches), B2, B8 and B9 once; the
+    general one (init_state without a scene) B12, B10 and B8."""
+    scene, cam, cfg = gi_world
+    state = renderer.init_state(cfg, cam, scene if with_scene else None,
+                                device=scene.verts.device)
+    counters = lambda: (fused_di.launches, spatial.launches,  # noqa: E731
+                        gi.trace_launches, gi.resolve_launches,
+                        ki.primary_launches, ris_cdf.launches,
+                        ki.any_launches)
+    before = counters()
+    state, frame = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counters(), before))
+    assert got == ((2, 1, 1, 1, 0, 0, 0) if with_scene
+                   else (0, 0, 1, 0, 1, 1, 0))
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0
+
+
+def test_gi_fallback_warns_once_on_the_card(cuda_device):
+    from restir_tpu_torch.config import mat_flags
+
+    arrays, camkw = env_scene()
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_GI,
+                       has_env_map=True, **mat_flags(arrays))
+    cam = make_camera(**camkw)
+    renderer._warned_fallback.discard(cfg)
+    with pytest.warns(UserWarning, match="gi_resolve_fused_eligible"):
+        state = renderer.init_state(cfg, cam, scene, device=cuda_device)
+    assert isinstance(state, renderer.RenderState)
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        renderer.init_state(cfg, cam, scene, device=cuda_device)

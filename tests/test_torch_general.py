@@ -253,7 +253,7 @@ def test_init_state_without_scene_is_general(world):
 
 
 @pytest.mark.parametrize("change", [
-    {"tracer": TracerType.RESTIR_GI},
+    {"intersector": "clustered"},  # RESTIR_GI, the case here before, renders
     {"tracer": TracerType.BVH_VISUALIZE},
     {"denoiser": DenoiserType.EAW},
     {"denoiser": DenoiserType.SVGF},

@@ -192,7 +192,7 @@ def test_checkpoint_from_jax_state_loads(world, jax_run):
 
 @pytest.mark.parametrize("change", [
     {"tracer": TracerType.PT_DIRECT},
-    {"tracer": TracerType.RESTIR_GI},
+    {"tracer": TracerType.BVH_VISUALIZE},  # was RESTIR_GI, which renders
     {"enable_dof": True},
     {"width": 100},
     {"sampler": "sobol"},
