@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
      shapes (1920x1080, many_light_scene(64, 24)), on a frame with live
      temporal history; kernel and twin times by CUDA events; B1's packs
      (env and texture branches off) must be bit-identical to those of the
-     build before those branches existed (SHA-256 below);
+     build before those branches existed (SHA-256 below); B1's bound
+     counts its two MTBVH walks per pixel with B6's and B7's counters on
+     the same rays;
   4. MTBVH on the headline scene: its 426 triangles forced through B6
      (MTBVH closest hit) + B7 (RIS + MTBVH any hit) + B1b, held against
      B1's packs under the parity gates;
@@ -62,7 +64,10 @@ ReSTIR GI (after phase 14):
      scene, depth 5, on B1's own G-buffer, with the JAX GI tests' gates
      (Lo within rtol 2e-3 on > 0.97 of lanes, mean Lo within 3 %, pdf and
      delta > 0.995, valid > 0.985, xs and ns > 0.99, nv > 0.999), then at
-     depth 1 with test_gi_trace_depth1_exact's gates on every lane; B9
+     depth 1 with test_gi_trace_depth1_exact's gates on every lane, and
+     at both depths equal to the twin bit for bit on every lane; B8's
+     counters give its walks' box and plane tests and path vertices per
+     pixel, and the mean per-warp maximum of vertices and box tests; B9
      (GI resolve) against its twin over 3 frames on B8's packs (M equal,
      W within rtol 1e-5 and the indirect within 1e-3, each on >= 0.9999);
  16. the fused GI main path, bench.py:239-243's config (RESTIR_GI at
@@ -336,12 +341,12 @@ def phase_kernels(scene, cfg, cam, dev, record):
               single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
               temporal=True, temporal_clamp=cfg.temporal_clamp,
               has_met=cfg.scene_has_metallic)
-    t = scene.tables
+    t, bvh = scene.tables, scene.bvh
     zeros = torch.zeros((PT_CH, r), device=dev)
     # frame 0 (no history), then frame 1 from a moved camera with the
     # kernel's frame-0 pack as history: temporal merges and motion live
-    _, pt0 = fused_di.di_resident_cuda(cv, cv, 0, zeros, t, **kw)
-    gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw)
+    _, pt0 = fused_di.di_resident_cuda(cv, cv, 0, zeros, t, bvh, **kw)
+    gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, bvh, **kw)
     gb_r, pt_r = fused_di.di_resident_ref(cv2, cv, 1, pt0, t, **kw)
     torch.cuda.synchronize()
     digest = packs_digest(gb_k, pt_k)
@@ -359,15 +364,15 @@ def phase_kernels(scene, cfg, cam, dev, record):
         raise PhaseError(f"B1 temporal merge inactive (max M {m_live})")
     err_b1 = max(stats["pos_max_abs_err"], stats["weight_max_abs_err"])
     ms_b1 = cuda_ms(lambda: fused_di.di_resident_cuda(cv2, cv, 1, pt0, t,
-                                                      **kw), 10)
+                                                      bvh, **kw), 10)
     ms_b1_ref = cuda_ms(lambda: fused_di.di_resident_ref(cv2, cv, 1, pt0, t,
                                                          **kw), 2)
-    b1 = b1_bound(t, r, cfg.cdf_candidates, False)
+    b1 = b1_bound(scene, gb_k, cv2, cv, cfg, False)
     record["fused_di"] = dict(max_abs_err=err_b1, ms=ms_b1,
                               plain_ms=ms_b1_ref, bound_ms=b1[0],
                               bound_by=b1[1], library_ms=None)
     print(f"B1 fused_di: kernel {ms_b1:.4f} ms, twin {ms_b1_ref:.4f} ms, "
-          f"bound {b1[0]:.4f} ms ({b1[1]})")
+          f"bound {b1[0]:.4f} ms ({b1[1]}; {b1[2]})")
 
     # B2 on the same packs, a random accumulator, iteration 3
     offs = spatial.spatial_offsets(1, r, w, cfg.spatial_neighbors,
@@ -480,8 +485,8 @@ def walk_bound6(bvh, r, counts):
     """(least ms, what binds it) of B6 over this frame's box / triangle
     tests (kernel counters [2, R])."""
     boxes, tris = (float(c.double().sum()) for c in counts)
-    return bound(table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.bounds,
-                             bvh.nodes) + r * 24 * 4,
+    return bound(table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.rows)
+                 + r * 24 * 4,
                  r * FLOP_PIXEL + boxes * FLOP_BOX + tris * FLOP_PLANE)
 
 
@@ -497,8 +502,8 @@ def walk_bound7(t, bvh, r, k, counts, has_env):
     boxes, tris = (float(c.double().sum()) for c in counts)
     lights, psi = t.light_rows(has_env)
     n_l = light_count(t, has_env)
-    return bound(table_bytes(lights[:n_l], psi[:n_l], bvh.planes, bvh.bounds,
-                             bvh.nodes) + r * (24 + 8) * 4,
+    return bound(table_bytes(lights[:n_l], psi[:n_l], bvh.planes, bvh.rows)
+                 + r * (24 + 8) * 4,
                  r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
                  + boxes * FLOP_BOX + tris * FLOP_PLANE)
 
@@ -522,16 +527,34 @@ def phase_small_frames(arrays, cam, dev):
         raise PhaseError("small-frame parity failed")
 
 
-def b1_bound(t, r, k, has_env):
-    """(least ms, what binds it) of one B1 call: the packs written and the
-    tables read once; 2 plane tests per triangle and 2 light targets per
-    light row, per pixel."""
+def b1_bound(scene, gb, cam_vec, lcam_vec, cfg, has_env):
+    """(least ms, what binds it, the walks' tests per pixel) of one B1
+    call: the packs written and the tables read once; its two walks per
+    pixel, counted by B6's and B7's COUNT builds on the same rays (B1a
+    walks them bit for bit), and 2 light targets per light row."""
+    t, bvh, r, k = scene.tables, scene.bvh, cfg.num_pixels, cfg.cdf_candidates
+    _, cnt6 = gbuffer.gbuffer_cuda(
+        cam_vec, lcam_vec, 1, bvh, width=cfg.width, height=cfg.height,
+        aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights,
+        has_env=has_env, with_textures=cfg.with_textures, stats=True)
+    _, cnt7 = reuse.candidates_cuda(gb, 1, t, bvh, k=k,
+                                    single_sided=cfg.single_sided_lights,
+                                    has_met=cfg.scene_has_metallic,
+                                    has_env=has_env, stats=True)
+    boxes, tris = (float(a.double().sum() + b.double().sum())
+                   for a, b in zip(cnt6, cnt7))
     lights, psi = t.light_rows(has_env)
     n_tris, n_l = t.attr.shape[0], light_count(t, has_env)
-    return bound(r * (14 + 24 + 16) * 4 + table_bytes(
-        t.planes[:n_tris], t.attr, t.mat, lights[:n_l], psi[:n_l]),
-        r * (2 * n_tris * FLOP_PLANE + 2 * n_l * FLOP_LIGHT
-             + k * FLOP_CAND + FLOP_PIXEL + FLOP_TEMPORAL))
+    nbytes = r * (14 + 24 + 16) * 4 + table_bytes(
+        t.planes[:n_tris], t.attr, t.mat, lights[:n_l], psi[:n_l],
+        bvh.rows)
+    pixel = r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND + FLOP_PIXEL
+                 + FLOP_TEMPORAL)
+    b = bound(nbytes, pixel + boxes * FLOP_BOX + tris * FLOP_PLANE)
+    brute = bound(nbytes, pixel + r * 2 * n_tris * FLOP_PLANE)
+    note = (f"{boxes / r:.2f} box + {tris / r:.2f} plane tests per pixel; "
+            f"the every-row design's bound {brute[0]:.4f} ms ({brute[1]})")
+    return b[0], b[1], note
 
 
 def phase_main(name, scene, cfg, cam, dev, per_frame):
@@ -745,10 +768,9 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
                       1, warmup=False)
     ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
                       warmup=False)
-    tables6 = table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.bounds,
-                          bvh.nodes)
+    tables6 = table_bytes(bvh.planes, bvh.attr, bvh.mat, bvh.rows)
     print(f"hall MTBVH tables on the card: {tables6 / 2**20:.1f} MiB "
-          f"(planes, attributes, materials, padded boxes, node rows)")
+          f"(planes, attributes, materials, node rows with their boxes)")
     b6 = walk_bound6(bvh, r, cnt6)
     b7 = walk_bound7(t, bvh, r, rkw["k"], cnt7, False)
     # B1b: gb 8 + rs 8 + the history's 14 channels read, pt 16 written
@@ -881,15 +903,15 @@ def phase_env_tex(name, arrays, camkw, flags, dev, record):
                                                 pos[2])})
     scene = convert.scene_from_numpy(arrays, dev)
     r = cfg.num_pixels
-    t = scene.tables
+    t, bvh = scene.tables, scene.bvh
     cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
     kw = dict(width=cfg.width, height=cfg.height, aa_jitter=cfg.aa_jitter,
               single_sided=cfg.single_sided_lights, k=cfg.cdf_candidates,
               temporal=True, temporal_clamp=cfg.temporal_clamp,
               has_met=cfg.scene_has_metallic, **flags)
     zeros = torch.zeros((PT_CH, r), device=dev)
-    _, pt0 = fused_di.di_resident_cuda(cv, cv, 0, zeros, t, **kw)
-    gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw)
+    _, pt0 = fused_di.di_resident_cuda(cv, cv, 0, zeros, t, bvh, **kw)
+    gb_k, pt_k = fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, bvh, **kw)
     gb_r, pt_r = fused_di.di_resident_ref(cv2, cv, 1, pt0, t, **kw)
     # the twin's RIS, visibility and merge on the kernel's G-buffer: a
     # motion index that flips by an ulp moves its tile's window start
@@ -920,18 +942,18 @@ def phase_env_tex(name, arrays, camkw, flags, dev, record):
               f"{float(gb_k[fused_di.G_MISS].mean()):.4f}")
         if not env_win > 0.0:
             raise PhaseError("no env-tile winner on the env scene")
-    ms = cuda_ms(lambda: fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, **kw),
-                 10)
+    ms = cuda_ms(lambda: fused_di.di_resident_cuda(cv2, cv, 1, pt0, t, bvh,
+                                                   **kw), 10)
     ms_ref = cuda_ms(lambda: fused_di.di_resident_ref(cv2, cv, 1, pt0, t,
                                                       **kw), 2)
-    b1 = b1_bound(t, r, cfg.cdf_candidates, cfg.has_env_map)
+    b1 = b1_bound(scene, gb_k, cv2, cv, cfg, cfg.has_env_map)
     record[f"fused_di_{name}"] = dict(
         max_abs_err=max(stats["pos_max_abs_err"],
                         stats["weight_max_abs_err"]),
         ms=ms, plain_ms=ms_ref, bound_ms=b1[0], bound_by=b1[1],
         library_ms=None)
     print(f"B1 {name}: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
-          f"{b1[0]:.4f} ms ({b1[1]})")
+          f"{b1[0]:.4f} ms ({b1[1]}; {b1[2]})")
 
     has_env = flags.get("has_env", False)
     gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=cfg.width,
@@ -1365,6 +1387,7 @@ def gi_trace_report(k, r, xv, depth):
     pdf = slice(gi.GO_PDF, gi.GO_PDF + 1)
     same = (k == r) | (torch.isnan(k) & torch.isnan(r))
     st = {"exact_lanes": float(same.all(0).float().mean()),
+          "exact_channels": float(same.all(1).float().mean()),
           "valid_eq": float((kvalid == rvalid).float().mean()),
           "delta_eq": float((kdelta == rdelta).float().mean()),
           "lo_mean": float(k[lo].mean()), "twin_lo_mean": float(r[lo].mean())}
@@ -1390,6 +1413,8 @@ def gi_trace_report(k, r, xv, depth):
         fails = [f"{n} {st[n]:.6f} < 1" for n in (
             "valid_eq", "delta_eq", "lo", "pdf", "nv", "xs", "ns")
             if st[n] < 1.0]
+    if st["exact_lanes"] < 1.0:  # the walks return the twin's every-row hits
+        fails.append(f"exact lanes {st['exact_lanes']:.7f} < 1")
     return fails, st
 
 
@@ -1401,7 +1426,7 @@ def phase_gi_kernels(scene, cfg, cam, dev, record):
     kw1 = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
                has_met=cfg.scene_has_metallic)
     gb, _ = fused_di.di_resident_cuda(cv, cv, 1, torch.zeros(
-        (PT_CH, r), device=dev), t, **kw1)
+        (PT_CH, r), device=dev), t, scene.bvh, **kw1)
     in_pack, gq = restir_di_fused.gi_packs(scene, gb)
     xv = in_pack[gi.IN_POS:gi.IN_POS + 3].T
     kw = restir_gi.trace_kwargs(scene, cfg)
@@ -1421,17 +1446,26 @@ def phase_gi_kernels(scene, cfg, cam, dev, record):
     ms = cuda_ms(lambda: gi.gi_trace_cuda(in_pack, 1, scene, **kw), 10)
     ms_ref = cuda_ms(lambda: gi.gi_trace_ref(in_pack, 1, scene, **kw), 1)
     _, counts = gi.gi_trace_cuda(in_pack, 1, scene, stats=True, **kw)
-    tests, verts = (int(c) for c in counts.to(torch.int64).sum(1))
+    boxes, tests, verts = (int(c) for c in counts.to(torch.int64).sum(1))
     n_tris = scene.num_tris
     b = bound(r * (gi.IN_CH + gi.GO_CH) * 4 + table_bytes(
-        t.planes[:n_tris], t.gi_tri, t.mat, t.gi_lights),
-        tests * FLOP_PLANE + verts * FLOP_GI_VERTEX)
+        t.planes[:n_tris], t.gi_tri, t.mat, t.gi_lights, scene.bvh.rows),
+        boxes * FLOP_BOX + tests * FLOP_PLANE + verts * FLOP_GI_VERTEX)
     record["gi_trace"] = dict(max_abs_err=max_err(k8, r8), ms=ms,
                               plain_ms=ms_ref, bound_ms=b[0], bound_by=b[1],
                               library_ms=None)
+    # a warp (32 neighbouring pixels) runs as long as its longest path
+    warp = counts.to(torch.float64).reshape(3, -1, 32)
+    v_max = float(warp[2].amax(1).mean())
+    b_max = float(warp[0].amax(1).mean())
+    print(f"B8 walks at {w}x{h}: {boxes / r:.2f} box tests, {tests / r:.2f} "
+          f"plane tests and {verts / r:.4f} path vertices per pixel "
+          f"({boxes / max(tests, 1):.2f} boxes per plane test); per warp: "
+          f"mean of the max vertices {v_max:.4f} ({v_max / (verts / r):.3f}x"
+          f" the mean), mean of the max box tests {b_max:.2f} "
+          f"({b_max / (boxes / r):.3f}x the mean)")
     print(f"B8 gi_trace: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}; {tests / r:.1f} plane tests and "
-          f"{verts / r:.3f} path vertices per pixel)")
+          f"{b[0]:.4f} ms ({b[1]})")
 
     # B9 over three frames of B1 + B8, the camera still
     q = torch.zeros((gi.Q_CH, r), device=dev)
@@ -1439,7 +1473,8 @@ def phase_gi_kernels(scene, cfg, cam, dev, record):
     worst = [1.0, 1.0, 1.0]
     err9 = 0.0
     for f in range(3):
-        gb, pt = fused_di.di_resident_cuda(cv, cv, f, pt, t, **kw1)
+        gb, pt = fused_di.di_resident_cuda(cv, cv, f, pt, t, scene.bvh,
+                                           **kw1)
         in_pack, gq = restir_di_fused.gi_packs(scene, gb)
         go = gi.gi_trace_cuda(in_pack, f, scene, **kw)
         ind_k, q_k = gi.gi_resolve_cuda(go, in_pack, gq, q, f)

@@ -1,0 +1,218 @@
+"""Time kernels B1, B6, B7 and B8 of several checkouts of restir_tpu_torch
+on one card, in turns, and check that they write the same packs.
+
+    python3 kernel_ab.py _chip/parent . . _chip/parent
+
+Each argument is the root of a checkout (the one here, or an unpacked
+`git archive` of another commit). Each runs in a process of its own, in
+the order given, with its root first on the module path, so each builds
+and loads its own kernels. A run times, by CUDA events at 1920x1080
+(mean over 20 launches after 4 warm-up launches):
+- B1 (`fused_di.di_resident_cuda`: launch a, then B1b) on frame 1 of the
+  headline scene (many_light_scene(64, 24)) with live history, and on
+  env_scene() (has_env_map) and textured_scene(aux_maps=True)
+  (with_textures), as chip_smoke.py phases 3 and 8 call it;
+- B8 (`gi.gi_trace_cuda`, depth 5) on B1's G-buffer of the headline scene
+  and of cornell_box(), as chip_smoke.py phase 15 calls it;
+- B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
+  and on scenes/hall.txt (81,036 triangles) and the same hall under a
+  code-made sky (512 env tiles), frame 1 from chip_smoke.py phase 9's
+  moved camera: the main paths on which B6 and B7 run.
+It prints one JSON line (card, ms and the SHA-256 of each kernel's
+output packs). This script then prints, per kernel, the ms of every run
+and whether every run wrote the same packs, then the card's name and
+power limit. Needs one CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+WIDTH, HEIGHT = 1920, 1080
+REPS = 20
+WARMUP = 3
+
+
+def _child() -> None:
+    # the checkout under test, ahead of this script's own directory
+    sys.path.insert(0, os.getcwd())
+    import inspect
+
+    import torch
+
+    from restir_tpu_torch import convert
+    from restir_tpu_torch.config import RenderConfig, TracerType, mat_flags
+    from restir_tpu_torch.models import restir_di_fused, restir_gi
+    from restir_tpu_torch.ops.camera import make_camera, pack_camera
+    from restir_tpu_torch.ops.kernels import fused_di, gbuffer, gi, reuse
+    from restir_tpu_torch.scene.loader import parse_scene_file
+    from restir_tpu_torch.scene.procedural import (
+        cornell_box,
+        env_scene,
+        gradient_sky,
+        many_light_scene,
+        textured_scene,
+    )
+
+    dev = torch.device("cuda", 0)
+    ms, sha = {}, {}
+    # B1's wrapper takes the scene's MTBVH since the walk redesign
+    takes_bvh = "bvh" in inspect.signature(
+        fused_di.di_resident_cuda).parameters
+
+    def di_resident(cam_vec, lcam_vec, looper, prev_pt, scene, **kw):
+        bvh = (scene.bvh,) if takes_bvh else ()
+        return fused_di.di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt,
+                                         scene.tables, *bvh, **kw)
+
+    def timed(name, fn):
+        out = fn()
+        for _ in range(WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            h.update(t.detach().cpu().numpy().tobytes())
+        sha[name] = h.hexdigest()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / REPS
+
+    def b1(name, arrays, cam, cam2, **flags):
+        scene = convert.scene_from_numpy(arrays, dev)
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                           tracer=TracerType.RESTIR_DI, **mat_flags(arrays))
+        cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
+        kw = dict(width=WIDTH, height=HEIGHT, aa_jitter=cfg.aa_jitter,
+                  single_sided=cfg.single_sided_lights,
+                  k=cfg.cdf_candidates, temporal=True,
+                  temporal_clamp=cfg.temporal_clamp,
+                  has_met=cfg.scene_has_metallic, **flags)
+        zeros = torch.zeros((fused_di.PT_CH, WIDTH * HEIGHT), device=dev)
+        _, pt0 = di_resident(cv, cv, 0, zeros, scene, **kw)
+        timed(name, lambda: di_resident(cv2, cv, 1, pt0, scene, **kw))
+        return scene, cfg, cv, cv2
+
+    arrays, camkw = many_light_scene(64, 24)
+    cam = make_camera(**camkw)
+    cam2 = make_camera(position=(0.25, 4.5, 15.0),
+                       rotation=(-90.5, -10.0, 0.0), fov_y=30.0)
+    scene, cfg, cv, cv2 = b1("B1 headline", arrays, cam, cam2)
+    gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
+                              height=HEIGHT)
+    timed("B6 headline", lambda: gbuffer.gbuffer_cuda(
+        cv2, cv, 1, scene.bvh, width=WIDTH, height=HEIGHT))
+    timed("B7 headline", lambda: reuse.candidates_cuda(
+        gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
+        has_met=cfg.scene_has_metallic))
+    for name, (sc_arrays, sc_kw), flags in (
+            ("B1 env", env_scene(), dict(has_env=True)),
+            ("B1 textures", textured_scene(aux_maps=True),
+             dict(with_textures=True))):
+        pos = sc_kw["position"]
+        b1(name, sc_arrays, make_camera(**sc_kw),
+           make_camera(**{**sc_kw, "position": (pos[0] + 0.25, pos[1],
+                                                pos[2])}), **flags)
+
+    for name, (gi_arrays, gi_kw) in (
+            ("B8 GI headline", (arrays, camkw)),
+            ("B8 GI cornell", cornell_box())):
+        scene = convert.scene_from_numpy(gi_arrays, dev)
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                           tracer=TracerType.RESTIR_GI,
+                           **mat_flags(gi_arrays))
+        cv = pack_camera(make_camera(**gi_kw), dev)
+        gb, _ = di_resident(
+            cv, cv, 1, torch.zeros((fused_di.PT_CH, WIDTH * HEIGHT),
+                                   device=dev), scene, width=WIDTH,
+            height=HEIGHT, aa_jitter=cfg.aa_jitter,
+            has_met=cfg.scene_has_metallic)
+        in_pack, _ = restir_di_fused.gi_packs(scene, gb)
+        kw = restir_gi.trace_kwargs(scene, cfg)
+        timed(name, lambda: gi.gi_trace_cuda(in_pack, 1, scene, **kw))
+
+    # the hall, then the hall under a sky (chip_smoke.py phases 9 and 11)
+    sys.path.insert(0, os.path.join(os.getcwd(), "scenes"))
+    from make_hall import ensure_assets
+
+    ensure_assets()
+    sf = parse_scene_file(os.path.join(os.getcwd(), "scenes", "hall.txt"))
+    cv = pack_camera(sf.make_camera(), dev)
+    cv2 = pack_camera(make_camera(position=(0.3, 4.2, 20.3),
+                                  rotation=(-90.5, -4.0, 0.0), fov_y=19.5),
+                      dev)
+    for name, sky in (("hall", False), ("sky hall", True)):
+        if sky:
+            sf.env_map = gradient_sky(512, 1024)
+        hall_arrays = sf.build()
+        scene = convert.scene_from_numpy(hall_arrays, dev)
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                           tracer=TracerType.RESTIR_DI, has_env_map=sky,
+                           **mat_flags(hall_arrays))
+        gkw = dict(width=WIDTH, height=HEIGHT, aa_jitter=cfg.aa_jitter,
+                   single_sided=cfg.single_sided_lights, has_env=sky)
+        gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, **gkw)
+        timed(f"B6 {name}", lambda: gbuffer.gbuffer_cuda(
+            cv2, cv, 1, scene.bvh, **gkw))
+        timed(f"B7 {name}", lambda: reuse.candidates_cuda(
+            gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
+            single_sided=cfg.single_sided_lights,
+            has_met=cfg.scene_has_metallic, has_env=sky))
+        del scene, gb
+    import restir_tpu_torch
+
+    print(json.dumps({
+        "root": os.path.dirname(os.path.dirname(restir_tpu_torch.__file__)),
+        "card": torch.cuda.get_device_name(0), "ms": ms, "sha256": sha}))
+
+
+def main(trees) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    runs = []
+    for tree in trees:
+        root = os.path.abspath(tree)
+        env = {**os.environ, "PYTHONPATH": root}
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--child"], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"run {len(runs) + 1}: {tree}: {json.dumps(res)}")
+        if res["root"] != root:
+            print(f"kernel_ab: run {len(runs) + 1} imported "
+                  f"{res['root']}, not {root}", file=sys.stderr)
+            return 1
+        runs.append(res)
+    for name in runs[0]["ms"]:
+        times = ", ".join(f"{r['ms'][name]:.4f}" for r in runs)
+        same = len({r["sha256"][name] for r in runs}) == 1
+        print(f"{name}: ms by run [{times}] "
+              f"({' / '.join(trees)}); packs "
+              f"{'identical in every run' if same else 'DIFFER'}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--child"]:
+        _child()
+    else:
+        sys.exit(main(sys.argv[1:] or ["."]))

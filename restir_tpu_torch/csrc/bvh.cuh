@@ -5,20 +5,30 @@
 // node's children near-to-far for the ray's dominant axis; a node whose
 // padded box the ray misses (or enters beyond the current limit) jumps to
 // its `miss` index, past its subtree, so the walk is one loop with no
-// stack. Leaves run the unit-plane test of di_core.cuh on the triangle's
-// plane row, the same test B1 runs on every triangle.
+// stack. Leaves run the ray's own unit-plane test on the triangle's plane
+// row: `RayT::hit` is di_core.cuh's plane_hit for the DI kernels (B1, B6,
+// B7; `PlaneRay`) and gi_core.cuh's for B8 (`gi::GiRay`), each the test
+// of the brute-force loop that kernel's twin runs.
 //
-// Exactness against B1's brute-force loop: node boxes are padded outward
-// at upload (ops/kernels/tables.py), a box is entered while its entry
-// distance is at most CULL_SLACK times the current best (or shadow
-// limit), and equal distances keep the lowest primitive id. So the walk
-// visits every triangle that could win and returns the brute-force hit.
+// Exactness against a brute-force loop over every row: node boxes are
+// padded outward at upload (ops/kernels/tables.py), a box is entered
+// while its entry distance is at most CULL_SLACK times the current best
+// (or shadow limit), and equal distances keep the lowest primitive id. So
+// the walk visits every triangle that could win and returns the brute
+// force's hit.
+//
+// Bound: the walk is a chain of dependent loads through the read-only
+// cache, not FMAs; a warp waits out the latency of its longest walk. Each
+// node row carries its box (`BvhRows`: one 32-byte row per step), so the
+// chain is one load deep: no second load waits on the node row for the
+// box it points at (the JAX tables' box_id indirection).
 //
 // The COUNT variants also return the boxes and triangles tested, for
-// the measurement of the walk's work (tests and chip_smoke.py).
+// the measurement of the walk's work (tests and chip_smoke.py); the
+// builds without counters carry no counting code.
 #pragma once
 
-#include "di_core.cuh"
+#include "common.cuh"
 
 namespace restir {
 
@@ -26,11 +36,22 @@ namespace restir {
 // still entered.
 #define RESTIR_CULL_SLACK 1.0001220703125f
 
-struct BvhView {
-  const float4* bounds;  // [B, 2] (lo, 0) (hi, 0), padded
-  const int4* nodes;     // [6B] (prim, box, miss, 0)
+// A visited node: its padded box and its (prim, miss) pair.
+struct BvhNode {
+  float4 lo, hi;
+  int prim, miss;
+};
+
+// The MTBVH as every walk reads it: table t's node j at row t * B + j,
+// one 32-byte row (padded box lo, prim bits) (padded box hi, miss bits).
+struct BvhRows {
+  const float4* rows;    // [6B, 2]
   const float* planes;   // [n_pad, 12] unit-plane rows
   int size;              // B
+  __device__ __forceinline__ BvhNode node(int row) const {
+    const float4 lo = __ldg(rows + 2 * row), hi = __ldg(rows + 2 * row + 1);
+    return {lo, hi, __float_as_int(lo.w), __float_as_int(hi.w)};
+  }
 };
 
 // Table index for direction (dx, dy, dz) (scene.h:101-119); callers pass
@@ -66,73 +87,72 @@ struct WalkCount {
   int boxes, tris;
 };
 
-// Closest hit along (o, d): returns the distance (RESTIR_BIG on a miss)
-// and sets prim (-1 on a miss) and the barycentrics (0 on a miss).
-template <bool COUNT>
-__device__ __forceinline__ float closest_walk(const BvhView& bvh, float ox,
-                                              float oy, float oz, float dx,
-                                              float dy, float dz, int& prim,
+// Closest hit of `ray` (origin ox, oy, oz, direction dx, dy, dz and its
+// leaf test hit(row, u, v) -> t > 0, or -1 without a hit): returns the
+// distance (RESTIR_BIG on a miss) and sets prim (-1 on a miss) and the
+// barycentrics (0 on a miss).
+template <bool COUNT, class RayT>
+__device__ __forceinline__ float closest_walk(const BvhRows& bvh,
+                                              const RayT& ray, int& prim,
                                               float& bu, float& bv,
                                               WalkCount& n) {
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const int4* nodes = bvh.nodes + (size_t)mtbvh_id(-dx, -dy, -dz) * bvh.size;
+  const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
+              iz = safe_inv(ray.dz);
+  const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
   float best = RESTIR_BIG;
   prim = -1;
   bu = bv = 0.0f;
   int node = 0;
   while (node < bvh.size) {
-    const int4 nd = __ldg(nodes + node);
-    const float4 lo = __ldg(bvh.bounds + 2 * nd.y);
-    const float4 hi = __ldg(bvh.bounds + 2 * nd.y + 1);
+    const BvhNode nd = bvh.node(base + node);
     float t_near;
-    const bool descend = slab(lo, hi, ox, oy, oz, ix, iy, iz, t_near) &&
-                         t_near <= best * RESTIR_CULL_SLACK;
+    const bool descend =
+        slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
+        t_near <= best * RESTIR_CULL_SLACK;
     if (COUNT) ++n.boxes;
-    if (descend && nd.x >= 0) {
+    if (descend && nd.prim >= 0) {
       if (COUNT) ++n.tris;
       float u, v;
-      const float t = plane_hit(bvh.planes + (size_t)nd.x * 12, ox, oy, oz,
-                                dx, dy, dz, u, v);
-      if (t >= 0.0f && (t < best || (t == best && nd.x < prim))) {
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
+      if (t >= 0.0f && (t < best || (t == best && nd.prim < prim))) {
         best = t;
-        prim = nd.x;
+        prim = nd.prim;
         bu = u;
         bv = v;
       }
     }
-    node = descend ? node + 1 : nd.z;
+    node = descend ? node + 1 : nd.miss;
   }
   return best;
 }
 
-// Any hit at 0 < t < limit on a triangle other than `self`; stops at the
-// first one. A limit <= 0 (a lane without a live winner) tests nothing.
-template <bool COUNT>
-__device__ __forceinline__ bool occluded_walk(const BvhView& bvh, float ox,
-                                              float oy, float oz, float dx,
-                                              float dy, float dz, float limit,
+// Any hit of `ray` at 0 < t < limit on a triangle other than `self` (-1
+// excludes none); stops at the first one. A limit <= 0 (a lane without a
+// live winner) tests nothing.
+template <bool COUNT, class RayT>
+__device__ __forceinline__ bool occluded_walk(const BvhRows& bvh,
+                                              const RayT& ray, float limit,
                                               int self, WalkCount& n) {
   if (!(limit > 0.0f)) return false;
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const int4* nodes = bvh.nodes + (size_t)mtbvh_id(-dx, -dy, -dz) * bvh.size;
+  const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
+              iz = safe_inv(ray.dz);
+  const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
   const float cull = limit * RESTIR_CULL_SLACK;
   int node = 0;
   while (node < bvh.size) {
-    const int4 nd = __ldg(nodes + node);
-    const float4 lo = __ldg(bvh.bounds + 2 * nd.y);
-    const float4 hi = __ldg(bvh.bounds + 2 * nd.y + 1);
+    const BvhNode nd = bvh.node(base + node);
     float t_near;
     const bool descend =
-        slab(lo, hi, ox, oy, oz, ix, iy, iz, t_near) && t_near <= cull;
+        slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
+        t_near <= cull;
     if (COUNT) ++n.boxes;
-    if (descend && nd.x >= 0 && nd.x != self) {
+    if (descend && nd.prim >= 0 && nd.prim != self) {
       if (COUNT) ++n.tris;
       float u, v;
-      const float t = plane_hit(bvh.planes + (size_t)nd.x * 12, ox, oy, oz,
-                                dx, dy, dz, u, v);
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
       if (t >= 0.0f && t < limit) return true;
     }
-    node = descend ? node + 1 : nd.z;
+    node = descend ? node + 1 : nd.miss;
   }
   return false;
 }

@@ -3,10 +3,10 @@
 // K-candidate CDF RIS core (with its env-tile candidates) and the winner
 // shadow ray's origin and limit.
 //
-// B1 (fused_di.cu, resident brute force), B6 (gbuffer_bvh.cu, MTBVH
-// closest hit) and B7 (reuse_bvh.cu, RIS + MTBVH any hit) all call these,
-// so a frame rendered through B6 + B7 + B1b runs the same arithmetic as
-// one rendered through B1. Mirrors restir_tpu/ops/pallas/fused_di.py
+// B1 (fused_di.cu, resident scenes), B6 (gbuffer_bvh.cu, MTBVH closest
+// hit) and B7 (reuse_bvh.cu, RIS + MTBVH any hit) all call these, with
+// the same MTBVH walks (bvh.cuh), so a frame rendered through B6 + B7 +
+// B1b runs the same arithmetic as one rendered through B1. Mirrors restir_tpu/ops/pallas/fused_di.py
 // (_raygen, _gbuffer_epilogue, _tex_bilinear, _procedural_tex,
 // _env_tile_radiance, _ris_select_core, _vis_resident_core).
 //
@@ -60,6 +60,15 @@ __device__ __forceinline__ float plane_hit(const float* q, float ox, float oy,
       nondeg && t > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
   return hit ? t : -1.0f;
 }
+
+// A ray with plane_hit as the MTBVH walks' leaf test (bvh.cuh).
+struct PlaneRay {
+  float ox, oy, oz, dx, dy, dz;
+  __device__ __forceinline__ float hit(const float* q, float& u,
+                                       float& v) const {
+    return plane_hit(q, ox, oy, oz, dx, dy, dz, u, v);
+  }
+};
 
 // ---- env map and textures (HAS_ENV / TEX branches) ----
 

@@ -3,39 +3,51 @@
 //
 // Replaces restir_tpu/ops/pallas/fused_di.py::_di_resident_kernel
 // (di_resident_pallas). One thread per pixel, in two launches:
-//   (a) di_gbuffer_ris_kernel: raygen with AA jitter, brute closest hit
-//       over the resident triangle planes, the G-buffer epilogue with
-//       motion reprojection (writes gb), K-candidate CDF RIS with a
-//       single-draw winner and the winner's shadow ray (writes rs);
+//   (a) di_gbuffer_ris_kernel: raygen with AA jitter, the MTBVH
+//       closest-hit walk (bvh.cuh) over the resident scene's tables, the
+//       G-buffer epilogue with motion reprojection (writes gb), K-candidate
+//       CDF RIS with a single-draw winner and the winner's MTBVH any-hit
+//       walk (writes rs);
 //   (b) di_temporal_kernel: one 1024-thread block per 1024-pixel tile
 //       reduces the tile's minimum valid motion index to the 2048-pixel
 //       temporal window start (fused_di._window_start) and merges each
 //       pixel with the previous frame's reuse pack (writes pt).
-// The triangle planes (n_pad x 12 floats, ~21 KB for 426 triangles) and
-// the light rows live in shared memory; every thread of a warp reads the
-// same row, so each read is a broadcast. The winner's attribute and
-// material rows come from global memory.
+// Launch (a) is B6 (gbuffer_bvh.cu) and B7's RIS + any hit (reuse_bvh.cu)
+// in one kernel: the same walks with the same leaf test, so nothing goes
+// back to device memory between the stages and the packs equal B6 +
+// B7's. The light and psi rows live in shared memory (every thread of a
+// warp reads the same row, a broadcast); the walks read the node rows
+// with their boxes copied in (`BvhRows`, one dependent load per step)
+// and the leaf planes through the read-only cache (the headline scene's
+// ~185 KB stay in L1 / L2), and the winner's attribute and material rows
+// come from global memory.
 //
-// Bound: FMA throughput. Each pixel runs 2 x n_pad ray-plane tests (the
-// primary ray and the shadow ray, ~20 FMAs and one division each) and
-// 2 x l_pad light targets (two passes over the light CDF, so no per-pixel
-// CDF array is stored). Memory traffic is ~(24 + 8) + (8 + 16 + 16)
-// floats per pixel, well under the compute time.
+// Bound: FMA work in the RIS core, 2 x l_pad light targets per pixel
+// (two passes over the light CDF, so no per-pixel CDF array is stored),
+// then the walks' chains of dependent loads: the TPU kernel's brute loop
+// tested every triangle row twice per pixel, the walks test ~160 boxes
+// and ~4 rows on the headline scene. Memory traffic is ~(24 + 8) +
+// (8 + 16 + 16) floats per pixel, well under either. The launch bounds
+// cap the env-less builds at 80 registers (3 blocks of 256 per SM; ptxas
+// spills 120-220 bytes to L1), 12 % faster than 110 registers on the
+// headline scene; the env build's 80 KB of light rows allow 2 blocks
+// whatever its registers, so it keeps them (capped, it was 4 % slower).
 //
 // The per-pixel stages (raygen, plane test, epilogue, RIS core, shadow
-// ray limit) live in di_core.cuh, shared with B6 (gbuffer_bvh.cu) and B7
-// (reuse_bvh.cu); on scenes over 1024 triangles B6 + B7 replace launch
-// (a) and launch (b) runs unchanged after them. Launch (a) is built four
-// times, for the env map (HAS_ENV: 512 env-tile rows join the light
-// tables, l_pad 128 -> 640 on the headline scene, and misses read the env
-// radiance) and for textures (TEX: atlas fetches in the epilogue, from
-// global memory through the read-only cache); the env-less, texture-less
-// instance is the build without those branches.
+// ray limit) live in di_core.cuh, shared with B6 and B7; on scenes over
+// 1024 triangles B6 + B7 replace launch (a) and launch (b) runs unchanged
+// after them. Launch (a) is built four times, for the env map (HAS_ENV:
+// 512 env-tile rows join the light tables, l_pad 128 -> 640 on the
+// headline scene, and misses read the env radiance) and for textures
+// (TEX: atlas fetches in the epilogue, from global memory through the
+// read-only cache); the env-less, texture-less instance is the build
+// without those branches.
 //
 // The RNG counters are the JAX package's: candidate j draws
 // pcg4d(p, looper, 8 + j, SALT_RESTIR), the jitter pcg4d(p, looper, 0,
 // SALT_CAMERA), the temporal draw pcg4d(p, looper, 0, SALT_RESTIR); the
 // winner-selection draw is candidate 0's fourth uniform.
+#include "bvh.cuh"
 #include "di_core.cuh"
 
 using namespace restir;
@@ -43,20 +55,17 @@ using namespace restir;
 namespace {
 
 template <bool HAS_ENV, bool TEX>
-__global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
+__global__ void __launch_bounds__(256, HAS_ENV ? 1 : 3) di_gbuffer_ris_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
-    uint32_t looper, const float* __restrict__ planes_g, int n_pad,
-    const float* __restrict__ attr, const float* __restrict__ mat, int n_mat,
+    uint32_t looper, BvhRows bvh, const float* __restrict__ attr,
+    const float* __restrict__ mat, int n_mat,
     const float* __restrict__ lights_g, const float* __restrict__ psi_g,
     int l_pad, int n_area, EnvTex et, float* __restrict__ gb,
     float* __restrict__ rs, int width, int height, float aspect,
     int aa_jitter, int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
-  float* planes = reinterpret_cast<float*>(smem4);
-  float* psi = planes + n_pad * 12;
+  float* psi = reinterpret_cast<float*>(smem4);
   float* lights = psi + l_pad * 16;
-  for (int i = threadIdx.x; i < n_pad * 12; i += blockDim.x)
-    planes[i] = planes_g[i];
   for (int i = threadIdx.x; i < l_pad * 16; i += blockDim.x) {
     psi[i] = psi_g[i];
     lights[i] = lights_g[i];
@@ -68,20 +77,12 @@ __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
   if (p >= r) return;
   const Ray ray = raygen(cam, p, looper, width, height, aspect, aa_jitter);
 
-  // ---- closest hit; strict < keeps the lowest index on ties
-  float best = RESTIR_BIG, bu = 0.0f, bv = 0.0f;
-  int bprim = -1;
-  for (int i = 0; i < n_pad; ++i) {
-    float u, v;
-    const float t = plane_hit(planes + i * 12, ray.ox, ray.oy, ray.oz, ray.dx,
-                              ray.dy, ray.dz, u, v);
-    if (t >= 0.0f && t < best) {
-      best = t;
-      bprim = i;
-      bu = u;
-      bv = v;
-    }
-  }
+  // ---- closest hit; equal distances keep the lowest index
+  WalkCount n = {0, 0};
+  int bprim;
+  float bu, bv;
+  const PlaneRay pr = {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz};
+  const float best = closest_walk<false>(bvh, pr, bprim, bu, bv, n);
 
   const Surface s = gbuffer_epilogue<HAS_ENV, TEX>(
       gb, p, r, ray, best, bprim, bu, bv, attr, mat, n_mat, lcam, width,
@@ -91,17 +92,10 @@ __global__ void __launch_bounds__(256) di_gbuffer_ris_kernel(
                                           single_sided, has_met, s);
 
   // ---- winner visibility: any hit before the light, own triangle excluded
-  const float vox = s.px + c.wi[0] * 1e-5f;
-  const float voy = s.py + c.wi[1] * 1e-5f;
-  const float voz = s.pz + c.wi[2] * 1e-5f;
-  const float limit = shadow_limit(c);
-  bool occluded = false;
-  for (int i = 0; i < n_pad && !occluded; ++i) {
-    float u, v;
-    const float t = plane_hit(planes + i * 12, vox, voy, voz, c.wi[0],
-                              c.wi[1], c.wi[2], u, v);
-    occluded = t >= 0.0f && t < limit && i != s.prim;
-  }
+  const PlaneRay sr = {s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
+                       s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2]};
+  const bool occluded =
+      occluded_walk<false>(bvh, sr, shadow_limit(c), s.prim, n);
   write_rs(rs, p, r, c, occluded);
 }
 
@@ -204,7 +198,7 @@ namespace {
 
 template <bool HAS_ENV, bool TEX>
 int launch_gbuffer_ris(const float* cam, const float* lcam, uint32_t looper,
-                       const float* planes, int n_pad, const float* attr,
+                       const BvhRows& bvh, const float* attr,
                        const float* mat, int n_mat, const float* lights,
                        const float* psi, int l_pad, int n_area,
                        const EnvTex& et, float* gb, float* rs, int width,
@@ -212,7 +206,7 @@ int launch_gbuffer_ris(const float* cam, const float* lcam, uint32_t looper,
                        int single_sided, int k, int has_met,
                        cudaStream_t stream) {
   const int r = width * height;
-  const size_t smem = (size_t)(n_pad * 12 + l_pad * 32) * sizeof(float);
+  const size_t smem = (size_t)l_pad * 32 * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         di_gbuffer_ris_kernel<HAS_ENV, TEX>,
@@ -222,32 +216,35 @@ int launch_gbuffer_ris(const float* cam, const float* lcam, uint32_t looper,
   const int block = 256;
   di_gbuffer_ris_kernel<HAS_ENV, TEX>
       <<<(r + block - 1) / block, block, smem, stream>>>(
-          cam, lcam, looper, planes, n_pad, attr, mat, n_mat, lights, psi,
-          l_pad, n_area, et, gb, rs, width, height, aspect, aa_jitter,
+          cam, lcam, looper, bvh, attr, mat, n_mat, lights, psi, l_pad,
+          n_area, et, gb, rs, width, height, aspect, aa_jitter,
           single_sided, k, has_met);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
+// resident scene's MTBVH (ops/kernels/tables.py).
 extern "C" int restir_di_resident_gbuffer_ris(
-    const float* cam, const float* lcam, uint32_t looper, const float* planes,
-    int n_pad, const float* attr, const float* mat, int n_mat,
-    const float* lights, const float* psi, int l_pad, int n_area,
-    const float* env_rad, const float* atlas, const float* tex_meta,
-    int n_tex, int has_env, int with_textures, float* gb, float* rs,
-    int width, int height, float aspect, int aa_jitter, int single_sided,
-    int k, int has_met, void* stream) {
-  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+    const float* cam, const float* lcam, uint32_t looper, const float* rows,
+    int size, const float* planes, const float* attr,
+    const float* mat, int n_mat, const float* lights, const float* psi,
+    int l_pad, int n_area, const float* env_rad, const float* atlas,
+    const float* tex_meta, int n_tex, int has_env, int with_textures,
+    float* gb, float* rs, int width, int height, float aspect,
+    int aa_jitter, int single_sided, int k, int has_met, void* stream) {
+  if (k < 1 || k > MAX_K || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const EnvTex et = {reinterpret_cast<const float4*>(env_rad),
                      reinterpret_cast<const float4*>(atlas),
                      reinterpret_cast<const float4*>(tex_meta), n_tex};
   const cudaStream_t st = (cudaStream_t)stream;
 #define RESTIR_B1_LAUNCH(E, T)                                              \
-  launch_gbuffer_ris<E, T>(cam, lcam, looper, planes, n_pad, attr, mat,     \
-                           n_mat, lights, psi, l_pad, n_area, et, gb, rs,   \
-                           width, height, aspect, aa_jitter, single_sided,  \
-                           k, has_met, st)
+  launch_gbuffer_ris<E, T>(cam, lcam, looper, bvh, attr, mat, n_mat,        \
+                           lights, psi, l_pad, n_area, et, gb, rs, width,   \
+                           height, aspect, aa_jitter, single_sided, k,      \
+                           has_met, st)
   if (has_env)
     return with_textures ? RESTIR_B1_LAUNCH(true, true)
                          : RESTIR_B1_LAUNCH(true, false);

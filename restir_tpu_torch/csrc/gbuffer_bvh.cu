@@ -15,14 +15,15 @@
 // (di_core.cuh), so the pack equals B1's wherever the hit does. The
 // epilogue's env and texture branches are template flags, as in B1.
 //
-// Bound: neither bytes nor FMAs. The tables (hall: 81,036 planes, 162,071
-// nodes, ~35 MB) sit in the 50 MB L2 and the pack write is 96 B/pixel;
-// the walk is a chain of dependent loads (node -> box -> next node) whose
-// latency each warp waits out, with the warp's rays diverging across the
-// tree. The design keeps one thread per ray with no stack (the walk state
-// is one int) so many warps fit per SM to hide that latency; node packing
+// Bound: neither bytes nor FMAs. The tables (hall: 81,036 planes and
+// attribute rows, 6 x 162,071 node rows, ~45 MB) sit in the 50 MB L2 and
+// the pack write is 96 B/pixel; the walk is a chain of dependent loads
+// (node row -> next node row) whose latency each warp waits out, with the
+// warp's rays diverging across the tree. The design keeps one thread per ray with no stack (the walk state
+// is one int) so many warps fit per SM to hide that latency; wider nodes
 // and ray sorting are later work.
 #include "bvh.cuh"
+#include "di_core.cuh"
 
 using namespace restir;
 
@@ -31,7 +32,7 @@ namespace {
 template <bool COUNT, bool HAS_ENV, bool TEX>
 __global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
-    uint32_t looper, BvhView bvh, const float* __restrict__ attr,
+    uint32_t looper, BvhRows bvh, const float* __restrict__ attr,
     const float* __restrict__ mat, int n_mat, EnvTex et,
     float* __restrict__ gb, int* __restrict__ stats, int width, int height,
     float aspect, int aa_jitter, int single_sided) {
@@ -42,8 +43,8 @@ __global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
   WalkCount n = {0, 0};
   int prim;
   float bu, bv;
-  const float best = closest_walk<COUNT>(bvh, ray.ox, ray.oy, ray.oz, ray.dx,
-                                         ray.dy, ray.dz, prim, bu, bv, n);
+  const PlaneRay pr = {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz};
+  const float best = closest_walk<COUNT>(bvh, pr, prim, bu, bv, n);
   gbuffer_epilogue<HAS_ENV, TEX>(gb, p, r, ray, best, prim, bu, bv, attr,
                                  mat, n_mat, lcam, width, height, aspect,
                                  single_sided, et);
@@ -55,7 +56,7 @@ __global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
 
 template <bool COUNT, bool HAS_ENV, bool TEX>
 int launch_gbuffer_bvh(const float* cam, const float* lcam, uint32_t looper,
-                       const BvhView& bvh, const float* attr, const float* mat,
+                       const BvhRows& bvh, const float* attr, const float* mat,
                        int n_mat, const EnvTex& et, float* gb, int* stats,
                        int width, int height, float aspect, int aa_jitter,
                        int single_sided, cudaStream_t stream) {
@@ -70,13 +71,14 @@ int launch_gbuffer_bvh(const float* cam, const float* lcam, uint32_t looper,
 
 }  // namespace
 
-// stats: null, or int32 [2, R] that receives each ray's box and triangle
-// test counts.
+// rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
+// scene's MTBVH (ops/kernels/tables.py). stats: null, or int32 [2, R]
+// that receives each ray's box and triangle test counts.
 extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
-                                  uint32_t looper, const float* bounds,
-                                  const int* nodes, int size,
-                                  const float* planes, const float* attr,
-                                  const float* mat, int n_mat,
+                                  uint32_t looper, const float* rows,
+                                  int size, const float* planes,
+                                  const float* attr, const float* mat,
+                                  int n_mat,
                                   const float* env_rad, const float* atlas,
                                   const float* tex_meta, int n_tex,
                                   int has_env, int with_textures, float* gb,
@@ -85,8 +87,7 @@ extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
                                   int single_sided, void* stream) {
   const int r = width * height;
   if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
-  const BvhView bvh = {reinterpret_cast<const float4*>(bounds),
-                       reinterpret_cast<const int4*>(nodes), planes, size};
+  const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const EnvTex et = {reinterpret_cast<const float4*>(env_rad),
                      reinterpret_cast<const float4*>(atlas),
                      reinterpret_cast<const float4*>(tex_meta), n_tex};

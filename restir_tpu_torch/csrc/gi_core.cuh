@@ -15,7 +15,7 @@
 // models/restir_gi.py:142-282 and ops/bsdf.py).
 //
 // Nothing here is inlined by the DI kernels (B1 and B2 stay
-// bit-identical).
+// bit-identical); B8's MTBVH walks are bvh.cuh's, on GiRay's leaf test.
 #pragma once
 
 #include "common.cuh"
@@ -374,6 +374,15 @@ __device__ __forceinline__ float plane_hit(const float* q, V3 o, V3 d, float& u,
       nondeg && t > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
   return hit ? t : -1.0f;
 }
+
+// A ray with the GI plane_hit as the MTBVH walks' leaf test (bvh.cuh).
+struct GiRay {
+  float ox, oy, oz, dx, dy, dz;
+  __device__ __forceinline__ float hit(const float* q, float& u,
+                                       float& v) const {
+    return plane_hit(q, v3(ox, oy, oz), v3(dx, dy, dz), u, v);
+  }
+};
 
 }  // namespace gi
 }  // namespace restir

@@ -17,24 +17,32 @@
 //
 // Design. The TPU ran one kernel per bounce over a [34, R] state pack to
 // bound its compile; here one thread carries one ray through every
-// bounce and the path state lives in registers. The kernel serves
-// scenes of at most 1024 triangles (the JAX gate gi_fused_eligible), so
-// each block stages every plane row (<= 48 KB) and every alias-table
-// light row (<= 32 KB) in shared memory once, and the threads then walk
-// them without barriers however far their paths diverge. Hit tests are
-// exact float32 (no bf16 splits), ties go to the lowest triangle
-// (strict <), and the shadow ray stops at its first blocker. A lane
-// whose path ends (no valid lobe, a miss, a light) stops working.
+// bounce and the path state lives in registers. Each bounce ray's
+// closest hit and each NEE shadow ray are stackless MTBVH walks
+// (bvh.cuh) over the scene's node rows with their boxes copied in
+// (`BvhRows`: one dependent load per step), read through the read-only
+// cache (the headline scene's rows and planes, ~185 KB, stay in L1 / L2);
+// only the alias-table light rows (<= 32 KB) are staged in shared memory,
+// once per block, so no barrier sits in the divergent loop. The
+// walks' leaf test is gi_core.cuh's plane_hit, the arithmetic of the
+// twin's brute-force intersect_bf, and they return its hit: padded
+// boxes, the cull slack, ties to the lowest triangle, the shadow ray
+// stopping at its first blocker. A lane whose path ends (no valid lobe,
+// a miss, a light) stops working.
 //
-// Bound: operations. Per live lane and bounce, one closest-hit walk over
-// the scene's rows (~39 FLOP a row, csrc/intersect.cu's count) and, from
-// depth 2, a shadow walk up to its first blocker, plus the BSDF, light
-// and hash work of the vertex; bytes are 128 per pixel. With `counts`
-// the kernel writes each ray's plane tests and path vertices, from which
+// Bound: the walks are chains of dependent loads on incoherent rays, not
+// FLOPs (~590 box and ~27 plane tests per pixel on the headline scene),
+// and a warp runs as long as its longest walk; the vertex work (BSDF,
+// light and hash math, ~350 FLOP) comes next; bytes are 128 per pixel.
+// More warps hide more of that latency: the launch bounds cap a thread at
+// 64 registers (8 blocks of 128 per SM; ptxas spills 40-230 bytes to L1),
+// 3 % faster than 80 registers and 6 resident blocks. The COUNT build
+// writes each ray's box tests, plane tests and path vertices, from which
 // chip_smoke.py counts the work these inputs take.
 //
 // Numerics: gi_core.cuh rounds as the plain twin (ops/kernels/gi.py
 // gi_trace_ref) does on the card.
+#include "bvh.cuh"
 #include "gi_core.cuh"
 
 using namespace restir;
@@ -50,63 +58,27 @@ __device__ __forceinline__ V3 row3(const float* a) {
 
 // Any hit of the shadow segment x -> y (ops/intersect_bf.test_occlusion_bf:
 // origin x + d 1e-5, blocked by a hit nearer than |y - x| - 2e-4).
-__device__ __forceinline__ bool occluded(const float* sp, int n_tris, V3 x,
-                                         V3 y, int& tests) {
+template <bool COUNT>
+__device__ __forceinline__ bool occluded(const BvhRows& bvh, V3 x, V3 y,
+                                         WalkCount& n) {
   const V3 seg = sub(y, x);
   const float dist = sqrtf(dot(seg, seg));
   const float den = clampmin(dist, 1e-20f);
   const V3 d = v3(seg.x / den, seg.y / den, seg.z / den);
   const V3 o = add(scale(d, 1e-5f), x);
-  const float limit = dist - 2e-4f;
-  for (int j = 0; j < n_tris; ++j) {
-    float u, v;
-    const float t = plane_hit(sp + j * 12, o, d, u, v);
-    if (t > 0.0f && t < limit) {
-      tests += j + 1;
-      return true;
-    }
-  }
-  tests += n_tris;
-  return false;
+  const GiRay ray = {o.x, o.y, o.z, d.x, d.y, d.z};
+  return occluded_walk<COUNT>(bvh, ray, dist - 2e-4f, -1, n);
 }
 
-struct Hit {
-  int prim;
-  float u, v;
-};
-
-// Closest hit over every row, ties to the lowest index.
-__device__ __forceinline__ Hit closest(const float* sp, int n_tris, V3 o,
-                                       V3 d) {
-  Hit h = {-1, 0.0f, 0.0f};
-  float best = __int_as_float(0x7f800000);
-  for (int j = 0; j < n_tris; ++j) {
-    float u, v;
-    const float t = plane_hit(sp + j * 12, o, d, u, v);
-    if (t > 0.0f && t < best) {
-      best = t;
-      h.prim = j;
-      h.u = u;
-      h.v = v;
-    }
-  }
-  return h;
-}
-
-template <bool MET, bool DIE, bool PROC>
-__global__ void __launch_bounds__(BLOCK)
+template <bool COUNT, bool MET, bool DIE, bool PROC>
+__global__ void __launch_bounds__(BLOCK, 8)
     gi_trace_kernel(const float* __restrict__ in, int r, uint32_t looper,
-                    uint32_t pix0, const float* __restrict__ planes,
-                    int n_tris, const float* __restrict__ tri,
+                    uint32_t pix0, BvhRows bvh, const float* __restrict__ tri,
                     const float* __restrict__ mats, int n_mat,
                     const float* __restrict__ lights, int n_lights,
                     float sum_inv, int depth, int single_sided,
                     float* __restrict__ out, int* __restrict__ counts) {
-  extern __shared__ float smem[];
-  float* sp = smem;                 // [n_tris, 12] plane rows
-  float* sl = smem + n_tris * 12;   // [n_lights, 8] light rows
-  for (int i = threadIdx.x; i < n_tris * 12; i += blockDim.x)
-    sp[i] = planes[i];
+  extern __shared__ float sl[];  // [n_lights, 8] light rows
   for (int i = threadIdx.x; i < n_lights * LIGHT_COLS; i += blockDim.x)
     sl[i] = lights[i];
   __syncthreads();
@@ -126,7 +98,8 @@ __global__ void __launch_bounds__(BLOCK)
   V3 nv = norm, xs = v3(0.0f, 0.0f, 0.0f), ns = xs;
   float prim_pdf = 1.0f, prim_delta = 0.0f;
   const uint32_t pix = pix0 + (uint32_t)p;
-  int tests = 0, verts = 0;
+  WalkCount n = {0, 0};
+  int verts = 0;
 
   for (int d = 1; d <= depth; ++d) {
     const bool first = d == 1;
@@ -162,8 +135,8 @@ __global__ void __launch_bounds__(BLOCK)
       float pdf = pdf_area_to_solid_angle(pdf_area, pos, sampled, lnormal);
       if (single_sided && !(dot(lnormal, to_s) <= -1e-6f)) pdf = -1.0f;
       if (pdf > 0.0f &&
-          occluded(sp, n_tris, pos,
-                   add(scale(wi, clampmax(dist, 1e6f)), pos), tests))
+          occluded<COUNT>(bvh, pos,
+                          add(scale(wi, clampmax(dist, 1e6f)), pos), n))
         pdf = -1.0f;
       if (pdf > 0.0f) {
         const V3 f = eval_bsdf<MET>(m, norm, wo, wi);
@@ -193,24 +166,27 @@ __global__ void __launch_bounds__(BLOCK)
     }
 
     const V3 rd = bs.wi;
-    const Hit h = closest(sp, n_tris, add(scale(rd, 1e-5f), pos), rd);
-    tests += n_tris;
-    if (h.prim < 0) break;
+    const V3 ro = add(scale(rd, 1e-5f), pos);
+    const GiRay ray = {ro.x, ro.y, ro.z, rd.x, rd.y, rd.z};
+    int prim;
+    float hu, hv;
+    closest_walk<COUNT>(bvh, ray, prim, hu, hv, n);
+    if (prim < 0) break;
     // the hit's interaction (ops/surface.make_interaction)
-    const float* tr = tri + (size_t)h.prim * TRI_COLS;
-    const float w0 = 1.0f - h.u - h.v;
-    const V3 npos = weighted3(row3(tr + 3), h.u, row3(tr + 6), h.v,
+    const float* tr = tri + (size_t)prim * TRI_COLS;
+    const float w0 = 1.0f - hu - hv;
+    const V3 npos = weighted3(row3(tr + 3), hu, row3(tr + 6), hv,
                               row3(tr), w0);
     const V3 nn = safe_normalize(
-        weighted3(row3(tr + TRI_NORM + 3), h.u, row3(tr + TRI_NORM + 6), h.v,
+        weighted3(row3(tr + TRI_NORM + 3), hu, row3(tr + TRI_NORM + 6), hv,
                   row3(tr + TRI_NORM), w0));
     const int mid = max((int)tr[TRI_MAT], 0);
     const float* mr = mats + (size_t)min(mid, n_mat - 1) * MAT_COLS;
     Mat nm = {mr[0], row3(mr + 1), mr[4], mr[5], mr[6]};
     if (PROC && mr[7] == -2.0f) {  // PROCEDURAL_TEXTURE
       const float* uv = tr + TRI_UV;
-      const float pu = uv[2] * h.u + uv[4] * h.v + uv[0] * w0;
-      const float pv = uv[3] * h.u + uv[5] * h.v + uv[1] * w0;
+      const float pu = uv[2] * hu + uv[4] * hv + uv[0] * w0;
+      const float pv = uv[3] * hu + uv[5] * hv + uv[1] * w0;
       const float c = procedural(pu, pv);
       nm.base = v3(c, c, c);
     }
@@ -253,52 +229,40 @@ __global__ void __launch_bounds__(BLOCK)
   put(GO_DELTA, prim_delta);
   put(GO_DELTA + 1, 0.0f);
   put(GO_DELTA + 2, 0.0f);
-  if (counts != nullptr) {
-    counts[p] = tests;
-    counts[(size_t)r + p] = verts;
+  if (COUNT) {
+    counts[p] = n.boxes;
+    counts[(size_t)r + p] = n.tris;
+    counts[(size_t)2 * r + p] = verts;
   }
 }
 
-template <bool MET, bool DIE, bool PROC>
+template <bool COUNT, bool MET, bool DIE, bool PROC>
 int launch(const float* in, int r, uint32_t looper, uint32_t pix0,
-           const float* planes, int n_tris, const float* tri,
-           const float* mats, int n_mat, const float* lights, int n_lights,
-           float sum_inv, int depth, int single_sided, float* out,
-           int* counts, cudaStream_t stream) {
-  const size_t smem = (size_t)(n_tris * 12 + n_lights * LIGHT_COLS) * 4;
-  auto kern = gi_trace_kernel<MET, DIE, PROC>;
+           const BvhRows& bvh, const float* tri, const float* mats,
+           int n_mat, const float* lights, int n_lights, float sum_inv,
+           int depth, int single_sided, float* out, int* counts,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)n_lights * LIGHT_COLS * 4;
+  auto kern = gi_trace_kernel<COUNT, MET, DIE, PROC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
-      in, r, looper, pix0, planes, n_tris, tri, mats, n_mat, lights,
-      n_lights, sum_inv, depth, single_sided, out, counts);
+      in, r, looper, pix0, bvh, tri, mats, n_mat, lights, n_lights, sum_inv,
+      depth, single_sided, out, counts);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// in: float32 [IN_CH, R]; planes [>= n_tris, 12]; tri [n_tris, 32];
-// mats [n_mat, 16]; lights [n_lights, 8]. Writes out [GO_CH, R] and,
-// unless null, counts [2, R] (plane tests, path vertices per ray).
-extern "C" int restir_gi_trace(const float* in, int r, uint32_t looper,
-                               uint32_t pix0, const float* planes,
-                               int n_tris, const float* tri,
-                               const float* mats, int n_mat,
-                               const float* lights, int n_lights,
-                               float sum_inv, int depth, int single_sided,
-                               int has_met, int has_die, int has_proc,
-                               float* out, int* counts, void* stream) {
-  if (r <= 0 || n_tris <= 0 || n_tris > 1024 || n_mat <= 0 ||
-      n_lights <= 0 || depth <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int variant = (has_met ? 4 : 0) | (has_die ? 2 : 0) |
-                      (has_proc ? 1 : 0);
-  cudaStream_t s = (cudaStream_t)stream;
-#define RESTIR_GI_TRACE(M, D, P)                                            \
-  return launch<M, D, P>(in, r, looper, pix0, planes, n_tris, tri, mats,  \
-                         n_mat, lights, n_lights, sum_inv, depth,         \
-                         single_sided, out, counts, s)
+template <bool COUNT>
+int launch_flags(const float* in, int r, uint32_t looper, uint32_t pix0,
+                 const BvhRows& bvh, const float* tri, const float* mats,
+                 int n_mat, const float* lights, int n_lights, float sum_inv,
+                 int depth, int single_sided, int variant, float* out,
+                 int* counts, cudaStream_t s) {
+#define RESTIR_GI_TRACE(M, D, P)                                           \
+  return launch<COUNT, M, D, P>(in, r, looper, pix0, bvh, tri, mats, n_mat, \
+                                lights, n_lights, sum_inv, depth,          \
+                                single_sided, out, counts, s)
   switch (variant) {
     case 0: RESTIR_GI_TRACE(false, false, false);
     case 1: RESTIR_GI_TRACE(false, false, true);
@@ -310,4 +274,35 @@ extern "C" int restir_gi_trace(const float* in, int r, uint32_t looper,
     default: RESTIR_GI_TRACE(true, true, true);
   }
 #undef RESTIR_GI_TRACE
+}
+
+}  // namespace
+
+// in: float32 [IN_CH, R]; rows [6B, 8] (node rows with their boxes),
+// planes [n_pad, 12]: the scene's MTBVH (ops/kernels/tables.py);
+// tri [n, 32];
+// mats [n_mat, 16]; lights [n_lights, 8]. Writes out [GO_CH, R] and,
+// unless null, counts [3, R] (box tests, plane tests, path vertices per
+// ray).
+extern "C" int restir_gi_trace(const float* in, int r, uint32_t looper,
+                               uint32_t pix0, const float* rows, int size,
+                               const float* planes, const float* tri,
+                               const float* mats, int n_mat,
+                               const float* lights, int n_lights,
+                               float sum_inv, int depth, int single_sided,
+                               int has_met, int has_die, int has_proc,
+                               float* out, int* counts, void* stream) {
+  if (r <= 0 || size <= 0 || n_mat <= 0 || n_lights <= 0 || depth <= 0)
+    return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
+  const int variant = (has_met ? 4 : 0) | (has_die ? 2 : 0) |
+                      (has_proc ? 1 : 0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    return launch_flags<true>(in, r, looper, pix0, bvh, tri, mats, n_mat,
+                              lights, n_lights, sum_inv, depth, single_sided,
+                              variant, out, counts, s);
+  return launch_flags<false>(in, r, looper, pix0, bvh, tri, mats, n_mat,
+                             lights, n_lights, sum_inv, depth, single_sided,
+                             variant, out, counts, s);
 }

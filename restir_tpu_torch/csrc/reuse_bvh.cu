@@ -22,6 +22,7 @@
 // memory per block, through the dynamic shared-memory opt-in), and an env
 // winner's shadow ray runs to RESTIR_ENV_DIST.
 #include "bvh.cuh"
+#include "di_core.cuh"
 
 using namespace restir;
 
@@ -31,7 +32,7 @@ template <bool COUNT, bool HAS_ENV>
 __global__ void __launch_bounds__(256) reuse_bvh_kernel(
     const float* __restrict__ gb, uint32_t looper,
     const float* __restrict__ lights_g, const float* __restrict__ psi_g,
-    int l_pad, int n_area, BvhView bvh, float* __restrict__ rs,
+    int l_pad, int n_area, BvhRows bvh, float* __restrict__ rs,
     int* __restrict__ stats, int r, int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
   float* psi = reinterpret_cast<float*>(smem4);
@@ -49,10 +50,10 @@ __global__ void __launch_bounds__(256) reuse_bvh_kernel(
                                           (uint32_t)p, looper, k,
                                           single_sided, has_met, s);
   WalkCount n = {0, 0};
-  const bool occluded = occluded_walk<COUNT>(
-      bvh, s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
-      s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2], shadow_limit(c),
-      s.prim, n);
+  const PlaneRay sr = {s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
+                       s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2]};
+  const bool occluded =
+      occluded_walk<COUNT>(bvh, sr, shadow_limit(c), s.prim, n);
   write_rs(rs, p, r, c, occluded);
   if (COUNT) {
     stats[p] = n.boxes;
@@ -63,7 +64,7 @@ __global__ void __launch_bounds__(256) reuse_bvh_kernel(
 template <bool COUNT, bool HAS_ENV>
 int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
                      const float* psi, int l_pad, int n_area,
-                     const BvhView& bvh, float* rs, int* stats, int r,
+                     const BvhRows& bvh, float* rs, int* stats, int r,
                      int single_sided, int k, int has_met,
                      cudaStream_t stream) {
   const size_t smem = (size_t)l_pad * 32 * sizeof(float);
@@ -83,19 +84,19 @@ int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
 
 }  // namespace
 
-// stats: null, or int32 [2, R] that receives each shadow ray's box and
-// triangle test counts.
+// rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
+// scene's MTBVH (ops/kernels/tables.py). stats: null, or int32 [2, R]
+// that receives each shadow ray's box and triangle test counts.
 extern "C" int restir_reuse_bvh(const float* gb, uint32_t looper,
                                 const float* lights, const float* psi,
                                 int l_pad, int n_area, int has_env,
-                                const float* bounds, const int* nodes,
-                                int size, const float* planes, float* rs,
+                                const float* rows, int size,
+                                const float* planes, float* rs,
                                 int* stats, int r, int single_sided, int k,
                                 int has_met, void* stream) {
   if (k < 1 || k > MAX_K || r <= 0 || size <= 0)
     return (int)cudaErrorInvalidValue;
-  const BvhView bvh = {reinterpret_cast<const float4*>(bounds),
-                       reinterpret_cast<const int4*>(nodes), planes, size};
+  const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream;
 #define RESTIR_B7_LAUNCH(C, E)                                              \
   launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, bvh, rs,   \

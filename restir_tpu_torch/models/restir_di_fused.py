@@ -2,8 +2,8 @@
 denoiser included).
 
 A frame on a scene of at most 1024 triangles runs B1 (`di_resident`: hit,
-G-buffer, RIS, visibility, temporal merge, brute force over the resident
-triangles); a larger scene runs B6 (`gbuffer_pack`: MTBVH closest hit +
+G-buffer, RIS, visibility, temporal merge on the resident tables, its
+rays MTBVH walks); a larger scene runs B6 (`gbuffer_pack`: MTBVH closest hit +
 G-buffer) and B7 (`reuse`: RIS + MTBVH any-hit shadow ray, then B1's
 temporal merge) in its place, as the JAX step switches to its streaming
 kernels. Then B2 (`spatial_shade`: spatial merge, shade, running mean
@@ -195,7 +195,7 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
     if scene.num_tris <= RESIDENT_MAX_TRIS:
         gb, pt = fused_di.di_resident(
             cam_vec, lcam_vec, looper, state.pt_pack, scene.tables,
-            width=w, height=h, aa_jitter=cfg.aa_jitter,
+            scene.bvh, width=w, height=h, aa_jitter=cfg.aa_jitter,
             with_textures=cfg.with_textures, **kw)
     else:
         gb = gbuffer.gbuffer_pack(

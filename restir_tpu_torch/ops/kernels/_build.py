@@ -120,7 +120,7 @@ _U = ctypes.c_uint32
 
 _SIGNATURES = {
     "restir_di_resident_gbuffer_ris": [
-        _VP, _VP, _U, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I,
+        _VP, _VP, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I,
         _VP, _VP, _VP, _I, _I, _I, _VP, _VP,
         _I, _I, _F, _I, _I, _I, _I, _VP],
     "restir_di_resident_temporal": [
@@ -132,11 +132,11 @@ _SIGNATURES = {
     "restir_atrous_svgf": [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
     "restir_gbuffer_bvh": [
-        _VP, _VP, _U, _VP, _VP, _I, _VP, _VP, _VP, _I,
+        _VP, _VP, _U, _VP, _I, _VP, _VP, _VP, _I,
         _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
         _F, _I, _I, _VP],
     "restir_reuse_bvh": [
-        _VP, _U, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _I,
+        _VP, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
         _I, _I, _VP],
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
     "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
@@ -147,8 +147,8 @@ _SIGNATURES = {
     "restir_ris_cdf": [
         _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP],
     "restir_gi_trace": [
-        _VP, _I, _U, _U, _VP, _I, _VP, _VP, _I, _VP, _I, _F, _I, _I, _I, _I,
-        _I, _VP, _VP, _VP],
+        _VP, _I, _U, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _I, _F, _I, _I,
+        _I, _I, _I, _VP, _VP, _VP],
     "restir_gi_resolve": [
         _VP, _VP, _VP, _VP, _I, _I, _U, _I, _I, _I, _VP, _VP, _VP],
 }

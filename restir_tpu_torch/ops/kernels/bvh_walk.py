@@ -1,13 +1,15 @@
 """Lockstep PyTorch walks of the MTBVH, mirroring `csrc/bvh.cuh`.
 
 Every ray advances one node per step through the same padded-box slab
-test, cull slack, unit-plane leaf test and tie rule as the CUDA walks, so
-the hits equal the brute-force twin's (`fused_di.closest_brute`,
-`occluded_brute`) and the per-ray box and triangle test counts equal the
-kernels' wherever the float arithmetic does. Tests use them to hold the
-traversal (and its table choice) against the brute force, and
-`chip_smoke.py` to count the walks' work on a sample of the frame. The
-render path never calls them.
+test, cull slack, leaf test and tie rule as the CUDA walks, so the hits
+equal the brute-force twins' and the per-ray box and triangle test
+counts equal the kernels' wherever the float arithmetic does. The leaf
+test is an argument: `di_plane` (the default) is `di_core.cuh`'s, the
+arithmetic of `fused_di.closest_brute` / `occluded_brute` (B1, B6, B7);
+`gi_plane` is `gi_core.cuh`'s, the arithmetic of `ops.intersect_bf` (B8
+and its twin). Tests use the walks to hold the traversal (and its table
+choice) against the brute force, and `chip_smoke.py` to count the walks'
+work on a sample of the frame. The render path never calls them.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ...scene.bvh import get_mtbvh_id
+from ...utils.math import fma
 from .fused_di import BIG
 from .tables import BvhTables
 
@@ -33,9 +36,9 @@ def _start(bvh: BvhTables, d):
 
 
 def _step(bvh: BvhTables, base, node, o, inv):
-    """One node per ray: (node rows [a, 4] int64, slab hit, t_near)."""
-    nd = bvh.nodes[base + node].to(torch.int64)
-    box = bvh.bounds[nd[:, 1]]
+    """One node per ray: ((prim, miss) [a, 2] int64, slab hit, t_near)."""
+    box = bvh.rows[base + node]
+    nd = box[:, 3::4].contiguous().view(torch.int32).to(torch.int64)
     t_lo, t_hi = [], []
     for ax in range(3):
         t1 = (box[:, ax] - o[ax]) * inv[ax]
@@ -47,7 +50,12 @@ def _step(bvh: BvhTables, base, node, o, inv):
     return nd, (t_far >= 0.0) & (t_far >= t_near), t_near
 
 
-def _plane(planes, prim, o, d):
+def _hit(nondeg, t, u, v):
+    hit = nondeg & (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return torch.where(hit, t, -1.0), u, v
+
+
+def di_plane(planes, prim, o, d):
     """The unit-plane test of rows `prim` (fused_di.closest_brute's
     arithmetic, one row per ray): (t or -1, u, v)."""
     q = planes[prim]
@@ -61,16 +69,39 @@ def _plane(planes, prim, o, d):
     ddw = q[:, 8] * dx + q[:, 9] * dy + q[:, 10] * dz
     nondeg = torch.abs(ddw) >= 1e-12
     t = -oow / torch.where(nondeg, ddw, 1.0)
-    u = oou + t * ddu
-    v = oov + t * ddv
-    hit = nondeg & (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-    return torch.where(hit, t, -1.0), u, v
+    return _hit(nondeg, t, oou + t * ddu, oov + t * ddv)
 
 
-def closest_walk(bvh: BvhTables, o, d):
-    """Closest hit of rays (o, d) ((x, y, z) tuples of [R] tensors):
-    (dist, prim int32, u, v, boxes, tris) with BIG / -1 / 0 / 0 on a miss
-    and the int32 counts of box and triangle tests per ray."""
+def _fma32(a, b, c):
+    """a * b + c rounded once to float32 (the product is exact in
+    float64), on either device."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def gi_plane(planes, prim, o, d):
+    """The unit-plane test of rows `prim` as `ops.intersect_bf` computes
+    it, one row per ray: the dots of the float32 product [o, 1] @ xform
+    as one FMA per term in index order (how the product accumulates on
+    the CPU and on the card, and `gi_core.cuh`'s fmaf chains), u and v
+    through `utils.math.fma`: (t or -1, u, v)."""
+    q = planes[prim]
+
+    def dots(c, x):
+        acc = q[:, c] * x[0]
+        return _fma32(q[:, c + 2], x[2], _fma32(q[:, c + 1], x[1], acc))
+
+    oou, oov, oow = (dots(c, o) + q[:, c + 3] for c in (0, 4, 8))
+    ddu, ddv, ddw = (dots(c, d) for c in (0, 4, 8))
+    nondeg = torch.abs(ddw) >= 1e-12
+    t = -oow / torch.where(nondeg, ddw, 1.0)
+    return _hit(nondeg, t, fma(t, ddu, oou), fma(t, ddv, oov))
+
+
+def closest_walk(bvh: BvhTables, o, d, plane=di_plane):
+    """Closest hit of rays (o, d) ((x, y, z) tuples of [R] tensors) under
+    the leaf test `plane`: (dist, prim int32, u, v, boxes, tris) with BIG
+    / -1 / 0 / 0 on a miss and the int32 counts of box and triangle tests
+    per ray."""
     n = d[0].shape[0]
     dev = d[0].device
     base, inv = _start(bvh, d)
@@ -92,8 +123,8 @@ def closest_walk(bvh: BvhTables, o, d):
         lanes = live[leaf]
         tris[lanes] += 1
         pid = nd[leaf, 0]
-        t, u, v = _plane(bvh.planes, pid, tuple(c[leaf] for c in oa),
-                         tuple(c[lanes] for c in d))
+        t, u, v = plane(bvh.planes, pid, tuple(c[leaf] for c in oa),
+                        tuple(c[lanes] for c in d))
         cur = best[lanes]
         better = (t >= 0.0) & ((t < cur) | ((t == cur) & (pid < prim[lanes])))
         win = lanes[better]
@@ -101,14 +132,15 @@ def closest_walk(bvh: BvhTables, o, d):
         prim[win] = pid[better]
         bu[win] = u[better]
         bv[win] = v[better]
-        node[live] = torch.where(descend, node[live] + 1, nd[:, 2])
+        node[live] = torch.where(descend, node[live] + 1, nd[:, 1])
         live = live[node[live] < bvh.size]
     return best, prim.to(torch.int32), bu, bv, boxes, tris
 
 
-def occluded_walk(bvh: BvhTables, o, d, limit, self_prim):
-    """Any hit at 0 < t < limit on a triangle other than `self_prim`,
-    with the CUDA walk's early exit: (occluded bool, boxes, tris)."""
+def occluded_walk(bvh: BvhTables, o, d, limit, self_prim, plane=di_plane):
+    """Any hit at 0 < t < limit on a triangle other than `self_prim` (-1
+    excludes none) under the leaf test `plane`, with the CUDA walk's early
+    exit: (occluded bool, boxes, tris)."""
     n = d[0].shape[0]
     dev = d[0].device
     base, inv = _start(bvh, d)
@@ -128,9 +160,9 @@ def occluded_walk(bvh: BvhTables, o, d, limit, self_prim):
         leaf = descend & (nd[:, 0] >= 0) & (nd[:, 0] != self_prim[live])
         lanes = live[leaf]
         tris[lanes] += 1
-        t, _, _ = _plane(bvh.planes, nd[leaf, 0], tuple(c[leaf] for c in oa),
-                         tuple(c[lanes] for c in d))
+        t, _, _ = plane(bvh.planes, nd[leaf, 0], tuple(c[leaf] for c in oa),
+                        tuple(c[lanes] for c in d))
         occ[lanes[(t >= 0.0) & (t < limit[lanes])]] = True
-        node[live] = torch.where(descend, node[live] + 1, nd[:, 2])
+        node[live] = torch.where(descend, node[live] + 1, nd[:, 1])
         live = live[(node[live] < bvh.size) & ~occ[live]]
     return occ, boxes, tris

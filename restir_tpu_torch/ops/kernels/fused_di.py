@@ -1,7 +1,7 @@
 """Kernel B1: the fused resident DI kernel, and its plain PyTorch twin.
 
 Port of `restir_tpu.ops.pallas.fused_di._di_resident_kernel`
-(`di_resident_pallas`): per pixel, raygen with AA jitter, brute closest
+(`di_resident_pallas`): per pixel, raygen with AA jitter, the closest
 hit over the resident triangles, the G-buffer epilogue with motion
 reprojection, K-candidate CDF RIS with a single-draw winner, the
 winner's shadow ray and the temporal merge against the previous frame's
@@ -10,8 +10,11 @@ temporal reuse pack pt [PT_CH, R].
 
 `di_resident` dispatches on the device of its tensors: CPU tensors take
 the plain twin `di_resident_ref`, CUDA tensors the hand-written kernel
-in `csrc/fused_di.cu` (two launches: hit + G-buffer + RIS + visibility,
-then the per-tile temporal merge). Nothing falls back.
+in `csrc/fused_di.cu` (two launches: MTBVH hit + G-buffer + RIS + MTBVH
+visibility on the scene's `BvhTables`, then the per-tile temporal
+merge). Nothing falls back. The twin keeps the TPU kernel's
+brute force over every triangle row (`closest_brute`, `occluded_brute`),
+which the walks equal bit for bit.
 
 `has_env` adds the env map (the 512 env tiles join the light CDF as
 virtual lights; a miss carries the tile radiance along the ray in the
@@ -38,7 +41,7 @@ import torch
 from ...utils import rng
 from ...utils.math import trunc_i32 as _trunc_i32
 from . import _build
-from .tables import ResidentTables
+from .tables import BvhTables, ResidentTables
 
 # ---- gb pack channel layout ([GB_CH, R]) ----
 G_POS = 0  # 3: world hit position (0 on miss)
@@ -691,32 +694,33 @@ def _check(t: torch.Tensor, name: str, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
+def gbuffer_ris_cuda(cam_vec, lcam_vec, looper, tables, bvh, *, width,
                      height, aa_jitter=True, single_sided=True, k=4,
-                     temporal=True, temporal_clamp=20, has_met=True,
-                     has_env=False, with_textures=False):
-    """Launch the two B1 kernels of `csrc/fused_di.cu`."""
+                     has_met=True, has_env=False, with_textures=False):
+    """Launch B1a (`di_gbuffer_ris_kernel`): raygen, the closest hit by
+    a walk of the MTBVH `bvh`, the G-buffer, RIS and the winner's MTBVH
+    any hit on the resident scene's tables -> (gb [GB_CH, R], rs
+    [RS_CH, R])."""
     global launches
     r = width * height
-    dev = prev_pt.device
+    dev = cam_vec.device
     if r % TILE != 0:
         raise ValueError(f"pixel count {r} is not a multiple of {TILE}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     lights, psi = tables.light_rows(has_env)  # raises without an env map
-    n_pad, l_pad = tables.planes.shape[0], psi.shape[0]
-    smem = (n_pad * 12 + l_pad * 32) * 4
+    l_pad = psi.shape[0]
+    smem = l_pad * 32 * 4  # the light and psi rows
     if smem > SMEM_MAX:
         raise ValueError(
-            f"B1 holds {n_pad} triangle rows and {l_pad} light rows in "
-            f"shared memory: {smem} bytes, over the {SMEM_MAX} a block can "
-            "use")
+            f"B1 holds {l_pad} light rows in shared memory: {smem} bytes, "
+            f"over the {SMEM_MAX} a block can use")
     _check(cam_vec, "cam_vec", (16,), dev)
     _check(lcam_vec, "lcam_vec", (16,), dev)
-    _check(prev_pt, "prev_pt", (PT_CH, r), dev)
     for name in ("planes", "attr", "mat", "env_rad", "atlas", "tex_meta"):
         t = getattr(tables, name)
         _check(t, name, t.shape, dev)
+    _check(bvh.rows, "rows", (6 * bvh.size, 8), dev)
     _check(lights, "lights", psi.shape, dev)
     _check(psi, "psi", psi.shape, dev)
     gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
@@ -724,15 +728,29 @@ def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
     p = _build.ptr
     err = _build.library().restir_di_resident_gbuffer_ris(
         p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
-        p(tables.planes), n_pad, p(tables.attr), p(tables.mat),
-        tables.mat.shape[0], p(lights), p(psi), l_pad, tables.n_lights,
-        p(tables.env_rad), p(tables.atlas), p(tables.tex_meta),
-        tables.tex_meta.shape[0], int(has_env), int(with_textures), p(gb),
-        p(rs), width, height, ctypes.c_float(float(width) / float(height)),
-        int(aa_jitter), int(single_sided), k, int(has_met),
-        _build.stream_of(dev))
+        p(bvh.rows), bvh.size, p(tables.planes),
+        p(tables.attr), p(tables.mat), tables.mat.shape[0], p(lights),
+        p(psi), l_pad, tables.n_lights, p(tables.env_rad), p(tables.atlas),
+        p(tables.tex_meta), tables.tex_meta.shape[0], int(has_env),
+        int(with_textures), p(gb), p(rs), width, height,
+        ctypes.c_float(float(width) / float(height)), int(aa_jitter),
+        int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_di_resident_gbuffer_ris")
     launches += 1
+    return gb, rs
+
+
+def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, bvh, *,
+                     width, height, aa_jitter=True, single_sided=True, k=4,
+                     temporal=True, temporal_clamp=20, has_met=True,
+                     has_env=False, with_textures=False):
+    """Launch the two B1 kernels of `csrc/fused_di.cu`."""
+    global launches
+    _check(prev_pt, "prev_pt", (PT_CH, width * height), cam_vec.device)
+    gb, rs = gbuffer_ris_cuda(
+        cam_vec, lcam_vec, looper, tables, bvh, width=width, height=height,
+        aa_jitter=aa_jitter, single_sided=single_sided, k=k,
+        has_met=has_met, has_env=has_env, with_textures=with_textures)
     pt = _launch_temporal(gb, rs, prev_pt, looper, k, temporal,
                           temporal_clamp)
     launches += 1
@@ -772,12 +790,14 @@ def temporal_cuda(gb, rs, prev_pt, looper, *, k=4, temporal=True,
 
 
 def di_resident(cam_vec, lcam_vec, looper, prev_pt, tables: ResidentTables,
-                *, width, height, aa_jitter=True, single_sided=True, k=4,
-                temporal=True, temporal_clamp=20, has_met=True,
-                has_env=False, with_textures=False):
-    """(gb [GB_CH, R], pt [PT_CH, R]) for one frame of a resident scene.
+                bvh: BvhTables, *, width, height, aa_jitter=True,
+                single_sided=True, k=4, temporal=True, temporal_clamp=20,
+                has_met=True, has_env=False, with_textures=False):
+    """(gb [GB_CH, R], pt [PT_CH, R]) for one frame of a resident scene
+    with the scene's tables and MTBVH (`scene.tables`, `scene.bvh`).
 
-    CPU tensors take the plain twin, CUDA tensors the kernel."""
+    CPU tensors take the plain twin (brute force; it reads no MTBVH),
+    CUDA tensors the kernel."""
     kw = dict(width=width, height=height, aa_jitter=aa_jitter,
               single_sided=single_sided, k=k, temporal=temporal,
               temporal_clamp=temporal_clamp, has_met=has_met,
@@ -787,5 +807,5 @@ def di_resident(cam_vec, lcam_vec, looper, prev_pt, tables: ResidentTables,
                                **kw)
     if prev_pt.device.type == "cuda":
         return di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables,
-                                **kw)
+                                bvh, **kw)
     raise ValueError(f"unsupported device {prev_pt.device}")

@@ -48,18 +48,10 @@ def gbuffer_ref(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width, height,
 
 
 def _check_bvh(bvh: BvhTables, dev):
-    for name in ("planes", "attr", "mat", "bounds", "env_rad", "atlas",
-                 "tex_meta"):
+    for name in ("planes", "attr", "mat", "env_rad", "atlas", "tex_meta"):
         t = getattr(bvh, name)
         _check(t, name, t.shape, dev)
-    nodes = bvh.nodes
-    if (nodes.device != dev or nodes.dtype != torch.int32
-            or tuple(nodes.shape) != (6 * bvh.size, 4)
-            or not nodes.is_contiguous()):
-        raise ValueError(f"nodes must be contiguous int32 [{6 * bvh.size}, 4]"
-                         f" on {dev}")
-    if tuple(bvh.bounds.shape) != (bvh.size, 8):
-        raise ValueError(f"bounds must be [{bvh.size}, 8]")
+    _check(bvh.rows, "rows", (6 * bvh.size, 8), dev)
 
 
 def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
@@ -80,7 +72,7 @@ def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
     p = _build.ptr
     err = _build.library().restir_gbuffer_bvh(
         p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
-        p(bvh.bounds), p(bvh.nodes), bvh.size, p(bvh.planes), p(bvh.attr),
+        p(bvh.rows), bvh.size, p(bvh.planes), p(bvh.attr),
         p(bvh.mat), bvh.mat.shape[0], p(bvh.env_rad), p(bvh.atlas),
         p(bvh.tex_meta), bvh.tex_meta.shape[0], int(has_env),
         int(with_textures), p(gb), p(counts), width, height,

@@ -18,8 +18,9 @@ Ports of `restir_tpu.ops.pallas.gi_kernel`:
 CUDA tensors launch `csrc/gi_trace.cu` / `csrc/gi_resolve.cu`; CPU
 tensors take the twins, and nothing falls back. `gi_trace_ref` is
 `models.restir_gi`'s torch bounce loop on the IN pack with the plain
-brute-force intersections; `gi_resolve_ref` is B9's function in torch,
-window included. The kernels round as the twins do on the card (see
+brute-force intersections (every triangle row), which B8's MTBVH walks
+(`scene.bvh`) equal; `gi_resolve_ref` is B9's function in torch, window
+included. The kernels round as the twins do on the card (see
 `csrc/gi_core.cuh`), so the two agree there lane for lane.
 
 Pack layouts are the JAX package's channel indices, as flat [C, R].
@@ -88,7 +89,7 @@ SALT_GI = 0x04
 TILE = 1024  # pixels per resolve tile
 WINDOW = 2048  # temporal window (pixels) per tile
 NULL_PRIM = -1.0
-MAX_TRIS = 1024  # B8 holds every plane row in shared memory
+MAX_TRIS = 1024  # the JAX GI gate (restir_gi.py:56-68) B8 is held to
 
 
 def _check(t, name, channels, r, dev):
@@ -156,41 +157,46 @@ def gi_trace_cuda(in_pack, looper, scene, *, depth, single_sided, n_lights,
                   pix0=0, has_met=True, has_die=True, has_proc=True,
                   stats=False):
     """B8 on the card: the [GO_CH, R] trace pack; with `stats` also the
-    [2, R] int32 plane tests and path vertices of each ray."""
+    [3, R] int32 box tests, plane tests and path vertices of each ray."""
     global trace_launches
-    t = scene.tables
+    t, bvh = scene.tables, scene.bvh
     dev = in_pack.device
     r = in_pack.shape[1]
     _check(in_pack, "in_pack", IN_CH, r, dev)
     n_tris = scene.num_tris
     if not 0 < n_tris <= MAX_TRIS:
-        raise ValueError(f"B8 holds at most {MAX_TRIS} triangles in shared "
-                         f"memory, the scene has {n_tris}")
+        raise ValueError(f"B8 is held to the JAX GI gate of at most "
+                         f"{MAX_TRIS} triangles (ROADMAP A6c), the scene has "
+                         f"{n_tris}")
     if not 0 < n_lights == t.gi_lights.shape[0]:
         raise ValueError(f"n_lights {n_lights}: the scene has "
                          f"{t.gi_lights.shape[0]} alias slots (B8 needs one)")
     if not 1 <= depth <= 64:
         raise ValueError(f"depth {depth} outside [1, 64]")
-    smem = (n_tris * 12 + n_lights * 8) * 4  # every plane and light row
+    smem = n_lights * 8 * 4  # the light rows
     if smem > SMEM_MAX:
         raise ValueError(f"B8 needs {smem} bytes of shared memory, over "
                          f"the {SMEM_MAX} a block can use")
-    for name, tab in (("planes", t.planes), ("gi_tri", t.gi_tri),
-                      ("mat", t.mat), ("gi_lights", t.gi_lights)):
+    for name, tab in (("planes", bvh.planes), ("rows", bvh.rows),
+                      ("gi_tri", t.gi_tri), ("mat", t.mat),
+                      ("gi_lights", t.gi_lights)):
         if (tab.device != dev or tab.dtype != torch.float32
                 or not tab.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    if tuple(bvh.rows.shape) != (6 * bvh.size, 8):
+        raise ValueError(f"rows: expected [{6 * bvh.size}, 8], got "
+                         f"{tuple(bvh.rows.shape)}")
     in_pack = in_pack.contiguous()
     out = torch.empty((GO_CH, r), dtype=torch.float32, device=dev)
-    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
+    counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
     err = _build.library().restir_gi_trace(
         p(in_pack), r, ctypes.c_uint32(looper & 0xFFFFFFFF),
-        ctypes.c_uint32(pix0 & 0xFFFFFFFF), p(t.planes), n_tris,
-        p(t.gi_tri), p(t.mat), t.mat.shape[0], p(t.gi_lights),
-        n_lights, ctypes.c_float(t.sum_light_power_inv), depth,
-        int(single_sided), int(has_met), int(has_die), int(has_proc),
+        ctypes.c_uint32(pix0 & 0xFFFFFFFF), p(bvh.rows), bvh.size,
+        p(bvh.planes), p(t.gi_tri), p(t.mat), t.mat.shape[0],
+        p(t.gi_lights), n_lights, ctypes.c_float(t.sum_light_power_inv),
+        depth, int(single_sided), int(has_met), int(has_die), int(has_proc),
         p(out), p(counts), _build.stream_of(dev))
     _build.check(err, "restir_gi_trace")
     trace_launches += 1

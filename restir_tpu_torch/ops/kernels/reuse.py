@@ -80,8 +80,8 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     p = _build.ptr
     err = _build.library().restir_reuse_bvh(
         p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-        l_pad, tables.n_lights, int(has_env), p(bvh.bounds), p(bvh.nodes),
-        bvh.size, p(bvh.planes), p(rs), p(counts), r, int(single_sided), k,
+        l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
+        p(bvh.planes), p(rs), p(counts), r, int(single_sided), k,
         int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
     launches += 1

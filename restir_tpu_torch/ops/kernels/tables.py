@@ -37,19 +37,21 @@ thread's fetch of one row is contiguous.
   `ops.lights.sample_direct_light_no_visibility`, applied once here.
 - `sum_light_power_inv`: the scene's float32 scalar, on the host.
 
-`BvhTables` is the device layout the MTBVH kernels (B6 `gbuffer_bvh.cu`,
-B7 `reuse_bvh.cu`) walk, after the JAX tables' `box_id` indirection:
+`BvhTables` is the device layout the MTBVH kernels (B1a `fused_di.cu`, B6
+`gbuffer_bvh.cu`, B7 `reuse_bvh.cu`, B8 `gi_trace.cu`) walk, with the JAX
+tables' `box_id` indirection resolved at upload:
 
 - `planes`, `attr`, `mat`, `env_rad`, `atlas`, `tex_meta`: the resident
   tables' tensors; a leaf's primitive id indexes the rows directly;
-- `bounds` [B, 8]: node box lo(3) 0 hi(3) 0, each face moved outward by
+- `rows` [6B, 8] float32: table t's node j at row t * B + j, its box
+  lo(3), prim (int32 bits), box hi(3), miss (int32 bits): one 32-byte
+  load per visited node, and no second load that waits on the first for
+  the box. The boxes are `padded_bounds`: each face moved outward by
   BOX_PAD_REL of the scene's largest coordinate and rounded outward to
   float32, so the float32 slab test never culls a box whose triangle the
   unit-plane leaf test hits (the leaf test and the slab test round
   differently; an unpadded flat box, such as a floor's, can lose a hit
-  on its edge);
-- `nodes` [6B, 4] int32: (prim, box, miss, 0) of table t's node j at row
-  t * B + j, one 16-byte load per visited node.
+  on its edge).
 """
 
 from __future__ import annotations
@@ -66,7 +68,6 @@ _PI = 3.14159265358979  # ris_kernel._PI
 
 
 BOX_PAD_REL = 2.0 ** -16  # box padding, relative to the scene's extent
-NODE_COLS = 4
 BOUND_COLS = 8
 
 
@@ -269,8 +270,7 @@ class BvhTables(NamedTuple):
     planes: torch.Tensor  # [n_pad, 12] f32 (ResidentTables.planes)
     attr: torch.Tensor  # [n, 32] f32
     mat: torch.Tensor  # [m, 16] f32
-    bounds: torch.Tensor  # [B, 8] f32 padded node boxes
-    nodes: torch.Tensor  # [6B, 4] i32 (prim, box, miss, 0)
+    rows: torch.Tensor  # [6B, 8] f32 node rows with their padded boxes
     size: int  # B
     env_rad: torch.Tensor  # ResidentTables.env_rad
     atlas: torch.Tensor  # ResidentTables.atlas
@@ -292,35 +292,32 @@ def padded_bounds(bounds_lo, bounds_hi) -> np.ndarray:
     return out
 
 
-def node_table(bvh_prim, bvh_box, bvh_miss) -> np.ndarray:
-    """[6B, 4] int32 rows (prim, box, miss, 0) from the flat MTBVH tables."""
-    prim = np.asarray(bvh_prim, np.int32).reshape(-1)
-    out = np.zeros((prim.shape[0], NODE_COLS), np.int32)
-    out[:, 0] = prim
-    out[:, 1] = np.asarray(bvh_box, np.int32).reshape(-1)
-    out[:, 2] = np.asarray(bvh_miss, np.int32).reshape(-1)
-    return out
+def node_rows(arrays) -> np.ndarray:
+    """[6B, 8] float32 node rows from the flat MTBVH tables of a mapping
+    of scene arrays: padded box lo(3), prim (int32 bits), padded box
+    hi(3), miss (int32 bits)."""
+    bounds = padded_bounds(arrays["bounds_lo"], arrays["bounds_hi"])
+    box = np.asarray(arrays["bvh_box"], np.int32).reshape(-1)
+    if box.shape[0] != 6 * bounds.shape[0]:
+        raise ValueError(f"MTBVH tables hold {box.shape[0]} rows, "
+                         f"expected 6 x {bounds.shape[0]}")
+    rows = bounds[box]
+    bits = rows.view(np.int32)
+    bits[:, 3] = np.asarray(arrays["bvh_prim"], np.int32).reshape(-1)
+    bits[:, 7] = np.asarray(arrays["bvh_miss"], np.int32).reshape(-1)
+    return rows
 
 
 def build_bvh_tables(arrays, resident: ResidentTables, device) -> BvhTables:
     """MTBVH tables from a mapping of scene arrays (numpy, SceneData
     names), sharing the resident tables' plane, attribute and material
     rows."""
-    size = int(np.asarray(arrays["bounds_lo"]).shape[0])
-    nodes = node_table(arrays["bvh_prim"], arrays["bvh_box"],
-                       arrays["bvh_miss"])
-    if nodes.shape[0] != 6 * size:
-        raise ValueError(f"MTBVH tables hold {nodes.shape[0]} rows, "
-                         f"expected 6 x {size}")
     return BvhTables(
         planes=resident.planes,
         attr=resident.attr,
         mat=resident.mat,
-        bounds=torch.tensor(padded_bounds(arrays["bounds_lo"],
-                                          arrays["bounds_hi"]),
-                            device=device),
-        nodes=torch.tensor(nodes, device=device),
-        size=size,
+        rows=torch.from_numpy(node_rows(arrays)).to(device),
+        size=int(np.asarray(arrays["bounds_lo"]).shape[0]),
         env_rad=resident.env_rad,
         atlas=resident.atlas,
         tex_meta=resident.tex_meta,

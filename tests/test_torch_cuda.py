@@ -1,6 +1,8 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
 B3, B4, B5, the SVGF variance kernels, B6, B7, the general path's B10,
-B11 and B12, and ReSTIR GI's B8 and B9 on a CUDA card.
+B11 and B12, and ReSTIR GI's B8 and B9 on a CUDA card; the MTBVH walk
+counts of B6, B7 and B8 against the lockstep twin, and B1a against B6 +
+B7.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -62,7 +64,7 @@ def frame(cuda_device):
     cv0, cv1 = pack_camera(cam0, cuda_device), pack_camera(cam1, cuda_device)
     zeros = torch.zeros((fused_di.PT_CH, R), device=cuda_device)
     _, pt0 = fused_di.di_resident_cuda(cv0, cv0, 0, zeros, scene.tables,
-                                       width=W, height=H)
+                                       scene.bvh, width=W, height=H)
     return scene, cv0, cv1, pt0
 
 
@@ -71,7 +73,7 @@ def test_b1_kernel_matches_twin(frame, temporal):
     scene, cv0, cv1, pt0 = frame
     kw = dict(width=W, height=H, temporal=temporal)
     gb_k, pt_k = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                           **kw)
+                                           scene.bvh, **kw)
     gb_r, pt_r = fused_di.di_resident_ref(cv1, cv0, 1, pt0, scene.tables,
                                           **kw)
     fails, stats = parity.gb_pt_report(gb_r, pt_r, gb_k, pt_k)
@@ -81,7 +83,7 @@ def test_b1_kernel_matches_twin(frame, temporal):
 def test_b2_kernel_matches_twin(frame):
     scene, cv0, cv1, pt0 = frame
     gb, pt = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                       width=W, height=H)
+                                       scene.bvh, width=W, height=H)
     offs = spatial.spatial_offsets(1, R, W, 5, 5.0, gb.device)
     acc = torch.as_tensor(np.random.default_rng(0).random(
         (3, R), dtype=np.float32), device=gb.device)
@@ -98,7 +100,7 @@ def test_b2_kernel_matches_twin(frame):
 def test_b3_kernel_matches_twin(frame, level):
     scene, cv0, cv1, pt0 = frame
     gb, _ = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                      width=W, height=H)
+                                      scene.bvh, width=W, height=H)
     color = torch.as_tensor(np.random.default_rng(1).random(
         (3, R), dtype=np.float32), device=gb.device)
     kw = dict(level=level, width=W, height=H, sig_l=1.0, sig_n=0.2,
@@ -175,7 +177,7 @@ def test_mtbvh_path_matches_b1_on_resident_scene(frame):
     """B6 + B7 + B1b on a scene B1 renders resident agree with B1."""
     scene, cv0, cv1, pt0 = frame
     gb_b1, pt_b1 = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                             width=W, height=H)
+                                             scene.bvh, width=W, height=H)
     gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H)
     pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh)
     fails, stats = parity.gb_pt_report(gb_b1, pt_b1, gb, pt)
@@ -202,7 +204,7 @@ def env_tex(cuda_device, request):
     cv0, cv1 = pack_camera(cam0, cuda_device), pack_camera(cam1, cuda_device)
     zeros = torch.zeros((fused_di.PT_CH, R), device=cuda_device)
     _, pt0 = fused_di.di_resident_cuda(cv0, cv0, 0, zeros, scene.tables,
-                                       width=W, height=H, **flags)
+                                       scene.bvh, width=W, height=H, **flags)
     return scene, cv0, cv1, pt0, flags
 
 
@@ -210,7 +212,7 @@ def test_b1_env_tex_kernel_matches_twin(env_tex):
     scene, cv0, cv1, pt0, flags = env_tex
     kw = dict(width=W, height=H, **flags)
     gb_k, pt_k = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                           **kw)
+                                           scene.bvh, **kw)
     gb_r, pt_r = fused_di.di_resident_ref(cv1, cv0, 1, pt0, scene.tables,
                                           **kw)
     fails, stats = parity.gb_pt_report(gb_r, pt_r, gb_k, pt_k)
@@ -225,7 +227,8 @@ def test_b6_b7_env_tex_match_b1(env_tex):
     """B6 + B7 + B1b on the env / textured scenes equal B1 exactly."""
     scene, cv0, cv1, pt0, flags = env_tex
     gb_b1, pt_b1 = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                             width=W, height=H, **flags)
+                                             scene.bvh, width=W, height=H,
+                                             **flags)
     gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H,
                               **flags)
     pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh,
@@ -239,7 +242,7 @@ def svgf_inputs(frame):
     normal history is the gb's own, so most pixels blend."""
     scene, cv0, cv1, pt0 = frame
     gb, _ = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
-                                      width=W, height=H)
+                                      scene.bvh, width=W, height=H)
     g = np.random.default_rng(5)
     prev = torch.as_tensor(g.random((svgf.SV_CH, R), dtype=np.float32),
                            device=gb.device)
@@ -304,6 +307,11 @@ def general(cuda_device):
     return scene, cam, tix.traversal_arrays(scene), o.contiguous(), d
 
 
+def _on_cpu(trv):
+    """The traversal arrays on the CPU, for the twin on CPU rays."""
+    return trv._replace(tri_xform=trv.tri_xform.cpu(), planes=trv.planes.cpu())
+
+
 def test_b12_kernel_matches_twin(general):
     scene, _, trv, o, d = general
     before = ki.primary_launches
@@ -323,7 +331,7 @@ def test_b12_kernel_matches_twin(general):
 def test_b11_closest_kernel_matches_twin(general):
     scene, _, trv, o, d = general
     pk, dk, bk = ki.closest_cuda(trv, o, d)
-    pr, dr, br = ki.closest_hit(trv, o.cpu(), d.cpu())
+    pr, dr, br = ki.closest_hit(_on_cpu(trv), o.cpu(), d.cpu())
     pk, dk, bk = pk.cpu(), dk.cpu(), bk.cpu()
     same = pk == pr
     assert float(same.float().mean()) >= 0.998
@@ -341,7 +349,7 @@ def test_b11_any_kernel_matches_twin(general):
     target = torch.tensor([0.0, 8.0, 0.0], device=o.device).expand_as(pos)
     active = prim >= 0
     occ = ki.any_cuda(trv, pos, target.contiguous(), active).cpu()
-    ref = ki.any_hit(trv, pos.cpu(), target.cpu(), active.cpu())
+    ref = ki.any_hit(_on_cpu(trv), pos.cpu(), target.cpu(), active.cpu())
     assert float((occ == ref).float().mean()) >= 0.998
     assert not bool(occ[~active.cpu()].any())
 
@@ -433,6 +441,60 @@ def test_b8_kernel_matches_twin(gi_world, depth):
                   2e-3, 1e-5) >= 0.999
     assert float((k[gi.GO_DELTA] == r[gi.GO_DELTA]).float().mean()) >= 0.999
     assert float(k[lo].mean()) > 0.0
+
+
+def test_b8_walk_counts_match_lockstep_twin(gi_world):
+    """B8's per-ray box and plane tests equal those of the lockstep GI
+    walks over the rays its twin casts (kernel and twin take the same
+    paths), on sampled lanes."""
+    from _gi_rays import gi_twin_rays
+
+    from restir_tpu_torch.models import restir_gi
+    from restir_tpu_torch.ops import intersect_bf as ibf
+
+    scene, cam, cfg = gi_world
+    _, _, in_pack = _gi_in_pack(scene, cam, cfg, 5)
+    kw = restir_gi.trace_kwargs(scene, cfg)
+    _, counts = gi.gi_trace_cuda(in_pack, 5, scene, stats=True, **kw)
+    _, rays = gi_twin_rays(in_pack, 5, scene, **kw)
+    boxes = torch.zeros(R, dtype=torch.int32, device=in_pack.device)
+    tris = torch.zeros_like(boxes)
+    for kind, a, b, active in rays:
+        lanes = torch.nonzero(active)[:, 0]
+        if kind == "closest":
+            *_, bx, tr = bvh_walk.closest_walk(
+                scene.bvh, tuple(a[lanes].T), tuple(b[lanes].T),
+                plane=bvh_walk.gi_plane)
+        else:
+            o, d, limit = ibf.occlusion_ray(a[lanes], b[lanes])
+            _, bx, tr = bvh_walk.occluded_walk(
+                scene.bvh, tuple(o.T), tuple(d.T), limit,
+                torch.full_like(lanes, -1), plane=bvh_walk.gi_plane)
+        boxes[lanes] += bx
+        tris[lanes] += tr
+    pix = torch.arange(0, R, 7, device=in_pack.device)
+    assert float((counts[0][pix] == boxes[pix]).float().mean()) >= 0.99
+    assert float((counts[1][pix] == tris[pix]).float().mean()) >= 0.99
+    assert int(counts[2].max()) <= kw["depth"] and float(tris.sum()) > 0
+
+
+def test_b1a_packs_equal_b6_b7_on_headline_scene(cuda_device):
+    """B1a is B6 + B7's walks in one launch: its gb and rs packs equal
+    theirs bit for bit on the headline scene."""
+    arrays, camkw = many_light_scene(64, 24)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam0 = make_camera(**camkw)
+    cam1 = make_camera(**{**camkw, "position": (0.3, 4.5, 15.0)})
+    cv0, cv1 = pack_camera(cam0, cuda_device), pack_camera(cam1, cuda_device)
+    before = fused_di.launches
+    gb, rs = fused_di.gbuffer_ris_cuda(cv1, cv0, 1, scene.tables,
+                                       scene.bvh, width=W, height=H)
+    assert fused_di.launches == before + 1
+    gb6 = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H)
+    rs7 = reuse.candidates_cuda(gb6, 1, scene.tables, scene.bvh)
+    assert torch.equal(gb, gb6)
+    assert torch.equal(rs, rs7)
+    assert float((gb[fused_di.G_PRIM] >= 0).float().mean()) > 0.5
 
 
 def test_b9_kernel_matches_twin(gi_world):

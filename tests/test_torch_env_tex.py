@@ -222,7 +222,8 @@ def test_b1_twin_matches_pallas(world, history):
     gb_j = np.asarray(gb_j).reshape(fk.GB_CH, R)
     pt_j = np.asarray(pt_j).reshape(fk.PT_CH, R)
     gb_t, pt_t = tk.di_resident(_t(cv1), _t(cv0), 5, _t(history),
-                                scene.tables, width=W, height=H, **flags)
+                                scene.tables, scene.bvh, width=W, height=H,
+                                **flags)
     fails, stats = parity.gb_pt_report(gb_j, pt_j, gb_t, pt_t)
     assert not fails, (fails, stats)
     assert np.array_equal(pt_j[fk.P_M], pt_t[tk.P_M].numpy())
@@ -250,7 +251,7 @@ def test_b6_b7_twins_match_b1_twin(world, history):
     cv0 = _t(fk.pack_camera(cams[0], W, H))
     cv1 = _t(fk.pack_camera(cams[2], W, H))
     gb1, pt1 = tk.di_resident(cv1, cv0, 5, _t(history), scene.tables,
-                              width=W, height=H, **flags)
+                              scene.bvh, width=W, height=H, **flags)
     gb = gbuffer.gbuffer_pack(cv1, cv0, 5, scene.bvh, width=W, height=H,
                               **flags)
     pt = reuse.reuse(gb, _t(history), 5, scene.tables, scene.bvh,

@@ -66,7 +66,8 @@ def test_di_resident_twin_matches_pallas(setup, temporal, aa_jitter):
         return torch.tensor(np.asarray(x))
 
     gb_t, pt_t = tk.di_resident(t(cv1), t(cv0), 5, t(prev), tscene.tables,
-                                width=W, height=H, aa_jitter=aa_jitter,
+                                tscene.bvh, width=W, height=H,
+                                aa_jitter=aa_jitter,
                                 temporal=temporal)
     fails, stats = parity.gb_pt_report(gb_j, pt_j, gb_t, pt_t)
     assert not fails, (fails, stats)
@@ -96,11 +97,11 @@ def test_di_resident_rejects_env_and_textures(setup):
     kw = dict(width=W, height=H)
     with pytest.raises(ValueError, match="no env map"):
         tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
-                       has_env=True, **kw)
+                       tscene.bvh, has_env=True, **kw)
     plain = tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
-                           **kw)
+                           tscene.bvh, **kw)
     textured = tk.di_resident(t, t, 0, torch.as_tensor(prev), tscene.tables,
-                              with_textures=True, **kw)
+                              tscene.bvh, with_textures=True, **kw)
     assert all(torch.equal(a, b) for a, b in zip(plain, textured))
 
 
@@ -111,7 +112,7 @@ def test_cuda_wrapper_checks_before_launch(setup):
     t = torch.tensor(np.asarray(cv0))
     with pytest.raises(ValueError):
         tk.di_resident_cuda(t, t, 0, torch.as_tensor(prev[:, :1024]),
-                            tscene.tables, width=W, height=H)
+                            tscene.tables, tscene.bvh, width=W, height=H)
     with pytest.raises(ValueError):
         tk.di_resident_cuda(t, t, 0, torch.as_tensor(prev), tscene.tables,
-                            width=W, height=H, k=tk.MAX_K + 1)
+                            tscene.bvh, width=W, height=H, k=tk.MAX_K + 1)

@@ -113,7 +113,7 @@ def test_frame0_packs_match_jax(world):
         interpret=True)
     tcv = torch.tensor(np.asarray(cv))
     gb_t, pt_t = tk.di_resident(tcv, tcv, 0, torch.zeros(tk.PT_CH, R),
-                                tscene.tables, width=W, height=H,
+                                tscene.tables, tscene.bvh, width=W, height=H,
                                 k=cfg.cdf_candidates,
                                 has_met=cfg.scene_has_metallic)
     fails, stats = parity.gb_pt_report(gb_j, pt_j, gb_t, pt_t)

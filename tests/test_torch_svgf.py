@@ -74,10 +74,10 @@ def gb_pair(world):
     cv0 = _t(fk.pack_camera(cams[0], W, H))
     cv1 = _t(fk.pack_camera(cams[2], W, H))
     zeros = torch.zeros(tk.PT_CH, R)
-    gb0, _ = tk.di_resident(cv0, cv0, 0, zeros, tscene.tables, width=W,
-                            height=H)
-    gb1, _ = tk.di_resident(cv1, cv0, 1, zeros, tscene.tables, width=W,
-                            height=H)
+    gb0, _ = tk.di_resident(cv0, cv0, 0, zeros, tscene.tables, tscene.bvh,
+                            width=W, height=H)
+    gb1, _ = tk.di_resident(cv1, cv0, 1, zeros, tscene.tables, tscene.bvh,
+                            width=W, height=H)
     return gb0.numpy(), gb1.numpy()
 
 
