@@ -44,11 +44,17 @@ Phases (any failure exits non-zero and prints no result line):
      640 in all): B6 / B7 against their twins on the 32 tiles, then its
      main path;
  12. general kernels vs twins on the headline scene at 1920x1080: B12
-     (primary hit) on frame 1's camera rays, B11 closest hit on the bounce
-     rays that sample_bsdf draws at those hits and its any-hit variant on
-     NEE segments, B10 (CDF RIS + winner visibility) on the general
-     G-buffer; gates: primitive match >= 99.8 %, pick match >= 99.5 %,
-     matched lanes within rtol 2e-4 on >= 99.9 %, M equal on >= 99.99 %;
+     (primary hit) on frame 1's camera rays and, with its mask of live
+     lanes, on the bounce rays that sample_bsdf draws at those hits, B11
+     closest hit on those bounce rays and its any-hit variant on NEE
+     segments (`kernel_ab.general_rays`), B10 (CDF RIS + winner
+     visibility) on the general G-buffer; gates: primitive match >=
+     99.8 %, pick match >= 99.5 %, matched lanes within rtol 2e-4 on >=
+     99.9 %, M equal on >= 99.99 %, and B11 / B12 equal to their twins
+     bit for bit on every lane (their MTBVH walks' box and plane tests
+     per ray and per warp from the counting builds give their bounds);
+     PT-full's share of dead lanes by bounce, and PT_FULL / PT_INDIRECT
+     frames with B12's mask equal bit for bit to frames without it;
  13. general main paths through renderer.init_state / step at 1920x1080:
      PT_DIRECT (8 warm-up + 32 timed frames; launches per frame
      primary_hit 2, any hit 1), PT_FULL at trace_depth 5 (2 + 6 frames;
@@ -81,7 +87,7 @@ ReSTIR GI (after phase 14):
      5 % of the general step's over the same 8 frames;
  18. the fallback notice: RESTIR_GI on env_scene() with has_env_map warns
      once, naming the GI gate, and renders a general frame.
-Phases 12-14 run right after the build, the others in their order.
+Phases 12-14 run after phase 11, phases 15-18 after them.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -115,7 +121,7 @@ from restir_tpu_torch.config import (
 from restir_tpu_torch.models import gbuffer as general_gb
 from restir_tpu_torch.models import restir_di_fused, restir_gi
 from restir_tpu_torch.ops import reservoir as rsv
-from restir_tpu_torch.ops import bsdf, intersect, intersect_bf, lights
+from restir_tpu_torch.ops import intersect, intersect_bf
 from restir_tpu_torch.ops.camera import make_camera, pack_camera
 from restir_tpu_torch.ops.kernels import (
     _build,
@@ -130,7 +136,6 @@ from restir_tpu_torch.ops.kernels import (
     svgf,
 )
 from restir_tpu_torch.ops.kernels import intersect as hits
-from restir_tpu_torch.utils import rng
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_POS,
@@ -151,6 +156,8 @@ from restir_tpu_torch.scene.procedural import (
     many_light_scene,
     textured_scene,
 )
+
+from kernel_ab import general_rays
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
@@ -1074,79 +1081,177 @@ def _facing(norm, wo, mtype):
     return torch.where(flip[:, None], -norm, norm)
 
 
-def phase_general_kernels(scene, cam, dev, record, launches):
+def bits_equal(a, b):
+    """Elementwise: a and b hold the same bits (float32 or int32)."""
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(
+            torch.int32)
+    return a == b
+
+
+def walk_line(what, counts, lanes=None):
+    """Print a walk's box and plane tests per walked ray (kernel
+    counters [2, R]) and the per-warp maxima against the mean; return the
+    summed (box tests, plane tests)."""
+    c = counts.to(torch.float64)
+    boxes, tests = float(c[0].sum()), float(c[1].sum())
+    n = max(int(lanes.sum()) if lanes is not None else c.shape[1], 1)
+    mean = c.sum(1) / c.shape[1]
+    warp = c.reshape(2, -1, 32).amax(2).mean(1)
+    print(f"{what} walks: {boxes / n:.2f} box and {tests / n:.2f} plane "
+          f"tests per walked ray ({n} rays); per warp of 32 lanes: mean of "
+          f"the max box tests {float(warp[0]):.2f} "
+          f"({float(warp[0] / mean[0]):.3f}x the lane mean), of the max "
+          f"plane tests {float(warp[1]):.2f} "
+          f"({float(warp[1] / mean[1]):.3f}x)")
+    return boxes, tests
+
+
+def b12_mask_report(scene, cam, dev, base):
+    """PT-full's share of dead lanes at each bounce (B12 does not walk
+    them), and PT_FULL / PT_INDIRECT frames with B12's mask of live lanes
+    equal bit for bit to frames of B12 walking every lane with the dead
+    lanes' primitive and distance masked afterwards."""
+    real = hits.primary_hit
+    dead = []
+
+    def masked(trv, prim_attr, mat_attr, o, d, active=None):
+        if active is not None:
+            dead.append(float((~active).float().mean()))
+        return real(trv, prim_attr, mat_attr, o, d, active)
+
+    def unmasked(trv, prim_attr, mat_attr, o, d, active=None):
+        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d)
+        if active is not None:
+            prim = torch.where(active, prim, -1)
+            dist = torch.where(active, dist, torch.inf)
+        return (prim, dist, *rest)
+
+    for name, tracer in (("PT_FULL", TracerType.PT_FULL),
+                         ("PT_INDIRECT", TracerType.PT_INDIRECT)):
+        cfg = base.replace(tracer=tracer, trace_depth=5)
+        frames = []
+        for spy in (masked, unmasked):
+            hits.primary_hit = spy
+            try:
+                state = renderer.init_state(cfg, cam, scene, device=dev)
+                state, frame = renderer.step(scene, state, cam, cfg)
+            finally:
+                hits.primary_hit = real
+            frames.append(frame)
+        if tracer == TracerType.PT_FULL:
+            print(f"PT-full ({cfg.width}x{cfg.height}, depth 5) share of "
+                  "dead lanes B12 does not walk, by bounce 1-5: "
+                  + ", ".join(f"{x:.4f}" for x in dead))
+        same = torch.equal(frames[0], frames[1])
+        print(f"{name} frame with / without B12's mask of live lanes: "
+              f"{'equal bit for bit' if same else 'DIFFERENT'} (mean "
+              f"{float(frames[0].mean()):.6f})")
+        if not same:
+            raise PhaseError(f"{name}: B12's mask changes the frame")
+
+
+def phase_general_kernels(scene, cam, dev, record, launches, flags):
     """B12, B11 (closest and any hit) and B10 against their twins at 1080p
     on the headline scene, and the ray-query entry point that launches
     B11's closest hit."""
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, tracer=TracerType.PT_FULL)
     r = cfg.num_pixels
-    trv = intersect.traversal_arrays(scene)
     t = scene.tables
     n_tris = scene.num_tris
-    planes = t.planes[:n_tris]  # the rows the kernels walk
-    _, o, d = general_gb.primary_rays(cam, cfg, 1, rng.SALT_CAMERA, dev)
-    o, d = o.contiguous(), d.contiguous()
+    planes = t.planes[:n_tris]  # the rows that hold triangles
+    g = general_rays(scene, cam, dev)
+    trv, attr, mats = g["trv"], scene.prim_attr, scene.mat_attr
+    walk_tables = table_bytes(planes, trv.rows)
 
-    # B12 on frame 1's camera rays
-    k12 = hits.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
-    r12 = hits.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d)
-    torch.cuda.synchronize()
-    same = k12[hits.CH_PRIM] == r12[hits.CH_PRIM]
-    hit = same & (r12[hits.CH_PRIM] >= 0)
-    close = float(torch.isclose(k12[:, hit], r12[:, hit], rtol=2e-4,
-                                atol=1e-6).all(0).float().mean())
-    err12 = float((k12[:, hit] - r12[:, hit]).abs().max())
-    print(f"B12 primary_hit vs twin at {WIDTH}x{HEIGHT}: primitive match "
-          f"{float(same.float().mean()):.6f}, matched lanes within rtol 2e-4 "
-          f"{close:.6f}, hits {float(hit.float().mean()):.4f}, max abs err "
-          f"{err12:.3g}")
-    if float(same.float().mean()) < 0.998 or close < 0.999:
-        raise PhaseError("B12 disagrees with its twin")
-    ms = cuda_ms(lambda: hits.primary_cuda(trv, scene.prim_attr,
-                                           scene.mat_attr, o, d), 10)
-    ms_ref = cuda_ms(lambda: hits.primary_ref(trv, scene.prim_attr,
-                                              scene.mat_attr, o, d), 2)
-    b = bound(r * (6 + hits.PRIMARY_CH) * 4 + table_bytes(
-        planes, scene.prim_attr, scene.mat_attr),
-        r * (n_tris * FLOP_PLANE + FLOP_B12_EPI))
-    record["primary_hit"] = dict(max_abs_err=err12, ms=ms, plain_ms=ms_ref,
-                                 bound_ms=b[0], bound_by=b[1],
-                                 library_ms=None)
+    # B12 on frame 1's camera rays and on PT-full's first bounce rays,
+    # bit for bit against primary_ref on the card; today's gates are the
+    # floor
+    def b12(what, o, d, active):
+        k = hits.primary_cuda(trv, attr, mats, o, d, active)
+        kc, counts = hits.primary_cuda(trv, attr, mats, o, d, active,
+                                       stats=True)
+        ref = hits.primary_ref(trv, attr, mats, o, d, active)
+        torch.cuda.synchronize()
+        same = k[hits.CH_PRIM] == ref[hits.CH_PRIM]
+        hit = same & (ref[hits.CH_PRIM] >= 0)
+        close = float(torch.isclose(k[:, hit], ref[:, hit], rtol=2e-4,
+                                    atol=1e-6).all(0).float().mean())
+        lanes_eq = bits_equal(k, ref).all(0)
+        exact = int(lanes_eq.sum()) / r
+        chans = bits_equal(k, ref).all(1)
+        print(f"B12 primary_hit vs twin on {what}: exact lanes {exact:.7f} "
+              f"(channels not exact: {torch.nonzero(~chans)[:, 0].tolist()}"
+              f"), primitive match {float(same.float().mean()):.6f}, "
+              f"matched lanes within rtol 2e-4 {close:.6f}, hits "
+              f"{float(hit.float().mean()):.4f}, max abs err "
+              f"{max_err(k, ref):.3g}")
+        if float(same.float().mean()) < 0.998 or close < 0.999:
+            raise PhaseError(f"B12 disagrees with its twin on {what}")
+        if not bool(lanes_eq.all()) or not torch.equal(kc, k):
+            raise PhaseError(f"B12 is not bit for bit its twin on {what}")
+        return k, ref, counts
+
+    o, d = g["o"], g["d"]
+    k12, r12, c12 = b12(f"{WIDTH}x{HEIGHT} camera rays", o, d, None)
+    boxes, tests = walk_line("B12 camera-ray", c12)
+    ms = cuda_ms(lambda: hits.primary_cuda(trv, attr, mats, o, d), 10)
+    ms_ref = cuda_ms(lambda: hits.primary_ref(trv, attr, mats, o, d), 2)
+    b = bound(r * (6 + hits.PRIMARY_CH) * 4 + walk_tables
+              + table_bytes(attr, mats),
+              boxes * FLOP_BOX + tests * FLOP_PLANE + r * FLOP_B12_EPI)
+    record["primary_hit"] = dict(max_abs_err=max_err(k12, r12), ms=ms,
+                                 plain_ms=ms_ref, bound_ms=b[0],
+                                 bound_by=b[1], library_ms=None)
     print(f"B12 primary_hit: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, "
           f"bound {b[0]:.4f} ms ({b[1]}), {n_tris} triangles")
+    ro, rd, live = g["ro"], g["rd"], g["bounce_live"]
+    _, _, cb = b12("PT-full's first bounce rays (live lanes)", ro, rd, live)
+    boxes_b, tests_b = walk_line("B12 bounce-ray", cb, live)
+    ms_b = cuda_ms(lambda: hits.primary_cuda(trv, attr, mats, ro, rd, live),
+                   10)
+    ms_all = cuda_ms(lambda: hits.primary_cuda(trv, attr, mats, ro, rd), 10)
+    b_b = bound(r * (6 + hits.PRIMARY_CH) * 4 + r + walk_tables
+                + table_bytes(attr, mats),
+                boxes_b * FLOP_BOX + tests_b * FLOP_PLANE
+                + r * FLOP_B12_EPI)
+    print(f"B12 primary_hit on the bounce rays: kernel {ms_b:.4f} ms with "
+          f"the mask ({float(live.float().mean()):.4f} live), {ms_all:.4f} "
+          f"ms walking every lane; bound {b_b[0]:.4f} ms ({b_b[1]})")
 
-    # B11 closest hit on the bounce rays sample_bsdf draws at those hits
-    prim, dist, bary, pos, norm, uv, matp = hits.unpack_primary(k12)
-    valid = prim >= 0
-    mat = bsdf.SurfaceMaterial(
-        type=matp[:, 0].to(torch.int32), base_color=matp[:, 1:4],
-        metallic=matp[:, 4], roughness=matp[:, 5], ior=matp[:, 6])
-    wo = -d
-    n_f = _facing(norm, wo, mat.type)
-    pix = torch.arange(r, device=dev)
-    b1, b2, b3, _ = rng.uniform4(pix, 1, 2, rng.SALT_PT)
-    bs = bsdf.sample_bsdf(mat, n_f, wo, (b1, b2, b3))
-    ro, rd = intersect.make_offseted_ray(pos, bs.wi)
-    ro, rd = ro.contiguous(), rd.contiguous()
+    # B11 closest hit on those bounce rays, every lane
     pk, dk, bk = hits.closest_cuda(trv, ro, rd)
-    pr, dr, br = intersect_bf.intersect_closest_bf(scene.tri_xform, ro, rd)
+    pc, dc, bc, c11 = hits.closest_cuda(trv, ro, rd, stats=True)
+    pr, dr, br = intersect_bf.intersect_closest_bf(trv.tri_xform, ro, rd)
     torch.cuda.synchronize()
-    same = (pk == pr)[valid]
-    both = (pk == pr) & (pr >= 0) & valid
+    hit = pr >= 0
+    same = float((pk == pr).float().mean())
+    lanes_eq = bits_equal(pk, pr) & (~hit | (
+        bits_equal(dk, dr) & bits_equal(bk, br).all(1)))
+    exact = int(lanes_eq.sum()) / r
+    both = (pk == pr) & hit
     close = float((torch.isclose(dk[both], dr[both], rtol=2e-4)
                    & torch.isclose(bk[both], br[both], rtol=2e-4,
                                    atol=1e-5).all(1)).float().mean())
     err11 = float((dk[both] - dr[both]).abs().max())
-    print(f"B11 closest_hit vs twin on {int(valid.sum())} bounce rays: "
-          f"primitive match {float(same.float().mean()):.6f}, matched hits "
-          f"within rtol 2e-4 {close:.6f}, max abs dist err {err11:.3g}")
-    if float(same.float().mean()) < 0.998 or close < 0.999:
+    miss_ok = bool(torch.isinf(dk[~hit]).all() and (bk[~hit] == 0).all())
+    print(f"B11 closest_hit vs twin on {r} bounce rays (every lane): exact "
+          f"lanes {exact:.7f} (prim on every lane, dist and barycentrics "
+          f"on hits), primitive match {same:.6f}, matched hits within rtol "
+          f"2e-4 {close:.6f}, max abs dist err {err11:.3g}, misses inf / 0 "
+          f"{miss_ok}")
+    if same < 0.998 or close < 0.999:
         raise PhaseError("B11 disagrees with its twin")
+    if not bool(lanes_eq.all()) or not miss_ok or not (
+            torch.equal(pc, pk) and torch.equal(dc, dk)
+            and torch.equal(bc, bk)):
+        raise PhaseError("B11's closest hit is not bit for bit its twin")
+    boxes, tests = walk_line("B11 closest-hit", c11)
     ms = cuda_ms(lambda: hits.closest_cuda(trv, ro, rd), 10)
     ms_ref = cuda_ms(lambda: intersect_bf.intersect_closest_bf(
-        scene.tri_xform, ro, rd), 2)
-    b = bound(r * (24 + 16) * 4 + table_bytes(planes),
-              r * n_tris * FLOP_PLANE)
+        trv.tri_xform, ro, rd), 2)
+    b = bound(r * (24 + 16) + walk_tables,
+              boxes * FLOP_BOX + tests * FLOP_PLANE)
     record["closest_hit"] = dict(max_abs_err=err11, ms=ms, plain_ms=ms_ref,
                                  bound_ms=b[0], bound_by=b[1],
                                  library_ms=None)
@@ -1168,38 +1273,36 @@ def phase_general_kernels(scene, cam, dev, record, launches):
         raise PhaseError("ray query: intersect_closest != B11's closest hit")
     launches["closest_hit"] = counts["closest_hit"]
 
-    # ... and its any-hit variant on NEE segments from the primary hits
-    l1, l2, l3, l4 = rng.uniform4(pix, 1, 1, rng.SALT_PT)
-    ls = lights.sample_direct_light_no_visibility(scene, pos, l1, l2, l3, l4,
-                                                  has_env=False)
-    target = (pos + ls.wi * torch.clamp(ls.dist, max=1e6)[:, None])
-    shoot = valid & (ls.pdf > 0)
-    occ_k = hits.any_cuda(trv, pos, target.contiguous(), shoot)
-    occ_r = intersect_bf.test_occlusion_bf(scene.tri_xform, pos, target,
+    # ... and its any-hit variant on NEE segments from the camera hits
+    pos, target, shoot = g["pos"], g["target"], g["shoot"]
+    occ_k = hits.any_cuda(trv, pos, target, shoot)
+    occ_c, c_any = hits.any_cuda(trv, pos, target, shoot, stats=True)
+    occ_r = intersect_bf.test_occlusion_bf(trv.tri_xform, pos, target,
                                            shoot)
     torch.cuda.synchronize()
+    exact = int((occ_k == occ_r).sum()) / r
     agree = float((occ_k == occ_r)[shoot].float().mean())
-    print(f"B11 any hit vs twin on {int(shoot.sum())} NEE segments: agree "
+    print(f"B11 any hit vs twin on {int(shoot.sum())} NEE segments: exact "
+          f"lanes {exact:.7f} (every lane), agree on live segments "
           f"{agree:.6f}, occluded {float(occ_k[shoot].float().mean()):.4f}")
     if agree < 0.998:
         raise PhaseError("B11's any hit disagrees with its twin")
-    ms_any = cuda_ms(lambda: hits.any_cuda(trv, pos, target.contiguous(),
-                                           shoot), 10)
+    if not torch.equal(occ_k, occ_r) or not torch.equal(occ_c, occ_k):
+        raise PhaseError("B11's any hit is not its twin's on every lane")
+    boxes, tests = walk_line("B11 any-hit", c_any, shoot)
+    ms_any = cuda_ms(lambda: hits.any_cuda(trv, pos, target, shoot), 10)
     ms_any_ref = cuda_ms(lambda: intersect_bf.test_occlusion_bf(
-        scene.tri_xform, pos, target, shoot), 2)
-    o_s, d_s, lim = intersect_bf.occlusion_ray(pos, target)
-    tests_any = first_blocker_tests(t.planes, n_tris, tuple(o_s.T),
-                                    tuple(d_s.T), lim, None, shoot)
-    b_any = bound(r * (24 + 1) * 4 + table_bytes(planes),
-                  tests_any * FLOP_PLANE)
+        trv.tri_xform, pos, target, shoot), 2)
+    b_any = bound(r * (24 + 2) + walk_tables,
+                  boxes * FLOP_BOX + tests * FLOP_PLANE)
     record["any_hit"] = dict(
-        max_abs_err=float((occ_k != occ_r)[shoot].any()), ms=ms_any,
+        max_abs_err=float((occ_k != occ_r).any()), ms=ms_any,
         plain_ms=ms_any_ref, bound_ms=b_any[0], bound_by=b_any[1],
         library_ms=None)
     print(f"B11 any_hit: kernel {ms_any:.4f} ms, twin {ms_any_ref:.4f} ms, "
-          f"bound {b_any[0]:.4f} ms ({b_any[1]}, "
-          f"{tests_any / max(int(shoot.sum()), 1):.1f} plane tests per "
-          "segment)")
+          f"bound {b_any[0]:.4f} ms ({b_any[1]})")
+    b12_mask_report(scene, cam, dev, RenderConfig(
+        width=WIDTH, height=HEIGHT, **flags))
 
     # B10 on the general G-buffer
     dcfg = cfg.replace(tracer=TracerType.RESTIR_DI)
@@ -1235,6 +1338,7 @@ def phase_general_kernels(scene, cam, dev, record, launches):
     # the shadow rays this run traces: live winners, first blocker
     # (excluding the pixel's own triangle) or every row
     gbv = ris_cdf._gb_view(pack)
+    pix = torch.arange(r, device=dev)
     _, rwi, rdist, rw = fused_di.ris_pixels(gbv, pix, 1, t, **kw)
     o10 = tuple(gbv[fused_di.G_POS + c] + rwi[c] * 1e-5 for c in range(3))
     tests10 = first_blocker_tests(
@@ -1332,8 +1436,8 @@ def phase_quality_gate(dev):
 
 def phase_general(scene, cam, arrays, dev, record, launches):
     """Phases 12-14: the general kernels, main paths and quality gate."""
-    phase_general_kernels(scene, cam, dev, record, launches)
     flags = mat_flags(arrays)
+    phase_general_kernels(scene, cam, dev, record, launches, flags)
     base = RenderConfig(width=WIDTH, height=HEIGHT, **flags)
     total = {"primary_hit": 0, "any_hit": 0, "ris_cdf": 0}
     runs = [

@@ -1,5 +1,6 @@
-"""Time kernels B1, B6, B7 and B8 of several checkouts of restir_tpu_torch
-on one card, in turns, and check that they write the same packs.
+"""Time kernels B1, B6, B7, B8, B11 and B12 of several checkouts of
+restir_tpu_torch on one card, in turns, and check which write the same
+packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -14,14 +15,22 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   (with_textures), as chip_smoke.py phases 3 and 8 call it;
 - B8 (`gi.gi_trace_cuda`, depth 5) on B1's G-buffer of the headline scene
   and of cornell_box(), as chip_smoke.py phase 15 calls it;
+- B12 (`intersect.primary_cuda`) on the headline's 1080p camera rays and
+  on the rays of PT-full's first bounce from their hits (every lane, and
+  where the tree's B12 takes a mask, the live lanes only), B11's closest
+  hit (`closest_cuda`) on those bounce rays and its any hit (`any_cuda`)
+  on NEE segments from the camera hits (`general_rays`, built from the
+  plain twin so every tree gets the same rays), as chip_smoke.py phase
+  12 calls them;
 - B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
   and on scenes/hall.txt (81,036 triangles) and the same hall under a
   code-made sky (512 env tiles), frame 1 from chip_smoke.py phase 9's
   moved camera: the main paths on which B6 and B7 run.
 It prints one JSON line (card, ms and the SHA-256 of each kernel's
 output packs). This script then prints, per kernel, the ms of every run
-and whether every run wrote the same packs, then the card's name and
-power limit. Needs one CUDA card; exits non-zero without one.
+and which runs wrote the same packs (runs marked with one letter agree),
+then the card's name and power limit. Needs one CUDA card; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -37,6 +46,51 @@ REPS = 20
 WARMUP = 3
 
 
+def general_rays(scene, cam, dev, width=WIDTH, height=HEIGHT):
+    """The general path's rays (1080p by default) on a scene, from the
+    plain B12 twin's hits of frame 1's camera rays: a dict of the
+    traversal arrays `trv`, camera rays `o`, `d` and their pack `pack`;
+    PT-full's first bounce rays `ro`, `rd` (make_offseted_ray of a BSDF
+    sample) and its live lanes `bounce_live`; NEE segments `pos` ->
+    `target` with their live lanes `shoot`."""
+    import torch
+
+    from restir_tpu_torch.config import RenderConfig, TracerType
+    from restir_tpu_torch.models import gbuffer as general_gb
+    from restir_tpu_torch.ops import bsdf, intersect, lights
+    from restir_tpu_torch.ops.kernels import intersect as hits
+    from restir_tpu_torch.scene.mesh import DIELECTRIC, LIGHT
+    from restir_tpu_torch.utils import rng
+
+    cfg = RenderConfig(width=width, height=height, tracer=TracerType.PT_FULL)
+    trv = intersect.traversal_arrays(scene)
+    _, o, d = general_gb.primary_rays(cam, cfg, 1, rng.SALT_CAMERA, dev)
+    o, d = o.contiguous(), d.contiguous()
+    pack = hits.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d)
+    prim, _, _, pos, norm, _, matp = hits.unpack_primary(pack)
+    mat = bsdf.SurfaceMaterial(
+        type=matp[:, 0].to(torch.int32), base_color=matp[:, 1:4],
+        metallic=matp[:, 4], roughness=matp[:, 5], ior=matp[:, 6])
+    live = (prim >= 0) & (mat.type != LIGHT)
+    wo = -d
+    flip = (mat.type != DIELECTRIC) & ((norm * wo).sum(-1) < 0)
+    norm = torch.where(flip[:, None], -norm, norm)
+    pix = torch.arange(o.shape[0], device=dev)
+    bs = bsdf.sample_bsdf(mat, norm, wo,
+                          rng.uniform4(pix, 1, 2, rng.SALT_PT)[:3])
+    ro, rd = intersect.make_offseted_ray(pos, bs.wi)
+    l1, l2, l3, l4 = rng.uniform4(pix, 1, 1, rng.SALT_PT)
+    ls = lights.sample_direct_light_no_visibility(scene, pos, l1, l2, l3, l4,
+                                                  has_env=False)
+    target = pos + ls.wi * torch.clamp(ls.dist, max=1e6)[:, None]
+    return dict(trv=trv, o=o, d=d, pack=pack, ro=ro.contiguous(),
+                rd=rd.contiguous(),
+                bounce_live=live & ~bsdf.is_invalid(bs.type)
+                & (bs.pdf >= 1e-8),
+                pos=pos.contiguous(), target=target.contiguous(),
+                shoot=live & (ls.pdf > 0))
+
+
 def _child() -> None:
     # the checkout under test, ahead of this script's own directory
     sys.path.insert(0, os.getcwd())
@@ -49,6 +103,7 @@ def _child() -> None:
     from restir_tpu_torch.models import restir_di_fused, restir_gi
     from restir_tpu_torch.ops.camera import make_camera, pack_camera
     from restir_tpu_torch.ops.kernels import fused_di, gbuffer, gi, reuse
+    from restir_tpu_torch.ops.kernels import intersect as hits
     from restir_tpu_torch.scene.loader import parse_scene_file
     from restir_tpu_torch.scene.procedural import (
         cornell_box,
@@ -114,6 +169,21 @@ def _child() -> None:
     timed("B7 headline", lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
         has_met=cfg.scene_has_metallic))
+    g = general_rays(scene, cam, dev)
+    trv, attr, mats = g["trv"], scene.prim_attr, scene.mat_attr
+    timed("B12 camera rays", lambda: hits.primary_cuda(
+        trv, attr, mats, g["o"], g["d"]))
+    timed("B12 bounce rays", lambda: hits.primary_cuda(
+        trv, attr, mats, g["ro"], g["rd"]))
+    # B12 takes a mask of live lanes since the walk redesign
+    if "active" in inspect.signature(hits.primary_cuda).parameters:
+        timed("B12 bounce rays, live lanes", lambda: hits.primary_cuda(
+            trv, attr, mats, g["ro"], g["rd"], g["bounce_live"]))
+    timed("B11 closest bounce rays", lambda: hits.closest_cuda(
+        trv, g["ro"], g["rd"]))
+    timed("B11 any NEE segments", lambda: hits.any_cuda(
+        trv, g["pos"], g["target"], g["shoot"]))
+    del g, trv
     for name, (sc_arrays, sc_kw), flags in (
             ("B1 env", env_scene(), dict(has_env=True)),
             ("B1 textures", textured_scene(aux_maps=True),
@@ -198,12 +268,18 @@ def main(trees) -> int:
                   f"{res['root']}, not {root}", file=sys.stderr)
             return 1
         runs.append(res)
-    for name in runs[0]["ms"]:
-        times = ", ".join(f"{r['ms'][name]:.4f}" for r in runs)
-        same = len({r["sha256"][name] for r in runs}) == 1
-        print(f"{name}: ms by run [{times}] "
-              f"({' / '.join(trees)}); packs "
-              f"{'identical in every run' if same else 'DIFFER'}")
+    names = list(dict.fromkeys(n for r in runs for n in r["ms"]))
+    for name in names:
+        times = ", ".join(f"{r['ms'][name]:.4f}" if name in r["ms"] else "-"
+                          for r in runs)
+        letters = {}
+        marks = "".join(
+            letters.setdefault(r["sha256"][name], "ABCDEFGH"[len(letters)])
+            if name in r["sha256"] else "-" for r in runs)
+        same = ("identical in every run" if len(letters) == 1
+                else f"by run {marks}")
+        print(f"{name}: ms by run [{times}] ({' / '.join(trees)}); packs "
+              f"{same}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

@@ -15,7 +15,9 @@
 // models/restir_gi.py:142-282 and ops/bsdf.py).
 //
 // Nothing here is inlined by the DI kernels (B1 and B2 stay
-// bit-identical); B8's MTBVH walks are bvh.cuh's, on GiRay's leaf test.
+// bit-identical); B8's MTBVH walks are bvh.cuh's, on GiRay's leaf test,
+// and so are those of the general path's B11 and B12 (intersect.cu, also
+// built with -fmad=false), which share occlusion_ray with B8.
 #pragma once
 
 #include "common.cuh"
@@ -383,6 +385,20 @@ struct GiRay {
     return plane_hit(q, v3(ox, oy, oz), v3(dx, dy, dz), u, v);
   }
 };
+
+// The shadow ray of the segment x -> y as ops/intersect_bf.occlusion_ray
+// computes it on the card: direction (y - x) / max(|y - x|, 1e-20), origin
+// x + d 1e-5, and in `limit` the distance a blocker must be nearer than,
+// |y - x| - 2e-4.
+__device__ __forceinline__ GiRay occlusion_ray(V3 x, V3 y, float& limit) {
+  const V3 seg = sub(y, x);
+  const float dist = sqrtf(dot(seg, seg));
+  const float den = clampmin(dist, 1e-20f);
+  const V3 d = v3(seg.x / den, seg.y / den, seg.z / den);
+  const V3 o = add(scale(d, 1e-5f), x);
+  limit = dist - 2e-4f;
+  return {o.x, o.y, o.z, d.x, d.y, d.z};
+}
 
 }  // namespace gi
 }  // namespace restir

@@ -61,13 +61,9 @@ __device__ __forceinline__ V3 row3(const float* a) {
 template <bool COUNT>
 __device__ __forceinline__ bool occluded(const BvhRows& bvh, V3 x, V3 y,
                                          WalkCount& n) {
-  const V3 seg = sub(y, x);
-  const float dist = sqrtf(dot(seg, seg));
-  const float den = clampmin(dist, 1e-20f);
-  const V3 d = v3(seg.x / den, seg.y / den, seg.z / den);
-  const V3 o = add(scale(d, 1e-5f), x);
-  const GiRay ray = {o.x, o.y, o.z, d.x, d.y, d.z};
-  return occluded_walk<COUNT>(bvh, ray, dist - 2e-4f, -1, n);
+  float limit;
+  const GiRay ray = occlusion_ray(x, y, limit);
+  return occluded_walk<COUNT>(bvh, ray, limit, -1, n);
 }
 
 template <bool COUNT, bool MET, bool DIE, bool PROC>

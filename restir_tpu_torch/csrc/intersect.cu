@@ -5,149 +5,115 @@
 // (intersect_closest_pallas; its any-hit use test_occlusion_pallas) and
 // _primary_kernel (primary_hit_pallas). The TPU kernels test a ray tile
 // against 128-triangle blocks with bf16-split matmuls on the MXU; here one
-// thread carries one ray through every triangle with exact float32 plane
-// tests (di_core.cuh's plane_hit, the unit-triangle rows of
-// tables.plane_table).
+// thread walks one ray through the scene's MTBVH (bvh.cuh's stackless
+// closest_walk / occluded_walk on the node rows with their boxes copied
+// in, `BvhRows`, the table B1, B6, B7 and B8 read) and tests only the
+// triangles of the leaves it reaches: on the 426-triangle headline scene
+// ~100 box tests and 3-5 plane tests per ray, where a loop over every row
+// did 426 plane tests.
 //
-// Bound: FMA throughput. A ray costs one plane test of ~39 FLOP per
-// triangle (the table's zero padding rows are not walked), so a
-// 1080p frame on the 426-triangle headline scene is ~3.4e10 FLOP
-// (~0.5 ms at 67 TFLOP/s); the rays and outputs are ~50-200 MB, a few
-// hundredths of that. The design keeps the triangle rows out of device
-// memory's way: each 256-thread block stages 256 plane rows (12 KB) at a
-// time in shared memory and every thread of the block reads them from
-// there, so the loop runs on shared-memory broadcasts and FMAs.
+// Numerics: the leaf test is gi_core.cuh's plane_hit (`gi::GiRay`), the
+// arithmetic of the plain twin ops/intersect_bf.py on the card, and the
+// any-hit ray is gi::occlusion_ray, intersect_bf.occlusion_ray's. This
+// source builds with -fmad=false (ops/kernels/_build.py), so B12's
+// interpolation rounds product by product and sum by sum as primary_ref
+// (ops/kernels/intersect.py) does. The walk returns the every-row loop's
+// hit (padded boxes, the cull slack, ties to the lowest triangle id), so
+// B11 and B12 equal their twins bit for bit.
 //
-// The closest hit keeps the first (lowest-index) triangle on ties, as the
-// TPU kernel's argmin and strict block fold do; a miss writes dist inf,
-// barycentrics 0 and primitive -1. The any-hit variant stops a ray at
-// its first hit nearer than the limit, which gives the closest-hit form's
-// boolean. B12 then reads the winner's attribute row once and its
-// material row once; a miss interpolates a zero row and so reads
-// material row 0, as the TPU kernel's zero carry does.
-#include "di_core.cuh"
+// Bound: counted work (box and plane tests, B12's interpolation) and
+// bytes (B12 writes a 96-byte pack per ray, ~0.25 GB per 1080p launch)
+// each give ~0.08 ms at 1080p, but the walks are chains of dependent
+// loads through the read-only cache (the headline scene's rows and
+// planes, ~185 KB, stay in L1 / L2), so a warp waits out the latency of
+// its longest walk. The COUNT builds write each ray's box and plane
+// tests, from which chip_smoke.py counts the work these inputs take; the
+// builds without counters carry no counting code.
+//
+// The closest hit keeps the lowest triangle id on ties, as the TPU
+// kernel's argmin and strict block fold do; a miss, and a zero or
+// non-finite direction, writes dist inf, barycentrics 0 and primitive -1.
+// The any-hit variant stops a ray at its first hit nearer than the limit,
+// which gives the closest-hit form's boolean. B12 then reads the winner's
+// attribute row once and its material row once; a miss interpolates a
+// zero row and so reads material row 0, as the TPU kernel's zero carry
+// does. Lanes with active[p] == 0 (dead paths) are not walked: the any hit
+// reads 0, B12 writes the miss pack.
+#include "bvh.cuh"
+#include "gi_core.cuh"
 
 using namespace restir;
+using gi::GiRay;
+using gi::V3;
 
 namespace {
 
-constexpr int BLOCK = 256;
-constexpr int PCHUNK = 256;  // plane rows staged in shared memory per pass
+constexpr int BLOCK = 128;
 
-// Stage plane rows [base, base + PCHUNK) into sp; every thread of the
-// block must call it. Returns the number of rows staged.
-__device__ __forceinline__ int stage_planes(float* sp,
-                                            const float* __restrict__ planes,
-                                            int base, int n_tris) {
-  const int rows = min(PCHUNK, n_tris - base);
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * 12; i += blockDim.x)
-    sp[i] = planes[(size_t)base * 12 + i];
-  __syncthreads();
-  return rows;
+__device__ __forceinline__ V3 load3(const float* __restrict__ a, int p) {
+  return gi::v3(a[(size_t)p * 3], a[(size_t)p * 3 + 1], a[(size_t)p * 3 + 2]);
 }
 
-struct Best {
-  float t;
-  int prim;
-  float u, v;
-};
+__device__ __forceinline__ GiRay load_ray(const float* __restrict__ o,
+                                          const float* __restrict__ d,
+                                          int p) {
+  const V3 a = load3(o, p), b = load3(d, p);
+  return {a.x, a.y, a.z, b.x, b.y, b.z};
+}
 
-// Closest hit over all plane rows (ties to the lowest row).
-__device__ __forceinline__ Best closest_loop(float* sp,
-                                             const float* __restrict__ planes,
-                                             int n_tris, bool live, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz) {
-  Best b = {RESTIR_BIG, -1, 0.0f, 0.0f};
-  for (int base = 0; base < n_tris; base += PCHUNK) {
-    const int rows = stage_planes(sp, planes, base, n_tris);
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      float u, v;
-      const float t = plane_hit(sp + j * 12, ox, oy, oz, dx, dy, dz, u, v);
-      if (t > 0.0f && t < b.t) {
-        b.t = t;
-        b.prim = base + j;
-        b.u = u;
-        b.v = v;
-      }
-    }
+__device__ __forceinline__ bool is_live(const unsigned char* __restrict__ active,
+                                        int p) {
+  return active == nullptr || active[p] != 0;
+}
+
+// counts [2, R]: box tests, plane tests of ray p
+template <bool COUNT>
+__device__ __forceinline__ void put_counts(int* __restrict__ counts, int r,
+                                           int p, const WalkCount& n) {
+  if (COUNT) {
+    counts[p] = n.boxes;
+    counts[(size_t)r + p] = n.tris;
   }
-  return b;
 }
 
-__device__ __forceinline__ void load3(const float* __restrict__ a, int p,
-                                      float& x, float& y, float& z) {
-  x = a[(size_t)p * 3];
-  y = a[(size_t)p * 3 + 1];
-  z = a[(size_t)p * 3 + 2];
-}
-
+template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ planes, int n_tris,
-                   float* __restrict__ dist, float* __restrict__ bary,
-                   int* __restrict__ prim, int r) {
-  __shared__ float sp[PCHUNK * 12];
+                   BvhRows bvh, float* __restrict__ dist,
+                   float* __restrict__ bary, int* __restrict__ prim,
+                   int* __restrict__ counts, int r) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < r;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
-  if (live) {
-    load3(o, p, ox, oy, oz);
-    load3(d, p, dx, dy, dz);
-  }
-  const Best b = closest_loop(sp, planes, n_tris, live, ox, oy, oz, dx, dy, dz);
-  if (!live) return;
-  const bool hit = b.t < RESTIR_BIG;
-  dist[p] = hit ? b.t : __int_as_float(0x7f800000);
-  bary[(size_t)p * 2] = hit ? b.u : 0.0f;
-  bary[(size_t)p * 2 + 1] = hit ? b.v : 0.0f;
-  prim[p] = hit ? b.prim : -1;
+  if (p >= r) return;
+  WalkCount n = {0, 0};
+  int id;
+  float u, v;
+  const float t = closest_walk<COUNT>(bvh, load_ray(o, d, p), id, u, v, n);
+  dist[p] = id >= 0 ? t : __int_as_float(0x7f800000);
+  bary[(size_t)p * 2] = u;
+  bary[(size_t)p * 2 + 1] = v;
+  prim[p] = id;
+  put_counts<COUNT>(counts, r, p, n);
 }
 
 // Segment x -> y: occluded iff a triangle is hit at 0 < t < |y - x| - 2e-4
-// from x + d 1e-5 (test_occlusion_pallas). Lanes with active[p] == 0 are
-// not traced and read 0.
+// from x + d 1e-5 (test_occlusion_pallas).
+template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     any_kernel(const float* __restrict__ x, const float* __restrict__ y,
-               const unsigned char* __restrict__ active,
-               const float* __restrict__ planes, int n_tris,
-               unsigned char* __restrict__ occluded, int r) {
-  __shared__ float sp[PCHUNK * 12];
+               const unsigned char* __restrict__ active, BvhRows bvh,
+               unsigned char* __restrict__ occluded,
+               int* __restrict__ counts, int r) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  bool live = p < r && (active == nullptr || active[p] != 0);
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
-  float limit = 0.0f;
-  if (live) {
-    float xx, xy, xz, yx, yy, yz;
-    load3(x, p, xx, xy, xz);
-    load3(y, p, yx, yy, yz);
-    const float sx = yx - xx, sy = yy - xy, sz = yz - xz;
-    const float len = sqrtf(sx * sx + sy * sy + sz * sz);
-    const float den = fmaxf(len, 1e-20f);
-    dx = sx / den;
-    dy = sy / den;
-    dz = sz / den;
-    ox = xx + dx * 1e-5f;
-    oy = xy + dy * 1e-5f;
-    oz = xz + dz * 1e-5f;
-    limit = len - 2e-4f;
-  }
+  if (p >= r) return;
+  WalkCount n = {0, 0};
   bool blocked = false;
-  for (int base = 0; base < n_tris; base += PCHUNK) {
-    const int rows = stage_planes(sp, planes, base, n_tris);
-    if (!live || blocked) continue;
-    for (int j = 0; j < rows; ++j) {
-      float u, v;
-      const float t = plane_hit(sp + j * 12, ox, oy, oz, dx, dy, dz, u, v);
-      if (t > 0.0f && t < limit) {
-        blocked = true;
-        break;
-      }
-    }
+  if (is_live(active, p)) {
+    float limit;
+    const GiRay ray = gi::occlusion_ray(load3(x, p), load3(y, p), limit);
+    blocked = occluded_walk<COUNT>(bvh, ray, limit, -1, n);
   }
-  if (p < r) occluded[p] = blocked ? 1 : 0;
+  occluded[p] = blocked ? 1 : 0;
+  put_counts<COUNT>(counts, r, p, n);
 }
 
 // Pack channels of B12 (intersect_kernel.py:101-106).
@@ -157,26 +123,23 @@ enum {
   C_MMAP = 19, C_RMAP = 20, C_NMAP = 21, C_MATID = 22, C_PRIM = 23
 };
 
+template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     primary_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ planes, int n_tris,
+                   const unsigned char* __restrict__ active, BvhRows bvh,
                    const float* __restrict__ attr,
                    const float* __restrict__ mat, int n_mat,
-                   float* __restrict__ out, int r) {
-  __shared__ float sp[PCHUNK * 12];
+                   float* __restrict__ out, int* __restrict__ counts, int r) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = p < r;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
-  if (live) {
-    load3(o, p, ox, oy, oz);
-    load3(d, p, dx, dy, dz);
-  }
-  const Best b = closest_loop(sp, planes, n_tris, live, ox, oy, oz, dx, dy, dz);
-  if (!live) return;
-  const bool hit = b.t < RESTIR_BIG;
-  const float u = hit ? b.u : 0.0f, v = hit ? b.v : 0.0f;
+  if (p >= r) return;
+  WalkCount n = {0, 0};
+  int id = -1;
+  float t = RESTIR_BIG, u = 0.0f, v = 0.0f;
+  if (is_live(active, p))
+    t = closest_walk<COUNT>(bvh, load_ray(o, d, p), id, u, v, n);
+  const bool hit = id >= 0;
   float a[25];
-  const float* at = attr + (size_t)(hit ? b.prim : 0) * 32;
+  const float* at = attr + (size_t)(hit ? id : 0) * 32;
 #pragma unroll
   for (int j = 0; j < 25; ++j) a[j] = hit ? at[j] : 0.0f;
   const int mat_id = __float2int_rz(a[24]);
@@ -184,22 +147,23 @@ __global__ void __launch_bounds__(BLOCK)
   const float* mr = mat + (size_t)(mat_ok ? mat_id : 0) * 16;
   auto M = [&](int j) { return mat_ok ? mr[j] : 0.0f; };
 
+  // primary_ref's order: (a + u b) + v c, the squares summed left to right
   float* g = out + p;
   auto put = [&](int c, float val) { g[(size_t)c * r] = val; };
-  float n[3];
+  float nv[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     put(C_POS + k, a[k] + u * a[3 + k] + v * a[6 + k]);
-    n[k] = a[9 + k] + u * a[12 + k] + v * a[15 + k];
+    nv[k] = a[9 + k] + u * a[12 + k] + v * a[15 + k];
   }
-  const float nlen =
-      sqrtf(fmaxf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2], 1e-20f));
+  const float nlen = sqrtf(
+      gi::clampmin(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2], 1e-20f));
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    put(C_NORM + k, n[k] / nlen);
+    put(C_NORM + k, nv[k] / nlen);
     put(C_BCOLOR + k, M(1 + k));
   }
-  put(C_DIST, hit ? b.t : __int_as_float(0x7f800000));
+  put(C_DIST, hit ? t : __int_as_float(0x7f800000));
   put(C_U, u);
   put(C_V, v);
   put(C_UV, a[18] + u * a[20] + v * a[22]);
@@ -213,45 +177,74 @@ __global__ void __launch_bounds__(BLOCK)
   put(C_RMAP, M(9));
   put(C_NMAP, M(10));
   put(C_MATID, a[24]);
-  put(C_PRIM, hit ? (float)b.prim : -1.0f);
+  put(C_PRIM, hit ? (float)id : -1.0f);
+  put_counts<COUNT>(counts, r, p, n);
 }
 
 inline int grid(int r) { return (r + BLOCK - 1) / BLOCK; }
 
+inline BvhRows bvh_rows(const float* rows, int size, const float* planes) {
+  return {reinterpret_cast<const float4*>(rows), planes, size};
+}
+
 }  // namespace
 
-// o, d: float32 [R, 3]; planes: [>= n_tris, 12]. Writes dist [R], bary
-// [R, 2], prim [R].
+// Every entry point takes the scene's MTBVH as node rows [6B, 8] and B
+// (`rows`, `size`) and the plane rows [n_pad, 12]; `counts`, unless null,
+// receives int32 [2, R]: the box and plane tests of each ray.
+
+// o, d: float32 [R, 3]. Writes dist [R], bary [R, 2], prim [R].
 extern "C" int restir_closest_hit(const float* o, const float* d,
-                                  const float* planes, int n_tris, float* dist,
-                                  float* bary, int* prim, int r,
+                                  const float* rows, int size,
+                                  const float* planes, float* dist,
+                                  float* bary, int* prim, int* counts, int r,
                                   void* stream) {
-  if (r <= 0 || n_tris <= 0) return (int)cudaErrorInvalidValue;
-  closest_kernel<<<grid(r), BLOCK, 0, (cudaStream_t)stream>>>(
-      o, d, planes, n_tris, dist, bary, prim, r);
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, planes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    closest_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, dist, bary,
+                                                   prim, counts, r);
+  else
+    closest_kernel<false><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, dist, bary,
+                                                    prim, counts, r);
   return (int)cudaGetLastError();
 }
 
 // x, y: float32 [R, 3]; active: null or bool [R]. Writes occluded bool [R].
 extern "C" int restir_any_hit(const float* x, const float* y,
-                              const unsigned char* active,
-                              const float* planes, int n_tris,
-                              unsigned char* occluded, int r, void* stream) {
-  if (r <= 0 || n_tris <= 0) return (int)cudaErrorInvalidValue;
-  any_kernel<<<grid(r), BLOCK, 0, (cudaStream_t)stream>>>(
-      x, y, active, planes, n_tris, occluded, r);
+                              const unsigned char* active, const float* rows,
+                              int size, const float* planes,
+                              unsigned char* occluded, int* counts, int r,
+                              void* stream) {
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, planes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    any_kernel<true><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh, occluded,
+                                               counts, r);
+  else
+    any_kernel<false><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh, occluded,
+                                                counts, r);
   return (int)cudaGetLastError();
 }
 
-// o, d: float32 [R, 3]; attr [N, 32]; mat [n_mat, 16]. Writes the
-// [24, R] pack.
+// o, d: float32 [R, 3]; active: null or bool [R]; attr [N, 32]; mat
+// [n_mat, 16]. Writes the [24, R] pack.
 extern "C" int restir_primary_hit(const float* o, const float* d,
-                                  const float* planes, int n_tris,
-                                  const float* attr, const float* mat,
-                                  int n_mat, float* out, int r,
-                                  void* stream) {
-  if (r <= 0 || n_tris <= 0 || n_mat <= 0) return (int)cudaErrorInvalidValue;
-  primary_kernel<<<grid(r), BLOCK, 0, (cudaStream_t)stream>>>(
-      o, d, planes, n_tris, attr, mat, n_mat, out, r);
+                                  const unsigned char* active,
+                                  const float* rows, int size,
+                                  const float* planes, const float* attr,
+                                  const float* mat, int n_mat, float* out,
+                                  int* counts, int r, void* stream) {
+  if (r <= 0 || size <= 0 || n_mat <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, planes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    primary_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh, attr,
+                                                   mat, n_mat, out, counts, r);
+  else
+    primary_kernel<false><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """Ray intersection of the general path, as `restir_tpu.ops.intersect`.
 
-The port carries the brute-force method (scenes of at most
+The port carries the brute-force method's results (scenes of at most
 `BRUTE_FORCE_MAX_PRIMS` triangles): `intersect_closest` and
 `test_occlusion` take kernel B11 (`ops.kernels.intersect`) on CUDA
-tensors and its plain version (`intersect_bf`, the JAX package's CPU
-route) on CPU tensors. The lockstep MTBVH walk of the JAX general path
+tensors, which walks the scene's MTBVH with the brute force's plane test
+and returns its hits bit for bit, and its plain version (`intersect_bf`,
+the JAX package's CPU route, every triangle row) on CPU tensors. The
+lockstep Moller-Trumbore MTBVH walk of the JAX general path
 (`intersector="bvh"`, and "auto" above the brute-force limit) is not
 ported: it raises, naming ROADMAP Queue A 7.
 
@@ -33,10 +35,12 @@ class Hit(NamedTuple):
 
 
 class TraversalArrays(NamedTuple):
-    """What the brute-force intersector reads of a scene."""
+    """What the intersector reads of a scene."""
 
     tri_xform: torch.Tensor  # [4, 3N] unit-triangle transforms (plain version)
-    planes: torch.Tensor  # [n_pad, 12] the same, as B11's plane rows
+    planes: torch.Tensor  # [n_pad, 12] the same, as the kernels' plane rows
+    rows: torch.Tensor  # [6B, 8] MTBVH node rows the kernels walk
+    size: int  # B, nodes per MTBVH table
     method: str = "brute"
 
 
@@ -51,7 +55,8 @@ def traversal_arrays(scene, intersector: str = "auto") -> TraversalArrays:
             "path's MTBVH walk is not ported yet (ROADMAP Queue A 7); the "
             f"brute-force method takes up to {BRUTE_FORCE_MAX_PRIMS}")
     return TraversalArrays(tri_xform=scene.tri_xform,
-                           planes=scene.tables.planes)
+                           planes=scene.bvh.planes, rows=scene.bvh.rows,
+                           size=scene.bvh.size)
 
 
 def make_offseted_ray(origin, direction):

@@ -35,9 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v"]
 # Sources that round as their plain twins do on the card: no product is
-# contracted into an FMA unless the code says fmaf (csrc/gi_core.cuh).
+# contracted into an FMA unless the code says fmaf (csrc/gi_core.cuh,
+# which B8, B9, B11 and B12 inline).
 SOURCE_FLAGS = {"gi_trace.cu": ["-fmad=false"],
-                "gi_resolve.cu": ["-fmad=false"]}
+                "gi_resolve.cu": ["-fmad=false"],
+                "intersect.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
@@ -141,9 +143,11 @@ _SIGNATURES = {
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
     "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
-    "restir_closest_hit": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
-    "restir_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _I, _VP],
-    "restir_primary_hit": [_VP, _VP, _VP, _I, _VP, _VP, _I, _VP, _I, _VP],
+    "restir_closest_hit": [
+        _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "restir_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    "restir_primary_hit": [
+        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
     "restir_ris_cdf": [
         _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP],
     "restir_gi_trace": [

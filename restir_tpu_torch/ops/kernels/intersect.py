@@ -3,22 +3,26 @@ hit), with their plain PyTorch versions.
 
 Ports of `restir_tpu.ops.pallas.intersect_kernel`:
 - B11 `_closest_kernel` (`intersect_closest_pallas`): the closest hit of
-  each ray over every triangle's unit-space plane row -> dist (inf on a
-  miss), barycentrics (0 on a miss) and triangle id (-1 on a miss), ties
-  to the lowest triangle id. Its any-hit variant is
-  `test_occlusion_pallas`'s contract: the segment x -> y, origin
-  x + d 1e-5, occluded iff a hit lies nearer than |y - x| - 2e-4.
+  each ray over the scene's triangles -> dist (inf on a miss),
+  barycentrics (0 on a miss) and triangle id (-1 on a miss), ties to the
+  lowest triangle id. Its any-hit variant is `test_occlusion_pallas`'s
+  contract: the segment x -> y, origin x + d 1e-5, occluded iff a hit
+  lies nearer than |y - x| - 2e-4.
 - B12 `_primary_kernel` (`primary_hit_pallas`): B11's closest hit, then
   the winner's attribute row interpolated (position, normalised normal,
   uv) and its material row, as a [24, R] pack in the TPU kernel's
   channel order. A miss interpolates a zero row and so reads material
   row 0, as the TPU kernel does.
 
-CUDA tensors launch `csrc/intersect.cu`; CPU tensors take the plain
-versions: `intersect_bf` (float32 products, the JAX package's CPU route)
-and, for B12, the interpolation on top of it. Nothing falls back.
-`trv` is an `ops.intersect.TraversalArrays` (plane rows for the kernels,
-the [4, 3N] transforms for the plain versions).
+CUDA tensors launch `csrc/intersect.cu`, whose threads walk the scene's
+MTBVH (`trv.rows`, `trv.size`) and run the plain version's plane test on
+the leaves they reach; the walk returns the plain version's hit, so the
+kernels equal their twins bit for bit on the card. CPU tensors take the
+plain versions, which test every triangle: `intersect_bf` (float32
+products, the JAX package's CPU route) and, for B12, the interpolation
+on top of it. Nothing falls back. The any hit and B12 take a mask of
+live lanes (`active`); the kernels do not walk the others.
+`trv` is an `ops.intersect.TraversalArrays`.
 """
 
 from __future__ import annotations
@@ -54,33 +58,61 @@ def _device_of(o) -> str:
 
 
 def _launch_args(trv, *rays):
-    planes = trv.planes
+    """Checked, contiguous rays and the MTBVH tables the kernels walk."""
     r = rays[0].shape[0]
     for i, t in enumerate(rays):
         _rays(t, f"ray array {i}", r)
-    if planes.device != rays[0].device or planes.dtype != torch.float32:
-        raise ValueError("plane rows must be float32 on the rays' device")
+    dev = rays[0].device
+    for name, tab in (("planes", trv.planes), ("rows", trv.rows)):
+        if (tab.device != dev or tab.dtype != torch.float32
+                or not tab.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 on the "
+                             "rays' device")
+    if tuple(trv.rows.shape) != (6 * trv.size, 8):
+        raise ValueError(f"rows: expected [{6 * trv.size}, 8], got "
+                         f"{tuple(trv.rows.shape)}")
     n = trv.tri_xform.shape[1] // 3  # the rows past n are zero padding
-    if not 0 < n <= planes.shape[0]:
-        raise ValueError(f"{n} triangles for {planes.shape[0]} plane rows")
-    return [t.contiguous() for t in rays], planes.contiguous(), n, r
+    if not 0 < n <= trv.planes.shape[0]:
+        raise ValueError(f"{n} triangles for {trv.planes.shape[0]} plane "
+                         "rows")
+    return [t.contiguous() for t in rays], n, r
 
 
-def closest_cuda(trv, o, d):
-    """B11 on the card -> (prim [R] i32, dist [R], bary [R, 2])."""
+def _active(active, r):
+    if active is None:
+        return None
+    if tuple(active.shape) != (r,) or active.dtype != torch.bool:
+        raise ValueError("active must be bool [R]")
+    return active.contiguous()
+
+
+def _tables(trv):
+    return _build.ptr(trv.rows), trv.size, _build.ptr(trv.planes)
+
+
+def _counts(stats, r, dev):
+    return torch.empty((2, r), dtype=torch.int32, device=dev) if stats \
+        else None
+
+
+def closest_cuda(trv, o, d, stats=False):
+    """B11 on the card -> (prim [R] i32, dist [R], bary [R, 2]); with
+    `stats` also the int32 [2, R] box and plane tests of each ray."""
     global closest_launches
-    (o, d), planes, n, r = _launch_args(trv, o, d)
+    (o, d), _, r = _launch_args(trv, o, d)
     dev = o.device
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
     dist = torch.empty((r,), dtype=torch.float32, device=dev)
     bary = torch.empty((r, 2), dtype=torch.float32, device=dev)
+    counts = _counts(stats, r, dev)
     p = _build.ptr
     err = _build.library().restir_closest_hit(
-        p(o), p(d), p(planes), n, p(dist), p(bary), p(prim), r,
+        p(o), p(d), *_tables(trv), p(dist), p(bary), p(prim), p(counts), r,
         _build.stream_of(dev))
     _build.check(err, "restir_closest_hit")
     closest_launches += 1
-    return prim, dist, bary
+    out = (prim, dist, bary)
+    return (*out, counts) if stats else out
 
 
 def closest_hit(trv, o, d, active=None):
@@ -95,24 +127,23 @@ def closest_hit(trv, o, d, active=None):
     return prim, dist, bary
 
 
-def any_cuda(trv, x, y, active=None):
+def any_cuda(trv, x, y, active=None, stats=False):
     """B11's any-hit variant on the card -> occluded bool [R]; lanes with
-    active False are not traced and read False."""
+    active False are not walked and read False. With `stats` also the
+    int32 [2, R] box and plane tests of each segment."""
     global any_launches
-    (x, y), planes, n, r = _launch_args(trv, x, y)
+    (x, y), _, r = _launch_args(trv, x, y)
     dev = x.device
-    if active is not None:
-        if tuple(active.shape) != (r,) or active.dtype != torch.bool:
-            raise ValueError("active must be bool [R]")
-        active = active.contiguous()
+    active = _active(active, r)
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    counts = _counts(stats, r, dev)
     p = _build.ptr
     err = _build.library().restir_any_hit(
-        p(x), p(y), p(active), p(planes), n, p(occ), r,
+        p(x), p(y), p(active), *_tables(trv), p(occ), p(counts), r,
         _build.stream_of(dev))
     _build.check(err, "restir_any_hit")
     any_launches += 1
-    return occ
+    return (occ, counts) if stats else occ
 
 
 def any_hit(trv, x, y, active=None):
@@ -122,9 +153,11 @@ def any_hit(trv, x, y, active=None):
     return any_cuda(trv, x, y, active)
 
 
-def primary_ref(trv, prim_attr, mat_attr, o, d):
-    """Plain B12: the [24, R] pack from intersect_bf's closest hit."""
-    prim, dist, bary = intersect_bf.intersect_closest_bf(trv.tri_xform, o, d)
+def primary_ref(trv, prim_attr, mat_attr, o, d, active=None):
+    """Plain B12: the [24, R] pack from intersect_bf's closest hit;
+    inactive lanes get the miss pack."""
+    prim, dist, bary = intersect_bf.intersect_closest_bf(trv.tri_xform, o, d,
+                                                         active)
     hit = prim >= 0
     u = torch.where(hit, bary[:, 0], 0.0)[:, None]
     v = torch.where(hit, bary[:, 1], 0.0)[:, None]
@@ -145,11 +178,14 @@ def primary_ref(trv, prim_attr, mat_attr, o, d):
         a[:, 24][None], prim.to(torch.float32)[None]])
 
 
-def primary_cuda(trv, prim_attr, mat_attr, o, d):
-    """B12 on the card -> the [24, R] pack."""
+def primary_cuda(trv, prim_attr, mat_attr, o, d, active=None, stats=False):
+    """B12 on the card -> the [24, R] pack; lanes with active False are
+    not walked and get the miss pack. With `stats` also the int32 [2, R]
+    box and plane tests of each ray."""
     global primary_launches
-    (o, d), planes, n, r = _launch_args(trv, o, d)
+    (o, d), n, r = _launch_args(trv, o, d)
     dev = o.device
+    active = _active(active, r)
     for name, t, cols in (("prim_attr", prim_attr, 32),
                           ("mat_attr", mat_attr, 16)):
         if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
@@ -160,24 +196,26 @@ def primary_cuda(trv, prim_attr, mat_attr, o, d):
                          f"{n} triangles")
     attr, mat = prim_attr.contiguous(), mat_attr.contiguous()
     out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
+    counts = _counts(stats, r, dev)
     p = _build.ptr
     err = _build.library().restir_primary_hit(
-        p(o), p(d), p(planes), n, p(attr), p(mat), mat.shape[0], p(out),
-        r, _build.stream_of(dev))
+        p(o), p(d), p(active), *_tables(trv), p(attr), p(mat), mat.shape[0],
+        p(out), p(counts), r, _build.stream_of(dev))
     _build.check(err, "restir_primary_hit")
     primary_launches += 1
-    return out
+    return (out, counts) if stats else out
 
 
-def primary_hit(trv, prim_attr, mat_attr, o, d):
+def primary_hit(trv, prim_attr, mat_attr, o, d, active=None):
     """(prim [R] i32, dist [R], bary [R, 2], pos [R, 3], norm [R, 3],
-    uv [R, 2], mat_params [R, 12]) as `primary_hit_pallas` returns them;
-    mat_params columns: type, base colour (3), metallic, roughness, ior,
-    the four map ids, material id."""
+    uv [R, 2], mat_params [R, 12]) as `primary_hit_pallas` returns them,
+    with the miss pack on lanes where `active` is False; mat_params
+    columns: type, base colour (3), metallic, roughness, ior, the four
+    map ids, material id."""
     if _device_of(o) == "cpu":
-        out = primary_ref(trv, prim_attr, mat_attr, o, d)
+        out = primary_ref(trv, prim_attr, mat_attr, o, d, active)
     else:
-        out = primary_cuda(trv, prim_attr, mat_attr, o, d)
+        out = primary_cuda(trv, prim_attr, mat_attr, o, d, active)
     return unpack_primary(out)
 
 

@@ -32,8 +32,8 @@ from .texture import (
 def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
                   active=None, plain: bool = False):
     """-> (Interaction, SurfaceMaterial, Hit). With `active`, inactive
-    lanes miss; on the kernel route only their primitive and distance
-    are masked (pos, normal and material stay the real hit's)."""
+    lanes miss: the kernel does not walk them and writes its miss pack,
+    the plain route masks their primitive and distance."""
     if plain or not o.is_cuda:
         hit = ix.Hit(*intersect_bf.intersect_closest_bf(trv.tri_xform, o, d,
                                                         active))
@@ -43,10 +43,7 @@ def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
         return it._replace(norm=mapped), mat, hit
 
     prim, dist, bary, pos, norm, uv, matp = kernels.primary_hit(
-        trv, scene.prim_attr, scene.mat_attr, o, d)
-    if active is not None:
-        prim = torch.where(active, prim, ix.NULL_PRIMITIVE)
-        dist = torch.where(active, dist, torch.inf)
+        trv, scene.prim_attr, scene.mat_attr, o, d, active)
     base_color = matp[:, 1:4]
     base_map = matp[:, 7].to(torch.int32)
     base_color = torch.where((base_map == PROCEDURAL_TEXTURE)[..., None],

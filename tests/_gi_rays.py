@@ -1,9 +1,11 @@
-"""The rays kernel B8's twin casts, recorded for the walk tests.
+"""The rays a plain twin casts, recorded for the walk tests.
 
-`gi.gi_trace_ref` tests every triangle row through `ops.intersect_bf`;
-`gi_twin_rays` patches its two entry points to record each call's rays,
-so the tests can walk the same rays through the MTBVH
-(`ops/kernels/bvh_walk.py`) and compare.
+The plain twins test every triangle row through `ops.intersect_bf`:
+`gi.gi_trace_ref` (kernel B8's twin) and the CPU route of the general
+path's tracers (B11 / B12's twins). `cast_rays` patches the two entry
+points of `intersect_bf` to record each call's rays, so the tests can
+walk the same rays through the MTBVH (`ops/kernels/bvh_walk.py`) and
+compare.
 """
 
 from unittest import mock
@@ -12,12 +14,12 @@ from restir_tpu_torch.ops import intersect_bf as ibf
 from restir_tpu_torch.ops.kernels import gi
 
 
-def gi_twin_rays(in_pack, looper, scene, **kw):
-    """The rays B8's twin (`gi.gi_trace_ref`, keyword arguments `kw`)
-    casts on `in_pack`, in order, and its trace pack: (go, rays) with
-    ("closest", o, d, active) for each bounce's brute-force closest hit
-    and ("shadow", x, y, active) for each NEE segment's occlusion test
-    ([R, 3] tensors and a bool [R] mask, or None for every lane)."""
+def cast_rays(fn, *args, **kw):
+    """The rays fn(*args, **kw) casts through `intersect_bf`, in order,
+    and its result: (result, rays) with ("closest", o, d, active) for
+    each brute-force closest hit and ("shadow", x, y, active) for each
+    occlusion test ([R, 3] tensors and a bool [R] mask, or None for
+    every lane)."""
     closest, occlusion = ibf.intersect_closest_bf, ibf.test_occlusion_bf
     rays, inside = [], []
 
@@ -36,5 +38,11 @@ def gi_twin_rays(in_pack, looper, scene, **kw):
 
     with mock.patch.object(ibf, "intersect_closest_bf", record_closest), \
             mock.patch.object(ibf, "test_occlusion_bf", record_occlusion):
-        go = gi.gi_trace_ref(in_pack, looper, scene, **kw)
-    return go, rays
+        out = fn(*args, **kw)
+    return out, rays
+
+
+def gi_twin_rays(in_pack, looper, scene, **kw):
+    """The rays B8's twin (`gi.gi_trace_ref`, keyword arguments `kw`)
+    casts on `in_pack` and its trace pack: (go, rays) as `cast_rays`."""
+    return cast_rays(gi.gi_trace_ref, in_pack, looper, scene, **kw)

@@ -1,8 +1,9 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
 B3, B4, B5, the SVGF variance kernels, B6, B7, the general path's B10,
-B11 and B12, and ReSTIR GI's B8 and B9 on a CUDA card; the MTBVH walk
-counts of B6, B7 and B8 against the lockstep twin, and B1a against B6 +
-B7.
+B11 and B12 (bit for bit), and ReSTIR GI's B8 and B9 on a CUDA card;
+the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
+twin, B1a against B6 + B7, and the full path tracer's frames with and
+without B12's mask of live lanes.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -22,6 +23,7 @@ from restir_tpu_torch.ops.camera import make_camera, pack_camera
 from restir_tpu_torch import renderer
 from restir_tpu_torch.config import RenderConfig, TracerType
 from restir_tpu_torch.ops import intersect as tix
+from restir_tpu_torch.ops import intersect_bf
 from restir_tpu_torch.ops.camera import pixel_centers, sample_rays
 from restir_tpu_torch.ops.kernels import (
     atrous,
@@ -307,51 +309,151 @@ def general(cuda_device):
     return scene, cam, tix.traversal_arrays(scene), o.contiguous(), d
 
 
-def _on_cpu(trv):
-    """The traversal arrays on the CPU, for the twin on CPU rays."""
-    return trv._replace(tri_xform=trv.tri_xform.cpu(), planes=trv.planes.cpu())
-
-
 def test_b12_kernel_matches_twin(general):
+    """B12's pack equals primary_ref's on the card bit for bit."""
     scene, _, trv, o, d = general
     before = ki.primary_launches
     k = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
     r = ki.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d)
     assert ki.primary_launches == before + 1
-    same = k[ki.CH_PRIM] == r[ki.CH_PRIM]
-    assert float(same.float().mean()) >= 0.998
-    assert torch.allclose(k[:, same], r[:, same], rtol=2e-4, atol=1e-5)
-    miss = same & (r[ki.CH_PRIM] < 0)
+    assert torch.equal(k, r)
+    miss = r[ki.CH_PRIM] < 0
     assert float(miss.float().mean()) > 0.2
     row0 = scene.mat_attr[0, :11]
     assert torch.equal(k[ki.CH_MAT:ki.CH_MAT + 11][:, miss],
                        row0[:, None].expand(-1, int(miss.sum())))
 
 
+def test_b12_inactive_lanes_get_the_miss_pack(general):
+    """Lanes outside `active` are not walked and get the pack of a miss,
+    as primary_ref with the same mask writes it."""
+    scene, _, trv, o, d = general
+    active = torch.arange(R, device=o.device) % 3 != 0
+    k = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d, active)
+    r = ki.primary_ref(trv, scene.prim_attr, scene.mat_attr, o, d, active)
+    assert torch.equal(k, r)
+    full = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
+    assert torch.equal(k[:, active], full[:, active])
+    assert bool((full[ki.CH_PRIM][~active] >= 0).any())
+    assert bool((k[ki.CH_PRIM][~active] == -1).all())
+    assert bool(torch.isinf(k[ki.CH_DIST][~active]).all())
+
+
 def test_b11_closest_kernel_matches_twin(general):
+    """B11's closest hit equals intersect_bf's on the card: the primitive
+    on every lane, dist and barycentrics on hits bit for bit."""
     scene, _, trv, o, d = general
     pk, dk, bk = ki.closest_cuda(trv, o, d)
-    pr, dr, br = ki.closest_hit(_on_cpu(trv), o.cpu(), d.cpu())
-    pk, dk, bk = pk.cpu(), dk.cpu(), bk.cpu()
-    same = pk == pr
-    assert float(same.float().mean()) >= 0.998
-    hit = same & (pr >= 0)
-    assert torch.allclose(dk[hit], dr[hit], rtol=2e-4)
-    assert torch.allclose(bk[hit], br[hit], rtol=2e-4, atol=1e-5)
-    assert torch.all(torch.isinf(dk[pk < 0]))
-    assert torch.all(bk[pk < 0] == 0.0)
+    pr, dr, br = intersect_bf.intersect_closest_bf(trv.tri_xform, o, d)
+    assert torch.equal(pk, pr)
+    hit = pr >= 0
+    assert torch.equal(dk[hit], dr[hit])
+    assert torch.equal(bk[hit], br[hit])
+    assert torch.all(torch.isinf(dk[~hit]))
+    assert torch.all(bk[~hit] == 0.0)
 
 
-def test_b11_any_kernel_matches_twin(general):
+def test_b11_b12_degenerate_rays_miss(general):
+    """Zero and non-finite directions (a dead lane's ray) miss in B11 and
+    B12, as in their twins: the walk never reaches a leaf test that
+    hits."""
     scene, _, trv, o, d = general
+    nan, inf = float("nan"), float("inf")
+    bad = torch.tensor([[0.0, 0.0, 0.0], [nan, nan, nan], [nan, 0.0, 1.0],
+                        [inf, 0.0, 0.0], [0.0, -inf, 0.0], [inf, -inf, 1.0]],
+                       device=o.device)
+    d = bad.repeat(R // bad.shape[0] + 1, 1)[:R].contiguous()
+    prim, dist, bary = ki.closest_cuda(trv, o, d)
+    pr, _, _ = intersect_bf.intersect_closest_bf(trv.tri_xform, o, d)
+    assert bool((prim == -1).all()) and torch.equal(prim, pr)
+    assert bool(torch.isinf(dist).all()) and bool((bary == 0.0).all())
+    k = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d)
+    assert torch.equal(k, ki.primary_ref(trv, scene.prim_attr,
+                                         scene.mat_attr, o, d))
+
+
+def _segments(trv, o, d):
+    """Segments from the camera rays' hits to a point under the ceiling,
+    live where the ray hit."""
     prim, dist, _ = ki.closest_cuda(trv, o, d)
     pos = o + d * torch.where(torch.isfinite(dist), dist, 1.0)[:, None]
     target = torch.tensor([0.0, 8.0, 0.0], device=o.device).expand_as(pos)
-    active = prim >= 0
-    occ = ki.any_cuda(trv, pos, target.contiguous(), active).cpu()
-    ref = ki.any_hit(_on_cpu(trv), pos.cpu(), target.cpu(), active.cpu())
-    assert float((occ == ref).float().mean()) >= 0.998
-    assert not bool(occ[~active.cpu()].any())
+    return pos, target.contiguous(), prim >= 0
+
+
+def test_b11_any_kernel_matches_twin(general):
+    """B11's any hit equals test_occlusion_bf's on the card, every lane."""
+    scene, _, trv, o, d = general
+    pos, target, active = _segments(trv, o, d)
+    occ = ki.any_cuda(trv, pos, target, active)
+    ref = intersect_bf.test_occlusion_bf(trv.tri_xform, pos, target, active)
+    assert torch.equal(occ, ref)
+    assert bool(occ.any()) and not bool(occ[~active].any())
+
+
+def test_b11_b12_walk_counts_match_lockstep_twin(general):
+    """The COUNT builds' per-ray box and plane tests equal those of the
+    lockstep walks with the same leaf test, and the counted builds write
+    the same results as the plain ones."""
+    scene, _, trv, o, d = general
+    k, counts = ki.primary_cuda(trv, scene.prim_attr, scene.mat_attr, o, d,
+                                stats=True)
+    assert torch.equal(k, ki.primary_cuda(trv, scene.prim_attr,
+                                          scene.mat_attr, o, d))
+    *_, boxes, tris = bvh_walk.closest_walk(
+        scene.bvh, tuple(o.T), tuple(d.T), plane=bvh_walk.gi_plane)
+    assert torch.equal(counts[0], boxes) and torch.equal(counts[1], tris)
+    pk, _, _, c11 = ki.closest_cuda(trv, o, d, stats=True)
+    assert torch.equal(c11, counts)
+    assert torch.equal(pk, k[ki.CH_PRIM].to(torch.int32))
+    pos, target, active = _segments(trv, o, d)
+    occ, c_any = ki.any_cuda(trv, pos, target, active, stats=True)
+    assert torch.equal(occ, ki.any_cuda(trv, pos, target, active))
+    so, sd, limit = intersect_bf.occlusion_ray(pos, target)
+    _, boxes, tris = bvh_walk.occluded_walk(
+        scene.bvh, tuple(so.T), tuple(sd.T), torch.where(active, limit, -1.0),
+        torch.full((R,), -1, dtype=torch.int32, device=o.device),
+        plane=bvh_walk.gi_plane)
+    assert torch.equal(c_any[0], boxes) and torch.equal(c_any[1], tris)
+    assert int(c_any[0][~active].max()) == 0
+    assert float(tris.float().mean()) < scene.num_tris / 4
+
+
+@pytest.mark.parametrize("tracer", [TracerType.PT_FULL,
+                                    TracerType.PT_INDIRECT])
+def test_pt_frames_equal_with_and_without_b12_mask(general, tracer,
+                                                   monkeypatch):
+    """Dead paths' rays are not walked by B12: the frames equal those of
+    B12 walking every lane with the primitive and distance of dead lanes
+    masked afterwards, bit for bit."""
+    scene, cam, _, _, _ = general
+    cfg = RenderConfig(width=W, height=H, tracer=tracer, trace_depth=5)
+
+    def frames():
+        state = renderer.init_state(cfg, cam, device=scene.verts.device)
+        out = []
+        for _ in range(2):
+            state, frame = renderer.step(scene, state, cam, cfg)
+            out.append(frame)
+        return out
+
+    masked = frames()
+    real = ki.primary_hit
+    dead = []
+
+    def unmasked(trv, prim_attr, mat_attr, o, d, active=None):
+        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d)
+        if active is not None:
+            dead.append(int((~active).sum()))
+            prim = torch.where(active, prim, -1)
+            dist = torch.where(active, dist, torch.inf)
+        return (prim, dist, *rest)
+
+    monkeypatch.setattr(ki, "primary_hit", unmasked)
+    for a, b in zip(masked, frames()):
+        assert torch.equal(a, b)
+    assert len(dead) == 10 and min(dead) > 0
+    assert float(masked[-1].mean()) > 0.0
 
 
 def test_b10_kernel_matches_twin(general):
