@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
      (env and texture branches off) must be bit-identical to those of the
      build before those branches existed (SHA-256 below); B1's bound
      counts its two MTBVH walks per pixel with B6's and B7's counters on
-     the same rays;
+     the same rays; B3's time and its share of lanes equal to the twin
+     bit for bit at each of the 5 levels;
   4. MTBVH on the headline scene: its 426 triangles forced through B6
      (MTBVH closest hit) + B7 (RIS + MTBVH any hit) + B1b, held against
      B1's packs under the parity gates;
@@ -23,7 +24,8 @@ Phases (any failure exits non-zero and prints no result line):
      EAW denoiser, 8 warm-up + 32 timed frames, launch counts checked;
   7. SVGF on the headline scene: B5 (temporal accumulation), the two
      variance kernels and B4 (SVGF level, all 5 levels) against their
-     twins on B1's G-buffer and a random history, then the main path with
+     twins on B1's G-buffer and a random history (B4's time and exact
+     lanes per level), then the main path with
      denoiser=SVGF (launches per frame: fused_di 2, spatial 1,
      svgf_temporal 1, svgf_variance 1 + 5, atrous_svgf 5);
   8. env map and textures: env_scene (has_env_map) and
@@ -48,11 +50,14 @@ Phases (any failure exits non-zero and prints no result line):
      lanes, on the bounce rays that sample_bsdf draws at those hits, B11
      closest hit on those bounce rays and its any-hit variant on NEE
      segments (`kernel_ab.general_rays`), B10 (CDF RIS + winner
-     visibility) on the general G-buffer; gates: primitive match >=
+     visibility, an MTBVH walk) on the general G-buffer, its counting
+     build writing the same pack, with its share of same-pick lanes whose
+     occlusion equals the twin's; gates: primitive match >=
      99.8 %, pick match >= 99.5 %, matched lanes within rtol 2e-4 on >=
      99.9 %, M equal on >= 99.99 %, and B11 / B12 equal to their twins
-     bit for bit on every lane (their MTBVH walks' box and plane tests
-     per ray and per warp from the counting builds give their bounds);
+     bit for bit on every lane (their and B10's MTBVH walks' box and
+     plane tests per ray and per warp from the counting builds give
+     their bounds);
      PT-full's share of dead lanes by bounce, and PT_FULL / PT_INDIRECT
      frames with B12's mask equal bit for bit to frames without it;
  13. general main paths through renderer.init_state / step at 1920x1080:
@@ -423,8 +428,9 @@ def phase_kernels(scene, cfg, cam, dev, record):
         frac = parity.close_fraction(out_r, out_k, 1e-5, 1e-6)
         err = float((out_r - out_k).abs().max())
         err_b3 = max(err_b3, err)
-        print(f"B3 level {level} vs twin: close {frac:.6f}, "
-              f"max abs err {err:.3g}")
+        exact = float(bits_equal(out_k, out_r).all(0).float().mean())
+        print(f"B3 level {level} vs twin: close {frac:.6f}, exact lanes "
+              f"{exact:.6f}, max abs err {err:.3g}")
         if frac < 0.999:
             raise PhaseError(f"B3 level {level} disagrees on {1 - frac:.5f}")
         ms_b3.append(cuda_ms(lambda: atrous.atrous_level_cuda(
@@ -877,8 +883,11 @@ def phase_svgf_kernels(cfg, gb, dev, record):
         fvar = parity.close_fraction(vr[None], vk[None], 1e-5, 1e-6)
         err = max(float((cr - ck).abs().max()), float((vr - vk).abs().max()))
         err4 = max(err4, err)
+        exact = float((bits_equal(ck, cr).all(0)
+                       & bits_equal(vk, vr)).float().mean())
         print(f"B4 level {level} vs twin: colour close {fc:.6f}, variance "
-              f"close {fvar:.6f}, max abs err {err:.3g}")
+              f"close {fvar:.6f}, exact lanes {exact:.6f}, max abs err "
+              f"{err:.3g}")
         if min(fc, fvar) < 0.999:
             raise PhaseError(f"B4 level {level} disagrees with its twin")
         c_in, v_in = col, var
@@ -1044,36 +1053,6 @@ def phase_sky_hall(sf, cam, dev):
         "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
         "atrous_eaw": cfg.eaw_levels})
     profile_frames("sky hall", scene, cfg, cam, dev)
-
-
-def first_blocker_tests(planes, n_tris, o, d, limit, exclude, active):
-    """Plane tests an early-exit any-hit walk over the scene's triangles
-    needs for these rays: the first blocking triangle's index + 1, or
-    every triangle (computed in chunks with the twins' plane products;
-    the table's zero padding rows are no work of the function)."""
-    planes = planes[:n_tris]
-    total = 0
-    chunk = fused_di.chunk_pixels(n_tris)
-    for p0 in range(0, o[0].shape[0], chunk):
-        sl = slice(p0, p0 + chunk)
-        act = active[sl]
-        if not bool(act.any()):
-            continue
-        oo = tuple(c[sl][act] for c in o)
-        dd = tuple(c[sl][act] for c in d)
-        oou, oov, oow, ddu, ddv, ddw = fused_di._hit_loop(planes, oo, dd)
-        nondeg = torch.abs(ddw) >= 1e-12
-        t = -oow / torch.where(nondeg, ddw, 1.0)
-        u, v = oou + t * ddu, oov + t * ddv
-        blocked = (nondeg & (t > 0) & (u >= 0) & (v >= 0) & (u + v <= 1)
-                   & (t < limit[sl][act][:, None]))
-        if exclude is not None:
-            ids = torch.arange(n_tris, device=planes.device)[None, :]
-            blocked &= ids != exclude[sl][act][:, None]
-        first = torch.where(blocked.any(1), blocked.int().argmax(1) + 1,
-                            n_tris)
-        total += int(first.sum())
-    return total
 
 
 def _facing(norm, wo, mtype):
@@ -1315,9 +1294,13 @@ def phase_general_kernels(scene, cam, dev, record, launches, flags):
                                shade, it.prim_id)
     kw = dict(k=dcfg.cdf_candidates, single_sided=dcfg.single_sided_lights,
               has_met=dcfg.scene_has_metallic)
-    k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, **kw)
+    k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, **kw)
+    kc10, c10 = ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, stats=True,
+                                     **kw)
     r10 = ris_cdf.ris_cdf_ref(pack, 1, t, **kw)
     torch.cuda.synchronize()
+    if not bool(bits_equal(kc10, k10).all()):
+        raise PhaseError("B10's counting build writes another pack")
     li, wi_, w_ = ris_cdf.OUT_LI, ris_cdf.OUT_WI, ris_cdf.OUT_W
     pick = (torch.all(k10[li:li + 3] == r10[li:li + 3], 0)
             & torch.all(torch.isclose(k10[wi_:wi_ + 3], r10[wi_:wi_ + 3],
@@ -1328,32 +1311,28 @@ def phase_general_kernels(scene, cam, dev, record, launches, flags):
                                  atol=1e-7).float().mean())
     m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
     err10 = float((k10[w_][ok] - r10[w_][ok]).abs().max())
+    occ_eq = float(((k10[w_] == 0) == (r10[w_] == 0))[ok].float().mean())
     print(f"B10 ris_cdf vs twin on the general G-buffer: pick match {pm:.6f}, "
           f"weights within rtol 2e-4 {wclose:.6f}, M equal {m_eq:.6f}, "
-          f"visible winners {float((k10[w_][shade] > 0).float().mean()):.4f}")
+          f"occlusion equal on same-pick lanes {occ_eq:.6f}, visible "
+          f"winners {float((k10[w_][shade] > 0).float().mean()):.4f}")
     if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
         raise PhaseError("B10 disagrees with its twin")
-    ms = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, **kw), 10)
+    ms = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, **kw),
+                 10)
     ms_ref = cuda_ms(lambda: ris_cdf.ris_cdf_ref(pack, 1, t, **kw), 1)
-    # the shadow rays this run traces: live winners, first blocker
-    # (excluding the pixel's own triangle) or every row
-    gbv = ris_cdf._gb_view(pack)
-    pix = torch.arange(r, device=dev)
-    _, rwi, rdist, rw = fused_di.ris_pixels(gbv, pix, 1, t, **kw)
-    o10 = tuple(gbv[fused_di.G_POS + c] + rwi[c] * 1e-5 for c in range(3))
-    tests10 = first_blocker_tests(
-        t.planes, n_tris, o10, tuple(rwi), rdist * (1.0 - 1e-3) - 1e-4,
-        gbv[fused_di.G_PRIM].to(torch.int64), rw > 0)
+    # the shadow walks this run makes: lanes with a live winner
+    boxes, tests = walk_line("B10 shadow", c10, c10[0] > 0)
     n_l = t.n_lights
     b = bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
-              + table_bytes(t.lights[:n_l], t.psi[:n_l], planes),
+              + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
               r * (2 * n_l * FLOP_LIGHT + dcfg.cdf_candidates * FLOP_CAND)
-              + tests10 * FLOP_PLANE)
+              + boxes * FLOP_BOX + tests * FLOP_PLANE)
     record["ris_cdf"] = dict(max_abs_err=err10, ms=ms, plain_ms=ms_ref,
                              bound_ms=b[0], bound_by=b[1], library_ms=None)
     print(f"B10 ris_cdf: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}; {n_l} lights, "
-          f"{tests10 / r:.1f} plane tests per pixel)")
+          f"{b[0]:.4f} ms ({b[1]}; {n_l} lights, {boxes / r:.2f} box and "
+          f"{tests / r:.2f} plane tests per pixel)")
 
 
 def phase_general_main(name, scene, cfg, cam, dev, per_frame, warmup,

@@ -1,6 +1,6 @@
-"""Time kernels B1, B6, B7, B8, B11 and B12 of several checkouts of
-restir_tpu_torch on one card, in turns, and check which write the same
-packs.
+"""Time kernels B1, B3, B4, B6, B7, B8, B10, B11 and B12 of several
+checkouts of restir_tpu_torch on one card, in turns, and check which
+write the same packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -22,6 +22,14 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   on NEE segments from the camera hits (`general_rays`, built from the
   plain twin so every tree gets the same rays), as chip_smoke.py phase
   12 calls them;
+- B10 (`ris_cdf.ris_cdf_cuda`) on the general G-buffer pack of the
+  headline scene, as chip_smoke.py phase 12 builds it (a tree whose B10
+  takes no MTBVH is called without one);
+- B3 (`atrous.atrous_level_cuda`), levels 0-4 in turn, each on the last
+  level's output, from the headline frame's demodulated colour (B1, then
+  B2 on a seeded accumulator), as chip_smoke.py phase 3 calls it; and B4
+  (`atrous.atrous_svgf_cuda`), levels 0-4, on SVGF's inputs (B5 on a
+  seeded history, the variance kernels) as phase 7 calls it;
 - B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
   and on scenes/hall.txt (81,036 triangles) and the same hall under a
   code-made sky (512 env tiles), frame 1 from chip_smoke.py phase 9's
@@ -96,13 +104,24 @@ def _child() -> None:
     sys.path.insert(0, os.getcwd())
     import inspect
 
+    import numpy as np
     import torch
 
     from restir_tpu_torch import convert
     from restir_tpu_torch.config import RenderConfig, TracerType, mat_flags
+    from restir_tpu_torch.models import gbuffer as general_gb
     from restir_tpu_torch.models import restir_di_fused, restir_gi
     from restir_tpu_torch.ops.camera import make_camera, pack_camera
-    from restir_tpu_torch.ops.kernels import fused_di, gbuffer, gi, reuse
+    from restir_tpu_torch.ops.kernels import (
+        atrous,
+        fused_di,
+        gbuffer,
+        gi,
+        reuse,
+        ris_cdf,
+        spatial,
+        svgf,
+    )
     from restir_tpu_torch.ops.kernels import intersect as hits
     from restir_tpu_torch.scene.loader import parse_scene_file
     from restir_tpu_torch.scene.procedural import (
@@ -155,13 +174,54 @@ def _child() -> None:
         zeros = torch.zeros((fused_di.PT_CH, WIDTH * HEIGHT), device=dev)
         _, pt0 = di_resident(cv, cv, 0, zeros, scene, **kw)
         timed(name, lambda: di_resident(cv2, cv, 1, pt0, scene, **kw))
-        return scene, cfg, cv, cv2
+        return scene, cfg, cv, cv2, pt0, kw
 
     arrays, camkw = many_light_scene(64, 24)
     cam = make_camera(**camkw)
     cam2 = make_camera(position=(0.25, 4.5, 15.0),
                        rotation=(-90.5, -10.0, 0.0), fov_y=30.0)
-    scene, cfg, cv, cv2 = b1("B1 headline", arrays, cam, cam2)
+    scene, cfg, cv, cv2, pt0, kw = b1("B1 headline", arrays, cam, cam2)
+    gb_k, pt_k = di_resident(cv2, cv, 1, pt0, scene, **kw)
+    r = WIDTH * HEIGHT
+    offs = spatial.spatial_offsets(1, r, WIDTH, cfg.spatial_neighbors,
+                                   cfg.spatial_radius, dev)
+    acc0 = torch.as_tensor(
+        np.random.default_rng(0).random((3, r), dtype=np.float32), device=dev)
+    acc = spatial.spatial_shade_cuda(
+        offs, gb_k, pt_k, acc0, 1, 3, width=WIDTH, height=HEIGHT,
+        neighbors=cfg.spatial_neighbors, has_met=cfg.scene_has_metallic)
+    alb = torch.clamp(gb_k[fused_di.G_ALB:fused_di.G_ALB + 3], min=0.0)
+    color = acc / torch.where(alb > 1e-4, alb, 1.0)
+    akw = dict(width=WIDTH, height=HEIGHT, sig_l=cfg.sig_luminance,
+               sig_n=cfg.sig_normal, sig_d=cfg.sig_depth)
+    for level in range(cfg.eaw_levels):
+        c_in = color
+        timed(f"B3 level {level}", lambda: atrous.atrous_level_cuda(
+            c_in, gb_k, level=level, **akw))
+        color = atrous.atrous_level_cuda(c_in, gb_k, level=level, **akw)
+    g5 = np.random.default_rng(5)
+    prev = torch.as_tensor(g5.random((svgf.SV_CH, r), dtype=np.float32),
+                           device=dev)
+    prev[svgf.SV_HIST] = torch.as_tensor(
+        g5.integers(0, 8, r).astype(np.float32), device=dev)
+    prev[svgf.SV_PRIM] = gb_k[fused_di.G_PRIMR]
+    prev[svgf.SV_NORM:svgf.SV_NORM + 3] = gb_k[fused_di.G_NORM:
+                                               fused_di.G_NORM + 3]
+    sv = svgf.svgf_temporal_cuda(gb_k, torch.as_tensor(
+        g5.random((3, r), dtype=np.float32), device=dev), prev)
+    vkw = dict(width=WIDTH, height=HEIGHT)
+    col = sv[svgf.SV_COL:svgf.SV_COL + 3].contiguous()
+    var = svgf.estimate_variance(sv, **vkw)
+    skw = dict(width=WIDTH, height=HEIGHT, sig_l=cfg.sig_luminance,
+               sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
+    for level in range(cfg.eaw_levels):
+        fv = svgf.filter_variance(var, **vkw)
+        c_in, v_in = col, var
+        timed(f"B4 level {level}", lambda: atrous.atrous_svgf_cuda(
+            c_in, v_in, fv, gb_k, level=level, **skw))
+        col, var = atrous.atrous_svgf_cuda(c_in, v_in, fv, gb_k, level=level,
+                                           **skw)
+    del gb_k, pt_k, acc, color, prev, sv, col, var, fv
     gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
                               height=HEIGHT)
     timed("B6 headline", lambda: gbuffer.gbuffer_cuda(
@@ -183,6 +243,24 @@ def _child() -> None:
         trv, g["ro"], g["rd"]))
     timed("B11 any NEE segments", lambda: hits.any_cuda(
         trv, g["pos"], g["target"], g["shoot"]))
+    # B10 on the general G-buffer; it takes the MTBVH since its walk
+    dcfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                        tracer=TracerType.RESTIR_DI)
+    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam,
+                                                        dcfg, 1)
+    wo = -ray_dir
+    flip = (gmat.type != 2) & ((it.norm * wo).sum(-1) < 0)
+    pack = ris_cdf.pack_inputs(
+        it.pos, torch.where(flip[:, None], -it.norm, it.norm), wo,
+        gmat.type, gmat.metallic, gmat.roughness,
+        it.valid & (gbuf.prim_id != general_gb.LIGHT_ID), it.prim_id)
+    b10_bvh = ((scene.bvh,) if "bvh" in inspect.signature(
+        ris_cdf.ris_cdf_cuda).parameters else ())
+    timed("B10 general G-buffer", lambda: ris_cdf.ris_cdf_cuda(
+        pack, 1, scene.tables, *b10_bvh, k=dcfg.cdf_candidates,
+        single_sided=dcfg.single_sided_lights,
+        has_met=dcfg.scene_has_metallic))
+    del gbuf, it, gmat, ray_dir, wo, pack
     del g, trv
     for name, (sc_arrays, sc_kw), flags in (
             ("B1 env", env_scene(), dict(has_env=True)),

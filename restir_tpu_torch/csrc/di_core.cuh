@@ -632,6 +632,13 @@ __device__ __forceinline__ float shadow_limit(const Candidate& c) {
   return c.dist * 0.999f - 1e-4f;
 }
 
+// That ray from surface s towards its winner c (B1a, B7, B10).
+__device__ __forceinline__ PlaneRay shadow_ray(const Surface& s,
+                                               const Candidate& c) {
+  return {s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
+          s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2]};
+}
+
 // Write the rs pack column of pixel p (weight zeroed when occluded).
 __device__ __forceinline__ void write_rs(float* __restrict__ rs, int p, int r,
                                         const Candidate& c, bool occluded) {

@@ -92,10 +92,8 @@ __global__ void __launch_bounds__(256, HAS_ENV ? 1 : 3) di_gbuffer_ris_kernel(
                                           single_sided, has_met, s);
 
   // ---- winner visibility: any hit before the light, own triangle excluded
-  const PlaneRay sr = {s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
-                       s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2]};
-  const bool occluded =
-      occluded_walk<false>(bvh, sr, shadow_limit(c), s.prim, n);
+  const bool occluded = occluded_walk<false>(bvh, shadow_ray(s, c),
+                                             shadow_limit(c), s.prim, n);
   write_rs(rs, p, r, c, occluded);
 }
 

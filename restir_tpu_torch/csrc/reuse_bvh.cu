@@ -50,10 +50,8 @@ __global__ void __launch_bounds__(256) reuse_bvh_kernel(
                                           (uint32_t)p, looper, k,
                                           single_sided, has_met, s);
   WalkCount n = {0, 0};
-  const PlaneRay sr = {s.px + c.wi[0] * 1e-5f, s.py + c.wi[1] * 1e-5f,
-                       s.pz + c.wi[2] * 1e-5f, c.wi[0], c.wi[1], c.wi[2]};
-  const bool occluded =
-      occluded_walk<COUNT>(bvh, sr, shadow_limit(c), s.prim, n);
+  const bool occluded = occluded_walk<COUNT>(bvh, shadow_ray(s, c),
+                                             shadow_limit(c), s.prim, n);
   write_rs(rs, p, r, c, occluded);
   if (COUNT) {
     stats[p] = n.boxes;

@@ -113,7 +113,7 @@ def _ris_cdf(scene, pos, dmat, norm, wo, shade, prim_id, cfg: RenderConfig,
     if pos.is_cuda and not cfg.has_env_map:
         li, wi, dist, weight, m = ris_kernel.ris_cdf(
             pos, norm, wo, dmat.type, dmat.metallic, dmat.roughness, shade,
-            prim_id, looper, scene.tables, k=cfg.cdf_candidates,
+            prim_id, looper, scene.tables, scene.bvh, k=cfg.cdf_candidates,
             single_sided=cfg.single_sided_lights,
             has_met=cfg.scene_has_metallic)
         return rsv.Reservoir(sample=rsv.DirectSample(li=li, wi=wi, dist=dist),

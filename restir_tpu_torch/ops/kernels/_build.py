@@ -133,6 +133,7 @@ _SIGNATURES = {
         _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
     "restir_atrous_svgf": [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
+    "restir_atrous_div_check": [_F, _VP, _VP],
     "restir_gbuffer_bvh": [
         _VP, _VP, _U, _VP, _I, _VP, _VP, _VP, _I,
         _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
@@ -149,7 +150,8 @@ _SIGNATURES = {
     "restir_primary_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
     "restir_ris_cdf": [
-        _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP],
+        _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I,
+        _VP],
     "restir_gi_trace": [
         _VP, _I, _U, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _I, _F, _I, _I,
         _I, _I, _I, _VP, _VP, _VP],

@@ -15,6 +15,13 @@ sigma_l * sqrt(prefiltered variance), the normal weight is
 max(n.n', 0)^sigma_n (as exp(sigma_n log(.)), the JAX kernel's form),
 every weight gets + 1e-4, and the variance is filtered with the squared
 weights. It returns colour [3, R] and variance [R].
+
+On the card both kernels stage a 32 x 8 tile and its halo of every
+channel in shared memory and sum the taps from there, in the twins'
+order; see `csrc/atrous.cu`. They take levels 0 to MAX_LEVEL. For
+sigmas in [FAST_MIN, FAST_MAX] they divide by a sigma through div.rn's
+fast path with the sigma's reciprocal hoisted out of the taps;
+`division_mismatches` checks that against div.rn over every float.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from .fused_di import G_NORM, G_POS, G_PRIMR, GB_CH, NULL, _check
 launches = 0  # CUDA kernel launches (B3)
 svgf_launches = 0  # CUDA kernel launches (B4)
 F32_EPS = 1.1920928955078125e-07  # float32 machine epsilon
+MAX_LEVEL = 24  # the kernels' widest stride is 2^24 (csrc/atrous.cu)
+FAST_MIN, FAST_MAX = 1e-6, 1e6  # sigmas the hoisted division takes
 
 # 5x5 Gaussian (denoiser.cu:11-17)
 GAUSSIAN_5 = (
@@ -92,12 +101,18 @@ def atrous_level_ref(color, gb, *, level, width, height, sig_l, sig_n,
     return torch.where(keep[None], c, out).reshape(3, h * w)
 
 
+def _check_level(level):
+    if not 0 <= level <= MAX_LEVEL:
+        raise ValueError(f"level {level} outside [0, {MAX_LEVEL}]")
+
+
 def atrous_level_cuda(color, gb, *, level, width, height, sig_l, sig_n,
                       sig_d):
     """Launch the B3 kernel of `csrc/atrous.cu` for one level."""
     global launches
     r = width * height
     dev = color.device
+    _check_level(level)
     _check(color, "color", (3, r), dev)
     _check(gb, "gb", (GB_CH, r), dev)
     out = torch.empty_like(color)
@@ -187,6 +202,7 @@ def atrous_svgf_cuda(color, var, fv, gb, *, level, width, height, sig_l,
     global svgf_launches
     r = width * height
     dev = color.device
+    _check_level(level)
     _check(color, "color", (3, r), dev)
     _check(var, "var", (r,), dev)
     _check(fv, "fv", (r,), dev)
@@ -213,3 +229,15 @@ def atrous_svgf_level(color, var, fv, gb, *, level, width, height, sig_l,
     if color.device.type == "cuda":
         return atrous_svgf_cuda(color, var, fv, gb, **kw)
     raise ValueError(f"unsupported device {color.device}")
+
+
+def division_mismatches(sig, device) -> int:
+    """On the card: how many floats d >= 0 give expf(-d / sig) other bits
+    through the kernels' hoisted division than through div.rn (NaN
+    agrees with NaN). The kernels take the hoisted division for sigmas
+    in [FAST_MIN, FAST_MAX]; there it must be 0."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    err = _build.library().restir_atrous_div_check(
+        ctypes.c_float(sig), _build.ptr(count), _build.stream_of(device))
+    _build.check(err, "restir_atrous_div_check")
+    return int(count.item())

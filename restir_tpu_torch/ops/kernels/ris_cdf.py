@@ -3,14 +3,16 @@ winner's shadow ray, and its plain PyTorch version.
 
 Port of `restir_tpu.ops.pallas.ris_kernel.ris_cdf_pallas`
 (`_ris_kernel`): per pixel, K draws from the exact per-pixel CDF over all
-area lights, a single-draw winner, then a brute-force any hit of the
-winner's shadow ray with self-exclusion of the pixel's own triangle and a
-relative distance margin; an occluded winner's weight comes back zero.
-The math is B1's RIS core, so the CUDA kernel (`csrc/ris_cdf.cu`) calls
-`di_core.cuh`'s `ris_select` and the plain version calls B1's twins
-(`fused_di.ris_pixels`, `fused_di.shadow_pixels`) on a G-buffer-shaped
-view of the input pack. The light rows are `tables.light_tables`'s
-(`ris_kernel.build_light_tables`' rows, no env tiles).
+area lights, a single-draw winner, then an any hit of the winner's
+shadow ray with self-exclusion of the pixel's own triangle and a relative
+distance margin; an occluded winner's weight comes back zero. The math is
+B1's RIS core, so the CUDA kernel (`csrc/ris_cdf.cu`) calls
+`di_core.cuh`'s `ris_select` and walks the scene's MTBVH (`scene.bvh`)
+with the twin's leaf test, and the plain version calls B1's twins
+(`fused_di.ris_pixels`, `fused_di.shadow_pixels`: every triangle row) on
+a G-buffer-shaped view of the input pack. The light rows are
+`tables.light_tables`'s (`ris_kernel.build_light_tables`' rows, no env
+tiles).
 
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
@@ -35,7 +37,8 @@ from .fused_di import (
     MAX_K,
     SMEM_MAX,
 )
-from .tables import ResidentTables
+from .gbuffer import _check_bvh
+from .tables import BvhTables, ResidentTables
 
 launches = 0  # B10 launches
 
@@ -45,7 +48,6 @@ IN_MTYPE, IN_METAL, IN_ROUGH, IN_SHADE, IN_PRIM = 9, 10, 11, 12, 13
 CIN = 14
 OUT_LI, OUT_WI, OUT_DIST, OUT_W, OUT_M = 0, 3, 6, 7, 8
 COUT = 10  # li(3) wi(3) dist weight m pad
-PCHUNK = 256  # plane rows the kernel stages in shared memory
 
 
 def pack_inputs(pos, norm, wo, mtype, metallic, roughness, shade, prim_id):
@@ -95,9 +97,10 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
     return out
 
 
-def ris_cdf_cuda(pack, looper, tables: ResidentTables, *, k=4,
-                 single_sided=True, has_met=True):
-    """B10 on the card: the [COUT, R] output pack."""
+def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
+                 k=4, single_sided=True, has_met=True, stats=False):
+    """B10 on the card: the [COUT, R] output pack. With `stats`, also
+    the int32 [2, R] box and plane test counts of each shadow walk."""
     global launches
     r = pack.shape[1]
     dev = pack.device
@@ -105,41 +108,45 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, *, k=4,
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if pack.dtype != torch.float32 or tuple(pack.shape) != (CIN, r):
         raise ValueError(f"input pack: expected float32 [{CIN}, {r}]")
-    lights, psi, planes = tables.lights, tables.psi, tables.planes
-    for t in (lights, psi, planes):
+    lights, psi = tables.lights, tables.psi
+    for t in (lights, psi):
         if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("light and plane tables must be float32 on "
-                             f"{dev}")
+            raise ValueError(f"light tables must be float32 on {dev}")
+    _check_bvh(bvh, dev)
     l_pad = psi.shape[0]
-    smem = (l_pad * 32 + PCHUNK * 12) * 4
+    smem = l_pad * 32 * 4
     if smem > SMEM_MAX:
         raise ValueError(f"B10 holds {l_pad} light rows in shared memory: "
                          f"{smem} bytes, over the {SMEM_MAX} a block can use")
     pack = pack.contiguous()
     out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
+    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
+              if stats else None)
     p = _build.ptr
     err = _build.library().restir_ris_cdf(
         p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-        l_pad, tables.n_lights, p(planes), planes.shape[0], p(out), r,
-        int(single_sided), k, int(has_met), _build.stream_of(dev))
+        l_pad, tables.n_lights, p(bvh.rows), bvh.size, p(bvh.planes),
+        p(out), p(counts), r, int(single_sided), k, int(has_met),
+        _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
     launches += 1
-    return out
+    return (out, counts) if stats else out
 
 
 def ris_cdf(pos, norm, wo, mtype, metallic, roughness, shade, prim_id,
-            looper, tables: ResidentTables, *, k=4, single_sided=True,
-            has_met=True):
+            looper, tables: ResidentTables, bvh: BvhTables, *, k=4,
+            single_sided=True, has_met=True):
     """(li [R, 3], wi [R, 3], dist [R], weight [R], m [R] int32) with the
     weights of occluded winners zeroed, as `ris_cdf_pallas` returns them.
-    `norm` is the shading normal already turned toward wo."""
+    `norm` is the shading normal already turned toward wo. The kernel
+    walks the scene's MTBVH `bvh`; the plain version reads none."""
     pack = pack_inputs(pos, norm, wo, mtype, metallic, roughness, shade,
                        prim_id)
     kw = dict(k=k, single_sided=single_sided, has_met=has_met)
     if pack.device.type == "cpu":
         out = ris_cdf_ref(pack, looper, tables, **kw)
     elif pack.device.type == "cuda":
-        out = ris_cdf_cuda(pack, looper, tables, **kw)
+        out = ris_cdf_cuda(pack, looper, tables, bvh, **kw)
     else:
         raise ValueError(f"unsupported device {pack.device}")
     return (out[OUT_LI:OUT_LI + 3].T, out[OUT_WI:OUT_WI + 3].T,

@@ -1,5 +1,5 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
-B3, B4, B5, the SVGF variance kernels, B6, B7, the general path's B10,
+B3, B4 (also on images that cut their tiles ragged), B5, the SVGF variance kernels, B6, B7, the general path's B10,
 B11 and B12 (bit for bit), and ReSTIR GI's B8 and B9 on a CUDA card;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
@@ -110,6 +110,97 @@ def test_b3_kernel_matches_twin(frame, level):
     k = atrous.atrous_level_cuda(color, gb, **kw)
     r = atrous.atrous_level_ref(color, gb, **kw)
     assert parity.close_fraction(r, k, 1e-5, 1e-6) >= 0.999
+
+
+def _guides(w, h, dev):
+    """A seeded colour [3, R] and gb pack whose guides (prim remap -1..3
+    in blocks, normals and positions per block with noise) reject taps
+    at the block edges, for a w x h image."""
+    g = np.random.default_rng(w * h)
+    r = w * h
+    y, x = np.divmod(np.arange(r), w)
+    prim = (x // 24 + 3 * (y // 10)) % 5 - 1
+    gb = np.zeros((fused_di.GB_CH, r), np.float32)
+    gb[fused_di.G_PRIMR] = prim
+    n = g.normal(size=(5, 3))[prim + 1].T + 0.05 * g.normal(size=(3, r))
+    gb[fused_di.G_NORM:fused_di.G_NORM + 3] = n / np.linalg.norm(n, axis=0)
+    gb[fused_di.G_POS:fused_di.G_POS + 3] = (
+        np.stack([x * 0.01, y * 0.01, 0.1 * prim])
+        + 0.01 * g.normal(size=(3, r)))
+    color = g.random((3, r), dtype=np.float32)
+    return (torch.as_tensor(color, device=dev),
+            torch.as_tensor(gb, device=dev))
+
+
+# ragged tiles: 200x75 and 1920x1080 cut the 32 x 8 tiles, and 24 rows
+# are fewer than the level-4 stride's reach (2 x 16)
+RAGGED = [(200, 75), (1920, 1080), (256, 24)]
+
+
+@pytest.mark.parametrize("width,height", RAGGED)
+def test_b3_matches_twin_on_ragged_tiles(cuda_device, width, height):
+    color, gb = _guides(width, height, cuda_device)
+    kw = dict(width=width, height=height, sig_l=1.0, sig_n=0.2, sig_d=64.0)
+    for level in range(5):
+        before = atrous.launches
+        k = atrous.atrous_level_cuda(color, gb, level=level, **kw)
+        assert atrous.launches == before + 1
+        r = atrous.atrous_level_ref(color, gb, level=level, **kw)
+        assert parity.close_fraction(r, k, 1e-5, 1e-6) >= 0.999, level
+        color = k
+
+
+@pytest.mark.parametrize("width,height", RAGGED)
+def test_b4_matches_twin_on_ragged_tiles(cuda_device, width, height):
+    color, gb = _guides(width, height, cuda_device)
+    g = np.random.default_rng(7)
+    var = torch.as_tensor(g.random(width * height, dtype=np.float32),
+                          device=cuda_device)
+    kw = dict(width=width, height=height, sig_l=1.0, sig_n=128.0, sig_d=4.0)
+    for level in range(5):
+        fv = svgf.filter_variance(var, width=width, height=height)
+        before = atrous.svgf_launches
+        ck, vk = atrous.atrous_svgf_cuda(color, var, fv, gb, level=level,
+                                         **kw)
+        assert atrous.svgf_launches == before + 1
+        cr, vr = atrous.atrous_svgf_ref(color, var, fv, gb, level=level,
+                                        **kw)
+        assert parity.close_fraction(cr, ck, 1e-5, 1e-6) >= 0.999, level
+        assert parity.close_fraction(vr[None], vk[None], 1e-5,
+                                     1e-6) >= 0.999, level
+        color, var = ck, vk
+
+
+def test_b3_b4_match_twins_with_sigmas_outside_the_hoisted_range(
+        cuda_device):
+    """A sigma outside [FAST_MIN, FAST_MAX] sends B3 and B4 to div.rn
+    itself; both still match their twins."""
+    color, gb = _guides(200, 75, cuda_device)
+    var = torch.as_tensor(np.random.default_rng(8).random(
+        200 * 75, dtype=np.float32), device=cuda_device)
+    fv = svgf.filter_variance(var, width=200, height=75)
+    for level in (0, 3):
+        kw = dict(level=level, width=200, height=75, sig_l=1.0, sig_n=2e6,
+                  sig_d=64.0)
+        k = atrous.atrous_level_cuda(color, gb, **kw)
+        r = atrous.atrous_level_ref(color, gb, **kw)
+        assert parity.close_fraction(r, k, 1e-5, 1e-6) >= 0.999, level
+        kw.update(sig_n=128.0, sig_d=2e6)
+        ck, vk = atrous.atrous_svgf_cuda(color, var, fv, gb, **kw)
+        cr, vr = atrous.atrous_svgf_ref(color, var, fv, gb, **kw)
+        assert parity.close_fraction(cr, ck, 1e-5, 1e-6) >= 0.999, level
+        assert parity.close_fraction(vr[None], vk[None], 1e-5,
+                                     1e-6) >= 0.999, level
+
+
+@pytest.mark.parametrize("sig", [1e-6, 0.2, 0.37, 1.0, 4.0, 64.0, 128.0,
+                                 3.3e5, 1e6])
+def test_atrous_hoisted_division_matches_div_rn(cuda_device, sig):
+    """B3 / B4 divide by a sigma through div.rn's fast path with the
+    reciprocal hoisted; after expf it must agree with div.rn for every
+    float d >= 0 (the config's sigmas and the ends of the range)."""
+    assert atrous.FAST_MIN <= sig <= atrous.FAST_MAX
+    assert atrous.division_mismatches(sig, cuda_device) == 0
 
 
 @pytest.fixture(scope="module")
@@ -469,7 +560,7 @@ def test_b10_kernel_matches_twin(general):
     pack = ris_cdf.pack_inputs(it.pos, norm, wo, mat.type, mat.metallic,
                                mat.roughness, shade, it.prim_id)
     before = ris_cdf.launches
-    k = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables)
+    k = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh)
     r = ris_cdf.ris_cdf_ref(pack, 5, scene.tables)
     assert ris_cdf.launches == before + 1
     s = shade
@@ -481,6 +572,45 @@ def test_b10_kernel_matches_twin(general):
                           rtol=2e-4, atol=1e-7)
     assert float(close.float().mean()) >= 0.999
     assert torch.equal(k[ris_cdf.OUT_M], r[ris_cdf.OUT_M])
+
+
+def test_b10_walk_matches_twin_at_1080p(cuda_device):
+    """B10 on the headline scene's general G-buffer at 1920x1080: phase
+    12's gates, and on every lane where kernel and twin pick the same
+    winner the kernel's walk zeroes the weight exactly where the twin's
+    every-row loop does."""
+    from restir_tpu_torch.models import gbuffer as tgb
+
+    arrays, camkw = many_light_scene(64, 24)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam = make_camera(**camkw)
+    cfg = RenderConfig(width=1920, height=1080, tracer=TracerType.RESTIR_DI)
+    gb, it, mat, ray_dir = tgb.render_gbuffer(scene, cam, cam, cfg, 1)
+    wo = -ray_dir
+    norm = torch.where(((mat.type != 2) & ((it.norm * wo).sum(-1) < 0))[
+        ..., None], -it.norm, it.norm)
+    shade = it.valid & (gb.prim_id != tgb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(it.pos, norm, wo, mat.type, mat.metallic,
+                               mat.roughness, shade, it.prim_id)
+    before = ris_cdf.launches
+    k = ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh)
+    assert ris_cdf.launches == before + 1
+    kc, counts = ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
+                                      stats=True)
+    assert torch.equal(kc, k)
+    r = ris_cdf.ris_cdf_ref(pack, 1, scene.tables)
+    w_ = ris_cdf.OUT_W
+    pick = torch.all(k[0:3] == r[0:3], 0) & torch.all(
+        torch.isclose(k[3:6], r[3:6], rtol=2e-4, atol=1e-5), 0)
+    assert float(pick[shade].float().mean()) >= 0.995
+    ok = pick & shade
+    close = torch.isclose(k[w_][ok], r[w_][ok], rtol=2e-4, atol=1e-7)
+    assert float(close.float().mean()) >= 0.999
+    assert float((k[ris_cdf.OUT_M] == r[ris_cdf.OUT_M]).float()
+                 .mean()) >= 0.9999
+    assert torch.equal(k[w_][ok] == 0.0, r[w_][ok] == 0.0)
+    walked = counts[0] > 0
+    assert bool(walked.any()) and bool((counts[1][~walked] == 0).all())
 
 
 @pytest.mark.parametrize("tracer,per_frame", [

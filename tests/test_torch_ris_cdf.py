@@ -61,7 +61,7 @@ def test_ris_cdf_twin_matches_pallas(inputs, single_sided):
         *(torch.as_tensor(a[k]) for k in ("pos", "norm", "wo", "mtype",
                                            "metallic", "roughness", "shade",
                                            "prim_id")),
-        LOOPER, tscene.tables, k=4, single_sided=single_sided)
+        LOOPER, tscene.tables, tscene.bvh, k=4, single_sided=single_sided)
     li_w, wi_w, dist_w, w_w, m_w = (np.asarray(x) for x in want)
     li_g, wi_g, dist_g, w_g, m_g = (x.numpy() for x in got)
     shade = a["shade"]
