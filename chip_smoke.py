@@ -37,14 +37,20 @@ Phases (any failure exits non-zero and prints no result line):
      whole 1024-pixel tiles spread over the 1080p frame, B1b against its
      twin over the whole frame; kernel times, twin times over the whole
      frame, and the walks' box / triangle tests per ray (kernel counters
-     over the frame, the lockstep twin on the tiles);
+     over the frame, the lockstep twin on the tiles); B6's and B7's
+     registers (ptxas), the per-warp maximum / mean of their box and
+     plane tests on the 8x4-pixel warps they launch (32x1 strips beside),
+     and B7's light targets per pixel, which must lie in [n_l, n_l + K x
+     S] (n_l light rows, S its checkpoint spacing; B7 bound by one target
+     per light row, with the two-pass scan's bound beside it);
  10. hall main path: renderer.init_state / step at 1920x1080, 8 warm-up +
      32 timed frames, launch counts per frame checked (gbuffer 1, reuse 1,
      temporal 1, spatial 1, atrous 5);
  11. the hall under a sky: the same scene file with an equirect sky made
      in code (env_scene's gradient at 512x1024; 512 env-tile light rows,
-     640 in all): B6 / B7 against their twins on the 32 tiles, then its
-     main path;
+     640 in all): B6 / B7 against their twins on the 32 tiles, their
+     bounds, registers, per-warp spread and B7's targets per pixel as in
+     phase 9, then its main path;
  12. general kernels vs twins on the headline scene at 1920x1080: B12
      (primary hit) on frame 1's camera rays and, with its mask of live
      lanes, on the bounce rays that sample_bsdf draws at those hits, B11
@@ -215,6 +221,8 @@ PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 FLOP_PLANE = 39  # plane_hit: 3 four-term + 3 three-term dots, div, u, v
 FLOP_BOX = 24  # slab: 6 sub, 6 mul, 12 min / max
 FLOP_LIGHT = 32  # light_target
+# env_target: n.d (2 FMA + 1 mul), a + rad, 0.1 rad, max, lum x, cdf add
+FLOP_ENV_LIGHT = 10
 FLOP_CAND = 120  # one RIS candidate: sample point, pdf, BSDF, weight
 FLOP_PIXEL = 150  # raygen + G-buffer epilogue
 FLOP_TEMPORAL = 40  # B1b's merge
@@ -462,7 +470,7 @@ def phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1):
                           k=cfg.cdf_candidates,
                           single_sided=cfg.single_sided_lights,
                           temporal_clamp=cfg.temporal_clamp,
-                          has_met=cfg.scene_has_metallic)
+                          has_met=cfg.scene_has_metallic, width=w)
     torch.cuda.synchronize()
     fails, stats = parity.gb_pt_report(gb_b1, pt_b1, gb, pt)
     print(f"MTBVH (B6 + B7 + B1b) vs B1 on the {scene.num_tris}-triangle "
@@ -472,14 +480,14 @@ def phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1):
         cv2, cv, 1, scene.bvh, width=w, height=h), 10)
     ms7 = cuda_ms(lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
-        has_met=cfg.scene_has_metallic), 10)
+        has_met=cfg.scene_has_metallic, width=w), 10)
     # bounds from this frame's walk counts (kernel counters)
     _, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=w, height=h,
                                    stats=True)
     _, cnt7 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
                                     k=cfg.cdf_candidates,
                                     has_met=cfg.scene_has_metallic,
-                                    stats=True)
+                                    width=w, stats=True)
     b6 = walk_bound6(scene.bvh, w * h, cnt6)
     b7 = walk_bound7(scene.tables, scene.bvh, w * h, cfg.cdf_candidates,
                      cnt7, False)
@@ -509,16 +517,84 @@ def light_count(t, has_env):
     return t.n_lights + (t.env_rad.shape[0] if has_env else 0)
 
 
-def walk_bound7(t, bvh, r, k, counts, has_env):
+def walk_bound7(t, bvh, r, k, counts, has_env, passes=1):
     """(least ms, what binds it) of B7 over this frame's shadow-walk
-    tests, with 2 light targets per light row and pixel."""
-    boxes, tris = (float(c.double().sum()) for c in counts)
+    tests (kernel counters [3, R]): one light target per light row (area
+    rows at FLOP_LIGHT, env-tile rows at FLOP_ENV_LIGHT), k candidates and
+    the walk. passes=2 counts every light row twice at FLOP_LIGHT: the
+    bound of the full two-pass scan (B7's first design)."""
+    boxes, tris = (float(c.double().sum()) for c in counts[:2])
     lights, psi = t.light_rows(has_env)
     n_l = light_count(t, has_env)
+    n_env = n_l - t.n_lights
+    targets = (2 * n_l * FLOP_LIGHT if passes == 2 else
+               t.n_lights * FLOP_LIGHT + n_env * FLOP_ENV_LIGHT)
     return bound(table_bytes(lights[:n_l], psi[:n_l], bvh.planes, bvh.rows)
                  + r * (24 + 8) * 4,
-                 r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
+                 r * (targets + k * FLOP_CAND)
                  + boxes * FLOP_BOX + tris * FLOP_PLANE)
+
+
+def warp_spread(counts, width, height):
+    """(mean, per-warp maximum / mean) of per-pixel counts over the 8x4
+    pixel tiles B6 and B7 launch as warps, and the same ratio for 32x1
+    strips (warps in linear pixel order)."""
+    img = counts.view(height, width).double()
+    mean = float(img.mean())
+    tiles = img.view(height // 4, 4, width // 8, 8).amax(dim=(1, 3))
+    strips = img.view(height, width // 32, 32).amax(dim=2)
+    return (mean, float(tiles.mean()) / max(mean, 1e-30),
+            float(strips.mean()) / max(mean, 1e-30))
+
+
+def ptxas_report(source, kernel):
+    """'registers / spill stores' of each build of `kernel` in `source`,
+    from this run's nvcc log (phase 2), keyed by its template flags."""
+    out, src, name, spill = {}, None, None, None
+    for ln in (_build.build_log or "").splitlines():
+        if ln.startswith("--- "):
+            src = ln[4:]
+        elif "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif src == source and name and kernel in name:
+            if "spill stores" in ln:
+                spill = ln.split("bytes spill stores")[0].split(",")[-1]
+            elif "registers" in ln:
+                flags = name.split(kernel, 1)[1].split("EE", 1)[0]
+                key = "<" + ",".join(f[2:] for f in flags.split("E")
+                                     if f.startswith(("Lb", "ILb"))
+                                     ).replace("b", "") + ">"
+                regs = ln.split("Used")[1].split("registers")[0].strip()
+                out[key] = f"{regs} registers, {spill.strip()} B spilled"
+    return out or "not reported (cached build)"
+
+
+def walk_lines(name, cnt6, cnt7, t, k, has_env, w, h):
+    """Phases 9 and 11: B6 / B7's registers, per-warp walk spread and
+    B7's light targets per pixel (gated to [n_l, n_l + k * S], S its
+    checkpoint spacing)."""
+    print(f"{name} ptxas B6 gbuffer_bvh_kernel<COUNT,ENV,TEX>: "
+          f"{ptxas_report('gbuffer_bvh.cu', 'gbuffer_bvh_kernel')}")
+    print(f"{name} ptxas B7 reuse_bvh_kernel<COUNT,ENV>: "
+          f"{ptxas_report('reuse_bvh.cu', 'reuse_bvh_kernel')}")
+    for what, c in (("B6 box", cnt6[0]), ("B6 plane", cnt6[1]),
+                    ("B7 box", cnt7[0]), ("B7 plane", cnt7[1])):
+        mean, tile, strip = warp_spread(c, w, h)
+        print(f"{name} {what} tests: {mean:.2f} per pixel, per-warp "
+              f"maximum / mean {tile:.4f} on the launched 8x4 tiles "
+              f"({strip:.4f} were the warps 32x1 strips)")
+    n_l = light_count(t, has_env)
+    seg = reuse.seg_for(t.n_lights, has_env)
+    ev = cnt7[2]
+    lo, hi, mean = int(ev.min()), int(ev.max()), float(ev.double().mean())
+    print(f"{name} B7 light targets per pixel: mean {mean:.2f}, min {lo}, "
+          f"max {hi} ({n_l} light rows, checkpoints every {seg}, bound "
+          f"{n_l + k * seg}; the two-pass scan evaluated "
+          f"{2 * t.light_rows(has_env)[1].shape[0]}); shared memory "
+          f"{reuse.smem_bytes(t.n_lights, has_env, n_l, seg)} B per block")
+    if lo < n_l or hi > n_l + k * seg:
+        raise PhaseError(f"{name}: B7 evaluated {lo}-{hi} light targets per "
+                         f"pixel, outside [{n_l}, {n_l + k * seg}]")
 
 
 def phase_small_frames(arrays, cam, dev):
@@ -728,11 +804,12 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     zeros = torch.zeros((PT_CH, r), device=dev)
     # frame 0, then frame 1 from a moved camera: live temporal history
     gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, bvh, **gkw)
-    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, **rkw)
+    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, width=w, **rkw)
     gb_k, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, stats=True, **gkw)
     rs_k, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=rkw["k"],
                                        single_sided=rkw["single_sided"],
-                                       has_met=rkw["has_met"], stats=True)
+                                       has_met=rkw["has_met"], width=w,
+                                       stats=True)
     pt_k = fused_di.temporal_cuda(gb_k, rs_k, pt0, 1, k=rkw["k"],
                                   temporal_clamp=rkw["temporal_clamp"])
     pix = sample_pixels(r, dev)
@@ -771,11 +848,12 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     limit = rs_k[RS_DIST][pix] * (1.0 - 1e-3) - 1e-4
     _, wb, wt = bvh_walk.occluded_walk(bvh, o, wi, limit, gb_k[G_PRIM][pix])
     walk_report("B7 any-hit walk", cnt7, pix, wb, wt)
+    walk_lines("hall", cnt6, cnt7, t, rkw["k"], False, w, h)
 
     # times at 1080p: kernels by CUDA events, twins once over the frame
     ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw), 10)
     ms7 = cuda_ms(lambda: reuse.candidates_cuda(
-        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"]), 10)
+        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"], width=w), 10)
     ms1b = cuda_ms(lambda: fused_di.temporal_cuda(gb_k, rs_k, pt0, 1), 20)
     ms6_ref = cuda_ms(lambda: gbuffer.gbuffer_ref(cv2, cv, 1, bvh, **gkw),
                       1, warmup=False)
@@ -786,6 +864,7 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
           f"(planes, attributes, materials, node rows with their boxes)")
     b6 = walk_bound6(bvh, r, cnt6)
     b7 = walk_bound7(t, bvh, r, rkw["k"], cnt7, False)
+    b7_two = walk_bound7(t, bvh, r, rkw["k"], cnt7, False, passes=2)
     # B1b: gb 8 + rs 8 + the history's 14 channels read, pt 16 written
     b1b = bound(r * (8 + 8 + 14 + PT_CH) * 4, r * FLOP_TEMPORAL)
     record["gbuffer_bvh"] = dict(
@@ -798,7 +877,8 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     print(f"hall B6 gbuffer_bvh: kernel {ms6:.4f} ms, twin {ms6_ref:.1f} ms,"
           f" bound {b6[0]:.4f} ms ({b6[1]})")
     print(f"hall B7 reuse_bvh: kernel {ms7:.4f} ms, twin (with B1b) "
-          f"{ms7_ref:.1f} ms, bound {b7[0]:.4f} ms ({b7[1]})")
+          f"{ms7_ref:.1f} ms, bound {b7[0]:.4f} ms ({b7[1]}; the two-pass "
+          f"scan's {b7_two[0]:.4f})")
     print(f"hall B1b temporal: kernel {ms1b:.4f} ms, bound {b1b[0]:.4f} ms "
           f"({b1b[1]})")
 
@@ -981,7 +1061,8 @@ def phase_env_tex(name, arrays, camkw, flags, dev, record):
     pt = reuse.reuse_cuda(gb, pt0, 1, t, scene.bvh, k=cfg.cdf_candidates,
                           single_sided=cfg.single_sided_lights,
                           temporal_clamp=cfg.temporal_clamp,
-                          has_met=cfg.scene_has_metallic, has_env=has_env)
+                          has_met=cfg.scene_has_metallic, has_env=has_env,
+                          width=cfg.width)
     same = bool(torch.equal(gb, gb_k)) and bool(torch.equal(pt, pt_k))
     print(f"MTBVH (B6 + B7 + B1b) vs B1 on {name}: "
           f"{'bit-identical' if same else 'DIFFERENT'}")
@@ -1014,9 +1095,9 @@ def phase_sky_hall(sf, cam, dev):
                has_met=cfg.scene_has_metallic, has_env=True)
     zeros = torch.zeros((PT_CH, r), device=dev)
     gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, bvh, **gkw)
-    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, **rkw)
+    pt0 = reuse.reuse_cuda(gb0, zeros, 0, t, bvh, width=w, **rkw)
     gb_k = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw)
-    pt_k = reuse.reuse_cuda(gb_k, pt0, 1, t, bvh, **rkw)
+    pt_k = reuse.reuse_cuda(gb_k, pt0, 1, t, bvh, width=w, **rkw)
     pix = sample_pixels(r, dev)
     gb_r = gbuffer.gbuffer_ref(cv2, cv, 1, bvh, pix=pix, **gkw)
     torch.cuda.synchronize()
@@ -1036,19 +1117,22 @@ def phase_sky_hall(sf, cam, dev):
     l_pad = t.light_rows(True)[1].shape[0]
     ms6 = cuda_ms(lambda: gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw), 10)
     ms7 = cuda_ms(lambda: reuse.candidates_cuda(
-        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"], has_env=True),
-        10)
+        gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"], has_env=True,
+        width=w), 10)
     _, cnt6 = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, stats=True, **gkw)
     _, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=rkw["k"],
                                     has_met=rkw["has_met"], has_env=True,
-                                    stats=True)
+                                    width=w, stats=True)
     b6 = walk_bound6(bvh, r, cnt6)
     b7 = walk_bound7(t, bvh, r, rkw["k"], cnt7, True)
+    b7_two = walk_bound7(t, bvh, r, rkw["k"], cnt7, True, passes=2)
     print(f"sky hall B6 gbuffer_bvh: kernel {ms6:.4f} ms, bound "
           f"{b6[0]:.4f} ms ({b6[1]}); B7 reuse_bvh ({l_pad} light rows): "
-          f"kernel {ms7:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}); shadow "
+          f"kernel {ms7:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}; the "
+          f"two-pass scan's {b7_two[0]:.4f}); shadow "
           f"walk {float(cnt7[0].double().mean()):.2f} box + "
           f"{float(cnt7[1].double().mean()):.2f} triangle tests per ray")
+    walk_lines("sky hall", cnt6, cnt7, t, rkw["k"], True, w, h)
     phase_main("sky hall", scene, cfg, cam, dev, {
         "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
         "atrous_eaw": cfg.eaw_levels})

@@ -33,7 +33,8 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
 - B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
   and on scenes/hall.txt (81,036 triangles) and the same hall under a
   code-made sky (512 env tiles), frame 1 from chip_smoke.py phase 9's
-  moved camera: the main paths on which B6 and B7 run.
+  moved camera: the main paths on which B6 and B7 run (B7 on 2-D pixel
+  tiles where the tree's B7 takes the frame's width).
 It prints one JSON line (card, ms and the SHA-256 of each kernel's
 output packs). This script then prints, per kernel, the ms of every run
 and which runs wrote the same packs (runs marked with one letter agree),
@@ -134,6 +135,9 @@ def _child() -> None:
 
     dev = torch.device("cuda", 0)
     ms, sha = {}, {}
+    # B7 takes the frame's width (2-D pixel tiles) since its search redesign
+    b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
+        reuse.candidates_cuda).parameters else {})
     # B1's wrapper takes the scene's MTBVH since the walk redesign
     takes_bvh = "bvh" in inspect.signature(
         fused_di.di_resident_cuda).parameters
@@ -228,7 +232,7 @@ def _child() -> None:
         cv2, cv, 1, scene.bvh, width=WIDTH, height=HEIGHT))
     timed("B7 headline", lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
-        has_met=cfg.scene_has_metallic))
+        has_met=cfg.scene_has_metallic, **b7_tiles))
     g = general_rays(scene, cam, dev)
     trv, attr, mats = g["trv"], scene.prim_attr, scene.mat_attr
     timed("B12 camera rays", lambda: hits.primary_cuda(
@@ -314,7 +318,7 @@ def _child() -> None:
         timed(f"B7 {name}", lambda: reuse.candidates_cuda(
             gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
             single_sided=cfg.single_sided_lights,
-            has_met=cfg.scene_has_metallic, has_env=sky))
+            has_met=cfg.scene_has_metallic, has_env=sky, **b7_tiles))
         del scene, gb
     import restir_tpu_torch
 

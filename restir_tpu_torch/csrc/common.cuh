@@ -98,6 +98,27 @@ __device__ __forceinline__ int tile_window_start(float motion, bool miss,
   return w0_s;
 }
 
+// 2-D pixel tiles (B6, B7): a block of PIX_BLOCK threads covers
+// PIX_BW x PIX_BH pixels and each warp PIX_WW x PIX_WH, so a warp's rays
+// leave from one small patch of the image and each channel store is four
+// 32-byte segments. Launch PIX_BLOCK threads on tile_grid(width, height).
+// Returns the linear pixel index, or -1 off the ragged edge (the map of
+// ops/kernels/gbuffer.py::tile_order).
+enum { PIX_BLOCK = 256, PIX_BW = 32, PIX_BH = 8, PIX_WW = 8, PIX_WH = 4 };
+
+__device__ __forceinline__ int tile_pixel(int width, int height) {
+  const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
+  const int x = (int)blockIdx.x * PIX_BW +
+                (warp % (PIX_BW / PIX_WW)) * PIX_WW + lane % PIX_WW;
+  const int y = (int)blockIdx.y * PIX_BH +
+                (warp / (PIX_BW / PIX_WW)) * PIX_WH + lane / PIX_WW;
+  return (x < width && y < height) ? y * width + x : -1;
+}
+
+inline dim3 tile_grid(int width, int height) {
+  return dim3((width + PIX_BW - 1) / PIX_BW, (height + PIX_BH - 1) / PIX_BH);
+}
+
 // Luminance of the demodulated BSDF (base colour 1): Lambert, GGX
 // metallic workflow, dielectric -> 0 (delta). has_met = 0 drops the GGX
 // chain for scenes without metallic materials.

@@ -61,12 +61,18 @@ __device__ __forceinline__ float plane_hit(const float* q, float ox, float oy,
   return hit ? t : -1.0f;
 }
 
-// A ray with plane_hit as the MTBVH walks' leaf test (bvh.cuh).
+// A ray with plane_hit as the MTBVH walks' leaf test (bvh.cuh). The
+// plane row (48 B, 16-byte aligned) is read as three float4 loads
+// through the read-only path.
 struct PlaneRay {
   float ox, oy, oz, dx, dy, dz;
   __device__ __forceinline__ float hit(const float* q, float& u,
                                        float& v) const {
-    return plane_hit(q, ox, oy, oz, dx, dy, dz, u, v);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    const float4 a = __ldg(q4), b = __ldg(q4 + 1), c = __ldg(q4 + 2);
+    const float row[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                           b.z, b.w, c.x, c.y, c.z, c.w};
+    return plane_hit(row, ox, oy, oz, dx, dy, dz, u, v);
   }
 };
 

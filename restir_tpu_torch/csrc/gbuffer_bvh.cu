@@ -18,10 +18,16 @@
 // Bound: neither bytes nor FMAs. The tables (hall: 81,036 planes and
 // attribute rows, 6 x 162,071 node rows, ~45 MB) sit in the 50 MB L2 and
 // the pack write is 96 B/pixel; the walk is a chain of dependent loads
-// (node row -> next node row) whose latency each warp waits out, with the
-// warp's rays diverging across the tree. The design keeps one thread per ray with no stack (the walk state
-// is one int) so many warps fit per SM to hide that latency; wider nodes
-// and ray sorting are later work.
+// (node row -> next node row) whose latency each warp waits out, and a
+// warp waits for its longest walk. The design keeps one thread per ray
+// with no stack (the walk state is one int), so many warps fit per SM to
+// hide that latency, and makes each warp an 8x4 pixel tile (common.cuh,
+// tile_pixel): neighbouring rays walk nearly the same nodes, so the
+// warp's longest walk is closer to its mean than in a 32x1 strip, and
+// each channel store is four whole 32-byte segments. The leaf test reads
+// its plane row as three float4 loads (di_core.cuh, PlaneRay). Its 42-48
+// registers let 5 blocks (40 warps) share an SM; a cap for 6 blocks
+// spilled and did not pay. Wider nodes and ray sorting are later work.
 #include "bvh.cuh"
 #include "di_core.cuh"
 
@@ -30,15 +36,15 @@ using namespace restir;
 namespace {
 
 template <bool COUNT, bool HAS_ENV, bool TEX>
-__global__ void __launch_bounds__(256) gbuffer_bvh_kernel(
+__global__ void __launch_bounds__(PIX_BLOCK) gbuffer_bvh_kernel(
     const float* __restrict__ cam, const float* __restrict__ lcam,
     uint32_t looper, BvhRows bvh, const float* __restrict__ attr,
     const float* __restrict__ mat, int n_mat, EnvTex et,
     float* __restrict__ gb, int* __restrict__ stats, int width, int height,
     float aspect, int aa_jitter, int single_sided) {
   const int r = width * height;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+  const int p = tile_pixel(width, height);
+  if (p < 0) return;
   const Ray ray = raygen(cam, p, looper, width, height, aspect, aa_jitter);
   WalkCount n = {0, 0};
   int prim;
@@ -60,10 +66,8 @@ int launch_gbuffer_bvh(const float* cam, const float* lcam, uint32_t looper,
                        int n_mat, const EnvTex& et, float* gb, int* stats,
                        int width, int height, float aspect, int aa_jitter,
                        int single_sided, cudaStream_t stream) {
-  const int r = width * height;
-  const int block = 256;
   gbuffer_bvh_kernel<COUNT, HAS_ENV, TEX>
-      <<<(r + block - 1) / block, block, 0, stream>>>(
+      <<<tile_grid(width, height), PIX_BLOCK, 0, stream>>>(
           cam, lcam, looper, bvh, attr, mat, n_mat, et, gb, stats, width,
           height, aspect, aa_jitter, single_sided);
   return (int)cudaGetLastError();

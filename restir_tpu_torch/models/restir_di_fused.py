@@ -203,7 +203,7 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
             aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights,
             has_env=cfg.has_env_map, with_textures=cfg.with_textures)
         pt = reuse.reuse(gb, state.pt_pack, looper, scene.tables, scene.bvh,
-                         **kw)
+                         width=w, **kw)
 
     reuse_spatial = bool(cfg.reuse & ReuseMode.SPATIAL)
     offs = spatial.spatial_offsets(looper, r, w, cfg.spatial_neighbors,

@@ -459,21 +459,16 @@ def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
     return torch.stack(chans)
 
 
-def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
-               has_env=False):
-    """K-candidate CDF RIS + single-draw winner for the gb columns of
-    pixels `pix` -> (li [3, b], wi [3, b], dist [b], W [b]). With
-    `has_env` the CDF runs over the area lights and the env tiles."""
-    lights, psi = tables.light_rows(has_env)
-    l_pad = psi.shape[0]
+def ris_targets(gb, psi, single_sided):
+    """The RIS core's shading normal (flipped to face wo unless
+    dielectric) and the light target of every psi row [b, l_pad] at the gb
+    columns' shading points (fused_di._ris_select_core's three psi
+    products)."""
     px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
     nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
     wox, woy, woz = -gb[G_DIR], -gb[G_DIR + 1], -gb[G_DIR + 2]
-    mtype, metallic, roughness = gb[G_MTYPE], gb[G_METAL], gb[G_ROUGH]
-    shade = gb[G_SHADE] > 0.5
-
     ndotwo = nx * wox + ny * woy + nz * woz
-    flip = (mtype != DIELECTRIC) & (ndotwo < 0.0)
+    flip = (gb[G_MTYPE] != DIELECTRIC) & (ndotwo < 0.0)
     sgn = torch.where(flip, -1.0, 1.0)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
@@ -495,6 +490,21 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
     a_eff = torch.maximum(a, 0.1 * rad)
     t = torch.where(above & side,
                     lum_area * a_eff * torch.abs(bb) / (d2 * d2), 0.0)
+    return (nx, ny, nz), t
+
+
+def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
+               has_env=False):
+    """K-candidate CDF RIS + single-draw winner for the gb columns of
+    pixels `pix` -> (li [3, b], wi [3, b], dist [b], W [b]). With
+    `has_env` the CDF runs over the area lights and the env tiles."""
+    lights, psi = tables.light_rows(has_env)
+    l_pad = psi.shape[0]
+    px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
+    wox, woy, woz = -gb[G_DIR], -gb[G_DIR + 1], -gb[G_DIR + 2]
+    mtype, metallic, roughness = gb[G_MTYPE], gb[G_METAL], gb[G_ROUGH]
+    shade = gb[G_SHADE] > 0.5
+    (nx, ny, nz), t = ris_targets(gb, psi, single_sided)
     cdf = torch.cumsum(t, dim=1)
     total = cdf[:, l_pad - 1]
 

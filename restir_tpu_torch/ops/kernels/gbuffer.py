@@ -26,6 +26,31 @@ from .tables import BvhTables
 
 launches = 0  # gbuffer_bvh kernel launches
 
+# 2-D pixel tiles of B6 and B7 (csrc/common.cuh, tile_pixel): a block of
+# BLOCK threads covers BLOCK_W x BLOCK_H pixels, each warp WARP_W x WARP_H.
+BLOCK = 256
+BLOCK_W, BLOCK_H = 32, 8
+WARP_W, WARP_H = 8, 4
+
+
+def tile_order(width, height, device=None):
+    """Pixel index of every thread of a tiled launch over a width x height
+    frame, in launch order (block rows, blocks, threads), -1 where a
+    thread falls off the ragged edge: the map of csrc/common.cuh's
+    `tile_pixel`."""
+    gx = -(-width // BLOCK_W)
+    gy = -(-height // BLOCK_H)
+    t = torch.arange(BLOCK, device=device)
+    warp, lane = t // 32, t % 32
+    wx = (warp % (BLOCK_W // WARP_W)) * WARP_W + lane % WARP_W
+    wy = (warp // (BLOCK_W // WARP_W)) * WARP_H + lane // WARP_W
+    by = torch.arange(gy, device=device)[:, None, None]
+    bx = torch.arange(gx, device=device)[None, :, None]
+    x = bx * BLOCK_W + wx[None, None, :]
+    y = by * BLOCK_H + wy[None, None, :]
+    p = torch.where((x < width) & (y < height), y * width + x, -1)
+    return p.reshape(-1)
+
 
 def gbuffer_ref(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width, height,
                 aa_jitter=True, single_sided=True, has_env=False,

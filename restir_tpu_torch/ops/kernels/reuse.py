@@ -12,6 +12,15 @@ pack rs [RS_CH, R]) and then B1's `di_temporal_kernel` through
 `fused_di.temporal_cuda`; on CPU tensors it takes the twin `reuse_ref`
 (B1's stages: `ris_pixels`, the brute `shadow_pixels`, `temporal_pixels`).
 Nothing falls back. `has_env` adds the env tiles to the light CDF.
+
+B7 finds its K picks with a search that evaluates each light row about
+once (`csrc/reuse_bvh.cu`): pass 1 sums the light targets in row order
+and keeps the running cdf after every S-th row (`seg_for`: 8 or 16),
+then each pick re-scans only the segment whose checkpoint first exceeds
+its threshold. The adds are the full two-pass scan's, in its order, so
+the picks are its picks bit for bit. `ris_search` / `search_seg` and
+`search_full` mirror the two on CPU tensors (sequential float32 adds
+over rows, vectorised over pixels) for the tests.
 """
 
 from __future__ import annotations
@@ -20,12 +29,219 @@ import ctypes
 
 import torch
 
+from ...utils import rng
 from . import _build, fused_di
-from .fused_di import GB_CH, MAX_K, PT_CH, RS_CH, SMEM_MAX, _check
-from .gbuffer import _check_bvh
+from .bvh_walk import _fma32
+from .fused_di import (
+    CTR_RIS,
+    ENV_TH,
+    ENV_TW,
+    G_DIR,
+    G_MTYPE,
+    G_NORM,
+    G_POS,
+    GB_CH,
+    MAX_K,
+    PT_CH,
+    RS_CH,
+    SMEM_MAX,
+    _check,
+)
+from .gbuffer import BLOCK, _check_bvh
 from .tables import BvhTables, ResidentTables
 
 launches = 0  # reuse_bvh kernel launches
+
+N_ENV = ENV_TH * ENV_TW  # env-tile light rows after the area lights
+SEGS = (8, 16, 32)  # light rows per cdf checkpoint B7 may take
+# blocks per SM that B7's __launch_bounds__ leave room for, by env build
+BLOCKS_PER_SM = {False: 4, True: 3}
+SMEM_SM = 233472  # shared memory of one Hopper SM (bytes)
+SMEM_BLOCK_RESERVED = 1024  # shared memory the system keeps per block
+
+
+def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int) -> int:
+    """B7's shared memory per block: the area lights' psi rows (64 B),
+    the env tiles' compact rows (d_tile, radius | luminance: 20 B) and
+    one cdf checkpoint per `seg` rows for each of the BLOCK threads."""
+    n_env = N_ENV if has_env else 0
+    return n_area * 64 + n_env * 20 + -(-n_live // seg) * BLOCK * 4
+
+
+def seg_for(n_area: int, has_env: bool) -> int:
+    """B7's checkpoint spacing: the smallest of SEGS (each pick re-scans
+    that many rows) whose checkpoints still leave room in shared memory
+    for the blocks per SM its registers allow; else the largest. 8 on
+    128 light rows, 16 on 640 (128 area lights and the env tiles)."""
+    n_live = n_area + (N_ENV if has_env else 0)
+    cap = SMEM_SM // BLOCKS_PER_SM[has_env] - SMEM_BLOCK_RESERVED
+    for seg in SEGS:
+        if smem_bytes(n_area, has_env, n_live, seg) <= cap:
+            return seg
+    return SEGS[-1]
+
+
+# ---- mirror of B7's light search (CPU tests) ----
+
+
+def ris_frame(gb):
+    """The shading frame the search reads, as csrc/reuse_bvh.cu's
+    `ris_frame` computes it: the normal facing wo (dielectrics keep
+    theirs), n.p, |p|^2 and p."""
+    px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
+    nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
+    dx, dy, dz = gb[G_DIR], gb[G_DIR + 1], gb[G_DIR + 2]
+    ndotwo = _fma32(nz, -dz, _fma32(nx, -dx, ny * -dy))
+    flip = (gb[G_MTYPE] != fused_di.DIELECTRIC) & (ndotwo < 0.0)
+    nx, ny, nz = (torch.where(flip, -c, c) for c in (nx, ny, nz))
+    ndx = _fma32(nz, pz, _fma32(ny, py, nx * px))
+    x2 = _fma32(pz, pz, _fma32(px, px, py * py))
+    return dict(n=(nx, ny, nz), p=(px, py, pz), ndx=ndx, x2=x2)
+
+
+def light_target_rows(psi, f, single_sided):
+    """Light targets [b, rows] of psi rows at frame f: csrc/di_core.cuh's
+    `light_target` (B7's `light_target4`), with its products fused into
+    FMAs where the CUDA builds fuse them."""
+    nx, ny, nz = (c[:, None] for c in f["n"])
+    px, py, pz = (c[:, None] for c in f["p"])
+    ndx, x2 = f["ndx"][:, None], f["x2"][:, None]
+    q = [psi[:, c][None] for c in range(15)]
+    a = _fma32(q[3], -ndx, _fma32(q[2], nz, _fma32(q[0], nx, q[1] * ny)))
+    bb = _fma32(q[6], pz, _fma32(q[4], px, q[5] * py)) + q[7]
+    d2 = _fma32(q[12], x2, _fma32(q[10], -2.0 * pz, _fma32(
+        q[8], -2.0 * px, q[9] * (-2.0 * py))) + q[11])
+    d2 = torch.clamp(d2, min=1e-8)
+    side = bb > 0.0 if single_sided else torch.abs(bb) > 0.0
+    rad = q[14]
+    above = (a + rad) > 0.0
+    a_eff = torch.maximum(a, 0.1 * rad)
+    return torch.where(above & side,
+                       q[13] * a_eff * torch.abs(bb) / (d2 * d2), 0.0)
+
+
+def env_target_rows(psi_env, f):
+    """The reduced target of env-tile rows (psi (d_tile, 0 | 0, 0, 0, 1 |
+    0, 0, 0, 1, 0)): b = 1 and d2 = 1, so the target is lum * max(n.d,
+    0.1 rad) above the horizon band, which equals `light_target_rows` bit
+    for bit."""
+    nx, ny, nz = (c[:, None] for c in f["n"])
+    d = [psi_env[:, c][None] for c in range(3)]
+    a = _fma32(d[2], nz, _fma32(d[0], nx, d[1] * ny))
+    rad = psi_env[:, 14][None]
+    above = (a + rad) > 0.0
+    a_eff = torch.maximum(a, 0.1 * rad)
+    return torch.where(above, psi_env[:, 13][None] * a_eff, 0.0)
+
+
+def search_targets(gb, tables: ResidentTables, *, single_sided,
+                   has_env=False):
+    """(targets [b, l_pad] as B7 evaluates them, rows that hold lights):
+    the area rows through `light_target_rows`, the env rows through
+    `env_target_rows`, the padding rows 0."""
+    _, psi = tables.light_rows(has_env)
+    f = ris_frame(gb)
+    n_area = tables.n_lights
+    n_live = n_area + (N_ENV if has_env else 0)
+    t = torch.zeros((gb.shape[1], psi.shape[0]), dtype=torch.float32,
+                    device=gb.device)
+    t[:, :n_area] = light_target_rows(psi[:n_area], f, single_sided)
+    if has_env:
+        t[:, n_area:n_live] = env_target_rows(psi[n_area:n_live], f)
+    return t, n_live
+
+
+def thresholds(pix, looper, k, total):
+    """thr_j = u_j * total [k, b] (the RIS draws' first uniform)."""
+    return torch.stack([rng.uniform4(pix, looper, CTR_RIS + j,
+                                     rng.SALT_RESTIR)[0] * total
+                        for j in range(k)])
+
+
+def search_full(t, thr):
+    """The two-pass scan over every row (B1's search): idx_j is the first
+    row whose running cdf exceeds thr_j, else the last row with its own
+    target. Returns (idx [k, b], tq [k, b], total [b])."""
+    b, l_pad = t.shape
+    k = thr.shape[0]
+    cdf = torch.zeros(b, dtype=torch.float32, device=t.device)
+    for l in range(l_pad):
+        cdf = cdf + t[:, l]
+    total = cdf
+    idx = torch.full((k, b), -1, dtype=torch.int64, device=t.device)
+    tq = torch.zeros((k, b), dtype=torch.float32, device=t.device)
+    cdf = torch.zeros_like(total)
+    for l in range(l_pad):
+        cdf = cdf + t[:, l]
+        hit = (idx < 0) & (cdf[None] > thr)
+        idx = torch.where(hit, l, idx)
+        tq = torch.where(hit, t[:, l][None], tq)
+    miss = idx < 0
+    idx = torch.where(miss, l_pad - 1, idx)
+    tq = torch.where(miss, t[:, l_pad - 1][None], tq)
+    return idx, tq, total
+
+
+def search_seg(t, n_live, thr, seg):
+    """B7's search: pass 1 over the rows that hold lights keeps the cdf
+    after every `seg`-th row (and after the last), each pick re-scans the
+    one segment whose checkpoint first exceeds thr_j. Returns (idx [k, b],
+    tq [k, b], total [b], targets evaluated per pixel [b]); equal to
+    `search_full` bit for bit when every target is >= 0."""
+    b, l_pad = t.shape
+    k = thr.shape[0]
+    dev = t.device
+    cdf = torch.zeros(b, dtype=torch.float32, device=dev)
+    ck = []
+    for l in range(n_live):
+        cdf = cdf + t[:, l]
+        if (l + 1) % seg == 0 or l == n_live - 1:
+            ck.append(cdf)
+    total = cdf
+    # ck0[:, c]: the cdf before segment c
+    ck0 = torch.stack([torch.zeros_like(total)] + ck, dim=1)
+    t_last = (t[:, l_pad - 1] if n_live == l_pad else
+              torch.zeros(b, dtype=torch.float32, device=dev))
+    idx = torch.full((k, b), l_pad - 1, dtype=torch.int64, device=dev)
+    tq = t_last[None].repeat(k, 1)
+    evaluated = torch.full((b,), n_live, dtype=torch.int64, device=dev)
+    for j in range(k):
+        # the first checkpoint above thr_j (the kernel's binary search)
+        c = (~(ck0[:, 1:] > thr[j][:, None])).sum(dim=1)
+        found = c < len(ck)
+        start = c * seg
+        end = torch.clamp(start + seg, max=n_live)
+        run = torch.gather(ck0, 1, c[:, None])[:, 0]
+        got = torch.full((b,), -1, dtype=torch.int64, device=dev)
+        tv = torch.zeros(b, dtype=torch.float32, device=dev)
+        for s_ in range(seg):
+            l = start + s_
+            live = found & (l < end)
+            tl = torch.gather(t, 1, torch.clamp(l, max=l_pad - 1)[:, None])
+            tl = tl[:, 0]
+            run = torch.where(live, run + tl, run)
+            hit = live & (got < 0) & (run > thr[j])
+            got = torch.where(hit, l, got)
+            tv = torch.where(hit, tl, tv)
+        idx[j] = torch.where(found, got, idx[j])
+        tq[j] = torch.where(found, tv, tq[j])
+        evaluated = evaluated + torch.where(found, end - start, 0)
+    return idx, tq, total, evaluated
+
+
+def ris_search(gb, pix, looper, tables: ResidentTables, *, k, single_sided,
+               has_env=False, seg=None):
+    """B7's picks for the gb columns of pixels `pix`: (idx [k, b], tq [k,
+    b], total [b], targets evaluated per pixel [b]); `seg` defaults to the
+    kernel's (`seg_for`)."""
+    t, n_live = search_targets(gb, tables, single_sided=single_sided,
+                               has_env=has_env)
+    if seg is None:
+        seg = seg_for(tables.n_lights, has_env)
+    cdf = torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
+    for l in range(n_live):
+        cdf = cdf + t[:, l]
+    return search_seg(t, n_live, thresholds(pix, looper, k, cdf), seg)
 
 
 def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
@@ -55,34 +271,42 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
                     k=4, single_sided=True, has_met=True, has_env=False,
-                    stats=False):
+                    width=None, stats=False):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, R] (li, wi, dist, W
-    after visibility). With `stats`, also return the int32 [2, R] box and
-    triangle test counts of each shadow ray."""
+    after visibility). `width` (R = width x height) launches 2-D pixel
+    tiles; None keeps pixels in linear order. With `stats`, also return
+    the int32 [3, R] box and triangle test counts of each shadow ray and
+    the light targets each pixel evaluated."""
     global launches
     r = gb.shape[1]
     dev = gb.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if width is not None and (width <= 0 or r % width):
+        raise ValueError(f"width={width} does not divide R={r}")
     lights, psi = tables.light_rows(has_env)
     l_pad = psi.shape[0]
-    if l_pad * 32 * 4 > SMEM_MAX:
-        raise ValueError(f"B7 holds {l_pad} light rows in shared memory: "
-                         f"{l_pad * 128} bytes, over the {SMEM_MAX} a block "
-                         "can use")
+    n_live = tables.n_lights + (N_ENV if has_env else 0)
+    seg = seg_for(tables.n_lights, has_env)
+    smem = smem_bytes(tables.n_lights, has_env, n_live, seg)
+    if smem > SMEM_MAX:
+        raise ValueError(f"B7 stages {tables.n_lights} area-light psi rows, "
+                         f"{N_ENV if has_env else 0} env-tile rows and "
+                         f"{-(-n_live // seg)} cdf checkpoints per thread: "
+                         f"{smem} bytes, over the {SMEM_MAX} a block can use")
     _check(gb, "gb", (GB_CH, r), dev)
     _check(lights, "lights", psi.shape, dev)
     _check(psi, "psi", psi.shape, dev)
     _check_bvh(bvh, dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
-    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
+    counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
     err = _build.library().restir_reuse_bvh(
         p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
         l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
-        p(bvh.planes), p(rs), p(counts), r, int(single_sided), k,
-        int(has_met), _build.stream_of(dev))
+        p(bvh.planes), p(rs), p(counts), r, width or 0, seg,
+        int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
     launches += 1
     return (rs, counts) if stats else rs
@@ -90,11 +314,11 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
 
 def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
                *, k=4, single_sided=True, temporal=True, temporal_clamp=20,
-               has_met=True, has_env=False):
+               has_met=True, has_env=False, width=None):
     """Kernel B7, then B1b: pt [PT_CH, R]."""
     rs = candidates_cuda(gb, looper, tables, bvh, k=k,
                          single_sided=single_sided, has_met=has_met,
-                         has_env=has_env)
+                         has_env=has_env, width=width)
     return fused_di.temporal_cuda(gb, rs, prev_pt, looper, k=k,
                                   temporal=temporal,
                                   temporal_clamp=temporal_clamp)
@@ -102,14 +326,15 @@ def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
 
 def reuse(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables, *,
           k=4, single_sided=True, temporal=True, temporal_clamp=20,
-          has_met=True, has_env=False):
+          has_met=True, has_env=False, width=None):
     """pt [PT_CH, R] for one frame: the twin on CPU tensors, the kernels on
-    CUDA tensors."""
+    CUDA tensors (on 2-D pixel tiles when `width` is given)."""
     kw = dict(k=k, single_sided=single_sided, temporal=temporal,
               temporal_clamp=temporal_clamp, has_met=has_met,
               has_env=has_env)
     if gb.device.type == "cpu":
         return reuse_ref(gb, prev_pt, looper, tables, **kw)
     if gb.device.type == "cuda":
-        return reuse_cuda(gb, prev_pt, looper, tables, bvh, **kw)
+        return reuse_cuda(gb, prev_pt, looper, tables, bvh, width=width,
+                          **kw)
     raise ValueError(f"unsupported device {gb.device}")

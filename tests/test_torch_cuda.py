@@ -266,6 +266,72 @@ def test_walk_counts_match_lockstep_twin(large):
     assert (tris == st[1]).float().mean() >= 0.99
 
 
+@pytest.fixture(scope="module")
+def ragged(cuda_device):
+    """The large scene at 200x76: the frame cuts B6 / B7's 32x8 pixel
+    blocks ragged on both axes."""
+    arrays, camkw = many_light_scene(16, 120)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam0 = make_camera(**camkw)
+    cam1 = make_camera(**{**camkw, "position": (0.3, 4.5, 15.0)})
+    cv0, cv1 = pack_camera(cam0, cuda_device), pack_camera(cam1, cuda_device)
+    return scene, cv0, cv1, 200, 76
+
+
+def test_b6_b7_match_twins_on_ragged_frame(ragged):
+    """B6 and B7 on 2-D pixel tiles against their twins on a frame whose
+    edges cut the tiles (R is not whole 1024-pixel tiles, so B7's
+    candidates are held against the twin's RIS and shadow stages without
+    B1b's merge), and B7's tiled pack equal to its pack in linear pixel
+    order."""
+    scene, cv0, cv1, w, h = ragged
+    gb_k = gbuffer.gbuffer_cuda(cv1, cv0, 3, scene.bvh, width=w, height=h)
+    gb_r = gbuffer.gbuffer_ref(cv1, cv0, 3, scene.bvh, width=w, height=h)
+    fails, stats = parity.gb_report(gb_r, gb_k)
+    assert not fails, (fails, stats)
+    rs_tiles = reuse.candidates_cuda(gb_k, 3, scene.tables, scene.bvh,
+                                     width=w)
+    li, wi, dist, wt = fused_di.ris_pixels(
+        gb_k, torch.arange(w * h, device=gb_k.device), 3, scene.tables, k=4,
+        single_sided=True, has_met=True)
+    wt = fused_di.shadow_pixels(gb_k, wi, dist, wt, scene.tables.planes)
+    rs_r = torch.cat([li, wi, dist[None], wt[None]])
+
+    def as_pt(rs):  # the rs channels sit where pt_report reads pt's
+        pt = torch.zeros((fused_di.PT_CH, rs.shape[1]), device=rs.device)
+        pt[:fused_di.RS_CH] = rs
+        return pt
+
+    fails, stats = parity.pt_report(as_pt(rs_r), as_pt(rs_tiles))
+    assert not fails, (fails, stats)
+    rs_linear = reuse.candidates_cuda(gb_k, 3, scene.tables, scene.bvh)
+    assert torch.equal(rs_tiles, rs_linear)
+
+
+def test_b7_targets_per_pixel_within_search_bound(ragged, env_tex):
+    """The COUNT build's third row: each pixel evaluates between n_l and
+    n_l + k * S light targets (n_l the rows that hold lights, S the
+    checkpoint spacing), on the 128-row and the 640-row (env) tables; its
+    packs equal the plain build's."""
+    k = 4
+    for scene, gb, has_env in (
+            (ragged[0], gbuffer.gbuffer_cuda(
+                ragged[2], ragged[1], 1, ragged[0].bvh, width=ragged[3],
+                height=ragged[4]), False),
+            (env_tex[0], gbuffer.gbuffer_cuda(
+                env_tex[2], env_tex[1], 1, env_tex[0].bvh, width=W, height=H,
+                **env_tex[4]), env_tex[4].get("has_env", False))):
+        rs, st = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh, k=k,
+                                       has_env=has_env, stats=True)
+        n_l = scene.tables.n_lights + (reuse.N_ENV if has_env else 0)
+        assert st.shape == (3, gb.shape[1])
+        assert int(st[2].min()) >= n_l
+        seg = reuse.seg_for(scene.tables.n_lights, has_env)
+        assert int(st[2].max()) <= n_l + k * seg
+        assert torch.equal(rs, reuse.candidates_cuda(
+            gb, 1, scene.tables, scene.bvh, k=k, has_env=has_env))
+
+
 def test_mtbvh_path_matches_b1_on_resident_scene(frame):
     """B6 + B7 + B1b on a scene B1 renders resident agree with B1."""
     scene, cv0, cv1, pt0 = frame
