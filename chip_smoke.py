@@ -584,7 +584,7 @@ def walk_lines(name, cnt6, cnt7, t, k, has_env, w, h):
               f"maximum / mean {tile:.4f} on the launched 8x4 tiles "
               f"({strip:.4f} were the warps 32x1 strips)")
     n_l = light_count(t, has_env)
-    seg = reuse.seg_for(t.n_lights, has_env)
+    seg = reuse.seg_cuda(t.n_lights, has_env)
     ev = cnt7[2]
     lo, hi, mean = int(ev.min()), int(ev.max()), float(ev.double().mean())
     print(f"{name} B7 light targets per pixel: mean {mean:.2f}, min {lo}, "
@@ -626,7 +626,7 @@ def b1_bound(scene, gb, cam_vec, lcam_vec, cfg, has_env):
         cam_vec, lcam_vec, 1, bvh, width=cfg.width, height=cfg.height,
         aa_jitter=cfg.aa_jitter, single_sided=cfg.single_sided_lights,
         has_env=has_env, with_textures=cfg.with_textures, stats=True)
-    _, cnt7 = reuse.candidates_cuda(gb, 1, t, bvh, k=k,
+    _, cnt7 = reuse.candidates_cuda(gb, 1, t, bvh, width=cfg.width, k=k,
                                     single_sided=cfg.single_sided_lights,
                                     has_met=cfg.scene_has_metallic,
                                     has_env=has_env, stats=True)
@@ -710,33 +710,58 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
     return counts
 
 
-def profile_frames(name, scene, cfg, cam, dev, frames=4, with_scene=True):
+def profile_frames(name, scene, cfg, cam, dev, frames=4, with_scene=True,
+                   tries=3):
     """Device busy time per frame, split into the port's kernels and
     PyTorch's own, and the largest kernels, from a torch.profiler trace of
-    `frames` frames after 2 warm-up frames."""
+    `frames` frames after 2 warm-up frames and one more profiled but
+    discarded (the schedule's warm-up step: the device trace misses
+    kernels of the first frame after it starts). Every frame launches the
+    same port kernels, so a trace in which one of them has an event count
+    that is not a multiple of `frames` lost events: it is taken again, up
+    to `tries` times, and else reported as not measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     state = renderer.init_state(cfg, cam, scene if with_scene else None,
                                 device=dev)
     for _ in range(2):
         state, _ = renderer.step(scene, state, cam, cfg)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             state, _ = renderer.step(scene, state, cam, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / frames
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / frames)
-    if not by_name:
-        print(f"profile {name}: the trace holds no device events; device "
-              "busy share not measured")
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                state, _ = renderer.step(scene, state, cam, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / frames
+            prof.step()
+        by_name, count = {}, {}
+        for e in prof.events():
+            # device events: kernels and copies, not the step annotations
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and not e.name.startswith("ProfilerStep")):
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / frames)
+                if "at::native" not in e.name:
+                    count[e.name] = count.get(e.name, 0) + 1
+        lost = {k: n for k, n in count.items()
+                if "(anonymous namespace)::" in k and n % frames}
+        if by_name and not lost:
+            break
+        print(f"profile {name}: trace {attempt} of {tries} incomplete: "
+              + "; ".join(f"{n} events of {k[:60]}" for k, n in lost.items())
+              if by_name else
+              f"profile {name}: trace {attempt} holds no device events")
+    else:
+        print(f"profile {name}: device busy share not measured")
         return
     busy = sum(by_name.values())
     torch_ms = sum(v for k, v in by_name.items() if "at::native" in k)

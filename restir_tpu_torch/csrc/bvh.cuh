@@ -7,7 +7,8 @@
 // its `miss` index, past its subtree, so the walk is one loop with no
 // stack. Leaves run the ray's own unit-plane test on the triangle's plane
 // row: `RayT::hit` is di_core.cuh's plane_hit for the DI kernels (B1, B6,
-// B7; `PlaneRay`) and gi_core.cuh's for B8 (`gi::GiRay`), each the test
+// B7, B10; `PlaneRay`, or `PlaneRay4` with float4 row loads in B6, B7) and
+// gi_core.cuh's for B8, B11 and B12 (`gi::GiRay`), each the test
 // of the brute-force loop that kernel's twin runs.
 //
 // Exactness against a brute-force loop over every row: node boxes are

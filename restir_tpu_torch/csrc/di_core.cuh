@@ -24,7 +24,13 @@ namespace restir {
 constexpr int MAX_K = 8;
 
 // RIS target weight of light row `ps` at a shading point (identical math
-// to fused_di._ris_select_core's three psi products).
+// to fused_di._ris_select_core's three psi products). B7 evaluates the
+// same target through reuse_bvh.cu's light_target4 / env_target, whose
+// intrinsics spell out the FMAs nvcc fuses here, so both pick alike. The
+// B1 == B6 + B7 + B1b checks guard the pair: in tests/test_torch_cuda.py
+// test_b6_b7_env_tex_match_b1 and
+// test_mtbvh_path_matches_b1_on_resident_scene, and chip_smoke.py
+// phases 4 and 8 at 1080p. Run them after an edit on either side.
 __device__ __forceinline__ float light_target(const float* ps, float nx,
                                               float ny, float nz, float ndx,
                                               float px, float py, float pz,
@@ -61,11 +67,21 @@ __device__ __forceinline__ float plane_hit(const float* q, float ox, float oy,
   return hit ? t : -1.0f;
 }
 
-// A ray with plane_hit as the MTBVH walks' leaf test (bvh.cuh). The
-// plane row (48 B, 16-byte aligned) is read as three float4 loads
-// through the read-only path.
+// A ray with plane_hit as the MTBVH walks' leaf test (bvh.cuh).
 struct PlaneRay {
   float ox, oy, oz, dx, dy, dz;
+  __device__ __forceinline__ float hit(const float* q, float& u,
+                                       float& v) const {
+    return plane_hit(q, ox, oy, oz, dx, dy, dz, u, v);
+  }
+};
+
+// The same ray and test, with the plane row (48 B, 16-byte aligned) read
+// as three float4 loads through the read-only path, where nvcc emits 12
+// scalar loads for PlaneRay. The same hit bit for bit; it pays in B6's
+// and B7's walks, while B1's env build ran slower with it (PERF.md §6),
+// so each kernel names its leaf loads by the ray type it walks.
+struct PlaneRay4 : PlaneRay {
   __device__ __forceinline__ float hit(const float* q, float& u,
                                        float& v) const {
     const float4* q4 = reinterpret_cast<const float4*>(q);
@@ -474,7 +490,13 @@ struct Candidate {
 
 // K-candidate CDF RIS over the per-pixel light CDF with a single-draw
 // winner (fused_di._ris_select_core). psi / lights are the [l_pad, 16]
-// tables (shared memory in the kernels). Lanes without a winner get
+// tables (shared memory in the kernels). B7 searches the cdf instead of
+// scanning it twice, and evaluates its candidates and winner with its
+// own copy of the code below (reuse_bvh.cu, ris_finish): taking a shared
+// winner function here, in two forms, moved B1's texture build by an ulp
+// on some lanes (PERF.md §6), so the copies stay apart, and the
+// B1 == B6 + B7 + B1b tests named at light_target keep them equal.
+// Lanes without a winner get
 // li = wi = 0, dist = 0. With HAS_ENV, rows from n_area on are env tiles:
 // a pick there samples a uv-uniform direction in the tile with its exact
 // solid-angle pdf, and its shadow ray runs to RESTIR_ENV_DIST.

@@ -25,7 +25,7 @@
 // tile_pixel): neighbouring rays walk nearly the same nodes, so the
 // warp's longest walk is closer to its mean than in a 32x1 strip, and
 // each channel store is four whole 32-byte segments. The leaf test reads
-// its plane row as three float4 loads (di_core.cuh, PlaneRay). Its 42-48
+// its plane row as three float4 loads (di_core.cuh, PlaneRay4). Its 42-48
 // registers let 5 blocks (40 warps) share an SM; a cap for 6 blocks
 // spilled and did not pay. Wider nodes and ray sorting are later work.
 #include "bvh.cuh"
@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(PIX_BLOCK) gbuffer_bvh_kernel(
   WalkCount n = {0, 0};
   int prim;
   float bu, bv;
-  const PlaneRay pr = {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz};
+  const PlaneRay4 pr = {{ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz}};
   const float best = closest_walk<COUNT>(bvh, pr, prim, bu, bv, n);
   gbuffer_epilogue<HAS_ENV, TEX>(gb, p, r, ray, best, prim, bu, bv, attr,
                                  mat, n_mat, lcam, width, height, aspect,

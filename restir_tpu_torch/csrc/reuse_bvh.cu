@@ -28,15 +28,16 @@
 //   shared memory per row in place of a 64-byte psi row.
 // So a pixel evaluates at most n_lights + K * S targets. S is the
 // smallest of 8, 16, 32 whose checkpoints leave room for the blocks per
-// SM the registers allow (ops/kernels/reuse.py, seg_for): 8 on the hall's
-// 128 lights (24 KB per block), 16 on its 640 rows under a sky (58 KB,
-// against the first design's 80 KB of psi and light rows; the K picked
-// light rows are read through the read-only path). Once the search was
-// cheap, the walk took most of the time: it waits out chains of
-// dependent node loads, so the registers are capped for more warps per
-// SM (launch bounds below). Its warps are 8x4 pixel tiles (common.cuh,
-// tile_pixel), though each pixel shoots at its own random light, so
-// tiles help it little.
+// SM that the launch bounds ask for (b7_seg below; mirrored on the host
+// by ops/kernels/reuse.py, seg_for): 8 on the hall's 128 lights (24 KB
+// per block), 16 on its 640 rows under a sky (58 KB, against the first
+// design's 80 KB of psi and light rows; the K picked light rows are read
+// through the read-only path). Once the search was cheap, the walk took
+// most of the time: it waits out chains of dependent node loads, so the
+// registers are capped for more warps per SM (launch bounds below), and
+// its leaf test reads plane rows as float4 (PlaneRay4). Its warps are 8x4
+// pixel tiles of the frame (common.cuh, tile_pixel), though each pixel
+// shoots at its own random light, so tiles help it little.
 //
 // With an env map (template flag HAS_ENV) the 512 env tiles follow the
 // area lights as virtual lights, and an env winner's shadow ray runs to
@@ -59,7 +60,10 @@ constexpr int kEnvRows = RESTIR_ENV_TH * RESTIR_ENV_TW;
 // full scan round alike. Left to the compiler, this code fused the frame
 // otherwise and moved B7's packs. ris_finish repeats ris_select's
 // candidate evaluation and winner: B1 and B10 keep their inline copy, as
-// sharing it slowed B1's env build by 5 %.
+// sharing the evaluation slowed B1's env build by 5 % and sharing the
+// winner moved B1's texture build by an ulp (PERF.md §6). The B1 ==
+// B6 + B7 + B1b tests named at di_core.cuh's light_target keep the two
+// copies, and light_target with light_target4 / env_target, equal.
 
 // The frame the light targets read: the normal facing wo (dielectrics
 // keep theirs), n.p, |p|^2 and -2p.
@@ -381,9 +385,50 @@ __device__ __forceinline__ Candidate ris_select_seg(
 // Blocks per SM: registers capped at 64 (80 with the env tiles, whose
 // checkpoints leave room for 3 blocks). That spills 84-260 bytes of the
 // RIS part to local memory but lets 32 (24) warps share an SM to hide
-// the walk's load latency, where 93-96 registers allowed 16.
+// the walk's load latency, where 93-96 registers allowed 16. b7_seg sizes
+// the checkpoints for the same counts.
+constexpr int kBlocksPerSm = 4, kBlocksPerSmEnv = 3;
+constexpr int kSegs[] = {8, 16, 32};
+
+// Shared memory per block: the area lights' psi rows (64 B), the env
+// tiles' (d_tile, rad | lum) (20 B) and a cdf checkpoint every seg rows
+// for each thread (ops/kernels/reuse.py, smem_bytes).
+size_t b7_smem(int n_area, bool has_env, int seg) {
+  const int n_env = has_env ? kEnvRows : 0;
+  const int n_seg = (n_area + n_env + seg - 1) / seg;
+  return (size_t)n_area * 64 + (size_t)n_env * 20 +
+         (size_t)n_seg * PIX_BLOCK * sizeof(float);
+}
+
+// The checkpoint spacing: the smallest of kSegs whose shared memory lets
+// the blocks per SM of the launch bounds share an SM of this device, else
+// the largest.
+cudaError_t b7_seg(int n_area, bool has_env, int* seg) {
+  int dev, sm_smem, reserved;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return e;
+  const size_t cap =
+      (size_t)(sm_smem / (has_env ? kBlocksPerSmEnv : kBlocksPerSm)) -
+      (size_t)reserved;
+  *seg = kSegs[sizeof(kSegs) / sizeof(kSegs[0]) - 1];
+  for (int s : kSegs) {
+    if (b7_smem(n_area, has_env, s) <= cap) {
+      *seg = s;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <bool COUNT, bool HAS_ENV>
-__global__ void __launch_bounds__(PIX_BLOCK, HAS_ENV ? 3 : 4)
+__global__ void __launch_bounds__(PIX_BLOCK,
+                                  HAS_ENV ? kBlocksPerSmEnv : kBlocksPerSm)
     reuse_bvh_kernel(const float* __restrict__ gb, uint32_t looper,
                      const float* __restrict__ lights_g,
                      const float4* __restrict__ psi_g, int l_pad, int n_area,
@@ -405,9 +450,8 @@ __global__ void __launch_bounds__(PIX_BLOCK, HAS_ENV ? 3 : 4)
   }
   __syncthreads();
 
-  const int p = width > 0 ? tile_pixel(width, r / width)
-                          : (int)(blockIdx.x * blockDim.x + threadIdx.x);
-  if (p < 0 || p >= r) return;
+  const int p = tile_pixel(width, r / width);
+  if (p < 0) return;
   const LightStage st = {area,           env,
                          env_lum,        env_lum + n_env + threadIdx.x,
                          (int)blockDim.x, n_area,
@@ -418,8 +462,8 @@ __global__ void __launch_bounds__(PIX_BLOCK, HAS_ENV ? 3 : 4)
       st, lights_g, l_pad, (uint32_t)p, looper, k, single_sided, has_met, s,
       evaluated);
   WalkCount n = {0, 0};
-  const bool occluded = occluded_walk<COUNT>(bvh, shadow_ray(s, c),
-                                             shadow_limit(c), s.prim, n);
+  const bool occluded = occluded_walk<COUNT>(
+      bvh, PlaneRay4{shadow_ray(s, c)}, shadow_limit(c), s.prim, n);
   write_rs(rs, p, r, c, occluded);
   if (COUNT) {
     stats[p] = n.boxes;
@@ -430,23 +474,22 @@ __global__ void __launch_bounds__(PIX_BLOCK, HAS_ENV ? 3 : 4)
 
 template <bool COUNT, bool HAS_ENV>
 int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
-                     const float* psi, int l_pad, int n_area, int seg,
+                     const float* psi, int l_pad, int n_area,
                      const BvhRows& bvh, float* rs, int* stats, int r,
                      int width, int single_sided, int k, int has_met,
                      cudaStream_t stream) {
-  const int n_env = HAS_ENV ? kEnvRows : 0;
-  const int n_seg = (n_area + n_env + seg - 1) / seg;
-  const size_t smem = (size_t)n_area * 64 + (size_t)n_env * 20 +
-                      (size_t)n_seg * PIX_BLOCK * sizeof(float);
+  int seg;
+  cudaError_t e = b7_seg(n_area, HAS_ENV, &seg);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = b7_smem(n_area, HAS_ENV, seg);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reuse_bvh_kernel<COUNT, HAS_ENV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(reuse_bvh_kernel<COUNT, HAS_ENV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid = width > 0 ? tile_grid(width, r / width)
-                              : dim3((r + PIX_BLOCK - 1) / PIX_BLOCK);
-  reuse_bvh_kernel<COUNT, HAS_ENV><<<grid, PIX_BLOCK, smem, stream>>>(
+  reuse_bvh_kernel<COUNT, HAS_ENV>
+      <<<tile_grid(width, r / width), PIX_BLOCK, smem, stream>>>(
       gb, looper, lights, reinterpret_cast<const float4*>(psi), l_pad,
       n_area, seg, bvh, rs, stats, r, width, single_sided, k, has_met);
   return (int)cudaGetLastError();
@@ -454,30 +497,36 @@ int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
 
 }  // namespace
 
+// B7's light rows per cdf checkpoint on the current device, or minus a
+// CUDA error code.
+extern "C" int restir_reuse_bvh_seg(int n_area, int has_env) {
+  int seg;
+  const cudaError_t e = b7_seg(n_area, has_env != 0, &seg);
+  return e == cudaSuccess ? seg : -(int)e;
+}
+
 // rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
 // scene's MTBVH (ops/kernels/tables.py). width: the frame's width, for
-// 2-D pixel tiles (r = width x height), or 0 for pixels in linear order.
-// seg: light rows per cdf checkpoint (ops/kernels/reuse.py, seg_for).
-// stats: null, or int32 [3, R] that receives
-// each shadow ray's box and triangle test counts and the light targets
-// the pixel evaluated.
+// the 2-D pixel tiles (r = width x height). stats: null, or int32 [3, R]
+// that receives each shadow ray's box and triangle test counts and the
+// light targets the pixel evaluated.
 extern "C" int restir_reuse_bvh(const float* gb, uint32_t looper,
                                 const float* lights, const float* psi,
                                 int l_pad, int n_area, int has_env,
                                 const float* rows, int size,
                                 const float* planes, float* rs,
-                                int* stats, int r, int width, int seg,
+                                int* stats, int r, int width,
                                 int single_sided, int k, int has_met,
                                 void* stream) {
-  if (k < 1 || k > MAX_K || r <= 0 || size <= 0 || seg < 1 ||
-      width < 0 || (width > 0 && r % width != 0) || n_area < 0 ||
+  if (k < 1 || k > MAX_K || r <= 0 || size <= 0 || width <= 0 ||
+      r % width != 0 || n_area < 0 ||
       n_area + (has_env ? kEnvRows : 0) > l_pad)
     return (int)cudaErrorInvalidValue;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream;
 #define RESTIR_B7_LAUNCH(C, E)                                              \
-  launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, seg, bvh, \
-                         rs, stats, r, width, single_sided, k, has_met, st)
+  launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, bvh, rs, \
+                         stats, r, width, single_sided, k, has_met, st)
   if (stats)
     return has_env ? RESTIR_B7_LAUNCH(true, true)
                    : RESTIR_B7_LAUNCH(true, false);

@@ -140,7 +140,8 @@ _SIGNATURES = {
         _F, _I, _I, _VP],
     "restir_reuse_bvh": [
         _VP, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
-        _I, _I, _I, _I, _VP],
+        _I, _I, _I, _VP],
+    "restir_reuse_bvh_seg": [_I, _I],
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
     "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],

@@ -15,7 +15,8 @@ Nothing falls back. `has_env` adds the env tiles to the light CDF.
 
 B7 finds its K picks with a search that evaluates each light row about
 once (`csrc/reuse_bvh.cu`): pass 1 sums the light targets in row order
-and keeps the running cdf after every S-th row (`seg_for`: 8 or 16),
+and keeps the running cdf after every S-th row (the kernel picks S for
+the card, `seg_cuda`; `seg_for` is its host mirror: 8 or 16 on an H100),
 then each pick re-scans only the segment whose checkpoint first exceeds
 its threshold. The adds are the full two-pass scan's, in its order, so
 the picks are its picks bit for bit. `ris_search` / `search_seg` and
@@ -53,9 +54,12 @@ from .tables import BvhTables, ResidentTables
 launches = 0  # reuse_bvh kernel launches
 
 N_ENV = ENV_TH * ENV_TW  # env-tile light rows after the area lights
+# Host mirror of csrc/reuse_bvh.cu's b7_seg, for the CPU search and the
+# tests: kSegs, the blocks per SM of its launch bounds (kBlocksPerSm,
+# kBlocksPerSmEnv) and an H100 SM's shared memory. The tests hold the
+# first two against the source and the mirror against the kernel's S.
 SEGS = (8, 16, 32)  # light rows per cdf checkpoint B7 may take
-# blocks per SM that B7's __launch_bounds__ leave room for, by env build
-BLOCKS_PER_SM = {False: 4, True: 3}
+BLOCKS_PER_SM = {False: 4, True: 3}  # by env build
 SMEM_SM = 233472  # shared memory of one Hopper SM (bytes)
 SMEM_BLOCK_RESERVED = 1024  # shared memory the system keeps per block
 
@@ -69,16 +73,26 @@ def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int) -> int:
 
 
 def seg_for(n_area: int, has_env: bool) -> int:
-    """B7's checkpoint spacing: the smallest of SEGS (each pick re-scans
-    that many rows) whose checkpoints still leave room in shared memory
-    for the blocks per SM its registers allow; else the largest. 8 on
-    128 light rows, 16 on 640 (128 area lights and the env tiles)."""
+    """B7's checkpoint spacing on an H100 (the host mirror of the
+    kernel's b7_seg): the smallest of SEGS (each pick re-scans that many
+    rows) whose checkpoints still leave room in shared memory for the
+    blocks per SM its launch bounds ask for; else the largest. 8 on 128
+    light rows, 16 on 640 (128 area lights and the env tiles)."""
     n_live = n_area + (N_ENV if has_env else 0)
     cap = SMEM_SM // BLOCKS_PER_SM[has_env] - SMEM_BLOCK_RESERVED
     for seg in SEGS:
         if smem_bytes(n_area, has_env, n_live, seg) <= cap:
             return seg
     return SEGS[-1]
+
+
+def seg_cuda(n_area: int, has_env: bool) -> int:
+    """The checkpoint spacing B7 takes on the current CUDA device (its
+    b7_seg)."""
+    seg = _build.library().restir_reuse_bvh_seg(n_area, int(has_env))
+    if seg < 0:
+        _build.check(-seg, "restir_reuse_bvh_seg")
+    return seg
 
 
 # ---- mirror of B7's light search (CPU tests) ----
@@ -270,24 +284,24 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 
 
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
-                    k=4, single_sided=True, has_met=True, has_env=False,
-                    width=None, stats=False):
+                    width, k=4, single_sided=True, has_met=True,
+                    has_env=False, stats=False):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, R] (li, wi, dist, W
-    after visibility). `width` (R = width x height) launches 2-D pixel
-    tiles; None keeps pixels in linear order. With `stats`, also return
-    the int32 [3, R] box and triangle test counts of each shadow ray and
-    the light targets each pixel evaluated."""
+    after visibility), on 2-D pixel tiles of the frame (R = width x
+    height). With `stats`, also return the int32 [3, R] box and triangle
+    test counts of each shadow ray and the light targets each pixel
+    evaluated."""
     global launches
     r = gb.shape[1]
     dev = gb.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if width is not None and (width <= 0 or r % width):
+    if width <= 0 or r % width:
         raise ValueError(f"width={width} does not divide R={r}")
     lights, psi = tables.light_rows(has_env)
     l_pad = psi.shape[0]
     n_live = tables.n_lights + (N_ENV if has_env else 0)
-    seg = seg_for(tables.n_lights, has_env)
+    seg = seg_cuda(tables.n_lights, has_env)
     smem = smem_bytes(tables.n_lights, has_env, n_live, seg)
     if smem > SMEM_MAX:
         raise ValueError(f"B7 stages {tables.n_lights} area-light psi rows, "
@@ -305,16 +319,16 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     err = _build.library().restir_reuse_bvh(
         p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
         l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
-        p(bvh.planes), p(rs), p(counts), r, width or 0, seg,
-        int(single_sided), k, int(has_met), _build.stream_of(dev))
+        p(bvh.planes), p(rs), p(counts), r, width, int(single_sided), k,
+        int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
     launches += 1
     return (rs, counts) if stats else rs
 
 
 def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
-               *, k=4, single_sided=True, temporal=True, temporal_clamp=20,
-               has_met=True, has_env=False, width=None):
+               *, width, k=4, single_sided=True, temporal=True,
+               temporal_clamp=20, has_met=True, has_env=False):
     """Kernel B7, then B1b: pt [PT_CH, R]."""
     rs = candidates_cuda(gb, looper, tables, bvh, k=k,
                          single_sided=single_sided, has_met=has_met,
@@ -325,10 +339,10 @@ def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
 
 
 def reuse(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables, *,
-          k=4, single_sided=True, temporal=True, temporal_clamp=20,
-          has_met=True, has_env=False, width=None):
-    """pt [PT_CH, R] for one frame: the twin on CPU tensors, the kernels on
-    CUDA tensors (on 2-D pixel tiles when `width` is given)."""
+          width, k=4, single_sided=True, temporal=True, temporal_clamp=20,
+          has_met=True, has_env=False):
+    """pt [PT_CH, R] for one frame of `width` pixels a row: the twin on CPU
+    tensors, the kernels on CUDA tensors."""
     kw = dict(k=k, single_sided=single_sided, temporal=temporal,
               temporal_clamp=temporal_clamp, has_met=has_met,
               has_env=has_env)

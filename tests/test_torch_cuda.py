@@ -37,6 +37,7 @@ from restir_tpu_torch.ops.kernels import (
     svgf,
 )
 from restir_tpu_torch.ops.kernels import intersect as ki
+from restir_tpu_torch.utils import rng
 from restir_tpu_torch.scene.procedural import (
     cornell_box,
     env_scene,
@@ -233,7 +234,8 @@ def test_b7_kernel_matches_twin(large, temporal):
     gb = gbuffer.gbuffer_cuda(cv1, cv0, 3, scene.bvh, width=W, height=H)
     kw = dict(temporal=temporal)
     before = (reuse.launches, fused_di.temporal_launches)
-    pt_k = reuse.reuse_cuda(gb, prev, 3, scene.tables, scene.bvh, **kw)
+    pt_k = reuse.reuse_cuda(gb, prev, 3, scene.tables, scene.bvh, width=W,
+                            **kw)
     assert (reuse.launches, fused_di.temporal_launches) == (
         before[0] + 1, before[1] + 1)
     pt_r = reuse.reuse_ref(gb, prev, 3, scene.tables, **kw)
@@ -255,7 +257,7 @@ def test_walk_counts_match_lockstep_twin(large):
     assert (tris == st[1]).float().mean() >= 0.99
     assert (prim.float() == gb[fused_di.G_PRIM]).float().mean() >= 0.998
 
-    rs, st = reuse.candidates_cuda(gb, 3, scene.tables, scene.bvh,
+    rs, st = reuse.candidates_cuda(gb, 3, scene.tables, scene.bvh, width=W,
                                    stats=True)
     wi = tuple(rs[fused_di.RS_WI + i] for i in range(3))
     o = tuple(gb[fused_di.G_POS + i] + wi[i] * 1e-5 for i in range(3))
@@ -282,8 +284,7 @@ def test_b6_b7_match_twins_on_ragged_frame(ragged):
     """B6 and B7 on 2-D pixel tiles against their twins on a frame whose
     edges cut the tiles (R is not whole 1024-pixel tiles, so B7's
     candidates are held against the twin's RIS and shadow stages without
-    B1b's merge), and B7's tiled pack equal to its pack in linear pixel
-    order."""
+    B1b's merge)."""
     scene, cv0, cv1, w, h = ragged
     gb_k = gbuffer.gbuffer_cuda(cv1, cv0, 3, scene.bvh, width=w, height=h)
     gb_r = gbuffer.gbuffer_ref(cv1, cv0, 3, scene.bvh, width=w, height=h)
@@ -304,8 +305,18 @@ def test_b6_b7_match_twins_on_ragged_frame(ragged):
 
     fails, stats = parity.pt_report(as_pt(rs_r), as_pt(rs_tiles))
     assert not fails, (fails, stats)
-    rs_linear = reuse.candidates_cuda(gb_k, 3, scene.tables, scene.bvh)
-    assert torch.equal(rs_tiles, rs_linear)
+
+
+def _b7_frames(ragged, env_tex):
+    """(scene, B6's gb pack, width, has_env): the ragged frame (128 light
+    rows) and the env_tex fixture's frame (640 rows with the env tiles)."""
+    scene, cv0, cv1, w, h = ragged
+    yield scene, gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=w,
+                                      height=h), w, False
+    scene, cv0, cv1, _, flags = env_tex
+    yield scene, gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W,
+                                      height=H, **flags), W, \
+        flags.get("has_env", False)
 
 
 def test_b7_targets_per_pixel_within_search_bound(ragged, env_tex):
@@ -314,22 +325,70 @@ def test_b7_targets_per_pixel_within_search_bound(ragged, env_tex):
     checkpoint spacing), on the 128-row and the 640-row (env) tables; its
     packs equal the plain build's."""
     k = 4
-    for scene, gb, has_env in (
-            (ragged[0], gbuffer.gbuffer_cuda(
-                ragged[2], ragged[1], 1, ragged[0].bvh, width=ragged[3],
-                height=ragged[4]), False),
-            (env_tex[0], gbuffer.gbuffer_cuda(
-                env_tex[2], env_tex[1], 1, env_tex[0].bvh, width=W, height=H,
-                **env_tex[4]), env_tex[4].get("has_env", False))):
-        rs, st = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh, k=k,
-                                       has_env=has_env, stats=True)
+    for scene, gb, w, has_env in _b7_frames(ragged, env_tex):
+        rs, st = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                       width=w, k=k, has_env=has_env,
+                                       stats=True)
         n_l = scene.tables.n_lights + (reuse.N_ENV if has_env else 0)
         assert st.shape == (3, gb.shape[1])
         assert int(st[2].min()) >= n_l
         seg = reuse.seg_for(scene.tables.n_lights, has_env)
         assert int(st[2].max()) <= n_l + k * seg
         assert torch.equal(rs, reuse.candidates_cuda(
-            gb, 1, scene.tables, scene.bvh, k=k, has_env=has_env))
+            gb, 1, scene.tables, scene.bvh, width=w, k=k, has_env=has_env))
+
+
+def _sampled_dir(gb, tables, has_env, idx, pix, looper):
+    """The direction candidate 0 samples on light rows idx [b] (a point on
+    the area light, or in the env tile), as B7's ris_finish draws it."""
+    lights, _ = tables.light_rows(has_env)
+    _, r2, r3, _ = rng.uniform4(pix, looper, fused_di.CTR_RIS,
+                                rng.SALT_RESTIR)
+    row = lights[idx].T
+    sr = torch.sqrt(torch.clamp(r3, min=0.0))
+    d = torch.stack([row[c] + (1.0 - sr) * row[c + 3] + r2 * sr * row[c + 6]
+                     - gb[fused_di.G_POS + c] for c in range(3)])
+    d = d / torch.clamp(torch.linalg.vector_norm(d, dim=0), min=1e-20)
+    if has_env:
+        phi = (row[0] + r2 * row[3]) * (2.0 * np.pi)
+        th = (row[1] + r3 * row[6]) * np.pi
+        env = torch.stack([torch.cos(phi) * torch.sin(th), torch.cos(th),
+                           torch.sin(phi) * torch.sin(th)])
+        d = torch.where(idx >= tables.n_lights, env, d)
+    return d
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_b7_search_equals_cpu_mirror(ragged, env_tex, k):
+    """B7 runs the search its mirror (`reuse.ris_search`) runs: the COUNT
+    build's third row equals the mirror's targets evaluated, pixel for
+    pixel, at the kernel's spacing; at k = 1 every winner's direction is
+    the one sampled on the mirror's pick."""
+    for scene, gb, w, has_env in _b7_frames(ragged, env_tex):
+        rs, st = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                       width=w, k=k, has_env=has_env,
+                                       stats=True)
+        pix = torch.arange(gb.shape[1], device=gb.device)
+        seg = reuse.seg_cuda(scene.tables.n_lights, has_env)
+        idx, _, _, evaluated = reuse.ris_search(
+            gb, pix, 1, scene.tables, k=k, single_sided=True,
+            has_env=has_env, seg=seg)
+        assert torch.equal(st[2].long(), evaluated)
+        if k == 1:
+            wi = rs[fused_di.RS_WI:fused_di.RS_WI + 3]
+            won = (wi != 0.0).any(dim=0)
+            assert float(won.float().mean()) > 0.3
+            ref = _sampled_dir(gb, scene.tables, has_env, idx[0], pix, 1)
+            assert float((wi - ref)[:, won].abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("n_area,has_env", [(128, False), (128, True),
+                                            (4, True), (2000, False),
+                                            (2000, True)])
+def test_b7_seg_matches_host_mirror(cuda_device, n_area, has_env):
+    """The spacing B7 takes on the card (b7_seg) equals `reuse.seg_for`,
+    the host mirror the CPU search and the tests use."""
+    assert reuse.seg_cuda(n_area, has_env) == reuse.seg_for(n_area, has_env)
 
 
 def test_mtbvh_path_matches_b1_on_resident_scene(frame):
@@ -338,7 +397,7 @@ def test_mtbvh_path_matches_b1_on_resident_scene(frame):
     gb_b1, pt_b1 = fused_di.di_resident_cuda(cv1, cv0, 1, pt0, scene.tables,
                                              scene.bvh, width=W, height=H)
     gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H)
-    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh)
+    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh, width=W)
     fails, stats = parity.gb_pt_report(gb_b1, pt_b1, gb, pt)
     assert not fails, (fails, stats)
 
@@ -390,7 +449,7 @@ def test_b6_b7_env_tex_match_b1(env_tex):
                                              **flags)
     gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H,
                               **flags)
-    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh,
+    pt = reuse.reuse_cuda(gb, pt0, 1, scene.tables, scene.bvh, width=W,
                           has_env=flags.get("has_env", False))
     assert torch.equal(gb, gb_b1) and torch.equal(pt, pt_b1)
 
@@ -789,7 +848,7 @@ def test_b1a_packs_equal_b6_b7_on_headline_scene(cuda_device):
                                        scene.bvh, width=W, height=H)
     assert fused_di.launches == before + 1
     gb6 = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H)
-    rs7 = reuse.candidates_cuda(gb6, 1, scene.tables, scene.bvh)
+    rs7 = reuse.candidates_cuda(gb6, 1, scene.tables, scene.bvh, width=W)
     assert torch.equal(gb, gb6)
     assert torch.equal(rs, rs7)
     assert float((gb[fused_di.G_PRIM] >= 0).float().mean()) > 0.5

@@ -254,7 +254,7 @@ def test_b6_b7_twins_match_b1_twin(world, history):
                               scene.bvh, width=W, height=H, **flags)
     gb = gbuffer.gbuffer_pack(cv1, cv0, 5, scene.bvh, width=W, height=H,
                               **flags)
-    pt = reuse.reuse(gb, _t(history), 5, scene.tables, scene.bvh,
+    pt = reuse.reuse(gb, _t(history), 5, scene.tables, scene.bvh, width=W,
                      has_env=flags.get("has_env", False))
     assert torch.equal(gb, gb1) and torch.equal(pt, pt1)
 

@@ -100,7 +100,8 @@ def test_reuse_twin_matches_streaming_kernels(world, jax_gb):
         temporal_clamp=cfg.temporal_clamp, has_met=cfg.scene_has_metallic,
         interpret=True)
     pt_t = reuse.reuse(torch.tensor(gb_j), torch.tensor(prev), 3,
-                       tscene.tables, tscene.bvh, k=cfg.cdf_candidates,
+                       tscene.tables, tscene.bvh, width=W,
+                       k=cfg.cdf_candidates,
                        single_sided=cfg.single_sided_lights, temporal=True,
                        temporal_clamp=cfg.temporal_clamp,
                        has_met=cfg.scene_has_metallic)

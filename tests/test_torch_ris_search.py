@@ -19,12 +19,14 @@
 - The tile map of B6 / B7 covers every pixel once on ragged frames.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from restir_tpu_torch import convert
-from restir_tpu_torch.ops.kernels import fused_di, gbuffer, reuse
+from restir_tpu_torch.ops.kernels import _build, fused_di, gbuffer, reuse
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_MTYPE,
@@ -189,14 +191,30 @@ def test_search_fallback_takes_last_light_row():
     assert torch.equal(tq[0], t[:, 47])
 
 
+def _b7_source_constants():
+    """(blocks per SM by env build, the spacings) as csrc/reuse_bvh.cu
+    declares them for its launch bounds and b7_seg."""
+    src = (_build.SRC_DIR / "reuse_bvh.cu").read_text()
+    blocks = re.search(r"constexpr int kBlocksPerSm = (\d+), "
+                       r"kBlocksPerSmEnv = (\d+);", src)
+    segs = re.search(r"constexpr int kSegs\[\] = \{([\d, ]+)\};", src)
+    assert blocks and segs
+    assert re.search(r"__launch_bounds__\(PIX_BLOCK,\s*HAS_ENV \? "
+                     r"kBlocksPerSmEnv : kBlocksPerSm\)", src)
+    return ({False: int(blocks[1]), True: int(blocks[2])},
+            tuple(int(x) for x in segs[1].split(",")))
+
+
 @pytest.mark.parametrize("n_area,has_env,seg", [(128, False, 8),
                                                 (128, True, 16),
                                                 (4, True, 16)])
 def test_seg_fits_the_blocks_per_sm(n_area, has_env, seg):
     """B7's checkpoint spacing: 8 rows on 128 area lights, 16 with the
-    env tiles, so that the blocks its registers allow fit an SM; and at
-    640 light rows it stages less than the 80 KB of psi and light rows
-    the first design held."""
+    env tiles, so that the blocks its launch bounds ask for fit an SM (the
+    host mirror's constants are the kernel's); and at 640 light rows it
+    stages less than the 80 KB of psi and light rows the first design
+    held."""
+    assert _b7_source_constants() == (reuse.BLOCKS_PER_SM, reuse.SEGS)
     assert reuse.seg_for(n_area, has_env) == seg
     n_live = n_area + (reuse.N_ENV if has_env else 0)
     smem = reuse.smem_bytes(n_area, has_env, n_live, seg)
