@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's fused DI frames on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's render paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -98,7 +98,33 @@ ReSTIR GI (after phase 14):
      5 % of the general step's over the same 8 frames;
  18. the fallback notice: RESTIR_GI on env_scene() with has_env_map warns
      once, naming the GI gate, and renders a general frame.
-Phases 12-14 run after phase 11, phases 15-18 after them.
+The MTBVH walk of the general path (after phase 18):
+ 19. B13 (the JAX package's lockstep MTBVH walk with the Moller-Trumbore
+     leaf test: closest, any and primary hit) and B14 (the BVH heatmap)
+     against their twins (`ops.intersect`) at 1920x1080 on the hall, on
+     every lane: B13's primary build on the hall's camera rays and, with
+     the mask of live lanes, on PT-full's first bounce rays from their
+     hits, its closest hit on those bounce rays, its any hit on NEE
+     segments from the camera hits (`kernel_ab.general_rays`), B14 on the
+     pixel-centre camera rays; gates: bit for bit on every lane (else the
+     reference's: primitive mismatch <= 0.2 %, matched lanes within rtol
+     2e-4, heatmap counts equal on >= 99.9 %, and the print says so);
+     each kernel's registers, walk counters per ray and per warp, time
+     and bound, and the twin's time over the frame;
+ 20. B13's closest hit through the ray-query entry point
+     (`intersect_closest` on the hall's bounce rays);
+ 21. general main paths through renderer.init_state / step at 1920x1080,
+     2 + 8 frames and a profile each: hall PT-direct (intersector auto:
+     the walk; launches per frame mt_primary 2, mt_any 1), hall general
+     DI + SVGF (intersector "bvh", which the fused gate refuses, cdf
+     mode: mt_primary 1, ris_cdf 1, svgf_variance 1 + 5, atrous_svgf 5),
+     hall heatmap (BVH_VISUALIZE: heatmap 1, mt_primary 1 for the
+     G-buffer), headline PT-direct with the Sobol sampler and EAW
+     (primary_hit 2, any_hit 1, atrous_eaw 5);
+ 22. hall energy: 64 fused RESTIR_DI frames of the hall against 256
+     PT_DIRECT frames (the walk) at 384x384, `energy_ratio_vs_pt` printed
+     on a line of its own; a measurement, not a gate.
+Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 last.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -133,7 +159,12 @@ from restir_tpu_torch.models import gbuffer as general_gb
 from restir_tpu_torch.models import restir_di_fused, restir_gi
 from restir_tpu_torch.ops import reservoir as rsv
 from restir_tpu_torch.ops import intersect, intersect_bf
-from restir_tpu_torch.ops.camera import make_camera, pack_camera
+from restir_tpu_torch.ops.camera import (
+    make_camera,
+    pack_camera,
+    pixel_centers,
+    sample_rays,
+)
 from restir_tpu_torch.ops.kernels import (
     _build,
     atrous,
@@ -207,6 +238,16 @@ SOURCES = {
                  "restir_tpu/ops/pallas/gi_kernel.py:325"),
     "gi_resolve": ("restir_tpu_torch/csrc/gi_resolve.cu",
                    "restir_tpu/ops/pallas/gi_kernel.py:1106"),
+    # B13 / B14: counterparts of the JAX package's XLA walks, not of
+    # Pallas kernels
+    "mt_closest": ("restir_tpu_torch/csrc/intersect.cu",
+                   "restir_tpu/ops/intersect.py:145"),
+    "mt_any": ("restir_tpu_torch/csrc/intersect.cu",
+               "restir_tpu/ops/intersect.py:201"),
+    "mt_primary": ("restir_tpu_torch/csrc/intersect.cu",
+                   "restir_tpu/ops/intersect.py:145"),
+    "heatmap": ("restir_tpu_torch/csrc/intersect.cu",
+                "restir_tpu/ops/intersect.py:252"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -236,6 +277,10 @@ FLOP_B12_EPI = 60  # B12's interpolation of pos / normal / uv
 # metallic vertices cost more, so the bound this gives is low
 FLOP_GI_VERTEX = 350
 FLOP_GI_RESOLVE = 120  # B9 per pixel: RIS, merge tests, cap, shade
+# MtRay: edges and offset (9 sub), two cross products (18), four dots
+# (20), three divisions, six compares
+FLOP_MT = 56
+FLOP_SEGMENT = 16  # B13's any-hit set-up: |y - x|, d, origin, limit
 
 
 class PhaseError(RuntimeError):
@@ -301,6 +346,10 @@ def reset_counts():
     ris_cdf.launches = 0
     gi.trace_launches = 0
     gi.resolve_launches = 0
+    hits.mt_closest_launches = 0
+    hits.mt_any_launches = 0
+    hits.mt_primary_launches = 0
+    hits.heatmap_launches = 0
 
 
 def read_counts():
@@ -314,7 +363,11 @@ def read_counts():
             "primary_hit": hits.primary_launches,
             "closest_hit": hits.closest_launches,
             "any_hit": hits.any_launches, "ris_cdf": ris_cdf.launches,
-            "gi_trace": gi.trace_launches, "gi_resolve": gi.resolve_launches}
+            "gi_trace": gi.trace_launches, "gi_resolve": gi.resolve_launches,
+            "mt_closest": hits.mt_closest_launches,
+            "mt_any": hits.mt_any_launches,
+            "mt_primary": hits.mt_primary_launches,
+            "heatmap": hits.heatmap_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -1791,6 +1844,254 @@ def phase_gi(scene, arrays, cam, dev, record, launches):
     phase_gi_fallback(dev)
 
 
+def exactness(what, same_prim, lanes_eq, close):
+    """Print and gate a walk kernel against its twin: bit for bit on every
+    lane, else the reference's gates (primitive mismatch <= 0.2 %,
+    matched lanes within rtol 2e-4) with the lanes that differ."""
+    exact = float(lanes_eq.float().mean())
+    sp = float(same_prim.float().mean())
+    print(f"{what}: exact lanes {exact:.7f}, primitive match {sp:.7f}, "
+          f"matched lanes within rtol 2e-4 {close:.7f}")
+    if bool(lanes_eq.all()):
+        return
+    print(f"{what}: NOT bit for bit its twin on "
+          f"{int((~lanes_eq).sum())} lanes; the reference's gates apply")
+    if sp < 0.998 or close < 0.999:
+        raise PhaseError(f"{what} disagrees with its twin")
+
+
+def phase_walk_kernels(hall, cam, dev, record):
+    """Phase 19: B13 (closest, any and primary hit) and B14 against their
+    twins at 1080p on the hall, every lane: the hall's own camera rays,
+    PT-full's first bounce rays from their hits and NEE segments
+    (`kernel_ab.general_rays`; "auto" takes the walk on 81,036
+    triangles)."""
+    r = WIDTH * HEIGHT
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # auto's notice: the walk
+        g = general_rays(hall, cam, dev)
+    trv = g["trv"]
+    if trv.method != "bvh" or trv.walk is None:
+        raise PhaseError(f"the hall's intersector is {trv.method!r}")
+    w = trv.walk
+    n = hall.num_tris
+    tables = table_bytes(w.rows, w.vert_rows[:n])
+    attr, mats = hall.prim_attr, hall.mat_attr
+    print(f"B13 / B14 on the hall: rays and the twin's camera hits in "
+          f"{time.perf_counter() - t0:.1f} s; walk tables "
+          f"{table_bytes(w.rows) / 2**20:.1f} MiB node rows + "
+          f"{table_bytes(w.vert_rows) / 2**20:.1f} MiB vertex rows")
+    for kernel in ("mt_closest_kernel", "mt_any_kernel", "primary_kernel",
+                   "heatmap_kernel"):
+        print(f"ptxas intersect.cu {kernel}: "
+              f"{ptxas_report('intersect.cu', kernel)}")
+
+    def twin_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    # primary hit on the camera rays: every lane of the pack
+    o, d = g["o"], g["d"]
+    k = hits.mt_primary_cuda(trv, attr, mats, o, d)
+    kc, c_prim = hits.mt_primary_cuda(trv, attr, mats, o, d, stats=True)
+    ref, ms_ref = twin_ms(lambda: hits.primary_ref(trv, attr, mats, o, d))
+    same = k[hits.CH_PRIM] == ref[hits.CH_PRIM]
+    hit = same & (ref[hits.CH_PRIM] >= 0)
+    close = float(torch.isclose(k[:, hit], ref[:, hit], rtol=2e-4,
+                                atol=1e-6).all(0).float().mean())
+    exactness("B13 primary hit on the hall's camera rays", same,
+              bits_equal(k, ref).all(0), close)
+    if not torch.equal(kc, k):
+        raise PhaseError("B13 primary: the counting build writes another "
+                         "pack")
+    boxes, tests = walk_line("B13 primary camera-ray", c_prim)
+    ms = cuda_ms(lambda: hits.mt_primary_cuda(trv, attr, mats, o, d), 10)
+    b = bound(r * (24 + hits.PRIMARY_CH * 4) + tables
+              + table_bytes(attr, mats),
+              boxes * FLOP_BOX + tests * FLOP_MT + r * FLOP_B12_EPI)
+    record["mt_primary"] = dict(max_abs_err=max_err(k, ref), ms=ms,
+                                plain_ms=ms_ref, bound_ms=b[0], bound_by=b[1],
+                                library_ms=None)
+    print(f"B13 primary hit: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]}), {n} triangles")
+    ro, rd, live = g["ro"], g["rd"], g["bounce_live"]
+    kb = hits.mt_primary_cuda(trv, attr, mats, ro, rd, live)
+    rb = hits.primary_ref(trv, attr, mats, ro, rd, live)
+    same = kb[hits.CH_PRIM] == rb[hits.CH_PRIM]
+    hit = same & (rb[hits.CH_PRIM] >= 0)
+    close = float(torch.isclose(kb[:, hit], rb[:, hit], rtol=2e-4,
+                                atol=1e-6).all(0).float().mean())
+    exactness("B13 primary hit on the first bounce rays (live lanes)", same,
+              bits_equal(kb, rb).all(0), close)
+
+    # closest hit on the bounce rays, every lane
+    pk, dk, bk = hits.mt_closest_cuda(trv, ro, rd)
+    _, _, _, c_cl = hits.mt_closest_cuda(trv, ro, rd, stats=True)
+    (pr, dr, br), ms_ref = twin_ms(
+        lambda: intersect.intersect_closest_bvh(w, ro, rd))
+    both = (pk == pr) & (pr >= 0)
+    close = float((torch.isclose(dk[both], dr[both], rtol=2e-4)
+                   & torch.isclose(bk[both], br[both], rtol=2e-4,
+                                   atol=1e-5).all(1)).float().mean())
+    exactness("B13 closest hit on the first bounce rays", pk == pr,
+              bits_equal(pk, pr) & bits_equal(dk, dr)
+              & bits_equal(bk, br).all(1), close)
+    boxes, tests = walk_line("B13 closest-hit", c_cl)
+    ms = cuda_ms(lambda: hits.mt_closest_cuda(trv, ro, rd), 10)
+    b = bound(r * (24 + 16) + tables, boxes * FLOP_BOX + tests * FLOP_MT)
+    err = float((dk[both] - dr[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    record["mt_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=ms_ref,
+                                bound_ms=b[0], bound_by=b[1],
+                                library_ms=None)
+    print(f"B13 closest hit: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, "
+          f"bound {b[0]:.4f} ms ({b[1]})")
+
+    # any hit on NEE segments from the camera hits
+    pos, target, shoot = g["pos"], g["target"], g["shoot"]
+    occ = hits.mt_any_cuda(trv, pos, target, shoot)
+    _, c_any = hits.mt_any_cuda(trv, pos, target, shoot, stats=True)
+    occ_r, ms_ref = twin_ms(
+        lambda: intersect.test_occlusion_bvh(w, pos, target, shoot))
+    eq = occ == occ_r
+    print(f"B13 any hit on {int(shoot.sum())} NEE segments: equal on "
+          f"{float(eq.float().mean()):.7f} of lanes, occluded "
+          f"{float(occ[shoot].float().mean()):.4f}")
+    if float(eq[shoot].float().mean()) < 0.998:
+        raise PhaseError("B13's any hit disagrees with its twin")
+    if not bool(eq.all()):
+        print("B13 any hit: NOT its twin's on every lane; the reference's "
+              "gates apply")
+    boxes, tests = walk_line("B13 any-hit", c_any, shoot)
+    ms = cuda_ms(lambda: hits.mt_any_cuda(trv, pos, target, shoot), 10)
+    b = bound(r * (24 + 2) + tables,
+              boxes * FLOP_BOX + tests * FLOP_MT
+              + int(shoot.sum()) * FLOP_SEGMENT)
+    record["mt_any"] = dict(max_abs_err=float((~eq).any()), ms=ms,
+                            plain_ms=ms_ref, bound_ms=b[0], bound_by=b[1],
+                            library_ms=None)
+    print(f"B13 any hit: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]})")
+
+    # B14 on the pixel-centre camera rays the heatmap casts
+    x, y = pixel_centers(WIDTH, HEIGHT, dev)
+    ho, hd = sample_rays(cam, WIDTH, HEIGHT, x, y, torch.full_like(x, 0.5),
+                         torch.full_like(y, 0.5))
+    ho, hd = ho.contiguous(), hd.contiguous()
+    cnt = hits.heatmap_cuda(trv, ho, hd)
+    cnt_c, c_heat = hits.heatmap_cuda(trv, ho, hd, stats=True)
+    cnt_r, ms_ref = twin_ms(lambda: intersect.intersect_visualize(w, ho, hd))
+    eq = float((cnt == cnt_r).float().mean())
+    c = cnt.to(torch.float64)
+    print(f"B14 heatmap vs twin: counts equal on {eq:.7f} of pixels; "
+          f"descended nodes per ray mean {float(c.mean()):.2f}, max "
+          f"{int(cnt.max())}")
+    if eq < 0.999 or not torch.equal(cnt_c, cnt):
+        raise PhaseError("B14 disagrees with its twin")
+    if eq < 1.0:
+        print("B14: NOT its twin's count on every pixel; the reference's "
+              "gate (>= 99.9 %) applies")
+    boxes, tests = walk_line("B14 heatmap", c_heat)
+    ms = cuda_ms(lambda: hits.heatmap_cuda(trv, ho, hd), 10)
+    b = bound(r * (24 + 4) + tables, boxes * FLOP_BOX + tests * FLOP_MT)
+    record["heatmap"] = dict(max_abs_err=float((cnt - cnt_r).abs().max()),
+                             ms=ms, plain_ms=ms_ref, bound_ms=b[0],
+                             bound_by=b[1], library_ms=None)
+    print(f"B14 heatmap: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]})")
+    return trv, ro, rd
+
+
+def phase_hall_energy(hall, hall_arrays, cam, dev):
+    """Phase 22: the hall's fused RESTIR_DI (64 frames) against its
+    PT_DIRECT (256 frames, the MTBVH walk) at 384x384: a measurement,
+    not a gate; a ratio outside 5 % goes to ROADMAP Queue C."""
+    cfg = RenderConfig(width=384, height=384, tracer=TracerType.RESTIR_DI,
+                       denoiser=DenoiserType.NONE, **mat_flags(hall_arrays))
+    t0 = time.perf_counter()
+    state = renderer.init_state(cfg, cam, hall, device=dev)
+    if not isinstance(state, renderer.FusedDIState):
+        raise PhaseError("hall energy: the 384x384 DI frame is not fused")
+    for _ in range(64):
+        state, frame = renderer.step(hall, state, cam, cfg)
+    got = frame.T.double()
+    ref_cfg = cfg.replace(tracer=TracerType.PT_DIRECT)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # auto's notice: the walk
+        ref_state = renderer.init_state(ref_cfg, cam, hall, device=dev)
+        for _ in range(256):
+            ref_state, ref = renderer.step(hall, ref_state, cam, ref_cfg)
+    ref = ref.double()
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(ref).all())):
+        raise PhaseError("hall energy: non-finite frames")
+    ratio = float(got.mean() / max(float(ref.mean()), 1e-9))
+    rel_rmse = float(torch.sqrt(((got - ref) ** 2).mean())
+                     / max(float(ref.mean()), 1e-9))
+    print(f"hall energy (384x384, 64 fused RESTIR_DI vs 256 PT_DIRECT "
+          f"frames, {time.perf_counter() - t0:.1f} s): fused mean "
+          f"{float(got.mean()):.6f}, PT-direct mean {float(ref.mean()):.6f}")
+    print(f"energy_ratio_vs_pt {ratio:.4f} (hall; rel_rmse_vs_pt_64f "
+          f"{rel_rmse:.4f}; within 5 %: {abs(ratio - 1.0) < 0.05})")
+
+
+def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
+               launches):
+    """Phases 19-22: the MTBVH walk (B13), the BVH heatmap (B14), the
+    general denoisers, the Sobol sampler and the hall's energy."""
+    trv, ro, rd = phase_walk_kernels(hall, hall_cam, dev, record)
+    # No render path casts closest-hit rays (bounces go through the
+    # primary build), so B13's closest hit is driven through the ray
+    # query entry point, as B11's is.
+    reset_counts()
+    hit = intersect.intersect_closest(trv, ro, rd)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"main path ray query (intersect_closest on the hall's {ro.shape[0]} "
+          f"bounce rays, the walk) launches {counts}")
+    if counts != {k: int(k == "mt_closest") for k in counts}:
+        raise PhaseError(f"walk ray query: launch counts {counts}")
+    if not bool((hit.prim_id >= 0).any()):
+        raise PhaseError("walk ray query: no hits")
+    launches["mt_closest"] = counts["mt_closest"]
+
+    hall_flags = mat_flags(hall_arrays)
+    base = RenderConfig(width=WIDTH, height=HEIGHT, **hall_flags)
+    levels = base.eaw_levels
+    runs = [
+        ("hall PT-direct", hall, hall_cam,
+         base.replace(tracer=TracerType.PT_DIRECT),
+         {"mt_primary": 2, "mt_any": 1}),
+        ("hall general DI + SVGF", hall, hall_cam,
+         base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
+                      ris_mode="cdf", denoiser=DenoiserType.SVGF),
+         {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": 1 + levels,
+          "atrous_svgf": levels}),
+        ("hall heatmap", hall, hall_cam,
+         base.replace(tracer=TracerType.BVH_VISUALIZE),
+         {"heatmap": 1, "mt_primary": 1}),
+        ("headline PT-direct Sobol EAW", scene, cam,
+         RenderConfig(width=WIDTH, height=HEIGHT, tracer=TracerType.PT_DIRECT,
+                      sampler="sobol", denoiser=DenoiserType.EAW,
+                      **mat_flags(arrays)),
+         {"primary_hit": 2, "any_hit": 1, "atrous_eaw": levels}),
+    ]
+    for name, sc, c, cfg, per_frame in runs:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the walk / fallback notices
+            counts = phase_general_main(name, sc, cfg, c, dev, per_frame,
+                                        GENERAL_WARMUP, GENERAL_TIMED)
+            profile_frames(name, sc, cfg, c, dev)
+        for k in per_frame:
+            launches[k] = launches.get(k, 0) + counts[k]
+    phase_hall_energy(hall, hall_arrays, hall_cam, dev)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1850,6 +2151,8 @@ def main() -> int:
     phase_sky_hall(hall_sf, hall_cam, dev)
     phase_general(scene, cam, arrays, dev, record, launches)
     phase_gi(scene, arrays, cam, dev, record, launches)
+    phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
+               launches)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -32,6 +32,7 @@ from .ops.kernels.fused_di import PT_CH
 from .ops.kernels.gi import Q_CH
 from .ops.kernels.svgf import SV_CH
 from .ops.kernels.tables import (
+    LazyWalkTables,
     build_bvh_tables,
     build_resident_tables,
     has_env_map,
@@ -43,7 +44,9 @@ N_STATE_LEAVES = 7 + len(Camera._fields)
 
 def scene_from_numpy(d, device="cuda") -> SceneTensors:
     """SceneTensors (and its kernel tables) on `device` from numpy
-    scene arrays keyed by the JAX `SceneData` field names."""
+    scene arrays keyed by the JAX `SceneData` field names. The exact
+    MTBVH walk's tables (`scene.walk`) are built on first use, so a run
+    that never takes the walk pays nothing for them."""
     if not isinstance(d, Mapping):
         d = d._asdict()
 
@@ -52,6 +55,7 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
                             device=device)
 
     tables = build_resident_tables(d, device)
+    verts = dev("verts")
     maps = np.asarray(d["mat_attr"])[:, 7:11]  # base/metal/rough/normal
     return SceneTensors(
         tri_xform=dev("tri_xform"),
@@ -66,8 +70,10 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
         light_radius=dev("light_radius"),
         tables=tables,
         bvh=build_bvh_tables(d, tables, device),
+        walk=LazyWalkTables(d, verts),
         has_env_map=has_env_map(d),
         has_textures=bool((maps >= 0).any()),
+        verts=verts,
         **{name: dev(name) for name in _GENERAL_F32},
         **{name: dev(name, torch.int32) for name in _GENERAL_I32},
     )
@@ -75,7 +81,7 @@ def scene_from_numpy(d, device="cuda") -> SceneTensors:
 
 # the SceneData leaves the general path reads, beside the kernel tables
 _GENERAL_F32 = (
-    "verts", "norms", "uvs", "light_prob", "sum_light_power_inv", "env_map",
+    "norms", "uvs", "light_prob", "sum_light_power_inv", "env_map",
     "env_prob", "env_tile_rad", "env_tile_uv", "env_tile_sa", "tex_data",
     "mat_base_color", "mat_metallic", "mat_roughness", "mat_ior")
 _GENERAL_I32 = (

@@ -37,7 +37,8 @@ namespace restir {
 // still entered.
 #define RESTIR_CULL_SLACK 1.0001220703125f
 
-// A visited node: its padded box and its (prim, miss) pair.
+// A visited node: its padded (or, for the exact walks, its own) box and
+// its (prim, miss) pair.
 struct BvhNode {
   float4 lo, hi;
   int prim, miss;
@@ -45,9 +46,11 @@ struct BvhNode {
 
 // The MTBVH as every walk reads it: table t's node j at row t * B + j,
 // one 32-byte row (padded box lo, prim bits) (padded box hi, miss bits).
+// The exact walks read rows with unpadded boxes and vertex rows in place
+// of the plane rows.
 struct BvhRows {
   const float4* rows;    // [6B, 2]
-  const float* planes;   // [n_pad, 12] unit-plane rows
+  const float* planes;   // [n_pad, 12] unit-plane rows (or vertex rows)
   int size;              // B
   __device__ __forceinline__ BvhNode node(int row) const {
     const float4 lo = __ldg(rows + 2 * row), hi = __ldg(rows + 2 * row + 1);
@@ -152,6 +155,80 @@ __device__ __forceinline__ bool occluded_walk(const BvhRows& bvh,
       float u, v;
       const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
       if (t >= 0.0f && t < limit) return true;
+    }
+    node = descend ? node + 1 : nd.miss;
+  }
+  return false;
+}
+
+// The JAX package's own walk (restir_tpu/ops/intersect.py:145-280, XLA
+// loops), kernels B13 and B14: node rows with each node's exact box (no
+// padding, no cull slack), entry only while t_near < best (strictly), and
+// the first hit found kept on ties (a later hit must be strictly nearer).
+// RayT::hit is the Moller-Trumbore test (`MtRay`, intersect.cu), which
+// returns t > 0 or -1. With HEAT the walk also counts the nodes it
+// descends, the BVH heatmap's value (intersect_visualize).
+template <bool COUNT, bool HEAT, class RayT>
+__device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
+                                                    const RayT& ray,
+                                                    int& prim, float& bu,
+                                                    float& bv, WalkCount& n,
+                                                    int& descended) {
+  const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
+              iz = safe_inv(ray.dz);
+  const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
+  float best = __int_as_float(0x7f800000);
+  prim = -1;
+  bu = bv = 0.0f;
+  int node = 0;
+  while (node < bvh.size) {
+    const BvhNode nd = bvh.node(base + node);
+    float t_near;
+    const bool descend =
+        slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
+        t_near < best;
+    if (COUNT) ++n.boxes;
+    if (HEAT && descend) ++descended;
+    if (descend && nd.prim != -1) {
+      if (COUNT) ++n.tris;
+      float u, v;
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
+      if (t > 0.0f && t < best) {
+        best = t;
+        prim = nd.prim;
+        bu = u;
+        bv = v;
+      }
+    }
+    node = descend ? node + 1 : nd.miss;
+  }
+  return best;
+}
+
+// Any hit at 0 < t < limit on the exact rows, stopping at the first one
+// (test_occlusion_bvh: entry while t_near < limit, no self-primitive
+// exclusion).
+template <bool COUNT, class RayT>
+__device__ __forceinline__ bool exact_occluded_walk(const BvhRows& bvh,
+                                                    const RayT& ray,
+                                                    float limit,
+                                                    WalkCount& n) {
+  const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
+              iz = safe_inv(ray.dz);
+  const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
+  int node = 0;
+  while (node < bvh.size) {
+    const BvhNode nd = bvh.node(base + node);
+    float t_near;
+    const bool descend =
+        slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
+        t_near < limit;
+    if (COUNT) ++n.boxes;
+    if (descend && nd.prim != -1) {
+      if (COUNT) ++n.tris;
+      float u, v;
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
+      if (t > 0.0f && t < limit) return true;
     }
     node = descend ? node + 1 : nd.miss;
   }

@@ -1,5 +1,6 @@
 // Kernels B11 (closest hit, and its any-hit variant) and B12 (primary hit)
-// of the general render path, for scenes of up to 16,384 triangles.
+// of the general render path's brute-force method, and B13 (closest, any
+// and primary hit) and B14 (the BVH heatmap) of its MTBVH walk.
 //
 // Replace restir_tpu/ops/pallas/intersect_kernel.py: _closest_kernel
 // (intersect_closest_pallas; its any-hit use test_occlusion_pallas) and
@@ -49,6 +50,7 @@ using gi::V3;
 namespace {
 
 constexpr int BLOCK = 128;
+constexpr float F32_EPS = 1.1920928955078125e-07f;  // 2^-23, float32 epsilon
 
 __device__ __forceinline__ V3 load3(const float* __restrict__ a, int p) {
   return gi::v3(a[(size_t)p * 3], a[(size_t)p * 3 + 1], a[(size_t)p * 3 + 2]);
@@ -123,7 +125,52 @@ enum {
   C_MMAP = 19, C_RMAP = 20, C_NMAP = 21, C_MATID = 22, C_PRIM = 23
 };
 
-template <bool COUNT>
+// The Moller-Trumbore leaf test of B13 / B14 (intersect_triangle, with
+// the reference's sign flip, intersections.h:17-54): row = v0, v1, v2,
+// pad. Returns t > 0 on a hit, else -1; u, v are the weights of v1, v2.
+struct MtRay {
+  float ox, oy, oz, dx, dy, dz;
+  __device__ __forceinline__ float hit(const float* __restrict__ row,
+                                       float& u, float& v) const {
+    const float4* q = reinterpret_cast<const float4*>(row);
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const float e01x = a.w - a.x, e01y = b.x - a.y, e01z = b.y - a.z;
+    const float e02x = b.z - a.x, e02y = b.w - a.y, e02z = c.x - a.z;
+    const float px = dy * e02z - dz * e02y, py = dz * e02x - dx * e02z,
+                pz = dx * e02y - dy * e02x;
+    float det = px * e01x + py * e01y + pz * e01z;
+    const bool nondegenerate = fabsf(det) >= F32_EPS;
+    float wx = ox - a.x, wy = oy - a.y, wz = oz - a.z;
+    if (det < 0.0f) {
+      wx = -wx;
+      wy = -wy;
+      wz = -wz;
+    }
+    det = fabsf(det);
+    const float bx = wx * px + wy * py + wz * pz;
+    const float qx = wy * e01z - wz * e01y, qy = wz * e01x - wx * e01z,
+                qz = wx * e01y - wy * e01x;
+    const float by = dx * qx + dy * qy + dz * qz;
+    const bool inside =
+        bx >= 0.0f && bx <= det && by >= 0.0f && bx + by <= det;
+    const float det_safe = det > 0.0f ? det : 1.0f;
+    const float t = (e02x * qx + e02y * qy + e02z * qz) / det_safe;
+    u = bx / det_safe;
+    v = by / det_safe;
+    return nondegenerate && inside && t > 0.0f ? t : -1.0f;
+  }
+};
+
+__device__ __forceinline__ MtRay load_mt_ray(const float* __restrict__ o,
+                                             const float* __restrict__ d,
+                                             int p) {
+  const V3 a = load3(o, p), b = load3(d, p);
+  return {a.x, a.y, a.z, b.x, b.y, b.z};
+}
+
+// Primary hit of B12 (plane test, padded rows; MT == false) or B13 (exact
+// walk, Moller-Trumbore; MT == true), then the same pack.
+template <bool COUNT, bool MT>
 __global__ void __launch_bounds__(BLOCK)
     primary_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const unsigned char* __restrict__ active, BvhRows bvh,
@@ -135,8 +182,15 @@ __global__ void __launch_bounds__(BLOCK)
   WalkCount n = {0, 0};
   int id = -1;
   float t = RESTIR_BIG, u = 0.0f, v = 0.0f;
-  if (is_live(active, p))
-    t = closest_walk<COUNT>(bvh, load_ray(o, d, p), id, u, v, n);
+  if (is_live(active, p)) {
+    if (MT) {
+      int unused = 0;
+      t = exact_closest_walk<COUNT, false>(bvh, load_mt_ray(o, d, p), id, u,
+                                           v, n, unused);
+    } else {
+      t = closest_walk<COUNT>(bvh, load_ray(o, d, p), id, u, v, n);
+    }
+  }
   const bool hit = id >= 0;
   float a[25];
   const float* at = attr + (size_t)(hit ? id : 0) * 32;
@@ -178,6 +232,75 @@ __global__ void __launch_bounds__(BLOCK)
   put(C_NMAP, M(10));
   put(C_MATID, a[24]);
   put(C_PRIM, hit ? (float)id : -1.0f);
+  put_counts<COUNT>(counts, r, p, n);
+}
+
+// B13's closest hit: dist inf, bary 0 and prim -1 on a miss and on lanes
+// with active[p] == 0, which are not walked.
+template <bool COUNT>
+__global__ void __launch_bounds__(BLOCK)
+    mt_closest_kernel(const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const unsigned char* __restrict__ active, BvhRows bvh,
+                      float* __restrict__ dist, float* __restrict__ bary,
+                      int* __restrict__ prim, int* __restrict__ counts,
+                      int r) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= r) return;
+  WalkCount n = {0, 0};
+  int id = -1, unused = 0;
+  float t = __int_as_float(0x7f800000), u = 0.0f, v = 0.0f;
+  if (is_live(active, p))
+    t = exact_closest_walk<COUNT, false>(bvh, load_mt_ray(o, d, p), id, u,
+                                         v, n, unused);
+  dist[p] = t;
+  bary[(size_t)p * 2] = u;
+  bary[(size_t)p * 2 + 1] = v;
+  prim[p] = id;
+  put_counts<COUNT>(counts, r, p, n);
+}
+
+// B13's any hit, test_occlusion_bvh's segment: d = (y - x) / max(|y - x|,
+// 1e-20), origin x + d 1e-5, occluded iff a hit lies at 0 < t <
+// |y - x| - 2e-4; the products and sums in the twin's order.
+template <bool COUNT>
+__global__ void __launch_bounds__(BLOCK)
+    mt_any_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const unsigned char* __restrict__ active, BvhRows bvh,
+                  unsigned char* __restrict__ occluded,
+                  int* __restrict__ counts, int r) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= r) return;
+  WalkCount n = {0, 0};
+  bool blocked = false;
+  if (is_live(active, p)) {
+    const V3 a = load3(x, p), b = load3(y, p);
+    const float sx = b.x - a.x, sy = b.y - a.y, sz = b.z - a.z;
+    const float dist = sqrtf(sx * sx + sy * sy + sz * sz);
+    const float len = fmaxf(dist, 1e-20f);
+    const float dx = sx / len, dy = sy / len, dz = sz / len;
+    const MtRay ray = {dx * 1e-5f + a.x, dy * 1e-5f + a.y, dz * 1e-5f + a.z,
+                       dx, dy, dz};
+    blocked = exact_occluded_walk<COUNT>(bvh, ray, dist - 2e-4f, n);
+  }
+  occluded[p] = blocked ? 1 : 0;
+  put_counts<COUNT>(counts, r, p, n);
+}
+
+// B14: the number of nodes each ray's closest-hit walk descends.
+template <bool COUNT>
+__global__ void __launch_bounds__(BLOCK)
+    heatmap_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   BvhRows bvh, int* __restrict__ count,
+                   int* __restrict__ counts, int r) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= r) return;
+  WalkCount n = {0, 0};
+  int id, descended = 0;
+  float u, v;
+  exact_closest_walk<COUNT, true>(bvh, load_mt_ray(o, d, p), id, u, v, n,
+                                  descended);
+  count[p] = descended;
   put_counts<COUNT>(counts, r, p, n);
 }
 
@@ -241,10 +364,91 @@ extern "C" int restir_primary_hit(const float* o, const float* d,
   const BvhRows bvh = bvh_rows(rows, size, planes);
   const cudaStream_t s = (cudaStream_t)stream;
   if (counts != nullptr)
-    primary_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh, attr,
-                                                   mat, n_mat, out, counts, r);
-  else
-    primary_kernel<false><<<grid(r), BLOCK, 0, s>>>(
+    primary_kernel<true, false><<<grid(r), BLOCK, 0, s>>>(
         o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+  else
+    primary_kernel<false, false><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+  return (int)cudaGetLastError();
+}
+
+// B13 and B14 take the exact walk's node rows [6B, 8] and B (`rows`,
+// `size`) and the vertex rows [n_pad, 12]; `counts`, unless null, receives
+// int32 [2, R]: the box and triangle tests of each ray.
+
+// o, d: float32 [R, 3]; active: null or bool [R]. Writes dist [R], bary
+// [R, 2], prim [R].
+extern "C" int restir_mt_closest_hit(const float* o, const float* d,
+                                     const unsigned char* active,
+                                     const float* rows, int size,
+                                     const float* vrows, float* dist,
+                                     float* bary, int* prim, int* counts,
+                                     int r, void* stream) {
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, vrows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    mt_closest_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh,
+                                                      dist, bary, prim,
+                                                      counts, r);
+  else
+    mt_closest_kernel<false><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh,
+                                                       dist, bary, prim,
+                                                       counts, r);
+  return (int)cudaGetLastError();
+}
+
+// x, y: float32 [R, 3]; active: null or bool [R]. Writes occluded bool [R].
+extern "C" int restir_mt_any_hit(const float* x, const float* y,
+                                 const unsigned char* active,
+                                 const float* rows, int size,
+                                 const float* vrows,
+                                 unsigned char* occluded, int* counts, int r,
+                                 void* stream) {
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, vrows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    mt_any_kernel<true><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh,
+                                                  occluded, counts, r);
+  else
+    mt_any_kernel<false><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh,
+                                                   occluded, counts, r);
+  return (int)cudaGetLastError();
+}
+
+// B12's pack on B13's hit: as restir_primary_hit, on the exact walk.
+extern "C" int restir_mt_primary_hit(const float* o, const float* d,
+                                     const unsigned char* active,
+                                     const float* rows, int size,
+                                     const float* vrows, const float* attr,
+                                     const float* mat, int n_mat, float* out,
+                                     int* counts, int r, void* stream) {
+  if (r <= 0 || size <= 0 || n_mat <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, vrows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    primary_kernel<true, true><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+  else
+    primary_kernel<false, true><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+  return (int)cudaGetLastError();
+}
+
+// o, d: float32 [R, 3] camera rays. Writes count int32 [R].
+extern "C" int restir_bvh_heatmap(const float* o, const float* d,
+                                  const float* rows, int size,
+                                  const float* vrows, int* count,
+                                  int* counts, int r, void* stream) {
+  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+  const BvhRows bvh = bvh_rows(rows, size, vrows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (counts != nullptr)
+    heatmap_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, count, counts,
+                                                   r);
+  else
+    heatmap_kernel<false><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, count,
+                                                    counts, r);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,29 @@
-"""SVGF variance passes, as `restir_tpu.models.denoiser`.
+"""Denoisers of the general path, as `restir_tpu.models.denoiser`: the
+À-trous EAW wavelet filter and SVGF on `GBufferFrame`s (denoiser.cu).
+
+`eaw_filter` and `svgf_filter` take the general path's [R, 3] frame,
+demodulate it by the G-buffer albedo and run `cfg.eaw_levels` à-trous
+levels on the hand kernels the fused path runs: B3
+(`ops.kernels.atrous.atrous_level`) for EAW; for SVGF the variance
+estimate and prefilter (`ops.kernels.svgf.estimate_variance` /
+`filter_variance`) and B4 (`atrous_svgf_level`). They read a
+[GB_CH, R] pack built from the G-buffer (`gbuffer_pack`: prim in
+G_PRIMR, normal, position). CPU tensors take the kernels' plain twins.
+
+SVGF's temporal step (`svgf_temporal_accumulate`, temporalAccumulate,
+denoiser.cu:250-305) gathers the history at `gb.motion` from anywhere in
+the frame, as the JAX package's XLA gather does; the fused path's kernel
+B5 reads only a 2048-pixel window and blends as h + (c - h) a, so it
+does not carry this step, which stays torch glue.
 
 `svgf_estimate_variance` (estimateVariance, denoiser.cu:307-343) and
-`svgf_filter_variance` (filterVariance, denoiser.cu:345-371) on planes, in
-plain PyTorch: the twins of the two variance kernels in `csrc/svgf.cu`,
-which `ops.kernels.svgf` launches for CUDA tensors.
+`svgf_filter_variance` (filterVariance, denoiser.cu:345-371) on planes
+are the twins of the two variance kernels in `csrc/svgf.cu`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -14,6 +31,7 @@ from ..ops.kernels.atrous import _shift
 
 SVGF_ALPHA = 0.2  # denoiser.cu:256
 SVGF_HISTORY_THRESHOLD = 3.5  # denoiser.cu:317
+NULL_PRIMITIVE = -1
 
 # 3x3 Gaussian, denoiser.cu:19-23 (float32 values)
 GAUSSIAN_3 = (
@@ -21,6 +39,19 @@ GAUSSIAN_3 = (
     (0.124, 0.204, 0.124),
     (0.075, 0.124, 0.075),
 )
+
+
+class SVGFState(NamedTuple):
+    """The general path's SVGF history (devAccumColor / devAccumMoment,
+    denoiser.cu:479-492)."""
+
+    accum_color: torch.Tensor  # [R, 3] level-0 filtered colour
+    accum_moment: torch.Tensor  # [R, 3] (E[lum], E[lum^2], history)
+
+
+def init_svgf_state(num_pixels: int, device="cuda") -> SVGFState:
+    z = torch.zeros((num_pixels, 3), dtype=torch.float32, device=device)
+    return SVGFState(accum_color=z, accum_moment=z.clone())
 
 
 def svgf_estimate_variance(moment_chw: torch.Tensor) -> torch.Tensor:
@@ -56,3 +87,103 @@ def svgf_filter_variance(var: torch.Tensor) -> torch.Tensor:
             s = s + _shift(var, i, j) * g
             sw = sw + _shift(inb, i, j) * g
     return s / torch.clamp(sw, min=1e-20)
+
+
+def gbuffer_pack(gb) -> torch.Tensor:
+    """The [GB_CH, R] pack the à-trous kernels read (G_PRIMR, G_NORM,
+    G_POS) from a `GBufferFrame`; the other channels are zero."""
+    from ..ops.kernels.fused_di import G_NORM, G_POS, G_PRIMR, GB_CH
+
+    pack = torch.zeros((GB_CH, gb.pos.shape[0]), dtype=torch.float32,
+                       device=gb.pos.device)
+    pack[G_PRIMR] = gb.prim_id.to(torch.float32)
+    pack[G_NORM:G_NORM + 3] = gb.norm.T
+    pack[G_POS:G_POS + 3] = gb.pos.T
+    return pack
+
+
+def _demodulate(frame, gb, cfg):
+    """(frame / albedo, albedo) with albedos <= 1e-4 read as 1; (frame,
+    ones) without `modulate_albedo`."""
+    if not cfg.modulate_albedo:
+        return frame, torch.ones_like(frame)
+    albedo = torch.clamp(gb.albedo, min=0.0)
+    safe = torch.where(albedo > 1e-4, albedo, 1.0)
+    return frame / safe, safe
+
+
+def eaw_filter(frame: torch.Tensor, gb, cam, cfg) -> torch.Tensor:
+    """LeveledEAWFilter::filter (denoiser.cu:463-477): `cfg.eaw_levels`
+    levels of B3 on the demodulated [R, 3] frame, modulated back."""
+    from ..ops.kernels import atrous
+
+    demod, albedo = _demodulate(frame, gb, cfg)
+    color = demod.T.contiguous()
+    gb_pack = gbuffer_pack(gb)
+    for level in range(cfg.eaw_levels):
+        color = atrous.atrous_level(
+            color, gb_pack, level=level, width=cfg.width, height=cfg.height,
+            sig_l=cfg.sig_luminance, sig_n=cfg.sig_normal,
+            sig_d=cfg.sig_depth)
+    return color.T * albedo
+
+
+def svgf_temporal_accumulate(color_in: torch.Tensor, gb, last_gb,
+                             state: SVGFState) -> SVGFState:
+    """temporalAccumulate (denoiser.cu:250-305): the history at the motion
+    index, the disocclusion test (motion, prim, |n.n'| < 0.1) and the
+    alpha blend of colour and of the (lum, lum^2) moments."""
+    from ..ops import reservoir as rsv
+    from ..utils import math as mathx
+
+    last_idx = gb.motion
+    safe_idx = torch.clamp(last_idx, min=0).long()
+    template = (state.accum_color, state.accum_moment, last_gb.prim_id,
+                last_gb.norm)
+    rows = rsv.pack_channels(template)[:, safe_idx]
+    last_color, last_moment, lprim, lnorm = rsv.unpack_channels(rows,
+                                                                template)
+    diff = ((last_idx < 0) | (gb.prim_id <= NULL_PRIMITIVE)
+            | (lprim != gb.prim_id)
+            | (mathx.abs_dot(gb.norm, lnorm) < 0.1))
+    lum = mathx.luminance(color_in)
+    blended_color = mathx.mix(last_color, color_in, SVGF_ALPHA)
+    blended_m1 = mathx.mix(last_moment[..., 0], lum, SVGF_ALPHA)
+    blended_m2 = mathx.mix(last_moment[..., 1], lum * lum, SVGF_ALPHA)
+    history = last_moment[..., 2] + 1.0
+    accum_color = torch.where(diff[..., None], color_in, blended_color)
+    accum_moment = torch.where(
+        diff[..., None],
+        torch.stack([lum, lum * lum, torch.zeros_like(lum)], dim=-1),
+        torch.stack([blended_m1, blended_m2, history], dim=-1))
+    return SVGFState(accum_color=accum_color, accum_moment=accum_moment)
+
+
+def svgf_filter(frame: torch.Tensor, gb, last_gb, state: SVGFState, cam,
+                cfg):
+    """SpatioTemporalFilter::filter (denoiser.cu:537-564) on the [R, 3]
+    frame -> (filtered frame, next SVGFState); the colour history fed
+    forward is the level-0 output (denoiser.cu:542-543)."""
+    from ..ops.kernels import atrous, svgf
+
+    w, h = cfg.width, cfg.height
+    demod, albedo = _demodulate(frame, gb, cfg)
+    state = svgf_temporal_accumulate(demod, gb, last_gb, state)
+    moments = torch.zeros((svgf.SV_CH, cfg.num_pixels), dtype=torch.float32,
+                          device=frame.device)
+    moments[svgf.SV_M1:svgf.SV_M1 + 3] = state.accum_moment.T
+    var = svgf.estimate_variance(moments, width=w, height=h)
+    color = state.accum_color.T.contiguous()
+    gb_pack = gbuffer_pack(gb)
+    history = color
+    for level in range(cfg.eaw_levels):
+        fv = svgf.filter_variance(var, width=w, height=h)
+        color, var = atrous.atrous_svgf_level(
+            color.contiguous(), var.contiguous(), fv, gb_pack, level=level,
+            width=w, height=h, sig_l=cfg.sig_luminance,
+            sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
+        if level == 0:
+            history = color
+    next_state = SVGFState(accum_color=history.T.contiguous(),
+                           accum_moment=state.accum_moment)
+    return color.T * albedo, next_state

@@ -1,6 +1,7 @@
 """Reference path tracers, as `restir_tpu.models.path_tracer`
 (pathtrace.cu:156-432): the full MIS path tracer, direct-only NEE
-(PT-direct, the unbiased A/B target of ReSTIR DI) and indirect-only.
+(PT-direct, the unbiased A/B target of ReSTIR DI) and indirect-only; and
+the BVH heatmap (`bvh_heatmap`: kernel B14 on the card).
 
 The per-thread bounce loop with `break`s is a Python loop over [R] ray
 batches with masks, with the JAX package's documented deviations: no
@@ -16,7 +17,8 @@ from ..config import RenderConfig
 from ..ops import bsdf as bsdf_ops
 from ..ops import intersect as ix
 from ..ops import lights as light_ops
-from ..ops.camera import Camera
+from ..ops.camera import Camera, pixel_centers, sample_rays
+from ..ops.kernels import intersect as hit_kernels
 from ..ops.primary import trace_primary
 from ..ops.texture import env_sample_bilinear
 from ..scene.mesh import DIELECTRIC, LIGHT
@@ -174,3 +176,14 @@ def _bounce(scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
 def pt_indirect(scene, cam: Camera, cfg: RenderConfig, looper):
     """Indirect-only — PTIndirectKernel (pathtrace.cu:330-432)."""
     return pt_trace(scene, cam, cfg, looper)[1]
+
+
+def bvh_heatmap(scene, cam: Camera, cfg: RenderConfig):
+    """BVH traversal cost view — visualizedIntersect (scene.h:318-356):
+    each pixel-centre camera ray's count of descended MTBVH nodes (int32
+    [R]), on any intersector method."""
+    trv = ix.traversal_arrays(scene, cfg.intersector, walk=True)
+    x, y = pixel_centers(cfg.width, cfg.height, scene.verts.device)
+    o, d = sample_rays(cam, cfg.width, cfg.height, x, y,
+                       torch.full_like(x, 0.5), torch.full_like(y, 0.5))
+    return hit_kernels.heatmap(trv, o, d)

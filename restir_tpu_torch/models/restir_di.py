@@ -14,8 +14,13 @@
   5. shading Li / lum(Li) * W / M, modulated by the G-buffer albedo.
 
 On CUDA tensors without an env map, cdf mode's steps 1 and 2 are kernel
-B10 (`ops.kernels.ris_cdf`); otherwise `sample_light_cdf` then
-`test_occlusion`, as the JAX package branches on the TPU.
+B10 (`ops.kernels.ris_cdf`) with any intersector and at any triangle
+count, as the JAX package runs its Pallas `ris_kernel` (which casts its
+own shadow ray) on the TPU whatever `intersector` says: B10's MTBVH walk
+returns the brute force's hit. Otherwise `sample_light_cdf` then
+`test_occlusion`, whose intersector follows `cfg.intersector` (B11, or
+B13's MTBVH walk; their twins on CPU tensors), as reference mode's
+shadow ray does.
 """
 
 from __future__ import annotations

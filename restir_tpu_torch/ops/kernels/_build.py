@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas=-v"]
 # Sources that round as their plain twins do on the card: no product is
 # contracted into an FMA unless the code says fmaf (csrc/gi_core.cuh,
-# which B8, B9, B11 and B12 inline).
+# which B8, B9, B11 and B12 inline; B13 and B14's Moller-Trumbore test).
 SOURCE_FLAGS = {"gi_trace.cu": ["-fmad=false"],
                 "gi_resolve.cu": ["-fmad=false"],
                 "intersect.cu": ["-fmad=false"]}
@@ -150,6 +150,12 @@ _SIGNATURES = {
     "restir_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
     "restir_primary_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
+    "restir_mt_closest_hit": [
+        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+    "restir_mt_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    "restir_mt_primary_hit": [
+        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
+    "restir_bvh_heatmap": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
     "restir_ris_cdf": [
         _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I,
         _VP],

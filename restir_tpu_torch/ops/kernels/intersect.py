@@ -1,7 +1,9 @@
-"""Kernels B11 (closest hit, and its any-hit variant) and B12 (primary
-hit), with their plain PyTorch versions.
+"""Kernels B11 (closest hit, and its any-hit variant), B12 (primary
+hit), B13 (the exact MTBVH walk: closest, any and primary hit) and B14
+(the BVH heatmap), with their plain PyTorch versions.
 
-Ports of `restir_tpu.ops.pallas.intersect_kernel`:
+Ports of `restir_tpu.ops.pallas.intersect_kernel` (the brute-force
+method, `trv.method == "brute"`):
 - B11 `_closest_kernel` (`intersect_closest_pallas`): the closest hit of
   each ray over the scene's triangles -> dist (inf on a miss),
   barycentrics (0 on a miss) and triangle id (-1 on a miss), ties to the
@@ -13,14 +15,25 @@ Ports of `restir_tpu.ops.pallas.intersect_kernel`:
   uv) and its material row, as a [24, R] pack in the TPU kernel's
   channel order. A miss interpolates a zero row and so reads material
   row 0, as the TPU kernel does.
-
 CUDA tensors launch `csrc/intersect.cu`, whose threads walk the scene's
 MTBVH (`trv.rows`, `trv.size`) and run the plain version's plane test on
 the leaves they reach; the walk returns the plain version's hit, so the
 kernels equal their twins bit for bit on the card. CPU tensors take the
 plain versions, which test every triangle: `intersect_bf` (float32
 products, the JAX package's CPU route) and, for B12, the interpolation
-on top of it. Nothing falls back. The any hit and B12 take a mask of
+on top of it.
+
+Every other method is the JAX package's lockstep MTBVH walk with the
+Möller-Trumbore leaf test (`restir_tpu.ops.intersect`, XLA loops there,
+not Pallas kernels): B13 `mt_closest_cuda` / `mt_any_cuda` /
+`mt_primary_cuda` (`intersect_closest_bvh`, `test_occlusion_bvh`, and
+B12's pack on the walk's hit) and B14 `heatmap_cuda`
+(`intersect_visualize`, on any method). They walk `trv.walk`'s exact
+node rows and vertex rows (`tables.WalkTables`) in `csrc/intersect.cu`,
+with the twins' arithmetic under -fmad=false, so they equal the twins in
+`ops.intersect` bit for bit on the card; CPU tensors take those twins.
+
+Nothing falls back. The any hits and the primary hits take a mask of
 live lanes (`active`); the kernels do not walk the others.
 `trv` is an `ops.intersect.TraversalArrays`.
 """
@@ -35,6 +48,10 @@ from . import _build
 closest_launches = 0  # B11 closest-hit launches
 any_launches = 0  # B11 any-hit launches
 primary_launches = 0  # B12 launches
+mt_closest_launches = 0  # B13 closest-hit launches
+mt_any_launches = 0  # B13 any-hit launches
+mt_primary_launches = 0  # B13 primary-hit launches
+heatmap_launches = 0  # B14 launches
 
 # B12 pack channels (intersect_kernel.py:101-106)
 CH_DIST, CH_U, CH_V = 0, 1, 2
@@ -57,25 +74,42 @@ def _device_of(o) -> str:
     return o.device.type
 
 
-def _launch_args(trv, *rays):
-    """Checked, contiguous rays and the MTBVH tables the kernels walk."""
+def _checked(rays, rows, size, leaves, n):
+    """Checked, contiguous rays and a walk's tables: node rows [6B, 8] and
+    leaf rows [n_pad, 12] for n triangles (the rows past n are zero
+    padding)."""
     r = rays[0].shape[0]
     for i, t in enumerate(rays):
         _rays(t, f"ray array {i}", r)
     dev = rays[0].device
-    for name, tab in (("planes", trv.planes), ("rows", trv.rows)):
+    for name, tab in (("node rows", rows), ("leaf rows", leaves)):
         if (tab.device != dev or tab.dtype != torch.float32
                 or not tab.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 on the "
                              "rays' device")
-    if tuple(trv.rows.shape) != (6 * trv.size, 8):
-        raise ValueError(f"rows: expected [{6 * trv.size}, 8], got "
-                         f"{tuple(trv.rows.shape)}")
-    n = trv.tri_xform.shape[1] // 3  # the rows past n are zero padding
-    if not 0 < n <= trv.planes.shape[0]:
-        raise ValueError(f"{n} triangles for {trv.planes.shape[0]} plane "
-                         "rows")
+    if tuple(rows.shape) != (6 * size, 8):
+        raise ValueError(f"node rows: expected [{6 * size}, 8], got "
+                         f"{tuple(rows.shape)}")
+    if leaves.dim() != 2 or leaves.shape[1] != 12 or not (
+            0 < n <= leaves.shape[0]):
+        raise ValueError(f"{n} triangles for leaf rows "
+                         f"{tuple(leaves.shape)}")
     return [t.contiguous() for t in rays], n, r
+
+
+def _launch_args(trv, *rays):
+    """B11 / B12's arguments: the padded node rows and the plane rows."""
+    return _checked(rays, trv.rows, trv.size, trv.planes,
+                    trv.tri_xform.shape[1] // 3)
+
+
+def _walk_args(trv, *rays):
+    """B13 / B14's arguments: the exact node rows and the vertex rows."""
+    w = trv.walk
+    if w is None:
+        raise ValueError("the MTBVH walk's tables are missing: build the "
+                         "TraversalArrays with a walk method or walk=True")
+    return _checked(rays, w.rows, w.size, w.vert_rows, w.verts.shape[0])
 
 
 def _active(active, r):
@@ -115,11 +149,28 @@ def closest_cuda(trv, o, d, stats=False):
     return (*out, counts) if stats else out
 
 
+def _walks(trv) -> bool:
+    """Whether `trv`'s method is the MTBVH walk (B13) or brute force."""
+    return trv.method != "brute"
+
+
+def closest_plain(trv, o, d, active=None):
+    """The plain closest hit of `trv`'s method (prim, dist, bary), on
+    any device: `intersect_bf` or the walk's twin."""
+    if _walks(trv):
+        from .. import intersect as ix
+
+        return ix.intersect_closest_bvh(trv.walk, o, d, active)
+    return intersect_bf.intersect_closest_bf(trv.tri_xform, o, d, active)
+
+
 def closest_hit(trv, o, d, active=None):
     """Closest hit (prim, dist, bary); inactive lanes get prim -1 and
-    dist inf after the test, as `intersect_closest_pallas`."""
+    dist inf, as `intersect_closest_pallas` / `intersect_closest_bvh`."""
     if _device_of(o) == "cpu":
-        return intersect_bf.intersect_closest_bf(trv.tri_xform, o, d, active)
+        return closest_plain(trv, o, d, active)
+    if _walks(trv):
+        return mt_closest_cuda(trv, o, d, active)
     prim, dist, bary = closest_cuda(trv, o, d)
     if active is not None:
         dist = torch.where(active, dist, torch.inf)
@@ -149,15 +200,20 @@ def any_cuda(trv, x, y, active=None, stats=False):
 def any_hit(trv, x, y, active=None):
     """Any hit between x and y (bool [R])."""
     if _device_of(x) == "cpu":
+        if _walks(trv):
+            from .. import intersect as ix
+
+            return ix.test_occlusion_bvh(trv.walk, x, y, active)
         return intersect_bf.test_occlusion_bf(trv.tri_xform, x, y, active)
+    if _walks(trv):
+        return mt_any_cuda(trv, x, y, active)
     return any_cuda(trv, x, y, active)
 
 
 def primary_ref(trv, prim_attr, mat_attr, o, d, active=None):
-    """Plain B12: the [24, R] pack from intersect_bf's closest hit;
-    inactive lanes get the miss pack."""
-    prim, dist, bary = intersect_bf.intersect_closest_bf(trv.tri_xform, o, d,
-                                                         active)
+    """Plain B12 / B13 primary hit: the [24, R] pack from the closest hit
+    of `trv`'s method; inactive lanes get the miss pack."""
+    prim, dist, bary = closest_plain(trv, o, d, active)
     hit = prim >= 0
     u = torch.where(hit, bary[:, 0], 0.0)[:, None]
     v = torch.where(hit, bary[:, 1], 0.0)[:, None]
@@ -186,15 +242,7 @@ def primary_cuda(trv, prim_attr, mat_attr, o, d, active=None, stats=False):
     (o, d), n, r = _launch_args(trv, o, d)
     dev = o.device
     active = _active(active, r)
-    for name, t, cols in (("prim_attr", prim_attr, 32),
-                          ("mat_attr", mat_attr, 16)):
-        if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
-                or t.shape[1] != cols):
-            raise ValueError(f"{name}: expected float32 [*, {cols}] on {dev}")
-    if prim_attr.shape[0] != n:
-        raise ValueError(f"prim_attr holds {prim_attr.shape[0]} rows for "
-                         f"{n} triangles")
-    attr, mat = prim_attr.contiguous(), mat_attr.contiguous()
+    attr, mat = _attr_tables(prim_attr, mat_attr, n, dev)
     out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
@@ -206,6 +254,18 @@ def primary_cuda(trv, prim_attr, mat_attr, o, d, active=None, stats=False):
     return (out, counts) if stats else out
 
 
+def _attr_tables(prim_attr, mat_attr, n, dev):
+    for name, t, cols in (("prim_attr", prim_attr, 32),
+                          ("mat_attr", mat_attr, 16)):
+        if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
+                or t.shape[1] != cols):
+            raise ValueError(f"{name}: expected float32 [*, {cols}] on {dev}")
+    if prim_attr.shape[0] != n:
+        raise ValueError(f"prim_attr holds {prim_attr.shape[0]} rows for "
+                         f"{n} triangles")
+    return prim_attr.contiguous(), mat_attr.contiguous()
+
+
 def primary_hit(trv, prim_attr, mat_attr, o, d, active=None):
     """(prim [R] i32, dist [R], bary [R, 2], pos [R, 3], norm [R, 3],
     uv [R, 2], mat_params [R, 12]) as `primary_hit_pallas` returns them,
@@ -214,6 +274,8 @@ def primary_hit(trv, prim_attr, mat_attr, o, d, active=None):
     map ids, material id."""
     if _device_of(o) == "cpu":
         out = primary_ref(trv, prim_attr, mat_attr, o, d, active)
+    elif _walks(trv):
+        out = mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active)
     else:
         out = primary_cuda(trv, prim_attr, mat_attr, o, d, active)
     return unpack_primary(out)
@@ -224,3 +286,99 @@ def unpack_primary(out):
             out[CH_U:CH_V + 1].T, out[CH_POS:CH_POS + 3].T,
             out[CH_NORM:CH_NORM + 3].T, out[CH_UV:CH_UV + 2].T,
             out[CH_MAT:CH_PRIM].T)
+
+
+def _walk_tables(trv):
+    w = trv.walk
+    return _build.ptr(w.rows), w.size, _build.ptr(w.vert_rows)
+
+
+def mt_closest_cuda(trv, o, d, active=None, stats=False):
+    """B13's closest hit on the card -> (prim [R] i32, dist [R], bary
+    [R, 2]); lanes with active False are not walked (prim -1, dist inf,
+    bary 0). With `stats` also the int32 [2, R] box and triangle tests
+    of each ray."""
+    global mt_closest_launches
+    (o, d), _, r = _walk_args(trv, o, d)
+    dev = o.device
+    active = _active(active, r)
+    prim = torch.empty((r,), dtype=torch.int32, device=dev)
+    dist = torch.empty((r,), dtype=torch.float32, device=dev)
+    bary = torch.empty((r, 2), dtype=torch.float32, device=dev)
+    counts = _counts(stats, r, dev)
+    p = _build.ptr
+    err = _build.library().restir_mt_closest_hit(
+        p(o), p(d), p(active), *_walk_tables(trv), p(dist), p(bary), p(prim),
+        p(counts), r, _build.stream_of(dev))
+    _build.check(err, "restir_mt_closest_hit")
+    mt_closest_launches += 1
+    out = (prim, dist, bary)
+    return (*out, counts) if stats else out
+
+
+def mt_any_cuda(trv, x, y, active=None, stats=False):
+    """B13's any hit on the card -> occluded bool [R]; lanes with active
+    False are not walked and read False. With `stats` also the int32
+    [2, R] box and triangle tests of each segment."""
+    global mt_any_launches
+    (x, y), _, r = _walk_args(trv, x, y)
+    dev = x.device
+    active = _active(active, r)
+    occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    counts = _counts(stats, r, dev)
+    p = _build.ptr
+    err = _build.library().restir_mt_any_hit(
+        p(x), p(y), p(active), *_walk_tables(trv), p(occ), p(counts), r,
+        _build.stream_of(dev))
+    _build.check(err, "restir_mt_any_hit")
+    mt_any_launches += 1
+    return (occ, counts) if stats else occ
+
+
+def mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active=None,
+                    stats=False):
+    """B13's primary hit on the card -> B12's [24, R] pack on the walk's
+    hit; lanes with active False are not walked and get the miss pack.
+    With `stats` also the int32 [2, R] box and triangle tests."""
+    global mt_primary_launches
+    (o, d), n, r = _walk_args(trv, o, d)
+    dev = o.device
+    active = _active(active, r)
+    attr, mat = _attr_tables(prim_attr, mat_attr, n, dev)
+    out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
+    counts = _counts(stats, r, dev)
+    p = _build.ptr
+    err = _build.library().restir_mt_primary_hit(
+        p(o), p(d), p(active), *_walk_tables(trv), p(attr), p(mat),
+        mat.shape[0], p(out), p(counts), r, _build.stream_of(dev))
+    _build.check(err, "restir_mt_primary_hit")
+    mt_primary_launches += 1
+    return (out, counts) if stats else out
+
+
+def heatmap_cuda(trv, o, d, stats=False):
+    """B14 on the card -> the int32 [R] count of descended nodes of each
+    ray's closest-hit walk; with `stats` also the int32 [2, R] box and
+    triangle tests."""
+    global heatmap_launches
+    (o, d), _, r = _walk_args(trv, o, d)
+    dev = o.device
+    count = torch.empty((r,), dtype=torch.int32, device=dev)
+    counts = _counts(stats, r, dev)
+    p = _build.ptr
+    err = _build.library().restir_bvh_heatmap(
+        p(o), p(d), *_walk_tables(trv), p(count), p(counts), r,
+        _build.stream_of(dev))
+    _build.check(err, "restir_bvh_heatmap")
+    heatmap_launches += 1
+    return (count, counts) if stats else count
+
+
+def heatmap(trv, o, d):
+    """Descended nodes per ray (int32 [R]): B14 on CUDA tensors,
+    `intersect_visualize` on CPU tensors."""
+    if _device_of(o) == "cpu":
+        from .. import intersect as ix
+
+        return ix.intersect_visualize(trv.walk, o, d)
+    return heatmap_cuda(trv, o, d)

@@ -52,6 +52,13 @@ tables' `box_id` indirection resolved at upload:
   unit-plane leaf test hits (the leaf test and the slab test round
   differently; an unpadded flat box, such as a floor's, can lose a hit
   on its edge).
+
+`WalkTables` is what the JAX package's own lockstep walk reads (the
+general path's intersector for every name but "brute"), for its plain
+twin in `ops.intersect` and kernels B13 / B14: the raw `verts`, unpadded
+node boxes and flat MTBVH tables, and as the kernels read them `rows`
+[6B, 8] (`node_rows`' layout with each node's exact box) and `vert_rows`
+[n_pad, 12] (v0, v1, v2, pad). `LazyWalkTables` builds them on first use.
 """
 
 from __future__ import annotations
@@ -296,7 +303,13 @@ def node_rows(arrays) -> np.ndarray:
     """[6B, 8] float32 node rows from the flat MTBVH tables of a mapping
     of scene arrays: padded box lo(3), prim (int32 bits), padded box
     hi(3), miss (int32 bits)."""
-    bounds = padded_bounds(arrays["bounds_lo"], arrays["bounds_hi"])
+    return _with_links(padded_bounds(arrays["bounds_lo"],
+                                     arrays["bounds_hi"]), arrays)
+
+
+def _with_links(bounds, arrays) -> np.ndarray:
+    """Node rows: box rows [B, 8] gathered by the MTBVH tables, prim and
+    miss in the int32 bits of columns 3 and 7."""
     box = np.asarray(arrays["bvh_box"], np.int32).reshape(-1)
     if box.shape[0] != 6 * bounds.shape[0]:
         raise ValueError(f"MTBVH tables hold {box.shape[0]} rows, "
@@ -306,6 +319,85 @@ def node_rows(arrays) -> np.ndarray:
     bits[:, 3] = np.asarray(arrays["bvh_prim"], np.int32).reshape(-1)
     bits[:, 7] = np.asarray(arrays["bvh_miss"], np.int32).reshape(-1)
     return rows
+
+
+class WalkTables(NamedTuple):
+    """What the JAX package's lockstep MTBVH walk reads
+    (`restir_tpu.ops.intersect.TraversalArrays`), and the same as the
+    rows kernels B13 / B14 read."""
+
+    verts: torch.Tensor  # [N, 3, 3] f32
+    bounds_lo: torch.Tensor  # [B, 3] f32 node boxes, unpadded
+    bounds_hi: torch.Tensor  # [B, 3]
+    prim_flat: torch.Tensor  # [6B] i32
+    box_flat: torch.Tensor  # [6B] i32
+    miss_flat: torch.Tensor  # [6B] i32
+    rows: torch.Tensor  # [6B, 8] f32 node rows with their exact boxes
+    vert_rows: torch.Tensor  # [n_pad, 12] f32: v0, v1, v2, pad
+    size: int  # B
+
+
+def exact_node_rows(arrays) -> np.ndarray:
+    """[6B, 8] float32 node rows as `node_rows`, with each node's own
+    (unpadded) box: the JAX walk tests the raw box against a strict
+    t_near < best, so a padded box would visit other nodes."""
+    lo = np.asarray(arrays["bounds_lo"], np.float32)
+    bounds = np.zeros((lo.shape[0], BOUND_COLS), np.float32)
+    bounds[:, 0:3] = lo
+    bounds[:, 4:7] = np.asarray(arrays["bounds_hi"], np.float32)
+    return _with_links(bounds, arrays)
+
+
+def vertex_rows(verts) -> np.ndarray:
+    """[n_pad, 12] float32 rows v0, v1, v2 and three zeros (a leaf reads
+    three float4), n_pad as the plane rows'."""
+    v = np.asarray(verts, np.float32).reshape(-1, 9)
+    rows = np.zeros((_round_up(max(v.shape[0], 128), 64), PLANE_COLS),
+                    np.float32)
+    rows[:v.shape[0], 0:9] = v
+    return rows
+
+
+def build_walk_tables(arrays, verts: torch.Tensor) -> WalkTables:
+    """WalkTables on `verts`' device from a mapping of scene arrays."""
+    dev = verts.device
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
+                            device=dev)
+
+    return WalkTables(
+        verts=verts, bounds_lo=t("bounds_lo", torch.float32),
+        bounds_hi=t("bounds_hi", torch.float32),
+        prim_flat=t("bvh_prim", torch.int32).reshape(-1),
+        box_flat=t("bvh_box", torch.int32).reshape(-1),
+        miss_flat=t("bvh_miss", torch.int32).reshape(-1),
+        rows=torch.from_numpy(exact_node_rows(arrays)).to(dev),
+        vert_rows=torch.from_numpy(vertex_rows(arrays["verts"])).to(dev),
+        size=int(np.asarray(arrays["bounds_lo"]).shape[0]))
+
+
+class LazyWalkTables:
+    """WalkTables built on the first `get()`: only scenes whose config
+    takes the walk (or the heatmap) pay for them (the hall's node rows
+    are 31 MB)."""
+
+    _KEYS = ("verts", "bounds_lo", "bounds_hi", "bvh_prim", "bvh_box",
+             "bvh_miss")
+
+    def __init__(self, arrays, verts: torch.Tensor):
+        self._arrays = {k: np.asarray(arrays[k]) for k in self._KEYS}
+        self._verts = verts
+        self._tables: Optional[WalkTables] = None
+
+    @property
+    def built(self) -> bool:
+        return self._tables is not None
+
+    def get(self) -> WalkTables:
+        if self._tables is None:
+            self._tables = build_walk_tables(self._arrays, self._verts)
+        return self._tables
 
 
 def build_bvh_tables(arrays, resident: ResidentTables, device) -> BvhTables:

@@ -2,14 +2,15 @@
 interaction and textured material of a ray batch, for the G-buffer and
 every bounce.
 
-On CUDA tensors it runs kernel B12 (`ops.kernels.intersect.primary_hit`:
+On CUDA tensors it runs kernel B12, or B13's primary build when the
+intersector is the MTBVH walk (`ops.kernels.intersect.primary_hit`:
 closest hit, attribute interpolation and material row in one launch),
 then the procedural, texture and normal-map branches as tensor ops, as
 the JAX function does after its Pallas kernel (primary.py:34-90). On CPU
 tensors, or with `plain` (the kernel twins on the card), it composes the
-brute-force closest hit of `intersect_bf`, `make_interaction` and
-`fetch_textured_material` (primary.py:92-98), the JAX package's CPU
-route.
+plain closest hit of the method (`intersect_bf`'s brute force or the
+walk's twin), `make_interaction` and `fetch_textured_material`
+(primary.py:92-98), the JAX package's CPU route.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import torch
 
 from ..scene.mesh import PROCEDURAL_TEXTURE
 from . import intersect as ix
-from . import intersect_bf
 from . import surface as surf
 from .bsdf import SurfaceMaterial
 from .kernels import intersect as kernels
@@ -35,8 +35,7 @@ def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
     lanes miss: the kernel does not walk them and writes its miss pack,
     the plain route masks their primitive and distance."""
     if plain or not o.is_cuda:
-        hit = ix.Hit(*intersect_bf.intersect_closest_bf(trv.tri_xform, o, d,
-                                                        active))
+        hit = ix.Hit(*kernels.closest_plain(trv, o, d, active))
         it = surf.make_interaction(scene, hit)
         mat, mapped = fetch_textured_material(scene, it.mat_id, it.uv,
                                               it.norm, with_textures)

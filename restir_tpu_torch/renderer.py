@@ -5,12 +5,12 @@ passes the fused gate (`restir_di_fused.ineligibility`) it returns a
 `FusedDIState`; with no scene, or when the gate fails, the general
 `RenderState`, and on the card a RESTIR_DI or RESTIR_GI config that
 falls off the fused path is announced once per config. `step`
-dispatches on the state's type. The general step carries RESTIR_DI,
-RESTIR_GI (DI and GI in one frame), PT_DIRECT, PT_FULL, PT_INDIRECT and
-GBUFFER_PREVIEW; what it leaves out (BVH_VISUALIZE, the general path's
-EAW and SVGF, the Sobol sampler, the MTBVH intersector) raises
-`NotImplementedError` naming its ROADMAP item. Entry points run on the
-card (`device="cuda"`) unless the caller asks for the CPU.
+dispatches on the state's type. The general step carries every config
+the JAX package's general step does: RESTIR_DI, RESTIR_GI (DI and GI in
+one frame), PT_DIRECT, PT_FULL, PT_INDIRECT, BVH_VISUALIZE and
+GBUFFER_PREVIEW, then the EAW or SVGF denoiser (`models.denoiser`), with
+either sampler and any intersector at any triangle count. Entry points
+run on the card (`device="cuda"`) unless the caller asks for the CPU.
 
 The JAX package renders a 1080p general GI frame as two programs to fit
 the TPU's memory (`restir_tpu.renderer.step_jit`); the port runs it as
@@ -36,22 +36,16 @@ from .config import (
     TracerType,
     validate_mat_flags,
 )
+from .models import denoiser as dn
 from .models import restir_di, restir_di_fused, restir_gi
 from .models import gbuffer as gbuf
-from .models.path_tracer import pt_direct, pt_indirect, pt_trace
+from .models.denoiser import SVGFState
+from .models.path_tracer import bvh_heatmap, pt_direct, pt_indirect, pt_trace
 from .models.restir_di_fused import FusedDIState, _copy_camera
 from .ops import reservoir as rsv
 from .ops.camera import Camera
 from .ops.tonemap import to_uint8, tonemap
 from .scene.scene_data import SceneTensors
-
-
-class SVGFState(NamedTuple):
-    """The general path's SVGF history (denoiser.cu:479-492); carried for
-    checkpoints, read by no ported filter yet."""
-
-    accum_color: torch.Tensor  # [R, 3]
-    accum_moment: torch.Tensor  # [R, 3]
 
 
 class RenderState(NamedTuple):
@@ -72,22 +66,6 @@ def _host_materials(scene: SceneTensors):
                                  mat_attr=scene.mat_attr.cpu().numpy())
 
 
-def general_ineligibility(cfg: RenderConfig):
-    """Why the ported general path cannot render `cfg` (None if it can)."""
-    reasons = []
-    if cfg.tracer == TracerType.BVH_VISUALIZE:
-        reasons.append("tracer BVH_VISUALIZE (ROADMAP Queue A 7)")
-    if cfg.denoiser != DenoiserType.NONE:
-        reasons.append(f"denoiser {cfg.denoiser} on the general path "
-                       "(ROADMAP Queue A 7)")
-    if cfg.sampler != "pcg4d":
-        reasons.append(f"sampler {cfg.sampler!r} (ROADMAP Queue A 7)")
-    if cfg.intersector not in ("auto", "brute"):
-        reasons.append(f"intersector {cfg.intersector!r} on the general "
-                       "path (ROADMAP Queue A 7)")
-    return "; ".join(reasons) or None
-
-
 def init_general(cfg: RenderConfig, cam: Camera, device="cuda",
                  scene: Optional[SceneTensors] = None) -> RenderState:
     """The general state. A RESTIR_GI config whose scene passes the GI
@@ -95,10 +73,6 @@ def init_general(cfg: RenderConfig, cam: Camera, device="cuda",
     B9 each frame), as the JAX package does on the TPU
     (`restir_tpu/renderer.py:80-92`); the port's kernels have CPU twins,
     so the choice is the same on either device."""
-    reason = general_ineligibility(cfg)
-    if reason is not None:
-        raise NotImplementedError(
-            f"restir_tpu_torch general path: {reason}")
     r = cfg.num_pixels
     dev = torch.device(device)
 
@@ -115,7 +89,7 @@ def init_general(cfg: RenderConfig, cam: Camera, device="cuda",
         dir_reservoir=rsv.zeros_direct(r, dev),
         gi_reservoir=gi_res,
         gbuffer=gbuf.empty_gbuffer(r, dev), last_camera=_copy_camera(cam),
-        denoiser=SVGFState(z3(), z3()))
+        denoiser=dn.init_svgf_state(r, dev))
 
 
 _warned_fallback: set = set()
@@ -181,9 +155,6 @@ def step(scene: SceneTensors, state, cam: Camera, cfg: RenderConfig):
 
 def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
                  cfg: RenderConfig):
-    reason = general_ineligibility(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"restir_tpu_torch general path: {reason}")
     looper = state.looper & 0xFFFFFFFF
     gb, it, mat, ray_dir = gbuf.render_gbuffer(scene, cam, state.last_camera,
                                                cfg, looper)
@@ -211,6 +182,9 @@ def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
         d, ind = pt_trace(scene, cam, cfg, looper)
         direct = _accumulate(direct, d, n, cfg.accumulate)
         indirect = _accumulate(indirect, ind, n, cfg.accumulate)
+    elif cfg.tracer == TracerType.BVH_VISUALIZE:
+        count = bvh_heatmap(scene, cam, cfg).to(torch.float32)
+        direct = torch.stack([count * 0.01] * 3, dim=-1)
     elif cfg.tracer == TracerType.GBUFFER_PREVIEW:
         # channel previews (preview.cpp:253-287)
         if cfg.gbuffer_channel == "albedo":
@@ -226,11 +200,20 @@ def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
     else:
         raise ValueError(f"unknown tracer {cfg.tracer}")
 
+    frame = direct + indirect
+    # denoise (the JAX package wires the reference's dormant filters)
+    den_state = state.denoiser
+    if cfg.denoiser == DenoiserType.EAW:
+        frame = dn.eaw_filter(frame, gb, cam, cfg)
+    elif cfg.denoiser == DenoiserType.SVGF:
+        frame, den_state = dn.svgf_filter(frame, gb, state.gbuffer,
+                                          state.denoiser, cam, cfg)
     next_state = state._replace(
         looper=(looper + 1) & 0xFFFFFFFF, iteration=n + 1,
         direct_illum=direct, indirect_illum=indirect, dir_reservoir=dir_res,
-        gi_reservoir=gi_res, gbuffer=gb, last_camera=_copy_camera(cam))
-    return next_state, direct + indirect
+        gi_reservoir=gi_res, gbuffer=gb, last_camera=_copy_camera(cam),
+        denoiser=den_state)
+    return next_state, frame
 
 
 def render(scene: SceneTensors, cam: Camera, cfg: RenderConfig,

@@ -17,7 +17,10 @@ read them.
 
 `SceneTensors` is the same data as torch tensors on one device, plus
 the kernel tables derived from it once at upload
-(`ops.kernels.tables.ResidentTables` and `BvhTables`).
+(`ops.kernels.tables.ResidentTables` and `BvhTables`), and those of the
+exact MTBVH walk (`WalkTables`), built on first use.
+`traversal_method` picks the general path's intersector as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ class SceneTensors(NamedTuple):
     light_radius: torch.Tensor
     tables: "object"  # ops.kernels.tables.ResidentTables
     bvh: "object"  # ops.kernels.tables.BvhTables
+    walk: "object"  # ops.kernels.tables.LazyWalkTables (built on first use)
     has_env_map: bool  # the scene has an environment map
     has_textures: bool  # a material reads a texture
     verts: torch.Tensor  # [N, 3, 3]
@@ -132,6 +136,29 @@ class SceneTensors(NamedTuple):
     @property
     def num_tris(self) -> int:
         return self.tri_xform.shape[1] // 3
+
+
+BRUTE_FORCE_MAX_PRIMS = 16384  # restir_tpu.scene.scene_data's limit
+
+
+def traversal_method(scene, intersector: str = "auto") -> str:
+    """The general path's intersector for a scene, as
+    `restir_tpu.scene.scene_data.traversal_method`: "auto" takes "brute"
+    up to BRUTE_FORCE_MAX_PRIMS triangles and "bvh" above, with a
+    warning; any other name passes through ("brute" at any size; "bvh",
+    "clustered" and the rest take the MTBVH walk)."""
+    if intersector == "auto":
+        n = scene.verts.shape[0]
+        if n > BRUTE_FORCE_MAX_PRIMS:
+            import warnings
+
+            warnings.warn(
+                f"scene has {n} triangles (> {BRUTE_FORCE_MAX_PRIMS}): "
+                "this tracer takes the lockstep-BVH walk (kernel B13 on "
+                "the card). The fused RESTIR_DI path has no triangle-count "
+                "ceiling.", stacklevel=2)
+        intersector = "brute" if n <= BRUTE_FORCE_MAX_PRIMS else "bvh"
+    return intersector
 
 
 def _morton_order(centroids: np.ndarray) -> np.ndarray:

@@ -94,8 +94,12 @@ def dot(a, b):
 
 
 def norm(v):
-    """|v| as `jnp.linalg.norm` rounds it (a fused chain on the CPU)."""
-    return torch.sqrt(_chain(v, v) if _mirror(v, always=True) else dot(v, v))
+    """|v| as `jnp.linalg.norm` rounds it: on the CPU a fused chain and a
+    correctly rounded square root (taken in float64: PyTorch's vectorised
+    float32 sqrt on the CPU can miss the nearest float by an ulp)."""
+    if _mirror(v, always=True):
+        return torch.sqrt(_chain(v, v).double()).to(torch.float32)
+    return torch.sqrt(dot(v, v))
 
 
 def sat_dot(a, b):

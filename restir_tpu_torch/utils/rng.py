@@ -100,10 +100,11 @@ def uniform3(pixel_index, looper, ctr, salt=SALT_CAMERA):
 
 
 def draw4(sampler: str, pixel_index, looper, ctr, salt=SALT_CAMERA):
-    """uniform4 behind the config's sampler choice (rng.draw4): the port
-    carries "pcg4d" only."""
-    if sampler != "pcg4d":
-        raise NotImplementedError(
-            f"sampler {sampler!r}: the Sobol sampler is not ported yet "
-            "(ROADMAP Queue A 7)")
+    """uniform4 behind the config's sampler choice (rng.draw4): "pcg4d",
+    or "sobol", Owen-scrambled Sobol points (`utils/sobol.py`) with
+    `looper` as the sample index."""
+    if sampler == "sobol":
+        from .sobol import sobol4
+
+        return sobol4(pixel_index, looper, ctr, salt)
     return uniform4(pixel_index, looper, ctr, salt)

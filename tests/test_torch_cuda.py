@@ -1,6 +1,7 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
 B3, B4 (also on images that cut their tiles ragged), B5, the SVGF variance kernels, B6, B7, the general path's B10,
-B11 and B12 (bit for bit), and ReSTIR GI's B8 and B9 on a CUDA card;
+B11, B12, B13 and B14 (bit for bit), the general EAW / SVGF step, and
+ReSTIR GI's B8 and B9 on a CUDA card; B13's build and launch errors;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
 without B12's mask of live lanes.
@@ -915,3 +916,149 @@ def test_gi_fallback_warns_once_on_the_card(cuda_device):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         renderer.init_state(cfg, cam, scene, device=cuda_device)
+
+
+@pytest.fixture(scope="module")
+def walk(general):
+    """The `general` frame's scene through the MTBVH walk (B13 / B14):
+    camera rays, a quarter reversed, and segments from their hits."""
+    scene, cam, _, o, d = general
+    trv = tix.traversal_arrays(scene, "bvh")
+    pos, target, active = _segments(trv._replace(method="brute"), o, d)
+    return scene, cam, trv, o, d, pos, target, active
+
+
+def test_b13_closest_kernel_matches_twin(walk):
+    """B13's closest hit equals intersect_closest_bvh's on the card bit for
+    bit on every lane (misses: prim -1, dist inf, bary 0), and lanes
+    outside `active` are not walked."""
+    _, _, trv, o, d, _, _, active = walk
+    before = ki.mt_closest_launches
+    pk, dk, bk = ki.mt_closest_cuda(trv, o, d)
+    assert ki.mt_closest_launches == before + 1
+    pr, dr, br = tix.intersect_closest_bvh(trv.walk, o, d)
+    assert torch.equal(pk, pr) and torch.equal(dk, dr) and torch.equal(bk, br)
+    assert 0.2 < float((pk < 0).float().mean()) < 0.9
+    pa, da, ba = ki.mt_closest_cuda(trv, o, d, active)
+    want = tix.intersect_closest_bvh(trv.walk, o, d, active)
+    assert all(torch.equal(a, b) for a, b in zip((pa, da, ba), want))
+    assert bool((pa[~active] == -1).all())
+    assert all(torch.equal(a, b) for a, b in zip(
+        ki.closest_hit(trv, o, d), (pk, dk, bk)))
+
+
+def test_b13_any_kernel_matches_twin(walk):
+    _, _, trv, _, _, pos, target, active = walk
+    before = ki.mt_any_launches
+    occ = ki.mt_any_cuda(trv, pos, target, active)
+    assert ki.mt_any_launches == before + 1
+    ref = tix.test_occlusion_bvh(trv.walk, pos, target, active)
+    assert torch.equal(occ, ref)
+    assert bool(occ.any()) and not bool(occ[~active].any())
+    assert torch.equal(ki.any_hit(trv, pos, target, active), occ)
+
+
+def test_b13_primary_kernel_matches_twin(walk):
+    """B13's primary build writes primary_ref's pack (the walk's twin hit,
+    then B12's interpolation) bit for bit, with and without a mask."""
+    scene, _, trv, o, d, _, _, active = walk
+    attr, mats = scene.prim_attr, scene.mat_attr
+    before = ki.mt_primary_launches
+    k = ki.mt_primary_cuda(trv, attr, mats, o, d)
+    assert ki.mt_primary_launches == before + 1
+    assert torch.equal(k, ki.primary_ref(trv, attr, mats, o, d))
+    km = ki.mt_primary_cuda(trv, attr, mats, o, d, active)
+    assert torch.equal(km, ki.primary_ref(trv, attr, mats, o, d, active))
+    # the walk and the brute force agree on the primitive nearly everywhere
+    bf = ki.primary_cuda(trv, attr, mats, o, d)
+    assert float((bf[ki.CH_PRIM] == k[ki.CH_PRIM]).float().mean()) > 0.998
+
+
+def test_b14_heatmap_matches_twin(walk):
+    """B14's count equals intersect_visualize's on every pixel, its
+    counting build too, and the COUNT builds of B13 / B14 agree."""
+    _, _, trv, o, d, _, _, _ = walk
+    before = ki.heatmap_launches
+    cnt = ki.heatmap_cuda(trv, o, d)
+    assert ki.heatmap_launches == before + 1
+    assert torch.equal(cnt, tix.intersect_visualize(trv.walk, o, d))
+    cnt_c, counts = ki.heatmap_cuda(trv, o, d, stats=True)
+    assert torch.equal(cnt_c, cnt)
+    _, _, _, c13 = ki.mt_closest_cuda(trv, o, d, stats=True)
+    assert torch.equal(counts, c13)
+    assert bool((cnt <= counts[0]).all()) and int(cnt.max()) > 4
+
+
+@pytest.mark.parametrize("tracer,per_frame", [
+    (TracerType.PT_DIRECT, {"primary": 2, "any": 1, "heat": 0}),
+    (TracerType.BVH_VISUALIZE, {"primary": 1, "any": 0, "heat": 1}),
+])
+def test_walk_step_launches(walk, tracer, per_frame):
+    scene, cam, _, _, _, _, _, _ = walk
+    cfg = RenderConfig(width=W, height=H, tracer=tracer, intersector="bvh")
+    state = renderer.init_state(cfg, cam, device=scene.verts.device)
+    before = (ki.mt_primary_launches, ki.mt_any_launches,
+              ki.heatmap_launches, ki.primary_launches)
+    state, frame = renderer.step(scene, state, cam, cfg)
+    torch.cuda.synchronize()
+    got = (ki.mt_primary_launches - before[0], ki.mt_any_launches - before[1],
+           ki.heatmap_launches - before[2])
+    assert got == (per_frame["primary"], per_frame["any"], per_frame["heat"])
+    assert ki.primary_launches == before[3]
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0
+
+
+@pytest.mark.parametrize("denoiser", ["eaw", "svgf"])
+def test_general_denoiser_step_matches_cpu_twin(walk, denoiser):
+    """Three general RESTIR_DI frames with EAW or SVGF on the card (B3, or
+    the variance kernels and B4) against the same frames of the CPU
+    twins, from the same scene arrays."""
+    from restir_tpu_torch.config import DenoiserType
+
+    scene, cam, _, _, _, _, _, _ = walk
+    arrays, _ = many_light_scene(16, 6)
+    cpu_scene = convert.scene_from_numpy(arrays, "cpu")
+    den = {"eaw": DenoiserType.EAW, "svgf": DenoiserType.SVGF}[denoiser]
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.PT_DIRECT,
+                       denoiser=den)
+    states = [renderer.init_state(cfg, cam, device=scene.verts.device),
+              renderer.init_state(cfg, cam, device="cpu")]
+    before = (atrous.launches, atrous.svgf_launches, svgf.variance_launches)
+    for _ in range(3):
+        states[0], fk = renderer.step(scene, states[0], cam, cfg)
+        states[1], fr = renderer.step(cpu_scene, states[1], cam, cfg)
+    got = (atrous.launches - before[0], atrous.svgf_launches - before[1],
+           svgf.variance_launches - before[2])
+    levels = cfg.eaw_levels
+    assert got == ((3 * levels, 0, 0) if denoiser == "eaw"
+                   else (0, 3 * levels, 3 * (1 + levels)))
+    assert parity.close_fraction(fr.T, fk.cpu().T, 1e-4, 1e-6) >= 0.99
+
+
+def test_b13_build_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """A source that nvcc refuses makes the build raise, naming it."""
+    from restir_tpu_torch.ops.kernels import _build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.SRC_DIR.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (src / f.name).write_text(f.read_text())
+    bad = src / "intersect.cu"
+    bad.write_text(bad.read_text().replace("struct MtRay {",
+                                           "struct MtRay { not_a_type x;"))
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="intersect.cu"):
+        _build.build()
+
+
+def test_b13_launch_errors_raise(walk):
+    """A walk without its tables, or a launch the entry point refuses,
+    raises instead of falling back."""
+    _, _, trv, o, d, _, _, _ = walk
+    with pytest.raises(ValueError, match="walk's tables"):
+        ki.mt_closest_cuda(trv._replace(walk=None), o, d)
+    empty = o[:0].contiguous()
+    with pytest.raises(RuntimeError, match="restir_mt_closest_hit"):
+        ki.mt_closest_cuda(trv, empty, empty)

@@ -6,8 +6,9 @@ over 3 frames for PT_DIRECT, PT_FULL, RESTIR_DI (both modes) and
 GBUFFER_PREVIEW, port on the CPU against JAX on the CPU: radiance within
 rtol 1e-4 on >= 99.5 % of pixels (a rare flipped shadow ray or BSDF
 sample moves a pixel whole). Then `RenderState` checkpoints across the
-two packages, the routing of `init_state`, and the options the general
-path leaves out.
+two packages and the routing of `init_state`. The MTBVH intersector, the
+heatmap, the denoisers and the Sobol sampler on this path are held in
+`test_torch_general_walk.py` and `test_torch_general_denoise.py`.
 
 The camera's fov is 35 degrees: at some angles XLA's float32 tan is one
 ulp off the correctly rounded value that PyTorch returns, which would
@@ -250,18 +251,3 @@ def test_init_state_without_scene_is_general(world):
     cfg = tconfig.RenderConfig(width=256, height=64)
     assert trenderer.init_state(cfg, _tcam(cams[0]), device="cpu").__class__ \
         is trenderer.RenderState
-
-
-@pytest.mark.parametrize("change", [
-    {"intersector": "clustered"},  # RESTIR_GI, the case here before, renders
-    {"tracer": TracerType.BVH_VISUALIZE},
-    {"denoiser": DenoiserType.EAW},
-    {"denoiser": DenoiserType.SVGF},
-    {"sampler": "sobol"},
-    {"intersector": "bvh"},
-])
-def test_general_leaves_out(world, change):
-    _, _, cams = world
-    cfg = tconfig.RenderConfig(width=W, height=H, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trenderer.init_state(cfg, _tcam(cams[0]), device="cpu")

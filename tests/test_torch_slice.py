@@ -190,20 +190,6 @@ def test_checkpoint_from_jax_state_loads(world, jax_run):
     assert [np.shape(x) for x in leaves] == [x.shape for x in ref]
 
 
-@pytest.mark.parametrize("change", [
-    {"tracer": TracerType.PT_DIRECT},
-    {"tracer": TracerType.BVH_VISUALIZE},  # was RESTIR_GI, which renders
-    {"enable_dof": True},
-    {"width": 100},
-    {"sampler": "sobol"},
-])
-def test_unported_configs_raise(world, change):
-    _, tscene, cfg, cams = world
-    tcfg = _port_cfg(cfg.replace(**change))
-    with pytest.raises(NotImplementedError):
-        trenderer.init_state(tcfg, _port_cam(cams[0]), tscene, device="cpu")
-
-
 def test_large_scene_raises():
     """Scenes over 1024 triangles take the MTBVH path, textured ones too:
     a large scene whose floor reads a texture initialises and renders a
