@@ -124,7 +124,28 @@ The MTBVH walk of the general path (after phase 18):
  22. hall energy: 64 fused RESTIR_DI frames of the hall against 256
      PT_DIRECT frames (the walk) at 384x384, `energy_ratio_vs_pt` printed
      on a line of its own; a measurement, not a gate.
-Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 last.
+The app shell (after phase 22):
+ 23. the CLI in-process (`restir_tpu_torch.app.main`, the user's
+     `python -m restir_tpu_torch`): `--builtin many_light --width 1920
+     --height 1080 --denoiser eaw --frames 40` (launches per frame:
+     fused_di 2, spatial 1, atrous_eaw 5; the PNG not black; the stats
+     line with the JAX CLI's keys), `--tracer pt_direct` at 1080p for 8
+     frames (primary_hit 2, any_hit 1), and one subprocess `python -m
+     restir_tpu_torch --builtin cornell --frames 4 --stats-json`, which
+     must load the kernel library this process built, not rebuild it;
+ 24. the native BVH builder on the hall: numpy and native trees equal bit
+     for bit on this host, both builders' times and both scene set-ups
+     (parse + build); then `scenes/hall.txt` through the CLI for 10
+     frames with `--save-state`, resumed with `--load-state` for 4, and
+     14 straight frames, which the resumed run must match (launches per
+     frame: gbuffer_bvh 1, reuse_bvh 1, temporal 1, spatial 1);
+ 25. the browser viewer (`viewer.make_server`) on the headline builtin at
+     the CLI's 800x800 on 127.0.0.1: PNG frames arrive on /stream,
+     /ctl?tracer=pt_direct and /ctl?key=w each restart /stats' iteration
+     and change the stream; its fps, its launches (primary_hit, ris_cdf,
+     any_hit), and a clean stop of the server and the render thread.
+Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
+those, 23-25 last.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -136,18 +157,23 @@ CUDA sources (constants below; a transcendental counts as one).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import http.client
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 
 import numpy as np
 import torch
 
-from restir_tpu_torch import convert, parity, renderer
+from restir_tpu_torch import app, convert, parity, renderer, viewer
 from restir_tpu_torch.models import denoiser
 from restir_tpu_torch.config import (
     DenoiserType,
@@ -190,6 +216,7 @@ from restir_tpu_torch.ops.kernels.fused_di import (
     RS_WI,
     TILE,
 )
+from restir_tpu_torch.scene import bvh as scene_bvh
 from restir_tpu_torch.scene.loader import parse_scene_file
 from restir_tpu_torch.scene.procedural import (
     cornell_box,
@@ -198,6 +225,8 @@ from restir_tpu_torch.scene.procedural import (
     many_light_scene,
     textured_scene,
 )
+
+from restir_tpu_torch.utils.image_io import encode_png, read_pfm, read_png
 
 from kernel_ab import general_rays
 
@@ -907,10 +936,13 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     if float(pt_k[P_M].max()) <= cfg.cdf_candidates:
         raise PhaseError("hall temporal merge inactive")
     # B1b alone over the whole frame, on the kernel's candidates
-    pt_tw = fused_di.temporal_pixels(
-        gb_k, rs_k[RS_LI:RS_LI + 3], rs_k[RS_WI:RS_WI + 3], rs_k[RS_DIST],
-        rs_k[RS_W], torch.arange(r, device=dev), 1, pt0, k=rkw["k"],
-        temporal=True, temporal_clamp=rkw["temporal_clamp"])
+    def b1b_twin():
+        return fused_di.temporal_pixels(
+            gb_k, rs_k[RS_LI:RS_LI + 3], rs_k[RS_WI:RS_WI + 3],
+            rs_k[RS_DIST], rs_k[RS_W], torch.arange(r, device=dev), 1, pt0,
+            k=rkw["k"], temporal=True, temporal_clamp=rkw["temporal_clamp"])
+
+    pt_tw = b1b_twin()
     close = parity.close_fraction(pt_tw, pt_k, 1e-6, 0.0)
     print(f"B1b temporal vs twin over the frame: exact-close {close:.6f}")
     if close < 0.9999:
@@ -933,6 +965,7 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     ms7 = cuda_ms(lambda: reuse.candidates_cuda(
         gb_k, 1, t, bvh, k=rkw["k"], has_met=rkw["has_met"], width=w), 10)
     ms1b = cuda_ms(lambda: fused_di.temporal_cuda(gb_k, rs_k, pt0, 1), 20)
+    ms1b_ref = cuda_ms(b1b_twin, 1)
     ms6_ref = cuda_ms(lambda: gbuffer.gbuffer_ref(cv2, cv, 1, bvh, **gkw),
                       1, warmup=False)
     ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
@@ -957,8 +990,8 @@ def phase_hall_kernels(scene, cfg, cam, dev, record):
     print(f"hall B7 reuse_bvh: kernel {ms7:.4f} ms, twin (with B1b) "
           f"{ms7_ref:.1f} ms, bound {b7[0]:.4f} ms ({b7[1]}; the two-pass "
           f"scan's {b7_two[0]:.4f})")
-    print(f"hall B1b temporal: kernel {ms1b:.4f} ms, bound {b1b[0]:.4f} ms "
-          f"({b1b[1]})")
+    print(f"hall B1b temporal: kernel {ms1b:.4f} ms, twin {ms1b_ref:.2f} "
+          f"ms, bound {b1b[0]:.4f} ms ({b1b[1]})")
 
 
 def phase_svgf_kernels(cfg, gb, dev, record):
@@ -2091,6 +2124,256 @@ def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
             launches[k] = launches.get(k, 0) + counts[k]
     phase_hall_energy(hall, hall_arrays, hall_cam, dev)
 
+STATS_KEYS = {"fps", "mrays_per_s", "compile_s", "frames", "resolution",
+              "output"}  # restir_tpu/app.py's stats line
+CLI_SIZE = 800  # the CLI's width and height of a builtin scene
+
+
+def run_cli(name, argv, dev, per_frame=None):
+    """`app.main(argv)` in this process, its output printed; returns its
+    stats line. With per_frame, the run's launch counts must be those per
+    frame times --frames."""
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main(argv + ["--stats-json"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        raise PhaseError(f"{name}: app.main returned {rc}")
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if set(stats) != STATS_KEYS:
+        raise PhaseError(f"{name}: stats keys {sorted(stats)}")
+    if per_frame is not None:
+        expect = {k: per_frame.get(k, 0) * stats["frames"] for k in counts}
+        print(f"CLI {name} launches {counts} (expected {expect})")
+        if counts != expect:
+            raise PhaseError(f"{name}: launch counts {counts} != {expect}")
+    print(f"CLI {name}: {stats['fps']} fps, {stats['mrays_per_s']} Mrays/s, "
+          f"compile_s {stats['compile_s']}, {wall:.2f} s in main")
+    return stats
+
+
+def check_image(name, path, shape):
+    img = read_pfm(path) if path.endswith(".pfm") else read_png(path)
+    if img.shape != shape or not np.isfinite(img).all():
+        raise PhaseError(f"{name}: output {img.shape}, finite "
+                         f"{bool(np.isfinite(img).all())}")
+    if not img.mean() > 0:
+        raise PhaseError(f"{name}: output is black")
+    return img
+
+
+def phase_cli(dev, tmp):
+    """Phase 23: the CLI at full width, in this process and as a module."""
+    hd = ["--builtin", "many_light", "--width", str(WIDTH), "--height",
+          str(HEIGHT)]
+    out = os.path.join(tmp, "headline.png")
+    run_cli("headline EAW", hd + ["--denoiser", "eaw", "--frames", "40",
+                                  "-o", out], dev,
+            {"fused_di": 2, "spatial": 1, "atrous_eaw": 5})
+    check_image("CLI headline", out, (HEIGHT, WIDTH, 3))
+    out = os.path.join(tmp, "pt_direct.png")
+    run_cli("headline PT-direct", hd + ["--tracer", "pt_direct", "--frames",
+                                        "8", "-o", out], dev,
+            {"primary_hit": 2, "any_hit": 1})
+    check_image("CLI PT-direct", out, (HEIGHT, WIDTH, 3))
+
+    lib = _build.build()  # the cached library: no nvcc here
+    stamp = lib.stat().st_mtime_ns
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = os.path.join(tmp, "cornell.png")
+    cmd = [sys.executable, "-m", "restir_tpu_torch", "--builtin", "cornell",
+           "--frames", "4", "--stats-json", "-o", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        raise PhaseError(f"python -m restir_tpu_torch: rc {proc.returncode}"
+                         f"\n{proc.stderr[-4000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(stats) != STATS_KEYS:
+        raise PhaseError(f"python -m restir_tpu_torch: keys {sorted(stats)}")
+    check_image("CLI cornell (module)", out, (CLI_SIZE, CLI_SIZE, 3))
+    if lib.stat().st_mtime_ns != stamp:
+        raise PhaseError("python -m restir_tpu_torch rebuilt the kernels")
+    print(f"CLI module run (python -m restir_tpu_torch --builtin cornell, "
+          f"{CLI_SIZE}x{CLI_SIZE} general DI): {stats['fps']} fps, compile_s "
+          f"{stats['compile_s']} (the cached kernel library "
+          f"{lib.name}), {wall:.2f} s with the interpreter's start")
+
+
+def phase_native_hall(dev, tmp):
+    """Phase 24: the native builder on the hall, then the hall through
+    the CLI with a checkpoint."""
+    hall_txt = os.path.join(REPO, "scenes", "hall.txt")
+    sf = parse_scene_file(hall_txt)
+    setup = {}
+    built = {}
+    for impl in ("numpy", "native"):
+        t0 = time.perf_counter()
+        built[impl] = sf.build(bvh_impl=impl)
+        convert.scene_from_numpy(built[impl], dev)
+        torch.cuda.synchronize()
+        setup[impl] = time.perf_counter() - t0
+    verts = built["native"].verts.reshape(-1, 3)
+    times, trees = {}, {}
+    for impl in ("numpy", "native"):
+        t0 = time.perf_counter()
+        trees[impl] = scene_bvh.build_bvh(verts, impl=impl)
+        times[impl] = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(trees["numpy"], f),
+                              getattr(trees["native"], f))
+               for f in trees["numpy"]._fields)
+    same_scene = all(np.array_equal(getattr(built["numpy"], f),
+                                    getattr(built["native"], f))
+                     for f in ("bounds_lo", "bounds_hi", "bvh_prim",
+                               "bvh_box", "bvh_miss"))
+    print(f"native BVH on the hall ({verts.shape[0] // 3} triangles, "
+          f"{trees['native'].size} nodes): numpy {times['numpy']:.3f} s, "
+          f"native {times['native']:.3f} s; trees equal bit for bit: "
+          f"{same} (scene arrays {same_scene}); hall set-up (parse + "
+          f"build + upload) numpy {setup['numpy']:.3f} s, native "
+          f"{setup['native']:.3f} s")
+    if not (same and same_scene):
+        raise PhaseError("native BVH differs from the numpy builder's")
+
+    per_frame = {"gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1,
+                 "spatial": 1}
+    ck = os.path.join(tmp, "hall_state.npz")
+    out = {k: os.path.join(tmp, f"hall_{k}.pfm")
+           for k in ("first", "resumed", "straight")}
+    for name, argv in (
+            ("hall 10 frames, save", ["--frames", "10", "--save-state", ck,
+                                      "-o", out["first"]]),
+            ("hall resumed 4 frames", ["--frames", "4", "--load-state", ck,
+                                       "-o", out["resumed"]]),
+            ("hall 14 frames", ["--frames", "14", "-o", out["straight"]])):
+        t0 = time.perf_counter()
+        stats = run_cli(name, [hall_txt] + argv, dev, per_frame)
+        print(f"CLI {name}: set-up + first frame + output "
+              f"{time.perf_counter() - t0 - (stats['frames'] - 1) / stats['fps']:.3f} s "
+              f"(compile_s {stats['compile_s']})")
+    img = {k: check_image(f"CLI {k}", v, (HEIGHT, WIDTH, 3))
+           for k, v in out.items()}
+    ok = np.isclose(img["straight"], img["resumed"], rtol=1e-4,
+                    atol=1e-6).all(-1).mean()
+    exact = bool(np.array_equal(img["straight"], img["resumed"]))
+    moved = not np.allclose(img["first"], img["resumed"])
+    print(f"hall checkpoint: 10 + 4 resumed frames against 14 straight: "
+          f"pixels within rtol 1e-4 {ok:.6f}, bit for bit {exact}; the "
+          f"resumed image moved from the saved one: {moved}")
+    if not (ok >= 0.995 and moved):
+        raise PhaseError("hall checkpoint did not resume")
+
+
+def phase_viewer(scene, arrays, cam, dev, tmp):
+    """Phase 25: the browser viewer on the headline builtin at the CLI's
+    800x800."""
+    cfg = RenderConfig(width=CLI_SIZE, height=CLI_SIZE, **mat_flags(arrays))
+    reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # 800 px: the general DI notice
+        server, state, render = viewer.make_server(scene, cfg, cam, port=0)
+    host, port = server.server_address[:2]
+    serving = threading.Thread(target=server.serve_forever)
+    serving.start()
+
+    def get(path):
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        try:
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def stats():
+        return json.loads(get("/stats")[1])
+
+    def wait(cond, what, timeout=300.0):
+        deadline = time.time() + timeout
+        while not cond():
+            if state.error is not None or time.time() > deadline:
+                raise PhaseError(f"viewer: no {what} ({state.error!r})")
+            time.sleep(0.05)
+
+    def rate(what, seconds=3.0):
+        """Frames per second over a window without polls (the render
+        thread shares the interpreter lock with the server's); /stats'
+        fps is an average that starts at 0 and lags."""
+        s0, t0 = stats(), time.perf_counter()
+        time.sleep(seconds)
+        s1, t1 = stats(), time.perf_counter()
+        fps = (s1["iteration"] - s0["iteration"]) / (t1 - t0)
+        print(f"viewer {what}: {fps:.2f} fps over {t1 - t0:.2f} s "
+              f"(/stats fps {s1['fps']:.2f})")
+
+    def frame():
+        """The next PNG on /stream."""
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        try:
+            conn.request("GET", "/stream")
+            resp = conn.getresponse()  # closes its fp when collected
+            fp = resp.fp
+            while fp.readline().strip() != b"--frame":
+                pass
+            head = {}
+            while line := fp.readline().strip():
+                k, v = line.decode().split(":", 1)
+                head[k.strip().lower()] = v.strip()
+            body = fp.read(int(head["content-length"]))
+        finally:
+            conn.close()
+        if head["content-type"] != "image/png" or not body.startswith(
+                b"\x89PNG\r\n\x1a\n"):
+            raise PhaseError(f"viewer: stream part {head}")
+        return body
+
+    try:
+        t0 = time.perf_counter()
+        wait(lambda: stats()["iteration"] >= 10, "10 frames")
+        print(f"viewer: 10 frames after {time.perf_counter() - t0:.2f} s")
+        rate(f"restir_di {CLI_SIZE}x{CLI_SIZE}")
+        path = os.path.join(tmp, "viewer_frame.png")
+        with open(path, "wb") as f:
+            f.write(frame())
+        img = check_image("viewer frame", path, (CLI_SIZE, CLI_SIZE, 3))
+        t1 = time.perf_counter()
+        for _ in range(5):
+            encode_png(img, level=1)
+        print(f"viewer: PNG encoding of one frame on the host "
+              f"{(time.perf_counter() - t1) / 5 * 1e3:.2f} ms")
+        for query in ("tracer=pt_direct", "key=w"):
+            wait(lambda: stats()["iteration"] >= 20, "20 frames")
+            before, old = stats()["iteration"], frame()
+            if get(f"/ctl?{query}")[0] != 204:
+                raise PhaseError(f"viewer: /ctl?{query} refused")
+            wait(lambda: stats()["iteration"] < before,
+                 f"restart after {query}")
+            wait(lambda: frame() != old, f"new frame after {query}")
+            print(f"viewer /ctl?{query}: iteration {before} -> restart, "
+                  "new frames")
+            rate(f"after /ctl?{query}")
+    finally:
+        server.shutdown()
+        serving.join(60)
+        viewer.stop(server, state, render)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"viewer launches {counts}; server and render thread stopped: "
+          f"{not serving.is_alive() and not render.is_alive()}")
+    for k in ("primary_hit", "ris_cdf", "any_hit"):
+        if counts[k] == 0:
+            raise PhaseError(f"viewer: {k} never launched")
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2153,6 +2436,10 @@ def main() -> int:
     phase_gi(scene, arrays, cam, dev, record, launches)
     phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
                launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(dev, tmp)
+        phase_native_hall(dev, tmp)
+        phase_viewer(scene, arrays, cam, dev, tmp)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

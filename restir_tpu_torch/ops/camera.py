@@ -3,13 +3,16 @@
 The camera lives on the host: it is a handful of scalars that change per
 frame. `pack_camera` turns it into the [16] float32 vector the kernels
 read (position, right, up, view, tan(fov_y), focal distance, 0, 0) and
-places it on the device the frame runs on.
+places it on the device the frame runs on. `update_camera` and
+`animate_position` move it on the host, as the CLI's animated camera
+and the viewer do.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -50,6 +53,27 @@ def make_camera(position, rotation=(0.0, 0.0, 0.0), fov_y=19.5,
     return Camera(position=_f32(position), rotation=rotation, view=view,
                   up=up, right=right, fov_y=_f32(fov_y),
                   lens_radius=_f32(lens_radius), focal_dist=_f32(focal_dist))
+
+
+def update_camera(cam: Camera, position=None, rotation=None) -> Camera:
+    """`cam` moved to `position` and / or turned to `rotation`, with its
+    basis derived anew."""
+    position = cam.position if position is None else _f32(position)
+    rotation = cam.rotation if rotation is None else _f32(rotation)
+    view, right, up = derive_basis(rotation)
+    return cam._replace(position=position, rotation=rotation, view=view,
+                        right=right, up=up)
+
+
+def animate_position(base_position, t, radius):
+    """Circular camera animation (main.cpp:149-153)."""
+    t = _f32(t)
+    return _f32(base_position) + torch.stack(
+        [torch.cos(t), torch.zeros_like(t), torch.sin(t)], dim=-1) * radius
+
+
+def as_numpy_camera(cam: Camera) -> Camera:
+    return Camera(*(np.asarray(_f32(f).cpu()) for f in cam))
 
 
 def pack_camera(cam: Camera, device=None) -> torch.Tensor:
@@ -136,3 +160,11 @@ def raster_coord(cam: Camera, width: int, height: int, pos):
 
     u, v = raster_uv(cam, width, height, pos)
     return trunc_i32(u * width), trunc_i32(v * height)
+
+
+def position_from_depth(cam: Camera, width: int, height: int, x, y, dist):
+    """World position seen through pixel centre (x, y) at camera distance
+    `dist` (Camera::getPosition, sceneStructs.h:48-64)."""
+    o, d = sample_rays(cam, width, height, x, y, torch.full_like(x, 0.5),
+                       torch.full_like(y, 0.5))
+    return o + d * dist[..., None]

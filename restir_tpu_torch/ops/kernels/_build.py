@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -42,6 +43,7 @@ SOURCE_FLAGS = {"gi_trace.cu": ["-fmad=false"],
                 "intersect.cu": ["-fmad=false"]}
 
 _lib = None
+_lock = threading.Lock()
 build_seconds = None  # wall time of the last build in this process
 build_log = None  # nvcc / ptxas output of that build (registers, spills)
 
@@ -168,18 +170,22 @@ _SIGNATURES = {
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; thread-safe: the
+    viewer's render thread may be the first to launch a kernel)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.restir_error_string.argtypes = [ctypes.c_int]
-        lib.restir_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.restir_error_string.argtypes = [ctypes.c_int]
+            lib.restir_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
 
 
 def check(err: int, what: str) -> None:

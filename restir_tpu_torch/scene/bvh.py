@@ -13,12 +13,17 @@ so the trees are bit-identical to the JAX package's:
   near-to-far for that direction and `miss` jumps over the subtree, so a
   traversal is one stackless loop (the CUDA original's scene.h:245-316).
 
-A C++ builder (`restir_tpu/native/bvh.cpp`) is not ported; this one takes
-about 15 s for the 81k-triangle hall on one CPU core.
+`build_bvh(impl="auto")` takes the native C++ builder
+(`native/bvh_native.py`: a copy of `restir_tpu/native/bvh.cpp` whose SAH
+areas round as this builder's do, built with g++ on first use), which
+returns the same tree bit for bit; where g++ is missing it warns once and
+takes this numpy builder, which takes 6-11 s for the 81k-triangle hall
+on one CPU core.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -39,8 +44,34 @@ class BVH(NamedTuple):
     size: int  # B
 
 
-def build_bvh(vertices: np.ndarray) -> BVH:
-    """vertices: [3N, 3] float32 world-space triangle soup."""
+_warned_numpy = False
+
+
+def build_bvh(vertices: np.ndarray, impl: str = "auto") -> BVH:
+    """vertices: [3N, 3] float32 world-space triangle soup. `impl`:
+    "native" (the C++ builder; raises where it cannot be compiled),
+    "numpy", or "auto": native, and numpy with a warning given once per
+    process only where g++ is missing."""
+    global _warned_numpy
+    if impl == "numpy":
+        return _build_bvh_numpy(vertices)
+    if impl not in ("auto", "native"):
+        raise ValueError(f"unknown BVH builder {impl!r}")
+    from ..native import bvh_native
+
+    try:
+        return bvh_native.build_bvh_native(vertices)
+    except bvh_native.ToolchainMissing as e:
+        if impl == "native":
+            raise
+        if not _warned_numpy:
+            _warned_numpy = True
+            warnings.warn(f"restir_tpu_torch: {e}; building BVHs with "
+                          "the (slower) numpy builder", stacklevel=2)
+        return _build_bvh_numpy(vertices)
+
+
+def _build_bvh_numpy(vertices: np.ndarray) -> BVH:
     verts = np.asarray(vertices, np.float32).reshape(-1, 3, 3)
     n = verts.shape[0]
     if n < 1:

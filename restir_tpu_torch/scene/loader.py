@@ -77,12 +77,13 @@ class SceneFile:
     trace_depth: int = 5
     image_name: str = "render"
 
-    def build(self) -> SceneArrays:
+    def build(self, bvh_impl: str = "auto") -> SceneArrays:
         return build_scene(
             self.instances,
             self.materials,
             env_map=self.env_map,
             textures=self.textures if self.textures else None,
+            bvh_impl=bvh_impl,
         )
 
     def make_camera(self) -> Camera:

@@ -1,6 +1,7 @@
 """Procedural scenes, drawn in the same order from the same
 `np.random.default_rng(seed)` as `restir_tpu.scene.procedural`, so the
-same arguments build the same scene."""
+same arguments build the same scene. `bvh_impl` picks the BVH builder
+(`scene.bvh.build_bvh`)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from .mesh import (
 from .scene_data import SceneArrays, build_scene
 
 
-def many_light_scene(n_lights: int = 64, n_blocks: int = 24, seed: int = 0):
+def many_light_scene(n_lights: int = 64, n_blocks: int = 24, seed: int = 0,
+                     bvh_impl: str = "auto"):
     """Benchmark hall: a grid of coloured area lights on the ceiling and
     scattered blocks of mixed materials. Returns (SceneArrays,
     camera_kwargs)."""
@@ -89,7 +91,8 @@ def many_light_scene(n_lights: int = 64, n_blocks: int = 24, seed: int = 0):
             scale=(float(sx), float(sy), float(sz)),
         ))
 
-    scene: SceneArrays = build_scene(instances, materials)
+    scene: SceneArrays = build_scene(instances, materials,
+                                     bvh_impl=bvh_impl)
     camera_kwargs = dict(
         position=(0.0, 4.5, 15.0),
         rotation=(-90.0, -10.0, 0.0),
@@ -100,7 +103,8 @@ def many_light_scene(n_lights: int = 64, n_blocks: int = 24, seed: int = 0):
 
 
 def cornell_box(light_radiance=(12.0, 12.0, 12.0), light_size=1.6,
-                with_blocks=True, block_materials=("lambert", "lambert")):
+                with_blocks=True, block_materials=("lambert", "lambert"),
+                bvh_impl: str = "auto"):
     """Cornell box: 5.5-unit cube interior, an area light under the
     ceiling, two blocks ("lambert", "metal" or "glass"). Returns
     (SceneArrays, camera_kwargs); the camera looks down -z through the
@@ -155,7 +159,7 @@ def cornell_box(light_radiance=(12.0, 12.0, 12.0), light_size=1.6,
             translation=(0.95, 0.82, 0.55), rotation=(0, -15, 0),
             scale=(1.65, 1.65, 1.65)))
 
-    scene = build_scene(instances, materials)
+    scene = build_scene(instances, materials, bvh_impl=bvh_impl)
     camera_kwargs = dict(position=(0.0, 2.75, 9.5),
                          rotation=(-90.0, 0.0, 0.0),  # view (0, 0, -1)
                          fov_y=19.5, focal_dist=1.0)
@@ -163,7 +167,7 @@ def cornell_box(light_radiance=(12.0, 12.0, 12.0), light_size=1.6,
 
 
 def env_scene(n_blocks: int = 4, n_lights: int = 2, env_size=(64, 128),
-              seed: int = 3):
+              seed: int = 3, bvh_impl: str = "auto"):
     """Open scene under a smooth gradient sky: a floor, scattered blocks,
     a few area lights and an equirect env map. Returns (SceneArrays,
     camera_kwargs)."""
@@ -203,7 +207,8 @@ def env_scene(n_blocks: int = 4, n_lights: int = 2, env_size=(64, 128),
             scale=(float(sx), float(sy), float(sz)),
         ))
 
-    scene = build_scene(instances, materials, env_map=gradient_sky(*env_size))
+    scene = build_scene(instances, materials, env_map=gradient_sky(*env_size),
+                        bvh_impl=bvh_impl)
     camera_kwargs = dict(position=(0.0, 2.0, 9.0), rotation=(-90.0, -5.0, 0.0),
                          fov_y=35.0, focal_dist=1.0)
     return scene, camera_kwargs
@@ -223,7 +228,8 @@ def gradient_sky(eh: int, ew: int) -> np.ndarray:
     return env
 
 
-def textured_scene(seed: int = 5, aux_maps: bool = False):
+def textured_scene(seed: int = 5, bvh_impl: str = "auto",
+                   aux_maps: bool = False):
     """Closed room with a base-colour-textured floor and back wall, a
     procedurally textured block and two area lights. `aux_maps` adds a
     metallic-workflow ceiling with metallic and roughness maps and a
@@ -297,7 +303,8 @@ def textured_scene(seed: int = 5, aux_maps: bool = False):
         add_quad([cx - s, y, cz - s], [cx + s, y, cz - s],
                  [cx + s, y, cz + s], [cx - s, y, cz + s], 4 + i)
 
-    scene = build_scene(instances, materials, textures=textures)
+    scene = build_scene(instances, materials, textures=textures,
+                        bvh_impl=bvh_impl)
     camera_kwargs = dict(position=(0.0, 2.5, 7.0), rotation=(-90.0, -8.0, 0.0),
                          fov_y=35.0, focal_dist=1.0)
     return scene, camera_kwargs

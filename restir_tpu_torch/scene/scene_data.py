@@ -343,9 +343,11 @@ def build_scene(
     materials: Sequence[MaterialDesc],
     env_map: Optional[np.ndarray] = None,
     textures: Optional[Sequence[np.ndarray]] = None,
+    bvh_impl: str = "auto",
 ) -> SceneArrays:
     """Flatten instances to world space (the JAX `build_scene` minus the
-    structures the port does not read)."""
+    structures the port does not read); `bvh_impl` picks the BVH builder
+    (`scene.bvh.build_bvh`)."""
     all_v, all_n, all_uv, all_mid = [], [], [], []
     light_prim_ids, light_radiance, light_power = [], [], []
     prim_base = 0
@@ -409,7 +411,7 @@ def build_scene(
     lcenter = lverts.mean(axis=1)
     lradius = np.linalg.norm(lverts - lcenter[:, None, :], axis=-1).max(axis=1)
 
-    bvh = build_bvh(verts.reshape(-1, 3))
+    bvh = build_bvh(verts.reshape(-1, 3), impl=bvh_impl)
     # light + env alias tables (createLightSampler, scene.cpp:136-157)
     powers = list(light_power)
     if env_map is None:

@@ -1,4 +1,5 @@
-"""Minimal dependency-free image IO: PNG (zlib) write/read, PFM write.
+"""Minimal dependency-free image IO: PNG (zlib) encode / write / read,
+PFM and Radiance HDR write / read.
 
 A copy of `restir_tpu.utils.image_io` (numpy only), so the port's scene
 loader reads textures without importing the JAX package.
@@ -25,18 +26,28 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
     )
 
 
+def encode_png(rgb_u8: np.ndarray, level: int = 6) -> bytes:
+    """[H, W, 3] uint8 -> the bytes of an 8-bit RGB PNG file (`level`:
+    zlib's compression level)."""
+    img = np.asarray(rgb_u8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"PNG of {img.dtype} {img.shape}: need [H, W, 3] "
+                         "uint8")
+    h, w = img.shape[:2]
+    # filter type 0 (none) in front of every row
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)],
+                         axis=1).tobytes()
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, level))
+            + _png_chunk(b"IEND", b""))
+
+
 def write_png(path: str, rgb_u8: np.ndarray) -> None:
     """rgb_u8: [H, W, 3] uint8."""
-    img = np.asarray(rgb_u8)
-    assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
-    h, w = img.shape[:2]
-    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
-    out = b"\x89PNG\r\n\x1a\n"
-    out += _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-    out += _png_chunk(b"IDAT", zlib.compress(raw, 6))
-    out += _png_chunk(b"IEND", b"")
+    data = encode_png(rgb_u8)
     with open(path, "wb") as f:
-        f.write(out)
+        f.write(data)
 
 
 def read_png(path: str) -> np.ndarray:

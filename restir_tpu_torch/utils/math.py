@@ -200,9 +200,14 @@ def is_nan_or_inf(x):
     return torch.isnan(x) | torch.isinf(x)
 
 
+def has_nan_or_inf(v):
+    """True where a vector (the last axis) has a NaN / Inf component."""
+    return is_nan_or_inf(v).any(dim=-1)
+
+
 def zero_nan_or_inf(v):
     """Zero every vector with a NaN / Inf component (restir.cu:224-226)."""
-    return torch.where(is_nan_or_inf(v).any(dim=-1, keepdim=True), 0.0, v)
+    return torch.where(has_nan_or_inf(v)[..., None], 0.0, v)
 
 
 def cumsum(x):

@@ -6,7 +6,9 @@ chip_smoke, renders one 128x8 RESTIR_DI + EAW frame on the CPU through
 the public entry points, loads scenes/cornell.txt with the port's loader,
 renders a frame of a procedural scene over 1024 triangles (the MTBVH
 path's twins) and frames of the general path (PT_DIRECT, PT_FULL, general
-ReSTIR DI), and reports which modules got loaded.
+ReSTIR DI), runs the CLI (`app.main`) for 2 frames of the Cornell box at
+32x32, and reports which modules got loaded (every module of the
+package, `app`, `viewer` and `native` among them, is imported first).
 """
 
 import importlib
@@ -61,7 +63,15 @@ for tracer in (TracerType.PT_DIRECT, TracerType.PT_FULL, TracerType.RESTIR_DI):
     g_state, g_frame = renderer.step(scene, g_state, cam, g_cfg)
     general[str(tracer)] = [type(g_state).__name__,
                             bool(np.isfinite(g_frame.numpy()).all())]
+import os, tempfile
+from restir_tpu_torch import app
+with tempfile.TemporaryDirectory() as tmp:
+    app_rc = app.main(["--builtin", "cornell", "--width", "32", "--height",
+                       "32", "--frames", "2", "-o",
+                       os.path.join(tmp, "cli.png")], device="cpu")
+    app_png = sorted(os.listdir(tmp))
 print(json.dumps({
+    "app": [app_rc, app_png],
     "general": general,
     "cornell_tris": c_scene.num_tris,
     "big_finite": bool(np.isfinite(big_frame.numpy()).all()),
@@ -90,6 +100,7 @@ def test_port_imports_no_jax():
     assert rep["big_finite"] and rep["big_mean"] > 0.0
     assert rep["general"] == {str(t): ["RenderState", True]
                               for t in (1, 2, 0)}
+    assert rep["app"] == [0, ["cli.png"]]
 
 
 def test_entry_points_default_to_the_card():
