@@ -144,8 +144,24 @@ The app shell (after phase 22):
      /ctl?tracer=pt_direct and /ctl?key=w each restart /stats' iteration
      and change the stream; its fps, its launches (primary_hit, ris_cdf,
      any_hit), and a clean stop of the server and the render thread.
+Row bands (`restir_tpu_torch.parallel`, after phase 25):
+ 26. (a) B6, B7, B1b, B2 and B5 on the middle band of a 3-band split of
+     the headline at 1080p (2025 tiles, 675 per band; frame 2 of a static
+     camera, live temporal history; the band's previous packs with their
+     halos): each against its twin on the band under its phase's gates,
+     each band output equal bit for bit to the same kernel's whole-frame
+     output at the band's pixels, each kernel's time on the band; (b)
+     `make_fused_sharded_step` on [cuda:0] x 3 from `init_state`, 3
+     frames with EAW, then with SVGF: the gathered frames equal those of
+     a one-band mesh bit for bit, and renderer.step's (B1) within the JAX
+     test's rtol 1e-5 / atol 1e-6, with the share of equal lanes
+     printed; (c) 8 warm-up + 32 timed frames of the 3-band EAW path
+     (launches per frame: gbuffer_bvh 3, reuse_bvh 3, temporal 3,
+     spatial 3, atrous_eaw 15: each band runs the 5 levels on its own
+     row-haloed image), its wall and fps beside phase 6's, and its
+     profile.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
-those, 23-25 last.
+those, 23-25, then 26, last.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -173,7 +189,7 @@ import warnings
 import numpy as np
 import torch
 
-from restir_tpu_torch import app, convert, parity, renderer, viewer
+from restir_tpu_torch import app, convert, parallel, parity, renderer, viewer
 from restir_tpu_torch.models import denoiser
 from restir_tpu_torch.config import (
     DenoiserType,
@@ -216,6 +232,7 @@ from restir_tpu_torch.ops.kernels.fused_di import (
     RS_WI,
     TILE,
 )
+from restir_tpu_torch.parallel import fused_sharding
 from restir_tpu_torch.scene import bvh as scene_bvh
 from restir_tpu_torch.scene.loader import parse_scene_file
 from restir_tpu_torch.scene.procedural import (
@@ -314,6 +331,9 @@ FLOP_SEGMENT = 16  # B13's any-hit set-up: |y - x|, d, origin, limit
 
 class PhaseError(RuntimeError):
     pass
+
+
+MAIN_WALL = {}  # wall ms per frame of each main path run so far
 
 
 def card_line() -> str:
@@ -748,6 +768,7 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
     dev_ms = start.elapsed_time(end) / TIMED
+    MAIN_WALL[name] = wall_ms
     counts = read_counts()
     frames = WARMUP + TIMED
     expect = {k: per_frame.get(k, 0) * frames for k in counts}
@@ -793,7 +814,7 @@ def phase_main(name, scene, cfg, cam, dev, per_frame):
 
 
 def profile_frames(name, scene, cfg, cam, dev, frames=4, with_scene=True,
-                   tries=3):
+                   tries=3, step=None, state=None):
     """Device busy time per frame, split into the port's kernels and
     PyTorch's own, and the largest kernels, from a torch.profiler trace of
     `frames` frames after 2 warm-up frames and one more profiled but
@@ -801,26 +822,32 @@ def profile_frames(name, scene, cfg, cam, dev, frames=4, with_scene=True,
     kernels of the first frame after it starts). Every frame launches the
     same port kernels, so a trace in which one of them has an event count
     that is not a multiple of `frames` lost events: it is taken again, up
-    to `tries` times, and else reported as not measured."""
+    to `tries` times, and else reported as not measured. `step` (state
+    -> state) and `state` replace renderer.step and init_state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    state = renderer.init_state(cfg, cam, scene if with_scene else None,
-                                device=dev)
+    if step is None:
+        state = renderer.init_state(cfg, cam, scene if with_scene else None,
+                                    device=dev)
+
+        def step(s):
+            return renderer.step(scene, s, cam, cfg)[0]
+
     for _ in range(2):
-        state, _ = renderer.step(scene, state, cam, cfg)
+        state = step(state)
     torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
-            state, _ = renderer.step(scene, state, cam, cfg)
+            state = step(state)
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
             for _ in range(frames):
-                state, _ = renderer.step(scene, state, cam, cfg)
+                state = step(state)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / frames
             prof.step()
@@ -2375,6 +2402,234 @@ def phase_viewer(scene, arrays, cam, dev, tmp):
             raise PhaseError(f"viewer: {k} never launched")
 
 
+BANDS, MID = 3, 1  # phase 26: a 3-band split of 1080p, the middle band
+
+
+def band_kernels(scene, cfg, cam, dev):
+    """Phase 26 (a): B6, B7, B1b, B2 and B5 on the middle band of a
+    3-band split of the headline frame 2 (static camera, live history),
+    against their twins on the band and against the same kernels' whole
+    frame at the band's pixels (bit for bit)."""
+    w, h, r = cfg.width, cfg.height, cfg.num_pixels
+    r_loc, window, halo_s = fused_sharding.band_layout(cfg, BANDS)
+    pix0 = MID * r_loc
+    prev_base = pix0 - window
+    sl = slice(pix0, pix0 + r_loc)
+    bvh, t = scene.bvh, scene.tables
+    cv = pack_camera(cam, dev)
+    gkw = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
+               single_sided=cfg.single_sided_lights)
+    ckw = dict(k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
+               has_met=cfg.scene_has_metallic, width=w)
+    tkw = dict(k=cfg.cdf_candidates, temporal_clamp=cfg.temporal_clamp)
+    print(f"row bands: {BANDS} bands of {r_loc} pixels ({r_loc // TILE} "
+          f"tiles, {r_loc / w:.1f} rows) at {w}x{h}; band {MID} from pixel "
+          f"{pix0}; temporal window {window}, spatial halo {halo_s}")
+
+    def bands(x):
+        return [x[:, i * r_loc:(i + 1) * r_loc] for i in range(BANDS)]
+
+    def band(x):
+        return x[:, sl].contiguous()
+
+    # frames 0-2 of the whole frame through B6 + B7 + B1b
+    pt1 = torch.zeros((PT_CH, r), device=dev)
+    for looper in range(2):
+        gb = gbuffer.gbuffer_cuda(cv, cv, looper, bvh, **gkw)
+        rs = reuse.candidates_cuda(gb, looper, t, bvh, **ckw)
+        pt1 = fused_di.temporal_cuda(gb, rs, pt1, looper, **tkw)
+    gb2 = gbuffer.gbuffer_cuda(cv, cv, 2, bvh, **gkw)
+    rs2 = reuse.candidates_cuda(gb2, 2, t, bvh, **ckw)
+    pt2 = fused_di.temporal_cuda(gb2, rs2, pt1, 2, **tkw)
+    prev_pt = fused_sharding.haloed(bands(pt1), MID, window, dev)
+    bkw = dict(pix0=pix0, r=r_loc)
+    times, fails = {}, []
+
+    def same(name, got, whole):
+        eq = bits_equal(got, band(whole)).all(0)
+        share = float(eq.float().mean())
+        print(f"band {name}: lanes equal to the whole-frame kernel's bit for "
+              f"bit {share:.6f}")
+        if share < 1.0:
+            fails.append(f"{name} band differs from the whole frame on "
+                         f"{1.0 - share:.6f} of its lanes")
+
+    # B6
+    gb_b = gbuffer.gbuffer_cuda(cv, cv, 2, bvh, **gkw, **bkw)
+    fb, st = parity.gb_report(gbuffer.gbuffer_ref(cv, cv, 2, bvh, **gkw,
+                                                  **bkw), gb_b)
+    print(f"band B6 gbuffer_bvh vs twin: {json.dumps(st)}")
+    fails += fb
+    same("B6", gb_b, gb2)
+    times["gbuffer_bvh"] = cuda_ms(lambda: gbuffer.gbuffer_cuda(
+        cv, cv, 2, bvh, **gkw, **bkw), 20)
+    # B7 and B1b, and their twin
+    rs_b = reuse.candidates_cuda(gb_b, 2, t, bvh, pix0=pix0, **ckw)
+    same("B7", rs_b, rs2)
+    b1b = dict(pix0=pix0, prev_base=prev_base, window=window, **tkw)
+    pt_b = fused_di.temporal_cuda(gb_b, rs_b, prev_pt, 2, **b1b)
+    same("B1b", pt_b, pt2)
+    if float(pt_b[P_M].max()) <= cfg.cdf_candidates:
+        fails.append("band temporal merge inactive")
+    pt_r = reuse.reuse_ref(gb_b, prev_pt, 2, t, k=cfg.cdf_candidates,
+                           single_sided=cfg.single_sided_lights,
+                           temporal_clamp=cfg.temporal_clamp,
+                           has_met=cfg.scene_has_metallic, pix0=pix0,
+                           prev_base=prev_base, window=window)
+    fb, st = parity.pt_report(pt_r, pt_b)
+    print(f"band B7 reuse_bvh + B1b vs twin: {json.dumps(st)}")
+    fails += fb
+    pt_tw = fused_di.temporal_pixels(
+        gb_b, rs_b[RS_LI:RS_LI + 3], rs_b[RS_WI:RS_WI + 3], rs_b[RS_DIST],
+        rs_b[RS_W], torch.arange(pix0, pix0 + r_loc, device=dev), 2,
+        prev_pt, temporal=True, prev_base=prev_base, window=window, **tkw)
+    close = parity.close_fraction(pt_tw, pt_b, 1e-6, 0.0)
+    print(f"band B1b temporal vs twin: exact-close {close:.6f}")
+    if close < 0.9999:
+        fails.append(f"band B1b disagrees with its twin on {1 - close:.6f}")
+    times["reuse_bvh"] = cuda_ms(lambda: reuse.candidates_cuda(
+        gb_b, 2, t, bvh, pix0=pix0, **ckw), 20)
+    times["temporal"] = cuda_ms(lambda: fused_di.temporal_cuda(
+        gb_b, rs_b, prev_pt, 2, **b1b), 20)
+    # B2 on the new pt pack with its spatial halo
+    nb, rad = cfg.spatial_neighbors, cfg.spatial_radius
+    acc0 = torch.as_tensor(np.random.default_rng(26).random(
+        (3, r), dtype=np.float32), device=dev)
+    skw = dict(width=w, height=h, neighbors=nb,
+               has_met=cfg.scene_has_metallic)
+    acc_w = spatial.spatial_shade_cuda(
+        spatial.spatial_offsets(2, r, w, nb, rad, dev), gb2, pt2,
+        acc0.clone(), 2, 3, **skw)
+    offs_b = spatial.spatial_offsets(2, r_loc, w, nb, rad, dev, pix0=pix0,
+                                     halo=halo_s, r_total=r)
+    pt_ext = fused_sharding.haloed(bands(pt2), MID, halo_s, dev)
+    gb2_b, pt2_b = band(gb2), band(pt2)
+    b2kw = dict(pt_ext=pt_ext, pix0=pix0, **skw)
+    acc_b = spatial.spatial_shade_cuda(offs_b, gb2_b, pt2_b, band(acc0), 2,
+                                       3, **b2kw)
+    same("B2", acc_b, acc_w)
+    acc_r = spatial.spatial_shade_ref(offs_b, gb2_b, pt2_b, band(acc0), 2, 3,
+                                      **b2kw)
+    close = parity.close_fraction(acc_r, acc_b, 1e-5, 1e-6)
+    print(f"band B2 spatial vs twin: close {close:.6f}")
+    if close < 0.999:
+        fails.append(f"band B2 disagrees with its twin on {1 - close:.5f}")
+    scratch = band(acc0)
+    times["spatial"] = cuda_ms(lambda: spatial.spatial_shade_cuda(
+        offs_b, gb2_b, pt2_b, scratch, 2, 3, **b2kw), 20)
+    # B5 on a seeded history with its temporal halo
+    g = np.random.default_rng(27)
+    prev = torch.as_tensor(g.random((svgf.SV_CH, r), dtype=np.float32),
+                           device=dev)
+    prev[svgf.SV_PRIM] = gb2[fused_di.G_PRIMR]
+    prev[svgf.SV_NORM:svgf.SV_NORM + 3] = gb2[fused_di.G_NORM:
+                                              fused_di.G_NORM + 3]
+    color = torch.as_tensor(g.random((3, r), dtype=np.float32), device=dev)
+    sv_w = svgf.svgf_temporal_cuda(gb2, color, prev)
+    sv_prev = fused_sharding.haloed(bands(prev), MID, window, dev)
+    vkw = dict(prev_base=prev_base, window=window)
+    col_b = band(color)
+    sv_b = svgf.svgf_temporal_cuda(gb2_b, col_b, sv_prev, **vkw)
+    same("B5", sv_b, sv_w)
+    close = parity.close_fraction(
+        svgf.svgf_temporal_ref(gb2_b, col_b, sv_prev, **vkw), sv_b, 1e-6, 0.0)
+    print(f"band B5 svgf_temporal vs twin: within rtol 1e-6 {close:.6f}")
+    if close < 0.9999:
+        fails.append(f"band B5 disagrees with its twin ({close:.6f})")
+    times["svgf_temporal"] = cuda_ms(lambda: svgf.svgf_temporal_cuda(
+        gb2_b, col_b, sv_prev, **vkw), 20)
+    gate(fails, "row-band kernels")
+    print("band kernel ms on the band (CUDA events, 20 launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+
+def banded_frames(scene, cfg, cam, dev, n, frames=3):
+    """`frames` frames of the banded step on [dev] x n from init_state:
+    the gathered frames."""
+    mesh = parallel.make_mesh([dev] * n)
+    step = parallel.make_fused_sharded_step(cfg, mesh)
+    scenes = parallel.shard_scene(scene, mesh)
+    state = parallel.shard_fused_state(
+        restir_di_fused.init_state(cfg, cam, dev), mesh)
+    out = []
+    for _ in range(frames):
+        state, frame = step(scenes, state, cam)
+        out.append(parallel.gather(frame, dev))
+    return out
+
+
+def phase_bands(scene, cfg, cam, dev):
+    """Phase 26: the fused frame over row bands on one card."""
+    band_kernels(scene, cfg, cam, dev)
+    # (b) 3 bands against one band, and against renderer.step (B1)
+    for name, den in (("EAW", DenoiserType.EAW),
+                      ("SVGF", DenoiserType.SVGF)):
+        c = cfg.replace(denoiser=den)
+        three = banded_frames(scene, c, cam, dev, BANDS)
+        one = banded_frames(scene, c, cam, dev, 1)
+        state = renderer.init_state(c, cam, scene, device=dev)
+        for i in range(3):
+            state, ref = renderer.step(scene, state, cam, c)
+            if not torch.equal(three[i], one[i]):
+                raise PhaseError(f"{name} frame {i}: 3 bands differ from "
+                                 f"one band")
+            if not bool(torch.isfinite(three[i]).all()):
+                raise PhaseError(f"{name} frame {i}: non-finite values")
+            exact = float(bits_equal(three[i], ref).all(0).float().mean())
+            close = bool(torch.allclose(three[i], ref, rtol=1e-5, atol=1e-6))
+            print(f"row bands {name} frame {i}: 3 bands == 1 band bit "
+                  f"for bit; lanes equal to renderer.step's (B1) {exact:.6f},"
+                  f" within rtol 1e-5 / atol 1e-6: {close}")
+            if not close:
+                raise PhaseError(f"{name} frame {i}: bands disagree with "
+                                 f"renderer.step beyond rtol 1e-5")
+    # (c) the 3-band EAW path, timed
+    mesh = parallel.make_mesh([dev] * BANDS)
+    step = parallel.make_fused_sharded_step(cfg, mesh)
+    scenes = parallel.shard_scene(scene, mesh)
+    reset_counts()
+    state = parallel.shard_fused_state(
+        restir_di_fused.init_state(cfg, cam, dev), mesh)
+    for _ in range(WARMUP):
+        state, frame = step(scenes, state, cam)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED):
+        state, frame = step(scenes, state, cam)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    dev_ms = start.elapsed_time(end) / TIMED
+    counts = read_counts()
+    per_frame = {"gbuffer_bvh": BANDS, "reuse_bvh": BANDS,
+                 "temporal": BANDS, "spatial": BANDS,
+                 "atrous_eaw": BANDS * cfg.eaw_levels}
+    expect = {k: per_frame.get(k, 0) * (WARMUP + TIMED) for k in counts}
+    print(f"main path headline {BANDS} bands launches {counts} (expected "
+          f"{expect})")
+    if counts != expect:
+        raise PhaseError(f"row bands: launch counts {counts} != {expect}")
+    img = parallel.gather(frame, dev)
+    if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0.0:
+        raise PhaseError("row bands: the frame is not finite or is black")
+    m = parallel.gather(state.pt_pack, dev)[P_M]
+    m_mean = float(m[m > 0].mean())
+    if not m_mean > 2 * cfg.cdf_candidates:
+        raise PhaseError(f"row bands: temporal reuse not alive ({m_mean})")
+    fps = 1e3 / wall_ms
+    print(f"main path headline {BANDS} bands {cfg.width}x{cfg.height} "
+          f"RESTIR_DI+EAW: {wall_ms:.3f} ms/frame wall, {dev_ms:.3f} "
+          f"ms/frame device, {fps:.3f} fps, "
+          f"{2 * cfg.num_pixels * fps / 1e6:.3f} Mrays/s; mean M "
+          f"{m_mean:.2f} (phase 6, one device, B1: "
+          f"{MAIN_WALL['headline']:.3f} ms/frame wall)")
+    profile_frames(f"headline {BANDS} bands", scene, cfg, cam, dev,
+                   step=lambda s: step(scenes, s, cam)[0], state=state)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2440,6 +2695,7 @@ def main() -> int:
         phase_cli(dev, tmp)
         phase_native_hall(dev, tmp)
         phase_viewer(scene, arrays, cam, dev, tmp)
+    phase_bands(scene, cfg, cam, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -1,6 +1,6 @@
-"""Time kernels B1, B3, B4, B6, B7, B8, B10, B11 and B12 of several
-checkouts of restir_tpu_torch on one card, in turns, and check which
-write the same packs.
+"""Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B10, B11 and B12 of
+several checkouts of restir_tpu_torch on one card, in turns, and check
+which write the same packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -29,12 +29,16 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   level's output, from the headline frame's demodulated colour (B1, then
   B2 on a seeded accumulator), as chip_smoke.py phase 3 calls it; and B4
   (`atrous.atrous_svgf_cuda`), levels 0-4, on SVGF's inputs (B5 on a
-  seeded history, the variance kernels) as phase 7 calls it;
+  seeded history, the variance kernels) as phase 7 calls it; B2
+  (`spatial.spatial_shade_cuda`, in place on a seeded accumulator) and
+  B5 (`svgf.svgf_temporal_cuda`) themselves on those inputs;
 - B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
   and on scenes/hall.txt (81,036 triangles) and the same hall under a
   code-made sky (512 env tiles), frame 1 from chip_smoke.py phase 9's
   moved camera: the main paths on which B6 and B7 run (B7 on 2-D pixel
-  tiles where the tree's B7 takes the frame's width).
+  tiles where the tree's B7 takes the frame's width), and B1b
+  (`fused_di.temporal_cuda`) after B7 on the hall and the sky hall, with
+  frame 0's pack from the unmoved camera as history.
 It prints one JSON line (card, ms and the SHA-256 of each kernel's
 output packs). This script then prints, per kernel, the ms of every run
 and which runs wrote the same packs (runs marked with one letter agree),
@@ -191,9 +195,12 @@ def _child() -> None:
                                    cfg.spatial_radius, dev)
     acc0 = torch.as_tensor(
         np.random.default_rng(0).random((3, r), dtype=np.float32), device=dev)
-    acc = spatial.spatial_shade_cuda(
-        offs, gb_k, pt_k, acc0, 1, 3, width=WIDTH, height=HEIGHT,
-        neighbors=cfg.spatial_neighbors, has_met=cfg.scene_has_metallic)
+    b2kw = dict(width=WIDTH, height=HEIGHT, neighbors=cfg.spatial_neighbors,
+                has_met=cfg.scene_has_metallic)
+    scratch = acc0.clone()
+    timed("B2 headline", lambda: spatial.spatial_shade_cuda(
+        offs, gb_k, pt_k, scratch, 1, 3, **b2kw))
+    acc = spatial.spatial_shade_cuda(offs, gb_k, pt_k, acc0, 1, 3, **b2kw)
     alb = torch.clamp(gb_k[fused_di.G_ALB:fused_di.G_ALB + 3], min=0.0)
     color = acc / torch.where(alb > 1e-4, alb, 1.0)
     akw = dict(width=WIDTH, height=HEIGHT, sig_l=cfg.sig_luminance,
@@ -211,8 +218,11 @@ def _child() -> None:
     prev[svgf.SV_PRIM] = gb_k[fused_di.G_PRIMR]
     prev[svgf.SV_NORM:svgf.SV_NORM + 3] = gb_k[fused_di.G_NORM:
                                                fused_di.G_NORM + 3]
-    sv = svgf.svgf_temporal_cuda(gb_k, torch.as_tensor(
-        g5.random((3, r), dtype=np.float32), device=dev), prev)
+    color5 = torch.as_tensor(g5.random((3, r), dtype=np.float32),
+                             device=dev)
+    timed("B5 headline", lambda: svgf.svgf_temporal_cuda(gb_k, color5,
+                                                          prev))
+    sv = svgf.svgf_temporal_cuda(gb_k, color5, prev)
     vkw = dict(width=WIDTH, height=HEIGHT)
     col = sv[svgf.SV_COL:svgf.SV_COL + 3].contiguous()
     var = svgf.estimate_variance(sv, **vkw)
@@ -315,11 +325,22 @@ def _child() -> None:
         gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, **gkw)
         timed(f"B6 {name}", lambda: gbuffer.gbuffer_cuda(
             cv2, cv, 1, scene.bvh, **gkw))
+        ckw = dict(k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
+                   has_met=cfg.scene_has_metallic, has_env=sky, **b7_tiles)
         timed(f"B7 {name}", lambda: reuse.candidates_cuda(
-            gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
-            single_sided=cfg.single_sided_lights,
-            has_met=cfg.scene_has_metallic, has_env=sky, **b7_tiles))
-        del scene, gb
+            gb, 1, scene.tables, scene.bvh, **ckw))
+        # B1b after B7, on frame 0's pack from the unmoved camera
+        gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, scene.bvh, **gkw)
+        pt0 = fused_di.temporal_cuda(
+            gb0, reuse.candidates_cuda(gb0, 0, scene.tables, scene.bvh,
+                                       **ckw),
+            torch.zeros((fused_di.PT_CH, WIDTH * HEIGHT), device=dev), 0,
+            k=cfg.cdf_candidates)
+        rs = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh, **ckw)
+        timed(f"B1b {name}", lambda: fused_di.temporal_cuda(
+            gb, rs, pt0, 1, k=cfg.cdf_candidates,
+            temporal_clamp=cfg.temporal_clamp))
+        del scene, gb, gb0, pt0, rs
     import restir_tpu_torch
 
     print(json.dumps({

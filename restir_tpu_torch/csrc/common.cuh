@@ -30,7 +30,7 @@ enum { RS_LI = 0, RS_WI = 3, RS_DIST = 6, RS_W = 7, RS_CH = 8 };
 
 enum { SALT_CAMERA = 0x01, SALT_RESTIR = 0x02 };
 enum { CTR_TEMPORAL = 0, CTR_SPATIAL = 1, CTR_RIS = 8 };
-enum { TILE = 1024, WINDOW = 2048 };
+enum { TILE = 1024 };
 
 #define RESTIR_BIG 3.0e38f
 #define RESTIR_PI 3.14159265358979f
@@ -70,16 +70,17 @@ __device__ __forceinline__ bool bad_weight(float w) {
   return isnan(w) || isinf(w) || w < 0.0f;
 }
 
-// Start of the 2048-pixel temporal window of a 1024-pixel tile
+// Start of the temporal window of a 1024-pixel tile
 // (fused_di._window_start): the minimum valid motion index over the tile
 // (miss pixels carry motion 0 and are excluded), rounded down to 128 and
-// clamped so the window stays inside the previous pack. Every thread of
-// a TILE-thread block calls it with its own pixel's motion.
+// clamped so [w0, w0 + window) stays inside the previous pack of r_prev
+// pixels. Every thread of a TILE-thread block calls it with its own
+// pixel's motion, rebased to the previous pack's first pixel.
 __device__ __forceinline__ int tile_window_start(float motion, bool miss,
-                                                 int r) {
+                                                 int r_prev, int window) {
   __shared__ float warp_min[TILE / 32];
   __shared__ int w0_s;
-  float mv = (motion >= 0.0f && !miss) ? motion : (float)r;
+  float mv = (motion >= 0.0f && !miss) ? motion : (float)r_prev;
   for (int off = 16; off > 0; off >>= 1)
     mv = fminf(mv, __shfl_down_sync(0xffffffffu, mv, off));
   if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = mv;
@@ -90,7 +91,7 @@ __device__ __forceinline__ int tile_window_start(float motion, bool miss,
       v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
     if (threadIdx.x == 0) {
       int w0 = (__float2int_rz(v) / 128) * 128;
-      w0 = min(max(w0, 0), max(r - WINDOW, 0));
+      w0 = min(max(w0, 0), max(r_prev - window, 0));
       w0_s = w0;
     }
   }
@@ -98,25 +99,37 @@ __device__ __forceinline__ int tile_window_start(float motion, bool miss,
   return w0_s;
 }
 
+// A motion index rebased to the previous pack's first global pixel
+// prev_base (0 for a whole frame; a row band's haloed pack starts a
+// window before the band): negative markers stay as they are.
+__device__ __forceinline__ float rebase_motion(float motion, int prev_base) {
+  return motion >= 0.0f ? __fsub_rn(motion, (float)prev_base) : motion;
+}
+
 // 2-D pixel tiles (B6, B7): a block of PIX_BLOCK threads covers
 // PIX_BW x PIX_BH pixels and each warp PIX_WW x PIX_WH, so a warp's rays
 // leave from one small patch of the image and each channel store is four
-// 32-byte segments. Launch PIX_BLOCK threads on tile_grid(width, height).
-// Returns the linear pixel index, or -1 off the ragged edge (the map of
+// 32-byte segments. The tiles cover the rows of a band of r pixels from
+// global pixel pix0 (a whole frame: pix0 = 0, r = width x height), which
+// may start and end mid-row. Launch PIX_BLOCK threads on
+// tile_grid(width, pix0, r). Returns the global pixel index, or -1 off
+// the ragged edge or outside the band (the map of
 // ops/kernels/gbuffer.py::tile_order).
 enum { PIX_BLOCK = 256, PIX_BW = 32, PIX_BH = 8, PIX_WW = 8, PIX_WH = 4 };
 
-__device__ __forceinline__ int tile_pixel(int width, int height) {
+__device__ __forceinline__ int tile_pixel(int width, int pix0, int r) {
   const int warp = (int)threadIdx.x >> 5, lane = (int)threadIdx.x & 31;
   const int x = (int)blockIdx.x * PIX_BW +
                 (warp % (PIX_BW / PIX_WW)) * PIX_WW + lane % PIX_WW;
-  const int y = (int)blockIdx.y * PIX_BH +
+  const int y = pix0 / width + (int)blockIdx.y * PIX_BH +
                 (warp / (PIX_BW / PIX_WW)) * PIX_WH + lane / PIX_WW;
-  return (x < width && y < height) ? y * width + x : -1;
+  const int g = y * width + x;
+  return (x < width && g >= pix0 && g < pix0 + r) ? g : -1;
 }
 
-inline dim3 tile_grid(int width, int height) {
-  return dim3((width + PIX_BW - 1) / PIX_BW, (height + PIX_BH - 1) / PIX_BH);
+inline dim3 tile_grid(int width, int pix0, int r) {
+  const int rows = (pix0 + r - 1) / width - pix0 / width + 1;
+  return dim3((width + PIX_BW - 1) / PIX_BW, (rows + PIX_BH - 1) / PIX_BH);
 }
 
 // Luminance of the demodulated BSDF (base colour 1): Lambert, GGX

@@ -8,10 +8,14 @@
 //       G-buffer epilogue with motion reprojection (writes gb), K-candidate
 //       CDF RIS with a single-draw winner and the winner's MTBVH any-hit
 //       walk (writes rs);
-//   (b) di_temporal_kernel: one 1024-thread block per 1024-pixel tile
-//       reduces the tile's minimum valid motion index to the 2048-pixel
-//       temporal window start (fused_di._window_start) and merges each
-//       pixel with the previous frame's reuse pack (writes pt).
+//   (b) di_temporal_kernel (B1b): one 1024-thread block per 1024-pixel
+//       tile reduces the tile's minimum valid motion index to the
+//       temporal window start (fused_di._window_start; 2048 pixels on a
+//       whole frame) and merges each pixel with the previous frame's
+//       reuse pack (writes pt). On a row band (the multi-device step,
+//       restir_tpu_torch.parallel) the previous pack is the band with
+//       +-window halos from its neighbours: motion is rebased to its
+//       first pixel and the temporal draw keys on the global pixel.
 // Launch (a) is B6 (gbuffer_bvh.cu) and B7's RIS + any hit (reuse_bvh.cu)
 // in one kernel: the same walks with the same leaf test, so nothing goes
 // back to device memory between the stages and the packs equal B6 +
@@ -100,10 +104,11 @@ __global__ void __launch_bounds__(256, HAS_ENV ? 1 : 3) di_gbuffer_ris_kernel(
 __global__ void __launch_bounds__(TILE) di_temporal_kernel(
     const float* __restrict__ gb, const float* __restrict__ rs,
     const float* __restrict__ prev, float* __restrict__ pt, int r,
-    uint32_t looper, int k, int temporal, float cap) {
+    int r_prev, int pix0, int prev_base, int window, uint32_t looper, int k,
+    int temporal, float cap) {
   const int p = blockIdx.x * TILE + threadIdx.x;
   const float* g = gb + p;
-  const float motion = g[(size_t)G_MOTION * r];
+  const float motion = rebase_motion(g[(size_t)G_MOTION * r], prev_base);
   const bool miss = g[(size_t)G_MISS * r] > 0.5f;
   const bool shade = g[(size_t)G_SHADE * r] > 0.5f;
   const float prim_remap = g[(size_t)G_PRIMR * r];
@@ -122,20 +127,21 @@ __global__ void __launch_bounds__(TILE) di_temporal_kernel(
   float r_m = shade ? (float)k : 0.0f;
 
   if (temporal) {
-    const int w0 = tile_window_start(motion, miss, r);
+    const int w0 = tile_window_start(motion, miss, r_prev, window);
 
     const int mot = __float2int_rz(motion);
     const int rel = mot - w0;
-    const bool in_win = mot >= 0 && rel >= 0 && rel < WINDOW;
+    const bool in_win = mot >= 0 && rel >= 0 && rel < window && mot < r_prev;
     if (in_win) {
       const float* nb = prev + mot;
-      float n_weight = nb[(size_t)P_WEIGHT * r];
-      float n_m = nb[(size_t)P_M * r];
-      bool ok = prim_remap > -1.0f && nb[(size_t)P_PRIMR * r] == prim_remap;
-      ok = ok && fabsf(gnx * nb[(size_t)(P_NORM + 0) * r] +
-                       gny * nb[(size_t)(P_NORM + 1) * r] +
-                       gnz * nb[(size_t)(P_NORM + 2) * r]) >= 0.9f;
-      ok = ok && fabsf(nb[(size_t)P_DEPTH * r] - depth) <= depth * 0.1f;
+      float n_weight = nb[(size_t)P_WEIGHT * r_prev];
+      float n_m = nb[(size_t)P_M * r_prev];
+      bool ok =
+          prim_remap > -1.0f && nb[(size_t)P_PRIMR * r_prev] == prim_remap;
+      ok = ok && fabsf(gnx * nb[(size_t)(P_NORM + 0) * r_prev] +
+                       gny * nb[(size_t)(P_NORM + 1) * r_prev] +
+                       gnz * nb[(size_t)(P_NORM + 2) * r_prev]) >= 0.9f;
+      ok = ok && fabsf(nb[(size_t)P_DEPTH * r_prev] - depth) <= depth * 0.1f;
       ok = ok && shade && !bad_weight(n_weight);
       if (ok) {
         // preClampedMerge: clamp the history to (cap - 1) * M
@@ -145,17 +151,18 @@ __global__ void __launch_bounds__(TILE) di_temporal_kernel(
           n_m = limit_m;
         }
         uint32_t h[4];
-        pcg4d((uint32_t)p, looper, (uint32_t)CTR_TEMPORAL, SALT_RESTIR, h);
+        pcg4d((uint32_t)(pix0 + p), looper, (uint32_t)CTR_TEMPORAL,
+              SALT_RESTIR, h);
         const float r_t = unit(h[0]);
         const float w_new = r_weight + n_weight;
         if (r_t * w_new < n_weight) {
-          li[0] = nb[(size_t)(P_LI + 0) * r];
-          li[1] = nb[(size_t)(P_LI + 1) * r];
-          li[2] = nb[(size_t)(P_LI + 2) * r];
-          wi[0] = nb[(size_t)(P_WI + 0) * r];
-          wi[1] = nb[(size_t)(P_WI + 1) * r];
-          wi[2] = nb[(size_t)(P_WI + 2) * r];
-          dist = nb[(size_t)P_DIST * r];
+          li[0] = nb[(size_t)(P_LI + 0) * r_prev];
+          li[1] = nb[(size_t)(P_LI + 1) * r_prev];
+          li[2] = nb[(size_t)(P_LI + 2) * r_prev];
+          wi[0] = nb[(size_t)(P_WI + 0) * r_prev];
+          wi[1] = nb[(size_t)(P_WI + 1) * r_prev];
+          wi[2] = nb[(size_t)(P_WI + 2) * r_prev];
+          dist = nb[(size_t)P_DIST * r_prev];
         }
         r_weight = w_new;
         r_m = r_m + n_m;
@@ -251,13 +258,22 @@ extern "C" int restir_di_resident_gbuffer_ris(
 #undef RESTIR_B1_LAUNCH
 }
 
+// prev: the previous frame's pt pack of r_prev pixels from global pixel
+// prev_base (a whole frame: r_prev = r, prev_base = 0; a row band's pack
+// with its +-window halos), window: the temporal window, a multiple of
+// TILE. pix0: the band's first global pixel (the temporal draw's key).
 extern "C" int restir_di_resident_temporal(const float* gb, const float* rs,
                                            const float* prev, float* pt, int r,
+                                           int r_prev, int pix0,
+                                           int prev_base, int window,
                                            uint32_t looper, int k,
                                            int temporal, float cap,
                                            void* stream) {
-  if (r % TILE != 0) return (int)cudaErrorInvalidValue;
+  if (r <= 0 || r % TILE != 0 || r_prev <= 0 || window <= 0 ||
+      window % TILE != 0 || pix0 < 0)
+    return (int)cudaErrorInvalidValue;
   di_temporal_kernel<<<r / TILE, TILE, 0, (cudaStream_t)stream>>>(
-      gb, rs, prev, pt, r, looper, k, temporal, cap);
+      gb, rs, prev, pt, r, r_prev, pix0, prev_base, window, looper, k,
+      temporal, cap);
   return (int)cudaGetLastError();
 }

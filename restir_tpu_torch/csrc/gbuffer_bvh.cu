@@ -41,11 +41,11 @@ __global__ void __launch_bounds__(PIX_BLOCK) gbuffer_bvh_kernel(
     uint32_t looper, BvhRows bvh, const float* __restrict__ attr,
     const float* __restrict__ mat, int n_mat, EnvTex et,
     float* __restrict__ gb, int* __restrict__ stats, int width, int height,
-    float aspect, int aa_jitter, int single_sided) {
-  const int r = width * height;
-  const int p = tile_pixel(width, height);
-  if (p < 0) return;
-  const Ray ray = raygen(cam, p, looper, width, height, aspect, aa_jitter);
+    int pix0, int r, float aspect, int aa_jitter, int single_sided) {
+  const int g = tile_pixel(width, pix0, r);
+  if (g < 0) return;
+  const int p = g - pix0;  // the band's pack column
+  const Ray ray = raygen(cam, g, looper, width, height, aspect, aa_jitter);
   WalkCount n = {0, 0};
   int prim;
   float bu, bv;
@@ -64,20 +64,24 @@ template <bool COUNT, bool HAS_ENV, bool TEX>
 int launch_gbuffer_bvh(const float* cam, const float* lcam, uint32_t looper,
                        const BvhRows& bvh, const float* attr, const float* mat,
                        int n_mat, const EnvTex& et, float* gb, int* stats,
-                       int width, int height, float aspect, int aa_jitter,
-                       int single_sided, cudaStream_t stream) {
+                       int width, int height, int pix0, int r, float aspect,
+                       int aa_jitter, int single_sided, cudaStream_t stream) {
   gbuffer_bvh_kernel<COUNT, HAS_ENV, TEX>
-      <<<tile_grid(width, height), PIX_BLOCK, 0, stream>>>(
+      <<<tile_grid(width, pix0, r), PIX_BLOCK, 0, stream>>>(
           cam, lcam, looper, bvh, attr, mat, n_mat, et, gb, stats, width,
-          height, aspect, aa_jitter, single_sided);
+          height, pix0, r, aspect, aa_jitter, single_sided);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
-// scene's MTBVH (ops/kernels/tables.py). stats: null, or int32 [2, R]
-// that receives each ray's box and triangle test counts.
+// scene's MTBVH (ops/kernels/tables.py). The pack holds the r pixels of
+// the width x height frame from global pixel pix0 (a row band; the whole
+// frame: pix0 = 0, r = width x height): rays, the jitter draw, raster
+// coordinates and motion are the frame's, columns the band's. stats:
+// null, or int32 [2, r] that receives each ray's box and triangle test
+// counts.
 extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
                                   uint32_t looper, const float* rows,
                                   int size, const float* planes,
@@ -87,10 +91,12 @@ extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
                                   const float* tex_meta, int n_tex,
                                   int has_env, int with_textures, float* gb,
                                   int* stats, int width, int height,
-                                  float aspect, int aa_jitter,
-                                  int single_sided, void* stream) {
-  const int r = width * height;
-  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+                                  int pix0, int r, float aspect,
+                                  int aa_jitter, int single_sided,
+                                  void* stream) {
+  if (r <= 0 || size <= 0 || width <= 0 || pix0 < 0 ||
+      (long long)pix0 + r > (long long)width * height)
+    return (int)cudaErrorInvalidValue;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const EnvTex et = {reinterpret_cast<const float4*>(env_rad),
                      reinterpret_cast<const float4*>(atlas),
@@ -98,8 +104,8 @@ extern "C" int restir_gbuffer_bvh(const float* cam, const float* lcam,
   const cudaStream_t st = (cudaStream_t)stream;
 #define RESTIR_B6_LAUNCH(C, E, T)                                          \
   launch_gbuffer_bvh<C, E, T>(cam, lcam, looper, bvh, attr, mat, n_mat, et, \
-                              gb, stats, width, height, aspect, aa_jitter, \
-                              single_sided, st)
+                              gb, stats, width, height, pix0, r, aspect,   \
+                              aa_jitter, single_sided, st)
 #define RESTIR_B6_FLAGS(C)                                                \
   (has_env ? (with_textures ? RESTIR_B6_LAUNCH(C, true, true)             \
                             : RESTIR_B6_LAUNCH(C, true, false))           \

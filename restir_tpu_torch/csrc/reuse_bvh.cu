@@ -433,7 +433,7 @@ __global__ void __launch_bounds__(PIX_BLOCK,
                      const float* __restrict__ lights_g,
                      const float4* __restrict__ psi_g, int l_pad, int n_area,
                      int seg, BvhRows bvh, float* __restrict__ rs,
-                     int* __restrict__ stats, int r, int width,
+                     int* __restrict__ stats, int r, int width, int pix0,
                      int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
   const int n_env = HAS_ENV ? kEnvRows : 0;
@@ -450,8 +450,9 @@ __global__ void __launch_bounds__(PIX_BLOCK,
   }
   __syncthreads();
 
-  const int p = tile_pixel(width, r / width);
-  if (p < 0) return;
+  const int g = tile_pixel(width, pix0, r);
+  if (g < 0) return;
+  const int p = g - pix0;  // the band's pack column
   const LightStage st = {area,           env,
                          env_lum,        env_lum + n_env + threadIdx.x,
                          (int)blockDim.x, n_area,
@@ -459,7 +460,7 @@ __global__ void __launch_bounds__(PIX_BLOCK,
   const Surface s = load_surface(gb, p, r);
   int evaluated = 0;
   const Candidate c = ris_select_seg<COUNT, HAS_ENV>(
-      st, lights_g, l_pad, (uint32_t)p, looper, k, single_sided, has_met, s,
+      st, lights_g, l_pad, (uint32_t)g, looper, k, single_sided, has_met, s,
       evaluated);
   WalkCount n = {0, 0};
   const bool occluded = occluded_walk<COUNT>(
@@ -476,8 +477,8 @@ template <bool COUNT, bool HAS_ENV>
 int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
                      const float* psi, int l_pad, int n_area,
                      const BvhRows& bvh, float* rs, int* stats, int r,
-                     int width, int single_sided, int k, int has_met,
-                     cudaStream_t stream) {
+                     int width, int pix0, int single_sided, int k,
+                     int has_met, cudaStream_t stream) {
   int seg;
   cudaError_t e = b7_seg(n_area, HAS_ENV, &seg);
   if (e != cudaSuccess) return (int)e;
@@ -489,9 +490,10 @@ int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
     if (e != cudaSuccess) return (int)e;
   }
   reuse_bvh_kernel<COUNT, HAS_ENV>
-      <<<tile_grid(width, r / width), PIX_BLOCK, smem, stream>>>(
+      <<<tile_grid(width, pix0, r), PIX_BLOCK, smem, stream>>>(
       gb, looper, lights, reinterpret_cast<const float4*>(psi), l_pad,
-      n_area, seg, bvh, rs, stats, r, width, single_sided, k, has_met);
+      n_area, seg, bvh, rs, stats, r, width, pix0, single_sided, k,
+      has_met);
   return (int)cudaGetLastError();
 }
 
@@ -506,27 +508,29 @@ extern "C" int restir_reuse_bvh_seg(int n_area, int has_env) {
 }
 
 // rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
-// scene's MTBVH (ops/kernels/tables.py). width: the frame's width, for
-// the 2-D pixel tiles (r = width x height). stats: null, or int32 [3, R]
-// that receives each shadow ray's box and triangle test counts and the
-// light targets the pixel evaluated.
+// scene's MTBVH (ops/kernels/tables.py). gb holds the r pixels of a
+// frame `width` pixels wide from global pixel pix0 (a row band; the whole
+// frame: pix0 = 0), tiled in 2-D over the rows they touch; the RIS draws
+// key on the global pixel. stats: null, or int32 [3, r] that receives
+// each shadow ray's box and triangle test counts and the light targets
+// the pixel evaluated.
 extern "C" int restir_reuse_bvh(const float* gb, uint32_t looper,
                                 const float* lights, const float* psi,
                                 int l_pad, int n_area, int has_env,
                                 const float* rows, int size,
                                 const float* planes, float* rs,
-                                int* stats, int r, int width,
+                                int* stats, int r, int width, int pix0,
                                 int single_sided, int k, int has_met,
                                 void* stream) {
   if (k < 1 || k > MAX_K || r <= 0 || size <= 0 || width <= 0 ||
-      r % width != 0 || n_area < 0 ||
+      pix0 < 0 || n_area < 0 ||
       n_area + (has_env ? kEnvRows : 0) > l_pad)
     return (int)cudaErrorInvalidValue;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream;
 #define RESTIR_B7_LAUNCH(C, E)                                              \
   launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, bvh, rs, \
-                         stats, r, width, single_sided, k, has_met, st)
+                         stats, r, width, pix0, single_sided, k, has_met, st)
   if (stats)
     return has_env ? RESTIR_B7_LAUNCH(true, true)
                    : RESTIR_B7_LAUNCH(true, false);

@@ -5,7 +5,13 @@
 // neighbour, frame) offsets come in as a table ([T, N, 5] int32: aligned
 // start, dx, dy, lane residue, valid) built by the Python glue, exactly as
 // the JAX wrapper builds it; this kernel reads dx, dy and valid and loads
-// each neighbour's reuse row at p + dy * W + dx directly (no window DMA).
+// each neighbour's reuse row directly (no window DMA) where the TPU
+// kernel's window lands it: at start + residue + the pixel's lane in its
+// tile, which is p + dy * W + dx unless the start was clamped. On a row
+// band (restir_tpu_torch.parallel) neighbours come from the band's pt
+// pack with +-halo rows from its neighbours (pt_ext, r_ext pixels), the
+// offsets' validity is judged on the whole frame's pixels, and the draws
+// key on the global pixel pix0 + p; a whole frame passes pt_ext = pt.
 // A neighbour is rejected out of frame, on a primitive mismatch, when
 // n . n' < 0.9 (no abs, unlike the temporal test), on depth beyond 10% or
 // on a bad weight. The winner is one draw over the cumulative neighbour
@@ -28,8 +34,9 @@ constexpr int MAX_N = 16;
 
 __global__ void __launch_bounds__(256) spatial_shade_kernel(
     const int* __restrict__ offs, const float* __restrict__ gb,
-    const float* __restrict__ pt, float* accum, int r, int width,
-    int height, uint32_t looper, int iteration, int neighbors, int flags) {
+    const float* __restrict__ pt, const float* __restrict__ pt_ext,
+    float* accum, int r, int r_ext, int width, int height, int pix0,
+    uint32_t looper, int iteration, int neighbors, int flags) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= r) return;
   const bool reuse_spatial = flags & 1;
@@ -54,7 +61,7 @@ __global__ void __launch_bounds__(256) spatial_shade_kernel(
     const float depth = G(G_DEPTH), prim_remap = G(G_PRIMR);
     const int* o = offs + (size_t)(p / TILE) * neighbors * 5;
     float cums[MAX_N];
-    int nq[MAX_N];  // accepted neighbour's pixel, or -1
+    int nq[MAX_N];  // accepted neighbour's pixel in pt_ext, or -1
     float a_weight = 0.0f, a_m = 0.0f;
 #pragma unroll
     for (int i = 0; i < MAX_N; ++i) {
@@ -67,18 +74,18 @@ __global__ void __launch_bounds__(256) spatial_shade_kernel(
                 npy >= 0.0f && npy < (float)height;
       float wgt = 0.0f, m = 0.0f;
       if (ok) {
-        const int q = p + dy * width + dx;
-        const float* nb = pt + q;
-        wgt = nb[(size_t)P_WEIGHT * r];
-        ok = nb[(size_t)P_PRIMR * r] == prim_remap;
-        ok = ok && (gnx * nb[(size_t)(P_NORM + 0) * r] +
-                    gny * nb[(size_t)(P_NORM + 1) * r] +
-                    gnz * nb[(size_t)(P_NORM + 2) * r]) >= 0.9f;
-        ok = ok && fabsf(depth - nb[(size_t)P_DEPTH * r]) <= depth * 0.1f;
+        const int q = o[i * 5] + o[i * 5 + 3] + p % TILE;
+        const float* nb = pt_ext + q;
+        wgt = nb[(size_t)P_WEIGHT * r_ext];
+        ok = nb[(size_t)P_PRIMR * r_ext] == prim_remap;
+        ok = ok && (gnx * nb[(size_t)(P_NORM + 0) * r_ext] +
+                    gny * nb[(size_t)(P_NORM + 1) * r_ext] +
+                    gnz * nb[(size_t)(P_NORM + 2) * r_ext]) >= 0.9f;
+        ok = ok && fabsf(depth - nb[(size_t)P_DEPTH * r_ext]) <= depth * 0.1f;
         ok = ok && !bad_weight(wgt);
         if (ok) {
           nq[i] = q;
-          m = nb[(size_t)P_M * r];
+          m = nb[(size_t)P_M * r_ext];
         }
       }
       // cums[i] = w_0 + ... + w_i (the last one is the aggregate weight)
@@ -88,9 +95,10 @@ __global__ void __launch_bounds__(256) spatial_shade_kernel(
     }
 
     uint32_t h[4];
-    pcg4d((uint32_t)p, looper, (uint32_t)CTR_SPATIAL, SALT_RESTIR, h);
+    const uint32_t pg = (uint32_t)(pix0 + p);  // the global pixel
+    pcg4d(pg, looper, (uint32_t)CTR_SPATIAL, SALT_RESTIR, h);
     const float thresh = unit(h[0]) * a_weight;
-    pcg4d((uint32_t)p, looper, (uint32_t)(CTR_SPATIAL + neighbors),
+    pcg4d(pg, looper, (uint32_t)(CTR_SPATIAL + neighbors),
           SALT_RESTIR, h);
     const float r_s = unit(h[0]);
     int jsel = 0;
@@ -103,13 +111,13 @@ __global__ void __launch_bounds__(256) spatial_shade_kernel(
       if (j == jsel) qsel = nq[j];
     float a_li[3] = {0.0f, 0.0f, 0.0f}, a_wi[3] = {0.0f, 0.0f, 0.0f};
     if (a_weight > 0.0f && qsel >= 0) {
-      const float* nb = pt + qsel;
-      a_li[0] = nb[(size_t)(P_LI + 0) * r];
-      a_li[1] = nb[(size_t)(P_LI + 1) * r];
-      a_li[2] = nb[(size_t)(P_LI + 2) * r];
-      a_wi[0] = nb[(size_t)(P_WI + 0) * r];
-      a_wi[1] = nb[(size_t)(P_WI + 1) * r];
-      a_wi[2] = nb[(size_t)(P_WI + 2) * r];
+      const float* nb = pt_ext + qsel;
+      a_li[0] = nb[(size_t)(P_LI + 0) * r_ext];
+      a_li[1] = nb[(size_t)(P_LI + 1) * r_ext];
+      a_li[2] = nb[(size_t)(P_LI + 2) * r_ext];
+      a_wi[0] = nb[(size_t)(P_WI + 0) * r_ext];
+      a_wi[1] = nb[(size_t)(P_WI + 1) * r_ext];
+      a_wi[2] = nb[(size_t)(P_WI + 2) * r_ext];
     }
     // merge(self, aggregate) (restir.cu:205-210)
     if (!bad_weight(a_weight) && !bad_weight(r_weight) && shade) {
@@ -159,16 +167,22 @@ __global__ void __launch_bounds__(256) spatial_shade_kernel(
 
 }  // namespace
 
+// pt_ext: the pt pack the neighbours are read from, r_ext pixels (pt
+// itself on a whole frame: r_ext = r); pix0: the first global pixel of
+// gb / pt / accum (0 on a whole frame).
 extern "C" int restir_spatial_shade(const int* offs, const float* gb,
-                                    const float* pt, float* accum, int r,
-                                    int width, int height, uint32_t looper,
-                                    int iteration, int neighbors, int flags,
-                                    void* stream) {
-  if (neighbors < 1 || neighbors > MAX_N) return (int)cudaErrorInvalidValue;
+                                    const float* pt, const float* pt_ext,
+                                    float* accum, int r, int r_ext,
+                                    int width, int height, int pix0,
+                                    uint32_t looper, int iteration,
+                                    int neighbors, int flags, void* stream) {
+  if (neighbors < 1 || neighbors > MAX_N || r <= 0 || r % TILE != 0 ||
+      r_ext < r || pix0 < 0)
+    return (int)cudaErrorInvalidValue;
   const int block = 256;
   spatial_shade_kernel<<<(r + block - 1) / block, block, 0,
                          (cudaStream_t)stream>>>(
-      offs, gb, pt, accum, r, width, height, looper, iteration, neighbors,
-      flags);
+      offs, gb, pt, pt_ext, accum, r, r_ext, width, height, pix0, looper,
+      iteration, neighbors, flags);
   return (int)cudaGetLastError();
 }

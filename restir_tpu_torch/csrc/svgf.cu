@@ -7,10 +7,11 @@
 // 1024-thread block per 1024-pixel tile: the tile's temporal window start
 // (tile_window_start, common.cuh, shared with B1b), then per pixel the
 // previous svgf pack's column at the motion index, the disocclusion test
-// (outside the 2048-pixel window, NULL prim, prim mismatch, |n.n'| < 0.1)
-// and the alpha = 0.2 blend of colour and of the (lum, lum^2) moments.
-// The window keeps the TPU kernel's deviation: a history pixel outside
-// [w0, w0 + 2048) reads as a disocclusion.
+// (outside the window, NULL prim, prim mismatch, |n.n'| < 0.1) and the
+// alpha = 0.2 blend of colour and of the (lum, lum^2) moments. The window
+// keeps the TPU kernel's deviation: a history pixel outside
+// [w0, w0 + window) reads as a disocclusion (2048 pixels on a whole
+// frame; a row band reads its haloed pack, rebased as in B1b).
 //
 // svgf_variance_kernel replaces models/denoiser.py::svgf_estimate_variance
 // (estimateVariance, denoiser.cu:307-343): the temporal moment variance
@@ -50,12 +51,13 @@ __device__ __forceinline__ float mix(float l, float c, float a) {
 
 __global__ void __launch_bounds__(TILE) svgf_temporal_kernel(
     const float* __restrict__ gb, const float* __restrict__ color,
-    const float* __restrict__ prev, float* __restrict__ out, int r) {
+    const float* __restrict__ prev, float* __restrict__ out, int r,
+    int r_prev, int prev_base, int window) {
   const int p = blockIdx.x * TILE + threadIdx.x;
   const float* g = gb + p;
-  const float motion = g[(size_t)G_MOTION * r];
+  const float motion = rebase_motion(g[(size_t)G_MOTION * r], prev_base);
   const bool miss = g[(size_t)G_MISS * r] > 0.5f;
-  const int w0 = tile_window_start(motion, miss, r);
+  const int w0 = tile_window_start(motion, miss, r_prev, window);
 
   const float prim = g[(size_t)G_PRIMR * r];
   const float gnx = g[(size_t)(G_NORM + 0) * r];
@@ -67,13 +69,13 @@ __global__ void __launch_bounds__(TILE) svgf_temporal_kernel(
 
   const int mot = __float2int_rz(motion);
   const int rel = mot - w0;
-  const bool in_win = mot >= 0 && rel >= 0 && rel < WINDOW;
+  const bool in_win = mot >= 0 && rel >= 0 && rel < window && mot < r_prev;
   const float* h = prev + (in_win ? mot : w0);
-  const float l_prim = h[(size_t)SV_PRIM * r];
+  const float l_prim = h[(size_t)SV_PRIM * r_prev];
   const float ndot = __fadd_rn(
-      __fadd_rn(__fmul_rn(gnx, h[(size_t)(SV_NORM + 0) * r]),
-                __fmul_rn(gny, h[(size_t)(SV_NORM + 1) * r])),
-      __fmul_rn(gnz, h[(size_t)(SV_NORM + 2) * r]));
+      __fadd_rn(__fmul_rn(gnx, h[(size_t)(SV_NORM + 0) * r_prev]),
+                __fmul_rn(gny, h[(size_t)(SV_NORM + 1) * r_prev])),
+      __fmul_rn(gnz, h[(size_t)(SV_NORM + 2) * r_prev]));
   const bool reset = !in_win || prim <= -1.0f || l_prim != prim ||
                      fabsf(ndot) < 0.1f;
 
@@ -87,12 +89,12 @@ __global__ void __launch_bounds__(TILE) svgf_temporal_kernel(
     o[(size_t)SV_M2 * r] = __fmul_rn(l, l);
     o[(size_t)SV_HIST * r] = 0.0f;
   } else {
-    o[(size_t)(SV_COL + 0) * r] = mix(h[(size_t)(SV_COL + 0) * r], cx, a);
-    o[(size_t)(SV_COL + 1) * r] = mix(h[(size_t)(SV_COL + 1) * r], cy, a);
-    o[(size_t)(SV_COL + 2) * r] = mix(h[(size_t)(SV_COL + 2) * r], cz, a);
-    o[(size_t)SV_M1 * r] = mix(h[(size_t)SV_M1 * r], l, a);
-    o[(size_t)SV_M2 * r] = mix(h[(size_t)SV_M2 * r], __fmul_rn(l, l), a);
-    o[(size_t)SV_HIST * r] = __fadd_rn(h[(size_t)SV_HIST * r], 1.0f);
+    o[(size_t)(SV_COL + 0) * r] = mix(h[(size_t)(SV_COL + 0) * r_prev], cx, a);
+    o[(size_t)(SV_COL + 1) * r] = mix(h[(size_t)(SV_COL + 1) * r_prev], cy, a);
+    o[(size_t)(SV_COL + 2) * r] = mix(h[(size_t)(SV_COL + 2) * r_prev], cz, a);
+    o[(size_t)SV_M1 * r] = mix(h[(size_t)SV_M1 * r_prev], l, a);
+    o[(size_t)SV_M2 * r] = mix(h[(size_t)SV_M2 * r_prev], __fmul_rn(l, l), a);
+    o[(size_t)SV_HIST * r] = __fadd_rn(h[(size_t)SV_HIST * r_prev], 1.0f);
   }
   o[(size_t)SV_PRIM * r] = prim;
   o[(size_t)(SV_NORM + 0) * r] = gnx;
@@ -156,12 +158,19 @@ __global__ void __launch_bounds__(256) svgf_filter_variance_kernel(
 
 }  // namespace
 
+// prev: the previous svgf pack of r_prev pixels from global pixel
+// prev_base (a whole frame: r_prev = r, prev_base = 0; a row band's pack
+// with its +-window halos), window: the temporal window, a multiple of
+// TILE.
 extern "C" int restir_svgf_temporal(const float* gb, const float* color,
                                     const float* prev, float* out, int r,
+                                    int r_prev, int prev_base, int window,
                                     void* stream) {
-  if (r <= 0 || r % TILE != 0) return (int)cudaErrorInvalidValue;
+  if (r <= 0 || r % TILE != 0 || r_prev <= 0 || window <= 0 ||
+      window % TILE != 0)
+    return (int)cudaErrorInvalidValue;
   svgf_temporal_kernel<<<r / TILE, TILE, 0, (cudaStream_t)stream>>>(
-      gb, color, prev, out, r);
+      gb, color, prev, out, r, r_prev, prev_base, window);
   return (int)cudaGetLastError();
 }
 

@@ -306,12 +306,23 @@ def eaw_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
 def svgf_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
                        svgf_prev: torch.Tensor, cfg: RenderConfig):
     """SVGF on [3, R] (denoiser.cu:479-568): demodulate, accumulate with
-    the history (B5), estimate the variance, then per level prefilter it
-    and run B4. Returns (filtered frame, next svgf pack); the colour
-    history fed forward is the level-0 output (denoiser.cu:542-543)."""
-    w, h = cfg.width, cfg.height
+    the history (B5), then `svgf_wavelets`. Returns (filtered frame, next
+    svgf pack); the colour history fed forward is the level-0 output
+    (denoiser.cu:542-543)."""
     demod, safe = _demod(frame, gb_pack, cfg)
     sv = svgf.svgf_temporal(gb_pack, demod.contiguous(), svgf_prev)
+    color, history = svgf_wavelets(sv, gb_pack, cfg)
+    sv[SV_COL:SV_COL + 3] = history
+    return (color if safe is None else color * safe), sv
+
+
+def svgf_wavelets(sv: torch.Tensor, gb_pack: torch.Tensor,
+                  cfg: RenderConfig):
+    """SVGF's spatial half on an accumulated svgf pack of a cfg.width x
+    cfg.height image: estimate the variance, then per level prefilter it
+    and run B4. Returns (demodulated colour [3, R], the level-0 output,
+    which is the colour history)."""
+    w, h = cfg.width, cfg.height
     var = svgf.estimate_variance(sv, width=w, height=h)
     color = sv[SV_COL:SV_COL + 3]
     history = color
@@ -323,5 +334,4 @@ def svgf_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
             sig_d=cfg.svgf_sig_depth)
         if level == 0:
             history = color
-    sv[SV_COL:SV_COL + 3] = history
-    return (color if safe is None else color * safe), sv
+    return color, history

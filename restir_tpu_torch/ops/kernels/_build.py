@@ -128,9 +128,9 @@ _SIGNATURES = {
         _VP, _VP, _VP, _I, _I, _I, _VP, _VP,
         _I, _I, _F, _I, _I, _I, _I, _VP],
     "restir_di_resident_temporal": [
-        _VP, _VP, _VP, _VP, _I, _U, _I, _I, _F, _VP],
+        _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _U, _I, _I, _F, _VP],
     "restir_spatial_shade": [
-        _VP, _VP, _VP, _VP, _I, _I, _I, _U, _I, _I, _I, _VP],
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _U, _I, _I, _I, _VP],
     "restir_atrous_eaw": [
         _VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _VP],
     "restir_atrous_svgf": [
@@ -138,13 +138,13 @@ _SIGNATURES = {
     "restir_atrous_div_check": [_F, _VP, _VP],
     "restir_gbuffer_bvh": [
         _VP, _VP, _U, _VP, _I, _VP, _VP, _VP, _I,
-        _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I,
+        _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
         _F, _I, _I, _VP],
     "restir_reuse_bvh": [
         _VP, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
-        _I, _I, _I, _VP],
+        _I, _I, _I, _I, _VP],
     "restir_reuse_bvh_seg": [_I, _I],
-    "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _VP],
+    "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
     "restir_closest_hit": [
@@ -201,3 +201,11 @@ def ptr(t) -> int:
 
 def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device: torch.device):
+    """Context for a launch on `device`: a C entry point launches on the
+    calling thread's current CUDA device, which a tensor on another card
+    of the host (a row band of `restir_tpu_torch.parallel`) does not
+    set."""
+    return torch.cuda.device(device)

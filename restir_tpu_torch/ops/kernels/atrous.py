@@ -118,10 +118,11 @@ def atrous_level_cuda(color, gb, *, level, width, height, sig_l, sig_n,
     out = torch.empty_like(color)
     lib = _build.library()
     p = _build.ptr
-    err = lib.restir_atrous_eaw(
-        p(color), p(gb), p(out), width, height, level,
-        ctypes.c_float(sig_l), ctypes.c_float(sig_n), ctypes.c_float(sig_d),
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = lib.restir_atrous_eaw(
+            p(color), p(gb), p(out), width, height, level,
+            ctypes.c_float(sig_l), ctypes.c_float(sig_n),
+            ctypes.c_float(sig_d), _build.stream_of(dev))
     _build.check(err, "restir_atrous_eaw")
     launches += 1
     return out
@@ -209,10 +210,12 @@ def atrous_svgf_cuda(color, var, fv, gb, *, level, width, height, sig_l,
     _check(gb, "gb", (GB_CH, r), dev)
     out = torch.empty((4, r), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _build.library().restir_atrous_svgf(
-        p(color), p(var), p(fv), p(gb), p(out), width, height, level,
-        ctypes.c_float(sig_l), ctypes.c_float(sig_n), ctypes.c_float(sig_d),
-        _build.stream_of(dev))
+    lib = _build.library()
+    with _build.on_device(dev):
+        err = lib.restir_atrous_svgf(
+            p(color), p(var), p(fv), p(gb), p(out), width, height, level,
+            ctypes.c_float(sig_l), ctypes.c_float(sig_n),
+            ctypes.c_float(sig_d), _build.stream_of(dev))
     _build.check(err, "restir_atrous_svgf")
     svgf_launches += 1
     return out[0:3], out[3]

@@ -588,14 +588,44 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
     return li_w, wi_w, dist_w, r_weight
 
 
-def _window_start(gb_tile_motion, gb_tile_miss, r_prev):
+def _window_start(gb_tile_motion, gb_tile_miss, r_prev, window=WINDOW):
     """Per-1024-pixel-tile temporal window start (fused_di._window_start):
-    min valid motion, rounded down to 128, clamped to [0, R - WINDOW]."""
+    min valid motion, rounded down to 128, clamped to [0, r_prev -
+    window] (r_prev: the previous pack's pixels)."""
     valid = (gb_tile_motion >= 0.0) & ~(gb_tile_miss > 0.5)
     m_valid = torch.where(valid, gb_tile_motion, float(r_prev))
     w0 = m_valid.min(dim=1).values.to(torch.int64)
     w0 = torch.div(w0, 128, rounding_mode="floor") * 128
-    return torch.clamp(w0, 0, max(r_prev - WINDOW, 0))
+    return torch.clamp(w0, 0, max(r_prev - window, 0))
+
+
+def band_pixels(width, height, pix0=0, r=None):
+    """(pix0, r) of a band of the width x height frame, checked: r
+    defaults to the rest of the frame; the band must lie inside it."""
+    total = width * height
+    if r is None:
+        r = total - pix0
+    if pix0 < 0 or r <= 0 or pix0 + r > total:
+        raise ValueError(f"band [{pix0}, {pix0 + r}) outside the "
+                         f"{width}x{height} frame")
+    return pix0, r
+
+
+def check_window(window: int) -> None:
+    """The temporal window is whole 1024-pixel tiles (the guard that
+    `reuse_pallas` lacks: its mod-gather chunks the window 8 ways)."""
+    if window <= 0 or window % TILE:
+        raise ValueError(f"temporal window {window} is not a positive "
+                         f"multiple of {TILE}")
+
+
+def rebase_motion(motion, prev_base: int):
+    """Motion indices relative to the previous pack's first global pixel
+    `prev_base` (a row band's haloed pack starts a window before the
+    band); negative markers stay (fused_di.reuse_pallas's rebase)."""
+    if prev_base == 0:
+        return motion
+    return torch.where(motion >= 0.0, motion - float(prev_base), motion)
 
 
 def shadow_pixels(gb, wi, dist, r_weight, planes):
@@ -609,21 +639,27 @@ def shadow_pixels(gb, wi, dist, r_weight, planes):
 
 
 def temporal_pixels(gb, rs_li, rs_wi, rs_dist, r_weight, pix, looper, prev,
-                    *, k, temporal, temporal_clamp):
-    """Temporal merge (restir.cu:180-185) + pt-pack assembly for pixels
-    `pix`, which must be whole 1024-pixel tiles in order (each tile's
-    window start is the minimum over its own motion)."""
+                    *, k, temporal, temporal_clamp, prev_base=0,
+                    window=WINDOW):
+    """Temporal merge (restir.cu:180-185) + pt-pack assembly for the
+    global pixels `pix`, which must be whole 1024-pixel tiles in order
+    (each tile's window start is the minimum over its own motion). `prev`
+    holds the previous pack's pixels from global pixel `prev_base` (the
+    whole frame, or a row band with +-window halos)."""
     shade = gb[G_SHADE] > 0.5
     r_m = torch.where(shade, float(k), 0.0)
     li, wi, dist = rs_li, rs_wi, rs_dist
     if temporal:
+        check_window(window)
         r_prev = prev.shape[1]
-        w0 = _window_start(gb[G_MOTION].view(-1, TILE),
-                           gb[G_MISS].view(-1, TILE), r_prev)
+        mo = rebase_motion(gb[G_MOTION], prev_base)
+        w0 = _window_start(mo.view(-1, TILE), gb[G_MISS].view(-1, TILE),
+                           r_prev, window)
         w0 = w0.repeat_interleave(TILE)
-        motion = _trunc_i32(gb[G_MOTION]).to(torch.int64)
+        motion = _trunc_i32(mo).to(torch.int64)
         rel = motion - w0
-        in_win = (motion >= 0) & (rel >= 0) & (rel < WINDOW)
+        in_win = ((motion >= 0) & (rel >= 0) & (rel < window)
+                  & (motion < r_prev))
         gidx = torch.where(in_win, motion, w0)
         nb = prev[:, gidx]  # [PT_CH, b]
         n_weight = nb[P_WEIGHT]
@@ -736,15 +772,17 @@ def gbuffer_ris_cuda(cam_vec, lcam_vec, looper, tables, bvh, *, width,
     gb = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _build.library().restir_di_resident_gbuffer_ris(
-        p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
-        p(bvh.rows), bvh.size, p(tables.planes),
-        p(tables.attr), p(tables.mat), tables.mat.shape[0], p(lights),
-        p(psi), l_pad, tables.n_lights, p(tables.env_rad), p(tables.atlas),
-        p(tables.tex_meta), tables.tex_meta.shape[0], int(has_env),
-        int(with_textures), p(gb), p(rs), width, height,
-        ctypes.c_float(float(width) / float(height)), int(aa_jitter),
-        int(single_sided), k, int(has_met), _build.stream_of(dev))
+    lib = _build.library()
+    with _build.on_device(dev):
+        err = lib.restir_di_resident_gbuffer_ris(
+            p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),
+            p(bvh.rows), bvh.size, p(tables.planes),
+            p(tables.attr), p(tables.mat), tables.mat.shape[0], p(lights),
+            p(psi), l_pad, tables.n_lights, p(tables.env_rad), p(tables.atlas),
+            p(tables.tex_meta), tables.tex_meta.shape[0], int(has_env),
+            int(with_textures), p(gb), p(rs), width, height,
+            ctypes.c_float(float(width) / float(height)), int(aa_jitter),
+            int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_di_resident_gbuffer_ris")
     launches += 1
     return gb, rs
@@ -767,34 +805,44 @@ def di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt, tables, bvh, *,
     return gb, pt
 
 
-def _launch_temporal(gb, rs, prev_pt, looper, k, temporal, temporal_clamp):
-    """B1b (`di_temporal_kernel`) on checked packs -> pt [PT_CH, R]."""
+def _launch_temporal(gb, rs, prev_pt, looper, k, temporal, temporal_clamp,
+                     pix0=0, prev_base=0, window=WINDOW):
+    """B1b (`di_temporal_kernel`) on checked packs -> pt [PT_CH, r]."""
     r = gb.shape[1]
     pt = torch.empty((PT_CH, r), dtype=torch.float32, device=gb.device)
     p = _build.ptr
-    err = _build.library().restir_di_resident_temporal(
-        p(gb), p(rs), p(prev_pt), p(pt), r,
-        ctypes.c_uint32(looper & 0xFFFFFFFF), k, int(temporal),
-        ctypes.c_float(float(temporal_clamp)), _build.stream_of(gb.device))
+    lib = _build.library()
+    with _build.on_device(gb.device):
+        err = lib.restir_di_resident_temporal(
+            p(gb), p(rs), p(prev_pt), p(pt), r, prev_pt.shape[1], pix0,
+            prev_base, window, ctypes.c_uint32(looper & 0xFFFFFFFF), k,
+            int(temporal), ctypes.c_float(float(temporal_clamp)),
+            _build.stream_of(gb.device))
     _build.check(err, "restir_di_resident_temporal")
     return pt
 
 
 def temporal_cuda(gb, rs, prev_pt, looper, *, k=4, temporal=True,
-                  temporal_clamp=20):
+                  temporal_clamp=20, pix0=0, prev_base=0, window=WINDOW):
     """Launch B1b (`di_temporal_kernel`) alone: merge the candidate pack
-    rs [RS_CH, R] with the previous frame's pt pack. The large-scene path
-    runs it after kernel B7."""
+    rs [RS_CH, r] with the previous frame's pt pack. The large-scene path
+    runs it after kernel B7. A row band passes its first global pixel
+    `pix0`, its previous pack with +-`window` halos ([PT_CH, r + 2 x
+    window]) and that pack's first global pixel `prev_base`; a whole
+    frame passes its own previous pack ([PT_CH, R])."""
     global temporal_launches
     r = gb.shape[1]
     dev = gb.device
     if r % TILE != 0:
         raise ValueError(f"pixel count {r} is not a multiple of {TILE}")
+    check_window(window)
+    if pix0 < 0:
+        raise ValueError(f"pix0 {pix0} < 0")
     _check(gb, "gb", (GB_CH, r), dev)
     _check(rs, "rs", (RS_CH, r), dev)
-    _check(prev_pt, "prev_pt", (PT_CH, r), dev)
+    _check(prev_pt, "prev_pt", (PT_CH, prev_pt.shape[1]), dev)
     pt = _launch_temporal(gb, rs, prev_pt, looper, k, temporal,
-                          temporal_clamp)
+                          temporal_clamp, pix0, prev_base, window)
     temporal_launches += 1
     return pt
 

@@ -13,6 +13,11 @@ pack rs [RS_CH, R]) and then B1's `di_temporal_kernel` through
 (B1's stages: `ris_pixels`, the brute `shadow_pixels`, `temporal_pixels`).
 Nothing falls back. `has_env` adds the env tiles to the light CDF.
 
+A row band (`restir_tpu_torch.parallel`) passes its first global pixel
+`pix0` (the RIS and temporal draws' key, and where its 2-D tiles start),
+its previous pack with +-`window` halos and that pack's first global
+pixel `prev_base`, as the JAX `reuse_pallas(pix0=, prev_base=, window=)`.
+
 B7 finds its K picks with a search that evaluates each light row about
 once (`csrc/reuse_bvh.cu`): pass 1 sums the light targets in row order
 and keeps the running cdf after every S-th row (the kernel picks S for
@@ -86,10 +91,12 @@ def seg_for(n_area: int, has_env: bool) -> int:
     return SEGS[-1]
 
 
-def seg_cuda(n_area: int, has_env: bool) -> int:
-    """The checkpoint spacing B7 takes on the current CUDA device (its
-    b7_seg)."""
-    seg = _build.library().restir_reuse_bvh_seg(n_area, int(has_env))
+def seg_cuda(n_area: int, has_env: bool, device=None) -> int:
+    """The checkpoint spacing B7 takes on `device` (the current CUDA
+    device when None; its b7_seg)."""
+    lib = _build.library()
+    with _build.on_device(device):
+        seg = lib.restir_reuse_bvh_seg(n_area, int(has_env))
     if seg < 0:
         _build.check(-seg, "restir_reuse_bvh_seg")
     return seg
@@ -260,13 +267,16 @@ def ris_search(gb, pix, looper, tables: ResidentTables, *, k, single_sided,
 
 def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
               single_sided=True, temporal=True, temporal_clamp=20,
-              has_met=True, has_env=False, pix=None):
-    """Plain twin: pt columns for the gb columns of pixels `pix` (whole
-    1024-pixel tiles in order; every pixel when None). prev_pt is the
-    whole previous pack."""
+              has_met=True, has_env=False, pix=None, pix0=0, prev_base=0,
+              window=fused_di.WINDOW):
+    """Plain twin: pt columns for the gb columns of global pixels `pix`
+    (whole 1024-pixel tiles in order; when None, the band of gb's pixels
+    from `pix0`). prev_pt holds the previous pack from global pixel
+    `prev_base`: the whole pack, or a band's with +-`window` halos."""
     dev = gb.device
     if pix is None:
-        pix = torch.arange(gb.shape[1], device=dev, dtype=torch.int64)
+        pix = torch.arange(pix0, pix0 + gb.shape[1], device=dev,
+                           dtype=torch.int64)
     out = torch.empty((PT_CH, pix.shape[0]), dtype=torch.float32,
                       device=dev)
     chunk = fused_di.chunk_pixels(tables.planes.shape[0])
@@ -279,29 +289,31 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
         w = fused_di.shadow_pixels(g, wi, dist, w, tables.planes)
         out[:, p0:p0 + chunk] = fused_di.temporal_pixels(
             g, li, wi, dist, w, px, looper, prev_pt, k=k, temporal=temporal,
-            temporal_clamp=temporal_clamp)
+            temporal_clamp=temporal_clamp, prev_base=prev_base,
+            window=window)
     return out
 
 
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
                     width, k=4, single_sided=True, has_met=True,
-                    has_env=False, stats=False):
-    """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, R] (li, wi, dist, W
-    after visibility), on 2-D pixel tiles of the frame (R = width x
-    height). With `stats`, also return the int32 [3, R] box and triangle
-    test counts of each shadow ray and the light targets each pixel
-    evaluated."""
+                    has_env=False, stats=False, pix0=0):
+    """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, r] (li, wi, dist, W
+    after visibility) for gb's r pixels from global pixel `pix0` of a
+    frame `width` pixels wide (the whole frame by default), on 2-D pixel
+    tiles of the rows they touch. With `stats`, also return the int32 [3,
+    r] box and triangle test counts of each shadow ray and the light
+    targets each pixel evaluated."""
     global launches
     r = gb.shape[1]
     dev = gb.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
-    if width <= 0 or r % width:
-        raise ValueError(f"width={width} does not divide R={r}")
+    if width <= 0 or pix0 < 0:
+        raise ValueError(f"width={width} or pix0={pix0} out of range")
     lights, psi = tables.light_rows(has_env)
     l_pad = psi.shape[0]
     n_live = tables.n_lights + (N_ENV if has_env else 0)
-    seg = seg_cuda(tables.n_lights, has_env)
+    seg = seg_cuda(tables.n_lights, has_env, dev)
     smem = smem_bytes(tables.n_lights, has_env, n_live, seg)
     if smem > SMEM_MAX:
         raise ValueError(f"B7 stages {tables.n_lights} area-light psi rows, "
@@ -316,11 +328,13 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
-    err = _build.library().restir_reuse_bvh(
-        p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-        l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
-        p(bvh.planes), p(rs), p(counts), r, width, int(single_sided), k,
-        int(has_met), _build.stream_of(dev))
+    lib = _build.library()
+    with _build.on_device(dev):
+        err = lib.restir_reuse_bvh(
+            p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
+            l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
+            p(bvh.planes), p(rs), p(counts), r, width, pix0,
+            int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
     launches += 1
     return (rs, counts) if stats else rs
@@ -328,24 +342,30 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
 
 def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,
                *, width, k=4, single_sided=True, temporal=True,
-               temporal_clamp=20, has_met=True, has_env=False):
-    """Kernel B7, then B1b: pt [PT_CH, R]."""
+               temporal_clamp=20, has_met=True, has_env=False, pix0=0,
+               prev_base=0, window=fused_di.WINDOW):
+    """Kernel B7, then B1b: pt [PT_CH, r]."""
     rs = candidates_cuda(gb, looper, tables, bvh, k=k,
                          single_sided=single_sided, has_met=has_met,
-                         has_env=has_env, width=width)
+                         has_env=has_env, width=width, pix0=pix0)
     return fused_di.temporal_cuda(gb, rs, prev_pt, looper, k=k,
                                   temporal=temporal,
-                                  temporal_clamp=temporal_clamp)
+                                  temporal_clamp=temporal_clamp, pix0=pix0,
+                                  prev_base=prev_base, window=window)
 
 
 def reuse(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables, *,
           width, k=4, single_sided=True, temporal=True, temporal_clamp=20,
-          has_met=True, has_env=False):
-    """pt [PT_CH, R] for one frame of `width` pixels a row: the twin on CPU
-    tensors, the kernels on CUDA tensors."""
+          has_met=True, has_env=False, pix0=0, prev_base=0,
+          window=fused_di.WINDOW):
+    """pt [PT_CH, r] for gb's r pixels from global pixel `pix0` of a frame
+    `width` pixels wide (the whole frame by default), merged with the
+    previous pack `prev_pt` whose first global pixel is `prev_base`: the
+    twin on CPU tensors, the kernels on CUDA tensors."""
     kw = dict(k=k, single_sided=single_sided, temporal=temporal,
               temporal_clamp=temporal_clamp, has_met=has_met,
-              has_env=has_env)
+              has_env=has_env, pix0=pix0, prev_base=prev_base,
+              window=window)
     if gb.device.type == "cpu":
         return reuse_ref(gb, prev_pt, looper, tables, **kw)
     if gb.device.type == "cuda":

@@ -11,7 +11,10 @@ and of the (lum, lum^2) moments. `estimate_variance` and
 `svgf_filter_variance` on the card as two small kernels.
 
 CPU tensors take the twins, CUDA tensors the kernels in `csrc/svgf.cu`.
-Nothing falls back. Packs are flat [C, R] float32.
+Nothing falls back. Packs are flat [C, R] float32. A row band
+(`restir_tpu_torch.parallel`) passes B5 its previous pack with
++-`window` halos and that pack's first global pixel `prev_base`, as the
+JAX `svgf_temporal_pallas(prev_base=, window=)`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from .fused_di import (
     _check,
     _trunc_i32,
     _window_start,
+    check_window,
+    rebase_motion,
 )
 
 # ---- svgf pack channel layout ([SV_CH, R]), fused_di.SV_* ----
@@ -47,15 +52,21 @@ temporal_launches = 0  # B5 launches
 variance_launches = 0  # launches of the two variance kernels
 
 
-def svgf_temporal_ref(gb, color, prev):
-    """Plain twin of B5: gb [GB_CH, R], demodulated colour [3, R] and the
-    previous svgf pack [SV_CH, R] -> the accumulated pack [SV_CH, R]."""
+def svgf_temporal_ref(gb, color, prev, *, prev_base=0, window=WINDOW):
+    """Plain twin of B5: gb [GB_CH, r], demodulated colour [3, r] and the
+    previous svgf pack [SV_CH, r_prev] from global pixel `prev_base` (the
+    whole frame's, or a band's with +-`window` halos) -> the accumulated
+    pack [SV_CH, r]."""
+    check_window(window)
     r = gb.shape[1]
-    w0 = _window_start(gb[G_MOTION].view(-1, TILE), gb[G_MISS].view(-1, TILE),
-                       r).repeat_interleave(TILE)
-    motion = _trunc_i32(gb[G_MOTION]).to(torch.int64)
+    r_prev = prev.shape[1]
+    mo = rebase_motion(gb[G_MOTION], prev_base)
+    w0 = _window_start(mo.view(-1, TILE), gb[G_MISS].view(-1, TILE),
+                       r_prev, window).repeat_interleave(TILE)
+    motion = _trunc_i32(mo).to(torch.int64)
     rel = motion - w0
-    in_win = (motion >= 0) & (rel >= 0) & (rel < WINDOW)
+    in_win = ((motion >= 0) & (rel >= 0) & (rel < window)
+              & (motion < r_prev))
     h = prev[:, torch.where(in_win, motion, w0)]
     cx, cy, cz = color[0], color[1], color[2]
     lum = 0.2126 * cx + 0.7152 * cy + 0.0722 * cz
@@ -79,32 +90,37 @@ def svgf_temporal_ref(gb, color, prev):
     return out
 
 
-def svgf_temporal_cuda(gb, color, prev):
+def svgf_temporal_cuda(gb, color, prev, *, prev_base=0, window=WINDOW):
     """Launch B5 (`svgf_temporal_kernel`)."""
     global temporal_launches
     r = gb.shape[1]
     dev = gb.device
     if r % TILE != 0:
         raise ValueError(f"pixel count {r} is not a multiple of {TILE}")
+    check_window(window)
     _check(gb, "gb", (GB_CH, r), dev)
     _check(color, "color", (3, r), dev)
-    _check(prev, "prev", (SV_CH, r), dev)
+    _check(prev, "prev", (SV_CH, prev.shape[1]), dev)
     out = torch.empty((SV_CH, r), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _build.library().restir_svgf_temporal(
-        p(gb), p(color), p(prev), p(out), r, _build.stream_of(dev))
+    lib = _build.library()
+    with _build.on_device(dev):
+        err = lib.restir_svgf_temporal(
+            p(gb), p(color), p(prev), p(out), r, prev.shape[1], prev_base,
+            window, _build.stream_of(dev))
     _build.check(err, "restir_svgf_temporal")
     temporal_launches += 1
     return out
 
 
-def svgf_temporal(gb, color, prev):
-    """The accumulated svgf pack [SV_CH, R]: the twin on CPU tensors, B5
+def svgf_temporal(gb, color, prev, *, prev_base=0, window=WINDOW):
+    """The accumulated svgf pack [SV_CH, r]: the twin on CPU tensors, B5
     on CUDA tensors."""
+    kw = dict(prev_base=prev_base, window=window)
     if gb.device.type == "cpu":
-        return svgf_temporal_ref(gb, color, prev)
+        return svgf_temporal_ref(gb, color, prev, **kw)
     if gb.device.type == "cuda":
-        return svgf_temporal_cuda(gb, color, prev)
+        return svgf_temporal_cuda(gb, color, prev, **kw)
     raise ValueError(f"unsupported device {gb.device}")
 
 
@@ -114,9 +130,10 @@ def _launch_plane(name, src, shape, width, height):
     dev = src.device
     _check(src, "input", shape, dev)
     out = torch.empty((width * height,), dtype=torch.float32, device=dev)
-    err = getattr(_build.library(), name)(
-        _build.ptr(src), _build.ptr(out), width, height,
-        _build.stream_of(dev))
+    fn = getattr(_build.library(), name)
+    with _build.on_device(dev):
+        err = fn(_build.ptr(src), _build.ptr(out), width, height,
+                 _build.stream_of(dev))
     _build.check(err, name)
     variance_launches += 1
     return out

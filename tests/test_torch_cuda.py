@@ -1062,3 +1062,37 @@ def test_b13_launch_errors_raise(walk):
     empty = o[:0].contiguous()
     with pytest.raises(RuntimeError, match="restir_mt_closest_hit"):
         ki.mt_closest_cuda(trv, empty, empty)
+
+
+@pytest.mark.parametrize("denoiser", ("EAW", "SVGF"))
+def test_row_bands_on_one_card(cuda_device, denoiser):
+    """The fused frame in 3 row bands on one card (384x16: the bands start
+    mid-row) equals one band's bit for bit, and the CPU twins' banded
+    frame within the slice's image gates."""
+    from restir_tpu_torch import parallel
+    from restir_tpu_torch.config import DenoiserType, mat_flags
+    from restir_tpu_torch.models import restir_di_fused
+
+    arrays, camkw = many_light_scene(16, 6)
+    cam = make_camera(**camkw)
+    cfg = RenderConfig(width=384, height=16, tracer=TracerType.RESTIR_DI,
+                       denoiser=getattr(DenoiserType, denoiser),
+                       **mat_flags(arrays))
+    out = {}
+    for dev, n in ((cuda_device, 1), (cuda_device, 3), ("cpu", 3)):
+        scene = convert.scene_from_numpy(arrays, dev)
+        mesh = parallel.make_mesh([dev] * n)
+        step = parallel.make_fused_sharded_step(cfg, mesh)
+        scenes = parallel.shard_scene(scene, mesh)
+        state = parallel.shard_fused_state(
+            restir_di_fused.init_state(cfg, cam, dev), mesh)
+        for _ in range(3):
+            state, frame = step(scenes, state, cam)
+        out[(str(dev), n)] = parallel.gather(frame, "cpu").numpy()
+    card = str(cuda_device)
+    assert np.array_equal(out[(card, 1)], out[(card, 3)])
+    want, got = out[("cpu", 3)], out[(card, 3)]
+    assert np.isfinite(got).all() and got.mean() > 0.0
+    mean_rel = abs(got.mean() - want.mean()) / max(abs(want.mean()), 1e-9)
+    assert mean_rel < 0.01, mean_rel
+    assert np.isclose(want, got, rtol=1e-3, atol=1e-6).mean() >= 0.99
