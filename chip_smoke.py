@@ -198,7 +198,7 @@ from restir_tpu_torch.config import (
     mat_flags,
 )
 from restir_tpu_torch.models import gbuffer as general_gb
-from restir_tpu_torch.models import restir_di_fused, restir_gi
+from restir_tpu_torch.models import restir_di, restir_di_fused, restir_gi
 from restir_tpu_torch.ops import reservoir as rsv
 from restir_tpu_torch.ops import intersect, intersect_bf
 from restir_tpu_torch.ops.camera import (
@@ -206,6 +206,7 @@ from restir_tpu_torch.ops.camera import (
     pack_camera,
     pixel_centers,
     sample_rays,
+    update_camera,
 )
 from restir_tpu_torch.ops.kernels import (
     _build,
@@ -232,7 +233,7 @@ from restir_tpu_torch.ops.kernels.fused_di import (
     RS_WI,
     TILE,
 )
-from restir_tpu_torch.parallel import fused_sharding
+from restir_tpu_torch.parallel import fused_sharding, sharding
 from restir_tpu_torch.scene import bvh as scene_bvh
 from restir_tpu_torch.scene.loader import parse_scene_file
 from restir_tpu_torch.scene.procedural import (
@@ -1580,6 +1581,7 @@ def phase_general_main(name, scene, cfg, cam, dev, per_frame, warmup,
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     dev_ms = start.elapsed_time(end) / timed
+    MAIN_WALL[name] = wall_ms
     counts = read_counts()
     expect = {k: per_frame.get(k, 0) * (warmup + timed) for k in counts}
     print(f"main path {name} launches {counts} (expected {expect})")
@@ -2630,6 +2632,279 @@ def phase_bands(scene, cfg, cam, dev):
                    step=lambda s: step(scenes, s, cam)[0], state=state)
 
 
+def general_band_kernels(scene, cam, dev):
+    """Phase 27 (a): B10 and B9 on the middle band of a 3-band split of
+    the headline's general frame at 1080p (whole rows; a camera that
+    turned 0.5 degrees, so B9's motion reaches the next band's rows),
+    against the same kernels' whole frame at the band's pixels (bit for
+    bit) and against their twins on the band."""
+    w, h = WIDTH, HEIGHT
+    r = w * h
+    r_loc = sharding.general_layout(RenderConfig(width=w, height=h), BANDS)
+    pix0 = MID * r_loc
+    sl = slice(pix0, pix0 + r_loc)
+    t = scene.tables
+    fails, times = [], {}
+    print(f"general row bands: {BANDS} bands of {r_loc} pixels "
+          f"({h // BANDS} rows, {r_loc // gi.TILE} B9 tiles) at {w}x{h}; "
+          f"band {MID} from pixel {pix0}")
+
+    def same(name, got, whole):
+        eq = float(bits_equal(got, whole[:, sl]).all(0).float().mean())
+        print(f"general band {name}: lanes equal to the whole-frame "
+              f"kernel's bit for bit {eq:.6f}")
+        if eq < 1.0:
+            fails.append(f"{name} band differs from the whole frame on "
+                         f"{1.0 - eq:.6f} of its lanes")
+
+    # B10 on the general G-buffer pack (phase 12's)
+    dcfg = RenderConfig(width=w, height=h, tracer=TracerType.RESTIR_DI)
+    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, dcfg,
+                                                        1)
+    wo = -ray_dir
+    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
+                               gmat.type, gmat.metallic, gmat.roughness,
+                               shade, it.prim_id)
+    kw = dict(k=dcfg.cdf_candidates, single_sided=dcfg.single_sided_lights,
+              has_met=dcfg.scene_has_metallic)
+    band = pack[:, sl].contiguous()
+    k10 = ris_cdf.ris_cdf_cuda(band, 1, t, scene.bvh, pix0=pix0, **kw)
+    same("B10", k10, ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, **kw))
+    r10 = ris_cdf.ris_cdf_ref(band, 1, t, pix0=pix0, **kw)
+    li, wi_, w_ = ris_cdf.OUT_LI, ris_cdf.OUT_WI, ris_cdf.OUT_W
+    pick = (torch.all(k10[li:li + 3] == r10[li:li + 3], 0)
+            & torch.all(torch.isclose(k10[wi_:wi_ + 3], r10[wi_:wi_ + 3],
+                                      rtol=2e-4, atol=1e-5), 0))
+    s_b = shade[sl]
+    pm = float(pick[s_b].float().mean())
+    wclose = float(torch.isclose(k10[w_][pick & s_b], r10[w_][pick & s_b],
+                                 rtol=2e-4, atol=1e-7).float().mean())
+    m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
+    print(f"general band B10 vs twin: pick match {pm:.6f}, weights within "
+          f"rtol 2e-4 {wclose:.6f}, M equal {m_eq:.6f}")
+    if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
+        fails.append("band B10 disagrees with its twin")
+    times["ris_cdf"] = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(
+        band, 1, t, scene.bvh, pix0=pix0, **kw), 20)
+    del gbuf, it, gmat, ray_dir, wo, pack, band, r10
+
+    # B9: frame 0 from a zero pack, frame 1 after the camera turned
+    gcfg = RenderConfig(width=w, height=h, tracer=TracerType.RESTIR_GI,
+                        trace_depth=5)
+    tkw = restir_gi.trace_kwargs(scene, gcfg)
+    moved = update_camera(cam, rotation=(-90.0, -9.5, 0.0))
+    q = torch.zeros((gi.Q_CH, r), device=dev)
+    for looper, (c, last) in enumerate(((cam, cam), (moved, cam))):
+        gb, it, gmat, ray_dir = general_gb.render_gbuffer(scene, c, last,
+                                                          gcfg, looper)
+        in_pack = restir_gi._build_gi_in_pack(it, gmat, ray_dir)
+        go = gi.gi_trace_cuda(in_pack, looper, scene, **tkw)
+        gq = restir_gi._gq_pack(gb, it)
+        prev = q
+        ind, q = gi.gi_resolve_cuda(go, in_pack, gq, q, looper)
+    (lo, hi), = sharding.motion_ranges(
+        [gb._replace(**{f: getattr(gb, f)[sl] for f in gb._fields})], r,
+        dev)
+    print(f"general band B9: the band's motion reaches previous pixels "
+          f"[{lo}, {hi}) (rows {lo // w}-{(hi - 1) // w}; the band holds "
+          f"rows {pix0 // w}-{(pix0 + r_loc) // w - 1})")
+    if lo >= pix0 and hi <= pix0 + r_loc:
+        fails.append("B9's band motion does not reach another band")
+    args = (go[:, sl].contiguous(), in_pack[:, sl].contiguous(),
+            gq[:, sl].contiguous(), prev[:, lo:hi].contiguous(), 1)
+    bkw = dict(pix0=pix0, prev_base=lo, r_prev=r)
+    ind_b, q_b = gi.gi_resolve_cuda(*args, **bkw)
+    same("B9 indirect", ind_b, ind)
+    same("B9 pack", q_b, q)
+    ind_r, q_r = gi.gi_resolve_ref(*args, **bkw)
+    m_eq = float((q_b[gi.Q_M] == q_r[gi.Q_M]).float().mean())
+    w_ok = lanes(q_b[gi.Q_W:gi.Q_W + 1], q_r[gi.Q_W:gi.Q_W + 1], 1e-5, 1e-7)
+    i_ok = lanes(ind_b, ind_r, 1e-3, 1e-6)
+    exact = float(bits_equal(q_b, q_r).all(0).float().mean())
+    print(f"general band B9 vs twin: M equal {m_eq:.6f}, W within rtol 1e-5 "
+          f"{w_ok:.6f}, indirect within rtol 1e-3 {i_ok:.6f}, exact lanes "
+          f"{exact:.6f}, max M {float(q_b[gi.Q_M].max()):.0f}")
+    if min(m_eq, w_ok, i_ok) < 0.9999:
+        fails.append("band B9 disagrees with its twin")
+    times["gi_resolve"] = cuda_ms(lambda: gi.gi_resolve_cuda(*args, **bkw),
+                                  20)
+    gate(fails, "general row-band kernels")
+    print("general band kernel ms on the band (CUDA events, 20 launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+
+
+def general_banded(scene, cfg, cams, dev, n, init):
+    """The frames of `make_sharded_step` on [dev] x n from init(), one per
+    camera of `cams`, gathered."""
+    mesh = parallel.make_mesh([dev] * n)
+    state = init()
+    step = parallel.make_sharded_step(cfg, mesh, state)
+    scenes = parallel.shard_scene(scene, mesh)
+    state = parallel.shard_state(state, mesh, cfg)
+    out = []
+    for c in cams:
+        state, frame = step(scenes, state, c)
+        out.append(parallel.gather(frame, dev, dim=0))
+    return out
+
+
+def exchange_ms(scene, cfg, cams, dev):
+    """Device ms of one frame's copies between 3 bands of `cfg` after
+    frames with `cams`: the previous frame's pixel ranges each band's
+    motion reaches (and its host read, on the host's clock), and the
+    row halos of the spatial merge and of the EAW images."""
+    mesh = parallel.make_mesh([dev] * BANDS)
+    state = renderer.init_general(cfg, cams[0], dev, scene)
+    step = parallel.make_sharded_step(cfg, mesh, state)
+    state = parallel.shard_state(state, mesh, cfg)
+    for c in cams[:-1]:
+        state, _ = step(scene, state, c)
+    bands = [sharding.band_state(state, b) for b in range(BANDS)]
+    r_loc = cfg.num_pixels // BANDS
+    prim = [renderer.general_gbuffer(scene, bands[b], cams[-1], cfg,
+                                     b * r_loc, r_loc) for b in range(BANDS)]
+    gbs = [p[0] for p in prim]
+    packs = [renderer.previous_packs(s, cfg) for s in bands]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ranges = sharding.motion_ranges(gbs, cfg.num_pixels, dev)
+    read_ms = (time.perf_counter() - t0) * 1e2
+    fetch = cuda_ms(lambda: [sharding.fetch_columns(packs, r_loc, lo, hi,
+                                                    dev)
+                             for lo, hi in ranges], 10)
+    px = sum(hi - lo for lo, hi in ranges)
+    ch = sum(p.shape[0] for p in packs[0].values())
+    sp = [restir_di.spatial_pack(bands[b].dir_reservoir, gbs[b])
+          for b in range(BANDS)]
+    gbp = [denoiser.gbuffer_pack(g) for g in gbs]
+    col = [torch.zeros((3, r_loc), device=dev) for _ in range(BANDS)]
+    halo_s = int(np.ceil(cfg.spatial_radius))
+    halo_d = sharding.denoise_halo_rows(cfg)
+    w, h = cfg.width, cfg.height
+
+    def halos():
+        for b in range(BANDS):
+            sharding.row_image(sp, b, halo_s, w, h, dev)
+            sharding.row_image(gbp, b, halo_d, w, h, dev)
+            sharding.row_image(col, b, halo_d, w, h, dev)
+
+    halo = cuda_ms(halos, 10)
+    return read_ms, fetch, halo, px, ch, ranges
+
+
+def phase_general_bands(scene, arrays, cam, dev):
+    """Phase 27: the general frame over row bands on one card."""
+    general_band_kernels(scene, cam, dev)
+    flags = mat_flags(arrays)
+    base = RenderConfig(width=WIDTH, height=HEIGHT, **flags)
+    di = base.replace(tracer=TracerType.RESTIR_DI)
+    still = [cam] * 3
+    turning = [update_camera(cam, rotation=(-90.0, -10.0 + 0.5 * i, 0.0))
+               for i in range(3)]
+    # (b) 3 bands against one band and against renderer.step_general
+    configs = [
+        ("general DI cdf + EAW", di.replace(denoiser=DenoiserType.EAW),
+         still),
+        ("general DI + SVGF, camera turning", di.replace(
+            denoiser=DenoiserType.SVGF), turning),
+        ("general GI + resolve pack", base.replace(
+            tracer=TracerType.RESTIR_GI, trace_depth=5,
+            denoiser=DenoiserType.NONE), still),
+        ("PT_DIRECT", base.replace(tracer=TracerType.PT_DIRECT,
+                                   denoiser=DenoiserType.NONE), still),
+        ("GBUFFER_PREVIEW depth", base.replace(
+            tracer=TracerType.GBUFFER_PREVIEW, gbuffer_channel="depth",
+            denoiser=DenoiserType.NONE), still),
+    ]
+    for name, c, cams in configs:
+        def init(c=c, cams=cams):
+            return renderer.init_general(c, cams[0], dev, scene)
+        if (c.tracer == TracerType.RESTIR_GI
+                and not isinstance(init().gi_reservoir, torch.Tensor)):
+            raise PhaseError(f"{name}: no resolve pack")
+        three = general_banded(scene, c, cams, dev, BANDS, init)
+        one = general_banded(scene, c, cams, dev, 1, init)
+        state = init()
+        for i, cm in enumerate(cams):
+            state, ref = renderer.step_general(scene, state, cm, c)
+            if not torch.equal(three[i], one[i]):
+                raise PhaseError(f"{name} frame {i}: 3 bands differ from "
+                                 f"one band")
+            if not bool(torch.isfinite(three[i]).all()):
+                raise PhaseError(f"{name} frame {i}: non-finite values")
+            exact = float(bits_equal(three[i], ref).all(1).float().mean())
+            close = bool(torch.allclose(three[i], ref, rtol=1e-5, atol=1e-6))
+            print(f"general row bands {name} frame {i}: 3 bands == 1 band "
+                  f"bit for bit; lanes equal to renderer.step_general's "
+                  f"{exact:.6f}, within rtol 1e-5 / atol 1e-6: {close}; "
+                  f"frame mean {float(three[i].mean()):.5f}")
+            if not close:
+                raise PhaseError(f"{name} frame {i}: bands disagree with "
+                                 f"renderer.step_general beyond rtol 1e-5")
+        if not float(three[-1].mean()) > 0.0:
+            raise PhaseError(f"{name}: the frame is black")
+    # the copies between bands, camera still and turning
+    c = di.replace(denoiser=DenoiserType.EAW)
+    for what, cams in (("still", still), ("turning", turning)):
+        read_ms, fetch, halo, px, ch, ranges = exchange_ms(scene, c, cams,
+                                                           dev)
+        print(f"general row bands copies per frame, camera {what}: motion "
+              f"ranges {ranges} read to the host in {read_ms:.3f} ms (host "
+              f"clock); fetch of {px} previous pixels x {ch} channels "
+              f"{fetch:.4f} ms; spatial + EAW row halos {halo:.4f} ms "
+              f"(CUDA events)")
+    # (c) the 3-band general DI cdf + EAW path, timed, beside one device
+    per_frame = {"primary_hit": BANDS, "ris_cdf": BANDS,
+                 "atrous_eaw": BANDS * c.eaw_levels}
+    phase_general_main("general DI cdf + EAW, one device", scene, c, cam,
+                       dev, {k: v // BANDS for k, v in per_frame.items()},
+                       GENERAL_WARMUP, GENERAL_TIMED, with_scene=False)
+    mesh = parallel.make_mesh([dev] * BANDS)
+    state = renderer.init_general(c, cam, dev, scene)
+    step = parallel.make_sharded_step(c, mesh, state)
+    state = parallel.shard_state(state, mesh, c)
+    scenes = parallel.shard_scene(scene, mesh)
+    reset_counts()
+    for _ in range(GENERAL_WARMUP):
+        state, frame = step(scenes, state, cam)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(GENERAL_TIMED):
+        state, frame = step(scenes, state, cam)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / GENERAL_TIMED
+    event_ms = start.elapsed_time(end) / GENERAL_TIMED
+    counts = read_counts()
+    expect = {k: per_frame.get(k, 0) * (GENERAL_WARMUP + GENERAL_TIMED)
+              for k in counts}
+    print(f"main path general DI cdf + EAW {BANDS} bands launches {counts} "
+          f"(expected {expect})")
+    if counts != expect:
+        raise PhaseError(f"general row bands: launch counts {counts} != "
+                         f"{expect}")
+    img = parallel.gather(frame, dev, dim=0)
+    if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0.0:
+        raise PhaseError("general row bands: the frame is not finite or is "
+                         "black")
+    print(f"main path general DI cdf + EAW {BANDS} bands {c.width}x"
+          f"{c.height}: {wall_ms:.3f} ms/frame wall, {event_ms:.3f} "
+          f"ms/frame between CUDA events (the step reads the motion ranges "
+          f"to the host every frame, so this follows the wall; the device "
+          f"busy time is the profile's below), {1e3 / wall_ms:.3f} fps (one "
+          f"device, same run: "
+          f"{MAIN_WALL['general DI cdf + EAW, one device']:.3f} ms/frame "
+          f"wall; phase 13 general DI cdf without a denoiser: "
+          f"{MAIN_WALL.get('general DI cdf', float('nan')):.3f})")
+    profile_frames(f"general DI cdf + EAW {BANDS} bands", scene, c, cam, dev,
+                   step=lambda s: step(scenes, s, cam)[0], state=state)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2696,6 +2971,7 @@ def main() -> int:
         phase_native_hall(dev, tmp)
         phase_viewer(scene, arrays, cam, dev, tmp)
     phase_bands(scene, cfg, cam, dev)
+    phase_general_bands(scene, arrays, cam, dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -1,4 +1,4 @@
-"""Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B10, B11 and B12 of
+"""Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11 and B12 of
 several checkouts of restir_tpu_torch on one card, in turns, and check
 which write the same packs.
 
@@ -14,7 +14,9 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   env_scene() (has_env_map) and textured_scene(aux_maps=True)
   (with_textures), as chip_smoke.py phases 3 and 8 call it;
 - B8 (`gi.gi_trace_cuda`, depth 5) on B1's G-buffer of the headline scene
-  and of cornell_box(), as chip_smoke.py phase 15 calls it;
+  and of cornell_box(), as chip_smoke.py phase 15 calls it, and B9
+  (`gi.gi_resolve_cuda`) on each B8 pack, with that frame's own resolve
+  at looper 0 as the previous pack;
 - B12 (`intersect.primary_cuda`) on the headline's 1080p camera rays and
   on the rays of PT-full's first bounce from their hits (every lane, and
   where the tree's B12 takes a mask, the live lanes only), B11's closest
@@ -298,9 +300,15 @@ def _child() -> None:
                                    device=dev), scene, width=WIDTH,
             height=HEIGHT, aa_jitter=cfg.aa_jitter,
             has_met=cfg.scene_has_metallic)
-        in_pack, _ = restir_di_fused.gi_packs(scene, gb)
+        in_pack, gq = restir_di_fused.gi_packs(scene, gb)
         kw = restir_gi.trace_kwargs(scene, cfg)
         timed(name, lambda: gi.gi_trace_cuda(in_pack, 1, scene, **kw))
+        # B9 on B8's pack, the previous pack its own frame-0 resolve
+        go = gi.gi_trace_cuda(in_pack, 1, scene, **kw)
+        q0 = gi.gi_resolve_cuda(go, in_pack, gq, torch.zeros(
+            (gi.Q_CH, WIDTH * HEIGHT), device=dev), 0)[1]
+        timed(name.replace("B8", "B9"), lambda: gi.gi_resolve_cuda(
+            go, in_pack, gq, q0, 1))
 
     # the hall, then the hall under a sky (chip_smoke.py phases 9 and 11)
     sys.path.insert(0, os.path.join(os.getcwd(), "scenes"))

@@ -10,7 +10,16 @@
 // Lo / lum(Lo) W / M f cos at the visible point on the demodulated
 // material, modulated by the albedo; then check_validity. Writes the
 // indirect radiance [3, R] and the next pack [Q_CH, R] (channels 22-23
-// zero). Draws: pcg4d(p, looper, 0 | 1, SALT_GI).
+// zero). Draws: pcg4d(pix0 + p, looper, 0 | 1, SALT_GI).
+//
+// Row bands (restir_tpu_torch.parallel). A band of whole tiles passes
+// pix0, its first global pixel, the key of its draws; q_prev holds the
+// previous pack's global pixels [prev_base, prev_base + n_prev), the
+// range the band's motion indices reach, and r_prev is the previous
+// frame's global pixel count, which clips each tile's window start, so a
+// tile picks the single-device window. A read outside the held range
+// counts as outside the window; no lane whose merge can pass reads there.
+// The whole frame is pix0 = prev_base = 0, n_prev = r_prev.
 //
 // Design. One thread per pixel, one 1024-thread block per 1024-pixel
 // tile. The temporal window is the TPU kernel's: the tile's least motion
@@ -68,11 +77,13 @@ __global__ void __launch_bounds__(TILE)
     gi_resolve_kernel(const float* __restrict__ go,
                       const float* __restrict__ in,
                       const float* __restrict__ gq,
-                      const float* __restrict__ q_prev, int r_prev, int r,
-                      uint32_t looper, int temporal, int temporal_clamp,
+                      const float* __restrict__ q_prev, int r_prev,
+                      int n_prev, int prev_base, int r, uint32_t looper,
+                      uint32_t pix0, int temporal, int temporal_clamp,
                       int has_met, float* __restrict__ ind,
                       float* __restrict__ q) {
   const int p = blockIdx.x * TILE + threadIdx.x;  // r % TILE == 0
+  const uint32_t key = pix0 + (uint32_t)p;  // the global pixel
   auto G = [&](int c) { return go[(size_t)c * r + p]; };
   auto I = [&](int c) { return in[(size_t)c * r + p]; };
   auto Q = [&](int c) { return gq[(size_t)c * r + p]; };
@@ -95,7 +106,7 @@ __global__ void __launch_bounds__(TILE)
   float w = lum / clampmin(prim_pdf, 1e-20f);
   if (bad(w) || w < 0.0f || !valid) w = 0.0f;
   uint32_t h[4];
-  pcg4d((uint32_t)p, looper, GI_CTR_UPDATE, SALT_GI, h);
+  pcg4d(key, looper, GI_CTR_UPDATE, SALT_GI, h);
   const bool take0 = unit(h[0]) * w < w;
   float s[15];
   {
@@ -115,15 +126,17 @@ __global__ void __launch_bounds__(TILE)
     const int motion = __float2int_rz(motion_f);
     const int rel = motion - w0;
     const bool in_win = motion >= 0 && rel >= 0 && rel < GI_WINDOW;
-    const float* qp = q_prev + (in_win ? motion : w0);
-    auto P = [&](int c) { return qp[(size_t)c * r_prev]; };
+    const int at = (in_win ? motion : w0) - prev_base;
+    const bool held = at >= 0 && at < n_prev;
+    const float* qp = q_prev + (held ? at : 0);
+    auto P = [&](int c) { return qp[(size_t)c * n_prev]; };
     const float n_w = P(Q_W), n_m = P(Q_M);
-    bool ok = in_win && prim > -1.0f && P(Q_PRIM) == prim;
+    bool ok = in_win && held && prim > -1.0f && P(Q_PRIM) == prim;
     ok = ok && fabsf(gn.x * P(Q_GNORM) + gn.y * P(Q_GNORM + 1) +
                      gn.z * P(Q_GNORM + 2)) >= 0.9f;
     ok = ok && fabsf(P(Q_DEPTH) - depth) <= depth * 0.1f;
     ok = ok && !(bad(n_w) || n_w < 0.0f);
-    pcg4d((uint32_t)p, looper, GI_CTR_TEMPORAL, SALT_GI, h);
+    pcg4d(key, looper, GI_CTR_TEMPORAL, SALT_GI, h);
     const float w_new = ok ? r_w + n_w : r_w;
     const float m_new = ok ? r_m + n_m : r_m;
     if (ok && unit(h[0]) * w_new < n_w) {
@@ -187,18 +200,22 @@ __global__ void __launch_bounds__(TILE)
 
 }  // namespace
 
-// go [GO_CH, R], in [IN_CH, R], gq [GQ_CH, R], q_prev [Q_CH, r_prev],
-// R a multiple of 1024. Writes ind [3, R] and q [Q_CH, R].
+// go [GO_CH, R], in [IN_CH, R], gq [GQ_CH, R], R a multiple of 1024;
+// q_prev [Q_CH, n_prev]: the previous pack's global pixels from prev_base
+// of a frame of r_prev pixels; pix0: the global index of pixel 0. Writes
+// ind [3, R] and q [Q_CH, R].
 extern "C" int restir_gi_resolve(const float* go, const float* in,
                                  const float* gq, const float* q_prev,
-                                 int r_prev, int r, uint32_t looper,
+                                 int r_prev, int n_prev, int prev_base,
+                                 int r, uint32_t looper, uint32_t pix0,
                                  int temporal, int temporal_clamp,
                                  int has_met, float* ind, float* q,
                                  void* stream) {
-  if (r <= 0 || r % TILE != 0 || r_prev <= 0)
+  if (r <= 0 || r % TILE != 0 || r_prev <= 0 || n_prev <= 0 ||
+      prev_base < 0)
     return (int)cudaErrorInvalidValue;
   gi_resolve_kernel<<<r / TILE, TILE, 0, (cudaStream_t)stream>>>(
-      go, in, gq, q_prev, r_prev, r, looper, temporal, temporal_clamp,
-      has_met, ind, q);
+      go, in, gq, q_prev, r_prev, n_prev, prev_base, r, looper, pix0,
+      temporal, temporal_clamp, has_met, ind, q);
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,9 @@
 // 0 < t < dist (1 - 1e-3) - 1e-4 on a triangle other than the pixel's own
 // (shadow_ray, shadow_limit: B7's ray). The leaf test is plane_hit, the
 // twin's, so the walk returns the every-row loop's occlusion. The RNG is
-// pcg4d on the global pixel index, counters CTR_RIS + j, salt
-// SALT_RESTIR.
+// pcg4d on the global pixel index pix0 + p (pix0: the first pixel of a
+// row band, 0 for the whole frame), counters CTR_RIS + j, salt
+// SALT_RESTIR; the packs are read and written at p.
 //
 // Bound: FMA throughput of the RIS core (2 x l_pad light targets, ~32
 // FLOP each, and K candidates, ~120 FLOP each, per pixel), then the
@@ -43,7 +44,7 @@ enum { O_LI = 0, O_WI = 3, O_DIST = 6, O_W = 7, O_M = 8, O_PAD = 9 };
 template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     ris_cdf_kernel(const float* __restrict__ in, uint32_t looper,
-                   const float* __restrict__ lights_g,
+                   uint32_t pix0, const float* __restrict__ lights_g,
                    const float* __restrict__ psi_g, int l_pad, int n_area,
                    BvhRows bvh, float* __restrict__ out,
                    int* __restrict__ stats, int r, int single_sided, int k,
@@ -77,8 +78,8 @@ __global__ void __launch_bounds__(BLOCK)
   s.shade = at(I_SHADE) > 0.5f;
   s.prim = __float2int_rz(at(I_PRIM));
   const Candidate c = ris_select<false>(psi, lights, l_pad, n_area,
-                                        (uint32_t)p, looper, k, single_sided,
-                                        has_met, s);
+                                        pix0 + (uint32_t)p, looper, k,
+                                        single_sided, has_met, s);
 
   WalkCount n = {0, 0};
   const bool blocked =
@@ -102,7 +103,8 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 template <bool COUNT>
-int launch_ris_cdf(const float* in, uint32_t looper, const float* lights,
+int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
+                   const float* lights,
                    const float* psi, int l_pad, int n_area,
                    const BvhRows& bvh, float* out, int* stats, int r,
                    int single_sided, int k, int has_met,
@@ -115,7 +117,7 @@ int launch_ris_cdf(const float* in, uint32_t looper, const float* lights,
     if (e != cudaSuccess) return (int)e;
   }
   ris_cdf_kernel<COUNT><<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
-      in, looper, lights, psi, l_pad, n_area, bvh, out, stats, r,
+      in, looper, pix0, lights, psi, l_pad, n_area, bvh, out, stats, r,
       single_sided, k, has_met);
   return (int)cudaGetLastError();
 }
@@ -127,9 +129,11 @@ int launch_ris_cdf(const float* in, uint32_t looper, const float* lights,
 // scene's MTBVH (ops/kernels/tables.py). Writes out [10, R]: li (3), wi
 // (3), dist, weight (zero when the winner is occluded), M, 0. stats:
 // null, or int32 [2, R] that receives each shadow walk's box and plane
-// test counts.
+// test counts. pix0: the global index of pixel 0 of the pack, the key of
+// its draws.
 extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
-                              const float* lights, const float* psi,
+                              uint32_t pix0, const float* lights,
+                              const float* psi,
                               int l_pad, int n_area, const float* rows,
                               int size, const float* planes, float* out,
                               int* stats, int r, int single_sided, int k,
@@ -139,8 +143,10 @@ extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream;
   if (stats)
-    return launch_ris_cdf<true>(in, looper, lights, psi, l_pad, n_area, bvh,
-                                out, stats, r, single_sided, k, has_met, st);
-  return launch_ris_cdf<false>(in, looper, lights, psi, l_pad, n_area, bvh,
-                               out, stats, r, single_sided, k, has_met, st);
+    return launch_ris_cdf<true>(in, looper, pix0, lights, psi, l_pad, n_area,
+                                bvh, out, stats, r, single_sided, k, has_met,
+                                st);
+  return launch_ris_cdf<false>(in, looper, pix0, lights, psi, l_pad, n_area,
+                               bvh, out, stats, r, single_sided, k, has_met,
+                               st);
 }

@@ -10,6 +10,18 @@ estimate and prefilter (`ops.kernels.svgf.estimate_variance` /
 [GB_CH, R] pack built from the G-buffer (`gbuffer_pack`: prim in
 G_PRIMR, normal, position). CPU tensors take the kernels' plain twins.
 
+`denoise` runs the configured filter on a list of frames, one per row
+band (a single one on one device). Every filter runs one sequence for
+both: per band it demodulates (and, for SVGF, accumulates against the
+history), then asks an image provider for each band's image of the
+planes its taps read, runs the spatial chain (`eaw_levels`,
+`svgf_levels`) on it and crops the band's pixels. The default provider
+(`whole_frame`) hands back the one band's own planes;
+`restir_tpu_torch.parallel.sharding.band_images` gathers a band's rows
+and the rows its taps reach from every band. SVGF's temporal step then
+reads a fetched range of the previous history (`prev`: per band the
+columns of global pixels from a base).
+
 SVGF's temporal step (`svgf_temporal_accumulate`, temporalAccumulate,
 denoiser.cu:250-305) gathers the history at `gb.motion` from anywhere in
 the frame, as the JAX package's XLA gather does; the fused path's kernel
@@ -27,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import DenoiserType
 from ..ops.kernels.atrous import _shift
 
 SVGF_ALPHA = 0.2  # denoiser.cu:256
@@ -112,35 +125,70 @@ def _demodulate(frame, gb, cfg):
     return frame / safe, safe
 
 
-def eaw_filter(frame: torch.Tensor, gb, cam, cfg) -> torch.Tensor:
-    """LeveledEAWFilter::filter (denoiser.cu:463-477): `cfg.eaw_levels`
-    levels of B3 on the demodulated [R, 3] frame, modulated back."""
+def eaw_levels(color: torch.Tensor, gb_pack: torch.Tensor,
+               cfg) -> torch.Tensor:
+    """`cfg.eaw_levels` levels of B3 on a demodulated [3, H W] image of
+    cfg's size."""
     from ..ops.kernels import atrous
 
-    demod, albedo = _demodulate(frame, gb, cfg)
-    color = demod.T.contiguous()
-    gb_pack = gbuffer_pack(gb)
     for level in range(cfg.eaw_levels):
         color = atrous.atrous_level(
             color, gb_pack, level=level, width=cfg.width, height=cfg.height,
             sig_l=cfg.sig_luminance, sig_n=cfg.sig_normal,
             sig_d=cfg.sig_depth)
-    return color.T * albedo
+    return color
+
+
+def whole_frame(height: int):
+    """The image provider of a single band that is the whole frame of
+    `height` rows: image(planes, 0) -> (band 0's planes, height, 0)."""
+    return lambda planes, b: ([p[b] for p in planes], height, 0)
+
+
+def eaw_filter(frames, gbs, cfg, image=None):
+    """LeveledEAWFilter::filter (denoiser.cu:463-477): `cfg.eaw_levels`
+    levels of B3 on each band's demodulated [r, 3] frame, modulated back.
+    `image(planes, b)` takes lists of band planes [C, r] and gives band
+    b's image of each, the image's height and the band's first pixel in
+    it (default `whole_frame`: one band, the whole frame)."""
+    image = image or whole_frame(cfg.height)
+    demods = [_demodulate(f, g, cfg) for f, g in zip(frames, gbs)]
+    colors = [d.T.contiguous() for d, _ in demods]
+    packs = [gbuffer_pack(g) for g in gbs]
+    out = []
+    for b, (_, albedo) in enumerate(demods):
+        (color, gb_img), h, o = image([colors, packs], b)
+        color = eaw_levels(color, gb_img, cfg.replace(height=h))
+        out.append(color[:, o:o + albedo.shape[0]].T * albedo)
+    return out
+
+
+def svgf_pack(state: SVGFState, last_gb) -> torch.Tensor:
+    """The [C, R] channel pack `svgf_temporal_accumulate` gathers from:
+    the history and the previous G-buffer's prim and normal."""
+    from ..ops import reservoir as rsv
+
+    return rsv.pack_channels((state.accum_color, state.accum_moment,
+                              last_gb.prim_id, last_gb.norm))
 
 
 def svgf_temporal_accumulate(color_in: torch.Tensor, gb, last_gb,
-                             state: SVGFState) -> SVGFState:
+                             state: SVGFState, prev=None,
+                             prev_base: int = 0) -> SVGFState:
     """temporalAccumulate (denoiser.cu:250-305): the history at the motion
     index, the disocclusion test (motion, prim, |n.n'| < 0.1) and the
-    alpha blend of colour and of the (lum, lum^2) moments."""
+    alpha blend of colour and of the (lum, lum^2) moments. `prev` is
+    `svgf_pack`'s columns of global pixels prev_base .. (default: the
+    whole of `state` and `last_gb`)."""
     from ..ops import reservoir as rsv
     from ..utils import math as mathx
 
     last_idx = gb.motion
-    safe_idx = torch.clamp(last_idx, min=0).long()
     template = (state.accum_color, state.accum_moment, last_gb.prim_id,
                 last_gb.norm)
-    rows = rsv.pack_channels(template)[:, safe_idx]
+    if prev is None:
+        prev = rsv.pack_channels(template)
+    rows = rsv.take_columns(prev, last_idx, prev_base)
     last_color, last_moment, lprim, lnorm = rsv.unpack_channels(rows,
                                                                 template)
     diff = ((last_idx < 0) | (gb.prim_id <= NULL_PRIMITIVE)
@@ -159,22 +207,19 @@ def svgf_temporal_accumulate(color_in: torch.Tensor, gb, last_gb,
     return SVGFState(accum_color=accum_color, accum_moment=accum_moment)
 
 
-def svgf_filter(frame: torch.Tensor, gb, last_gb, state: SVGFState, cam,
-                cfg):
-    """SpatioTemporalFilter::filter (denoiser.cu:537-564) on the [R, 3]
-    frame -> (filtered frame, next SVGFState); the colour history fed
-    forward is the level-0 output (denoiser.cu:542-543)."""
+def svgf_levels(color: torch.Tensor, moment: torch.Tensor,
+                gb_pack: torch.Tensor, cfg):
+    """SVGF's spatial chain on a [3, H W] image of cfg's size: the
+    variance estimate from the [3, H W] moments, then `cfg.eaw_levels`
+    levels of prefilter + B4 -> (filtered colour, the level-0 output:
+    the colour history fed forward, denoiser.cu:542-543)."""
     from ..ops.kernels import atrous, svgf
 
     w, h = cfg.width, cfg.height
-    demod, albedo = _demodulate(frame, gb, cfg)
-    state = svgf_temporal_accumulate(demod, gb, last_gb, state)
-    moments = torch.zeros((svgf.SV_CH, cfg.num_pixels), dtype=torch.float32,
-                          device=frame.device)
-    moments[svgf.SV_M1:svgf.SV_M1 + 3] = state.accum_moment.T
+    moments = torch.zeros((svgf.SV_CH, color.shape[1]), dtype=torch.float32,
+                          device=color.device)
+    moments[svgf.SV_M1:svgf.SV_M1 + 3] = moment
     var = svgf.estimate_variance(moments, width=w, height=h)
-    color = state.accum_color.T.contiguous()
-    gb_pack = gbuffer_pack(gb)
     history = color
     for level in range(cfg.eaw_levels):
         fv = svgf.filter_variance(var, width=w, height=h)
@@ -184,6 +229,43 @@ def svgf_filter(frame: torch.Tensor, gb, last_gb, state: SVGFState, cam,
             sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
         if level == 0:
             history = color
-    next_state = SVGFState(accum_color=history.T.contiguous(),
-                           accum_moment=state.accum_moment)
-    return color.T * albedo, next_state
+    return color, history
+
+
+def svgf_filter(frames, gbs, last_gbs, states, cfg, image=None,
+                prev=None):
+    """SpatioTemporalFilter::filter (denoiser.cu:537-564) on each band's
+    [r, 3] frame -> (filtered frames, next SVGFStates); the colour
+    history fed forward is the level-0 output (denoiser.cu:542-543).
+    `image` as in `eaw_filter`; `prev` holds per band the (`svgf_pack`
+    columns, first global pixel) its history is read from (default: the
+    band's own `states` and `last_gbs`)."""
+    image = image or whole_frame(cfg.height)
+    prev = prev or [(None, 0)] * len(frames)
+    demods = [_demodulate(f, g, cfg) for f, g in zip(frames, gbs)]
+    acc = [svgf_temporal_accumulate(d, g, lg, s, p, base)
+           for (d, _), g, lg, s, (p, base) in zip(demods, gbs, last_gbs,
+                                                  states, prev)]
+    colors = [a.accum_color.T.contiguous() for a in acc]
+    moments = [a.accum_moment.T for a in acc]
+    packs = [gbuffer_pack(g) for g in gbs]
+    out, nxt = [], []
+    for b, ((_, albedo), a) in enumerate(zip(demods, acc)):
+        (color, moment, gb_img), h, o = image([colors, moments, packs], b)
+        color, history = svgf_levels(color, moment, gb_img,
+                                     cfg.replace(height=h))
+        r = albedo.shape[0]
+        out.append(color[:, o:o + r].T * albedo)
+        nxt.append(SVGFState(accum_color=history[:, o:o + r].T.contiguous(),
+                             accum_moment=a.accum_moment))
+    return out, nxt
+
+
+def denoise(frames, gbs, last_gbs, states, cfg, image=None, prev=None):
+    """cfg's denoiser on the bands' frames (`eaw_filter`, `svgf_filter`,
+    or none) -> (frames, next SVGFStates)."""
+    if cfg.denoiser == DenoiserType.EAW:
+        return eaw_filter(frames, gbs, cfg, image), states
+    if cfg.denoiser == DenoiserType.SVGF:
+        return svgf_filter(frames, gbs, last_gbs, states, cfg, image, prev)
+    return frames, states

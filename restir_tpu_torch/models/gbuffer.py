@@ -51,12 +51,20 @@ def empty_gbuffer(num_pixels: int, device="cuda") -> GBufferFrame:
         motion=torch.full((r,), -1, dtype=torch.int32, device=device))
 
 
+def band_size(cfg: RenderConfig, pix0: int, r) -> int:
+    """The pixel count of the band from global pixel pix0 (`r`, or the
+    rest of the frame)."""
+    return cfg.num_pixels - pix0 if r is None else r
+
+
 def primary_rays(cam: Camera, cfg: RenderConfig, looper, salt, device,
-                 sampler="pcg4d"):
-    """Camera rays of every pixel with the frame's jitter draws (and lens
-    draws with DoF) -> (pix, o, d)."""
-    x, y = pixel_centers(cfg.width, cfg.height, device)
-    pix = torch.arange(cfg.num_pixels, device=device)
+                 sampler="pcg4d", pix0: int = 0, r=None):
+    """Camera rays with the frame's jitter draws (and lens draws with
+    DoF) -> (pix, o, d): of every pixel, or of the r pixels from global
+    pixel pix0, each keyed by its global index."""
+    r = band_size(cfg, pix0, r)
+    x, y = pixel_centers(cfg.width, cfg.height, device, pix0, r)
+    pix = torch.arange(pix0, pix0 + r, device=device)
     r1, r2, r3, r4 = rng.draw4(sampler, pix, looper, 0, salt)
     lens = (r3, r4) if cfg.enable_dof else (None, None)
     o, d = sample_rays(cam, cfg.width, cfg.height, x, y, r1, r2, *lens)
@@ -64,15 +72,18 @@ def primary_rays(cam: Camera, cfg: RenderConfig, looper, salt, device,
 
 
 def render_gbuffer(scene, cam: Camera, last_cam: Camera, cfg: RenderConfig,
-                   looper):
+                   looper, pix0: int = 0, r=None):
     """One primary-visibility pass -> (GBufferFrame, Interaction,
-    SurfaceMaterial, ray_dir [R, 3])."""
+    SurfaceMaterial, ray_dir [R, 3]): of the frame, or of the row band of
+    r pixels from global pixel pix0. The motion index is global."""
     dev = scene.verts.device
     trv = ix.traversal_arrays(scene, cfg.intersector)
     if cfg.aa_jitter:
-        _, o, d = primary_rays(cam, cfg, looper, rng.SALT_CAMERA, dev)
+        _, o, d = primary_rays(cam, cfg, looper, rng.SALT_CAMERA, dev,
+                               pix0=pix0, r=r)
     else:
-        x, y = pixel_centers(cfg.width, cfg.height, dev)
+        x, y = pixel_centers(cfg.width, cfg.height, dev, pix0,
+                             band_size(cfg, pix0, r))
         half = torch.full_like(x, 0.5)
         lens = (half, half) if cfg.enable_dof else (None, None)
         o, d = sample_rays(cam, cfg.width, cfg.height, x, y, half, half,

@@ -24,14 +24,15 @@ from ..ops.texture import env_sample_bilinear
 from ..scene.mesh import DIELECTRIC, LIGHT
 from ..utils import math as mathx
 from ..utils import rng
-from .gbuffer import primary_rays
+from .gbuffer import band_size, primary_rays
 
 
-def _primary_setup(scene, cam: Camera, cfg: RenderConfig, looper, salt):
+def _primary_setup(scene, cam: Camera, cfg: RenderConfig, looper, salt,
+                   pix0=0, r=None):
     """Camera ray, first hit and textured material, shared by the PTs."""
     trv = ix.traversal_arrays(scene, cfg.intersector)
     pix, o, d = primary_rays(cam, cfg, looper, salt, scene.verts.device,
-                             cfg.sampler)
+                             cfg.sampler, pix0, r)
     it, mat, hit = trace_primary(scene, trv, o, d, cfg.with_textures)
     return trv, pix, o, d, hit, it, mat
 
@@ -48,11 +49,13 @@ def _facing(norm, wo, mat):
     return torch.where(flip[..., None], -norm, norm)
 
 
-def pt_direct(scene, cam: Camera, cfg: RenderConfig, looper):
+def pt_direct(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
+              r=None):
     """One-bounce NEE-only direct light — PTDirectKernel
-    (pathtrace.cu:279-328). Returns radiance [R, 3]."""
+    (pathtrace.cu:279-328). Returns radiance [R, 3]; with (pix0, r),
+    of the row band of r pixels from global pixel pix0."""
     trv, pix, o, d, hit, it, mat = _primary_setup(scene, cam, cfg, looper,
-                                                  rng.SALT_PT)
+                                                  rng.SALT_PT, pix0, r)
     miss = ~it.valid
     env = _env_radiance(scene, d, cfg)
     is_light = it.valid & (mat.type == LIGHT)
@@ -73,12 +76,13 @@ def pt_direct(scene, cam: Camera, cfg: RenderConfig, looper):
     return mathx.zero_nan_or_inf(direct)
 
 
-def pt_trace(scene, cam: Camera, cfg: RenderConfig, looper):
+def pt_trace(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
+             r=None):
     """Full MIS path tracer — singleKernelPT (pathtrace.cu:156-277).
     Returns (direct [R, 3], indirect [R, 3]): depth-1 NEE is direct,
-    everything else indirect."""
+    everything else indirect. (pix0, r) as in `pt_direct`."""
     trv, pix, o, d, hit, it, mat = _primary_setup(scene, cam, cfg, looper,
-                                                  rng.SALT_PT)
+                                                  rng.SALT_PT, pix0, r)
     miss = ~it.valid
     env = _env_radiance(scene, d, cfg)
     direct = torch.where(miss[..., None], env, 0.0)
@@ -173,17 +177,19 @@ def _bounce(scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
             -rd, new_mat)
 
 
-def pt_indirect(scene, cam: Camera, cfg: RenderConfig, looper):
+def pt_indirect(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
+                r=None):
     """Indirect-only — PTIndirectKernel (pathtrace.cu:330-432)."""
-    return pt_trace(scene, cam, cfg, looper)[1]
+    return pt_trace(scene, cam, cfg, looper, pix0, r)[1]
 
 
-def bvh_heatmap(scene, cam: Camera, cfg: RenderConfig):
+def bvh_heatmap(scene, cam: Camera, cfg: RenderConfig, pix0=0, r=None):
     """BVH traversal cost view — visualizedIntersect (scene.h:318-356):
     each pixel-centre camera ray's count of descended MTBVH nodes (int32
-    [R]), on any intersector method."""
+    [R]), on any intersector method. (pix0, r) as in `pt_direct`."""
     trv = ix.traversal_arrays(scene, cfg.intersector, walk=True)
-    x, y = pixel_centers(cfg.width, cfg.height, scene.verts.device)
+    x, y = pixel_centers(cfg.width, cfg.height, scene.verts.device, pix0,
+                         band_size(cfg, pix0, r))
     o, d = sample_rays(cam, cfg.width, cfg.height, x, y,
                        torch.full_like(x, 0.5), torch.full_like(y, 0.5))
     return hit_kernels.heatmap(trv, o, d)

@@ -13,6 +13,14 @@
      disk offsets (the JAX package's documented deviation);
   5. shading Li / lum(Li) * W / M, modulated by the G-buffer albedo.
 
+A row band (`restir_tpu_torch.parallel`) runs the frame in two stages:
+`direct_temporal` (steps 1-3) on its pixels, with every draw keyed by
+the global pixel index and the temporal gather reading the previous
+frame's fields from wherever the motion points (`prev`, a fetched range
+of them); then `direct_shade` (steps 4-5) on the rows of post-temporal
+reservoirs the spatial taps reach around the band. `restir_direct` is
+the two on the whole frame.
+
 On CUDA tensors without an env map, cdf mode's steps 1 and 2 are kernel
 B10 (`ops.kernels.ris_cdf`) with any intersector and at any triangle
 count, as the JAX package runs its Pallas `ris_kernel` (which casts its
@@ -24,6 +32,8 @@ shadow ray does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -52,16 +62,31 @@ def _p_hat_direct(sample: rsv.DirectSample, mat, norm, wo):
     return sample.li * f * mathx.sat_dot(norm, sample.wi)[..., None]
 
 
-def find_temporal_neighbor(res_in: rsv.Reservoir, gb: GBufferFrame,
-                           last_gb: GBufferFrame):
+def temporal_pack(res_in, last_gb: GBufferFrame) -> torch.Tensor:
+    """The [C, R] channel pack `find_temporal_neighbor` gathers from: the
+    previous reservoir and the previous G-buffer's prim, normal, depth."""
+    return rsv.pack_channels((res_in, last_gb.prim_id, last_gb.norm,
+                              last_gb.depth))
+
+
+def motion_valid(gb: GBufferFrame) -> torch.Tensor:
+    """Lanes whose motion index a temporal gather may use: a previous
+    pixel and a primitive (the range a row band fetches)."""
+    return (gb.motion >= 0) & (gb.prim_id > NULL_PRIMITIVE)
+
+
+def find_temporal_neighbor(res_in, gb: GBufferFrame, last_gb: GBufferFrame,
+                           prev=None, prev_base: int = 0):
     """Last frame's reservoir at the motion index, with geometric
     rejection — findTemporalNeighbor (restir.cu:21-45). Returns
-    (neighbour reservoir, ok mask)."""
-    last_idx = gb.motion
-    safe_idx = torch.clamp(last_idx, min=0).long()
-    ok = (last_idx >= 0) & (gb.prim_id > NULL_PRIMITIVE)
+    (neighbour reservoir, ok mask). `prev` is `temporal_pack`'s columns
+    of global pixels prev_base .. (default: the whole of `res_in` and
+    `last_gb`, which otherwise give only the layout)."""
+    ok = motion_valid(gb)
     template = (res_in, last_gb.prim_id, last_gb.norm, last_gb.depth)
-    rows = rsv.pack_channels(template)[:, safe_idx]
+    if prev is None:
+        prev = rsv.pack_channels(template)
+    rows = rsv.take_columns(prev, gb.motion, prev_base)
     neighbor, lprim, lnorm, ldepth = rsv.unpack_channels(rows, template)
     ok = (ok & (lprim == gb.prim_id)
           & (mathx.abs_dot(gb.norm, lnorm) >= 0.9)
@@ -78,21 +103,36 @@ def spatial_offset(i: int, looper, radius: float):
             int((0.5 + p[1]).to(torch.int32)))
 
 
+def spatial_pack(res_out: rsv.Reservoir, gb: GBufferFrame) -> torch.Tensor:
+    """The [C, R] channel pack the spatial taps read: post-temporal
+    reservoirs and the G-buffer's prim, normal, depth."""
+    return rsv.pack_channels((res_out, gb.prim_id, gb.norm, gb.depth))
+
+
 def _merge_spatial_neighbors(res_buf: rsv.Reservoir, gb: GBufferFrame,
-                             cfg: RenderConfig, pix, looper) -> rsv.Reservoir:
+                             cfg: RenderConfig, pix, looper, pix0: int = 0,
+                             img=None, row0: int = 0) -> rsv.Reservoir:
     """Up to `spatial_neighbors` disk neighbours merged into a fresh
     reservoir — mergeSpatialNeighborDirect (restir.cu:87-100). Offsets
     are drawn once per frame and shared by all pixels (a 2-D roll), as in
-    the JAX package; the merge draws and rejection stay per pixel."""
+    the JAX package; the merge draws and rejection stay per pixel.
+    `img` ([C, rows, W] of `spatial_pack`, from global row `row0`) holds
+    the rows the taps of the pixels pix0 .. reach (default: the frame);
+    the roll wraps inside it, and the in-frame test on the global (x, y)
+    masks every wrapped tap, as on the whole frame."""
     w, h = cfg.width, cfg.height
+    r = pix.shape[0]
     x = pix % w
     y = torch.div(pix, w, rounding_mode="floor")
     template = (res_buf, gb.prim_id, gb.norm, gb.depth)
-    img = rsv.pack_channels(template).reshape(-1, h, w)
-    agg = rsv.zeros_direct(cfg.num_pixels, pix.device)
+    if img is None:
+        img = rsv.pack_channels(template).reshape(-1, h, w)
+    y0 = pix0 // w - row0
+    agg = rsv.zeros_direct(r, pix.device)
     for i in range(cfg.spatial_neighbors):
         dx, dy = spatial_offset(i, looper, cfg.spatial_radius)
-        shifted = torch.roll(img, (-dy, -dx), dims=(1, 2)).reshape(-1, w * h)
+        shifted = torch.roll(img, (-dy, -dx), dims=(1, 2))[
+            :, y0:y0 + r // w].reshape(-1, r)
         neighbor, nprim, nnorm, ndepth = rsv.unpack_channels(shifted,
                                                              template)
         px, py = x + dx, y + dy
@@ -112,21 +152,23 @@ def resolve_ris_mode(cfg: RenderConfig) -> str:
 
 
 def _ris_cdf(scene, pos, dmat, norm, wo, shade, prim_id, cfg: RenderConfig,
-             looper):
+             looper, pix0=0):
     """cdf-mode candidates -> (reservoir, visibility done). On CUDA
-    without an env map, kernel B10 runs the winner's shadow ray too."""
+    without an env map, kernel B10 runs the winner's shadow ray too.
+    Pixel p draws as global pixel pix0 + p."""
     if pos.is_cuda and not cfg.has_env_map:
         li, wi, dist, weight, m = ris_kernel.ris_cdf(
             pos, norm, wo, dmat.type, dmat.metallic, dmat.roughness, shade,
             prim_id, looper, scene.tables, scene.bvh, k=cfg.cdf_candidates,
             single_sided=cfg.single_sided_lights,
-            has_met=cfg.scene_has_metallic)
+            has_met=cfg.scene_has_metallic, pix0=pix0)
         return rsv.Reservoir(sample=rsv.DirectSample(li=li, wi=wi, dist=dist),
                              weight=weight, m=m), True
     parts = []
     for c0 in range(0, pos.shape[0], _RIS_CHUNK):
         sl = slice(c0, c0 + _RIS_CHUNK)
-        pix = torch.arange(c0, c0 + pos[sl].shape[0], device=pos.device)
+        pix = torch.arange(pix0 + c0, pix0 + c0 + pos[sl].shape[0],
+                           device=pos.device)
         mat_c = rsv.tree_map(lambda t: t[sl], dmat)
         with mathx.fused():  # a lax.map body in the JAX package
             parts.append(_ris_cdf_chunk(scene, pix, pos[sl], mat_c, norm[sl],
@@ -176,10 +218,10 @@ def _ris_cdf_chunk(scene, pix, pos, mat, norm, wo, shade, cfg, looper):
 
 
 def _ris_reference(scene, pos, dmat, norm, wo, shade, cfg: RenderConfig,
-                   looper):
+                   looper, pix0=0):
     """Reference mode: K = ris_candidates streaming updates of NEE
     samples without visibility (restir.cu:156-169)."""
-    pix = torch.arange(pos.shape[0], device=pos.device)
+    pix = torch.arange(pix0, pix0 + pos.shape[0], device=pos.device)
     res = rsv.zeros_direct(pos.shape[0], pos.device)
     with mathx.fused():  # a fori_loop body in the JAX package
         for i in range(cfg.ris_candidates):
@@ -202,12 +244,31 @@ def _ris_reference_candidate(scene, pix, pos, dmat, norm, wo, shade, cfg,
     return rsv.update(res, cand, w, r_upd, active=shade)
 
 
-def restir_direct(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
-                  ray_dir, res_in: rsv.Reservoir, cfg: RenderConfig, looper):
-    """One ReSTIR DI frame -> (direct radiance [R, 3] modulated by the
-    G-buffer albedo, the reservoir for next frame's temporal pass)."""
+class DirectStage(NamedTuple):
+    """What a ReSTIR DI frame carries from its temporal stage to its
+    spatial merge and shade."""
+
+    res: rsv.Reservoir  # post-temporal, before check_validity
+    res_out: rsv.Reservoir  # what the next frame reuses
+    pix: torch.Tensor  # [R] global pixel indices
+    pix0: int
+    shade: torch.Tensor
+    is_light: torch.Tensor
+    miss: torch.Tensor
+    dmat: object  # the demodulated SurfaceMaterial
+    norm: torch.Tensor
+    wo: torch.Tensor
+
+
+def direct_temporal(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
+                    ray_dir, res_in: rsv.Reservoir, cfg: RenderConfig, looper,
+                    pix0: int = 0, prev=None,
+                    prev_base: int = 0) -> DirectStage:
+    """Steps 1-3 on the pixels pix0 .. (global indices): candidates,
+    the winner's visibility, the temporal merge. `prev` / `prev_base`
+    as in `find_temporal_neighbor`."""
     trv = ix.traversal_arrays(scene, cfg.intersector)
-    pix = torch.arange(cfg.num_pixels, device=it.pos.device)
+    pix = torch.arange(pix0, pix0 + it.pos.shape[0], device=it.pos.device)
     miss = ~it.valid
     is_light = it.valid & (gb.prim_id == LIGHT_ID)
     shade = it.valid & ~is_light
@@ -220,10 +281,10 @@ def restir_direct(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
     # 1. candidates without visibility (restir.cu:156-169)
     if resolve_ris_mode(cfg) == "cdf":
         res, vis_done = _ris_cdf(scene, it.pos, dmat, norm, wo, shade,
-                                 it.prim_id, cfg, looper)
+                                 it.prim_id, cfg, looper, pix0)
     else:
         res = _ris_reference(scene, it.pos, dmat, norm, wo, shade, cfg,
-                             looper)
+                             looper, pix0)
         vis_done = False
     # 2. the winner's visibility (restir.cu:172-176); env samples carry a
     # far distance, clamped as in sample_direct_light (scene.h:386)
@@ -235,25 +296,37 @@ def restir_direct(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
 
     # 3. temporal reuse (restir.cu:180-185)
     if cfg.reuse & ReuseMode.TEMPORAL:
-        temporal, ok = find_temporal_neighbor(res_in, gb, last_gb)
+        temporal, ok = find_temporal_neighbor(res_in, gb, last_gb, prev,
+                                              prev_base)
         ok = ok & ~rsv.invalid(temporal) & shade
         r_t = rng.uniform1(pix, looper, _CTR_TEMPORAL, rng.SALT_RESTIR)
         res = rsv.pre_clamped_merge(res, temporal, cfg.temporal_clamp, r_t,
                                     active=ok)
     # the post-temporal reservoir is what the next frame reuses
-    res_out = rsv.check_validity(res)
+    return DirectStage(res=res, res_out=rsv.check_validity(res), pix=pix,
+                       pix0=pix0, shade=shade, is_light=is_light, miss=miss,
+                       dmat=dmat, norm=norm, wo=wo)
 
+
+def direct_shade(st: DirectStage, gb: GBufferFrame, cfg: RenderConfig,
+                 looper, img=None, row0: int = 0) -> torch.Tensor:
+    """Steps 4-5: the spatial merge (`img` / `row0` as in
+    `_merge_spatial_neighbors`) and the shade -> direct radiance
+    [R, 3] modulated by the G-buffer albedo."""
+    res, shade = st.res, st.shade
     # 4. spatial reuse (restir.cu:190-210)
     if cfg.reuse & ReuseMode.SPATIAL:
-        agg = _merge_spatial_neighbors(res_out, gb, cfg, pix, looper)
+        agg = _merge_spatial_neighbors(st.res_out, gb, cfg, st.pix, looper,
+                                       st.pix0, img, row0)
         ok = ~rsv.invalid(agg) & ~rsv.invalid(res) & shade
-        r_s = rng.uniform1(pix, looper, _CTR_SPATIAL + cfg.spatial_neighbors,
+        r_s = rng.uniform1(st.pix, looper,
+                           _CTR_SPATIAL + cfg.spatial_neighbors,
                            rng.SALT_RESTIR)
         res = rsv.merge(res, agg, r_s, active=ok)
 
     # 5. shade (restir.cu:216-226): the demodulated BSDF is grey, so f
     # cancels from Li f / lum(Li f); only its support mask remains
-    f_lum = bsdf_ops.eval_bsdf_lum(dmat, norm, wo, res.sample.wi)
+    f_lum = bsdf_ops.eval_bsdf_lum(st.dmat, st.norm, st.wo, res.sample.wi)
     li_lum = mathx.luminance(res.sample.li)
     w_big = res.weight / torch.clamp(res.m.to(torch.float32), min=1.0)
     direct = (res.sample.li / torch.clamp(li_lum, min=1e-20)[..., None]
@@ -262,6 +335,15 @@ def restir_direct(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
                           & (li_lum > 0))[..., None], direct, 0.0)
     direct = mathx.zero_nan_or_inf(direct)
     # demodulated emissive / miss values: 1, so the albedo carries them
-    direct = torch.where(is_light[..., None], 1.0, direct)
-    direct = torch.where(miss[..., None], 1.0, direct)
-    return direct * gb.albedo, res_out
+    direct = torch.where(st.is_light[..., None], 1.0, direct)
+    direct = torch.where(st.miss[..., None], 1.0, direct)
+    return direct * gb.albedo
+
+
+def restir_direct(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
+                  ray_dir, res_in: rsv.Reservoir, cfg: RenderConfig, looper):
+    """One ReSTIR DI frame -> (direct radiance [R, 3] modulated by the
+    G-buffer albedo, the reservoir for next frame's temporal pass)."""
+    st = direct_temporal(scene, gb, last_gb, it, mat, ray_dir, res_in, cfg,
+                         looper)
+    return direct_shade(st, gb, cfg, looper), st.res_out

@@ -51,10 +51,11 @@ from ..ops.kernels.fused_di import (
     G_ROUGH,
     G_SHADE,
     PT_CH,
+    WINDOW,
 )
 from ..ops.kernels.svgf import SV_CH, SV_COL, SV_PRIM
 from ..scene.scene_data import SceneTensors
-from . import restir_gi
+from . import denoiser, restir_gi
 
 RESIDENT_MAX_TRIS = 1024  # larger scenes take the MTBVH kernels B6 + B7
 
@@ -228,7 +229,8 @@ def step_fused(scene: SceneTensors, state: FusedDIState, cam: Camera,
     if cfg.denoiser == DenoiserType.EAW:
         frame = eaw_filter_packed(frame, gb, cfg)
     elif cfg.denoiser == DenoiserType.SVGF:
-        frame, svgf_pack = svgf_filter_packed(frame, gb, svgf_pack, cfg)
+        (frame,), (svgf_pack,) = svgf_filter_packed([frame], [gb],
+                                                    [svgf_pack], cfg)
 
     next_state = state._replace(
         looper=(looper + 1) & 0xFFFFFFFF,
@@ -303,17 +305,33 @@ def eaw_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
     return color if safe is None else color * safe
 
 
-def svgf_filter_packed(frame: torch.Tensor, gb_pack: torch.Tensor,
-                       svgf_prev: torch.Tensor, cfg: RenderConfig):
-    """SVGF on [3, R] (denoiser.cu:479-568): demodulate, accumulate with
-    the history (B5), then `svgf_wavelets`. Returns (filtered frame, next
-    svgf pack); the colour history fed forward is the level-0 output
-    (denoiser.cu:542-543)."""
-    demod, safe = _demod(frame, gb_pack, cfg)
-    sv = svgf.svgf_temporal(gb_pack, demod.contiguous(), svgf_prev)
-    color, history = svgf_wavelets(sv, gb_pack, cfg)
-    sv[SV_COL:SV_COL + 3] = history
-    return (color if safe is None else color * safe), sv
+def svgf_filter_packed(frames, gb_packs, svgf_prevs, cfg: RenderConfig,
+                       image=None, prev_base=(0,), window=WINDOW):
+    """SVGF on each band's [3, r] frame (denoiser.cu:479-568): demodulate,
+    accumulate with the history (B5: band b's previous svgf pack
+    `svgf_prevs[b]` starts at global pixel `prev_base[b]`), then
+    `svgf_wavelets` on the band's image (`image` as in
+    `denoiser.eaw_filter`; default: one band, the whole frame). Returns
+    (filtered frames, next svgf packs); the colour history fed forward is
+    the level-0 output (denoiser.cu:542-543)."""
+    image = image or denoiser.whole_frame(cfg.height)
+    demods = [_demod(f, g, cfg) for f, g in zip(frames, gb_packs)]
+    svs = [svgf.svgf_temporal(g, d.contiguous(), p, prev_base=base,
+                              window=window)
+           for (d, _), g, p, base in zip(demods, gb_packs, svgf_prevs,
+                                         prev_base)]
+    out, history = [], []
+    for b, (_, safe) in enumerate(demods):
+        (sv, gb_img), h, o = image([svs, gb_packs], b)
+        color, hist = svgf_wavelets(sv, gb_img, cfg.replace(height=h))
+        r = svs[b].shape[1]
+        color = color[:, o:o + r]
+        out.append(color.contiguous() if safe is None else color * safe)
+        history.append(hist[:, o:o + r])
+    # every band's image is cut before a history is written back
+    for sv, hist in zip(svs, history):
+        sv[SV_COL:SV_COL + 3] = hist
+    return out, svs
 
 
 def svgf_wavelets(sv: torch.Tensor, gb_pack: torch.Tensor,

@@ -20,6 +20,11 @@ Two routes, as in the JAX package:
   does on the TPU; otherwise (and on CPU tensors) the torch bounce loop,
   whose hits go through B12 and B11's any hit on the card.
 
+A row band (`restir_tpu_torch.parallel`) passes `pix0`, its first
+global pixel, which keys every draw (B8's, B9's and the torch loop's),
+and the previous frame's reservoir as a fetched range of global pixels
+from `prev_base` (the reach of its motion indices).
+
 The bounce loop is a Python loop over [R] batches with masks; on CPU
 tensors each bounce runs inside `utils.math.fused()`, since the JAX
 package runs it as a `lax.scan` body.
@@ -263,16 +268,20 @@ def _gq_pack(gb: GBufferFrame, it) -> torch.Tensor:
 
 
 def restir_indirect_fused(scene, gb: GBufferFrame, it, mat, ray_dir,
-                          q_prev: torch.Tensor, cfg: RenderConfig, looper):
+                          q_prev: torch.Tensor, cfg: RenderConfig, looper,
+                          pix0: int = 0, prev_base: int = 0, r_prev=None):
     """The fused GI frame: B8's pack feeds B9 (RIS, windowed temporal
     merge, cap, shade) -> (indirect [R, 3], next resolve pack
-    [Q_CH, R])."""
+    [Q_CH, R]). A row band passes B9's band arguments (`pix0`; `q_prev`
+    holding global pixels from `prev_base` of `r_prev`)."""
     in_pack = _build_gi_in_pack(it, mat, ray_dir)
-    go = gk.gi_trace(in_pack, looper, scene, **trace_kwargs(scene, cfg))
+    go = gk.gi_trace(in_pack, looper, scene,
+                     **trace_kwargs(scene, cfg, pix0))
     ind, q = gk.gi_resolve(go, in_pack, _gq_pack(gb, it), q_prev, looper,
                            temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
                            temporal_clamp=cfg.temporal_clamp,
-                           has_met=cfg.scene_has_metallic)
+                           has_met=cfg.scene_has_metallic, pix0=pix0,
+                           prev_base=prev_base, r_prev=r_prev)
     return ind.T, q
 
 
@@ -283,19 +292,25 @@ def init_gi_resolve_pack(r: int, device="cuda") -> torch.Tensor:
 
 
 def restir_indirect(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
-                    ray_dir, res_in, cfg: RenderConfig, looper):
+                    ray_dir, res_in, cfg: RenderConfig, looper, pix0: int = 0,
+                    prev=None, prev_base: int = 0, r_prev=None):
     """One ReSTIR GI frame -> (indirect radiance [R, 3], the reservoir for
     the next frame's temporal pass). A [Q_CH, R] tensor as `res_in` (the
     resolve pack `renderer.init_state` allocates on eligible configs)
-    routes the frame through `restir_indirect_fused`."""
+    routes the frame through `restir_indirect_fused`. A row band of the
+    pixels pix0 .. passes the previous frame's fields its motion indices
+    reach as `prev` (global pixels from `prev_base`: the resolve pack's
+    columns, or `restir_di.temporal_pack`'s) and the previous frame's
+    pixel count `r_prev`."""
     if isinstance(res_in, torch.Tensor):
-        return restir_indirect_fused(scene, gb, it, mat, ray_dir, res_in,
-                                     cfg, looper)
+        return restir_indirect_fused(
+            scene, gb, it, mat, ray_dir, res_in if prev is None else prev,
+            cfg, looper, pix0, prev_base, r_prev)
     r = it.pos.shape[0]
     dev = it.pos.device
-    pix = torch.arange(r, device=dev)
+    pix = torch.arange(pix0, pix0 + r, device=dev)
     sample, prim_pdf, prim_delta, valid = trace_gi_sample(
-        scene, it, mat, ray_dir, cfg, looper)
+        scene, it, mat, ray_dir, cfg, looper, pix0)
 
     # RIS weight (restir.cu:375-385)
     w = _p_hat_gi(sample) / torch.clamp(prim_pdf, min=1e-20)
@@ -304,7 +319,8 @@ def restir_indirect(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
     res = rsv.update(rsv.zeros_indirect(r, dev), sample, w, r_upd)
 
     if cfg.reuse & ReuseMode.TEMPORAL:
-        temporal, ok = find_temporal_neighbor(res_in, gb, last_gb)
+        temporal, ok = find_temporal_neighbor(res_in, gb, last_gb, prev,
+                                              prev_base)
         ok = ok & ~rsv.invalid(temporal)
         r_t = rng.uniform1(pix, looper, gk.CTR_TEMPORAL, gk.SALT_GI)
         res = rsv.merge(res, temporal, r_t, active=ok)

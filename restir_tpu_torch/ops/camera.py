@@ -91,10 +91,18 @@ def _on(x, device) -> torch.Tensor:
     return _f32(x).to(device)
 
 
-def pixel_centers(width: int, height: int, device="cuda"):
-    """(x, y) integer pixel coordinates, row-major, flattened [H*W]."""
+def pixel_centers(width: int, height: int, device="cuda", pix0: int = 0,
+                  r=None):
+    """(x, y) integer pixel coordinates, row-major, flattened: of the
+    whole frame [H*W], or of the r global pixels from pix0 (a row band's:
+    whole rows)."""
+    r = width * height - pix0 if r is None else r
+    if pix0 % width or r % width:
+        raise ValueError(f"pixel_centers takes whole rows of {width} "
+                         f"pixels, got pixels {pix0} to {pix0 + r}")
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(pix0 // width, (pix0 + r) // width,
+                     dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
     return xs.reshape(-1), ys.reshape(-1)

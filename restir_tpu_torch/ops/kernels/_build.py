@@ -159,13 +159,14 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
     "restir_bvh_heatmap": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
     "restir_ris_cdf": [
-        _VP, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I,
-        _VP],
+        _VP, _U, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I,
+        _I, _VP],
     "restir_gi_trace": [
         _VP, _I, _U, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _I, _F, _I, _I,
         _I, _I, _I, _VP, _VP, _VP],
     "restir_gi_resolve": [
-        _VP, _VP, _VP, _VP, _I, _I, _U, _I, _I, _I, _VP, _VP, _VP],
+        _VP, _VP, _VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I, _I, _VP, _VP,
+        _VP],
 }
 
 

@@ -13,7 +13,12 @@ Ports of `restir_tpu.ops.pallas.gi_kernel`:
   empty reservoir, the temporal merge with the previous frame's resolve
   pack inside each 1024-pixel tile's 2048-pixel window, the M cap and
   the demodulated shade. Returns (indirect [3, R], the next [Q_CH, R]
-  pack); the previous pack is only read, never written.
+  pack); the previous pack is only read, never written. A row band of
+  whole tiles (`restir_tpu_torch.parallel`) passes `pix0` (its first
+  global pixel: the key of its draws), the range of the previous pack
+  its motion indices reach, with that range's first global pixel
+  `prev_base`, and the previous frame's global pixel count `r_prev`,
+  which clips each tile's window start as on one device.
 
 CUDA tensors launch `csrc/gi_trace.cu` / `csrc/gi_resolve.cu`; CPU
 tensors take the twins, and nothing falls back. `gi_trace_ref` is
@@ -191,13 +196,14 @@ def gi_trace_cuda(in_pack, looper, scene, *, depth, single_sided, n_lights,
     counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
-    err = _build.library().restir_gi_trace(
-        p(in_pack), r, ctypes.c_uint32(looper & 0xFFFFFFFF),
-        ctypes.c_uint32(pix0 & 0xFFFFFFFF), p(bvh.rows), bvh.size,
-        p(bvh.planes), p(t.gi_tri), p(t.mat), t.mat.shape[0],
-        p(t.gi_lights), n_lights, ctypes.c_float(t.sum_light_power_inv),
-        depth, int(single_sided), int(has_met), int(has_die), int(has_proc),
-        p(out), p(counts), _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_gi_trace(
+            p(in_pack), r, ctypes.c_uint32(looper & 0xFFFFFFFF),
+            ctypes.c_uint32(pix0 & 0xFFFFFFFF), p(bvh.rows), bvh.size,
+            p(bvh.planes), p(t.gi_tri), p(t.mat), t.mat.shape[0],
+            p(t.gi_lights), n_lights, ctypes.c_float(t.sum_light_power_inv),
+            depth, int(single_sided), int(has_met), int(has_die),
+            int(has_proc), p(out), p(counts), _build.stream_of(dev))
     _build.check(err, "restir_gi_trace")
     trace_launches += 1
     return (out, counts) if stats else out
@@ -208,10 +214,14 @@ def gi_trace_cuda(in_pack, looper, scene, *, depth, single_sided, n_lights,
 
 
 def gi_resolve(go, in_pack, gq, q_prev, looper, *, temporal=True,
-               temporal_clamp=20, has_met=True, window=WINDOW):
-    """(indirect [3, R], next resolve pack [Q_CH, R]) of one frame."""
+               temporal_clamp=20, has_met=True, window=WINDOW, pix0=0,
+               prev_base=0, r_prev=None):
+    """(indirect [3, R], next resolve pack [Q_CH, R]) of one frame.
+    `q_prev` holds the previous pack's global pixels from `prev_base` of
+    a frame of `r_prev` pixels (default: all of it, from 0)."""
     kw = dict(temporal=temporal, temporal_clamp=temporal_clamp,
-              has_met=has_met, window=window)
+              has_met=has_met, window=window, pix0=pix0,
+              prev_base=prev_base, r_prev=r_prev)
     if go.device.type == "cpu":
         return gi_resolve_ref(go, in_pack, gq, q_prev, looper, **kw)
     if go.device.type == "cuda":
@@ -237,16 +247,32 @@ def window_starts(gq, r_prev: int, window: int = WINDOW):
     return torch.clamp(w0, 0, max(r_prev - window, 0))
 
 
+def _prev_range(q_prev, pix0, prev_base, r_prev):
+    """The global pixel count of the previous frame, checked against the
+    held range of `q_prev`."""
+    n_prev = q_prev.shape[1]
+    if r_prev is None:
+        r_prev = prev_base + n_prev
+    if pix0 < 0 or prev_base < 0 or n_prev <= 0 or (
+            prev_base + n_prev > r_prev):
+        raise ValueError(f"B9 band arguments: pix0 {pix0}, previous pixels "
+                         f"[{prev_base}, {prev_base + n_prev}) of {r_prev}")
+    return r_prev
+
+
 def gi_resolve_ref(go, in_pack, gq, q_prev, looper, *, temporal=True,
-                   temporal_clamp=20, has_met=True, window=WINDOW):
-    """Plain B9, lane for lane as `_gi_resolve_kernel` computes it."""
+                   temporal_clamp=20, has_met=True, window=WINDOW, pix0=0,
+                   prev_base=0, r_prev=None):
+    """Plain B9, lane for lane as `_gi_resolve_kernel` computes it, with
+    the kernel's band arguments."""
     from ...utils import rng
 
     r = go.shape[1]
     if r % TILE:
         raise ValueError(f"B9 works on whole {TILE}-pixel tiles, R={r}")
+    r_prev = _prev_range(q_prev, pix0, prev_base, r_prev)
     dev = go.device
-    pix = torch.arange(r, device=dev)
+    pix = torch.arange(pix0, pix0 + r, device=dev)
 
     def g(i):
         return go[i]
@@ -287,16 +313,16 @@ def gi_resolve_ref(go, in_pack, gq, q_prev, looper, *, temporal=True,
     depth = gq[GQ_DEPTH]
 
     if temporal:
-        r_prev = q_prev.shape[1]
         w0 = window_starts(gq, r_prev, window).repeat_interleave(TILE)
         motion = gq[GQ_MOTION].to(torch.int32).to(torch.int64)
         rel = motion - w0
         in_win = (motion >= 0) & (rel >= 0) & (rel < window)
-        idx = w0 + torch.where(in_win, rel, 0)
-        gathered = q_prev[:, idx]
+        at = w0 + torch.where(in_win, rel, 0) - prev_base
+        held = (at >= 0) & (at < q_prev.shape[1])
+        gathered = q_prev[:, torch.where(held, at, 0)]
         n_w = gathered[Q_W]
         n_m = gathered[Q_M]
-        ok = in_win & (prim > NULL_PRIM)
+        ok = in_win & held & (prim > NULL_PRIM)
         ok = ok & (gathered[Q_PRIM] == prim)
         ok = ok & (torch.abs(gn[0] * gathered[Q_GNORM]
                              + gn[1] * gathered[Q_GNORM + 1]
@@ -355,8 +381,10 @@ def gi_resolve_ref(go, in_pack, gq, q_prev, looper, *, temporal=True,
 
 
 def gi_resolve_cuda(go, in_pack, gq, q_prev, looper, *, temporal=True,
-                    temporal_clamp=20, has_met=True, window=WINDOW):
-    """B9 on the card: (indirect [3, R], next resolve pack [Q_CH, R])."""
+                    temporal_clamp=20, has_met=True, window=WINDOW, pix0=0,
+                    prev_base=0, r_prev=None):
+    """B9 on the card: (indirect [3, R], next resolve pack [Q_CH, R]),
+    with the band arguments of `gi_resolve`."""
     global resolve_launches
     dev = go.device
     r = go.shape[1]
@@ -370,16 +398,18 @@ def gi_resolve_cuda(go, in_pack, gq, q_prev, looper, *, temporal=True,
     if (q_prev.device != dev or q_prev.dtype != torch.float32
             or q_prev.dim() != 2 or q_prev.shape[0] != Q_CH):
         raise ValueError(f"q_prev: expected float32 [{Q_CH}, *] on {dev}")
+    r_prev = _prev_range(q_prev, pix0, prev_base, r_prev)
     go, in_pack, gq = go.contiguous(), in_pack.contiguous(), gq.contiguous()
     q_prev = q_prev.contiguous()
     ind = torch.empty((3, r), dtype=torch.float32, device=dev)
     q = torch.empty((Q_CH, r), dtype=torch.float32, device=dev)
     p = _build.ptr
-    err = _build.library().restir_gi_resolve(
-        p(go), p(in_pack), p(gq), p(q_prev), q_prev.shape[1], r,
-        ctypes.c_uint32(looper & 0xFFFFFFFF), int(temporal),
-        int(temporal_clamp), int(has_met), p(ind), p(q),
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_gi_resolve(
+            p(go), p(in_pack), p(gq), p(q_prev), r_prev, q_prev.shape[1],
+            prev_base, r, ctypes.c_uint32(looper & 0xFFFFFFFF),
+            ctypes.c_uint32(pix0), int(temporal), int(temporal_clamp),
+            int(has_met), p(ind), p(q), _build.stream_of(dev))
     _build.check(err, "restir_gi_resolve")
     resolve_launches += 1
     return ind, q

@@ -140,9 +140,10 @@ def closest_cuda(trv, o, d, stats=False):
     bary = torch.empty((r, 2), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_closest_hit(
-        p(o), p(d), *_tables(trv), p(dist), p(bary), p(prim), p(counts), r,
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_closest_hit(
+            p(o), p(d), *_tables(trv), p(dist), p(bary), p(prim), p(counts), r,
+            _build.stream_of(dev))
     _build.check(err, "restir_closest_hit")
     closest_launches += 1
     out = (prim, dist, bary)
@@ -189,9 +190,10 @@ def any_cuda(trv, x, y, active=None, stats=False):
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_any_hit(
-        p(x), p(y), p(active), *_tables(trv), p(occ), p(counts), r,
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_any_hit(
+            p(x), p(y), p(active), *_tables(trv), p(occ), p(counts), r,
+            _build.stream_of(dev))
     _build.check(err, "restir_any_hit")
     any_launches += 1
     return (occ, counts) if stats else occ
@@ -246,9 +248,10 @@ def primary_cuda(trv, prim_attr, mat_attr, o, d, active=None, stats=False):
     out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_primary_hit(
-        p(o), p(d), p(active), *_tables(trv), p(attr), p(mat), mat.shape[0],
-        p(out), p(counts), r, _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_primary_hit(
+            p(o), p(d), p(active), *_tables(trv), p(attr), p(mat),
+            mat.shape[0], p(out), p(counts), r, _build.stream_of(dev))
     _build.check(err, "restir_primary_hit")
     primary_launches += 1
     return (out, counts) if stats else out
@@ -307,9 +310,10 @@ def mt_closest_cuda(trv, o, d, active=None, stats=False):
     bary = torch.empty((r, 2), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_mt_closest_hit(
-        p(o), p(d), p(active), *_walk_tables(trv), p(dist), p(bary), p(prim),
-        p(counts), r, _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_mt_closest_hit(
+            p(o), p(d), p(active), *_walk_tables(trv), p(dist), p(bary),
+            p(prim), p(counts), r, _build.stream_of(dev))
     _build.check(err, "restir_mt_closest_hit")
     mt_closest_launches += 1
     out = (prim, dist, bary)
@@ -327,9 +331,10 @@ def mt_any_cuda(trv, x, y, active=None, stats=False):
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_mt_any_hit(
-        p(x), p(y), p(active), *_walk_tables(trv), p(occ), p(counts), r,
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_mt_any_hit(
+            p(x), p(y), p(active), *_walk_tables(trv), p(occ), p(counts), r,
+            _build.stream_of(dev))
     _build.check(err, "restir_mt_any_hit")
     mt_any_launches += 1
     return (occ, counts) if stats else occ
@@ -348,9 +353,10 @@ def mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active=None,
     out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_mt_primary_hit(
-        p(o), p(d), p(active), *_walk_tables(trv), p(attr), p(mat),
-        mat.shape[0], p(out), p(counts), r, _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_mt_primary_hit(
+            p(o), p(d), p(active), *_walk_tables(trv), p(attr), p(mat),
+            mat.shape[0], p(out), p(counts), r, _build.stream_of(dev))
     _build.check(err, "restir_mt_primary_hit")
     mt_primary_launches += 1
     return (out, counts) if stats else out
@@ -366,9 +372,10 @@ def heatmap_cuda(trv, o, d, stats=False):
     count = torch.empty((r,), dtype=torch.int32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
-    err = _build.library().restir_bvh_heatmap(
-        p(o), p(d), *_walk_tables(trv), p(count), p(counts), r,
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_bvh_heatmap(
+            p(o), p(d), *_walk_tables(trv), p(count), p(counts), r,
+            _build.stream_of(dev))
     _build.check(err, "restir_bvh_heatmap")
     heatmap_launches += 1
     return (count, counts) if stats else count

@@ -14,6 +14,10 @@ a G-buffer-shaped view of the input pack. The light rows are
 `tables.light_tables`'s (`ris_kernel.build_light_tables`' rows, no env
 tiles).
 
+Both take `pix0`, the global index of the pack's first pixel: a row band
+(`restir_tpu_torch.parallel`) draws its pixel p's candidates as pixel
+pix0 + p of the whole frame, and reads and writes the packs at p.
+
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
 
@@ -75,15 +79,17 @@ def _gb_view(pack):
 
 
 def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
-                single_sided=True, has_met=True):
-    """Plain B10: the [COUT, R] output pack."""
+                single_sided=True, has_met=True, pix0=0):
+    """Plain B10: the [COUT, R] output pack; pixel p draws as global
+    pixel pix0 + p."""
     r = pack.shape[1]
     out = torch.zeros((COUT, r), dtype=torch.float32, device=pack.device)
     chunk = fused_di.chunk_pixels(max(tables.planes.shape[0],
                                       tables.psi.shape[0]))
     for p0 in range(0, r, chunk):
         gb = _gb_view(pack[:, p0:p0 + chunk])
-        pix = torch.arange(p0, p0 + gb.shape[1], device=pack.device)
+        pix = torch.arange(pix0 + p0, pix0 + p0 + gb.shape[1],
+                           device=pack.device)
         li, wi, dist, w = fused_di.ris_pixels(
             gb, pix, looper, tables, k=k, single_sided=single_sided,
             has_met=has_met)
@@ -98,14 +104,17 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
 
 
 def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
-                 k=4, single_sided=True, has_met=True, stats=False):
-    """B10 on the card: the [COUT, R] output pack. With `stats`, also
-    the int32 [2, R] box and plane test counts of each shadow walk."""
+                 k=4, single_sided=True, has_met=True, pix0=0, stats=False):
+    """B10 on the card: the [COUT, R] output pack, pixel p drawn as
+    global pixel pix0 + p. With `stats`, also the int32 [2, R] box and
+    plane test counts of each shadow walk."""
     global launches
     r = pack.shape[1]
     dev = pack.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    if pix0 < 0:
+        raise ValueError(f"pix0 {pix0} < 0")
     if pack.dtype != torch.float32 or tuple(pack.shape) != (CIN, r):
         raise ValueError(f"input pack: expected float32 [{CIN}, {r}]")
     lights, psi = tables.lights, tables.psi
@@ -123,11 +132,12 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
     counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
-    err = _build.library().restir_ris_cdf(
-        p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-        l_pad, tables.n_lights, p(bvh.rows), bvh.size, p(bvh.planes),
-        p(out), p(counts), r, int(single_sided), k, int(has_met),
-        _build.stream_of(dev))
+    with _build.on_device(dev):
+        err = _build.library().restir_ris_cdf(
+            p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
+            ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
+            p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
+            int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
     launches += 1
     return (out, counts) if stats else out
@@ -135,14 +145,15 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
 
 def ris_cdf(pos, norm, wo, mtype, metallic, roughness, shade, prim_id,
             looper, tables: ResidentTables, bvh: BvhTables, *, k=4,
-            single_sided=True, has_met=True):
+            single_sided=True, has_met=True, pix0=0):
     """(li [R, 3], wi [R, 3], dist [R], weight [R], m [R] int32) with the
     weights of occluded winners zeroed, as `ris_cdf_pallas` returns them.
     `norm` is the shading normal already turned toward wo. The kernel
-    walks the scene's MTBVH `bvh`; the plain version reads none."""
+    walks the scene's MTBVH `bvh`; the plain version reads none. Pixel p
+    draws as global pixel pix0 + p."""
     pack = pack_inputs(pos, norm, wo, mtype, metallic, roughness, shade,
                        prim_id)
-    kw = dict(k=k, single_sided=single_sided, has_met=has_met)
+    kw = dict(k=k, single_sided=single_sided, has_met=has_met, pix0=pix0)
     if pack.device.type == "cpu":
         out = ris_cdf_ref(pack, looper, tables, **kw)
     elif pack.device.type == "cuda":

@@ -162,6 +162,13 @@ def gather(res: Reservoir, idx) -> Reservoir:
     return tree_map(lambda leaf: leaf[idx], res)
 
 
+def take_columns(pack: torch.Tensor, index, base: int = 0) -> torch.Tensor:
+    """Columns of a [C, n] pack that holds global pixels base .. base + n
+    at the global pixel indices `index` ([R]), each clipped into the
+    held range (the callers mask the lanes whose index is invalid)."""
+    return pack[:, torch.clamp(index.long() - base, 0, pack.shape[1] - 1)]
+
+
 def pack_channels(tree) -> torch.Tensor:
     """Leaves of [R] / [R, k] tensors -> one channel-major [C, R] float32
     matrix (leaf order)."""

@@ -23,9 +23,11 @@ A halo exchange has `jax.lax.ppermute`'s semantics: the first band's low
 halo and the last band's high halo are zeros. Slices cross to the
 receiving band's device with `Tensor.to(device, non_blocking=True)`.
 
-The denoiser runs the port's own kernels on row-haloed band images,
-where the JAX step runs XLA plane ops under the sharding: B3 for EAW;
-for SVGF the variance estimate, then per level its prefilter and B4. A
+The denoiser runs the port's own kernels on row-haloed band images
+(`sharding.band_images`), where the JAX step runs XLA plane ops under
+the sharding: B3 for EAW (`eaw_filter_packed` on each band's image);
+for SVGF the single-device sequence `svgf_filter_packed` on the bands
+(B5, the variance estimate, then per level its prefilter and B4). A
 band's image is the rows it touches plus the rows the whole chain's taps
 reach (2 (1 + 2 + ... + 2^(L-1)) for L EAW levels; 1 + L more for SVGF's
 3x3 passes), gathered from every band that holds them and cut at the
@@ -51,10 +53,9 @@ from ..config import DenoiserType, RenderConfig, ReuseMode, TracerType
 from ..models import restir_di_fused as fused
 from ..models.restir_di_fused import FusedDIState
 from ..ops.camera import Camera, pack_camera
-from ..ops.kernels import gbuffer, reuse, spatial, svgf
+from ..ops.kernels import gbuffer, reuse, spatial
 from ..ops.kernels.fused_di import TILE, WINDOW
-from ..ops.kernels.svgf import SV_COL
-from .sharding import scene_on
+from .sharding import band_images, denoise_halo_rows, haloed, scene_on
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,67 +76,15 @@ def band_layout(cfg: RenderConfig, n: int):
     return r_loc, window, halo_s
 
 
-def denoise_halo_rows(cfg: RenderConfig) -> int:
-    """Rows above and below a band that its denoiser chain reads: the
-    5x5 à-trous taps at stride 2^l reach 2^(l+1) rows per level, and
-    SVGF adds its variance estimate and one 3x3 prefilter per level."""
-    rows = 2 * ((1 << cfg.eaw_levels) - 1)
-    if cfg.denoiser == DenoiserType.SVGF:
-        rows += 1 + cfg.eaw_levels
-    return rows
-
-
 def refusal(cfg: RenderConfig):
     """Why the row-band step refuses `cfg` (None if it takes it)."""
     if cfg.tracer == TracerType.RESTIR_GI:
         return ("RESTIR_GI: the fused row-band step renders DI only (the JAX "
-                "step silently drops GI, fused_sharding.py:182)")
+                "step silently drops GI, fused_sharding.py:182); GI renders "
+                "in row bands through make_sharded_step on the general "
+                "state")
     reason = fused.ineligibility(cfg)
     return None if reason is None else f"fused DI path: {reason}"
-
-
-def _pixels(bands: Sequence[torch.Tensor], r_loc: int, lo: int, hi: int,
-            device) -> torch.Tensor:
-    """[C, hi - lo] global pixels lo..hi of the frame held by `bands`
-    (band b holds [b r_loc, (b + 1) r_loc)), zeros outside the frame,
-    on `device`: every band the range reaches sends its slice."""
-    r = r_loc * len(bands)
-    c = bands[0].shape[0]
-    parts = []
-    if lo < 0:
-        parts.append(torch.zeros((c, min(hi, 0) - lo), dtype=torch.float32,
-                                 device=device))
-    for b in range(len(bands)):
-        a, e = max(lo, b * r_loc), min(hi, (b + 1) * r_loc)
-        if a < e:
-            parts.append(bands[b][:, a - b * r_loc:e - b * r_loc].to(
-                device, non_blocking=True))
-    if hi > r:
-        parts.append(torch.zeros((c, hi - max(lo, r)), dtype=torch.float32,
-                                 device=device))
-    return parts[0].contiguous() if len(parts) == 1 else torch.cat(parts, 1)
-
-
-def haloed(bands: Sequence[torch.Tensor], b: int, h: int, device):
-    """Band b with +-h pixels of its neighbours (h <= r_loc: ppermute's
-    nearest-neighbour halos; zeros past the frame's ends)."""
-    r_loc = bands[b].shape[1]
-    return _pixels(bands, r_loc, b * r_loc - h, (b + 1) * r_loc + h, device)
-
-
-def gather(x, device):
-    """Join band tensors [C, r_loc] (in mesh order) into one [C, R] tensor
-    on `device`, the counterpart of `np.asarray` on a sharded JAX array.
-    A `FusedDIState` gathers every banded pack, and its other tensors
-    move to `device`."""
-    if isinstance(x, FusedDIState):
-        return x._replace(**{
-            f: gather(v, device) if isinstance(v, (list, tuple))
-            else v.to(device)
-            for f, v in x._asdict().items()
-            if isinstance(v, (list, tuple, torch.Tensor))
-            and f != "last_camera"})
-    return torch.cat([t.to(device) for t in x], dim=1)
 
 
 def shard_fused_state(state: FusedDIState,
@@ -175,26 +124,12 @@ def make_fused_sharded_step(cfg: RenderConfig,
     n = len(mesh)
     w_img, h_img, r = cfg.width, cfg.height, cfg.num_pixels
     r_loc, window, halo_s = band_layout(cfg, n)
-    use_svgf = cfg.denoiser == DenoiserType.SVGF
-    halo_rows = denoise_halo_rows(cfg)
     kw = dict(k=cfg.cdf_candidates, single_sided=cfg.single_sided_lights,
               temporal=bool(cfg.reuse & ReuseMode.TEMPORAL),
               temporal_clamp=cfg.temporal_clamp,
               has_met=cfg.scene_has_metallic, has_env=cfg.has_env_map)
 
-    def rows_of(b):
-        """(first row, end row) of band b's denoiser image."""
-        y0 = b * r_loc // w_img
-        y1 = ((b + 1) * r_loc - 1) // w_img + 1
-        return max(y0 - halo_rows, 0), min(y1 + halo_rows, h_img)
-
-    def denoise_images(bands, b):
-        """Band b's row-haloed image of each pack in `bands` (lists of
-        band tensors), its height and where the band starts in it."""
-        ya, yb = rows_of(b)
-        imgs = [_pixels(p, r_loc, ya * w_img, yb * w_img, mesh[b])
-                for p in bands]
-        return imgs, yb - ya, b * r_loc - ya * w_img
+    images = band_images(mesh, denoise_halo_rows(cfg), w_img, h_img)
 
     def step(scenes, state: FusedDIState, cam: Camera):
         looper = state.looper & 0xFFFFFFFF
@@ -225,50 +160,34 @@ def make_fused_sharded_step(cfg: RenderConfig,
                 pix0=pix0, prev_base=pix0 - window, window=window, **kw))
             gbs.append(gb)
 
-        accum, svs, safes = [], [], []
+        accum = []
         for b, d in enumerate(mesh):
             pix0 = b * r_loc
             offs = spatial.spatial_offsets(
                 looper, r_loc, w_img, cfg.spatial_neighbors,
                 cfg.spatial_radius, d, pix0=pix0, halo=halo_s, r_total=r)
-            acc = spatial.spatial_shade(
+            accum.append(spatial.spatial_shade(
                 offs, gbs[b], pts[b], state.accum[b], looper,
                 state.iteration, width=w_img, height=h_img,
                 neighbors=cfg.spatial_neighbors, accumulate=cfg.accumulate,
                 reuse_spatial=bool(cfg.reuse & ReuseMode.SPATIAL),
                 has_met=cfg.scene_has_metallic,
-                pt_ext=haloed(pts, b, halo_s, d), pix0=pix0)
-            accum.append(acc)
-            if use_svgf:
-                demod, safe = fused._demod(acc, gbs[b], cfg)
-                safes.append(safe)
-                svs.append(svgf.svgf_temporal(
-                    gbs[b], demod.contiguous(),
-                    haloed(state.svgf_pack, b, window, d),
-                    prev_base=pix0 - window, window=window))
+                pt_ext=haloed(pts, b, halo_s, d), pix0=pix0))
 
         frame, svgf_pack = accum, state.svgf_pack
         if cfg.denoiser == DenoiserType.EAW:
             frame = []
             for b in range(n):
-                (acc_img, gb_img), h, o = denoise_images([accum, gbs], b)
+                (acc_img, gb_img), h, o = images([accum, gbs], b)
                 out = fused.eaw_filter_packed(acc_img, gb_img,
                                               cfg.replace(height=h))
                 frame.append(out[:, o:o + r_loc].contiguous())
-        elif use_svgf:
-            frame, history = [], []
-            for b in range(n):
-                (sv_img, gb_img), h, o = denoise_images([svs, gbs], b)
-                color, hist = fused.svgf_wavelets(sv_img, gb_img,
-                                                  cfg.replace(height=h))
-                color = color[:, o:o + r_loc]
-                frame.append(color.contiguous() if safes[b] is None
-                             else color * safes[b])
-                history.append(hist[:, o:o + r_loc])
-            # every band's image is cut before a history is written back
-            for sv, hist in zip(svs, history):
-                sv[SV_COL:SV_COL + 3] = hist
-            svgf_pack = svs
+        elif cfg.denoiser == DenoiserType.SVGF:
+            frame, svgf_pack = fused.svgf_filter_packed(
+                accum, gbs,
+                [haloed(state.svgf_pack, b, window, d)
+                 for b, d in enumerate(mesh)],
+                cfg, images, [b * r_loc - window for b in range(n)], window)
 
         next_state = state._replace(
             looper=(looper + 1) & 0xFFFFFFFF,

@@ -12,6 +12,11 @@ GBUFFER_PREVIEW, then the EAW or SVGF denoiser (`models.denoiser`), with
 either sampler and any intersector at any triangle count. Entry points
 run on the card (`device="cuda"`) unless the caller asks for the CPU.
 
+The general step runs in stages (`general_gbuffer`, `general_trace`,
+`general_shade`, then the denoiser), which
+`restir_tpu_torch.parallel.make_sharded_step` runs on row bands with the
+copies between bands in between.
+
 The JAX package renders a 1080p general GI frame as two programs to fit
 the TPU's memory (`restir_tpu.renderer.step_jit`); the port runs it as
 one step.
@@ -33,6 +38,7 @@ from . import convert
 from .config import (
     DenoiserType,
     RenderConfig,
+    ReuseMode,
     TracerType,
     validate_mat_flags,
 )
@@ -153,67 +159,159 @@ def step(scene: SceneTensors, state, cam: Camera, cfg: RenderConfig):
     return step_general(scene, state, cam, cfg)
 
 
-def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
-                 cfg: RenderConfig):
+class Traced(NamedTuple):
+    """A general frame after its per-pixel stage (`general_trace`)."""
+
+    gb: gbuf.GBufferFrame
+    direct: torch.Tensor  # [R, 3], accumulated (pending for DI)
+    indirect: torch.Tensor  # [R, 3], accumulated
+    di: Optional[restir_di.DirectStage]  # ReSTIR DI before its spatial pass
+    gi_res: object  # the next GI reservoir
+
+
+def general_gbuffer(scene: SceneTensors, state: RenderState, cam: Camera,
+                    cfg: RenderConfig, pix0: int = 0, r=None):
+    """Stage 1 of a general frame: the G-buffer pass of the frame, or of
+    the row band of r pixels from global pixel pix0 -> (GBufferFrame,
+    Interaction, SurfaceMaterial, ray_dir)."""
+    return gbuf.render_gbuffer(scene, cam, state.last_camera, cfg,
+                               state.looper & 0xFFFFFFFF, pix0, r)
+
+
+def previous_packs(state: RenderState, cfg: RenderConfig) -> dict:
+    """The previous frame's fields that `cfg`'s temporal gathers read at
+    the motion index, as [C, R] channel packs: "di"
+    (`restir_di.temporal_pack`), "gi" (the same for the GI reservoir, or
+    the resolve pack itself) and "svgf" (`denoiser.svgf_pack`)."""
+    out = {}
+    temporal = bool(cfg.reuse & ReuseMode.TEMPORAL)
+    if cfg.tracer in (TracerType.RESTIR_DI, TracerType.RESTIR_GI):
+        if temporal:
+            out["di"] = restir_di.temporal_pack(state.dir_reservoir,
+                                                state.gbuffer)
+        if cfg.tracer == TracerType.RESTIR_GI:
+            if isinstance(state.gi_reservoir, torch.Tensor):
+                out["gi"] = state.gi_reservoir
+            elif temporal:
+                out["gi"] = restir_di.temporal_pack(state.gi_reservoir,
+                                                    state.gbuffer)
+    if cfg.denoiser == DenoiserType.SVGF:
+        out["svgf"] = dn.svgf_pack(state.denoiser, state.gbuffer)
+    return out
+
+
+def general_trace(scene: SceneTensors, state: RenderState, cam: Camera,
+                  cfg: RenderConfig, primary, pix0: int = 0, prev=None,
+                  prev_base: int = 0, r_prev=None) -> Traced:
+    """Stage 2: each tracer's per-pixel work on stage 1's pixels (global
+    pixels from pix0): ReSTIR DI up to its temporal merge, GI whole, the
+    path tracers, the heatmap. `prev` maps `previous_packs`' names to
+    their columns of global pixels prev_base .. of a previous frame of
+    `r_prev` pixels (default: the state's own whole frame)."""
     looper = state.looper & 0xFFFFFFFF
-    gb, it, mat, ray_dir = gbuf.render_gbuffer(scene, cam, state.last_camera,
-                                               cfg, looper)
+    gb, it, mat, ray_dir = primary
+    prev = prev or {}
+    r = gb.depth.shape[0]
     direct, indirect = state.direct_illum, state.indirect_illum
-    dir_res, gi_res = state.dir_reservoir, state.gi_reservoir
+    gi_res, di = state.gi_reservoir, None
     n = state.iteration
     if cfg.tracer in (TracerType.RESTIR_DI, TracerType.RESTIR_GI):
-        out, dir_res = restir_di.restir_direct(
+        di = restir_di.direct_temporal(
             scene, gb, state.gbuffer, it, mat, ray_dir, state.dir_reservoir,
-            cfg, looper)
-        direct = _accumulate(direct, out, n, cfg.accumulate)
+            cfg, looper, pix0, prev.get("di"), prev_base)
         if cfg.tracer == TracerType.RESTIR_GI:
             # the DI + GI frame the reference sketches (main.cpp:167-168)
             ind, gi_res = restir_gi.restir_indirect(
                 scene, gb, state.gbuffer, it, mat, ray_dir,
-                state.gi_reservoir, cfg, looper)
+                state.gi_reservoir, cfg, looper, pix0, prev.get("gi"),
+                prev_base, r_prev)
             indirect = _accumulate(indirect, ind, n, cfg.accumulate)
     elif cfg.tracer == TracerType.PT_DIRECT:
-        direct = _accumulate(direct, pt_direct(scene, cam, cfg, looper), n,
-                             cfg.accumulate)
+        direct = _accumulate(direct, pt_direct(scene, cam, cfg, looper, pix0,
+                                               r), n, cfg.accumulate)
     elif cfg.tracer == TracerType.PT_INDIRECT:
-        indirect = _accumulate(indirect, pt_indirect(scene, cam, cfg, looper),
+        indirect = _accumulate(indirect, pt_indirect(scene, cam, cfg, looper,
+                                                     pix0, r),
                                n, cfg.accumulate)
     elif cfg.tracer == TracerType.PT_FULL:
-        d, ind = pt_trace(scene, cam, cfg, looper)
+        d, ind = pt_trace(scene, cam, cfg, looper, pix0, r)
         direct = _accumulate(direct, d, n, cfg.accumulate)
         indirect = _accumulate(indirect, ind, n, cfg.accumulate)
     elif cfg.tracer == TracerType.BVH_VISUALIZE:
-        count = bvh_heatmap(scene, cam, cfg).to(torch.float32)
+        count = bvh_heatmap(scene, cam, cfg, pix0, r).to(torch.float32)
         direct = torch.stack([count * 0.01] * 3, dim=-1)
+    elif cfg.tracer != TracerType.GBUFFER_PREVIEW:
+        raise ValueError(f"unknown tracer {cfg.tracer}")
+    return Traced(gb=gb, direct=direct, indirect=indirect, di=di,
+                  gi_res=gi_res)
+
+
+def preview_peak(gb: gbuf.GBufferFrame, cfg: RenderConfig):
+    """The maximum a GBUFFER_PREVIEW channel normalises by (depth,
+    position; None for the others): a row band's, which the frame's is
+    the maximum of."""
+    if cfg.tracer != TracerType.GBUFFER_PREVIEW:
+        return None
+    if cfg.gbuffer_channel == "depth":
+        return gb.depth.max()
+    if cfg.gbuffer_channel == "position":
+        return torch.abs(gb.pos).max()
+    return None
+
+
+def general_shade(state: RenderState, cfg: RenderConfig, tr: Traced,
+                  img=None, row0: int = 0, peak=None):
+    """Stage 3: ReSTIR DI's spatial merge (`img` / `row0` as in
+    `restir_di.direct_shade`) and shade, or the G-buffer preview (`peak`:
+    the frame's `preview_peak`, by default stage 1's own) -> (direct,
+    indirect, the frame before the denoiser)."""
+    gb, direct = tr.gb, tr.direct
+    if tr.di is not None:
+        out = restir_di.direct_shade(tr.di, gb, cfg,
+                                     state.looper & 0xFFFFFFFF, img, row0)
+        direct = _accumulate(direct, out, state.iteration, cfg.accumulate)
     elif cfg.tracer == TracerType.GBUFFER_PREVIEW:
         # channel previews (preview.cpp:253-287)
+        if peak is None:
+            peak = preview_peak(gb, cfg)
         if cfg.gbuffer_channel == "albedo":
             direct = gb.albedo
         elif cfg.gbuffer_channel == "depth":
-            d = gb.depth / torch.clamp(gb.depth.max(), min=1e-6)
+            d = gb.depth / torch.clamp(peak, min=1e-6)
             direct = torch.stack([d] * 3, dim=-1)
         elif cfg.gbuffer_channel == "position":
-            a = torch.abs(gb.pos)
-            direct = a / torch.clamp(a.max(), min=1e-6)
+            direct = torch.abs(gb.pos) / torch.clamp(peak, min=1e-6)
         else:
             direct = gb.norm * 0.5 + 0.5
-    else:
-        raise ValueError(f"unknown tracer {cfg.tracer}")
+    return direct, tr.indirect, direct + tr.indirect
 
-    frame = direct + indirect
-    # denoise (the JAX package wires the reference's dormant filters)
-    den_state = state.denoiser
-    if cfg.denoiser == DenoiserType.EAW:
-        frame = dn.eaw_filter(frame, gb, cam, cfg)
-    elif cfg.denoiser == DenoiserType.SVGF:
-        frame, den_state = dn.svgf_filter(frame, gb, state.gbuffer,
-                                          state.denoiser, cam, cfg)
-    next_state = state._replace(
-        looper=(looper + 1) & 0xFFFFFFFF, iteration=n + 1,
-        direct_illum=direct, indirect_illum=indirect, dir_reservoir=dir_res,
-        gi_reservoir=gi_res, gbuffer=gb, last_camera=_copy_camera(cam),
+
+def next_general_state(state: RenderState, cam: Camera, tr: Traced, direct,
+                       indirect, den_state) -> RenderState:
+    looper = state.looper & 0xFFFFFFFF
+    return state._replace(
+        looper=(looper + 1) & 0xFFFFFFFF, iteration=state.iteration + 1,
+        direct_illum=direct, indirect_illum=indirect,
+        dir_reservoir=(state.dir_reservoir if tr.di is None
+                       else tr.di.res_out),
+        gi_reservoir=tr.gi_res, gbuffer=tr.gb, last_camera=_copy_camera(cam),
         denoiser=den_state)
-    return next_state, frame
+
+
+def step_general(scene: SceneTensors, state: RenderState, cam: Camera,
+                 cfg: RenderConfig):
+    """The general frame: stages 1-3 (`general_gbuffer`, `general_trace`,
+    `general_shade`), then the denoiser, on the whole frame.
+    `restir_tpu_torch.parallel.make_sharded_step` runs the same stages on
+    row bands."""
+    primary = general_gbuffer(scene, state, cam, cfg)
+    tr = general_trace(scene, state, cam, cfg, primary)
+    direct, indirect, frame = general_shade(state, cfg, tr)
+    # denoise (the JAX package wires the reference's dormant filters)
+    (frame,), (den_state,) = dn.denoise([frame], [tr.gb], [state.gbuffer],
+                                        [state.denoiser], cfg)
+    return next_general_state(state, cam, tr, direct, indirect,
+                              den_state), frame
 
 
 def render(scene: SceneTensors, cam: Camera, cfg: RenderConfig,

@@ -1096,3 +1096,125 @@ def test_row_bands_on_one_card(cuda_device, denoiser):
     mean_rel = abs(got.mean() - want.mean()) / max(abs(want.mean()), 1e-9)
     assert mean_rel < 0.01, mean_rel
     assert np.isclose(want, got, rtol=1e-3, atol=1e-6).mean() >= 0.99
+
+
+def test_b10_band_launches_equal_the_whole_frame(general):
+    """B10 on 4 row bands of 16 rows, each keyed by its first global
+    pixel, writes the whole-frame launch's pack at the band's pixels bit
+    for bit; at pix0 = 0 on the whole frame it writes what the launch
+    without band arguments writes."""
+    from restir_tpu_torch.models import gbuffer as tgb
+
+    scene, cam, _, _, _ = general
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_DI)
+    gb, it, mat, ray_dir = tgb.render_gbuffer(scene, cam, cam, cfg, 5)
+    wo = -ray_dir
+    norm = torch.where(((mat.type != 2) & ((it.norm * wo).sum(-1) < 0))[
+        ..., None], -it.norm, it.norm)
+    pack = ris_cdf.pack_inputs(it.pos, norm, wo, mat.type, mat.metallic,
+                               mat.roughness,
+                               it.valid & (gb.prim_id != tgb.LIGHT_ID),
+                               it.prim_id)
+    whole = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh)
+    assert torch.equal(ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh,
+                                            pix0=0), whole)
+    r_loc = R // 4
+    before = ris_cdf.launches
+    for b in range(4):
+        sl = slice(b * r_loc, (b + 1) * r_loc)
+        band = ris_cdf.ris_cdf_cuda(pack[:, sl].contiguous(), 5,
+                                    scene.tables, scene.bvh, pix0=b * r_loc)
+        assert torch.equal(band, whole[:, sl]), b
+    assert ris_cdf.launches == before + 4
+    assert float(whole[ris_cdf.OUT_W].max()) > 0.0
+
+
+def test_b9_band_launches_equal_the_whole_frame(gi_world):
+    """Frame 1 of B9 after a moving camera, on 2 bands of 8 tiles: each
+    band, given the range of the previous pack its motion reaches, writes
+    the whole-frame launch's packs at its pixels bit for bit; at pix0 = 0
+    with the whole previous pack it writes what the launch without band
+    arguments writes."""
+    from restir_tpu_torch.models import gbuffer as tgb
+    from restir_tpu_torch.models import restir_gi
+    from restir_tpu_torch.ops.camera import update_camera
+    from restir_tpu_torch.parallel import sharding
+
+    scene, cam, cfg = gi_world
+    moved = update_camera(cam, position=(float(cam.position[0]) + 0.2,
+                                         float(cam.position[1]) + 0.3,
+                                         float(cam.position[2])))
+    q = torch.zeros((gi.Q_CH, R), device=scene.verts.device)
+    for f, (c, last) in enumerate(((cam, cam), (moved, cam))):
+        gb, it, mat, d = tgb.render_gbuffer(scene, c, last, cfg, f)
+        in_pack = restir_gi._build_gi_in_pack(it, mat, d)
+        go = gi.gi_trace_cuda(in_pack, f, scene,
+                              **restir_gi.trace_kwargs(scene, cfg))
+        gq = restir_gi._gq_pack(gb, it)
+        prev = q
+        ind, q = gi.gi_resolve_cuda(go, in_pack, gq, q, f)
+    ind0, q0 = gi.gi_resolve_cuda(go, in_pack, gq, prev, 1, pix0=0,
+                                  prev_base=0, r_prev=R)
+    assert torch.equal(ind0, ind) and torch.equal(q0, q)
+    assert float(q[gi.Q_M].max()) == 2.0
+    r_loc = R // 2
+    before = gi.resolve_launches
+    for b in range(2):
+        sl = slice(b * r_loc, (b + 1) * r_loc)
+        (lo, hi), = sharding.motion_ranges(
+            [gb._replace(**{k: getattr(gb, k)[sl] for k in gb._fields})], R,
+            scene.verts.device)
+        assert (lo, hi) != (b * r_loc, (b + 1) * r_loc)
+        ind_b, q_b = gi.gi_resolve_cuda(
+            go[:, sl].contiguous(), in_pack[:, sl].contiguous(),
+            gq[:, sl].contiguous(), prev[:, lo:hi].contiguous(), 1,
+            pix0=b * r_loc, prev_base=lo, r_prev=R)
+        assert torch.equal(ind_b, ind[:, sl]), b
+        assert torch.equal(q_b, q[:, sl]), b
+    assert gi.resolve_launches == before + 2
+
+
+@pytest.mark.parametrize("case", ("di_svgf", "gi_pack"))
+def test_general_row_bands_on_one_card(cuda_device, case):
+    """The general frame in row bands on one card (4 bands of 16 rows for
+    DI + SVGF with a moving camera, 2 of 8 B9 tiles for GI with the
+    resolve pack) equals one band's bit for bit and
+    `renderer.step_general`'s within rtol 1e-5 / atol 1e-6."""
+    from restir_tpu_torch import parallel
+    from restir_tpu_torch.config import DenoiserType, mat_flags
+    from restir_tpu_torch.ops.camera import update_camera
+
+    arrays, camkw = (many_light_scene(16, 6) if case == "di_svgf"
+                     else cornell_box())
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    cam = make_camera(**camkw)
+    pos = camkw["position"]
+    cams = [cam, cam, update_camera(cam, position=(pos[0] + 0.2,
+                                                   pos[1] + 0.3, pos[2]))]
+    if case == "di_svgf":
+        cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_DI,
+                           denoiser=DenoiserType.SVGF, **mat_flags(arrays))
+        n = 4
+    else:
+        cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_GI,
+                           **mat_flags(arrays))
+        n = 2
+    out = {}
+    for bands in (1, n):
+        mesh = parallel.make_mesh([cuda_device] * bands)
+        state = renderer.init_general(cfg, cam, cuda_device, scene)
+        assert isinstance(state.gi_reservoir, torch.Tensor) == (
+            case == "gi_pack")
+        step = parallel.make_sharded_step(cfg, mesh, state)
+        state = parallel.shard_state(state, mesh, cfg)
+        frames = []
+        for c in cams:
+            state, frame = step(scene, state, c)
+            frames.append(parallel.gather(frame, cuda_device, dim=0))
+        out[bands] = frames
+    state = renderer.init_general(cfg, cam, cuda_device, scene)
+    for i, c in enumerate(cams):
+        state, single = renderer.step_general(scene, state, c, cfg)
+        assert torch.equal(out[n][i], out[1][i]), i
+        torch.testing.assert_close(out[n][i], single, rtol=1e-5, atol=1e-6)
+    assert float(out[n][-1].mean()) > 0.0
