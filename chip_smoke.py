@@ -110,7 +110,12 @@ The MTBVH walk of the general path (after phase 18):
      reference's: primitive mismatch <= 0.2 %, matched lanes within rtol
      2e-4, heatmap counts equal on >= 99.9 %, and the print says so);
      each kernel's registers, walk counters per ray and per warp, time
-     and bound, and the twin's time over the frame;
+     and bound, and the twin's time over the frame; B13's primary and any
+     hit take the frame's geometry, as the render paths pass it (8x4-
+     pixel warps), and are also launched in ray order (the first
+     design, kept for batches without geometry), both held to the same
+     bits and timed; their box tests' per-warp maximum / mean on 8x4
+     tiles beside 32x1 strips and the share of live lanes;
  20. B13's closest hit through the ray-query entry point
      (`intersect_closest` on the hall's bounce rays);
  21. general main paths through renderer.init_state / step at 1920x1080,
@@ -652,21 +657,23 @@ def warp_spread(counts, width, height):
 
 def ptxas_report(source, kernel):
     """'registers / spill stores' of each build of `kernel` in `source`,
-    from this run's nvcc log (phase 2), keyed by its template flags."""
+    from this run's nvcc log (phase 2), keyed by its template arguments
+    (bool and int)."""
     out, src, name, spill = {}, None, None, None
+    mangled = f"{len(kernel)}{kernel}"  # the name as the symbol spells it
     for ln in (_build.build_log or "").splitlines():
         if ln.startswith("--- "):
             src = ln[4:]
         elif "Compiling entry function" in ln:
             name = ln.split("'")[1]
-        elif src == source and name and kernel in name:
+        elif src == source and name and mangled in name:
             if "spill stores" in ln:
                 spill = ln.split("bytes spill stores")[0].split(",")[-1]
             elif "registers" in ln:
-                flags = name.split(kernel, 1)[1].split("EE", 1)[0]
-                key = "<" + ",".join(f[2:] for f in flags.split("E")
-                                     if f.startswith(("Lb", "ILb"))
-                                     ).replace("b", "") + ">"
+                flags = name.split(mangled, 1)[1].split("EE", 1)[0]
+                key = "<" + ",".join(
+                    f.lstrip("I")[2:] for f in flags.split("E")
+                    if f.lstrip("I")[:2] in ("Lb", "Li")) + ">"
                 regs = ln.split("Used")[1].split("registers")[0].strip()
                 out[key] = f"{regs} registers, {spill.strip()} B spilled"
     return out or "not reported (cached build)"
@@ -1309,6 +1316,19 @@ def walk_line(what, counts, lanes=None):
     return boxes, tests
 
 
+def walk_spread(what, counts, live=None):
+    """Phase 19: a B13 walk's box tests per lane and their per-warp
+    maximum / mean on 8x4-pixel tiles beside 32x1 strips (lanes that are
+    not walked count 0: a warp waits on them as on its longest lane), and
+    the share of live lanes. A warp's walk loop runs its longest lane, so
+    the ratio bounds what refilling idle lanes with new rays could save."""
+    mean, tile, strip = warp_spread(counts[0], WIDTH, HEIGHT)
+    share = 1.0 if live is None else float(live.float().mean())
+    print(f"{what}: {mean:.2f} box tests per lane, live share "
+          f"{share:.4f}; per-warp maximum / mean {tile:.4f} on 8x4 tiles, "
+          f"{strip:.4f} on 32x1 strips")
+
+
 def b12_mask_report(scene, cam, dev, base):
     """PT-full's share of dead lanes at each bounce (B12 does not walk
     them), and PT_FULL / PT_INDIRECT frames with B12's mask of live lanes
@@ -1317,13 +1337,13 @@ def b12_mask_report(scene, cam, dev, base):
     real = hits.primary_hit
     dead = []
 
-    def masked(trv, prim_attr, mat_attr, o, d, active=None):
+    def masked(trv, prim_attr, mat_attr, o, d, active=None, geom=None):
         if active is not None:
             dead.append(float((~active).float().mean()))
-        return real(trv, prim_attr, mat_attr, o, d, active)
+        return real(trv, prim_attr, mat_attr, o, d, active, geom)
 
-    def unmasked(trv, prim_attr, mat_attr, o, d, active=None):
-        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d)
+    def unmasked(trv, prim_attr, mat_attr, o, d, active=None, geom=None):
+        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d, None, geom)
         if active is not None:
             prim = torch.where(active, prim, -1)
             dist = torch.where(active, dist, torch.inf)
@@ -1922,6 +1942,23 @@ def exactness(what, same_prim, lanes_eq, close):
         raise PhaseError(f"{what} disagrees with its twin")
 
 
+def b13_launches(what, fn, ref):
+    """Phase 19: a B13 entry point `fn(geom)` in both launches: in ray
+    order (the first design's, which a batch without geometry keeps) and
+    on the 8x4-pixel warps of the whole frame's geometry; each must write
+    `ref`'s bits. Prints the mean ms of 20 launches of each and returns
+    the tiled launch's."""
+    ms = {}
+    for launch, geom in (("ray order", None), ("8x4 tiles", (WIDTH, 0))):
+        if not bool(bits_equal(fn(geom), ref).all()):
+            raise PhaseError(f"{what}: the launch in {launch} does not "
+                             "write the twin's bits")
+        ms[launch] = cuda_ms(lambda: fn(geom), 20)
+    print(f"{what}: kernel ms by launch "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms["8x4 tiles"]
+
+
 def phase_walk_kernels(hall, cam, dev, record):
     """Phase 19: B13 (closest, any and primary hit) and B14 against their
     twins at 1080p on the hall, every lane: the hall's own camera rays,
@@ -1948,6 +1985,7 @@ def phase_walk_kernels(hall, cam, dev, record):
                    "heatmap_kernel"):
         print(f"ptxas intersect.cu {kernel}: "
               f"{ptxas_report('intersect.cu', kernel)}")
+    frame = (WIDTH, 0)  # every ray batch below is one ray per pixel
 
     def twin_ms(fn):
         torch.cuda.synchronize()
@@ -1958,8 +1996,9 @@ def phase_walk_kernels(hall, cam, dev, record):
 
     # primary hit on the camera rays: every lane of the pack
     o, d = g["o"], g["d"]
-    k = hits.mt_primary_cuda(trv, attr, mats, o, d)
-    kc, c_prim = hits.mt_primary_cuda(trv, attr, mats, o, d, stats=True)
+    k = hits.mt_primary_cuda(trv, attr, mats, o, d, geom=frame)
+    kc, c_prim = hits.mt_primary_cuda(trv, attr, mats, o, d, stats=True,
+                                      geom=frame)
     ref, ms_ref = twin_ms(lambda: hits.primary_ref(trv, attr, mats, o, d))
     same = k[hits.CH_PRIM] == ref[hits.CH_PRIM]
     hit = same & (ref[hits.CH_PRIM] >= 0)
@@ -1971,7 +2010,10 @@ def phase_walk_kernels(hall, cam, dev, record):
         raise PhaseError("B13 primary: the counting build writes another "
                          "pack")
     boxes, tests = walk_line("B13 primary camera-ray", c_prim)
-    ms = cuda_ms(lambda: hits.mt_primary_cuda(trv, attr, mats, o, d), 10)
+    walk_spread("B13 primary camera rays", c_prim)
+    ms = b13_launches("B13 primary hit on the hall's camera rays",
+                      lambda geom: hits.mt_primary_cuda(
+                          trv, attr, mats, o, d, geom=geom), ref)
     b = bound(r * (24 + hits.PRIMARY_CH * 4) + tables
               + table_bytes(attr, mats),
               boxes * FLOP_BOX + tests * FLOP_MT + r * FLOP_B12_EPI)
@@ -1981,7 +2023,7 @@ def phase_walk_kernels(hall, cam, dev, record):
     print(f"B13 primary hit: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, "
           f"bound {b[0]:.4f} ms ({b[1]}), {n} triangles")
     ro, rd, live = g["ro"], g["rd"], g["bounce_live"]
-    kb = hits.mt_primary_cuda(trv, attr, mats, ro, rd, live)
+    kb = hits.mt_primary_cuda(trv, attr, mats, ro, rd, live, geom=frame)
     rb = hits.primary_ref(trv, attr, mats, ro, rd, live)
     same = kb[hits.CH_PRIM] == rb[hits.CH_PRIM]
     hit = same & (rb[hits.CH_PRIM] >= 0)
@@ -1989,6 +2031,12 @@ def phase_walk_kernels(hall, cam, dev, record):
                                 atol=1e-6).all(0).float().mean())
     exactness("B13 primary hit on the first bounce rays (live lanes)", same,
               bits_equal(kb, rb).all(0), close)
+    walk_spread("B13 primary first-bounce rays",
+                hits.mt_primary_cuda(trv, attr, mats, ro, rd, live,
+                                     stats=True, geom=frame)[1], live)
+    b13_launches("B13 primary hit on the first bounce rays (live lanes)",
+                 lambda geom: hits.mt_primary_cuda(
+                     trv, attr, mats, ro, rd, live, geom=geom), rb)
 
     # closest hit on the bounce rays, every lane
     pk, dk, bk = hits.mt_closest_cuda(trv, ro, rd)
@@ -2015,21 +2063,26 @@ def phase_walk_kernels(hall, cam, dev, record):
 
     # any hit on NEE segments from the camera hits
     pos, target, shoot = g["pos"], g["target"], g["shoot"]
-    occ = hits.mt_any_cuda(trv, pos, target, shoot)
-    _, c_any = hits.mt_any_cuda(trv, pos, target, shoot, stats=True)
+    occ = hits.mt_any_cuda(trv, pos, target, shoot, geom=frame)
+    occ_c, c_any = hits.mt_any_cuda(trv, pos, target, shoot, stats=True,
+                                    geom=frame)
     occ_r, ms_ref = twin_ms(
         lambda: intersect.test_occlusion_bvh(w, pos, target, shoot))
     eq = occ == occ_r
     print(f"B13 any hit on {int(shoot.sum())} NEE segments: equal on "
           f"{float(eq.float().mean()):.7f} of lanes, occluded "
           f"{float(occ[shoot].float().mean()):.4f}")
-    if float(eq[shoot].float().mean()) < 0.998:
+    if float(eq[shoot].float().mean()) < 0.998 or not torch.equal(occ_c,
+                                                                   occ):
         raise PhaseError("B13's any hit disagrees with its twin")
     if not bool(eq.all()):
         print("B13 any hit: NOT its twin's on every lane; the reference's "
               "gates apply")
     boxes, tests = walk_line("B13 any-hit", c_any, shoot)
-    ms = cuda_ms(lambda: hits.mt_any_cuda(trv, pos, target, shoot), 10)
+    walk_spread("B13 any hit NEE segments", c_any, shoot)
+    ms = b13_launches("B13 any hit on the NEE segments",
+                      lambda geom: hits.mt_any_cuda(
+                          trv, pos, target, shoot, geom=geom), occ)
     b = bound(r * (24 + 2) + tables,
               boxes * FLOP_BOX + tests * FLOP_MT
               + int(shoot.sum()) * FLOP_SEGMENT)

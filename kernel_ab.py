@@ -1,6 +1,6 @@
-"""Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11 and B12 of
-several checkouts of restir_tpu_torch on one card, in turns, and check
-which write the same packs.
+"""Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11, B12, B13
+and B14 of several checkouts of restir_tpu_torch on one card, in turns,
+and check which write the same packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -40,7 +40,16 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   moved camera: the main paths on which B6 and B7 run (B7 on 2-D pixel
   tiles where the tree's B7 takes the frame's width), and B1b
   (`fused_di.temporal_cuda`) after B7 on the hall and the sky hall, with
-  frame 0's pack from the unmoved camera as history.
+  frame 0's pack from the unmoved camera as history;
+- B13 and B14 on the hall's 1080p rays (`general_rays` on the hall, as
+  chip_smoke.py phase 19 builds them; "auto" takes the MTBVH walk
+  there): B13's primary hit (`mt_primary_cuda`) on the camera rays and,
+  with the mask of live lanes, on the first bounce rays; its any hit
+  (`mt_any_cuda`) on the NEE segments with their live lanes; its closest
+  hit (`mt_closest_cuda`) on the bounce rays; B14 (`heatmap_cuda`) on the
+  camera rays. The primary and any hit get the batch's geometry (the
+  whole frame), as the render paths pass it, where the tree's B13 takes
+  one; a tree whose B13 takes none is called without it.
 It prints one JSON line (card, ms and the SHA-256 of each kernel's
 output packs). This script then prints, per kernel, the ms of every run
 and which runs wrote the same packs (runs marked with one letter agree),
@@ -170,6 +179,31 @@ def _child() -> None:
         end.record()
         torch.cuda.synchronize()
         ms[name] = start.elapsed_time(end) / REPS
+
+    def b13(hall, cam):
+        """B13 and B14 on the hall (chip_smoke.py phase 19)."""
+        import warnings
+
+        # B13's primary and any hit take the batch's geometry since their
+        # 8x4-pixel warps
+        geom = ({"geom": (WIDTH, 0)} if "geom" in inspect.signature(
+            hits.mt_primary_cuda).parameters else {})
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # auto's notice: the walk
+            g = general_rays(hall, cam, dev)
+        trv, attr, mats = g["trv"], hall.prim_attr, hall.mat_attr
+        timed("B13 primary hall camera rays", lambda: hits.mt_primary_cuda(
+            trv, attr, mats, g["o"], g["d"], **geom))
+        timed("B13 primary hall bounce rays, live lanes",
+              lambda: hits.mt_primary_cuda(trv, attr, mats, g["ro"],
+                                           g["rd"], g["bounce_live"],
+                                           **geom))
+        timed("B13 any hall NEE segments", lambda: hits.mt_any_cuda(
+            trv, g["pos"], g["target"], g["shoot"], **geom))
+        timed("B13 closest hall bounce rays", lambda: hits.mt_closest_cuda(
+            trv, g["ro"], g["rd"]))
+        timed("B14 hall camera rays", lambda: hits.heatmap_cuda(
+            trv, g["o"], g["d"]))
 
     def b1(name, arrays, cam, cam2, **flags):
         scene = convert.scene_from_numpy(arrays, dev)
@@ -348,7 +382,10 @@ def _child() -> None:
         timed(f"B1b {name}", lambda: fused_di.temporal_cuda(
             gb, rs, pt0, 1, k=cfg.cdf_candidates,
             temporal_clamp=cfg.temporal_clamp))
-        del scene, gb, gb0, pt0, rs
+        del gb, gb0, pt0, rs
+        if not sky:
+            b13(scene, sf.make_camera())
+        del scene
     import restir_tpu_torch
 
     print(json.dumps({

@@ -22,7 +22,12 @@
 // cache, not FMAs; a warp waits out the latency of its longest walk. Each
 // node row carries its box (`BvhRows`: one 32-byte row per step), so the
 // chain is one load deep: no second load waits on the node row for the
-// box it points at (the JAX tables' box_id indirection).
+// box it points at (the JAX tables' box_id indirection). Kernels whose
+// rays are one per pixel (B6, B7, and B13's primary and any hit when the
+// caller passes the batch's geometry) launch 8x4-pixel warps (common.cuh,
+// tile_pixel), so a warp's walks share their nodes' cache lines; the
+// rest launch one ray per thread in ray order. Refilling a warp's idle
+// lanes from a ray queue does not pay on these walks (intersect.cu).
 //
 // The COUNT variants also return the boxes and triangles tested, for
 // the measurement of the walk's work (tests and chip_smoke.py); the
@@ -165,9 +170,11 @@ __device__ __forceinline__ bool occluded_walk(const BvhRows& bvh,
 // loops), kernels B13 and B14: node rows with each node's exact box (no
 // padding, no cull slack), entry only while t_near < best (strictly), and
 // the first hit found kept on ties (a later hit must be strictly nearer).
-// RayT::hit is the Moller-Trumbore test (`MtRay`, intersect.cu), which
-// returns t > 0 or -1. With HEAT the walk also counts the nodes it
-// descends, the BVH heatmap's value (intersect_visualize).
+// RayT::hit(row, leaf) is the Moller-Trumbore test (`MtRay`,
+// intersect.cu): t > 0 or -1, and leaf.bary(u, v) the barycentrics of that
+// test, divided out only for a hit the walk keeps. With HEAT the walk also
+// counts the nodes it descends, the BVH heatmap's value
+// (intersect_visualize).
 template <bool COUNT, bool HEAT, class RayT>
 __device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
                                                     const RayT& ray,
@@ -191,13 +198,12 @@ __device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
     if (HEAT && descend) ++descended;
     if (descend && nd.prim != -1) {
       if (COUNT) ++n.tris;
-      float u, v;
-      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
+      typename RayT::Leaf leaf;
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, leaf);
       if (t > 0.0f && t < best) {
         best = t;
         prim = nd.prim;
-        bu = u;
-        bv = v;
+        leaf.bary(bu, bv);
       }
     }
     node = descend ? node + 1 : nd.miss;
@@ -226,8 +232,8 @@ __device__ __forceinline__ bool exact_occluded_walk(const BvhRows& bvh,
     if (COUNT) ++n.boxes;
     if (descend && nd.prim != -1) {
       if (COUNT) ++n.tris;
-      float u, v;
-      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
+      typename RayT::Leaf leaf;
+      const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, leaf);
       if (t > 0.0f && t < limit) return true;
     }
     node = descend ? node + 1 : nd.miss;

@@ -31,6 +31,19 @@
 // tests, from which chip_smoke.py counts the work these inputs take; the
 // builds without counters carry no counting code.
 //
+// Launch shape of B13's primary and any hit: a caller that has the
+// batch's geometry (one ray per pixel of a frame or row band from global
+// pixel pix0: every render path) gets 8x4-pixel warps (common.cuh,
+// tile_pixel), as B6 and B7 launch; a warp's rays then leave one patch of
+// the image and walk nearly the same nodes, so its node-row loads touch
+// fewer cache lines. The walks wait on those loads rather than on lanes
+// that idle in a warp: persistent warps that refill idle lanes from a ray
+// queue ran slower at every refill threshold tried, since refilled lanes
+// hold unrelated rays (PERF.md, the B13 redesign). B12, B13's closest
+// hit, B14 and batches without geometry launch in ray order. B13's primary
+// hit reads the winner's attribute row as float4 loads, and the walks
+// divide out a leaf's barycentrics only for a hit they keep.
+//
 // The closest hit keeps the lowest triangle id on ties, as the TPU
 // kernel's argmin and strict block fold do; a miss, and a zero or
 // non-finite direction, writes dist inf, barycentrics 0 and primitive -1.
@@ -66,6 +79,23 @@ __device__ __forceinline__ GiRay load_ray(const float* __restrict__ o,
 __device__ __forceinline__ bool is_live(const unsigned char* __restrict__ active,
                                         int p) {
   return active == nullptr || active[p] != 0;
+}
+
+// A batch with geometry holds one ray per pixel of a band of r pixels
+// from global pixel pix0, row-major in a frame `width` wide (a whole
+// frame: pix0 = 0); TILES launches PIX_BLOCK threads on tile_grid(width,
+// pix0, r) over it. LINEAR launches ray p on thread p.
+enum Launch { LINEAR = 0, TILES = 1 };
+
+// Ray index of this thread, -1 for none.
+template <int L>
+__device__ __forceinline__ int ray_of(int width, int pix0, int r) {
+  if (L == TILES) {
+    const int g = tile_pixel(width, pix0, r);
+    return g < 0 ? -1 : g - pix0;
+  }
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  return p < r ? p : -1;
 }
 
 // counts [2, R]: box tests, plane tests of ray p
@@ -127,11 +157,21 @@ enum {
 
 // The Moller-Trumbore leaf test of B13 / B14 (intersect_triangle, with
 // the reference's sign flip, intersections.h:17-54): row = v0, v1, v2,
-// pad. Returns t > 0 on a hit, else -1; u, v are the weights of v1, v2.
+// pad. Returns t > 0 on a hit, else -1; leaf.bary(u, v) then divides out
+// the weights of v1, v2, which the walks do only for a hit they keep.
+struct MtLeaf {
+  float bx, by, det;
+  __device__ __forceinline__ void bary(float& u, float& v) const {
+    u = bx / det;
+    v = by / det;
+  }
+};
+
 struct MtRay {
+  using Leaf = MtLeaf;
   float ox, oy, oz, dx, dy, dz;
   __device__ __forceinline__ float hit(const float* __restrict__ row,
-                                       float& u, float& v) const {
+                                       MtLeaf& leaf) const {
     const float4* q = reinterpret_cast<const float4*>(row);
     const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
     const float e01x = a.w - a.x, e01y = b.x - a.y, e01z = b.y - a.z;
@@ -155,8 +195,7 @@ struct MtRay {
         bx >= 0.0f && bx <= det && by >= 0.0f && bx + by <= det;
     const float det_safe = det > 0.0f ? det : 1.0f;
     const float t = (e02x * qx + e02y * qy + e02z * qz) / det_safe;
-    u = bx / det_safe;
-    v = by / det_safe;
+    leaf = {bx, by, det_safe};
     return nondegenerate && inside && t > 0.0f ? t : -1.0f;
   }
 };
@@ -170,15 +209,16 @@ __device__ __forceinline__ MtRay load_mt_ray(const float* __restrict__ o,
 
 // Primary hit of B12 (plane test, padded rows; MT == false) or B13 (exact
 // walk, Moller-Trumbore; MT == true), then the same pack.
-template <bool COUNT, bool MT>
-__global__ void __launch_bounds__(BLOCK)
+template <bool COUNT, bool MT, int L>
+__global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
     primary_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const unsigned char* __restrict__ active, BvhRows bvh,
                    const float* __restrict__ attr,
                    const float* __restrict__ mat, int n_mat,
-                   float* __restrict__ out, int* __restrict__ counts, int r) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+                   float* __restrict__ out, int* __restrict__ counts,
+                   int width, int pix0, int r) {
+  const int p = ray_of<L>(width, pix0, r);
+  if (p < 0) return;
   WalkCount n = {0, 0};
   int id = -1;
   float t = RESTIR_BIG, u = 0.0f, v = 0.0f;
@@ -194,8 +234,21 @@ __global__ void __launch_bounds__(BLOCK)
   const bool hit = id >= 0;
   float a[25];
   const float* at = attr + (size_t)(hit ? id : 0) * 32;
+  if (MT) {  // B13 reads the 128-byte row as float4 loads
+    const float4* q = reinterpret_cast<const float4*>(at);
 #pragma unroll
-  for (int j = 0; j < 25; ++j) a[j] = hit ? at[j] : 0.0f;
+    for (int j = 0; j < 6; ++j) {
+      const float4 w = hit ? __ldg(q + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[4 * j] = w.x;
+      a[4 * j + 1] = w.y;
+      a[4 * j + 2] = w.z;
+      a[4 * j + 3] = w.w;
+    }
+    a[24] = hit ? __ldg(at + 24) : 0.0f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 25; ++j) a[j] = hit ? at[j] : 0.0f;
+  }
   const int mat_id = __float2int_rz(a[24]);
   const bool mat_ok = mat_id >= 0 && mat_id < n_mat;
   const float* mr = mat + (size_t)(mat_ok ? mat_id : 0) * 16;
@@ -263,14 +316,14 @@ __global__ void __launch_bounds__(BLOCK)
 // B13's any hit, test_occlusion_bvh's segment: d = (y - x) / max(|y - x|,
 // 1e-20), origin x + d 1e-5, occluded iff a hit lies at 0 < t <
 // |y - x| - 2e-4; the products and sums in the twin's order.
-template <bool COUNT>
-__global__ void __launch_bounds__(BLOCK)
+template <bool COUNT, int L>
+__global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
     mt_any_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   const unsigned char* __restrict__ active, BvhRows bvh,
                   unsigned char* __restrict__ occluded,
-                  int* __restrict__ counts, int r) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+                  int* __restrict__ counts, int width, int pix0, int r) {
+  const int p = ray_of<L>(width, pix0, r);
+  if (p < 0) return;
   WalkCount n = {0, 0};
   bool blocked = false;
   if (is_live(active, p)) {
@@ -364,11 +417,11 @@ extern "C" int restir_primary_hit(const float* o, const float* d,
   const BvhRows bvh = bvh_rows(rows, size, planes);
   const cudaStream_t s = (cudaStream_t)stream;
   if (counts != nullptr)
-    primary_kernel<true, false><<<grid(r), BLOCK, 0, s>>>(
-        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+    primary_kernel<true, false, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, 0, 0, r);
   else
-    primary_kernel<false, false><<<grid(r), BLOCK, 0, s>>>(
-        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+    primary_kernel<false, false, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, 0, 0, r);
   return (int)cudaGetLastError();
 }
 
@@ -398,22 +451,35 @@ extern "C" int restir_mt_closest_hit(const float* o, const float* d,
   return (int)cudaGetLastError();
 }
 
+// B13's primary and any hit take the batch's geometry: width > 0 and
+// pix0 >= 0 launch 8x4-pixel warps over the band of r rays from global
+// pixel pix0 of a frame `width` wide; width 0 launches in ray order.
+
 // x, y: float32 [R, 3]; active: null or bool [R]. Writes occluded bool [R].
 extern "C" int restir_mt_any_hit(const float* x, const float* y,
                                  const unsigned char* active,
                                  const float* rows, int size,
                                  const float* vrows,
-                                 unsigned char* occluded, int* counts, int r,
-                                 void* stream) {
-  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+                                 unsigned char* occluded, int* counts,
+                                 int width, int pix0, int r, void* stream) {
+  if (r <= 0 || size <= 0 || width < 0 || pix0 < 0)
+    return (int)cudaErrorInvalidValue;
   const BvhRows bvh = bvh_rows(rows, size, vrows);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (counts != nullptr)
-    mt_any_kernel<true><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh,
-                                                  occluded, counts, r);
+  if (width > 0) {
+    const dim3 tiles = tile_grid(width, pix0, r);
+    if (counts != nullptr)
+      mt_any_kernel<true, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          x, y, active, bvh, occluded, counts, width, pix0, r);
+    else
+      mt_any_kernel<false, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          x, y, active, bvh, occluded, counts, width, pix0, r);
+  } else if (counts != nullptr)
+    mt_any_kernel<true, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        x, y, active, bvh, occluded, counts, 0, 0, r);
   else
-    mt_any_kernel<false><<<grid(r), BLOCK, 0, s>>>(x, y, active, bvh,
-                                                   occluded, counts, r);
+    mt_any_kernel<false, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        x, y, active, bvh, occluded, counts, 0, 0, r);
   return (int)cudaGetLastError();
 }
 
@@ -423,16 +489,26 @@ extern "C" int restir_mt_primary_hit(const float* o, const float* d,
                                      const float* rows, int size,
                                      const float* vrows, const float* attr,
                                      const float* mat, int n_mat, float* out,
-                                     int* counts, int r, void* stream) {
-  if (r <= 0 || size <= 0 || n_mat <= 0) return (int)cudaErrorInvalidValue;
+                                     int* counts, int width, int pix0, int r,
+                                     void* stream) {
+  if (r <= 0 || size <= 0 || n_mat <= 0 || width < 0 || pix0 < 0)
+    return (int)cudaErrorInvalidValue;
   const BvhRows bvh = bvh_rows(rows, size, vrows);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (counts != nullptr)
-    primary_kernel<true, true><<<grid(r), BLOCK, 0, s>>>(
-        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+  if (width > 0) {
+    const dim3 tiles = tile_grid(width, pix0, r);
+    if (counts != nullptr)
+      primary_kernel<true, true, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          o, d, active, bvh, attr, mat, n_mat, out, counts, width, pix0, r);
+    else
+      primary_kernel<false, true, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          o, d, active, bvh, attr, mat, n_mat, out, counts, width, pix0, r);
+  } else if (counts != nullptr)
+    primary_kernel<true, true, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, 0, 0, r);
   else
-    primary_kernel<false, true><<<grid(r), BLOCK, 0, s>>>(
-        o, d, active, bvh, attr, mat, n_mat, out, counts, r);
+    primary_kernel<false, true, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, bvh, attr, mat, n_mat, out, counts, 0, 0, r);
   return (int)cudaGetLastError();
 }
 

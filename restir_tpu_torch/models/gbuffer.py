@@ -89,7 +89,8 @@ def render_gbuffer(scene, cam: Camera, last_cam: Camera, cfg: RenderConfig,
         o, d = sample_rays(cam, cfg.width, cfg.height, x, y, half, half,
                            *lens)
 
-    it, mat, _ = trace_primary(scene, trv, o, d, cfg.with_textures)
+    it, mat, _ = trace_primary(scene, trv, o, d, cfg.with_textures,
+                               geom=(cfg.width, pix0))
     is_light = it.valid & (mat.type == LIGHT)
     front = mathx.dot(it.norm, d) < 0.0
     # single-sided back-face light hits become misses (gbuffer.cu:32-36)

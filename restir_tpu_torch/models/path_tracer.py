@@ -33,7 +33,8 @@ def _primary_setup(scene, cam: Camera, cfg: RenderConfig, looper, salt,
     trv = ix.traversal_arrays(scene, cfg.intersector)
     pix, o, d = primary_rays(cam, cfg, looper, salt, scene.verts.device,
                              cfg.sampler, pix0, r)
-    it, mat, hit = trace_primary(scene, trv, o, d, cfg.with_textures)
+    it, mat, hit = trace_primary(scene, trv, o, d, cfg.with_textures,
+                                 geom=(cfg.width, pix0))
     return trv, pix, o, d, hit, it, mat
 
 
@@ -66,7 +67,8 @@ def pt_direct(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
     shade = it.valid & ~is_light & ~delta
     ls = light_ops.sample_direct_light(
         scene, trv, it.pos, l1, l2, l3, l4, has_env=cfg.has_env_map,
-        single_sided=cfg.single_sided_lights, active=shade)
+        single_sided=cfg.single_sided_lights, active=shade,
+        geom=(cfg.width, pix0))
     f = bsdf_ops.eval_bsdf(mat, norm, wo, ls.wi)
     contrib = ls.radiance * f * (mathx.sat_dot(norm, ls.wi)
                                  / torch.clamp(ls.pdf, min=1e-20))[..., None]
@@ -100,14 +102,15 @@ def pt_trace(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
         with mathx.fused():  # a lax.scan body in the JAX package
             direct, indirect, alive, throughput, pos, norm, wo, mat = _bounce(
                 scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
-                throughput, pos, norm, wo, mat)
+                throughput, pos, norm, wo, mat, (cfg.width, pix0))
     return mathx.zero_nan_or_inf(direct), mathx.zero_nan_or_inf(indirect)
 
 
 def _bounce(scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
-            throughput, pos, norm, wo, mat):
+            throughput, pos, norm, wo, mat, geom):
     """One bounce of pt_trace: NEE at the current vertex, then a BSDF
-    sample and its hit, with MIS on env and light hits."""
+    sample and its hit, with MIS on env and light hits; `geom` (width,
+    pix0) of the pixels `pix`."""
     delta_bsdf = mat.type == DIELECTRIC
     norm = _facing(norm, wo, mat)
 
@@ -117,7 +120,7 @@ def _bounce(scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
     shade = alive & ~delta_bsdf
     ls = light_ops.sample_direct_light(
         scene, trv, pos, l1, l2, l3, l4, has_env=cfg.has_env_map,
-        single_sided=cfg.single_sided_lights, active=shade)
+        single_sided=cfg.single_sided_lights, active=shade, geom=geom)
     f = bsdf_ops.eval_bsdf(mat, norm, wo, ls.wi)
     bsdf_pdf = bsdf_ops.pdf_bsdf(mat, norm, wo, ls.wi)
     mis_w = mathx.power_heuristic(ls.pdf, bsdf_pdf)
@@ -146,7 +149,8 @@ def _bounce(scene, trv, cfg, pix, looper, depth, direct, indirect, alive,
 
     ro, rd = ix.make_offseted_ray(pos, bs.wi)
     new_it, new_mat, _ = trace_primary(scene, trv, ro, rd,
-                                       cfg.with_textures, active=alive)
+                                       cfg.with_textures, active=alive,
+                                       geom=geom)
     # env miss with MIS (pathtrace.cu:235-245)
     if cfg.has_env_map:
         env_r = env_sample_bilinear(scene.env_map, mathx.to_plane(rd))

@@ -291,7 +291,8 @@ def direct_temporal(scene, gb: GBufferFrame, last_gb: GBufferFrame, it, mat,
     if not vis_done:
         target = it.pos + res.sample.wi * torch.clamp(res.sample.dist,
                                                       max=1e6)[..., None]
-        occluded = ix.test_occlusion(trv, it.pos, target, active=shade)
+        occluded = ix.test_occlusion(trv, it.pos, target, active=shade,
+                                     geom=(cfg.width, pix0))
         res = res._replace(weight=torch.where(occluded, 0.0, res.weight))
 
     # 3. temporal reuse (restir.cu:180-185)

@@ -129,8 +129,9 @@ def trace_gi_sample_fused(scene, it, mat, ray_dir, cfg: RenderConfig, looper,
 
 
 def _gi_bounce(scene, trv, pix, looper, depth: int, carry, *, single_sided,
-               has_env, with_textures, plain):
-    """One bounce of the path loop (restir_gi.py:170-260)."""
+               has_env, with_textures, plain, geom):
+    """One bounce of the path loop (restir_gi.py:170-260); `geom` (width,
+    pix0) of the pixels `pix`, or None."""
     (lo, nv, xs, ns, prim_pdf, prim_delta, alive, throughput, pos, norm, wo,
      cur_mat) = carry
     first = depth == 1
@@ -146,7 +147,8 @@ def _gi_bounce(scene, trv, pix, looper, depth: int, carry, *, single_sided,
         shade = alive & ~delta_bsdf
         ls = light_ops.sample_direct_light(
             scene, trv, pos, l1, l2, l3, l4, has_env=has_env,
-            single_sided=single_sided, active=shade, plain=plain)
+            single_sided=single_sided, active=shade, plain=plain,
+            geom=geom)
         f = bsdf_ops.eval_bsdf(cur_mat, norm, wo, ls.wi)
         bsdf_pdf = bsdf_ops.pdf_bsdf(cur_mat, norm, wo, ls.wi)
         mis_w = mathx.power_heuristic(ls.pdf, bsdf_pdf)
@@ -174,7 +176,7 @@ def _gi_bounce(scene, trv, pix, looper, depth: int, carry, *, single_sided,
 
     ro, rd = ix.make_offseted_ray(pos, bs.wi)
     new_it, new_mat, _ = trace_primary(scene, trv, ro, rd, with_textures,
-                                       active=alive, plain=plain)
+                                       active=alive, plain=plain, geom=geom)
     if has_env:  # env miss with MIS (restir.cu:331-342)
         env_r = env_sample_bilinear(scene.env_map, mathx.to_plane(rd))
         env_pdf = light_ops.env_map_pdf(scene, rd)
@@ -215,9 +217,11 @@ def _gi_bounce(scene, trv, pix, looper, depth: int, carry, *, single_sided,
 
 def _trace_paths(scene, pos, norm, wo, mat, alive, *, depth, single_sided,
                  has_env, with_textures, looper, pix0=0, plain=False,
-                 intersector="auto"):
+                 intersector="auto", width=None):
     """The bounce loop -> raw (lo, nv, xs, ns, prim_pdf, prim_delta);
-    `plain` casts every ray with `intersect_bf` (B8's twin)."""
+    `plain` casts every ray with `intersect_bf` (B8's twin). With the
+    frame's `width`, pixel p is global pixel pix0 + p of that frame (the
+    geometry of B13's launch)."""
     trv = ix.traversal_arrays(scene, intersector)
     r = pos.shape[0]
     dev = pos.device
@@ -227,7 +231,8 @@ def _trace_paths(scene, pos, norm, wo, mat, alive, *, depth, single_sided,
              torch.zeros((r,), dtype=torch.bool, device=dev), alive,
              torch.ones((r, 3), device=dev), pos, norm, wo, mat)
     kw = dict(single_sided=single_sided, has_env=has_env,
-              with_textures=with_textures, plain=plain)
+              with_textures=with_textures, plain=plain,
+              geom=None if width is None else (width, pix0))
     for d in range(1, depth + 1):
         with mathx.fused():  # a lax.scan body in the JAX package
             carry = _gi_bounce(scene, trv, pix, looper, d, carry, **kw)
@@ -247,7 +252,7 @@ def trace_gi_sample(scene, it, mat, ray_dir, cfg: RenderConfig, looper,
         it.valid & (mat.type != LIGHT), depth=cfg.trace_depth,
         single_sided=cfg.single_sided_lights, has_env=cfg.has_env_map,
         with_textures=cfg.with_textures, looper=looper, pix0=pix0,
-        intersector=cfg.intersector)
+        intersector=cfg.intersector, width=cfg.width)
     sample = rsv.IndirectSample(lo=mathx.zero_nan_or_inf(lo), xv=it.pos,
                                 nv=nv, xs=xs, ns=ns)
     # invalid() == lum(Lo) < 1e-8 (restir.h:16-18), and a recorded

@@ -84,9 +84,12 @@ def intersect_closest(trv: TraversalArrays, o, d, active=None) -> Hit:
     return Hit(prim_id=prim, dist=dist, bary=bary)
 
 
-def test_occlusion(trv: TraversalArrays, x, y, active=None) -> torch.Tensor:
-    """Any hit between points x and y (bool [R]); inactive lanes False."""
-    return kernels.any_hit(trv, x, y, active)
+def test_occlusion(trv: TraversalArrays, x, y, active=None,
+                   geom=None) -> torch.Tensor:
+    """Any hit between points x and y (bool [R]); inactive lanes False.
+    `geom` (width, pix0): one segment per pixel from global pixel pix0 of
+    a frame `width` wide (B13's launch)."""
+    return kernels.any_hit(trv, x, y, active, geom)
 
 
 def intersect_triangle(o, d, v0, v1, v2):

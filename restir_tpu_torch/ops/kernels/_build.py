@@ -154,9 +154,11 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
     "restir_mt_closest_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "restir_mt_any_hit": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    "restir_mt_any_hit": [
+        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     "restir_mt_primary_hit": [
-        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
+        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
+        _VP],
     "restir_bvh_heatmap": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
     "restir_ris_cdf": [
         _VP, _U, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I,

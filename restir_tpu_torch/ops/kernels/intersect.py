@@ -36,6 +36,18 @@ with the twins' arithmetic under -fmad=false, so they equal the twins in
 Nothing falls back. The any hits and the primary hits take a mask of
 live lanes (`active`); the kernels do not walk the others.
 `trv` is an `ops.intersect.TraversalArrays`.
+
+B13's primary and any hit take the batch's geometry `geom = (width,
+pix0)` where the batch holds one ray per pixel of a band, row-major from
+global pixel pix0 of a frame `width` pixels wide (a whole frame: pix0 =
+0), as every render path's camera rays, bounce rays and NEE segments
+are. They then launch on 8x4-pixel warps, whose rays leave one small
+patch of the image and walk nearly the same nodes. A batch without
+geometry, such as the ray-query entry point `closest_hit`'s, launches in
+ray order. The launch changes which thread walks which ray, never how a
+ray is walked: both write the same bits. The plain versions ignore the
+geometry; a geometry that cannot hold the batch raises `ValueError` on
+any device.
 """
 
 from __future__ import annotations
@@ -52,6 +64,9 @@ mt_closest_launches = 0  # B13 closest-hit launches
 mt_any_launches = 0  # B13 any-hit launches
 mt_primary_launches = 0  # B13 primary-hit launches
 heatmap_launches = 0  # B14 launches
+
+_INT_MAX = 2**31 - 1
+_TILE_ROWS_MAX = 65535 * 8  # tile rows of one launch (gridDim.y * 8)
 
 # B12 pack channels (intersect_kernel.py:101-106)
 CH_DIST, CH_U, CH_V = 0, 1, 2
@@ -199,8 +214,11 @@ def any_cuda(trv, x, y, active=None, stats=False):
     return (occ, counts) if stats else occ
 
 
-def any_hit(trv, x, y, active=None):
-    """Any hit between x and y (bool [R])."""
+def any_hit(trv, x, y, active=None, geom=None):
+    """Any hit between x and y (bool [R]); `geom` (width, pix0): the
+    batch's pixels, for B13's launch."""
+    if geom is not None:
+        check_geometry(geom, x.shape[0])
     if _device_of(x) == "cpu":
         if _walks(trv):
             from .. import intersect as ix
@@ -208,7 +226,7 @@ def any_hit(trv, x, y, active=None):
             return ix.test_occlusion_bvh(trv.walk, x, y, active)
         return intersect_bf.test_occlusion_bf(trv.tri_xform, x, y, active)
     if _walks(trv):
-        return mt_any_cuda(trv, x, y, active)
+        return mt_any_cuda(trv, x, y, active, geom=geom)
     return any_cuda(trv, x, y, active)
 
 
@@ -257,6 +275,32 @@ def primary_cuda(trv, prim_attr, mat_attr, o, d, active=None, stats=False):
     return (out, counts) if stats else out
 
 
+def check_geometry(geom, r):
+    """(width, pix0) of a batch of r rays, one per pixel from global
+    pixel pix0 of a frame `width` wide; ValueError if that band cannot
+    be launched: a width under 1, a negative pix0, more tile rows than a
+    launch holds, or pixel indices past int32."""
+    width, pix0 = (int(v) for v in geom)
+    if width < 1 or pix0 < 0:
+        raise ValueError(f"geometry (width {width}, pix0 {pix0}) cannot "
+                         f"hold {r} rays")
+    y0 = pix0 // width
+    rows = (pix0 + r - 1) // width - y0 + 1
+    gy, gx = -(-rows // 8), -(-width // 32)
+    if rows > _TILE_ROWS_MAX or (y0 + 8 * gy) * width + 32 * gx > _INT_MAX:
+        raise ValueError(f"geometry (width {width}, pix0 {pix0}) cannot "
+                         f"hold {r} rays: the band's tiles pass the "
+                         "launch's limits")
+    return width, pix0
+
+
+def _b13_geometry(geom, r):
+    """(width, pix0) of a B13 primary or any-hit launch: the batch's
+    checked geometry (8x4-pixel warps), or (0, 0) without one (ray
+    order)."""
+    return (0, 0) if geom is None else check_geometry(geom, r)
+
+
 def _attr_tables(prim_attr, mat_attr, n, dev):
     for name, t, cols in (("prim_attr", prim_attr, 32),
                           ("mat_attr", mat_attr, 16)):
@@ -269,16 +313,20 @@ def _attr_tables(prim_attr, mat_attr, n, dev):
     return prim_attr.contiguous(), mat_attr.contiguous()
 
 
-def primary_hit(trv, prim_attr, mat_attr, o, d, active=None):
+def primary_hit(trv, prim_attr, mat_attr, o, d, active=None, geom=None):
     """(prim [R] i32, dist [R], bary [R, 2], pos [R, 3], norm [R, 3],
     uv [R, 2], mat_params [R, 12]) as `primary_hit_pallas` returns them,
     with the miss pack on lanes where `active` is False; mat_params
     columns: type, base colour (3), metallic, roughness, ior, the four
-    map ids, material id."""
+    map ids, material id. `geom` (width, pix0): the batch's pixels, for
+    B13's launch."""
+    if geom is not None:
+        check_geometry(geom, o.shape[0])
     if _device_of(o) == "cpu":
         out = primary_ref(trv, prim_attr, mat_attr, o, d, active)
     elif _walks(trv):
-        out = mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active)
+        out = mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active,
+                              geom=geom)
     else:
         out = primary_cuda(trv, prim_attr, mat_attr, o, d, active)
     return unpack_primary(out)
@@ -320,35 +368,40 @@ def mt_closest_cuda(trv, o, d, active=None, stats=False):
     return (*out, counts) if stats else out
 
 
-def mt_any_cuda(trv, x, y, active=None, stats=False):
+def mt_any_cuda(trv, x, y, active=None, stats=False, geom=None):
     """B13's any hit on the card -> occluded bool [R]; lanes with active
     False are not walked and read False. With `stats` also the int32
-    [2, R] box and triangle tests of each segment."""
+    [2, R] box and triangle tests of each segment. With `geom` (width,
+    pix0) the batch launches on 8x4-pixel warps, else in ray order."""
     global mt_any_launches
     (x, y), _, r = _walk_args(trv, x, y)
     dev = x.device
     active = _active(active, r)
+    width, pix0 = _b13_geometry(geom, r)
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
     with _build.on_device(dev):
         err = _build.library().restir_mt_any_hit(
-            p(x), p(y), p(active), *_walk_tables(trv), p(occ), p(counts), r,
-            _build.stream_of(dev))
+            p(x), p(y), p(active), *_walk_tables(trv), p(occ), p(counts),
+            width, pix0, r, _build.stream_of(dev))
     _build.check(err, "restir_mt_any_hit")
     mt_any_launches += 1
     return (occ, counts) if stats else occ
 
 
 def mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active=None,
-                    stats=False):
+                    stats=False, geom=None):
     """B13's primary hit on the card -> B12's [24, R] pack on the walk's
     hit; lanes with active False are not walked and get the miss pack.
-    With `stats` also the int32 [2, R] box and triangle tests."""
+    With `stats` also the int32 [2, R] box and triangle tests. With
+    `geom` (width, pix0) the batch launches on 8x4-pixel warps, else in
+    ray order."""
     global mt_primary_launches
     (o, d), n, r = _walk_args(trv, o, d)
     dev = o.device
     active = _active(active, r)
+    width, pix0 = _b13_geometry(geom, r)
     attr, mat = _attr_tables(prim_attr, mat_attr, n, dev)
     out = torch.empty((PRIMARY_CH, r), dtype=torch.float32, device=dev)
     counts = _counts(stats, r, dev)
@@ -356,7 +409,8 @@ def mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active=None,
     with _build.on_device(dev):
         err = _build.library().restir_mt_primary_hit(
             p(o), p(d), p(active), *_walk_tables(trv), p(attr), p(mat),
-            mat.shape[0], p(out), p(counts), r, _build.stream_of(dev))
+            mat.shape[0], p(out), p(counts), width, pix0, r,
+            _build.stream_of(dev))
     _build.check(err, "restir_mt_primary_hit")
     mt_primary_launches += 1
     return (out, counts) if stats else out

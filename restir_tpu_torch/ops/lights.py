@@ -198,10 +198,13 @@ def sample_from_targets(scene, t, pos, r1, r2, r3, single_sided=True,
 
 def sample_direct_light(scene, trv: ix.TraversalArrays, pos, r1, r2, r3, r4,
                         has_env: bool, single_sided: bool = True,
-                        active=None, plain: bool = False) -> LightSample:
+                        active=None, plain: bool = False,
+                        geom=None) -> LightSample:
     """DevScene::sampleDirectLight (scene.h:427-459): an NEE sample and
     its shadow ray; occluded samples get INVALID_PDF. `plain` casts the
-    shadow ray with `intersect_bf` on any device (kernel twins)."""
+    shadow ray with `intersect_bf` on any device (kernel twins). `geom`
+    (width, pix0): one sample per pixel from global pixel pix0 of a frame
+    `width` wide (`ix.test_occlusion`)."""
     ls = sample_direct_light_no_visibility(scene, pos, r1, r2, r3, r4,
                                            has_env=has_env,
                                            single_sided=single_sided)
@@ -213,5 +216,6 @@ def sample_direct_light(scene, trv: ix.TraversalArrays, pos, r1, r2, r3, r4,
         occluded = intersect_bf.test_occlusion_bf(trv.tri_xform, pos, target,
                                                   shoot)
     else:
-        occluded = ix.test_occlusion(trv, pos, target, active=shoot)
+        occluded = ix.test_occlusion(trv, pos, target, active=shoot,
+                                     geom=geom)
     return ls._replace(pdf=torch.where(occluded, INVALID_PDF, ls.pdf))

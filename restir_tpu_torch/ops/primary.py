@@ -30,10 +30,12 @@ from .texture import (
 
 
 def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
-                  active=None, plain: bool = False):
+                  active=None, plain: bool = False, geom=None):
     """-> (Interaction, SurfaceMaterial, Hit). With `active`, inactive
     lanes miss: the kernel does not walk them and writes its miss pack,
-    the plain route masks their primitive and distance."""
+    the plain route masks their primitive and distance. `geom` (width,
+    pix0): the batch holds one ray per pixel from global pixel pix0 of a
+    frame `width` wide (B13's launch; the plain route ignores it)."""
     if plain or not o.is_cuda:
         hit = ix.Hit(*kernels.closest_plain(trv, o, d, active))
         it = surf.make_interaction(scene, hit)
@@ -42,7 +44,7 @@ def trace_primary(scene, trv: ix.TraversalArrays, o, d, with_textures: bool,
         return it._replace(norm=mapped), mat, hit
 
     prim, dist, bary, pos, norm, uv, matp = kernels.primary_hit(
-        trv, scene.prim_attr, scene.mat_attr, o, d, active)
+        trv, scene.prim_attr, scene.mat_attr, o, d, active, geom)
     base_color = matp[:, 1:4]
     base_map = matp[:, 7].to(torch.int32)
     base_color = torch.where((base_map == PROCEDURAL_TEXTURE)[..., None],

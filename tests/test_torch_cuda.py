@@ -1,7 +1,9 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
 B3, B4 (also on images that cut their tiles ragged), B5, the SVGF variance kernels, B6, B7, the general path's B10,
 B11, B12, B13 and B14 (bit for bit), the general EAW / SVGF step, and
-ReSTIR GI's B8 and B9 on a CUDA card; B13's build and launch errors;
+ReSTIR GI's B8 and B9 on a CUDA card; B13's build and launch errors,
+its primary and any hit on 8x4-pixel warps on bands, ragged widths and
+edge-case rays;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
 without B12's mask of live lanes.
@@ -658,8 +660,8 @@ def test_pt_frames_equal_with_and_without_b12_mask(general, tracer,
     real = ki.primary_hit
     dead = []
 
-    def unmasked(trv, prim_attr, mat_attr, o, d, active=None):
-        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d)
+    def unmasked(trv, prim_attr, mat_attr, o, d, active=None, geom=None):
+        prim, dist, *rest = real(trv, prim_attr, mat_attr, o, d, None, geom)
         if active is not None:
             dead.append(int((~active).sum()))
             prim = torch.where(active, prim, -1)
@@ -1062,6 +1064,111 @@ def test_b13_launch_errors_raise(walk):
     empty = o[:0].contiguous()
     with pytest.raises(RuntimeError, match="restir_mt_closest_hit"):
         ki.mt_closest_cuda(trv, empty, empty)
+
+
+def _bits(t):
+    """t's bits, so that NaN lanes compare equal to NaN lanes."""
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 \
+        else t
+
+
+# B13 batches with geometry: name -> (width, pix0, first ray, rays) over
+# the `walk` frame's 256x64 rays ("repeat" tiles them 128 times: 2,097,152
+# rays, 8,192 tile blocks)
+B13_BATCHES = {
+    "frame": (W, 0, 0, R),
+    "band of whole rows from mid-frame": (W, 24 * W, 24 * W, 16 * W),
+    "width 100, ragged": (100, 0, 0, R),
+    "mid-row band, width 100": (100, 237, 237, 5000),
+    "below one warp": (W, 5 * W + 3, 5 * W + 3, 20),
+    "repeat": (1920, 0, 0, 128 * R),
+    "every lane inactive": (W, 0, 0, R),
+    "zero and non-finite rays": (W, 0, 0, R),
+}
+
+
+def _b13_batch(walk, name):
+    """(geometry, o, d, active, pos, target, seg_active) of a batch."""
+    _, _, _, o, d, pos, target, seg = walk
+    width, pix0, first, r = B13_BATCHES[name]
+    act = torch.arange(R, device=o.device) % 5 != 0
+    if name == "repeat":
+        o, d, act, pos, target, seg = (
+            t.repeat(128, *([1] * (t.dim() - 1)))
+            for t in (o, d, act, pos, target, seg))
+    o, d, act, pos, target, seg = (
+        t[first:first + r].clone() for t in (o, d, act, pos, target, seg))
+    if name == "every lane inactive":
+        act = torch.zeros_like(act)
+        seg = torch.zeros_like(seg)
+    if name == "zero and non-finite rays":
+        d[0:50] = 0.0
+        o[50:100] = float("nan")
+        d[100:150] = float("inf")
+        o[150:200, 1] = float("-inf")
+        target[0:50] = pos[0:50]
+        pos[50:100] = float("nan")
+        target[100:150] = float("inf")
+        seg[:200] = True
+    return (width, pix0), o, d, act, pos, target, seg
+
+
+@pytest.mark.parametrize("name", list(B13_BATCHES))
+def test_b13_tiled_launch_writes_the_twins_bits(walk, name):
+    """B13's primary and any hit on 8x4-pixel warps write their twins'
+    bits and the linear launch's on every lane: bands from mid-frame,
+    ragged widths, a batch below one warp and one of 2,097,152 rays, every
+    lane inactive, zero and non-finite rays."""
+    scene = walk[0]
+    trv = walk[2]
+    attr, mats = scene.prim_attr, scene.mat_attr
+    geom, o, d, act, pos, target, seg = _b13_batch(walk, name)
+    before = (ki.mt_primary_launches, ki.mt_any_launches)
+    k = ki.mt_primary_cuda(trv, attr, mats, o, d, act, geom=geom)
+    occ = ki.mt_any_cuda(trv, pos, target, seg, geom=geom)
+    assert (ki.mt_primary_launches, ki.mt_any_launches) == (
+        before[0] + 1, before[1] + 1)
+    lin = ki.mt_primary_cuda(trv, attr, mats, o, d, act)
+    assert torch.equal(_bits(k), _bits(lin))
+    assert torch.equal(occ, ki.mt_any_cuda(trv, pos, target, seg))
+    if name == "repeat":  # the twins on the 16,384 rays it repeats
+        n = R
+        ref = ki.primary_ref(trv, attr, mats, o[:n], d[:n], act[:n])
+        ref = ref.repeat(1, 128)
+        occ_ref = tix.test_occlusion_bvh(trv.walk, pos[:n], target[:n],
+                                         seg[:n]).repeat(128)
+    else:
+        ref = ki.primary_ref(trv, attr, mats, o, d, act)
+        occ_ref = tix.test_occlusion_bvh(trv.walk, pos, target, seg)
+    assert torch.equal(_bits(k), _bits(ref))
+    assert torch.equal(occ, occ_ref)
+    if name == "every lane inactive":
+        assert bool((k[ki.CH_PRIM] == -1).all()) and not bool(occ.any())
+    elif name in ("frame", "width 100, ragged", "repeat"):
+        assert bool((k[ki.CH_PRIM] >= 0).any()) and bool(occ.any())
+
+
+def test_b13_geometry_refused_on_the_card(walk):
+    """A geometry that cannot hold the batch raises ValueError before any
+    launch; a launch the entry point refuses raises through
+    `_build.check`, with or without geometry (no fallback)."""
+    scene, _, trv, o, d, pos, target, seg = walk
+    attr, mats = scene.prim_attr, scene.mat_attr
+    before = (ki.mt_primary_launches, ki.mt_any_launches)
+    for geom in ((0, 0), (W, -1), (1, 0)):  # (1, 0): R rows > 65535 tiles
+        with pytest.raises(ValueError, match="geometry"):
+            ki.mt_primary_cuda(trv, attr, mats, o.repeat(33, 1),
+                               d.repeat(33, 1), geom=geom)
+        with pytest.raises(ValueError, match="geometry"):
+            ki.mt_any_cuda(trv, pos.repeat(33, 1), target.repeat(33, 1),
+                           geom=geom)
+    assert (ki.mt_primary_launches, ki.mt_any_launches) == before
+    empty = o[:0].contiguous()
+    for geom in (None, (W, 0)):
+        with pytest.raises(RuntimeError, match="restir_mt_primary_hit"):
+            ki.mt_primary_cuda(trv, attr, mats, empty, empty, geom=geom)
+        with pytest.raises(RuntimeError, match="restir_mt_any_hit"):
+            ki.mt_any_cuda(trv, empty, empty, geom=geom)
 
 
 @pytest.mark.parametrize("denoiser", ("EAW", "SVGF"))

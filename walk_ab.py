@@ -1,0 +1,182 @@
+"""B13's walks on the hall at 1920x1080, beyond kernel_ab.py's per-kernel
+times:
+
+    python3 walk_ab.py order
+    python3 walk_ab.py busy _chip/parent . . _chip/parent
+
+`order` times B13's any hit on the hall's NEE segments and its primary
+hit on the first bounce rays (with the mask of live lanes) when the
+batch is permuted into sorted orders (Morton codes of the origin and the
+target cell, a quantised direction), in ray order, against the
+unsorted batch: what ray coherence is worth to these walks. Each sorted
+run must write the unsorted run's bits, permuted; torch.argsort's time
+on the keys is printed beside it (the sort is not part of the port).
+
+`busy` runs each checkout given (the one here, or an unpacked `git
+archive` of another commit) in its own process, in the order given:
+hall PT-direct and hall general DI + SVGF ("bvh"), chip_smoke.py phase
+21's main paths, 2 warm-up + 8 timed frames each, then a torch.profiler
+trace of 4 frames: wall and device busy per frame.
+
+The rays are kernel_ab.general_rays' (chip_smoke.py phase 19's). Needs
+one CUDA card; exits non-zero without one. Prints the card's name and
+power limit last.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import warnings
+
+
+def _order() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from restir_tpu_torch import convert
+    from restir_tpu_torch.ops.kernels import intersect as hits
+
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    _, arrays, cam = cs.load_hall()
+    hall = convert.scene_from_numpy(arrays, dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # auto's notice: the walk
+        g = cs.general_rays(hall, cam, dev)
+    trv = g["trv"]
+    lo = torch.as_tensor(arrays.bounds_lo[0], device=dev).float()
+    hi = torch.as_tensor(arrays.bounds_hi[0], device=dev).float()
+    last = torch.iinfo(torch.long).max
+
+    def morton(p, bits):
+        """Morton code of points p [R, 3] in the scene's box."""
+        q = ((p - lo) / (hi - lo)).clamp(0, 1 - 1e-7) * (1 << bits)
+        q = q.nan_to_num(0).long()
+        code = torch.zeros(p.shape[0], dtype=torch.long, device=dev)
+        for b in range(bits):
+            for a in range(3):
+                code |= ((q[:, a] >> b) & 1) << (3 * b + a)
+        return code
+
+    def direction(d, bits=4):
+        u = ((d.nan_to_num(0) + 1) / 2).clamp(0, 1 - 1e-7) * (1 << bits)
+        u = u.long()
+        return (u[:, 0] << (2 * bits)) | (u[:, 1] << bits) | u[:, 2]
+
+    def best_ms(fn):
+        return min(cs.cuda_ms(fn, 20) for _ in range(2))
+
+    def run(what, keys, live, inputs, call, permute):
+        base = call(*inputs, live)
+        for name, key in keys.items():
+            if key is None:
+                perm, sort_ms = torch.arange(live.shape[0], device=dev), 0.0
+            else:
+                key = torch.where(live, key, last)
+                perm = torch.argsort(key)
+                sort_ms = best_ms(lambda: torch.argsort(key))
+            args = [t[perm].contiguous() for t in inputs] + [live[perm]]
+            if not torch.equal(call(*args), permute(base, perm)):
+                raise SystemExit(f"{what} in {name} order: other bits")
+            ms = best_ms(lambda: call(*args))
+            print(f"{what} in {name} order: {ms:.4f} ms (argsort of the "
+                  f"keys {sort_ms:.4f} ms)")
+
+    pos, target = g["pos"], g["target"]
+    seg = target - pos
+    seg = seg / seg.norm(dim=1, keepdim=True)
+    run("B13 any hit, NEE segments", {
+        "ray": None,
+        "origin": morton(pos, 10),
+        "target cell, then origin": morton(target, 6) * (1 << 30)
+        + morton(pos, 10),
+        "direction, then origin": direction(seg) * (1 << 30)
+        + morton(pos, 10),
+    }, g["shoot"], [pos, target],
+        lambda x, y, a: hits.mt_any_cuda(trv, x, y, a),
+        lambda out, perm: out[perm])
+    ro, rd = g["ro"], g["rd"]
+    run("B13 primary hit, first-bounce rays", {
+        "ray": None,
+        "origin, then direction": morton(ro, 8) * (1 << 12) + direction(rd),
+        "direction, then origin": direction(rd) * (1 << 30)
+        + morton(ro, 10),
+    }, g["bounce_live"], [ro, rd],
+        lambda o, d, a: hits.mt_primary_cuda(trv, hall.prim_attr,
+                                             hall.mat_attr, o, d, a),
+        lambda out, perm: out[:, perm])
+
+
+def _busy() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from restir_tpu_torch import convert
+    from restir_tpu_torch.config import (
+        DenoiserType,
+        RenderConfig,
+        TracerType,
+        mat_flags,
+    )
+
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    _, arrays, cam = cs.load_hall()
+    hall = convert.scene_from_numpy(arrays, dev)
+    base = RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
+                        **mat_flags(arrays))
+    levels = base.eaw_levels
+    for name, cfg, per_frame in (
+            ("hall PT-direct", base.replace(tracer=TracerType.PT_DIRECT),
+             {"mt_primary": 2, "mt_any": 1}),
+            ("hall general DI + SVGF",
+             base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
+                          ris_mode="cdf", denoiser=DenoiserType.SVGF),
+             {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": 1 + levels,
+              "atrous_svgf": levels})):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # auto's notice: the walk
+            cs.phase_general_main(name, hall, cfg, cam, dev, per_frame,
+                                  cs.GENERAL_WARMUP, cs.GENERAL_TIMED)
+            cs.profile_frames(name, hall, cfg, cam, dev)
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("walk_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if argv[:1] == ["order"]:
+        _order()
+    elif argv[:1] == ["busy"] and argv[1:]:
+        for tree in argv[1:]:
+            root = os.path.abspath(tree)
+            print(f"checkout {tree}", flush=True)
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--child"],
+                cwd=root, env={**os.environ, "PYTHONPATH": root},
+                capture_output=True, text=True, timeout=1200)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith(("main path", "profile"))]
+            print("\n".join(lines), flush=True)
+            if out.returncode != 0:
+                print(out.stderr[-4000:], file=sys.stderr)
+                return 1
+    elif argv == ["--child"]:
+        sys.path.insert(0, os.getcwd())
+        _busy()
+        return 0
+    else:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
