@@ -23,11 +23,13 @@ Phases (any failure exits non-zero and prints no result line):
   6. headline main path: renderer.init_state / step at 1920x1080 with the
      EAW denoiser, 8 warm-up + 32 timed frames, launch counts checked;
   7. SVGF on the headline scene: B5 (temporal accumulation), the two
-     variance kernels and B4 (SVGF level, all 5 levels) against their
-     twins on B1's G-buffer and a random history (B4's time and exact
-     lanes per level), then the main path with
+     variance kernels (the variance with level 0's prefilter in one
+     launch, and the prefilter of levels 1-4; each timed, the first
+     beside the pair of kernels it replaced) and B4 (SVGF level, all 5
+     levels) against their twins on B1's G-buffer and a random history
+     (B4's time and exact lanes per level), then the main path with
      denoiser=SVGF (launches per frame: fused_di 2, spatial 1,
-     svgf_temporal 1, svgf_variance 1 + 5, atrous_svgf 5);
+     svgf_temporal 1, svgf_variance 1 + 4, atrous_svgf 5);
   8. env map and textures: env_scene (has_env_map) and
      textured_scene(aux_maps=True) (with_textures) at 1080p: B1 against
      its twin, the scene forced through B6 + B7 + B1b equal to B1 bit for
@@ -111,24 +113,31 @@ The MTBVH walk of the general path (after phase 18):
      2e-4, heatmap counts equal on >= 99.9 %, and the print says so);
      each kernel's registers, walk counters per ray and per warp, time
      and bound, and the twin's time over the frame; B13's primary and any
-     hit take the frame's geometry, as the render paths pass it (8x4-
-     pixel warps), and are also launched in ray order (the first
+     hit and B14 take the frame's geometry, as the render paths pass it
+     (8x4-pixel warps), and are also launched in ray order (the first
      design, kept for batches without geometry), both held to the same
      bits and timed; their box tests' per-warp maximum / mean on 8x4
-     tiles beside 32x1 strips and the share of live lanes;
+     tiles beside 32x1 strips and the share of live lanes; for B14 the
+     SASS of each walk loop of its builds without counters
+     (`cuobjdump -sass`) counted by kind on the loop's common path (less
+     the leaf test), and the ALU-pipe time estimate: ALU-pipe instructions
+     per box test x box tests / (SMs x 64 lanes x the SM clock that
+     nvidia-smi reads while B14 runs);
  20. B13's closest hit through the ray-query entry point
      (`intersect_closest` on the hall's bounce rays);
  21. general main paths through renderer.init_state / step at 1920x1080,
      2 + 8 frames and a profile each: hall PT-direct (intersector auto:
      the walk; launches per frame mt_primary 2, mt_any 1), hall general
      DI + SVGF (intersector "bvh", which the fused gate refuses, cdf
-     mode: mt_primary 1, ris_cdf 1, svgf_variance 1 + 5, atrous_svgf 5),
+     mode: mt_primary 1, ris_cdf 1, svgf_variance 1 + 4, atrous_svgf 5),
      hall heatmap (BVH_VISUALIZE: heatmap 1, mt_primary 1 for the
      G-buffer), headline PT-direct with the Sobol sampler and EAW
      (primary_hit 2, any_hit 1, atrous_eaw 5);
  22. hall energy: 64 fused RESTIR_DI frames of the hall against 256
-     PT_DIRECT frames (the walk) at 384x384, `energy_ratio_vs_pt` printed
-     on a line of its own; a measurement, not a gate.
+     PT_DIRECT frames (the walk, B13) at 384x384, `energy_ratio_vs_pt`
+     printed on a line of its own, and the same ratio against 256
+     PT_DIRECT frames with intersector "brute" (B11 / B12's plane-test
+     walk) beside it; a measurement, not a gate.
 The app shell (after phase 22):
  23. the CLI in-process (`restir_tpu_torch.app.main`, the user's
      `python -m restir_tpu_torch`): `--builtin many_light --width 1920
@@ -321,7 +330,8 @@ FLOP_PIXEL = 150  # raygen + G-buffer epilogue
 FLOP_TEMPORAL = 40  # B1b's merge
 FLOP_B4_TAP = 50  # one SVGF tap: 3 weights (3 exp, 1 log), 4 sums
 FLOP_B5 = 40  # B5's test and blend
-FLOP_VAR = 40  # variance estimate + one prefilter, per pixel
+FLOP_VAR = 40  # variance estimate + level 0's prefilter, per pixel
+FLOP_PREFILTER = 20  # one 3x3 prefilter of the variance, per pixel
 FLOP_B12_EPI = 60  # B12's interpolation of pos / normal / uv
 # one B8 path vertex without its plane tests: a Lambert vertex's NEE
 # (light point, normal, pdf, shadow-ray set-up, BSDF eval and MIS ~200),
@@ -365,6 +375,37 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, match: str, tries: int = 3) -> float:
+    """Mean device time per call of the kernels whose name holds `match`,
+    from a torch.profiler trace of `reps` calls of fn after one profiled
+    but discarded call (a trace may miss the first kernels after it
+    starts; one with a count other than `reps` is taken again, up to
+    `tries` times, else nan). For kernels shorter than their wrapper's
+    host time, which CUDA events around back-to-back calls measure
+    instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and match in e.name]
+        if len(us) == reps:
+            return sum(us) / reps / 1e3
+    return float("nan")
 
 
 def bound(nbytes: float, flops: float):
@@ -677,6 +718,165 @@ def ptxas_report(source, kernel):
                 regs = ln.split("Used")[1].split("registers")[0].strip()
                 out[key] = f"{regs} registers, {spill.strip()} B spilled"
     return out or "not reported (cached build)"
+
+
+# SASS opcodes by kind, for the instruction counts of a walk's loop; the
+# ALU pipe (16 lanes per clock per SM sub-partition) issues the min / max,
+# compares, selects and integer logic, the FMA pipe FADD / FMUL / FFMA
+# and IMAD
+SASS_KINDS = (
+    ("FADD/FMUL/FFMA", ("FADD", "FMUL", "FFMA")),
+    ("FMNMX", ("FMNMX",)),
+    ("compare/select", ("FSETP", "ISETP", "FSEL", "SEL", "PLOP3", "P2R",
+                        "R2P")),
+    ("loads", ("LDG", "LD", "LDS", "LDC", "ULDC")),
+    ("address/integer", ("IMAD", "IADD3", "LEA", "SHF", "LOP3", "MOV",
+                         "IMNMX", "VIMNMX", "PRMT", "UMOV", "ULEA",
+                         "UIADD3", "UIMAD")),
+    ("branch/sync", ("BRA", "BSSY", "BSYNC", "WARPSYNC", "EXIT", "NOP")),
+)
+ALU_PIPE = {"FMNMX", "FSETP", "ISETP", "FSEL", "SEL", "PLOP3", "P2R", "R2P",
+            "IADD3", "LEA", "SHF", "LOP3", "MOV", "IMNMX", "VIMNMX", "PRMT"}
+
+
+def _sass_functions(lib, kernel):
+    """{symbol: [(address, opcode, predicated, branch target or None)]}
+    of every function in `lib` whose symbol holds `kernel`, from
+    `cuobjdump -sass`."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise PhaseError(f"cuobjdump failed: {out.stderr[-2000:]}")
+    mangled = f"{len(kernel)}{kernel}"
+    funcs, cur, labels, pending = {}, None, {}, []
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            cur = funcs.setdefault(name, []) if mangled in name else None
+            labels, pending = {}, []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = ins.search(ln)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        pred = text.startswith("@")
+        op = (text.split()[1] if pred else text.split()[0]).split(".")[0]
+        tgt = None
+        if op == "BRA":
+            t = re.search(r"0x([0-9a-f]+)|\((\.L_x_\d+)\)", text)
+            if t:
+                tgt = int(t.group(1), 16) if t.group(1) else t.group(2)
+        cur.append([addr, op, pred, tgt])
+        cur[-1].append(labels)
+    for name, code in funcs.items():
+        for row in code:
+            labs = row.pop()
+            if isinstance(row[3], str):
+                row[3] = labs.get(row[3])
+    return funcs
+
+
+def sass_loops(lib, kernel):
+    """Per function of `kernel` and per loop (a backward branch): the
+    instructions of the loop by kind, whole and on its common path (less
+    the ranges that a predicated forward branch inside the loop skips,
+    such as a leaf's triangle test), and of those the ALU pipe's."""
+    res = {}
+    for name, code in _sass_functions(lib, kernel).items():
+        loops = []
+        for addr, op, _, tgt in code:
+            if op != "BRA" or tgt is None or tgt > addr:
+                continue
+            body = [c for c in code if tgt <= c[0] <= addr]
+            skip = set()
+            for a, o, p, t in body:
+                if o == "BRA" and p and t is not None and a < t <= addr:
+                    skip.update(c[0] for c in body if a < c[0] < t)
+            common = [c for c in body if c[0] not in skip]
+
+            def kinds(rows):
+                n = {k: sum(1 for r in rows if r[1] in ops)
+                     for k, ops in SASS_KINDS}
+                n["other"] = len(rows) - sum(n.values())
+                n["ALU pipe"] = sum(1 for r in rows if r[1] in ALU_PIPE)
+                n["all"] = len(rows)
+                return n
+
+            if len(body) >= 16:  # not a branch-to-self or a short spin
+                loops.append({"start": hex(tgt), "end": hex(addr),
+                              "whole": kinds(body), "common": kinds(common)})
+        res[name] = loops
+    return res
+
+
+def sm_clock_mhz(fn, seconds=2.0):
+    """Median of nvidia-smi's clocks.sm (MHz) sampled every 100 ms while
+    fn() runs back to back for about `seconds`."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = max(int(seconds / max(time.perf_counter() - t, 1e-5)), 1)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    vals = sorted(float(v) for v in out.split() if v.strip())
+    # drop the first and last samples, taken while the loop ramps
+    vals = vals[1:-1] or vals
+    return vals[len(vals) // 2] if vals else float("nan")
+
+
+def walk_sass_report(what, kernel, box_tests, fn):
+    """Step 0 of a walk's redesign: per loop of `kernel`'s builds without
+    counters, its SASS by kind and the ALU pipe's instructions per step
+    (loops with the same counts on one line), and the ALU-pipe time
+    estimate: ALU instructions per step x box tests / (SMs x 64 lanes per
+    clock x the SM clock nvidia-smi reads while fn runs). Returns the
+    largest estimate and the clock."""
+    lib = _build.build()
+    loops = sass_loops(lib, kernel)
+    mhz = sm_clock_mhz(fn)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    for name, ls in sorted(loops.items()):
+        if "ILb1E" in name.split(kernel, 1)[1][:8]:
+            continue  # the counting build
+        groups = {}
+        for i, lp in enumerate(ls):
+            key = json.dumps([lp["whole"], lp["common"]])
+            groups.setdefault(key, []).append(i)
+        for key, idx in groups.items():
+            whole, common = json.loads(key)
+            ms = common["ALU pipe"] * box_tests / (sms * 64 * mhz * 1e6) * 1e3
+            worst = max(worst, ms)
+            print(f"{what} SASS {name[:80]} loops {idx}: whole "
+                  f"{json.dumps(whole)}; common path {json.dumps(common)}; "
+                  f"ALU-pipe time estimate {ms:.4f} ms at {mhz:.0f} MHz on "
+                  f"{sms} SMs ({box_tests:.4g} box tests)")
+    return worst, mhz
 
 
 def walk_lines(name, cnt6, cnt7, t, k, has_env, w, h):
@@ -1065,43 +1265,64 @@ def phase_svgf_kernels(cfg, gb, dev, record):
           f"bound {b5[0]:.4f} ms ({b5[1]})")
 
     vkw = dict(width=w, height=h)
-    var_k = svgf.estimate_variance(sv_k, **vkw)
-    var_r = denoiser.svgf_estimate_variance(
-        sv_k[svgf.SV_M1:svgf.SV_M1 + 3].reshape(3, h, w)).reshape(r)
+    mom = sv_k[svgf.SV_M1:svgf.SV_M1 + 3]  # the pack's moment rows, in place
+    var_k, fv0_k = svgf.estimate_variance(mom, **vkw)
+    var_r = denoiser.svgf_estimate_variance(mom.reshape(3, h, w))
+    fv0_r = denoiser.svgf_filter_variance(var_r).reshape(r)
+    var_r = var_r.reshape(r)
     fv_k = svgf.filter_variance(var_k, **vkw)
     fv_r = denoiser.svgf_filter_variance(var_k.reshape(h, w)).reshape(r)
     closes = (parity.close_fraction(var_r[None], var_k[None], 1e-6, 1e-7),
+              parity.close_fraction(fv0_r[None], fv0_k[None], 1e-6, 1e-7),
               parity.close_fraction(fv_r[None], fv_k[None], 1e-6, 1e-7))
+    exact = [float(bits_equal(a, b).float().mean()) for a, b in
+             ((var_k, var_r), (fv0_k, fv0_r), (fv_k, fv_r))]
     err_v = max(float((var_r - var_k).abs().max()),
+                float((fv0_r - fv0_k).abs().max()),
                 float((fv_r - fv_k).abs().max()))
-    print(f"variance kernels vs twins (estimate, prefilter): within rtol "
-          f"1e-6 {closes[0]:.6f}, {closes[1]:.6f}; max abs err {err_v:.3g}")
+    print(f"variance kernels vs twins (estimate, its level-0 prefilter, "
+          f"a later prefilter): within rtol 1e-6 "
+          + ", ".join(f"{c:.6f}" for c in closes) + "; bit for bit "
+          + ", ".join(f"{e:.6f}" for e in exact)
+          + f"; max abs err {err_v:.3g}")
     if min(closes) < 0.9999:
         raise PhaseError("the variance kernels disagree with their twins")
 
-    def one_var_each():
-        svgf.filter_variance(svgf.estimate_variance(sv_k, **vkw), **vkw)
-
     def one_var_each_ref():
-        v = denoiser.svgf_estimate_variance(
-            sv_k[svgf.SV_M1:svgf.SV_M1 + 3].reshape(3, h, w))
+        v = denoiser.svgf_estimate_variance(mom.reshape(3, h, w))
         denoiser.svgf_filter_variance(v)
 
-    ms_v = cuda_ms(one_var_each, 20)
+    # these kernels are shorter than their wrappers' host time, so the
+    # kernel's time is the profiler's device time; CUDA events around
+    # back-to-back calls (printed beside) time the host
+    ms_v = device_ms(lambda: svgf.estimate_variance(mom, **vkw), 20,
+                     "svgf_variance_kernel")
+    ms_f = device_ms(lambda: svgf.filter_variance(var_k, **vkw), 20,
+                     "svgf_filter_variance_kernel")
+    ev_v = cuda_ms(lambda: svgf.estimate_variance(mom, **vkw), 20)
+    ev_f = cuda_ms(lambda: svgf.filter_variance(var_k, **vkw), 20)
     ms_v_ref = cuda_ms(one_var_each_ref, 5)
-    bv = bound(r * (3 + 1 + 1 + 1) * 4, r * FLOP_VAR)
+    # the moments read, the variance and its prefilter written
+    bv = bound(r * (3 + 2) * 4, r * FLOP_VAR)
+    bf = bound(r * (1 + 1) * 4, r * FLOP_PREFILTER)
     record["svgf_variance"] = dict(max_abs_err=err_v, ms=ms_v,
                                    plain_ms=ms_v_ref, bound_ms=bv[0],
                                    bound_by=bv[1], library_ms=None)
-    print(f"variance estimate + one prefilter: kernels {ms_v:.4f} ms, twins "
-          f"{ms_v_ref:.4f} ms, bound {bv[0]:.4f} ms ({bv[1]})")
+    print(f"variance estimate + level-0 prefilter (one launch): kernel "
+          f"{ms_v:.4f} ms on the device ({ev_v:.4f} ms per call by CUDA "
+          f"events), twins {ms_v_ref:.4f} ms, bound {bv[0]:.4f} ms "
+          f"({bv[1]}); prefilter of a later level: kernel {ms_f:.4f} ms on "
+          f"the device ({ev_f:.4f} by events), bound {bf[0]:.4f} ms "
+          f"({bf[1]})")
 
     akw = dict(width=w, height=h, sig_l=cfg.sig_luminance,
                sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
-    col, var = sv_k[svgf.SV_COL:svgf.SV_COL + 3].contiguous(), var_k
+    col, var, fv = sv_k[svgf.SV_COL:svgf.SV_COL + 3].contiguous(), var_k, \
+        fv0_k
     err4, ms4, ms4_ref = 0.0, [], []
     for level in range(cfg.eaw_levels):
-        fv = svgf.filter_variance(var, **vkw)
+        if level > 0:
+            fv = svgf.filter_variance(var, **vkw)
         ck, vk = atrous.atrous_svgf_cuda(col, var, fv, gb, level=level,
                                          **akw)
         cr, vr = atrous.atrous_svgf_ref(col, var, fv, gb, level=level, **akw)
@@ -1943,7 +2164,8 @@ def exactness(what, same_prim, lanes_eq, close):
 
 
 def b13_launches(what, fn, ref):
-    """Phase 19: a B13 entry point `fn(geom)` in both launches: in ray
+    """Phase 19: a B13 or B14 entry point `fn(geom)` in both launches: in
+    ray
     order (the first design's, which a batch without geometry keeps) and
     on the 8x4-pixel warps of the whole frame's geometry; each must write
     `ref`'s bits. Prints the mean ms of 20 launches of each and returns
@@ -2097,8 +2319,8 @@ def phase_walk_kernels(hall, cam, dev, record):
     ho, hd = sample_rays(cam, WIDTH, HEIGHT, x, y, torch.full_like(x, 0.5),
                          torch.full_like(y, 0.5))
     ho, hd = ho.contiguous(), hd.contiguous()
-    cnt = hits.heatmap_cuda(trv, ho, hd)
-    cnt_c, c_heat = hits.heatmap_cuda(trv, ho, hd, stats=True)
+    cnt = hits.heatmap_cuda(trv, ho, hd, geom=frame)
+    cnt_c, c_heat = hits.heatmap_cuda(trv, ho, hd, stats=True, geom=frame)
     cnt_r, ms_ref = twin_ms(lambda: intersect.intersect_visualize(w, ho, hd))
     eq = float((cnt == cnt_r).float().mean())
     c = cnt.to(torch.float64)
@@ -2111,7 +2333,12 @@ def phase_walk_kernels(hall, cam, dev, record):
         print("B14: NOT its twin's count on every pixel; the reference's "
               "gate (>= 99.9 %) applies")
     boxes, tests = walk_line("B14 heatmap", c_heat)
-    ms = cuda_ms(lambda: hits.heatmap_cuda(trv, ho, hd), 10)
+    walk_spread("B14 heatmap camera rays", c_heat)
+    ms = b13_launches("B14 on the hall's pixel-centre rays",
+                      lambda geom: hits.heatmap_cuda(trv, ho, hd, geom=geom),
+                      cnt)
+    walk_sass_report("B14", "heatmap_kernel", boxes,
+                      lambda: hits.heatmap_cuda(trv, ho, hd, geom=frame))
     b = bound(r * (24 + 4) + tables, boxes * FLOP_BOX + tests * FLOP_MT)
     record["heatmap"] = dict(max_abs_err=float((cnt - cnt_r).abs().max()),
                              ms=ms, plain_ms=ms_ref, bound_ms=b[0],
@@ -2141,18 +2368,36 @@ def phase_hall_energy(hall, hall_arrays, cam, dev):
         for _ in range(256):
             ref_state, ref = renderer.step(hall, ref_state, cam, ref_cfg)
     ref = ref.double()
+    # the same reference through B11 / B12: brute force's plane test on
+    # its padded MTBVH walk, at any size
+    brute_cfg = ref_cfg.replace(intersector="brute")
+    reset_counts()
+    brute_state = renderer.init_state(brute_cfg, cam, hall, device=dev)
+    for _ in range(256):
+        brute_state, ref_b = renderer.step(hall, brute_state, cam, brute_cfg)
+    ref_b = ref_b.double()
     torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["primary_hit"] < 512 or counts["any_hit"] < 256 or (
+            counts["mt_primary"] + counts["mt_any"]):
+        raise PhaseError(f"hall energy: the brute reference launched "
+                         f"{counts}")
     if not (bool(torch.isfinite(got).all()) and bool(
-            torch.isfinite(ref).all())):
+            torch.isfinite(ref).all()) and bool(torch.isfinite(ref_b).all())):
         raise PhaseError("hall energy: non-finite frames")
     ratio = float(got.mean() / max(float(ref.mean()), 1e-9))
+    ratio_b = float(got.mean() / max(float(ref_b.mean()), 1e-9))
     rel_rmse = float(torch.sqrt(((got - ref) ** 2).mean())
                      / max(float(ref.mean()), 1e-9))
+    refs = float(ref_b.mean() / max(float(ref.mean()), 1e-9))
     print(f"hall energy (384x384, 64 fused RESTIR_DI vs 256 PT_DIRECT "
-          f"frames, {time.perf_counter() - t0:.1f} s): fused mean "
-          f"{float(got.mean()):.6f}, PT-direct mean {float(ref.mean()):.6f}")
+          f"frames each way, {time.perf_counter() - t0:.1f} s): fused mean "
+          f"{float(got.mean()):.6f}, PT-direct mean {float(ref.mean()):.6f} "
+          f"(the walk, B13), {float(ref_b.mean()):.6f} (brute, B11 / B12); "
+          f"brute / walk reference {refs:.4f}")
     print(f"energy_ratio_vs_pt {ratio:.4f} (hall; rel_rmse_vs_pt_64f "
-          f"{rel_rmse:.4f}; within 5 %: {abs(ratio - 1.0) < 0.05})")
+          f"{rel_rmse:.4f}; within 5 %: {abs(ratio - 1.0) < 0.05}); against "
+          f"the brute reference {ratio_b:.4f}")
 
 
 def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
@@ -2185,7 +2430,7 @@ def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
         ("hall general DI + SVGF", hall, hall_cam,
          base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
                       ris_mode="cdf", denoiser=DenoiserType.SVGF),
-         {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": 1 + levels,
+         {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": levels,
           "atrous_svgf": levels}),
         ("hall heatmap", hall, hall_cam,
          base.replace(tracer=TracerType.BVH_VISUALIZE),
@@ -2991,7 +3236,7 @@ def main() -> int:
     phase_svgf_kernels(svgf_cfg, gb_b1, dev, record)
     counts = phase_main("headline SVGF", scene, svgf_cfg, cam, dev, {
         "fused_di": 2, "spatial": 1, "svgf_temporal": 1,
-        "svgf_variance": 1 + levels, "atrous_svgf": levels})
+        "svgf_variance": levels, "atrous_svgf": levels})
     launches.update({k: counts[k] for k in (
         "svgf_temporal", "svgf_variance", "atrous_svgf")})
     profile_frames("headline SVGF", scene, svgf_cfg, cam, dev)

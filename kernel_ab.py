@@ -31,7 +31,10 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   level's output, from the headline frame's demodulated colour (B1, then
   B2 on a seeded accumulator), as chip_smoke.py phase 3 calls it; and B4
   (`atrous.atrous_svgf_cuda`), levels 0-4, on SVGF's inputs (B5 on a
-  seeded history, the variance kernels) as phase 7 calls it; B2
+  seeded history, the variance kernels) as phase 7 calls it, and the
+  variance kernels themselves: the variance with level 0's prefilter
+  (one kernel where the tree fuses them, else the estimate and a
+  prefilter) and the prefilter of levels 1-4, each on B4's variance; B2
   (`spatial.spatial_shade_cuda`, in place on a seeded accumulator) and
   B5 (`svgf.svgf_temporal_cuda`) themselves on those inputs;
 - B6 and B7 (`gbuffer_cuda`, `candidates_cuda`) on the headline frame,
@@ -47,12 +50,17 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   with the mask of live lanes, on the first bounce rays; its any hit
   (`mt_any_cuda`) on the NEE segments with their live lanes; its closest
   hit (`mt_closest_cuda`) on the bounce rays; B14 (`heatmap_cuda`) on the
-  camera rays. The primary and any hit get the batch's geometry (the
-  whole frame), as the render paths pass it, where the tree's B13 takes
-  one; a tree whose B13 takes none is called without it.
-It prints one JSON line (card, ms and the SHA-256 of each kernel's
-output packs). This script then prints, per kernel, the ms of every run
-and which runs wrote the same packs (runs marked with one letter agree),
+  camera rays and on the pixel-centre rays the heatmap casts. The
+  primary and any hit and B14 get the batch's geometry (the whole
+  frame), as the render paths pass it, where the tree's kernel takes
+  one; a tree whose kernel takes none is called without it.
+It prints one JSON line (card, ms, the device ms of each call's
+kernels from a torch.profiler trace of 20 more calls, and the SHA-256 of
+each kernel's output packs). The device ms is the kernel's time where
+it is shorter than its wrapper's host time, which the CUDA events then
+measure (the SVGF variance kernels). This script then prints, per
+kernel, the ms and device ms of every run and which runs wrote the same
+packs (runs marked with one letter agree),
 then the card's name and power limit. Needs one CUDA card; exits
 non-zero without one.
 """
@@ -148,8 +156,30 @@ def _child() -> None:
         textured_scene,
     )
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     dev = torch.device("cuda", 0)
-    ms, sha = {}, {}
+    ms, sha, dev_ms = {}, {}, {}
+
+    def device_ms(fn):
+        """Mean device time of fn's kernels per call, from a
+        torch.profiler trace of REPS calls (nan if the trace lost
+        kernels: their count is no multiple of REPS)."""
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        return (sum(us) / REPS / 1e3 if us and len(us) % REPS == 0
+                else float("nan"))
     # B7 takes the frame's width (2-D pixel tiles) since its search redesign
     b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
         reuse.candidates_cuda).parameters else {})
@@ -179,6 +209,7 @@ def _child() -> None:
         end.record()
         torch.cuda.synchronize()
         ms[name] = start.elapsed_time(end) / REPS
+        dev_ms[name] = device_ms(fn)
 
     def b13(hall, cam):
         """B13 and B14 on the hall (chip_smoke.py phase 19)."""
@@ -202,8 +233,20 @@ def _child() -> None:
             trv, g["pos"], g["target"], g["shoot"], **geom))
         timed("B13 closest hall bounce rays", lambda: hits.mt_closest_cuda(
             trv, g["ro"], g["rd"]))
+        # B14 takes the batch's geometry since its 8x4-pixel warps; the
+        # heatmap casts pixel-centre rays
+        from restir_tpu_torch.ops.camera import pixel_centers, sample_rays
+
+        x, y = pixel_centers(WIDTH, HEIGHT, dev)
+        half = torch.full_like(x, 0.5)
+        ho, hd = (t.contiguous() for t in sample_rays(
+            cam, WIDTH, HEIGHT, x, y, half, half))
+        geom14 = ({"geom": (WIDTH, 0)} if "geom" in inspect.signature(
+            hits.heatmap_cuda).parameters else {})
         timed("B14 hall camera rays", lambda: hits.heatmap_cuda(
-            trv, g["o"], g["d"]))
+            trv, g["o"], g["d"], **geom14))
+        timed("B14 hall pixel-centre rays", lambda: hits.heatmap_cuda(
+            trv, ho, hd, **geom14))
 
     def b1(name, arrays, cam, cam2, **flags):
         scene = convert.scene_from_numpy(arrays, dev)
@@ -261,11 +304,27 @@ def _child() -> None:
     sv = svgf.svgf_temporal_cuda(gb_k, color5, prev)
     vkw = dict(width=WIDTH, height=HEIGHT)
     col = sv[svgf.SV_COL:svgf.SV_COL + 3].contiguous()
-    var = svgf.estimate_variance(sv, **vkw)
+    # the variance and level 0's prefilter: one kernel on the pack's
+    # moment rows since the variance redesign, an estimate on the pack
+    # and a prefilter before it
+    if "moments" in inspect.signature(svgf.estimate_variance).parameters:
+        def var_pair():
+            return svgf.estimate_variance(
+                sv[svgf.SV_M1:svgf.SV_M1 + 3], **vkw)
+    else:
+        def var_pair():
+            v = svgf.estimate_variance(sv, **vkw)
+            return v, svgf.filter_variance(v, **vkw)
+    timed("SVGF variance + level-0 prefilter", var_pair)
+    var, fv = var_pair()
     skw = dict(width=WIDTH, height=HEIGHT, sig_l=cfg.sig_luminance,
                sig_n=cfg.svgf_sig_normal, sig_d=cfg.svgf_sig_depth)
     for level in range(cfg.eaw_levels):
-        fv = svgf.filter_variance(var, **vkw)
+        if level > 0:
+            v_in = var
+            timed(f"SVGF prefilter level {level}",
+                  lambda: svgf.filter_variance(v_in, **vkw))
+            fv = svgf.filter_variance(var, **vkw)
         c_in, v_in = col, var
         timed(f"B4 level {level}", lambda: atrous.atrous_svgf_cuda(
             c_in, v_in, fv, gb_k, level=level, **skw))
@@ -390,7 +449,8 @@ def _child() -> None:
 
     print(json.dumps({
         "root": os.path.dirname(os.path.dirname(restir_tpu_torch.__file__)),
-        "card": torch.cuda.get_device_name(0), "ms": ms, "sha256": sha}))
+        "card": torch.cuda.get_device_name(0), "ms": ms,
+        "device_ms": dev_ms, "sha256": sha}))
 
 
 def main(trees) -> int:
@@ -420,14 +480,17 @@ def main(trees) -> int:
     for name in names:
         times = ", ".join(f"{r['ms'][name]:.4f}" if name in r["ms"] else "-"
                           for r in runs)
+        dtimes = ", ".join(f"{r['device_ms'][name]:.4f}"
+                           if name in r.get("device_ms", {}) else "-"
+                           for r in runs)
         letters = {}
         marks = "".join(
             letters.setdefault(r["sha256"][name], "ABCDEFGH"[len(letters)])
             if name in r["sha256"] else "-" for r in runs)
         same = ("identical in every run" if len(letters) == 1
                 else f"by run {marks}")
-        print(f"{name}: ms by run [{times}] ({' / '.join(trees)}); packs "
-              f"{same}")
+        print(f"{name}: ms by run [{times}], device ms [{dtimes}] "
+              f"({' / '.join(trees)}); packs {same}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

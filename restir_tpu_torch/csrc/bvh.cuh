@@ -32,6 +32,11 @@
 // The COUNT variants also return the boxes and triangles tested, for
 // the measurement of the walk's work (tests and chip_smoke.py); the
 // builds without counters carry no counting code.
+//
+// B14's walk (heat_walk) picks each box's near and far planes once per
+// ray from the signs of its inverse direction (octant_slab): 4 min / max
+// per box test where `slab` takes 10, with the same differences,
+// products and comparisons, so every descend decision is the same.
 #pragma once
 
 #include "common.cuh"
@@ -89,6 +94,31 @@ __device__ __forceinline__ bool slab(float4 lo, float4 hi, float ox, float oy,
   t_near = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
   const float t_far =
       fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  return t_far >= 0.0f && t_far >= t_near;
+}
+
+// `slab` for a ray whose inverse direction has the sign bits OCT (bit 0:
+// ix < 0, bit 1: iy, bit 2: iz): per axis the near plane is the box's lo
+// where the inverse is positive and its hi where it is negative. For a
+// box with lo <= hi (ops/kernels/tables.py refuses any other exact row)
+// and an axis whose origin is finite and whose inverse is not zero, the
+// rounding of (lo - o) * i and (hi - o) * i keeps their order, or
+// reverses it with i, so tn / tf are the values slab's fminf / fmaxf
+// pick (a zero's sign aside, which no comparison sees), and a NaN axis
+// is NaN in both. The walk keeps `slab` for the other rays.
+template <int OCT>
+__device__ __forceinline__ bool octant_slab(float4 lo, float4 hi, float ox,
+                                            float oy, float oz, float ix,
+                                            float iy, float iz,
+                                            float& t_near) {
+  const float tnx = ((OCT & 1 ? hi.x : lo.x) - ox) * ix;
+  const float tfx = ((OCT & 1 ? lo.x : hi.x) - ox) * ix;
+  const float tny = ((OCT & 2 ? hi.y : lo.y) - oy) * iy;
+  const float tfy = ((OCT & 2 ? lo.y : hi.y) - oy) * iy;
+  const float tnz = ((OCT & 4 ? hi.z : lo.z) - oz) * iz;
+  const float tfz = ((OCT & 4 ? lo.z : hi.z) - oz) * iz;
+  t_near = fmaxf(fmaxf(tnx, tny), tnz);
+  const float t_far = fminf(fminf(tfx, tfy), tfz);
   return t_far >= 0.0f && t_far >= t_near;
 }
 
@@ -172,15 +202,13 @@ __device__ __forceinline__ bool occluded_walk(const BvhRows& bvh,
 // the first hit found kept on ties (a later hit must be strictly nearer).
 // RayT::hit(row, leaf) is the Moller-Trumbore test (`MtRay`,
 // intersect.cu): t > 0 or -1, and leaf.bary(u, v) the barycentrics of that
-// test, divided out only for a hit the walk keeps. With HEAT the walk also
-// counts the nodes it descends, the BVH heatmap's value
-// (intersect_visualize).
-template <bool COUNT, bool HEAT, class RayT>
+// test, divided out only for a hit the walk keeps.
+template <bool COUNT, class RayT>
 __device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
                                                     const RayT& ray,
                                                     int& prim, float& bu,
-                                                    float& bv, WalkCount& n,
-                                                    int& descended) {
+                                                    float& bv,
+                                                    WalkCount& n) {
   const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
               iz = safe_inv(ray.dz);
   const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
@@ -195,7 +223,6 @@ __device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
         slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
         t_near < best;
     if (COUNT) ++n.boxes;
-    if (HEAT && descend) ++descended;
     if (descend && nd.prim != -1) {
       if (COUNT) ++n.tris;
       typename RayT::Leaf leaf;
@@ -239,6 +266,85 @@ __device__ __forceinline__ bool exact_occluded_walk(const BvhRows& bvh,
     node = descend ? node + 1 : nd.miss;
   }
   return false;
+}
+
+// A node row as heat_walk indexes it: one 32-byte unit, so a step's
+// address is one multiply-add on the row index.
+struct alignas(32) NodeRow {
+  float4 lo, hi;
+};
+
+// One octant's loop of heat_walk (OCT as octant_slab's, or -1: `slab`):
+// exact_closest_walk's decisions on the table of rows [base, base +
+// size), keeping only the best distance, and the count of descended
+// nodes. It steps the row index itself, so a step's address and bound
+// need no per-step offset.
+template <bool COUNT, int OCT, class RayT>
+__device__ __forceinline__ int heat_loop(const NodeRow* __restrict__ rows,
+                                         int base, int size,
+                                         const float* __restrict__ leaves,
+                                         const RayT& ray, float ix, float iy,
+                                         float iz, WalkCount& n) {
+  float best = __int_as_float(0x7f800000);
+  int row = base, descended = 0;
+  const int end = base + size;
+  while (row < end) {
+    const NodeRow* q = rows + row;
+    const float4 lo = __ldg(&q->lo), hi = __ldg(&q->hi);
+    float t_near;
+    bool box;
+    if constexpr (OCT < 0)
+      box = slab(lo, hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near);
+    else
+      box = octant_slab<OCT>(lo, hi, ray.ox, ray.oy, ray.oz, ix, iy, iz,
+                             t_near);
+    const bool descend = box && t_near < best;
+    if (COUNT) ++n.boxes;
+    const int prim = __float_as_int(lo.w);
+    if (descend && prim != -1) {
+      if (COUNT) ++n.tris;
+      typename RayT::Leaf leaf;
+      const float t = ray.hit(leaves + (size_t)prim * 12, leaf);
+      if (t > 0.0f && t < best) best = t;
+    }
+    if (descend) ++descended;
+    row = descend ? row + 1 : base + __float_as_int(hi.w);
+  }
+  return descended;
+}
+
+// The BVH heatmap's value (intersect_visualize): the number of nodes
+// exact_closest_walk descends for `ray`, each decision the same. Each
+// ray runs the loop of its inverse direction's octant; a ray with an
+// infinite direction component (a zero inverse) or origin component runs
+// the `slab` loop, since (lo - o) * i can be NaN on one plane only there.
+// The tables' 6B rows fit an int (BvhRows::size is one).
+template <bool COUNT, class RayT>
+__device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
+                                         WalkCount& n) {
+  const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
+              iz = safe_inv(ray.dz);
+  const NodeRow* rows = reinterpret_cast<const NodeRow*>(bvh.rows);
+  const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
+  const bool min_max = ix == 0.0f || iy == 0.0f || iz == 0.0f ||
+                       isinf(ray.ox) || isinf(ray.oy) || isinf(ray.oz);
+  const int oct = (signbit(ix) ? 1 : 0) | (signbit(iy) ? 2 : 0) |
+                  (signbit(iz) ? 4 : 0);
+#define RESTIR_HEAT(O)                                                   \
+  heat_loop<COUNT, O>(rows, base, bvh.size, bvh.planes, ray, ix, iy, iz, \
+                      n)
+  if (min_max) return RESTIR_HEAT(-1);
+  switch (oct) {
+    case 0: return RESTIR_HEAT(0);
+    case 1: return RESTIR_HEAT(1);
+    case 2: return RESTIR_HEAT(2);
+    case 3: return RESTIR_HEAT(3);
+    case 4: return RESTIR_HEAT(4);
+    case 5: return RESTIR_HEAT(5);
+    case 6: return RESTIR_HEAT(6);
+    default: return RESTIR_HEAT(7);
+  }
+#undef RESTIR_HEAT
 }
 
 }  // namespace restir

@@ -31,18 +31,23 @@
 // tests, from which chip_smoke.py counts the work these inputs take; the
 // builds without counters carry no counting code.
 //
-// Launch shape of B13's primary and any hit: a caller that has the
-// batch's geometry (one ray per pixel of a frame or row band from global
-// pixel pix0: every render path) gets 8x4-pixel warps (common.cuh,
+// Launch shape of B13's primary and any hit and of B14: a caller that
+// has the batch's geometry (one ray per pixel of a frame or row band from
+// global pixel pix0: every render path) gets 8x4-pixel warps (common.cuh,
 // tile_pixel), as B6 and B7 launch; a warp's rays then leave one patch of
 // the image and walk nearly the same nodes, so its node-row loads touch
 // fewer cache lines. The walks wait on those loads rather than on lanes
 // that idle in a warp: persistent warps that refill idle lanes from a ray
 // queue ran slower at every refill threshold tried, since refilled lanes
 // hold unrelated rays (PERF.md, the B13 redesign). B12, B13's closest
-// hit, B14 and batches without geometry launch in ray order. B13's primary
+// hit and batches without geometry launch in ray order. B13's primary
 // hit reads the winner's attribute row as float4 loads, and the walks
-// divide out a leaf's barycentrics only for a hit they keep.
+// divide out a leaf's barycentrics only for a hit they keep. B14's walk
+// (bvh.cuh, heat_walk) keeps only the best distance, steps the absolute
+// row index and runs the slab test of the ray's octant, 4 min / max per
+// box test in place of 10: its loop issues 35 SASS instructions per box
+// test, 15 on the ALU pipe that the min / max share, where
+// exact_closest_walk's issued 42 and 16 (PERF.md, the B14 redesign).
 //
 // The closest hit keeps the lowest triangle id on ties, as the TPU
 // kernel's argmin and strict block fold do; a miss, and a zero or
@@ -224,9 +229,7 @@ __global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
   float t = RESTIR_BIG, u = 0.0f, v = 0.0f;
   if (is_live(active, p)) {
     if (MT) {
-      int unused = 0;
-      t = exact_closest_walk<COUNT, false>(bvh, load_mt_ray(o, d, p), id, u,
-                                           v, n, unused);
+      t = exact_closest_walk<COUNT>(bvh, load_mt_ray(o, d, p), id, u, v, n);
     } else {
       t = closest_walk<COUNT>(bvh, load_ray(o, d, p), id, u, v, n);
     }
@@ -301,11 +304,10 @@ __global__ void __launch_bounds__(BLOCK)
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= r) return;
   WalkCount n = {0, 0};
-  int id = -1, unused = 0;
+  int id = -1;
   float t = __int_as_float(0x7f800000), u = 0.0f, v = 0.0f;
   if (is_live(active, p))
-    t = exact_closest_walk<COUNT, false>(bvh, load_mt_ray(o, d, p), id, u,
-                                         v, n, unused);
+    t = exact_closest_walk<COUNT>(bvh, load_mt_ray(o, d, p), id, u, v, n);
   dist[p] = t;
   bary[(size_t)p * 2] = u;
   bary[(size_t)p * 2 + 1] = v;
@@ -340,20 +342,17 @@ __global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
   put_counts<COUNT>(counts, r, p, n);
 }
 
-// B14: the number of nodes each ray's closest-hit walk descends.
-template <bool COUNT>
-__global__ void __launch_bounds__(BLOCK)
+// B14: the number of nodes each ray's closest-hit walk descends
+// (heat_walk: the loop of the ray's octant).
+template <bool COUNT, int L>
+__global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
     heatmap_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    BvhRows bvh, int* __restrict__ count,
-                   int* __restrict__ counts, int r) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+                   int* __restrict__ counts, int width, int pix0, int r) {
+  const int p = ray_of<L>(width, pix0, r);
+  if (p < 0) return;
   WalkCount n = {0, 0};
-  int id, descended = 0;
-  float u, v;
-  exact_closest_walk<COUNT, true>(bvh, load_mt_ray(o, d, p), id, u, v, n,
-                                  descended);
-  count[p] = descended;
+  count[p] = heat_walk<COUNT>(bvh, load_mt_ray(o, d, p), n);
   put_counts<COUNT>(counts, r, p, n);
 }
 
@@ -512,19 +511,30 @@ extern "C" int restir_mt_primary_hit(const float* o, const float* d,
   return (int)cudaGetLastError();
 }
 
-// o, d: float32 [R, 3] camera rays. Writes count int32 [R].
+// o, d: float32 [R, 3] camera rays, with the batch's geometry as B13's
+// primary hit takes it. Writes count int32 [R].
 extern "C" int restir_bvh_heatmap(const float* o, const float* d,
                                   const float* rows, int size,
                                   const float* vrows, int* count,
-                                  int* counts, int r, void* stream) {
-  if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
+                                  int* counts, int width, int pix0, int r,
+                                  void* stream) {
+  if (r <= 0 || size <= 0 || width < 0 || pix0 < 0)
+    return (int)cudaErrorInvalidValue;
   const BvhRows bvh = bvh_rows(rows, size, vrows);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (counts != nullptr)
-    heatmap_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, count, counts,
-                                                   r);
+  if (width > 0) {
+    const dim3 tiles = tile_grid(width, pix0, r);
+    if (counts != nullptr)
+      heatmap_kernel<true, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          o, d, bvh, count, counts, width, pix0, r);
+    else
+      heatmap_kernel<false, TILES><<<tiles, PIX_BLOCK, 0, s>>>(
+          o, d, bvh, count, counts, width, pix0, r);
+  } else if (counts != nullptr)
+    heatmap_kernel<true, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, bvh, count, counts, 0, 0, r);
   else
-    heatmap_kernel<false><<<grid(r), BLOCK, 0, s>>>(o, d, bvh, count,
-                                                    counts, r);
+    heatmap_kernel<false, LINEAR><<<grid(r), BLOCK, 0, s>>>(
+        o, d, bvh, count, counts, 0, 0, r);
   return (int)cudaGetLastError();
 }

@@ -15,14 +15,30 @@
 //
 // svgf_variance_kernel replaces models/denoiser.py::svgf_estimate_variance
 // (estimateVariance, denoiser.cu:307-343): the temporal moment variance
-// where the history is over 3.5 frames, else the 3x3 spatial one.
-// svgf_filter_variance_kernel replaces svgf_filter_variance
-// (filterVariance, denoiser.cu:345-371): a 3x3 Gaussian of the variance,
-// run before each wavelet level. On the TPU both were XLA plane shifts.
+// where the history is over 3.5 frames, else the 3x3 spatial one, and
+// with it level 0's prefilter of that variance. svgf_filter_variance_kernel
+// replaces svgf_filter_variance (filterVariance, denoiser.cu:345-371): a
+// 3x3 Gaussian of the variance, run before wavelet levels 1-4. On the TPU
+// both were XLA plane shifts.
+//
+// Both variance passes run 2-D blocks over 32x32-pixel tiles, 4 rows per
+// thread: a thread's x and y come from its block and thread indices, with
+// no division by the width, and each block stages its tile and halo in
+// shared memory by row loads (a flat index over the staged rows; its
+// division is by a constant). The variance kernel stages the moments
+// E[lum] and E[lum^2] with a 2-pixel halo and the history with a 1-pixel
+// one, computes the variance on the tile and a 1-pixel ring around it,
+// and writes the tile's variance and its 3x3 Gaussian: one launch in
+// place of an estimate and a level-0 prefilter that read the plane back.
+// It reads the three moment planes through a base pointer, a channel
+// stride and a pixel stride, so the fused path passes B5's pack and the
+// general path its [R, 3] history with no copy. Out-of-frame neighbours
+// are skipped, never added as zero; ragged tiles are masked; pixels whose
+// taps all lie in the frame skip the bounds tests.
 //
 // Bound: device memory. B5 reads 3 colour + 10 gb + 10 history floats
-// and writes 16 per pixel; the variance passes read 3 (or 1) floats and
-// 9 neighbours (from cache) and write 1. Their arithmetic is a few dozen
+// and writes 16 per pixel; the variance kernel reads 3 floats and writes
+// 2, a prefilter reads 1 and writes 1. Their arithmetic is a few dozen
 // operations per pixel, far under the bytes' time.
 //
 // Every multiply and add is written with a round-to-nearest intrinsic
@@ -103,57 +119,184 @@ __global__ void __launch_bounds__(TILE) svgf_temporal_kernel(
   for (int c = SV_NORM + 3; c < SV_CH; ++c) o[(size_t)c * r] = 0.0f;
 }
 
-__global__ void __launch_bounds__(256) svgf_variance_kernel(
-    const float* __restrict__ sv, float* __restrict__ var, int width,
-    int height) {
-  const int r = width * height;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
-  const int x = p % width, y = p / width;
-  const float* m1 = sv + (size_t)SV_M1 * r;
-  const float* m2 = sv + (size_t)SV_M2 * r;
-  float s1 = 0.0f, s2 = 0.0f, cnt = 0.0f;
-  for (int i = -1; i <= 1; ++i) {
-    const int yy = y + i;
-    if (yy < 0 || yy >= height) continue;
-    for (int j = -1; j <= 1; ++j) {
-      const int xx = x + j;
-      if (xx < 0 || xx >= width) continue;
-      const int q = yy * width + xx;
-      s1 = __fadd_rn(s1, m1[q]);
-      s2 = __fadd_rn(s2, m2[q]);
-      cnt = __fadd_rn(cnt, 1.0f);
-    }
-  }
-  const float mean = __fdiv_rn(s1, cnt);
-  const float spatial = __fsub_rn(__fdiv_rn(s2, cnt), __fmul_rn(mean, mean));
-  const float temporal = __fsub_rn(m2[p], __fmul_rn(m1[p], m1[p]));
-  var[p] = sv[(size_t)SV_HIST * r + p] > 3.5f ? temporal : spatial;
+// The variance passes' blocks: VB_W x VB_H threads over a tile of VB_W x
+// T_H pixels, VB_ROWS rows per thread (a 1080p frame is ~2 waves of
+// tiles, not 8 waves of 32x8 tiles that each wait out their loads). The
+// staged tiles: the variance kernel's moments with a 2-pixel halo, its
+// history and variance with a 1-pixel ring, the prefilter's variance
+// with a 1-pixel halo.
+enum { VB_W = 32, VB_H = 8, VB_N = VB_W * VB_H, VB_ROWS = 4 };
+enum { T_H = VB_H * VB_ROWS };
+enum { M_W = VB_W + 4, M_H = T_H + 4, V_W = VB_W + 2, V_H = T_H + 2 };
+
+// The 3x3 Gaussian's weight at tap (i, j) (denoiser.cu:19-23): with the
+// loops unrolled, an immediate operand, and the weight sum of an inner
+// pixel a constant.
+__device__ __forceinline__ constexpr float gauss3_w(int i, int j) {
+  return i == 0 && j == 0 ? 0.204f : (i == 0 || j == 0 ? 0.124f : 0.075f);
 }
 
-__constant__ float kGauss3[9] = {0.075f, 0.124f, 0.075f, 0.124f, 0.204f,
-                                 0.124f, 0.075f, 0.124f, 0.075f};
+// Whether all 3x3 taps of frame pixel (gx, gy) lie in the frame: such a
+// pixel sums every tap without a bounds test, in the same order, so its
+// sums round as the checked path's (its tap count is 9 and its weight
+// sum a constant that the compiler folds).
+__device__ __forceinline__ bool inner3(int gx, int gy, int width,
+                                       int height) {
+  return gx > 0 && gx < width - 1 && gy > 0 && gy < height - 1;
+}
 
-__global__ void __launch_bounds__(256) svgf_filter_variance_kernel(
-    const float* __restrict__ var, float* __restrict__ out, int width,
-    int height) {
-  const int r = width * height;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
-  const int x = p % width, y = p / width;
-  float s = 0.0f, sw = 0.0f;
+// filterVariance at frame pixel (gx, gy), whose staged value sits at
+// s[cy][cx]: the in-frame taps in the twin's order (i outer, j inner).
+template <bool INNER>
+__device__ __forceinline__ float gauss3_taps(const float (*s)[V_W], int cx,
+                                             int cy, int gx, int gy,
+                                             int width, int height) {
+  float acc = 0.0f, sw = 0.0f;
+#pragma unroll
   for (int i = -1; i <= 1; ++i) {
-    const int yy = y + i;
-    if (yy < 0 || yy >= height) continue;
+    const int yy = gy + i;
+    if (!INNER && (yy < 0 || yy >= height)) continue;
+#pragma unroll
     for (int j = -1; j <= 1; ++j) {
-      const int xx = x + j;
-      if (xx < 0 || xx >= width) continue;
-      const float g = kGauss3[(i + 1) * 3 + (j + 1)];
-      s = __fadd_rn(s, __fmul_rn(var[yy * width + xx], g));
+      const int xx = gx + j;
+      if (!INNER && (xx < 0 || xx >= width)) continue;
+      const float g = gauss3_w(i, j);
+      acc = __fadd_rn(acc, __fmul_rn(s[cy + i][cx + j], g));
       sw = __fadd_rn(sw, g);
     }
   }
-  out[p] = __fdiv_rn(s, fmaxf(sw, 1e-20f));
+  return __fdiv_rn(acc, fmaxf(sw, 1e-20f));
+}
+
+__device__ __forceinline__ float gauss3(const float (*s)[V_W], int cx,
+                                        int cy, int gx, int gy, int width,
+                                        int height) {
+  return inner3(gx, gy, width, height)
+             ? gauss3_taps<true>(s, cx, cy, gx, gy, width, height)
+             : gauss3_taps<false>(s, cx, cy, gx, gy, width, height);
+}
+
+// estimateVariance at frame pixel (gx, gy) from the staged moments, whose
+// value for the pixel sits at s1 / s2[my][mx], and its history h: the 3x3
+// moment sums over the in-frame taps in the twin's order, then the
+// temporal variance where the history is over 3.5 frames, else the
+// spatial one.
+template <bool INNER>
+__device__ __forceinline__ float variance_at(const float (*s1)[M_W],
+                                             const float (*s2)[M_W], int mx,
+                                             int my, float h, int gx, int gy,
+                                             int width, int height) {
+  float a1 = 0.0f, a2 = 0.0f, cnt = 0.0f;
+#pragma unroll
+  for (int i = -1; i <= 1; ++i) {
+    const int yy = gy + i;
+    if (!INNER && (yy < 0 || yy >= height)) continue;
+#pragma unroll
+    for (int j = -1; j <= 1; ++j) {
+      const int xx = gx + j;
+      if (!INNER && (xx < 0 || xx >= width)) continue;
+      a1 = __fadd_rn(a1, s1[my + i][mx + j]);
+      a2 = __fadd_rn(a2, s2[my + i][mx + j]);
+      cnt = __fadd_rn(cnt, 1.0f);
+    }
+  }
+  const float mean = __fdiv_rn(a1, cnt);
+  const float spatial = __fsub_rn(__fdiv_rn(a2, cnt), __fmul_rn(mean, mean));
+  const float c1 = s1[my][mx];
+  const float temporal = __fsub_rn(s2[my][mx], __fmul_rn(c1, c1));
+  return h > 3.5f ? temporal : spatial;
+}
+
+// m: moment c of pixel p at m[c * cs + p * ps] (E[lum], E[lum^2],
+// history). Writes var and its level-0 prefilter fv, both [width x
+// height]. Every staging and ring pass runs over a flat index, so each
+// pass is whole warps and its loads issue together.
+__global__ void __launch_bounds__(VB_N) svgf_variance_kernel(
+    const float* __restrict__ m, long long cs, long long ps,
+    float* __restrict__ var, float* __restrict__ fv, int width,
+    int height) {
+  __shared__ float s1[M_H][M_W], s2[M_H][M_W], sh[V_H][V_W], sv[V_H][V_W];
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * VB_W + tx;
+  const int x0 = (int)blockIdx.x * VB_W, y0 = (int)blockIdx.y * T_H;
+#pragma unroll
+  for (int k = t; k < M_H * M_W; k += VB_N) {
+    const int sy = k / M_W, sx = k - sy * M_W;
+    const int gx = x0 + sx - 2, gy = y0 + sy - 2;
+    float a = 0.0f, b = 0.0f;
+    if (gx >= 0 && gx < width && gy >= 0 && gy < height) {
+      const float* q = m + ((long long)gy * width + gx) * ps;
+      a = q[0];
+      b = q[cs];
+    }
+    s1[sy][sx] = a;
+    s2[sy][sx] = b;
+  }
+#pragma unroll
+  for (int k = t; k < V_H * V_W; k += VB_N) {
+    const int sy = k / V_W, sx = k - sy * V_W;
+    const int gx = x0 + sx - 1, gy = y0 + sy - 1;
+    sh[sy][sx] = gx >= 0 && gx < width && gy >= 0 && gy < height
+                     ? m[((long long)gy * width + gx) * ps + 2 * cs]
+                     : 0.0f;
+  }
+  __syncthreads();
+  // the variance on the tile and its ring (ring pixels off the frame are
+  // never read)
+  for (int k = t; k < V_H * V_W; k += VB_N) {
+    const int vy = k / V_W, vx = k - vy * V_W;
+    const int gx = x0 + vx - 1, gy = y0 + vy - 1;
+    float v = 0.0f;
+    if (inner3(gx, gy, width, height))
+      v = variance_at<true>(s1, s2, vx + 1, vy + 1, sh[vy][vx], gx, gy,
+                            width, height);
+    else if (gx >= 0 && gx < width && gy >= 0 && gy < height)
+      v = variance_at<false>(s1, s2, vx + 1, vy + 1, sh[vy][vx], gx, gy,
+                             width, height);
+    sv[vy][vx] = v;
+  }
+  __syncthreads();
+  const int gx = x0 + tx;
+#pragma unroll
+  for (int rr = 0; rr < VB_ROWS; ++rr) {
+    const int ly = ty + rr * VB_H, gy = y0 + ly;
+    if (gx < width && gy < height) {
+      const int p = gy * width + gx;
+      var[p] = sv[ly + 1][tx + 1];
+      fv[p] = gauss3(sv, tx + 1, ly + 1, gx, gy, width, height);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(VB_N) svgf_filter_variance_kernel(
+    const float* __restrict__ var, float* __restrict__ out, int width,
+    int height) {
+  __shared__ float sv[V_H][V_W];
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * VB_W + tx;
+  const int x0 = (int)blockIdx.x * VB_W, y0 = (int)blockIdx.y * T_H;
+#pragma unroll
+  for (int k = t; k < V_H * V_W; k += VB_N) {
+    const int sy = k / V_W, sx = k - sy * V_W;
+    const int gx = x0 + sx - 1, gy = y0 + sy - 1;
+    sv[sy][sx] = gx >= 0 && gx < width && gy >= 0 && gy < height
+                     ? var[gy * width + gx]
+                     : 0.0f;
+  }
+  __syncthreads();
+  const int gx = x0 + tx;
+#pragma unroll
+  for (int rr = 0; rr < VB_ROWS; ++rr) {
+    const int ly = ty + rr * VB_H, gy = y0 + ly;
+    if (gx < width && gy < height)
+      out[gy * width + gx] =
+          gauss3(sv, tx + 1, ly + 1, gx, gy, width, height);
+  }
+}
+
+inline bool variance_grid(int width, int height, dim3& grid) {
+  if (width <= 0 || height <= 0 || (long long)width * height > 0x7fffffff)
+    return false;
+  grid = dim3((width + VB_W - 1) / VB_W, (height + T_H - 1) / T_H);
+  return grid.y <= 65535;
 }
 
 }  // namespace
@@ -174,23 +317,26 @@ extern "C" int restir_svgf_temporal(const float* gb, const float* color,
   return (int)cudaGetLastError();
 }
 
-extern "C" int restir_svgf_variance(const float* sv, float* var, int width,
-                                    int height, void* stream) {
-  const int r = width * height;
-  if (r <= 0) return (int)cudaErrorInvalidValue;
-  const int block = 256;
-  svgf_variance_kernel<<<(r + block - 1) / block, block, 0,
-                         (cudaStream_t)stream>>>(sv, var, width, height);
+// m: the moments E[lum], E[lum^2], history, moment c of pixel p at
+// m[c * cs + p * ps]. Writes var and its level-0 prefilter fv, float32
+// [width x height] each.
+extern "C" int restir_svgf_variance(const float* m, long long cs,
+                                    long long ps, float* var, float* fv,
+                                    int width, int height, void* stream) {
+  dim3 grid;
+  if (!variance_grid(width, height, grid) || cs < 0 || ps < 0)
+    return (int)cudaErrorInvalidValue;
+  svgf_variance_kernel<<<grid, dim3(VB_W, VB_H), 0, (cudaStream_t)stream>>>(
+      m, cs, ps, var, fv, width, height);
   return (int)cudaGetLastError();
 }
 
 extern "C" int restir_svgf_filter_variance(const float* var, float* out,
                                            int width, int height,
                                            void* stream) {
-  const int r = width * height;
-  if (r <= 0) return (int)cudaErrorInvalidValue;
-  const int block = 256;
-  svgf_filter_variance_kernel<<<(r + block - 1) / block, block, 0,
+  dim3 grid;
+  if (!variance_grid(width, height, grid)) return (int)cudaErrorInvalidValue;
+  svgf_filter_variance_kernel<<<grid, dim3(VB_W, VB_H), 0,
                                 (cudaStream_t)stream>>>(var, out, width,
                                                         height);
   return (int)cudaGetLastError();

@@ -5,8 +5,9 @@
 demodulate it by the G-buffer albedo and run `cfg.eaw_levels` à-trous
 levels on the hand kernels the fused path runs: B3
 (`ops.kernels.atrous.atrous_level`) for EAW; for SVGF the variance
-estimate and prefilter (`ops.kernels.svgf.estimate_variance` /
-`filter_variance`) and B4 (`atrous_svgf_level`). They read a
+estimate with level 0's prefilter (`ops.kernels.svgf.estimate_variance`),
+the prefilter of levels 1.. (`filter_variance`) and B4
+(`atrous_svgf_level`). They read a
 [GB_CH, R] pack built from the G-buffer (`gbuffer_pack`: prim in
 G_PRIMR, normal, position). CPU tensors take the kernels' plain twins.
 
@@ -30,7 +31,8 @@ does not carry this step, which stays torch glue.
 
 `svgf_estimate_variance` (estimateVariance, denoiser.cu:307-343) and
 `svgf_filter_variance` (filterVariance, denoiser.cu:345-371) on planes
-are the twins of the two variance kernels in `csrc/svgf.cu`.
+are the twins of the variance kernels in `csrc/svgf.cu` (the first runs
+both, the second the prefilter alone).
 """
 
 from __future__ import annotations
@@ -210,19 +212,19 @@ def svgf_temporal_accumulate(color_in: torch.Tensor, gb, last_gb,
 def svgf_levels(color: torch.Tensor, moment: torch.Tensor,
                 gb_pack: torch.Tensor, cfg):
     """SVGF's spatial chain on a [3, H W] image of cfg's size: the
-    variance estimate from the [3, H W] moments, then `cfg.eaw_levels`
-    levels of prefilter + B4 -> (filtered colour, the level-0 output:
-    the colour history fed forward, denoiser.cu:542-543)."""
+    variance estimate from the [3, H W] moments (any strides: the
+    kernel reads them in place) with level 0's prefilter, then
+    `cfg.eaw_levels` levels of B4, with the prefilter of B4's variance
+    before levels 1.. -> (filtered colour, the level-0 output: the colour
+    history fed forward, denoiser.cu:542-543)."""
     from ..ops.kernels import atrous, svgf
 
     w, h = cfg.width, cfg.height
-    moments = torch.zeros((svgf.SV_CH, color.shape[1]), dtype=torch.float32,
-                          device=color.device)
-    moments[svgf.SV_M1:svgf.SV_M1 + 3] = moment
-    var = svgf.estimate_variance(moments, width=w, height=h)
+    var, fv = svgf.estimate_variance(moment, width=w, height=h)
     history = color
     for level in range(cfg.eaw_levels):
-        fv = svgf.filter_variance(var, width=w, height=h)
+        if level > 0:
+            fv = svgf.filter_variance(var, width=w, height=h)
         color, var = atrous.atrous_svgf_level(
             color.contiguous(), var.contiguous(), fv, gb_pack, level=level,
             width=w, height=h, sig_l=cfg.sig_luminance,

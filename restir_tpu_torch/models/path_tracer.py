@@ -190,10 +190,11 @@ def pt_indirect(scene, cam: Camera, cfg: RenderConfig, looper, pix0=0,
 def bvh_heatmap(scene, cam: Camera, cfg: RenderConfig, pix0=0, r=None):
     """BVH traversal cost view — visualizedIntersect (scene.h:318-356):
     each pixel-centre camera ray's count of descended MTBVH nodes (int32
-    [R]), on any intersector method. (pix0, r) as in `pt_direct`."""
+    [R]), on any intersector method. (pix0, r) as in `pt_direct`; the
+    batch carries its band's geometry, for B14's 8x4-pixel warps."""
     trv = ix.traversal_arrays(scene, cfg.intersector, walk=True)
     x, y = pixel_centers(cfg.width, cfg.height, scene.verts.device, pix0,
                          band_size(cfg, pix0, r))
     o, d = sample_rays(cam, cfg.width, cfg.height, x, y,
                        torch.full_like(x, 0.5), torch.full_like(y, 0.5))
-    return hit_kernels.heatmap(trv, o, d)
+    return hit_kernels.heatmap(trv, o, d, geom=(cfg.width, pix0))

@@ -53,7 +53,7 @@ from ..ops.kernels.fused_di import (
     PT_CH,
     WINDOW,
 )
-from ..ops.kernels.svgf import SV_CH, SV_COL, SV_PRIM
+from ..ops.kernels.svgf import SV_CH, SV_COL, SV_M1, SV_PRIM
 from ..scene.scene_data import SceneTensors
 from . import denoiser, restir_gi
 
@@ -337,15 +337,17 @@ def svgf_filter_packed(frames, gb_packs, svgf_prevs, cfg: RenderConfig,
 def svgf_wavelets(sv: torch.Tensor, gb_pack: torch.Tensor,
                   cfg: RenderConfig):
     """SVGF's spatial half on an accumulated svgf pack of a cfg.width x
-    cfg.height image: estimate the variance, then per level prefilter it
-    and run B4. Returns (demodulated colour [3, R], the level-0 output,
-    which is the colour history)."""
+    cfg.height image: estimate the variance with level 0's prefilter
+    (one kernel on the pack's moment rows), then per level run B4, and
+    before levels 1.. prefilter B4's variance. Returns (demodulated
+    colour [3, R], the level-0 output, which is the colour history)."""
     w, h = cfg.width, cfg.height
-    var = svgf.estimate_variance(sv, width=w, height=h)
+    var, fv = svgf.estimate_variance(sv[SV_M1:SV_M1 + 3], width=w, height=h)
     color = sv[SV_COL:SV_COL + 3]
     history = color
     for level in range(cfg.eaw_levels):
-        fv = svgf.filter_variance(var, width=w, height=h)
+        if level > 0:
+            fv = svgf.filter_variance(var, width=w, height=h)
         color, var = atrous.atrous_svgf_level(
             color.contiguous(), var, fv, gb_pack, level=level, width=w,
             height=h, sig_l=cfg.sig_luminance, sig_n=cfg.svgf_sig_normal,

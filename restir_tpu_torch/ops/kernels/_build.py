@@ -121,6 +121,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_int64
 
 _SIGNATURES = {
     "restir_di_resident_gbuffer_ris": [
@@ -145,7 +146,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _VP],
     "restir_reuse_bvh_seg": [_I, _I],
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "restir_svgf_variance": [_VP, _VP, _I, _I, _VP],
+    "restir_svgf_variance": [_VP, _L, _L, _VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
     "restir_closest_hit": [
         _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
@@ -159,7 +160,8 @@ _SIGNATURES = {
     "restir_mt_primary_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
         _VP],
-    "restir_bvh_heatmap": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    "restir_bvh_heatmap": [
+        _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     "restir_ris_cdf": [
         _VP, _U, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I,
         _I, _VP],

@@ -37,11 +37,12 @@ Nothing falls back. The any hits and the primary hits take a mask of
 live lanes (`active`); the kernels do not walk the others.
 `trv` is an `ops.intersect.TraversalArrays`.
 
-B13's primary and any hit take the batch's geometry `geom = (width,
-pix0)` where the batch holds one ray per pixel of a band, row-major from
-global pixel pix0 of a frame `width` pixels wide (a whole frame: pix0 =
-0), as every render path's camera rays, bounce rays and NEE segments
-are. They then launch on 8x4-pixel warps, whose rays leave one small
+B13's primary and any hit and B14 take the batch's geometry `geom =
+(width, pix0)` where the batch holds one ray per pixel of a band,
+row-major from global pixel pix0 of a frame `width` pixels wide (a
+whole frame: pix0 = 0), as every render path's camera rays, bounce
+rays and NEE segments are, and the heatmap's pixel-centre rays. They
+then launch on 8x4-pixel warps, whose rays leave one small
 patch of the image and walk nearly the same nodes. A batch without
 geometry, such as the ray-query entry point `closest_hit`'s, launches in
 ray order. The launch changes which thread walks which ray, never how a
@@ -295,9 +296,9 @@ def check_geometry(geom, r):
 
 
 def _b13_geometry(geom, r):
-    """(width, pix0) of a B13 primary or any-hit launch: the batch's
-    checked geometry (8x4-pixel warps), or (0, 0) without one (ray
-    order)."""
+    """(width, pix0) of a B13 primary or any-hit launch or a B14 launch:
+    the batch's checked geometry (8x4-pixel warps), or (0, 0) without one
+    (ray order)."""
     return (0, 0) if geom is None else check_geometry(geom, r)
 
 
@@ -416,30 +417,35 @@ def mt_primary_cuda(trv, prim_attr, mat_attr, o, d, active=None,
     return (out, counts) if stats else out
 
 
-def heatmap_cuda(trv, o, d, stats=False):
+def heatmap_cuda(trv, o, d, stats=False, geom=None):
     """B14 on the card -> the int32 [R] count of descended nodes of each
     ray's closest-hit walk; with `stats` also the int32 [2, R] box and
-    triangle tests."""
+    triangle tests. With `geom` (width, pix0) the batch launches on
+    8x4-pixel warps, else in ray order."""
     global heatmap_launches
     (o, d), _, r = _walk_args(trv, o, d)
     dev = o.device
+    width, pix0 = _b13_geometry(geom, r)
     count = torch.empty((r,), dtype=torch.int32, device=dev)
     counts = _counts(stats, r, dev)
     p = _build.ptr
     with _build.on_device(dev):
         err = _build.library().restir_bvh_heatmap(
-            p(o), p(d), *_walk_tables(trv), p(count), p(counts), r,
-            _build.stream_of(dev))
+            p(o), p(d), *_walk_tables(trv), p(count), p(counts), width, pix0,
+            r, _build.stream_of(dev))
     _build.check(err, "restir_bvh_heatmap")
     heatmap_launches += 1
     return (count, counts) if stats else count
 
 
-def heatmap(trv, o, d):
+def heatmap(trv, o, d, geom=None):
     """Descended nodes per ray (int32 [R]): B14 on CUDA tensors,
-    `intersect_visualize` on CPU tensors."""
+    `intersect_visualize` on CPU tensors. `geom` (width, pix0): the
+    batch's pixels, for B14's launch."""
+    if geom is not None:
+        check_geometry(geom, o.shape[0])
     if _device_of(o) == "cpu":
         from .. import intersect as ix
 
         return ix.intersect_visualize(trv.walk, o, d)
-    return heatmap_cuda(trv, o, d)
+    return heatmap_cuda(trv, o, d, geom=geom)

@@ -6,9 +6,13 @@ with their plain PyTorch twins.
 pixel, the previous svgf pack's column at the motion index (inside the
 tile's 2048-pixel window), the disocclusion reset (window miss, NULL
 prim, prim mismatch, |n.n'| < 0.1) and the alpha = 0.2 blend of colour
-and of the (lum, lum^2) moments. `estimate_variance` and
-`filter_variance` run `models.denoiser.svgf_estimate_variance` /
-`svgf_filter_variance` on the card as two small kernels.
+and of the (lum, lum^2) moments. `estimate_variance` runs
+`models.denoiser.svgf_estimate_variance` and level 0's
+`svgf_filter_variance` of its result on the card as one kernel, and
+`filter_variance` the prefilter of levels 1-4: SVGF launches 1 + 4 of
+them per frame. The variance kernel reads the moments through their
+strides, so neither the fused pack's rows nor the general path's
+[R, 3] history is copied for it.
 
 CPU tensors take the twins, CUDA tensors the kernels in `csrc/svgf.cu`.
 Nothing falls back. Packs are flat [C, R] float32. A row band
@@ -49,7 +53,8 @@ SV_NORM = 7  # 3
 SV_CH = 16
 
 temporal_launches = 0  # B5 launches
-variance_launches = 0  # launches of the two variance kernels
+variance_launches = 0  # launches of the variance kernels (estimate +
+#                         level-0 prefilter: one; a later prefilter: one)
 
 
 def svgf_temporal_ref(gb, color, prev, *, prev_base=0, window=WINDOW):
@@ -124,38 +129,61 @@ def svgf_temporal(gb, color, prev, *, prev_base=0, window=WINDOW):
     raise ValueError(f"unsupported device {gb.device}")
 
 
-def _launch_plane(name, src, shape, width, height):
-    """Launch the variance kernel `name` on `src` -> a plane [R]."""
+def _planes(n, width, height, dev):
+    return [torch.empty((width * height,), dtype=torch.float32, device=dev)
+            for _ in range(n)]
+
+
+def _launched(err, name):
     global variance_launches
-    dev = src.device
-    _check(src, "input", shape, dev)
-    out = torch.empty((width * height,), dtype=torch.float32, device=dev)
-    fn = getattr(_build.library(), name)
-    with _build.on_device(dev):
-        err = fn(_build.ptr(src), _build.ptr(out), width, height,
-                 _build.stream_of(dev))
     _build.check(err, name)
     variance_launches += 1
-    return out
 
 
-def estimate_variance(sv, *, width, height):
-    """Variance [R] of an accumulated svgf pack [SV_CH, R]."""
-    if sv.device.type == "cpu":
-        m = sv[SV_M1:SV_M1 + 3].reshape(3, height, width)
-        return denoiser.svgf_estimate_variance(m).reshape(-1)
-    if sv.device.type == "cuda":
-        return _launch_plane("restir_svgf_variance", sv,
-                             (SV_CH, width * height), width, height)
-    raise ValueError(f"unsupported device {sv.device}")
+def estimate_variance(moments, *, width, height):
+    """(variance [R], its level-0 prefilter [R]) of the moments [3, R]:
+    E[lum], E[lum^2] and the history length, with any strides (an svgf
+    pack's rows SV_M1..SV_HIST, or the general path's [R, 3] history
+    transposed). One kernel launch on CUDA tensors; on CPU tensors
+    `denoiser.svgf_estimate_variance`, then `svgf_filter_variance`."""
+    r = width * height
+    if (moments.dim() != 2 or tuple(moments.shape) != (3, r)
+            or moments.dtype != torch.float32):
+        raise ValueError(f"moments: expected float32 [3, {r}], got "
+                         f"{moments.dtype} {tuple(moments.shape)}")
+    if moments.device.type == "cpu":
+        var = denoiser.svgf_estimate_variance(moments.reshape(3, height,
+                                                              width))
+        return (var.reshape(-1),
+                denoiser.svgf_filter_variance(var).reshape(-1))
+    if moments.device.type == "cuda":
+        dev = moments.device
+        var, fv = _planes(2, width, height, dev)
+        cs, ps = moments.stride()
+        p = _build.ptr
+        with _build.on_device(dev):
+            err = _build.library().restir_svgf_variance(
+                p(moments), cs, ps, p(var), p(fv), width, height,
+                _build.stream_of(dev))
+        _launched(err, "restir_svgf_variance")
+        return var, fv
+    raise ValueError(f"unsupported device {moments.device}")
 
 
 def filter_variance(var, *, width, height):
-    """3x3 Gaussian of a variance plane [R]."""
+    """3x3 Gaussian of a variance plane [R] (the prefilter of levels
+    1-4; `estimate_variance` returns level 0's)."""
     if var.device.type == "cpu":
         return denoiser.svgf_filter_variance(
             var.reshape(height, width)).reshape(-1)
     if var.device.type == "cuda":
-        return _launch_plane("restir_svgf_filter_variance", var,
-                             (width * height,), width, height)
+        dev = var.device
+        _check(var, "variance", (width * height,), dev)
+        (out,) = _planes(1, width, height, dev)
+        with _build.on_device(dev):
+            err = _build.library().restir_svgf_filter_variance(
+                _build.ptr(var), _build.ptr(out), width, height,
+                _build.stream_of(dev))
+        _launched(err, "restir_svgf_filter_variance")
+        return out
     raise ValueError(f"unsupported device {var.device}")

@@ -340,11 +340,21 @@ class WalkTables(NamedTuple):
 def exact_node_rows(arrays) -> np.ndarray:
     """[6B, 8] float32 node rows as `node_rows`, with each node's own
     (unpadded) box: the JAX walk tests the raw box against a strict
-    t_near < best, so a padded box would visit other nodes."""
+    t_near < best, so a padded box would visit other nodes. B14's walk
+    picks each box's near plane from the ray's signs, which needs lo <= hi
+    on every axis of every box: a box that breaks it (or holds a NaN)
+    raises ValueError."""
     lo = np.asarray(arrays["bounds_lo"], np.float32)
+    hi = np.asarray(arrays["bounds_hi"], np.float32)
+    bad = np.flatnonzero(~(lo <= hi).all(axis=1))
+    if bad.size:
+        i = int(bad[0])
+        raise ValueError(f"node box {i} of the MTBVH has lo {lo[i].tolist()} "
+                         f"above hi {hi[i].tolist()} ({bad.size} such "
+                         "boxes): the walk's tables need lo <= hi")
     bounds = np.zeros((lo.shape[0], BOUND_COLS), np.float32)
     bounds[:, 0:3] = lo
-    bounds[:, 4:7] = np.asarray(arrays["bounds_hi"], np.float32)
+    bounds[:, 4:7] = hi
     return _with_links(bounds, arrays)
 
 

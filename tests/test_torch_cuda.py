@@ -1,5 +1,7 @@
 """Kernel-vs-twin checks of B1 (with its env and texture branches), B2,
-B3, B4 (also on images that cut their tiles ragged), B5, the SVGF variance kernels, B6, B7, the general path's B10,
+B3, B4 (also on images that cut their tiles ragged), B5, the SVGF
+variance kernels (on whole frames, band images and ragged tiles), B6,
+B7, the general path's B10,
 B11, B12, B13 and B14 (bit for bit), the general EAW / SVGF step, and
 ReSTIR GI's B8 and B9 on a CUDA card; B13's build and launch errors,
 its primary and any hit on 8x4-pixel warps on bands, ragged widths and
@@ -488,14 +490,58 @@ def test_b5_kernel_matches_twin(svgf_inputs):
 
 
 def test_variance_kernels_match_twins(svgf_inputs):
+    """The variance kernel (estimate + level-0 prefilter, one launch) and
+    the prefilter kernel against their twins on the whole frame, on a
+    band image (rows of the pack with their halo rows, read in place)
+    and on the [R, 3] history's transpose, which must give the pack
+    rows' bits."""
     gb, color, prev = svgf_inputs
     sv = svgf.svgf_temporal_cuda(gb, color, prev)
-    var_k = svgf.estimate_variance(sv, width=W, height=H)
-    var_r = svgf.estimate_variance(sv.cpu(), width=W, height=H)
+    m = sv[svgf.SV_M1:svgf.SV_M1 + 3]
+    before = svgf.variance_launches
+    var_k, fv0_k = svgf.estimate_variance(m, width=W, height=H)
+    assert svgf.variance_launches == before + 1
+    var_r, fv0_r = svgf.estimate_variance(m.cpu(), width=W, height=H)
     assert parity.close_fraction(var_r, var_k, 1e-6, 1e-7) >= 0.9999
+    assert parity.close_fraction(fv0_r, fv0_k, 1e-6, 1e-7) >= 0.9999
     fv_k = svgf.filter_variance(var_k, width=W, height=H)
+    assert svgf.variance_launches == before + 2
     fv_r = svgf.filter_variance(var_k.cpu(), width=W, height=H)
     assert parity.close_fraction(fv_r, fv_k, 1e-6, 1e-7) >= 0.9999
+    assert torch.equal(fv_k, fv0_k)  # one prefilter, either kernel
+    history = m.T.contiguous()  # [R, 3], as the general path keeps it
+    var_t, fv_t = svgf.estimate_variance(history.T, width=W, height=H)
+    assert torch.equal(var_t, var_k) and torch.equal(fv_t, fv0_k)
+    # a band image: rows 13 .. 13 + 27 of the frame, a view of the pack
+    y0, h = 13, 27
+    band = m[:, y0 * W:(y0 + h) * W]
+    var_b, fv_b = svgf.estimate_variance(band, width=W, height=h)
+    want_v, want_f = svgf.estimate_variance(band.cpu(), width=W, height=h)
+    assert parity.close_fraction(want_v, var_b, 1e-6, 1e-7) >= 0.9999
+    assert parity.close_fraction(want_f, fv_b, 1e-6, 1e-7) >= 0.9999
+    # inner rows see the same neighbours as in the whole frame
+    inner = slice((y0 + 1) * W, (y0 + h - 1) * W)
+    assert torch.equal(var_b[W:(h - 1) * W], var_k[inner])
+
+
+@pytest.mark.parametrize("width,height", RAGGED + [(45, 13), (33, 1)])
+def test_variance_kernels_match_twins_on_ragged_tiles(cuda_device, width,
+                                                      height):
+    """Widths and heights that cut the 32x8 tiles: masked, not padded."""
+    g = np.random.default_rng(9)
+    r = width * height
+    m1 = g.random(r, dtype=np.float32)
+    m = np.stack([m1, m1 * m1 + 0.1 * g.random(r, dtype=np.float32),
+                  g.integers(0, 8, r).astype(np.float32)])
+    mk = torch.as_tensor(m, device=cuda_device)
+    var_k, fv_k = svgf.estimate_variance(mk, width=width, height=height)
+    var_r, fv_r = svgf.estimate_variance(mk.cpu(), width=width,
+                                         height=height)
+    assert parity.close_fraction(var_r, var_k, 1e-6, 1e-7) >= 0.9999
+    assert parity.close_fraction(fv_r, fv_k, 1e-6, 1e-7) >= 0.9999
+    f2 = svgf.filter_variance(fv_k, width=width, height=height)
+    f2_r = svgf.filter_variance(fv_k.cpu(), width=width, height=height)
+    assert parity.close_fraction(f2_r, f2, 1e-6, 1e-7) >= 0.9999
 
 
 @pytest.mark.parametrize("level", [0, 2, 4])
@@ -977,18 +1023,63 @@ def test_b13_primary_kernel_matches_twin(walk):
 
 
 def test_b14_heatmap_matches_twin(walk):
-    """B14's count equals intersect_visualize's on every pixel, its
-    counting build too, and the COUNT builds of B13 / B14 agree."""
+    """B14's count equals intersect_visualize's on every pixel, in ray
+    order and on 8x4-pixel warps (the frame, and a band from mid-row),
+    its counting build too, and the COUNT builds of B13 / B14 agree."""
     _, _, trv, o, d, _, _, _ = walk
     before = ki.heatmap_launches
     cnt = ki.heatmap_cuda(trv, o, d)
     assert ki.heatmap_launches == before + 1
     assert torch.equal(cnt, tix.intersect_visualize(trv.walk, o, d))
-    cnt_c, counts = ki.heatmap_cuda(trv, o, d, stats=True)
+    assert torch.equal(ki.heatmap_cuda(trv, o, d, geom=(W, 0)), cnt)
+    assert torch.equal(ki.heatmap(trv, o, d, geom=(W, 0)), cnt)
+    p0, n = 5 * W + 17, 9 * W + 3
+    assert torch.equal(ki.heatmap_cuda(trv, o[p0:p0 + n], d[p0:p0 + n],
+                                       geom=(W, p0)), cnt[p0:p0 + n])
+    cnt_c, counts = ki.heatmap_cuda(trv, o, d, stats=True, geom=(W, 0))
     assert torch.equal(cnt_c, cnt)
     _, _, _, c13 = ki.mt_closest_cuda(trv, o, d, stats=True)
     assert torch.equal(counts, c13)
     assert bool((cnt <= counts[0]).all()) and int(cnt.max()) > 4
+
+
+def test_b14_octant_walk_on_straddling_and_edge_rays(walk):
+    """B14 runs the loop of each ray's octant: warps whose lanes take all
+    eight octants, and direction components 0.0, -0.0 and +-1e-13, still
+    give the twin's count on every lane; NaN and infinite components and
+    infinite origins (the twin's torch.minimum keeps a NaN that the
+    kernels' fminf drops) give B13's closest-hit walk counters (its
+    min / max slab, unchanged) lane for lane."""
+    _, _, trv, o, d, _, _, _ = walk
+    lane = torch.arange(R, device=o.device)
+    x, y = lane % W, lane // W
+    octant = (x % 2) + 2 * (y % 2) + 4 * ((x // 2) % 2)
+    sign = 1.0 - 2.0 * torch.stack([(octant >> k) & 1 for k in range(3)],
+                                   1).to(torch.float32)
+    ds = (d * sign).contiguous()
+    for dd in (ds, d):
+        de = dd.clone()
+        de[0::7, 0] = 0.0
+        de[1::7, 1] = -0.0
+        de[2::7, 2] = 1e-13
+        de[3::7, 0] = -1e-13
+        de[4::7, 1:] = 0.0
+        for rays in (dd, de):
+            want = tix.intersect_visualize(trv.walk, o, rays)
+            for geom in (None, (W, 0)):
+                assert torch.equal(ki.heatmap_cuda(trv, o, rays, geom=geom),
+                                   want)
+    on, dn = o.clone(), d.clone()
+    dn[0::6, 1] = float("nan")
+    dn[1::6, 2] = float("inf")
+    dn[2::6, 0] = -float("inf")
+    on[3::6, 0] = float("inf")
+    on[4::6, 2] = -float("inf")
+    dn[5::12] = float("nan")
+    _, c14 = ki.heatmap_cuda(trv, on, dn, stats=True, geom=(W, 0))
+    c13 = ki.mt_closest_cuda(trv, on, dn, stats=True)[3]
+    assert torch.equal(c14, c13)
+    assert int(c14[0].sum()) > 0
 
 
 @pytest.mark.parametrize("tracer,per_frame", [
@@ -1032,8 +1123,10 @@ def test_general_denoiser_step_matches_cpu_twin(walk, denoiser):
     got = (atrous.launches - before[0], atrous.svgf_launches - before[1],
            svgf.variance_launches - before[2])
     levels = cfg.eaw_levels
+    # SVGF: the variance with level 0's prefilter (one launch), then the
+    # prefilter of levels 1.. (one each)
     assert got == ((3 * levels, 0, 0) if denoiser == "eaw"
-                   else (0, 3 * levels, 3 * (1 + levels)))
+                   else (0, 3 * levels, 3 * levels))
     assert parity.close_fraction(fr.T, fk.cpu().T, 1e-4, 1e-6) >= 0.99
 
 

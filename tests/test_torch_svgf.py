@@ -4,7 +4,9 @@
   `fused_di.svgf_temporal_pallas(interpret=True)` on a real G-buffer and a
   random history (rtol 1e-5, atol 1e-6, as tests/test_fused_di.py);
 - the variance twins against `denoiser.svgf_estimate_variance` /
-  `svgf_filter_variance` (rtol 1e-6);
+  `svgf_filter_variance` (rtol 1e-6), and the general SVGF chain's
+  variance with level 0's prefilter from one call on its moments, at
+  sizes that cut the kernels' tiles;
 - B4's twin against `atrous_kernel.atrous_level_pallas(mode="svgf")` at
   levels 0-4 (rtol 2e-4, as tests/test_atrous.py);
 - three RESTIR_DI + SVGF frames of the port's `step_fused` against the
@@ -125,12 +127,64 @@ def test_variance_twins_match_jax():
     want = np.asarray(dn.svgf_filter_variance(jnp.asarray(var)))
     got = tdn.svgf_filter_variance(_t(var)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
-    # the pack-level entry points read the same planes
+    # the kernels' entry point reads the same planes from a pack's rows
+    # and returns the level-0 prefilter beside the variance
     sv = np.zeros((fk.SV_CH, R), np.float32)
     sv[fk.SV_M1:fk.SV_M1 + 3] = moments.reshape(3, R)
-    flat = svgf.estimate_variance(_t(sv), width=W, height=H).numpy()
+    flat, fv0 = svgf.estimate_variance(_t(sv)[fk.SV_M1:fk.SV_M1 + 3],
+                                       width=W, height=H)
+    want = tdn.svgf_estimate_variance(_t(moments))
+    np.testing.assert_array_equal(flat.numpy(), want.numpy().reshape(R))
     np.testing.assert_array_equal(
-        flat, tdn.svgf_estimate_variance(_t(moments)).numpy().reshape(R))
+        fv0.numpy(), tdn.svgf_filter_variance(want).numpy().reshape(R))
+
+
+@pytest.mark.parametrize("w,h", [(45, 13), (33, 9)])
+def test_svgf_levels_fused_prefilter_matches_jax(monkeypatch, w, h):
+    """svgf_levels (the general path's SVGF chain) takes the variance and
+    level 0's prefilter from one call on its [3, R] moments, read in
+    place as the [R, 3] history's transpose, and prefilters B4's
+    variance before levels 1-4: at a size that is no multiple of the
+    kernels' 32x8 tiles, each level's (variance, prefiltered variance)
+    equals the JAX estimate followed by svgf_filter_variance (rtol
+    1e-6)."""
+    g = np.random.default_rng(40 + w)
+    r = w * h
+    m1 = g.random(r, dtype=np.float32)
+    m2 = (m1 * m1 + g.random(r, dtype=np.float32) * 0.1).astype(np.float32)
+    hist = g.integers(0, 8, r).astype(np.float32)
+    history = np.stack([m1, m2, hist], axis=1)  # [R, 3], as SVGFState
+    color = g.random((3, r), dtype=np.float32)
+    pack = np.zeros((fk.GB_CH, r), np.float32)
+    pack[fk.G_PRIMR] = g.integers(-1, 4, r)
+    pack[fk.G_NORM:fk.G_NORM + 3] = g.normal(size=(3, r))
+    pack[fk.G_POS:fk.G_POS + 3] = g.random((3, r))
+    seen = []
+    real = atrous.atrous_svgf_level
+
+    def spy(c, var, fv, gb, **kw):
+        seen.append((var.clone(), fv.clone()))
+        return real(c, var, fv, gb, **kw)
+
+    monkeypatch.setattr(atrous, "atrous_svgf_level", spy)
+    cfg = tconfig.RenderConfig(width=w, height=h,
+                               denoiser=tconfig.DenoiserType.SVGF)
+    moment = _t(history).T
+    assert not moment.is_contiguous()
+    before = svgf.variance_launches
+    tdn.svgf_levels(_t(color), moment, _t(pack), cfg)
+    assert svgf.variance_launches == before  # the CPU runs the twins
+    assert len(seen) == cfg.eaw_levels
+    want = np.asarray(dn.svgf_estimate_variance(
+        jnp.asarray(history.T.reshape(3, h, w))))
+    for level, (var, fv) in enumerate(seen):
+        if level == 0:
+            np.testing.assert_allclose(var.numpy().reshape(h, w), want,
+                                       rtol=1e-6, atol=1e-7)
+        want_fv = np.asarray(dn.svgf_filter_variance(
+            jnp.asarray(var.numpy().reshape(h, w))))
+        np.testing.assert_allclose(fv.numpy().reshape(h, w), want_fv,
+                                   rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("level", range(5))

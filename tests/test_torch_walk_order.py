@@ -1,7 +1,7 @@
-"""B13's launch order and its geometry on the CPU (no card needed).
+"""B13's and B14's launch order and geometry on the CPU (no card needed).
 
-B13's primary and any hit launch a batch that holds one ray per pixel of
-a band (geometry `(width, pix0)`) on 8x4-pixel warps. Here: the host
+B13's primary and any hit and B14 launch a batch that holds one ray per
+pixel of a band (geometry `(width, pix0)`) on 8x4-pixel warps. Here: the host
 mirror of that order (`gbuffer.tile_order` with the band arguments,
 less pix0: csrc/intersect.cu's `ray_of<TILES>`) covers every ray of the
 band exactly once, the wrappers refuse a geometry that cannot hold the
@@ -64,12 +64,16 @@ def test_geometry_that_cannot_hold_the_batch_raises(geom, r):
     # the wrappers refuse before any device work (no launch is counted)
     trv = tix.TraversalArrays(tri_xform=None, planes=None, rows=None,
                               size=0, method="bvh", walk=None)
-    before = (ki.mt_primary_launches, ki.mt_any_launches)
+    before = (ki.mt_primary_launches, ki.mt_any_launches,
+              ki.heatmap_launches)
     with pytest.raises(ValueError, match="geometry"):
         ki.primary_hit(trv, None, None, o, o, geom=geom)
     with pytest.raises(ValueError, match="geometry"):
         ki.any_hit(trv, o, o, geom=geom)
-    assert (ki.mt_primary_launches, ki.mt_any_launches) == before
+    with pytest.raises(ValueError, match="geometry"):
+        ki.heatmap(trv, o, o, geom=geom)
+    assert (ki.mt_primary_launches, ki.mt_any_launches,
+            ki.heatmap_launches) == before
 
 
 @pytest.mark.parametrize("geom,r", [((1, 0), 65535 * 8), ((1920, 0), 1),
@@ -113,16 +117,17 @@ W, H = 16, 8
 
 @pytest.mark.parametrize("tracer", [
     TracerType.PT_DIRECT, TracerType.PT_FULL, TracerType.RESTIR_DI,
-    TracerType.RESTIR_GI, TracerType.GBUFFER_PREVIEW])
+    TracerType.RESTIR_GI, TracerType.GBUFFER_PREVIEW,
+    TracerType.BVH_VISUALIZE])
 @pytest.mark.parametrize("bands", [1, 2])
 def test_call_sites_pass_their_band(walk_scene, monkeypatch, tracer, bands):
     """Every ray batch of the general path that reaches B13's primary or
-    any hit (`trace_primary`, `ix.test_occlusion`) carries its band's
-    geometry: (frame width, the band's first global pixel), one ray per
-    pixel of the band."""
+    any hit (`trace_primary`, `ix.test_occlusion`) or B14 (`bvh_heatmap`'s
+    `heatmap`) carries its band's geometry: (frame width, the band's
+    first global pixel), one ray per pixel of the band."""
     scene, cam, _ = walk_scene
-    seen = []
-    real_a = ki.any_hit
+    seen, heat = [], []
+    real_a, real_h = ki.any_hit, ki.heatmap
 
     def spy(*args, geom=None, **kw):
         seen.append((args[2].shape[0], geom))
@@ -132,9 +137,14 @@ def test_call_sites_pass_their_band(walk_scene, monkeypatch, tracer, bands):
         seen.append((x.shape[0], geom))
         return real_a(trv, x, y, active, geom)
 
+    def heatmap(trv, o, d, geom=None):
+        heat.append((o.shape[0], geom))
+        return real_h(trv, o, d, geom)
+
     for module in (models.gbuffer, models.path_tracer, models.restir_gi):
         monkeypatch.setattr(module, "trace_primary", spy)
     monkeypatch.setattr(ki, "any_hit", any_hit)
+    monkeypatch.setattr(ki, "heatmap", heatmap)
     cfg = RenderConfig(width=W, height=H, tracer=tracer, intersector="bvh",
                        trace_depth=2)
     state = renderer.init_state(cfg, cam, device="cpu")
@@ -149,3 +159,7 @@ def test_call_sites_pass_their_band(walk_scene, monkeypatch, tracer, bands):
     assert seen
     assert set(seen) <= {(r, (W, b * r)) for b in range(bands)}
     assert {g for _, g in seen} == {(W, b * r) for b in range(bands)}
+    if tracer == TracerType.BVH_VISUALIZE:
+        assert sorted(heat) == [(r, (W, b * r)) for b in range(bands)]
+    else:
+        assert not heat

@@ -1,5 +1,5 @@
-"""B13's walks on the hall at 1920x1080, beyond kernel_ab.py's per-kernel
-times:
+"""B13's and B14's walks on the hall at 1920x1080, beyond kernel_ab.py's
+per-kernel times:
 
     python3 walk_ab.py order
     python3 walk_ab.py busy _chip/parent . . _chip/parent
@@ -14,9 +14,11 @@ on the keys is printed beside it (the sort is not part of the port).
 
 `busy` runs each checkout given (the one here, or an unpacked `git
 archive` of another commit) in its own process, in the order given:
-hall PT-direct and hall general DI + SVGF ("bvh"), chip_smoke.py phase
-21's main paths, 2 warm-up + 8 timed frames each, then a torch.profiler
-trace of 4 frames: wall and device busy per frame.
+hall PT-direct, hall general DI + SVGF ("bvh") and the hall heatmap,
+chip_smoke.py phase 21's main paths, 2 warm-up + 8 timed frames each,
+and the headline SVGF frame (phase 7's main path, 8 + 32 frames), each
+then a torch.profiler trace of 4 frames: wall and device busy per
+frame.
 
 The rays are kernel_ab.general_rays' (chip_smoke.py phase 19's). Needs
 one CUDA card; exits non-zero without one. Prints the card's name and
@@ -110,6 +112,8 @@ def _order() -> None:
 
 
 def _busy() -> None:
+    import inspect
+
     import torch
 
     import chip_smoke as cs
@@ -120,6 +124,9 @@ def _busy() -> None:
         TracerType,
         mat_flags,
     )
+    from restir_tpu_torch.ops.camera import make_camera
+    from restir_tpu_torch.ops.kernels import svgf
+    from restir_tpu_torch.scene.procedural import many_light_scene
 
     dev = torch.device("cuda", 0)
     cs.phase_build()
@@ -128,19 +135,33 @@ def _busy() -> None:
     base = RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
                         **mat_flags(arrays))
     levels = base.eaw_levels
+    # the variance and level 0's prefilter are one launch since the
+    # variance redesign
+    fused = "moments" in inspect.signature(svgf.estimate_variance).parameters
+    n_var = levels if fused else 1 + levels
     for name, cfg, per_frame in (
             ("hall PT-direct", base.replace(tracer=TracerType.PT_DIRECT),
              {"mt_primary": 2, "mt_any": 1}),
             ("hall general DI + SVGF",
              base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
                           ris_mode="cdf", denoiser=DenoiserType.SVGF),
-             {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": 1 + levels,
-              "atrous_svgf": levels})):
+             {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": n_var,
+              "atrous_svgf": levels}),
+            ("hall heatmap", base.replace(tracer=TracerType.BVH_VISUALIZE),
+             {"heatmap": 1, "mt_primary": 1})):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # auto's notice: the walk
             cs.phase_general_main(name, hall, cfg, cam, dev, per_frame,
                                   cs.GENERAL_WARMUP, cs.GENERAL_TIMED)
             cs.profile_frames(name, hall, cfg, cam, dev)
+    h_arrays, camkw = many_light_scene(64, 24)
+    scene = convert.scene_from_numpy(h_arrays, dev)
+    cfg = cs.render_config(h_arrays, denoiser=DenoiserType.SVGF)
+    h_cam = make_camera(**camkw)
+    cs.phase_main("headline SVGF", scene, cfg, h_cam, dev, {
+        "fused_di": 2, "spatial": 1, "svgf_temporal": 1,
+        "svgf_variance": n_var, "atrous_svgf": levels})
+    cs.profile_frames("headline SVGF", scene, cfg, h_cam, dev)
 
 
 def main(argv) -> int:
