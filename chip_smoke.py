@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check: a CUDA card is required; nothing runs on the CPU;
-  2. build: nvcc compiles restir_tpu_torch/csrc, one process per source,
+  2. build: nvcc compiles restir_tpu_torch/csrc (and the stage probes' builds,
+     phase 28), one process per source,
      and prints each kernel's registers and spills (ptxas);
   3. headline kernels vs twins: B1 fused DI, B2 spatial + shade, B3 EAW
      level against their plain PyTorch twins on the card at the headline
@@ -137,7 +138,12 @@ The MTBVH walk of the general path (after phase 18):
      PT_DIRECT frames (the walk, B13) at 384x384, `energy_ratio_vs_pt`
      printed on a line of its own, and the same ratio against 256
      PT_DIRECT frames with intersector "brute" (B11 / B12's plane-test
-     walk) beside it; a measurement, not a gate.
+     walk) beside it; the fused frame in each of the four reuse modes,
+     the general ReSTIR DI step in reference mode (reuse NONE, 64
+     frames) and PT_FULL at depth 1 (256 frames) as two more estimators,
+     each image's light by material (the pixel-centre hit's); a
+     measurement, not a gate (`energy.py frames --device cuda` compares
+     the same estimators over more frames, off this script).
 The app shell (after phase 22):
  23. the CLI in-process (`restir_tpu_torch.app.main`, the user's
      `python -m restir_tpu_torch`): `--builtin many_light --width 1920
@@ -174,15 +180,37 @@ Row bands (`restir_tpu_torch.parallel`, after phase 25):
      spatial 3, atrous_eaw 15: each band runs the 5 levels on its own
      row-haloed image), its wall and fps beside phase 6's, and its
      profile.
+ 27. the general frame in row bands (`make_sharded_step`, after 26).
+The stage probes (`restir_tpu_torch.prof`, after phase 27):
+ 28. (a) each kernel of csrc/prof/ against its plain twin at its probe's
+     shapes: the coherence key, the LSD radix sort (against
+     torch.sort(stable=True)), the permuted [9, R] gather and its copy
+     floor on the hall's 1080p NEE segments, bit for bit; the any hit's
+     three forms (FP32 FMA, 3xTF32 and 6xTF32 mma.sync tiles) on 1080p
+     random rays against the headline's 512 padded plane rows within
+     the primitive gate (mismatch <= 0.2 %); the table gathers (shared
+     memory, __ldg, texture; R = 1920 x 1088, K = 8192) and the vec3
+     chains (SoA, AoS, float4) bit for bit; each kernel's time, its
+     twin's, one PyTorch call's where one computes the same function
+     (torch.sort, index_select, copy_, torch.matmul of the any hit's
+     dots) and its bound; (b) the B6, B7 and B10 builds of the stage
+     probes without a PROBE macro (`_build.VARIANTS`' "*_full") write
+     the main library's packs bit for bit on the hall, the sky hall and
+     the headline; (c) the slice's main path, `python -m
+     restir_tpu_torch.prof all` (every probe once, 1 warm-up and 5 timed
+     launches a row), with its launch counts: every kernel of
+     csrc/prof/ must launch. Phase 2 builds the probes' libraries with
+     the main one.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
-those, 23-25, then 26, last.
+those, 23-25, then 26, 27 and 28, last.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
 nvidia-smi), the per-kernel JSON record and {"ok": true, "device": ...}.
-Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s
-float32 (non-tensor); operation counts per test are counted from the
-CUDA sources (constants below; a transcendental counts as one).
+Bounds use the H100 SXM's published peaks: 3.35 TB/s, 67 TFLOP/s
+float32 (non-tensor) and 495 TFLOP/s TF32 (tensor cores, dense);
+operation counts per test are counted from the CUDA sources (constants
+below; a transcendental counts as one).
 """
 
 from __future__ import annotations
@@ -208,6 +236,7 @@ from restir_tpu_torch.models import denoiser
 from restir_tpu_torch.config import (
     DenoiserType,
     RenderConfig,
+    ReuseMode,
     TracerType,
     mat_flags,
 )
@@ -309,6 +338,33 @@ SOURCES = {
                    "restir_tpu/ops/intersect.py:145"),
     "heatmap": ("restir_tpu_torch/csrc/intersect.cu",
                 "restir_tpu/ops/intersect.py:252"),
+    # the stage probes' kernels (restir_tpu_torch.prof, phase 28)
+    "prof_key": ("restir_tpu_torch/csrc/prof/sort.cu",
+                 "prof/prof_wavefront.py:87"),
+    "prof_radix_sort": ("restir_tpu_torch/csrc/prof/sort.cu",
+                        "prof/prof_wavefront.py:87"),
+    "prof_gather": ("restir_tpu_torch/csrc/prof/sort.cu",
+                    "prof/prof_take.py:140"),
+    "prof_copy": ("restir_tpu_torch/csrc/prof/sort.cu",
+                  "prof/prof_take.py:140"),
+    "prof_anyhit_fma": ("restir_tpu_torch/csrc/prof/anyhit.cu",
+                        "prof/prof_fma.py:139"),
+    "prof_anyhit_mma3": ("restir_tpu_torch/csrc/prof/anyhit.cu",
+                         "prof/prof_fma.py:116"),
+    "prof_anyhit_mma6": ("restir_tpu_torch/csrc/prof/anyhit.cu",
+                         "prof/prof_fma.py:116"),
+    "prof_table_gather_shared": ("restir_tpu_torch/csrc/prof/mem.cu",
+                                 "prof/prof_gather.py:43"),
+    "prof_table_gather_ldg": ("restir_tpu_torch/csrc/prof/mem.cu",
+                              "prof/prof_gather.py:43"),
+    "prof_table_gather_tex": ("restir_tpu_torch/csrc/prof/mem.cu",
+                              "prof/prof_gather.py:43"),
+    "prof_chain_soa": ("restir_tpu_torch/csrc/prof/mem.cu",
+                       "prof/prof_v3.py:92"),
+    "prof_chain_aos": ("restir_tpu_torch/csrc/prof/mem.cu",
+                       "prof/prof_v3.py:92"),
+    "prof_chain_float4": ("restir_tpu_torch/csrc/prof/mem.cu",
+                          "prof/prof_v3.py:92"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -343,6 +399,17 @@ FLOP_GI_RESOLVE = 120  # B9 per pixel: RIS, merge tests, cap, shade
 # (20), three divisions, six compares
 FLOP_MT = 56
 FLOP_SEGMENT = 16  # B13's any-hit set-up: |y - x|, d, origin, limit
+PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense, FLOP/s
+# the probes' kernels (csrc/prof/): the coherence key of one segment
+# (two Morton codes or a direction: about 60 operations), one (ray, row)
+# pair of the any hit's epilogue (division, u, v, 6 compares) and its six
+# dots (3 four-term and 3 three-term: 21 multiply-adds). The tensor-core
+# forms do the same 21 multiply-adds once per split product (3 in
+# 3xTF32, 6 in 6xTF32); the zero halves of the tiles' K are not work the
+# function needs, so they are not counted.
+FLOP_KEY = 60
+FLOP_ANY_EPI = 12
+FLOP_ANY_DOTS = 42
 
 
 class PhaseError(RuntimeError):
@@ -480,7 +547,9 @@ def gate(fails, what):
 
 def phase_build():
     t0 = time.perf_counter()
-    path = _build.build()
+    # the main library and every stage probe's build, one nvcc per
+    # source, all started together
+    path = _build.build(variants=tuple(_build.VARIANTS))
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s) -> {os.path.basename(path)}")
@@ -2348,56 +2417,103 @@ def phase_walk_kernels(hall, cam, dev, record):
     return trv, ro, rd
 
 
+def mean_image(scene, cfg, cam, frames, dev, with_scene=True):
+    """The running mean of `frames` frames of cfg from a fresh state, as
+    float64 [R, 3] (a fused frame [3, R] is transposed and copied: the
+    next step would update it in place)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # auto's notice: the walk
+        state = renderer.init_state(cfg, cam,
+                                    scene if with_scene else None,
+                                    device=dev)
+        for _ in range(frames):
+            state, frame = renderer.step(scene, state, cam, cfg)
+    if isinstance(state, renderer.FusedDIState):
+        frame = frame.T
+    return frame.double().clone()
+
+
+def material_split(scene, cfg, cam, images):
+    """{image name: {material type: its pixels' share of the frame mean}}
+    by the material of each pixel-centre primary hit (-1: lights and
+    misses)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gb, it, mat, _ = general_gb.render_gbuffer(
+            scene, cam, cam, cfg.replace(aa_jitter=False), 0)
+    typ = torch.where(it.valid & (gb.prim_id >= 0), mat.type.long(), -1)
+    out = {}
+    for name, img in images.items():
+        lum = img.mean(dim=1)
+        out[name] = {int(t): round(float(lum[typ == t].sum() / lum.numel()),
+                                   6) for t in typ.unique()}
+    return out
+
+
 def phase_hall_energy(hall, hall_arrays, cam, dev):
     """Phase 22: the hall's fused RESTIR_DI (64 frames) against its
-    PT_DIRECT (256 frames, the MTBVH walk) at 384x384: a measurement,
-    not a gate; a ratio outside 5 % goes to ROADMAP Queue C."""
+    PT_DIRECT (256 frames, the MTBVH walk) at 384x384, in each of the
+    four reuse modes; two more estimators of the same direct light (the
+    general ReSTIR DI step in reference mode, 32 power-proportional
+    candidates and a shadow ray, reuse NONE, 64 frames; PT_FULL at depth
+    1, 256 frames); the reference through brute force (B11 / B12); and
+    the light by material. A measurement, not a gate (ROADMAP Queue
+    C)."""
     cfg = RenderConfig(width=384, height=384, tracer=TracerType.RESTIR_DI,
                        denoiser=DenoiserType.NONE, **mat_flags(hall_arrays))
     t0 = time.perf_counter()
-    state = renderer.init_state(cfg, cam, hall, device=dev)
-    if not isinstance(state, renderer.FusedDIState):
+    if not isinstance(renderer.init_state(cfg, cam, hall, device=dev),
+                      renderer.FusedDIState):
         raise PhaseError("hall energy: the 384x384 DI frame is not fused")
-    for _ in range(64):
-        state, frame = renderer.step(hall, state, cam, cfg)
-    got = frame.T.double()
     ref_cfg = cfg.replace(tracer=TracerType.PT_DIRECT)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # auto's notice: the walk
-        ref_state = renderer.init_state(ref_cfg, cam, hall, device=dev)
-        for _ in range(256):
-            ref_state, ref = renderer.step(hall, ref_state, cam, ref_cfg)
-    ref = ref.double()
+    ref = mean_image(hall, ref_cfg, cam, 256, dev)
+    modes = {"NONE": ReuseMode.NONE, "TEMPORAL": ReuseMode.TEMPORAL,
+             "SPATIAL": ReuseMode.SPATIAL,
+             "SPATIOTEMPORAL": ReuseMode.SPATIOTEMPORAL}
+    fused = {name: mean_image(hall, cfg.replace(reuse=m), cam, 64, dev)
+             for name, m in modes.items()}
+    got = fused["SPATIOTEMPORAL"]
+    general_ref = mean_image(hall, cfg.replace(
+        ris_mode="reference", reuse=ReuseMode.NONE), cam, 64, dev,
+        with_scene=False)
+    pt_full1 = mean_image(hall, cfg.replace(tracer=TracerType.PT_FULL,
+                                            trace_depth=1), cam, 256, dev)
     # the same reference through B11 / B12: brute force's plane test on
     # its padded MTBVH walk, at any size
     brute_cfg = ref_cfg.replace(intersector="brute")
     reset_counts()
-    brute_state = renderer.init_state(brute_cfg, cam, hall, device=dev)
-    for _ in range(256):
-        brute_state, ref_b = renderer.step(hall, brute_state, cam, brute_cfg)
-    ref_b = ref_b.double()
+    ref_b = mean_image(hall, brute_cfg, cam, 256, dev)
     torch.cuda.synchronize()
     counts = read_counts()
     if counts["primary_hit"] < 512 or counts["any_hit"] < 256 or (
             counts["mt_primary"] + counts["mt_any"]):
         raise PhaseError(f"hall energy: the brute reference launched "
                          f"{counts}")
-    if not (bool(torch.isfinite(got).all()) and bool(
-            torch.isfinite(ref).all()) and bool(torch.isfinite(ref_b).all())):
+    images = {"PT-direct": ref, "PT-direct brute": ref_b,
+              "general DI reference": general_ref, "PT-full depth 1":
+              pt_full1, **{f"fused {k}": v for k, v in fused.items()}}
+    if not all(bool(torch.isfinite(v).all()) for v in images.values()):
         raise PhaseError("hall energy: non-finite frames")
-    ratio = float(got.mean() / max(float(ref.mean()), 1e-9))
-    ratio_b = float(got.mean() / max(float(ref_b.mean()), 1e-9))
+    mean = {k: float(v.mean()) for k, v in images.items()}
+    ratio = mean["fused SPATIOTEMPORAL"] / max(mean["PT-direct"], 1e-9)
+    ratio_b = mean["fused SPATIOTEMPORAL"] / max(mean["PT-direct brute"],
+                                                  1e-9)
     rel_rmse = float(torch.sqrt(((got - ref) ** 2).mean())
-                     / max(float(ref.mean()), 1e-9))
-    refs = float(ref_b.mean() / max(float(ref.mean()), 1e-9))
+                     / max(mean["PT-direct"], 1e-9))
     print(f"hall energy (384x384, 64 fused RESTIR_DI vs 256 PT_DIRECT "
           f"frames each way, {time.perf_counter() - t0:.1f} s): fused mean "
-          f"{float(got.mean()):.6f}, PT-direct mean {float(ref.mean()):.6f} "
-          f"(the walk, B13), {float(ref_b.mean()):.6f} (brute, B11 / B12); "
-          f"brute / walk reference {refs:.4f}")
+          f"{mean['fused SPATIOTEMPORAL']:.6f}, PT-direct mean "
+          f"{mean['PT-direct']:.6f} (the walk, B13), "
+          f"{mean['PT-direct brute']:.6f} (brute, B11 / B12); brute / walk "
+          f"reference {mean['PT-direct brute'] / mean['PT-direct']:.4f}")
     print(f"energy_ratio_vs_pt {ratio:.4f} (hall; rel_rmse_vs_pt_64f "
           f"{rel_rmse:.4f}; within 5 %: {abs(ratio - 1.0) < 0.05}); against "
           f"the brute reference {ratio_b:.4f}")
+    print("hall energy by estimator (mean; ratio to PT-direct): " + "; ".join(
+        f"{k} {v:.6f} ({v / mean['PT-direct']:.4f})" for k, v in mean.items()))
+    print(f"hall energy by material (0 Lambertian, 1 metallic, 2 dielectric,"
+          f" -1 lights and misses): "
+          f"{json.dumps(material_split(hall, cfg, cam, images))}")
 
 
 def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
@@ -3203,6 +3319,221 @@ def phase_general_bands(scene, arrays, cam, dev):
                    step=lambda s: step(scenes, s, cam)[0], state=state)
 
 
+PROBE_LAUNCHES = {  # SOURCES name -> restir_tpu_torch.prof.kernels counter
+    "prof_key": "key", "prof_radix_sort": "radix_sort",
+    "prof_gather": "gather", "prof_copy": "copy",
+    "prof_anyhit_fma": "anyhit_fma", "prof_anyhit_mma3": "anyhit_mma3",
+    "prof_anyhit_mma6": "anyhit_mma6",
+    "prof_table_gather_shared": "table_gather_shared",
+    "prof_table_gather_ldg": "table_gather_ldg",
+    "prof_table_gather_tex": "table_gather_tex",
+    "prof_chain_soa": "chain_soa", "prof_chain_aos": "chain_aos",
+    "prof_chain_float4": "chain_float4"}
+
+
+def probe_record(ms, plain_ms, nbytes, flops, library_ms, err,
+                 tensor_flops=0.0):
+    """A kernels-line record: the bound is the larger of the bytes' time
+    and the operations' time, the larger of FP32 operations at PEAK_FLOPS
+    and tensor operations at PEAK_TF32 (the two pipes run side by side)."""
+    ms_b = nbytes / PEAK_BYTES * 1e3
+    ms_f = max(flops / PEAK_FLOPS, tensor_flops / PEAK_TF32) * 1e3
+    b, by = (ms_b, "bytes") if ms_b >= ms_f else (ms_f, "operations")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=library_ms)
+
+
+def phase_probes(dev, record, launches):
+    """Phase 28: the stage probes (restir_tpu_torch.prof). (a) Each new
+    kernel of csrc/prof/ against its plain twin at the shapes its probe
+    gives it (1920x1080; the hall's NEE segments for the key, the sort,
+    the gather and the copy; the headline scene's 512 padded plane rows
+    for the any hit; R = 1920 x 1088, K = 8192 for the table gathers):
+    the key, the sort's permutation, the gathers and the chains bit for
+    bit, the any hit's two forms within the reference's primitive gate
+    (mismatch <= 0.2 %; FP32 and 6xTF32 against each other too, 3xTF32's
+    mismatch against FP32 printed); kernel, twin and PyTorch-call times
+    and bounds.
+    (b) Each stage probe's `full` build (B6, B7, B10 from their sources
+    without a PROBE macro) against the main library, bit for bit. (c)
+    The slice's main path: `python -m restir_tpu_torch.prof all` in this
+    process (every probe once, 1 warm-up and 5 timed launches per row),
+    its launch counts read after it."""
+    from restir_tpu_torch.prof import __main__ as prof_main
+    from restir_tpu_torch.prof import _scenes as pscenes
+    from restir_tpu_torch.prof import kernels as pk
+    from restir_tpu_torch.prof import (
+        prof_fma,
+        prof_gvariants,
+        prof_take,
+        prof_v3,
+        prof_vissplit,
+    )
+
+    t0 = time.perf_counter()
+    reps = 5
+    fails = []
+    fr = pscenes.hall(dev)
+    trv = intersect.traversal_arrays(fr.scene, "bvh")
+    pos, target, live = pscenes.nee_segments(fr, trv)
+    lo, hi = pscenes.scene_box(fr)
+    r = pos.shape[0]
+    order = "direction_origin"
+    key = pk.coherence_key(pos, target, live, lo, hi, order)
+    key_r = pk.coherence_key_ref(pos, target, live, lo, hi, order)
+    if not torch.equal(key, key_r):
+        fails.append("the coherence key differs from its twin")
+    record["prof_key"] = probe_record(
+        cuda_ms(lambda: pk.coherence_key(pos, target, live, lo, hi, order),
+                reps),
+        cuda_ms(lambda: pk.coherence_key_ref(pos, target, live, lo, hi,
+                                             order), 2),
+        29 * r, FLOP_KEY * r, None,
+        float((key.long() - key_r.long()).abs().max()))
+    vals, perm = pk.radix_sort(key)
+    rv, rp = pk.radix_sort_ref(key)
+    if not (torch.equal(vals, rv) and torch.equal(perm, rp)):
+        fails.append("the radix sort differs from torch.sort(stable=True)")
+    record["prof_radix_sort"] = probe_record(
+        cuda_ms(lambda: pk.radix_sort(key), reps),
+        cuda_ms(lambda: pk.radix_sort_ref(key), reps), 12 * r, 0.0,
+        cuda_ms(lambda: torch.sort(key, stable=True), reps),
+        float((perm != rp).sum()))
+    pack = prof_take.segment_pack(pos, target, live)
+    c = pack.shape[0]
+    perm_l = perm.long()
+    g = pk.gather_cols(pack, perm)
+    want = pack.index_select(1, perm_l)
+    if not torch.equal(g, want):
+        fails.append("the gather differs from index_select")
+    record["prof_gather"] = probe_record(
+        cuda_ms(lambda: pk.gather_cols(pack, perm), reps),
+        cuda_ms(lambda: pack.index_select(1, perm.long()), reps),
+        8 * c * r + 4 * r, 0.0,
+        cuda_ms(lambda: pack.index_select(1, perm_l), reps),
+        max_err(g, want))
+    cp = pk.copy_pack(pack)
+    if not torch.equal(cp, pack):
+        fails.append("the copy differs from its source")
+    record["prof_copy"] = probe_record(
+        cuda_ms(lambda: pk.copy_pack(pack), reps),
+        cuda_ms(lambda: pack.clone(), reps), 8 * c * r, 0.0,
+        cuda_ms(lambda: torch.empty_like(pack).copy_(pack), reps),
+        max_err(cp, pack))
+    print(f"probe kernels on the hall's {r} NEE segments ({c}-channel "
+          f"pack): key, sort, gather and copy equal to their twins: "
+          f"{not fails}")
+
+    hfr = pscenes.headline(dev)
+    xform = intersect.traversal_arrays(hfr.scene, "brute").tri_xform
+    planes = pk.plane_rows(xform, prof_fma.N_PAD)
+    rays = prof_fma.random_rays(*pscenes.scene_box(hfr), WIDTH * HEIGHT,
+                                dev)
+    nr = rays.shape[1]
+    splits = {"fma": None, "mma3": 3, "mma6": 6}
+    occ = {f: pk.anyhit(rays, planes, f) for f in splits}
+    ref = {f: pk.anyhit_ref(rays, planes, split=sp)
+           for f, sp in splits.items()}
+    ms_ref = {f: cuda_ms(lambda sp=sp: pk.anyhit_ref(rays, planes, split=sp),
+                         1, warmup=False) for f, sp in splits.items()}
+    ms_lib = cuda_ms(lambda: prof_fma.dots_matmul(rays, planes), 2)
+    mis = {f: float((occ[f] != ref[f]).float().mean()) for f in splits}
+    mis["mma6 vs fma"] = float((occ["mma6"] != occ["fma"]).float().mean())
+    print(f"probe any hit ({nr} rays x {planes.shape[0]} rows, occluded "
+          f"{float(ref['fma'].float().mean()):.4f}): mismatch "
+          + ", ".join(f"{k} {v:.2e}" for k, v in mis.items())
+          + f"; mma3 vs fma (not gated) "
+          f"{float((occ['mma3'] != occ['fma']).float().mean()):.2e}")
+    if max(mis.values()) > prof_fma.GATE:
+        fails.append(f"the any hit is over the primitive gate: {mis}")
+    pairs = nr * planes.shape[0]
+    nbytes = 32 * nr + planes.numel() * 4 + nr
+    for f in splits:
+        mma = 0 if f == "fma" else FLOP_ANY_DOTS * splits[f]
+        record[f"prof_anyhit_{f}"] = probe_record(
+            cuda_ms(lambda f=f: pk.anyhit(rays, planes, f), reps),
+            ms_ref[f], nbytes,
+            (FLOP_ANY_EPI + (FLOP_ANY_DOTS if f == "fma" else 0)) * pairs,
+            ms_lib, mis[f], tensor_flops=mma * pairs)
+
+    rg, k = 1920 * 1088, 8192
+    table = torch.arange(k, dtype=torch.float32, device=dev) * 0.5
+    idx = pk.gather_index(rg, k, dev)
+    idx_l = idx.long()
+    want = table.index_select(0, idx_l)
+    tex = pk.texture(table)
+    try:
+        for where in pk.GATHER_WHERE:
+            got = pk.table_gather(table, idx, where, tex=tex)
+            if not torch.equal(got, want):
+                fails.append(f"the {where} table gather differs")
+            record[f"prof_table_gather_{where}"] = probe_record(
+                cuda_ms(lambda: pk.table_gather(table, idx, where, tex=tex),
+                        reps),
+                cuda_ms(lambda: table.index_select(0, idx.long()), reps),
+                8 * rg + 4 * k, 0.0,
+                cuda_ms(lambda: table.index_select(0, idx_l), reps),
+                max_err(got, want))
+    finally:
+        torch.cuda.synchronize()
+        pk.free_texture(tex)
+    cpack = prof_v3.pack(WIDTH * HEIGHT, dev)
+    rc = cpack.shape[1]
+    want = pk.chain_ref(cpack)
+    ms_ref = cuda_ms(lambda: pk.chain_ref(cpack), 1)
+    for layout in pk.CHAIN_LAYOUTS:
+        got = pk.chain(cpack, layout)
+        if not torch.equal(got, want):
+            fails.append(f"the {layout} chain differs from its twin")
+        laid = pk.chain_inputs(cpack, layout)
+        # the function reads a, b, m (7 floats) and writes 3 a pixel in
+        # every layout; float4's padding is not work it needs
+        record[f"prof_chain_{layout}"] = probe_record(
+            cuda_ms(lambda: pk.chain_laid(laid, layout), reps), ms_ref,
+            (28 + 12) * rc, 90 * 3 * 2 * rc, None, max_err(got, want))
+    for name in PROBE_LAUNCHES:
+        rec = record[name]
+        print(f"{name}: kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f}"
+              f" ms, library {rec['library_ms']} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max err "
+              f"{rec['max_abs_err']}")
+    gate(fails, "probe kernels")
+
+    # (b) the `full` builds of the stage probes' sources
+    for frm in (pscenes.hall(dev), pscenes.headline(dev)):
+        if not prof_gvariants.full_build_equal(frm):
+            fails.append(f"b6_full differs on the {frm.name}")
+    for frm in (pscenes.hall(dev), pscenes.hall(dev, sky=True)):
+        calls = prof_vissplit.b7_calls(frm, dev, {"main": None,
+                                                  "full": "b7_full"})
+        if not torch.equal(calls["main"](), calls["full"]()):
+            fails.append(f"b7_full differs on the {frm.name}")
+    for frm in (pscenes.hall(dev), pscenes.headline(dev)):
+        calls = prof_vissplit.b10_calls(frm, dev, {"main": None,
+                                                   "full": "b10_full"})
+        if not torch.equal(calls["main"](), calls["full"]()):
+            fails.append(f"b10_full differs on the {frm.name}")
+    gate(fails, "the stage probes' full builds")
+    print("probe builds: b6_full, b7_full and b10_full write the main "
+          "library's packs bit for bit (hall, sky hall, headline)")
+
+    # (c) the slice's main path
+    pk.reset_launches()
+    t1 = time.perf_counter()
+    if prof_main.main(["all"]) != 0:
+        raise PhaseError("python -m restir_tpu_torch.prof all failed")
+    torch.cuda.synchronize()
+    print(f"main path restir_tpu_torch.prof all ({time.perf_counter() - t1:.1f}"
+          f" s) launches {pk.launches}")
+    for name, counter in PROBE_LAUNCHES.items():
+        launches[name] = pk.launches[counter]
+    idle = [n for n, c in PROBE_LAUNCHES.items() if not pk.launches[c]]
+    if idle:
+        raise PhaseError(f"probes: kernels not launched on the main path: "
+                         f"{idle}")
+    print(f"phase 28 (probes): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3270,6 +3601,7 @@ def main() -> int:
         phase_viewer(scene, arrays, cam, dev, tmp)
     phase_bands(scene, cfg, cam, dev)
     phase_general_bands(scene, arrays, cam, dev)
+    phase_probes(dev, record, launches)
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

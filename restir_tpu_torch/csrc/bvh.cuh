@@ -84,6 +84,19 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / ds;
 }
 
+// A ray with a NaN origin or direction component. The twins' slab test
+// (torch.minimum / maximum, as the JAX package's jnp.minimum) keeps a
+// NaN, so such a ray misses every box, the root's first; `slab`'s fminf /
+// fmaxf would drop the NaN axis and walk on the other two. The exact
+// walks (B13, B14) test this once, before their loop: such a ray tests
+// the root's box and goes to its miss index, which is the table's end
+// (scene/bvh.py), as the twin does. The loop itself is unchanged.
+template <class RayT>
+__device__ __forceinline__ bool nan_ray(const RayT& ray) {
+  return isnan(ray.ox) || isnan(ray.oy) || isnan(ray.oz) || isnan(ray.dx) ||
+         isnan(ray.dy) || isnan(ray.dz);
+}
+
 // Slab test; t_near may be negative when the origin is inside the box.
 __device__ __forceinline__ bool slab(float4 lo, float4 hi, float ox, float oy,
                                      float oz, float ix, float iy, float iz,
@@ -216,6 +229,10 @@ __device__ __forceinline__ float exact_closest_walk(const BvhRows& bvh,
   prim = -1;
   bu = bv = 0.0f;
   int node = 0;
+  if (nan_ray(ray)) {
+    if (COUNT) ++n.boxes;
+    node = bvh.size;
+  }
   while (node < bvh.size) {
     const BvhNode nd = bvh.node(base + node);
     float t_near;
@@ -250,6 +267,10 @@ __device__ __forceinline__ bool exact_occluded_walk(const BvhRows& bvh,
               iz = safe_inv(ray.dz);
   const int base = mtbvh_id(-ray.dx, -ray.dy, -ray.dz) * bvh.size;
   int node = 0;
+  if (nan_ray(ray)) {
+    if (COUNT) ++n.boxes;
+    node = bvh.size;
+  }
   while (node < bvh.size) {
     const BvhNode nd = bvh.node(base + node);
     float t_near;
@@ -317,7 +338,8 @@ __device__ __forceinline__ int heat_loop(const NodeRow* __restrict__ rows,
 // exact_closest_walk descends for `ray`, each decision the same. Each
 // ray runs the loop of its inverse direction's octant; a ray with an
 // infinite direction component (a zero inverse) or origin component runs
-// the `slab` loop, since (lo - o) * i can be NaN on one plane only there.
+// the `slab` loop, since (lo - o) * i can be NaN on one plane only there;
+// a ray with a NaN component descends no node (nan_ray).
 // The tables' 6B rows fit an int (BvhRows::size is one).
 template <bool COUNT, class RayT>
 __device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
@@ -333,6 +355,10 @@ __device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
 #define RESTIR_HEAT(O)                                                   \
   heat_loop<COUNT, O>(rows, base, bvh.size, bvh.planes, ray, ix, iy, iz, \
                       n)
+  if (nan_ray(ray)) {
+    if (COUNT) ++n.boxes;
+    return 0;
+  }
   if (min_max) return RESTIR_HEAT(-1);
   switch (oct) {
     case 0: return RESTIR_HEAT(0);

@@ -28,6 +28,12 @@
 // its plane row as three float4 loads (di_core.cuh, PlaneRay4). Its 42-48
 // registers let 5 blocks (40 warps) share an SM; a cap for 6 blocks
 // spilled and did not pay. Wider nodes and ray sorting are later work.
+//
+// Stage probes (restir_tpu_torch/prof, prof_gsplit / prof_gvariants): a
+// build with -DPROBE_GBUF=1 stores constants only ("const"), =2 adds the
+// ray ("raygen"), =3 walks and stores the hit without the epilogue
+// ("hit"), =4 runs the epilogue on a constant hit ("epi"). Their packs
+// are not the G-buffer. Without the macro this file is the kernel above.
 #include "bvh.cuh"
 #include "di_core.cuh"
 
@@ -45,15 +51,42 @@ __global__ void __launch_bounds__(PIX_BLOCK) gbuffer_bvh_kernel(
   const int g = tile_pixel(width, pix0, r);
   if (g < 0) return;
   const int p = g - pix0;  // the band's pack column
+#if defined(PROBE_GBUF) && PROBE_GBUF == 1
+  // probe "const": the pack's stores alone (no ray, no walk, no epilogue)
+  for (int ch = 0; ch < GB_CH; ++ch)
+    gb[(size_t)ch * r + p] = __ldg(cam) + (float)ch;
+  return;
+#endif
   const Ray ray = raygen(cam, g, looper, width, height, aspect, aa_jitter);
+#if defined(PROBE_GBUF) && PROBE_GBUF == 2
+  // probe "raygen": the ray and the stores
+  gb[p] = ray.ox + ray.dx;
+  gb[(size_t)r + p] = ray.oy + ray.dy;
+  gb[2 * (size_t)r + p] = ray.oz + ray.dz;
+  for (int ch = 3; ch < GB_CH; ++ch) gb[(size_t)ch * r + p] = ray.dz;
+  return;
+#endif
   WalkCount n = {0, 0};
   int prim;
   float bu, bv;
+#if defined(PROBE_GBUF) && PROBE_GBUF == 4
+  // probe "epi": a constant hit into the real epilogue
+  const float best = 5.0f + ray.dx;
+  prim = 3;
+  bu = bv = 0.3f;
+#else
   const PlaneRay4 pr = {{ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz}};
   const float best = closest_walk<COUNT>(bvh, pr, prim, bu, bv, n);
+#endif
+#if defined(PROBE_GBUF) && PROBE_GBUF == 3
+  // probe "hit": the walk, its result stored without the epilogue
+  gb[p] = best + bu + bv + (float)prim;
+  for (int ch = 1; ch < GB_CH; ++ch) gb[(size_t)ch * r + p] = ray.dx;
+#else
   gbuffer_epilogue<HAS_ENV, TEX>(gb, p, r, ray, best, prim, bu, bv, attr,
                                  mat, n_mat, lcam, width, height, aspect,
                                  single_sided, et);
+#endif
   if (COUNT) {
     stats[p] = n.boxes;
     stats[(size_t)r + p] = n.tris;

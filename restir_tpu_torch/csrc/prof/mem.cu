@@ -1,0 +1,207 @@
+// Memory-path probes: table gathers from three places, and a masked
+// triplet multiply-add chain over a pixel pack in three layouts.
+//
+// Replaces the TPU probes prof/prof_gather.py:43 (`take_along_axis` on a
+// table in VMEM, idx (i * 7919) % K over R = 1920 x 1088, the texture
+// fetch candidates) and prof/prof_v3.py:92 (90 rounds of a masked
+// triplet FMA / select over an 8-channel pack, scalar vs stacked
+// triplets). Plain twins (restir_tpu_torch/prof/kernels.py): index_select
+// for the gathers (bit for bit), the same loop in torch for the chains
+// (bit for bit: each round is a rounded product then a rounded sum, as
+// torch's a * c + b).
+//
+// Gathers: out[i] = table[idx[i]] with table [K] float32 (K = 1024 or
+// 8192, 4 or 32 KB). "shared": the block stages the table in shared
+// memory and reads it there; "ldg": read through the read-only cache;
+// "tex": a texture object on the linear table (tex1Dfetch). Bound:
+// bytes (idx read, out written: 8 bytes a lane); the table stays in L1 /
+// L2.
+//
+// Chains: a (3), b (3), mask m per pixel; 90 rounds of a = m ? a c_i + b
+// : a with c_i = float32(0.5 + i 1e-3). "soa": channel-major [8, R] in,
+// [3, R] out (the TPU's layout); "aos": float3 a [R], float3 b [R], m [R]
+// in, float3 [R] out; "float4": (a, m) and (b, 0) as two float4 [R], out
+// float4 (a, 0) [R]. Bound: about even between bytes (28-32 in, 12-16
+// out a pixel) and FP32 operations (90 x 3 x (mul, add, select)).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRounds = 90;
+
+__global__ void __launch_bounds__(kThreads)
+    gather_shared_kernel(const float* __restrict__ table, int k,
+                         const int* __restrict__ idx, int r,
+                         float* __restrict__ out) {
+  extern __shared__ float tab[];
+  for (int i = threadIdx.x; i < k; i += kThreads) tab[i] = table[i];
+  __syncthreads();
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < r) out[p] = tab[idx[p]];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gather_ldg_kernel(const float* __restrict__ table,
+                      const int* __restrict__ idx, int r,
+                      float* __restrict__ out) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < r) out[p] = __ldg(table + __ldg(idx + p));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    gather_tex_kernel(cudaTextureObject_t tex, const int* __restrict__ idx,
+                      int r, float* __restrict__ out) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p < r) out[p] = tex1Dfetch<float>(tex, __ldg(idx + p));
+}
+
+// The rounds' factors, float32(0.5 + i * 1e-3) as numpy computes them
+// (a rounded double product, then a rounded double sum).
+struct Factors {
+  float c[kRounds];
+};
+
+__device__ __forceinline__ float step(float a, float c, float b, bool m) {
+  return m ? __fadd_rn(__fmul_rn(a, c), b) : a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    chain_soa_kernel(const float* __restrict__ in, int r,
+                     float* __restrict__ out, const Factors f) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= r) return;
+  auto at = [&](int ch) { return __ldg(in + (size_t)ch * r + p); };
+  float ax = at(0), ay = at(1), az = at(2);
+  const float bx = at(3), by = at(4), bz = at(5);
+  const bool m = at(6) > 0.5f;
+#pragma unroll
+  for (int i = 0; i < kRounds; ++i) {
+    const float c = f.c[i];
+    ax = step(ax, c, bx, m);
+    ay = step(ay, c, by, m);
+    az = step(az, c, bz, m);
+  }
+  out[p] = ax;
+  out[(size_t)r + p] = ay;
+  out[2 * (size_t)r + p] = az;
+}
+
+struct F3 {
+  float x, y, z;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    chain_aos_kernel(const F3* __restrict__ a_in, const F3* __restrict__ b_in,
+                     const float* __restrict__ m_in, int r,
+                     F3* __restrict__ out, const Factors f) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= r) return;
+  F3 a = a_in[p];
+  const F3 b = b_in[p];
+  const bool m = m_in[p] > 0.5f;
+#pragma unroll
+  for (int i = 0; i < kRounds; ++i) {
+    const float c = f.c[i];
+    a.x = step(a.x, c, b.x, m);
+    a.y = step(a.y, c, b.y, m);
+    a.z = step(a.z, c, b.z, m);
+  }
+  out[p] = a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    chain_f4_kernel(const float4* __restrict__ am, const float4* __restrict__ b0,
+                    int r, float4* __restrict__ out, const Factors f) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= r) return;
+  float4 a = __ldg(am + p);
+  const float4 b = __ldg(b0 + p);
+  const bool m = a.w > 0.5f;
+#pragma unroll
+  for (int i = 0; i < kRounds; ++i) {
+    const float c = f.c[i];
+    a.x = step(a.x, c, b.x, m);
+    a.y = step(a.y, c, b.y, m);
+    a.z = step(a.z, c, b.z, m);
+  }
+  out[p] = make_float4(a.x, a.y, a.z, 0.0f);
+}
+
+}  // namespace
+
+// out [r] = table[idx] (table [k], idx int32 [r] in [0, k)); where 0
+// shared memory, 1 __ldg, 2 the texture object `tex` (restir_prof_tex).
+extern "C" int restir_prof_table_gather(const float* table, int k,
+                                        const int* idx, int r, int where,
+                                        unsigned long long tex, float* out,
+                                        void* stream) {
+  if (r <= 0 || k <= 0 || where < 0 || where > 2)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = (r + kThreads - 1) / kThreads;
+  if (where == 0) {
+    const size_t smem = (size_t)k * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          gather_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    gather_shared_kernel<<<blocks, kThreads, smem, st>>>(table, k, idx, r,
+                                                         out);
+  } else if (where == 1) {
+    gather_ldg_kernel<<<blocks, kThreads, 0, st>>>(table, idx, r, out);
+  } else {
+    gather_tex_kernel<<<blocks, kThreads, 0, st>>>(
+        (cudaTextureObject_t)tex, idx, r, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// A texture object over the linear float32 table [k] (create != 0), or
+// destroy *tex (create == 0).
+extern "C" int restir_prof_tex(const float* table, int k, int create,
+                               unsigned long long* tex) {
+  if (!create) return (int)cudaDestroyTextureObject((cudaTextureObject_t)*tex);
+  cudaResourceDesc res = {};
+  res.resType = cudaResourceTypeLinear;
+  res.res.linear.devPtr = const_cast<float*>(table);
+  res.res.linear.desc = cudaCreateChannelDesc<float>();
+  res.res.linear.sizeInBytes = (size_t)k * sizeof(float);
+  cudaTextureDesc td = {};
+  td.readMode = cudaReadModeElementType;
+  cudaTextureObject_t obj = 0;
+  const cudaError_t e = cudaCreateTextureObject(&obj, &res, &td, nullptr);
+  *tex = (unsigned long long)obj;
+  return (int)e;
+}
+
+// The chain over r pixels. layout 0 "soa": in [8, r] -> out [3, r];
+// 1 "aos": in = a [r, 3], in2 = b [r, 3], m [r] -> out [r, 3];
+// 2 "float4": in = (a, m) [r, 4], in2 = (b, 0) [r, 4] -> out [r, 4].
+extern "C" int restir_prof_chain(const float* in, const float* in2,
+                                 const float* m, int r, int layout,
+                                 float* out, void* stream) {
+  if (r <= 0 || layout < 0 || layout > 2) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = (r + kThreads - 1) / kThreads;
+  Factors f;
+  for (int i = 0; i < kRounds; ++i) {
+    volatile double prod = (double)i * 1e-3;  // no contraction
+    f.c[i] = (float)(0.5 + prod);
+  }
+  if (layout == 0)
+    chain_soa_kernel<<<blocks, kThreads, 0, st>>>(in, r, out, f);
+  else if (layout == 1)
+    chain_aos_kernel<<<blocks, kThreads, 0, st>>>(
+        reinterpret_cast<const F3*>(in), reinterpret_cast<const F3*>(in2), m,
+        r, reinterpret_cast<F3*>(out), f);
+  else
+    chain_f4_kernel<<<blocks, kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(in),
+        reinterpret_cast<const float4*>(in2), r,
+        reinterpret_cast<float4*>(out), f);
+  return (int)cudaGetLastError();
+}

@@ -44,6 +44,9 @@
 // RESTIR_ENV_DIST.
 #include "bvh.cuh"
 #include "di_core.cuh"
+#if defined(PROBE_WALK)
+#include "prof/walk_probe.cuh"  // stage probes (restir_tpu_torch/prof)
+#endif
 
 using namespace restir;
 
@@ -463,8 +466,14 @@ __global__ void __launch_bounds__(PIX_BLOCK,
       st, lights_g, l_pad, (uint32_t)g, looper, k, single_sided, has_met, s,
       evaluated);
   WalkCount n = {0, 0};
+#if defined(PROBE_WALK)
+  if (PROBE_WALK == 2) n = {stats[p], stats[(size_t)r + p]};
+  const bool occluded = probe_occluded_walk<PROBE_WALK>(
+      bvh, PlaneRay4{shadow_ray(s, c)}, shadow_limit(c), s.prim, n);
+#else
   const bool occluded = occluded_walk<COUNT>(
       bvh, PlaneRay4{shadow_ray(s, c)}, shadow_limit(c), s.prim, n);
+#endif
   write_rs(rs, p, r, c, occluded);
   if (COUNT) {
     stats[p] = n.boxes;

@@ -27,6 +27,9 @@
 // returns each walk's box and plane tests.
 #include "bvh.cuh"
 #include "di_core.cuh"
+#if defined(PROBE_WALK)
+#include "prof/walk_probe.cuh"  // stage probes (restir_tpu_torch/prof)
+#endif
 
 using namespace restir;
 
@@ -82,9 +85,17 @@ __global__ void __launch_bounds__(BLOCK)
                                         single_sided, has_met, s);
 
   WalkCount n = {0, 0};
+#if defined(PROBE_WALK)
+  if (PROBE_WALK == 2) n = {stats[p], stats[(size_t)r + p]};
+  const bool blocked =
+      c.r_weight > 0.0f &&
+      probe_occluded_walk<PROBE_WALK>(bvh, shadow_ray(s, c),
+                                      shadow_limit(c), s.prim, n);
+#else
   const bool blocked =
       c.r_weight > 0.0f && occluded_walk<COUNT>(bvh, shadow_ray(s, c),
                                                 shadow_limit(c), s.prim, n);
+#endif
   float* o = out + p;
   auto put = [&](int ch, float val) { o[(size_t)ch * r] = val; };
 #pragma unroll

@@ -95,10 +95,13 @@ def _check_bvh(bvh: BvhTables, dev):
 
 def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
                  height, aa_jitter=True, single_sided=True, has_env=False,
-                 with_textures=False, stats=False, pix0=0, r=None):
+                 with_textures=False, stats=False, pix0=0, r=None,
+                 lib=None):
     """Launch `csrc/gbuffer_bvh.cu` over the band of `r` pixels from
     `pix0` (by default the whole frame). With `stats`, also return the
-    int32 [2, r] box and triangle test counts of each ray."""
+    int32 [2, r] box and triangle test counts of each ray. `lib`: a
+    library of a stage probe's build (`_build.variant_library`) in place
+    of the main one."""
     global launches
     pix0, r = band_pixels(width, height, pix0, r)
     dev = cam_vec.device
@@ -110,7 +113,7 @@ def gbuffer_cuda(cam_vec, lcam_vec, looper, bvh: BvhTables, *, width,
     counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if stats else None)
     p = _build.ptr
-    lib = _build.library()
+    lib = lib or _build.library()
     with _build.on_device(dev):
         err = lib.restir_gbuffer_bvh(
             p(cam_vec), p(lcam_vec), ctypes.c_uint32(looper & 0xFFFFFFFF),

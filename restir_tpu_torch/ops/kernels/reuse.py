@@ -296,13 +296,17 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
                     width, k=4, single_sided=True, has_met=True,
-                    has_env=False, stats=False, pix0=0):
+                    has_env=False, stats=False, pix0=0, lib=None,
+                    counts=None):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, r] (li, wi, dist, W
     after visibility) for gb's r pixels from global pixel `pix0` of a
     frame `width` pixels wide (the whole frame by default), on 2-D pixel
     tiles of the rows they touch. With `stats`, also return the int32 [3,
     r] box and triangle test counts of each shadow ray and the light
-    targets each pixel evaluated."""
+    targets each pixel evaluated. `lib`: a library of a stage probe's
+    build (`_build.variant_library`) in place of the main one; `counts`:
+    an int32 [3, r] buffer passed as the counts (the "fixed-node" probe
+    reads the full walk's counts from it)."""
     global launches
     r = gb.shape[1]
     dev = gb.device
@@ -325,10 +329,10 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     _check(psi, "psi", psi.shape, dev)
     _check_bvh(bvh, dev)
     rs = torch.empty((RS_CH, r), dtype=torch.float32, device=dev)
-    counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
-              if stats else None)
+    if counts is None and stats:
+        counts = torch.empty((3, r), dtype=torch.int32, device=dev)
     p = _build.ptr
-    lib = _build.library()
+    lib = lib or _build.library()
     with _build.on_device(dev):
         err = lib.restir_reuse_bvh(
             p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
@@ -337,7 +341,7 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
             int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
     launches += 1
-    return (rs, counts) if stats else rs
+    return (rs, counts) if counts is not None else rs
 
 
 def reuse_cuda(gb, prev_pt, looper, tables: ResidentTables, bvh: BvhTables,

@@ -104,10 +104,12 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
 
 
 def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
-                 k=4, single_sided=True, has_met=True, pix0=0, stats=False):
+                 k=4, single_sided=True, has_met=True, pix0=0, stats=False,
+                 lib=None, counts=None):
     """B10 on the card: the [COUT, R] output pack, pixel p drawn as
     global pixel pix0 + p. With `stats`, also the int32 [2, R] box and
-    plane test counts of each shadow walk."""
+    plane test counts of each shadow walk. `lib` and `counts` as
+    `reuse.candidates_cuda`'s (the stage probes)."""
     global launches
     r = pack.shape[1]
     dev = pack.device
@@ -129,18 +131,18 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
                          f"{smem} bytes, over the {SMEM_MAX} a block can use")
     pack = pack.contiguous()
     out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
-    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
-              if stats else None)
+    if counts is None and stats:
+        counts = torch.empty((2, r), dtype=torch.int32, device=dev)
     p = _build.ptr
     with _build.on_device(dev):
-        err = _build.library().restir_ris_cdf(
+        err = (lib or _build.library()).restir_ris_cdf(
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
             p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
             int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
     launches += 1
-    return (out, counts) if stats else out
+    return (out, counts) if counts is not None else out
 
 
 def ris_cdf(pos, norm, wo, mtype, metallic, roughness, shade, prim_id,

@@ -1046,10 +1046,11 @@ def test_b14_heatmap_matches_twin(walk):
 def test_b14_octant_walk_on_straddling_and_edge_rays(walk):
     """B14 runs the loop of each ray's octant: warps whose lanes take all
     eight octants, and direction components 0.0, -0.0 and +-1e-13, still
-    give the twin's count on every lane; NaN and infinite components and
-    infinite origins (the twin's torch.minimum keeps a NaN that the
-    kernels' fminf drops) give B13's closest-hit walk counters (its
-    min / max slab, unchanged) lane for lane."""
+    give the twin's count on every lane; so do NaN and infinite
+    components and infinite origins (a ray with a NaN component misses
+    the root's box, as the twin's torch.minimum keeps the NaN), where
+    B13's closest and any hit equal their twins too, and B14's walk
+    counters equal B13's closest-hit walk's lane for lane."""
     _, _, trv, o, d, _, _, _ = walk
     lane = torch.arange(R, device=o.device)
     x, y = lane % W, lane // W
@@ -1076,10 +1077,18 @@ def test_b14_octant_walk_on_straddling_and_edge_rays(walk):
     on[3::6, 0] = float("inf")
     on[4::6, 2] = -float("inf")
     dn[5::12] = float("nan")
-    _, c14 = ki.heatmap_cuda(trv, on, dn, stats=True, geom=(W, 0))
-    c13 = ki.mt_closest_cuda(trv, on, dn, stats=True)[3]
+    cnt, c14 = ki.heatmap_cuda(trv, on, dn, stats=True, geom=(W, 0))
+    assert torch.equal(cnt, tix.intersect_visualize(trv.walk, on, dn))
+    assert torch.equal(ki.heatmap_cuda(trv, on, dn), cnt)
+    assert bool((cnt[0::6] == 0).all()) and bool((cnt[5::12] == 0).all())
+    *hit, c13 = ki.mt_closest_cuda(trv, on, dn, stats=True)
+    want = tix.intersect_closest_bvh(trv.walk, on, dn)
+    assert all(torch.equal(a, b) for a, b in zip(hit, want))
     assert torch.equal(c14, c13)
     assert int(c14[0].sum()) > 0
+    x, y = on.contiguous(), (on + 3.0 * dn).contiguous()
+    assert torch.equal(ki.mt_any_cuda(trv, x, y),
+                       tix.test_occlusion_bvh(trv.walk, x, y))
 
 
 @pytest.mark.parametrize("tracer,per_frame", [
