@@ -183,17 +183,25 @@ Row bands (`restir_tpu_torch.parallel`, after phase 25):
  27. the general frame in row bands (`make_sharded_step`, after 26).
 The stage probes (`restir_tpu_torch.prof`, after phase 27):
  28. (a) each kernel of csrc/prof/ against its plain twin at its probe's
-     shapes: the coherence key, the LSD radix sort (against
-     torch.sort(stable=True)), the permuted [9, R] gather and its copy
-     floor on the hall's 1080p NEE segments, bit for bit; the any hit's
+     shapes: the coherence key, the one-sweep radix sort (against
+     torch.sort(stable=True); 1 + passes launches a sort), the permuted
+     [9, R] gather, the gather of B13's inputs, the scatter of its flags
+     and the copy floor on the hall's 1080p NEE segments in all three key
+     orders, bit for bit, and the sort once on 3840x2160 keys (above the
+     parent design's 4,194,304-key cap); the any hit's
      three forms (FP32 FMA, 3xTF32 and 6xTF32 mma.sync tiles) on 1080p
      random rays against the headline's 512 padded plane rows within
      the primitive gate (mismatch <= 0.2 %); the table gathers (shared
      memory, __ldg, texture; R = 1920 x 1088, K = 8192) and the vec3
-     chains (SoA, AoS, float4) bit for bit; each kernel's time, its
-     twin's, one PyTorch call's where one computes the same function
-     (torch.sort, index_select, copy_, torch.matmul of the any hit's
-     dots) and its bound; (b) the B6, B7 and B10 builds of the stage
+     chains (SoA, AoS, float4) bit for bit; each kernel's device time
+     (its kernels' summed durations in a torch.profiler trace, the CUDA
+     events around back-to-back calls printed beside), its twin's, one
+     PyTorch call's where one computes the same function (torch.sort,
+     index_select, index_copy_, copy_, torch.matmul of the any hit's
+     dots) and its bound; the sort's launches one by one, and its
+     11-bit build beside the 8-bit one; the stage builds' own bounds
+     (B7 and B10 search-only, fixed-node, no-leaf, no-exit) from their
+     counted tests; (b) the B6, B7 and B10 builds of the stage
      probes without a PROBE macro (`_build.VARIANTS`' "*_full") write
      the main library's packs bit for bit on the hall, the sky hall and
      the headline; (c) the slice's main path, `python -m
@@ -345,6 +353,8 @@ SOURCES = {
                         "prof/prof_wavefront.py:87"),
     "prof_gather": ("restir_tpu_torch/csrc/prof/sort.cu",
                     "prof/prof_take.py:140"),
+    "prof_scatter": ("restir_tpu_torch/csrc/prof/sort.cu",
+                     "prof/prof_wavefront.py:87"),
     "prof_copy": ("restir_tpu_torch/csrc/prof/sort.cu",
                   "prof/prof_take.py:140"),
     "prof_anyhit_fma": ("restir_tpu_torch/csrc/prof/anyhit.cu",
@@ -3321,7 +3331,7 @@ def phase_general_bands(scene, arrays, cam, dev):
 
 PROBE_LAUNCHES = {  # SOURCES name -> restir_tpu_torch.prof.kernels counter
     "prof_key": "key", "prof_radix_sort": "radix_sort",
-    "prof_gather": "gather", "prof_copy": "copy",
+    "prof_gather": "gather", "prof_scatter": "scatter", "prof_copy": "copy",
     "prof_anyhit_fma": "anyhit_fma", "prof_anyhit_mma3": "anyhit_mma3",
     "prof_anyhit_mma6": "anyhit_mma6",
     "prof_table_gather_shared": "table_gather_shared",
@@ -3343,17 +3353,256 @@ def probe_record(ms, plain_ms, nbytes, flops, library_ms, err,
                 bound_by=by, library_ms=library_ms)
 
 
+def probe_ms(fns, reps=5, rounds=2, warmup=1):
+    """{name: (device ms, CUDA-event ms)} a call: the least over `rounds`
+    interleaved rounds of `reps` calls (restir_tpu_torch.prof._timing:
+    each call's kernels and copies summed in a torch.profiler trace; the
+    events around back-to-back calls, which measure the wrapper's host
+    time where its kernels are shorter)."""
+    from restir_tpu_torch.prof import _timing
+
+    t = _timing.interleaved(fns, "cuda", rounds=rounds, reps=reps,
+                            warmup=warmup)
+    return {k: (min(v.device), min(v.events)) for k, v in t.items()}
+
+
+def probe_line(name, rec, events):
+    print(f"{name}: kernel {rec['ms']:.4f} ms (events {events:.4f}), twin "
+          f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max err "
+          f"{rec['max_abs_err']}")
+
+
+def probe_ray_order(dev, record, fails):
+    """Phase 28 (a), ray order on the hall's 1080p NEE segments: in each
+    key order the key, the sort, the [9, R] pack's gather, the gather of
+    B13's inputs, the scatter of its flags and the copy against their
+    twins bit for bit; the sort on 3840x2160 keys (the hall's four
+    times over, ties across the copies); device times and bounds of the
+    direction-then-origin order (prof_take's and the records'), the
+    sort's launches one by one."""
+    from restir_tpu_torch.prof import _scenes as pscenes
+    from restir_tpu_torch.prof import _trace
+    from restir_tpu_torch.prof import kernels as pk
+    from restir_tpu_torch.prof import prof_take
+
+    fr = pscenes.hall(dev)
+    trv = intersect.traversal_arrays(fr.scene, "bvh")
+    pos, target, live = pscenes.nee_segments(fr, trv)
+    lo, hi = pscenes.scene_box(fr)
+    r = pos.shape[0]
+    pack = prof_take.segment_pack(pos, target, live)
+    c = pack.shape[0]
+    flags = hits.any_hit(trv, pos, target, live)
+    for order in pk.KEY_ORDERS:
+        key = pk.coherence_key(pos, target, live, lo, hi, order)
+        if not torch.equal(key, pk.coherence_key_ref(pos, target, live, lo,
+                                                     hi, order)):
+            fails.append(f"the {order} key differs from its twin")
+        vals, perm = pk.radix_sort(key)
+        rv, rp = pk.radix_sort_ref(key)
+        if not (torch.equal(vals, rv) and torch.equal(perm, rp)):
+            fails.append(f"the sort of the {order} keys differs from "
+                         "torch.sort(stable=True)")
+        pl = perm.long()
+        g = pk.gather_cols(pack, perm)
+        if not torch.equal(g, pack.index_select(1, pl)):
+            fails.append(f"the {order} gather differs from index_select")
+        if not torch.equal(pk.scatter_cols(g, perm), pack):
+            fails.append(f"the {order} scatter of the pack is not the "
+                         "gather's inverse")
+        x, y, sl = pk.gather_rays(perm, pos, target, live)
+        if not (torch.equal(x, pos[pl]) and torch.equal(y, target[pl])
+                and torch.equal(sl, live[pl])):
+            fails.append(f"the {order} gather of B13's inputs differs")
+        sf = flags[pl]
+        want = torch.empty_like(sf)
+        want[pl] = sf
+        if not (torch.equal(pk.scatter_cols(sf, perm), want)
+                and torch.equal(want, flags)):
+            fails.append(f"the {order} scatter of the flags differs")
+    if not torch.equal(pk.copy_pack(pack), pack):
+        fails.append("the copy differs from its source")
+    big = torch.cat([key] * 4)  # 3840 x 2160 keys
+    bv, bp = pk.radix_sort(big)
+    brv, brp = pk.radix_sort_ref(big)
+    if not (torch.equal(bv, brv) and torch.equal(bp, brp)):
+        fails.append(f"the sort of {big.shape[0]} keys differs from "
+                     "torch.sort(stable=True)")
+    print(f"probe ray order on the hall's {r} NEE segments ({c}-channel "
+          f"pack; the last order {order}): key, sort, "
+          f"gathers, scatters and copy equal to their twins in every order, "
+          f"the sort of {big.shape[0]} keys to torch.sort: {not fails}")
+    gate(fails, "ray-order kernels")
+
+    def traced_count(fn, tries=3):
+        """The sort's kernels (by name) in a torch.profiler trace of one
+        call of fn, its step opened by a few fills after a discarded
+        warm-up step (a trace may miss the first kernels after it
+        starts): the most of `tries`."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        most = 0
+        lead = torch.empty(1, device=dev)
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    for _ in range(4):
+                        lead.fill_(0.0)
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            most = max(most, sum(
+                e.device_type == DeviceType.CUDA
+                and ("hist_kernel" in e.name or "onesweep_kernel" in e.name)
+                for e in prof.events()))
+        return most
+
+    # the gate: the C entry point's own count of the launches the runtime
+    # took; the trace's count beside it must not exceed it
+    n0 = pk.sort_kernel_launches()
+    pk.radix_sort(key)
+    torch.cuda.synchronize()
+    n = pk.sort_kernel_launches() - n0
+    nt = traced_count(lambda: pk.radix_sort(key))
+    print(f"probe sort: {n} launches a sort (1 + {pk.SORT_PASSES} passes; "
+          f"{nt} of the sort's kernels in a trace of one sort)")
+    if n != 1 + pk.SORT_PASSES:
+        raise PhaseError(f"the sort launched {n} kernels, not "
+                         f"1 + {pk.SORT_PASSES}")
+    if nt > n:
+        raise PhaseError(f"a trace of one sort holds {nt} of its kernels, "
+                         f"more than the {n} it launched")
+    ms, _ = _trace.kernel_ms(lambda: pk.radix_sort(key), 5, dev)
+    print(f"probe sort ({pk.SORT_PASSES} passes of {pk.SORT_BITS}-bit "
+          f"digits; device ms a sort, by kernel name, summed over its "
+          f"passes): " + ", ".join(
+              f"{'hist' if 'hist_kernel' in k else 'passes'} {v:.4f}"
+              for k, v in ms.items()))
+    t = probe_ms({
+        "key": lambda: pk.coherence_key(pos, target, live, lo, hi, order),
+        "key_ref": lambda: pk.coherence_key_ref(pos, target, live, lo, hi,
+                                                order),
+        "sort": lambda: pk.radix_sort(key),
+        "sort_ref": lambda: pk.radix_sort_ref(key),
+        "torch.sort": lambda: torch.sort(key, stable=True),
+        "sort_big": lambda: pk.radix_sort(big),
+        "torch.sort_big": lambda: torch.sort(big, stable=True),
+        "gather": lambda: pk.gather_cols(pack, perm),
+        "gather_ref": lambda: pack.index_select(1, perm.long()),
+        "index_select": lambda: pack.index_select(1, pl),
+        "gather_rays": lambda: pk.gather_rays(perm, pos, target, live),
+        "scatter": lambda: pk.scatter_cols(sf, perm),
+        "scatter_ref": lambda: torch.empty_like(sf).index_put_(
+            (perm.long(),), sf),
+        "index_copy_": lambda: torch.empty_like(sf).index_copy_(0, pl, sf),
+        "copy": lambda: pk.copy_pack(pack),
+        "copy_ref": lambda: pack.clone(),
+        "copy_": lambda: torch.empty_like(pack).copy_(pack)})
+    ms = {k: v[0] for k, v in t.items()}
+    record["prof_key"] = probe_record(
+        ms["key"], ms["key_ref"], 29 * r, FLOP_KEY * r, None, 0.0)
+    record["prof_radix_sort"] = probe_record(
+        ms["sort"], ms["sort_ref"], 12 * r, 0.0, ms["torch.sort"], 0.0)
+    record["prof_gather"] = probe_record(
+        ms["gather"], ms["gather_ref"], 8 * c * r + 4 * r, 0.0,
+        ms["index_select"], 0.0)
+    # the flags: a byte read and written a ray, and the permutation
+    record["prof_scatter"] = probe_record(
+        ms["scatter"], ms["scatter_ref"], 6 * r, 0.0, ms["index_copy_"], 0.0)
+    record["prof_copy"] = probe_record(
+        ms["copy"], ms["copy_ref"], 8 * c * r, 0.0, ms["copy_"], 0.0)
+    for name in ("prof_key", "prof_radix_sort", "prof_gather", "prof_scatter",
+                 "prof_copy"):
+        probe_line(name, record[name], t[name[5:].replace("radix_", "")][1])
+    bb = big.shape[0]
+    print(f"probe ray order, device ms (events ms) a call, warm in L2 "
+          f"(back-to-back calls on the same inputs): sort of {bb} keys "
+          f"{ms['sort_big']:.4f} "
+          f"({t['sort_big'][1]:.4f}) against torch.sort(stable) "
+          f"{ms['torch.sort_big']:.4f}, bound "
+          f"{12 * bb / PEAK_BYTES * 1e3:.4f}; the gather of B13's inputs "
+          f"{ms['gather_rays']:.4f} ({t['gather_rays'][1]:.4f}), bound "
+          f"{(4 * r + 25 * r * 2) / PEAK_BYTES * 1e3:.4f} (bytes: perm, "
+          f"25 bytes read and written a ray)")
+
+
+def stage_bounds(dev):
+    """Phase 28 (a): the bounds of B7's and B10's stage builds (the
+    shadow walks split, restir_tpu_torch.prof vissplit / hallsplit) from
+    the work each build does on frame 1: search-only the RIS and no walk,
+    fixed-node the full walk's box and leaf tests (it reads their counts),
+    no-leaf and no-exit their own, counted by a counting launch of the
+    build (`csrc/prof/walk_probe.cuh`)."""
+    from restir_tpu_torch.prof import _scenes as pscenes
+    from restir_tpu_torch.prof import prof_vissplit
+
+    def report(what, counts, fn):
+        for mode, c in counts.items():
+            b = fn(c)
+            r = c.shape[1]
+            print(f"stage bound {what} {mode}: {b[0]:.4f} ms ({b[1]}; "
+                  f"{float(c[0].double().sum()) / r:.2f} box and "
+                  f"{float(c[1].double().sum()) / r:.2f} leaf tests a pixel)")
+
+    def modes(full, call, builds):
+        counts = {"full": full, "search-only": torch.zeros_like(full),
+                  "fixed-node": full}
+        for mode, var in builds.items():
+            counts[mode] = call(_build.variant_library(var))
+        return counts
+
+    for fr in (pscenes.hall(dev), pscenes.hall(dev, sky=True)):
+        gb = pscenes.gb_pack(fr)
+        t, bvh, kw = fr.scene.tables, fr.scene.bvh, fr.rkw()
+
+        def b7(lib=None):
+            return reuse.candidates_cuda(gb, 1, t, bvh, width=fr.cfg.width,
+                                         stats=True, lib=lib, **kw)[1]
+
+        report(f"B7 {fr.name}", modes(b7(), b7, {
+            "no-leaf": "b7_no_leaf", "no-exit": "b7_no_exit"}),
+            lambda c: walk_bound7(t, bvh, gb.shape[1], kw["k"], c,
+                                  kw["has_env"]))
+    for fr in (pscenes.hall(dev), pscenes.headline(dev)):
+        pack = prof_vissplit.b10_pack(fr)
+        t, bvh, c = fr.scene.tables, fr.scene.bvh, fr.cfg
+        kw = dict(k=c.cdf_candidates, single_sided=c.single_sided_lights,
+                  has_met=c.scene_has_metallic)
+        r, n_l = pack.shape[1], t.n_lights
+
+        def b10(lib=None):
+            return ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, lib=lib,
+                                        **kw)[1]
+
+        def b10_bound(cnt):
+            boxes, tests = (float(x.double().sum()) for x in cnt[:2])
+            return bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
+                         + table_bytes(t.lights[:n_l], t.psi[:n_l])
+                         + table_bytes(bvh.planes, bvh.rows),
+                         r * (2 * n_l * FLOP_LIGHT + kw["k"] * FLOP_CAND)
+                         + boxes * FLOP_BOX + tests * FLOP_PLANE)
+
+        report(f"B10 {fr.name}", modes(b10(), b10,
+                                       {"no-leaf": "b10_no_leaf"}),
+               b10_bound)
+
+
 def phase_probes(dev, record, launches):
     """Phase 28: the stage probes (restir_tpu_torch.prof). (a) Each new
     kernel of csrc/prof/ against its plain twin at the shapes its probe
     gives it (1920x1080; the hall's NEE segments for the key, the sort,
     the gather and the copy; the headline scene's 512 padded plane rows
     for the any hit; R = 1920 x 1088, K = 8192 for the table gathers):
-    the key, the sort's permutation, the gathers and the chains bit for
-    bit, the any hit's two forms within the reference's primitive gate
-    (mismatch <= 0.2 %; FP32 and 6xTF32 against each other too, 3xTF32's
-    mismatch against FP32 printed); kernel, twin and PyTorch-call times
-    and bounds.
+    the key, the sort's permutation, the gathers, the scatters and the
+    chains bit for bit (`probe_ray_order`), the any hit's two forms
+    within the reference's primitive gate (mismatch <= 0.2 %; FP32 and
+    6xTF32 against each other too, 3xTF32's mismatch against FP32
+    printed); kernel, twin and PyTorch-call device times (`probe_ms`)
+    and bounds; the stage builds' bounds (`stage_bounds`).
     (b) Each stage probe's `full` build (B6, B7, B10 from their sources
     without a PROBE macro) against the main library, bit for bit. (c)
     The slice's main path: `python -m restir_tpu_torch.prof all` in this
@@ -3365,64 +3614,14 @@ def phase_probes(dev, record, launches):
     from restir_tpu_torch.prof import (
         prof_fma,
         prof_gvariants,
-        prof_take,
         prof_v3,
         prof_vissplit,
     )
 
     t0 = time.perf_counter()
-    reps = 5
     fails = []
-    fr = pscenes.hall(dev)
-    trv = intersect.traversal_arrays(fr.scene, "bvh")
-    pos, target, live = pscenes.nee_segments(fr, trv)
-    lo, hi = pscenes.scene_box(fr)
-    r = pos.shape[0]
-    order = "direction_origin"
-    key = pk.coherence_key(pos, target, live, lo, hi, order)
-    key_r = pk.coherence_key_ref(pos, target, live, lo, hi, order)
-    if not torch.equal(key, key_r):
-        fails.append("the coherence key differs from its twin")
-    record["prof_key"] = probe_record(
-        cuda_ms(lambda: pk.coherence_key(pos, target, live, lo, hi, order),
-                reps),
-        cuda_ms(lambda: pk.coherence_key_ref(pos, target, live, lo, hi,
-                                             order), 2),
-        29 * r, FLOP_KEY * r, None,
-        float((key.long() - key_r.long()).abs().max()))
-    vals, perm = pk.radix_sort(key)
-    rv, rp = pk.radix_sort_ref(key)
-    if not (torch.equal(vals, rv) and torch.equal(perm, rp)):
-        fails.append("the radix sort differs from torch.sort(stable=True)")
-    record["prof_radix_sort"] = probe_record(
-        cuda_ms(lambda: pk.radix_sort(key), reps),
-        cuda_ms(lambda: pk.radix_sort_ref(key), reps), 12 * r, 0.0,
-        cuda_ms(lambda: torch.sort(key, stable=True), reps),
-        float((perm != rp).sum()))
-    pack = prof_take.segment_pack(pos, target, live)
-    c = pack.shape[0]
-    perm_l = perm.long()
-    g = pk.gather_cols(pack, perm)
-    want = pack.index_select(1, perm_l)
-    if not torch.equal(g, want):
-        fails.append("the gather differs from index_select")
-    record["prof_gather"] = probe_record(
-        cuda_ms(lambda: pk.gather_cols(pack, perm), reps),
-        cuda_ms(lambda: pack.index_select(1, perm.long()), reps),
-        8 * c * r + 4 * r, 0.0,
-        cuda_ms(lambda: pack.index_select(1, perm_l), reps),
-        max_err(g, want))
-    cp = pk.copy_pack(pack)
-    if not torch.equal(cp, pack):
-        fails.append("the copy differs from its source")
-    record["prof_copy"] = probe_record(
-        cuda_ms(lambda: pk.copy_pack(pack), reps),
-        cuda_ms(lambda: pack.clone(), reps), 8 * c * r, 0.0,
-        cuda_ms(lambda: torch.empty_like(pack).copy_(pack), reps),
-        max_err(cp, pack))
-    print(f"probe kernels on the hall's {r} NEE segments ({c}-channel "
-          f"pack): key, sort, gather and copy equal to their twins: "
-          f"{not fails}")
+    probe_ray_order(dev, record, fails)
+    events = {}
 
     hfr = pscenes.headline(dev)
     xform = intersect.traversal_arrays(hfr.scene, "brute").tri_xform
@@ -3434,9 +3633,13 @@ def phase_probes(dev, record, launches):
     occ = {f: pk.anyhit(rays, planes, f) for f in splits}
     ref = {f: pk.anyhit_ref(rays, planes, split=sp)
            for f, sp in splits.items()}
+    # the twins run thousands of PyTorch kernels a call (a trace of them
+    # loses its marks) for about a second: CUDA events, once
     ms_ref = {f: cuda_ms(lambda sp=sp: pk.anyhit_ref(rays, planes, split=sp),
                          1, warmup=False) for f, sp in splits.items()}
-    ms_lib = cuda_ms(lambda: prof_fma.dots_matmul(rays, planes), 2)
+    t = probe_ms({f: (lambda f=f: pk.anyhit(rays, planes, f))
+                  for f in splits}
+                 | {"matmul": lambda: prof_fma.dots_matmul(rays, planes)})
     mis = {f: float((occ[f] != ref[f]).float().mean()) for f in splits}
     mis["mma6 vs fma"] = float((occ["mma6"] != occ["fma"]).float().mean())
     print(f"probe any hit ({nr} rays x {planes.shape[0]} rows, occluded "
@@ -3451,10 +3654,10 @@ def phase_probes(dev, record, launches):
     for f in splits:
         mma = 0 if f == "fma" else FLOP_ANY_DOTS * splits[f]
         record[f"prof_anyhit_{f}"] = probe_record(
-            cuda_ms(lambda f=f: pk.anyhit(rays, planes, f), reps),
-            ms_ref[f], nbytes,
+            t[f][0], ms_ref[f], nbytes,
             (FLOP_ANY_EPI + (FLOP_ANY_DOTS if f == "fma" else 0)) * pairs,
-            ms_lib, mis[f], tensor_flops=mma * pairs)
+            t["matmul"][0], mis[f], tensor_flops=mma * pairs)
+        events[f"prof_anyhit_{f}"] = t[f][1]
 
     rg, k = 1920 * 1088, 8192
     table = torch.arange(k, dtype=torch.float32, device=dev) * 0.5
@@ -3463,41 +3666,48 @@ def phase_probes(dev, record, launches):
     want = table.index_select(0, idx_l)
     tex = pk.texture(table)
     try:
+        errs = {}
         for where in pk.GATHER_WHERE:
             got = pk.table_gather(table, idx, where, tex=tex)
             if not torch.equal(got, want):
                 fails.append(f"the {where} table gather differs")
+            errs[where] = max_err(got, want)
+        t = probe_ms({w: (lambda w=w: pk.table_gather(table, idx, w,
+                                                      tex=tex))
+                      for w in pk.GATHER_WHERE}
+                     | {"twin": lambda: table.index_select(0, idx.long()),
+                        "index_select": lambda: table.index_select(0,
+                                                                   idx_l)})
+        for where in pk.GATHER_WHERE:
             record[f"prof_table_gather_{where}"] = probe_record(
-                cuda_ms(lambda: pk.table_gather(table, idx, where, tex=tex),
-                        reps),
-                cuda_ms(lambda: table.index_select(0, idx.long()), reps),
-                8 * rg + 4 * k, 0.0,
-                cuda_ms(lambda: table.index_select(0, idx_l), reps),
-                max_err(got, want))
+                t[where][0], t["twin"][0], 8 * rg + 4 * k, 0.0,
+                t["index_select"][0], errs[where])
+            events[f"prof_table_gather_{where}"] = t[where][1]
     finally:
         torch.cuda.synchronize()
         pk.free_texture(tex)
     cpack = prof_v3.pack(WIDTH * HEIGHT, dev)
     rc = cpack.shape[1]
     want = pk.chain_ref(cpack)
-    ms_ref = cuda_ms(lambda: pk.chain_ref(cpack), 1)
+    ms_ref = probe_ms({"twin": lambda: pk.chain_ref(cpack)}, reps=1,
+                      rounds=1)["twin"][0]
+    laid = {c: pk.chain_inputs(cpack, c) for c in pk.CHAIN_LAYOUTS}
+    t = probe_ms({c: (lambda c=c: pk.chain_laid(laid[c], c))
+                  for c in pk.CHAIN_LAYOUTS})
     for layout in pk.CHAIN_LAYOUTS:
         got = pk.chain(cpack, layout)
         if not torch.equal(got, want):
             fails.append(f"the {layout} chain differs from its twin")
-        laid = pk.chain_inputs(cpack, layout)
         # the function reads a, b, m (7 floats) and writes 3 a pixel in
         # every layout; float4's padding is not work it needs
         record[f"prof_chain_{layout}"] = probe_record(
-            cuda_ms(lambda: pk.chain_laid(laid, layout), reps), ms_ref,
-            (28 + 12) * rc, 90 * 3 * 2 * rc, None, max_err(got, want))
-    for name in PROBE_LAUNCHES:
-        rec = record[name]
-        print(f"{name}: kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f}"
-              f" ms, library {rec['library_ms']} ms, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max err "
-              f"{rec['max_abs_err']}")
+            t[layout][0], ms_ref, (28 + 12) * rc, 90 * 3 * 2 * rc, None,
+            max_err(got, want))
+        events[f"prof_chain_{layout}"] = t[layout][1]
+    for name, ev in events.items():
+        probe_line(name, record[name], ev)
     gate(fails, "probe kernels")
+    stage_bounds(dev)
 
     # (b) the `full` builds of the stage probes' sources
     for frm in (pscenes.hall(dev), pscenes.headline(dev)):
@@ -3531,7 +3741,9 @@ def phase_probes(dev, record, launches):
     if idle:
         raise PhaseError(f"probes: kernels not launched on the main path: "
                          f"{idle}")
-    print(f"phase 28 (probes): {time.perf_counter() - t0:.1f} s")
+    from restir_tpu_torch.prof import _timing
+    print(f"phase 28 (probes): {time.perf_counter() - t0:.1f} s; device-time "
+          f"traces retaken for lost marks: {_timing.retakes}")
 
 
 def main() -> int:

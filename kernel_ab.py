@@ -1,6 +1,7 @@
 """Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11, B12, B13
-and B14 of several checkouts of restir_tpu_torch on one card, in turns,
-and check which write the same packs.
+and B14 and the ray-order probe kernels P4 and P14 of several checkouts
+of restir_tpu_torch on one card, in turns, and check which write the
+same packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -53,7 +54,16 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   camera rays and on the pixel-centre rays the heatmap casts. The
   primary and any hit and B14 get the batch's geometry (the whole
   frame), as the render paths pass it, where the tree's kernel takes
-  one; a tree whose kernel takes none is called without it.
+  one; a tree whose kernel takes none is called without it;
+- the ray-order probe kernels (`restir_tpu_torch/prof/kernels.py`) on
+  the hall's 1080p NEE segments (`prof_take.inputs`): the coherence key
+  (direction, then origin), the radix sort of it, the [9, R] segment
+  pack's permuted gather and its copy floor, the scatter of B13's flags
+  back to pixel order (the tree's `scatter_cols` where it has one, else
+  the indexed store its wavefront probe ran); B13's any hit in pixel
+  order and, in each key order, `prof_wavefront`'s sorted path whole
+  (key, sort, gather, walk, scatter) and step by step
+  (`sorted_pieces`), every input warm in L2 from the calls before.
 It prints one JSON line (card, ms, the device ms of each call's
 kernels from a torch.profiler trace of 20 more calls, and the SHA-256 of
 each kernel's output packs). The device ms is the kernel's time where
@@ -162,24 +172,27 @@ def _child() -> None:
     dev = torch.device("cuda", 0)
     ms, sha, dev_ms = {}, {}, {}
 
-    def device_ms(fn):
+    def device_ms(fn, tries=3):
         """Mean device time of fn's kernels per call, from a
-        torch.profiler trace of REPS calls (nan if the trace lost
-        kernels: their count is no multiple of REPS)."""
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(REPS):
+        torch.profiler trace of REPS calls; a trace that lost kernels
+        (their count is no multiple of REPS) is taken again, up to
+        `tries` times, then nan."""
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
                 fn()
-            torch.cuda.synchronize()
-            prof.step()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
-        return (sum(us) / REPS / 1e3 if us and len(us) % REPS == 0
-                else float("nan"))
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(REPS):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+            if us and len(us) % REPS == 0:
+                return sum(us) / REPS / 1e3
+        return float("nan")
     # B7 takes the frame's width (2-D pixel tiles) since its search redesign
     b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
         reuse.candidates_cuda).parameters else {})
@@ -445,6 +458,47 @@ def _child() -> None:
         if not sky:
             b13(scene, sf.make_camera())
         del scene
+
+    def ray_order():
+        """The ray-order probe kernels on the hall's NEE segments."""
+        from restir_tpu_torch.prof import _scenes, prof_take, prof_wavefront
+        from restir_tpu_torch.prof import kernels as pk
+
+        fr, trv, pos, target, live, key, perm = prof_take.inputs(dev, False)
+        lo, hi = _scenes.scene_box(fr)
+        pack = prof_take.segment_pack(pos, target, live)
+        pl = perm.long()
+        geom = {"geom": (fr.cfg.width, 0)}
+        flags = hits.any_hit(trv, pos, target, live, **geom)
+        sf = flags[pl].contiguous()
+
+        def scatter():
+            if hasattr(pk, "scatter_cols"):
+                return pk.scatter_cols(sf, perm)
+            out = torch.empty_like(sf)
+            out[pl] = sf
+            return out
+
+        order = "direction_origin"
+        timed("P14 key", lambda: pk.coherence_key(pos, target, live, lo, hi,
+                                                  order))
+        timed("P14 sort", lambda: pk.radix_sort(key))
+        timed("P4 gather [9, R]", lambda: pk.gather_cols(pack, perm))
+        timed("P4 copy", lambda: pk.copy_pack(pack))
+        timed("P4 scatter of B13's flags", scatter)
+        timed("B13 any hall NEE segments, pixel order", lambda: hits.any_hit(
+            trv, pos, target, live, **geom))
+        for o in pk.KEY_ORDERS:
+            steps, whole = prof_wavefront.sorted_pieces(trv, pos, target,
+                                                        live, lo, hi, o)
+            if not torch.equal(whole(), flags):
+                raise RuntimeError(f"sorted B13 in {o} order differs from "
+                                   "the pixel order's flags")
+            timed(f"wavefront {o}", whole)
+            for step, fn in steps.items():
+                timed(f"wavefront {o}.{step}", fn)
+
+    ray_order()
     import restir_tpu_torch
 
     print(json.dumps({

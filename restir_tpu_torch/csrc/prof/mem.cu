@@ -1,5 +1,6 @@
 // Memory-path probes: table gathers from three places, and a masked
-// triplet multiply-add chain over a pixel pack in three layouts.
+// triplet multiply-add chain over a pixel pack in three layouts; and the
+// probes' marker kernel, which delimits timed calls in a trace.
 //
 // Replaces the TPU probes prof/prof_gather.py:43 (`take_along_axis` on a
 // table in VMEM, idx (i * 7919) % K over R = 1920 x 1088, the texture
@@ -203,5 +204,19 @@ extern "C" int restir_prof_chain(const float* in, const float* in2,
         reinterpret_cast<const float4*>(in),
         reinterpret_cast<const float4*>(in2), r,
         reinterpret_cast<float4*>(out), f);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// An empty kernel whose launches delimit the calls of a timed run in a
+// profiler trace (restir_tpu_torch/prof/_timing.py): the kernels between
+// two marks on one stream are one call's.
+__global__ void probe_mark_kernel() {}
+
+}  // namespace
+
+extern "C" int restir_prof_mark(void* stream) {
+  probe_mark_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

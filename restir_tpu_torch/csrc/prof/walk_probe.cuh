@@ -16,6 +16,8 @@
 //      tested, so no ray stops early);
 //   4 "no-exit":     the full walk, which notes a hit and walks on to the
 //      end of the table (its occlusion is the full walk's).
+// Modes 3 and 4 count their box and leaf tests into n, which a counting
+// launch (stats) writes out: the work their bounds count.
 // Modes 1-3 write packs that are not B7's / B10's; mode 4 writes theirs.
 // Without PROBE_WALK nothing of this file is compiled.
 #pragma once
@@ -62,9 +64,11 @@ __device__ __forceinline__ bool probe_occluded_walk(const BvhRows& bvh,
     const bool descend =
         slab(nd.lo, nd.hi, ray.ox, ray.oy, ray.oz, ix, iy, iz, t_near) &&
         t_near <= cull;
+    ++n.boxes;
     if (MODE == 3) {
       acc += descend ? t_near : 0.0f;
     } else if (descend && nd.prim >= 0 && nd.prim != self) {
+      ++n.tris;
       float u, v;
       const float t = ray.hit(bvh.planes + (size_t)nd.prim * 12, u, v);
       if (t >= 0.0f && t < limit) hit = true;

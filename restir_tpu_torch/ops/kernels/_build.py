@@ -271,15 +271,18 @@ def library() -> ctypes.CDLL:
 _PROF_SIGNATURES = {
     "restir_prof_key": [_VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _I, _VP,
                         _VP],
-    "restir_prof_sort_blocks": [_I],
+    "restir_prof_sort_scratch": [_I],
     "restir_prof_radix_sort": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "restir_prof_gather": [_VP, _VP, _VP, _I, _I, _VP],
+    "restir_prof_sort_launches": [],
+    "restir_prof_permute": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I,
+                            _VP],
     "restir_prof_copy": [_VP, _VP, _L, _VP],
     "restir_prof_anyhit": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "restir_prof_table_gather": [_VP, _I, _VP, _I, _I, ctypes.c_uint64, _VP,
                                  _VP],
     "restir_prof_tex": [_VP, _I, _I, ctypes.POINTER(ctypes.c_uint64)],
     "restir_prof_chain": [_VP, _VP, _VP, _I, _I, _VP, _VP],
+    "restir_prof_mark": [_VP],
 }
 
 

@@ -1,9 +1,12 @@
 """Wrappers and plain twins of the probe kernels in `csrc/prof/`.
 
-- `coherence_key`, `radix_sort`, `gather_cols`, `copy_pack`
-  (`csrc/prof/sort.cu`): the ray order of prof_take / prof_wavefront;
-  twins: the same float32 ops in torch, `torch.sort(stable=True)`,
-  `index_select`, `clone`. The kernels equal them bit for bit.
+- `coherence_key`, `radix_sort`, `gather_cols`, `gather_rays`,
+  `scatter_cols`, `copy_pack` (`csrc/prof/sort.cu`): the ray order of
+  prof_take / prof_wavefront; twins: the same float32 ops in torch,
+  `torch.sort(stable=True)`, index_select, an indexed store, `clone`.
+  The kernels equal them bit for bit. The sort is one-sweep: a histogram
+  launch, then one launch for each of `SORT_PASSES` passes of
+  `SORT_BITS`-bit digits.
 - `anyhit` (`csrc/prof/anyhit.cu`, form "fma", "mma3" or "mma6"):
   prof_fma's brute-force any hit over padded plane rows; twins
   `anyhit_ref` (float32 dots, intersect_bf's test) and, for the tensor-
@@ -13,10 +16,14 @@
 - `table_gather` ("shared", "ldg", "tex") and `chain` ("soa", "aos",
   "float4") (`csrc/prof/mem.cu`): prof_gather's and prof_v3's memory
   paths; twins `index_select` and the loop in torch, bit for bit.
+- `mark`: an empty kernel that delimits timed calls in a trace
+  (`_timing`).
 
 Each wrapper takes the twin on CPU tensors and launches its kernel on
 CUDA tensors (or raises); nothing falls back. `launches` counts kernel
-launches by name.
+launches by name (a sort's 1 + passes launches count once);
+`sort_kernel_launches` reads the kernels the sorts have launched, as the
+C entry point counts them.
 """
 
 from __future__ import annotations
@@ -39,8 +46,8 @@ CHAIN_LAYOUTS = ("soa", "aos", "float4")
 # kernel launches by kernel (and variant); a wrapper adds one where it
 # launches its kernel, nowhere else
 launches = dict.fromkeys(
-    ["key", "radix_sort", "gather", "copy", "anyhit_fma", "anyhit_mma3",
-     "anyhit_mma6"]
+    ["key", "radix_sort", "gather", "scatter", "copy", "anyhit_fma",
+     "anyhit_mma3", "anyhit_mma6"]
     + [f"table_gather_{w}" for w in GATHER_WHERE]
     + [f"chain_{c}" for c in CHAIN_LAYOUTS], 0)
 
@@ -140,6 +147,11 @@ def coherence_key(x, y, live, lo, hi, order):
     return key
 
 
+# the sort's digits: 4 passes of 8 bits reach bit 30, which DEAD_KEY sets
+SORT_BITS = 8
+SORT_PASSES = 4
+
+
 def radix_sort_ref(keys):
     """(sorted keys, int32 permutation): torch.sort(stable=True)."""
     s = torch.sort(keys, stable=True)
@@ -147,25 +159,67 @@ def radix_sort_ref(keys):
 
 
 def radix_sort(keys):
-    """The LSD radix sort of non-negative int32 keys [R] (4 passes of 8
-    bits, stable): `radix_sort_ref` on CPU tensors, the kernel on CUDA."""
+    """The one-sweep LSD radix sort of int32 keys [R] (0 < R < 2^30,
+    stable): `radix_sort_ref` on CPU tensors, the kernels on CUDA
+    (1 + SORT_PASSES launches)."""
     if not _cuda(keys, "radix_sort"):
         return radix_sort_ref(keys)
     r = keys.shape[0]
     _need(keys, "keys", torch.int32, (r,))
     dev = keys.device
     lib = _lib()
+    words = lib.restir_prof_sort_scratch(r)
+    if words < 0:
+        raise ValueError(f"radix_sort: {r} keys outside (0, 2^30)")
     ka, kb = (torch.empty(r, dtype=torch.int32, device=dev) for _ in "ab")
     va, vb = (torch.empty(r, dtype=torch.int32, device=dev) for _ in "ab")
-    hist = torch.empty(256 * (lib.restir_prof_sort_blocks(r) + 2),
-                       dtype=torch.int32, device=dev)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     p = _build.ptr
     with _build.on_device(dev):
         err = lib.restir_prof_radix_sort(p(keys), p(ka), p(va), p(kb), p(vb),
-                                         p(hist), r, _build.stream_of(dev))
+                                         p(scratch), r,
+                                         _build.stream_of(dev))
     _build.check(err, "restir_prof_radix_sort")
     launches["radix_sort"] += 1
     return ka, va
+
+
+def sort_kernel_launches() -> int:
+    """Kernels every `radix_sort` on the card has launched so far in this
+    process (the histogram and each pass, counted by `csrc/prof/sort.cu`
+    where the runtime took the launch); 1 + SORT_PASSES a sort."""
+    return _lib().restir_prof_sort_launches()
+
+
+def _permute(channels, perm, scatter, group=1):
+    """Launch `csrc/prof/sort.cu`'s permute kernel on channels [(source,
+    its step, output, its step)], each a CUDA tensor of 4-byte or 1-byte
+    elements viewed from its first element, `group` channels a block.
+    Blocks run group by group, so the rows read (or written) at permuted
+    columns while a group moves stay in L2: one row of a [C, R] pack (all
+    nine of the hall's 1080p pack at once overflow it), B13's [R, 3]
+    inputs an array at a time (group 3)."""
+    r = perm.shape[0]
+    n = len(channels)
+    src = (ctypes.c_longlong * n)(*(s.data_ptr() for s, _, _, _ in channels))
+    dst = (ctypes.c_longlong * n)(*(d.data_ptr() for _, _, d, _ in channels))
+    src_step = (ctypes.c_longlong * n)(*(a for _, a, _, _ in channels))
+    dst_step = (ctypes.c_longlong * n)(*(b for _, _, _, b in channels))
+    wide = (ctypes.c_int * n)(*(int(s.element_size() == 4)
+                                for s, _, _, _ in channels))
+    dev = perm.device
+    with _build.on_device(dev):
+        err = _lib().restir_prof_permute(src, src_step, dst, dst_step, wide,
+                                         n, min(group, n),
+                                         _build.ptr(perm), r, int(scatter),
+                                         _build.stream_of(dev))
+    _build.check(err, "restir_prof_permute")
+    launches["scatter" if scatter else "gather"] += 1
+
+
+def _rows(t):
+    """The channel rows of a [C, R] tensor (or of an [R] one)."""
+    return [t] if t.dim() == 1 else [t[c] for c in range(t.shape[0])]
 
 
 def gather_cols(src, perm):
@@ -173,25 +227,64 @@ def gather_cols(src, perm):
     index_select on CPU tensors, the kernel on CUDA."""
     if not _cuda(src, "gather_cols"):
         return src.index_select(1, perm.long())
-    c, r = src.shape
+    _, r = src.shape
     _need(src, "src", torch.float32)
     _need(perm, "perm", torch.int32, (r,))
     dst = torch.empty_like(src)
-    p = _build.ptr
-    with _build.on_device(src.device):
-        err = _lib().restir_prof_gather(p(src), p(perm), p(dst), c, r,
-                                        _build.stream_of(src.device))
-    _build.check(err, "restir_prof_gather")
-    launches["gather"] += 1
+    _permute([(s, 1, d, 1) for s, d in zip(_rows(src), _rows(dst))], perm,
+             False)
     return dst
 
 
+def gather_rays(perm, pos, target, live):
+    """B13's any-hit inputs in the order perm: (pos[perm], target[perm],
+    live[perm]) as [R, 3], [R, 3] float32 and bool [R], each written in
+    B13's layout by one gather from the pixel-order tensors (index_select
+    on CPU tensors)."""
+    if not _cuda(pos, "gather_rays"):
+        pl = perm.long()
+        return pos[pl], target[pl], live[pl]
+    r = pos.shape[0]
+    _need(pos, "pos", torch.float32, (r, 3))
+    _need(target, "target", torch.float32, (r, 3))
+    _need(live, "live", torch.bool, (r,))
+    _need(perm, "perm", torch.int32, (r,))
+    x, y, sl = torch.empty_like(pos), torch.empty_like(target), \
+        torch.empty_like(live)
+    ch = [(pos[:, a], 3, x[:, a], 3) for a in range(3)]
+    ch += [(target[:, a], 3, y[:, a], 3) for a in range(3)]
+    _permute(ch + [(live, 1, sl, 1)], perm, False, group=3)
+    return x, y, sl
+
+
+def scatter_cols(src, perm):
+    """out with out[..., perm] = src for src [C, R] or [R] (4-byte or
+    1-byte elements) and int32 perm [R], a permutation: the inverse of
+    the gather. An indexed store on CPU tensors, the kernel on CUDA."""
+    out = torch.empty_like(src)
+    if not _cuda(src, "scatter_cols"):
+        out[..., perm.long()] = src
+        return out
+    r = src.shape[-1]
+    _need(src, "src", src.dtype)
+    _need(perm, "perm", torch.int32, (r,))
+    if src.element_size() not in (1, 4) or src.dim() > 2:
+        raise ValueError(f"scatter_cols: need [C, R] or [R] of 1- or 4-byte "
+                         f"elements, got {src.dtype} {tuple(src.shape)}")
+    _permute([(s, 1, d, 1) for s, d in zip(_rows(src), _rows(out))], perm,
+             True)
+    return out
+
+
 def copy_pack(src):
-    """A copy of a float32 pack (the gather's floor): clone on CPU
-    tensors, the kernel on CUDA."""
+    """A copy of a float32 pack of 4k elements (the gather's floor): clone
+    on CPU tensors, the kernel on CUDA (float4 words)."""
     if not _cuda(src, "copy_pack"):
         return src.clone()
     _need(src, "src", torch.float32)
+    if src.numel() % 4:
+        raise ValueError(f"copy_pack: {src.numel()} floats, not a multiple "
+                         f"of 4")
     dst = torch.empty_like(src)
     p = _build.ptr
     with _build.on_device(src.device):
@@ -200,6 +293,14 @@ def copy_pack(src):
     _build.check(err, "restir_prof_copy")
     launches["copy"] += 1
     return dst
+
+
+def mark(device):
+    """Launch the empty marker kernel on the device's current stream."""
+    dev = torch.device(device)
+    with _build.on_device(dev):
+        _build.check(_lib().restir_prof_mark(_build.stream_of(dev)),
+                     "restir_prof_mark")
 
 
 # ---- the brute-force any hit -----------------------------------------------

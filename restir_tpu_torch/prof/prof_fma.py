@@ -87,5 +87,6 @@ def run(device="cuda", small=False):
     if _timing.on_card(device):
         calls["torch.matmul dots"] = lambda: dots_matmul(rays, planes)
     times = _timing.interleaved(calls, device, rounds=2)
-    return [_timing.row("fma", f"{fr.name}.{k}", min(v),
-                        f"{r} rays x {N_PAD} rows") for k, v in times.items()]
+    return [_timing.times_row("fma", f"{fr.name}.{k}", v,
+                              f"{r} rays x {N_PAD} rows")
+            for k, v in times.items()]

@@ -43,6 +43,6 @@ def run(device="cuda", small=False):
                 _timing.sync(device)
                 pk.free_texture(tex)
         for name, ts in times.items():
-            rows.append(_timing.row("gather", f"K{k}.{name}", min(ts),
-                                    f"{r} lanes"))
+            rows.append(_timing.times_row("gather", f"K{k}.{name}", ts,
+                                          f"{r} lanes"))
     return rows

@@ -53,11 +53,11 @@ def run(device="cuda", small=False):
     fr = _scenes.headline(device, small)
     calls = b6_calls(fr, device)
     rows = []
+    times = _timing.interleaved(calls, device, rounds=1)
     for mode in MODES:
         if mode not in calls:
             _timing.skipped("gsplit", mode, "a stage build for the card")
             continue
-        rows.append(_timing.row("gsplit", f"{fr.name}.{mode}",
-                                _timing.time_ms(calls[mode], device),
-                                NOTES[mode]))
+        rows.append(_timing.times_row("gsplit", f"{fr.name}.{mode}",
+                                      times[mode], NOTES[mode]))
     return rows

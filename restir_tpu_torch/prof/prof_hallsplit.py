@@ -100,6 +100,6 @@ def run(device="cuda", small=False):
         raise RuntimeError("hallsplit: the b7_no_exit build's pack differs")
     times = _timing.interleaved(calls, device, rounds=2)
     for mode, ts in times.items():
-        rows.append(_timing.row("hallsplit", f"B7.{mode}", min(ts),
-                                NOTES[mode]))
+        rows.append(_timing.times_row("hallsplit", f"B7.{mode}", ts,
+                                      NOTES[mode]))
     return rows

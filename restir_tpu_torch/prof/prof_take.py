@@ -1,8 +1,10 @@
 """The permuted gather of a 9-channel pack of shadow segments at
 1920x1080 (the hall's NEE segments, sorted by their coherence key): the
 hand-written gather (`csrc/prof/sort.cu`) against index_select and
-advanced indexing, beside a plain copy of the pack (the gather's floor:
-what moving the bytes in order costs).
+advanced indexing, its inverse (the kernel's scatter mode) against
+index_copy_, beside a plain copy of the pack (the gather's floor: what
+moving the bytes in order costs) and copy_. Device time a call, the
+CUDA events beside it.
 
 Port of the TPU probe prof/prof_take.py: `jnp.take` of the 9-channel rp
 pack by the wavefront permutation in several formulations, and `_pin`
@@ -54,10 +56,16 @@ def run(device="cuda", small=False):
           f"([{C}, {pack.shape[1]}])", flush=True)
     if not same:
         raise RuntimeError("take: the gather differs from index_select")
+    if not torch.equal(pk.scatter_cols(got, perm), pack):
+        raise RuntimeError("take: the scatter does not invert the gather")
     calls = {"copy": lambda: pk.copy_pack(pack),
+             "copy_": lambda: torch.empty_like(pack).copy_(pack),
              "gather": lambda: pk.gather_cols(pack, perm),
              "index_select": lambda: pack.index_select(1, perm_l),
-             "adv_index": lambda: pack[:, perm_l]}
+             "adv_index": lambda: pack[:, perm_l],
+             "scatter": lambda: pk.scatter_cols(got, perm),
+             "index_copy_": lambda: torch.empty_like(got).index_copy_(
+                 1, perm_l, got)}
     times = _timing.interleaved(calls, device, rounds=2)
-    return [_timing.row("take", f"{fr.name}.{k}", min(v))
+    return [_timing.times_row("take", f"{fr.name}.{k}", v)
             for k, v in times.items()]

@@ -44,5 +44,5 @@ def run(device="cuda", small=False):
     else:
         calls = {c: (lambda c=c: pk.chain(p, c)) for c in pk.CHAIN_LAYOUTS}
     times = _timing.interleaved(calls, device, rounds=2)
-    return [_timing.row("v3", layout, min(ts), f"{r} pixels, 90 rounds")
+    return [_timing.times_row("v3", layout, ts, f"{r} pixels, 90 rounds")
             for layout, ts in times.items()]

@@ -103,11 +103,11 @@ def _rows(kernel, fr, calls, device):
         if mode not in times:
             _timing.skipped("vissplit", name, "a stage build for the card")
             continue
-        rows.append(_timing.row("vissplit", name, min(times[mode]),
-                                NOTES[mode]))
+        rows.append(_timing.times_row("vissplit", name, times[mode],
+                                      NOTES[mode]))
     if "fixed-node" in times:
-        full, search = min(times["full"]), min(times["search-only"])
-        fixed = min(times["fixed-node"])
+        full, search = (min(times[m].device) for m in ("full", "search-only"))
+        fixed = min(times["fixed-node"].device)
         print(f"probe vissplit {kernel}.{fr.name}: walk {full - search:.4f} "
               f"ms, of which dependent-load latency {full - fixed:.4f} ms",
               flush=True)

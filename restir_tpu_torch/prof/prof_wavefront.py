@@ -1,16 +1,19 @@
 """Ray order for the walks at 1920x1080 on the hall's NEE segments: the
 coherence key (`csrc/prof/sort.cu`) in the three orders of `walk_ab.py
-order`, cut to 30 bits, against its torch twin; the hand-written LSD
-radix sort (4 passes of 8 bits, stable) against torch.sort(stable=True)
+order`, cut to 30 bits, against its torch twin; the hand-written
+one-sweep radix sort (a histogram launch, then one launch a pass of
+`kernels.SORT_BITS`-bit digits, stable) against torch.sort(stable=True)
 and torch.argsort; then B13's any hit on the segments in pixel order
 (8x4-pixel warps, as the render paths launch it) and in ray order,
-against sorted order with the key, the sort, the gathers and the
-scatter back included.
+against sorted order with the key, the sort, the gather of B13's inputs
+and the scatter of its flags back included. Every row is the device time
+of one call (its kernels summed); the CUDA-event time is beside it.
 
 Port of the TPU probe prof/prof_wavefront.py: B7a `_ris_select_kernel`
-as the input (:87), coherence keys, `jnp.argsort` and the payload
-gather. The key and the sort's permutation equal their twins bit for
-bit; sorted B13 writes the unsorted bits, permuted.
+as the input (:87), coherence keys, `jnp.argsort`, the payload gather and
+the take by the inverse permutation (:213). The key and the sort's
+permutation equal their twins bit for bit; sorted B13 writes the pixel
+order's flags.
 
     python -m restir_tpu_torch.prof wavefront
 """
@@ -27,40 +30,27 @@ from .prof_take import inputs
 
 def sorted_pieces(trv, pos, target, live, lo, hi, order):
     """B13's any hit on the segments in the key's order, back in pixel
-    order, as named steps: key, sort, gather of (pos, target, live) as a
-    [7, R] pack, the walk on the sorted rows, scatter of the flags back.
-    Returns ({step: a call of it alone}, a call of the whole)."""
+    order, as named steps: key, sort, gather of B13's inputs (x, y, live)
+    straight from (pos, target, live), the walk on the sorted rows,
+    scatter of the flags back. Returns ({step: a call of it alone}, a
+    call of the whole)."""
     key = pk.coherence_key(pos, target, live, lo, hi, order)
     _, perm = pk.radix_sort(key)
-    pack = torch.cat([pos.T, target.T, live[None].float()]).contiguous()
-    sp = pk.gather_cols(pack, perm)
-    x, y = sp[0:3].T.contiguous(), sp[3:6].T.contiguous()
-    sl = sp[6] > 0.5
+    x, y, sl = pk.gather_rays(perm, pos, target, live)
     occ_s = hits.any_hit(trv, x, y, sl)
-    perm_l = perm.long()
-
-    def scatter(occ_s):
-        occ = torch.empty_like(occ_s)
-        occ[perm_l] = occ_s
-        return occ
 
     def whole():
         k = pk.coherence_key(pos, target, live, lo, hi, order)
         _, pm = pk.radix_sort(k)
-        g = pk.gather_cols(torch.cat([pos.T, target.T, live[None].float()])
-                           .contiguous(), pm)
-        o = hits.any_hit(trv, g[0:3].T.contiguous(), g[3:6].T.contiguous(),
-                         g[6] > 0.5)
-        out = torch.empty_like(o)
-        out[pm.long()] = o
-        return out
+        return pk.scatter_cols(hits.any_hit(trv, *pk.gather_rays(
+            pm, pos, target, live)), pm)
 
     steps = {"key": lambda: pk.coherence_key(pos, target, live, lo, hi,
                                              order),
              "sort": lambda: pk.radix_sort(key),
-             "gather": lambda: pk.gather_cols(pack, perm),
+             "gather": lambda: pk.gather_rays(perm, pos, target, live),
              "walk": lambda: hits.any_hit(trv, x, y, sl),
-             "scatter": lambda: scatter(occ_s)}
+             "scatter": lambda: pk.scatter_cols(occ_s, perm)}
     return steps, whole
 
 
@@ -85,7 +75,8 @@ def run(device="cuda", small=False):
             "torch.sort": lambda: torch.sort(key, stable=True),
             "torch.argsort": lambda: torch.argsort(key)}, device, rounds=2)
         for name, ts in times.items():
-            rows.append(_timing.row("wavefront", f"{order}.{name}", min(ts)))
+            rows.append(_timing.times_row("wavefront", f"{order}.{name}",
+                                          ts))
     w = fr.cfg.width
     base = hits.any_hit(trv, pos, target, live, geom=(w, 0))
     # on the CPU the lockstep twin takes seconds a call: one order, no times
@@ -113,6 +104,6 @@ def run(device="cuda", small=False):
         note = ("key, sort, gather, walk and scatter"
                 if name.startswith("B13.sorted") and name.count(".") == 1
                 else "the walk" if "order" in name.split(".")[-1] else "")
-        rows.append(_timing.row("wavefront", f"{fr.name}.{name}", min(ts),
-                                note))
+        rows.append(_timing.times_row("wavefront", f"{fr.name}.{name}", ts,
+                                      note))
     return rows

@@ -3,10 +3,10 @@ twins on the CPU, and the exact walks' twins on NaN rays.
 
 - every probe module runs with device="cpu" at a tiny size and prints
   its rows;
-- the radix sort: its twin is torch.sort(stable=True), and a numpy
-  rendition of the kernel's passes (per-block digit counts, a scan,
-  per-round ranks among equal digits) gives the same permutation on
-  random keys with ties;
+- the radix sort: its twin is torch.sort(stable=True), and the numpy
+  rendition of the kernels' one-sweep passes (`_sort_plan`: digit
+  counts, per-round ranks among equal digits, look-back prefixes) gives
+  the same permutation on random keys with ties;
 - the coherence key's twin against a numpy rendition;
 - the any hit's twins (FP32 dots; TF32 pieces for the tensor-core
   forms) against each other and against the JAX package's occlusion test
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _sort_plan import sort_plan
 
 from restir_tpu.ops import intersect as jix
 from restir_tpu.ops import intersect_bf as jbf
@@ -70,48 +71,6 @@ def test_main_runs_a_probe_on_cpu(capsys):
         main(["nope", "--cpu"])
 
 
-def _lsd_numpy(keys, warps=4, lanes=8, rounds=4):
-    """The kernel's LSD radix sort in numpy: 4 passes of 8 bits; per
-    pass, each block's digit counts (a block: `warps` warps, each owning
-    `lanes` x `rounds` consecutive keys), an exclusive scan over blocks
-    per digit plus the digits' running totals, then each warp's first
-    place per digit after the warps before it, and each warp's keys in
-    rounds of `lanes`, a key's place its digit's next place plus its rank
-    among equal digits in the round."""
-    keys = keys.astype(np.uint32)
-    r = keys.size
-    wk = lanes * rounds
-    tile = warps * wk
-    nb = -(-r // tile)
-    kin, vin = keys.copy(), np.arange(r, dtype=np.int64)
-    for p in range(4):
-        dig = ((kin >> (8 * p)) & 255).astype(np.int64)
-        cnt = np.zeros((nb, warps, 256), np.int64)
-        for b in range(nb):
-            for w in range(warps):
-                lo = b * tile + w * wk
-                cnt[b, w] = np.bincount(dig[lo:min(lo + wk, r)],
-                                        minlength=256)
-        per_block = cnt.sum(1)
-        total = per_block.sum(0)
-        base = np.cumsum(total) - total
-        before = np.cumsum(per_block, 0) - per_block
-        kout, vout = np.empty_like(kin), np.empty_like(vin)
-        for b in range(nb):
-            place = base + before[b]
-            for w in range(warps):
-                nxt = place + cnt[b, :w].sum(0)
-                lo = b * tile + w * wk
-                for r0 in range(lo, min(lo + wk, r), lanes):
-                    d = dig[r0:min(r0 + lanes, r)]
-                    for i, di in enumerate(d):
-                        dst = nxt[di] + int((d[:i] == di).sum())
-                        kout[dst], vout[dst] = kin[r0 + i], vin[r0 + i]
-                    nxt += np.bincount(d, minlength=256)
-        kin, vin = kout, vout
-    return kin, vin
-
-
 def test_radix_sort_twin_is_a_stable_sort():
     g = np.random.default_rng(5)
     for r, hi in ((1000, 2 ** 30), (777, 37), (256, 1)):
@@ -122,7 +81,7 @@ def test_radix_sort_twin_is_a_stable_sort():
         assert perm.dtype == torch.int32
         assert np.array_equal(perm.numpy(), want)
         assert np.array_equal(vals.numpy(), keys[want])
-        kv, pv = _lsd_numpy(keys)
+        kv, pv = sort_plan(keys, pk.SORT_BITS)
         assert np.array_equal(pv, want) and np.array_equal(kv, keys[want])
 
 
