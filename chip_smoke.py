@@ -189,19 +189,22 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      and the copy floor on the hall's 1080p NEE segments in all three key
      orders, bit for bit, and the sort once on 3840x2160 keys (above the
      parent design's 4,194,304-key cap); the any hit's
-     three forms (FP32 FMA, 3xTF32 and 6xTF32 mma.sync tiles) on 1080p
-     random rays against the headline's 512 padded plane rows within
-     the primitive gate (mismatch <= 0.2 %); the table gathers (shared
-     memory, __ldg, texture; R = 1920 x 1088, K = 8192) and the vec3
-     chains (SoA, AoS, float4) bit for bit; each kernel's device time
-     (its kernels' summed durations in a torch.profiler trace, the CUDA
-     events around back-to-back calls printed beside), its twin's, one
-     PyTorch call's where one computes the same function (torch.sort,
-     index_select, index_copy_, copy_, torch.matmul of the any hit's
-     dots) and its bound; the sort's launches one by one, and its
-     11-bit build beside the 8-bit one; the stage builds' own bounds
-     (B7 and B10 search-only, fixed-node, no-leaf, no-exit) from their
-     counted tests; (b) the B6, B7 and B10 builds of the stage
+     three forms (FP32 FMA, 3xTF32 and 6xTF32 wgmma tiles with the
+     plane pieces split once a block; their ptxas registers and the
+     SASS of the tensor-core step loop) on 1080p random rays against the
+     headline's 512 padded plane rows within the primitive gate
+     (mismatch <= 0.2 %); the table gathers (shared memory on a grid
+     the card holds at once, __ldg, texture; R = 1920 x 1088, K = 1024
+     and 8192, the kernels line K = 8192's; timed with index and output
+     cold in L2) and the vec3 chains (SoA, AoS, float4) bit for bit;
+     each kernel's device time (its kernels' summed durations in a
+     torch.profiler trace, the CUDA events around back-to-back calls
+     printed beside), its twin's, one PyTorch call's where one computes
+     the same function (torch.sort, index_select, index_copy_, copy_,
+     torch.matmul of the any hit's dots) and its bound; the sort's
+     launches one by one; the stage builds' own bounds (B7 and B10
+     search-only, fixed-node, no-leaf, no-exit) from their counted
+     tests; (b) the B6, B7 and B10 builds of the stage
      probes without a PROBE macro (`_build.VARIANTS`' "*_full") write
      the main library's packs bit for bit on the hall, the sky hall and
      the headline; (c) the slice's main path, `python -m
@@ -223,6 +226,7 @@ below; a transcendental counts as one).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import http.client
@@ -415,8 +419,8 @@ PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense, FLOP/s
 # pair of the any hit's epilogue (division, u, v, 6 compares) and its six
 # dots (3 four-term and 3 three-term: 21 multiply-adds). The tensor-core
 # forms do the same 21 multiply-adds once per split product (3 in
-# 3xTF32, 6 in 6xTF32); the zero halves of the tiles' K are not work the
-# function needs, so they are not counted.
+# 3xTF32, 6 in 6xTF32); the zero K slot of the d-dots' tiles is not work
+# the function needs, so it is not counted.
 FLOP_KEY = 60
 FLOP_ANY_EPI = 12
 FLOP_ANY_DOTS = 42
@@ -874,7 +878,8 @@ def sass_loops(lib, kernel):
     """Per function of `kernel` and per loop (a backward branch): the
     instructions of the loop by kind, whole and on its common path (less
     the ranges that a predicated forward branch inside the loop skips,
-    such as a leaf's triangle test), and of those the ALU pipe's."""
+    such as a leaf's triangle test), and of those the ALU pipe's; and
+    the whole loop's instructions by opcode ("ops")."""
     res = {}
     for name, code in _sass_functions(lib, kernel).items():
         loops = []
@@ -898,7 +903,8 @@ def sass_loops(lib, kernel):
 
             if len(body) >= 16:  # not a branch-to-self or a short spin
                 loops.append({"start": hex(tgt), "end": hex(addr),
-                              "whole": kinds(body), "common": kinds(common)})
+                              "whole": kinds(body), "common": kinds(common),
+                              "ops": collections.Counter(r[1] for r in body)})
         res[name] = loops
     return res
 
@@ -3591,12 +3597,41 @@ def stage_bounds(dev):
                b10_bound)
 
 
+def anyhit_sass_report(fn, pairs):
+    """The tensor-core any hit's step loop (`sass_loops`' smallest loop
+    that issues HGMMA) in each build: its instructions by opcode, their
+    issue time (one instruction a clock per SM sub-partition, a warp's
+    step testing 16 rays x 32 rows, at the SM clock nvidia-smi reads
+    while fn runs for half a second) beside the wgmmas' tensor time at
+    PEAK_TF32 (64 x 96 x 8 multiply-adds each, 4 a step in 3xTF32, 6 in
+    6xTF32)."""
+    mhz = sm_clock_mhz(fn, seconds=0.5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    loops = sass_loops(_build._variant_path("prof"), "anyhit_mma_kernel")
+    for name, ls in sorted(loops.items()):
+        steps = [lp["ops"] for lp in ls if lp["ops"]["HGMMA"]]
+        if not steps:
+            print(f"probe any hit SASS {name[-40:]}: no HGMMA loop")
+            continue
+        ops = min(steps, key=lambda c: sum(c.values()))
+        n = sum(ops.values())
+        issue_ms = n * pairs / 512 / (sms * 4) / (mhz * 1e6) * 1e3
+        tensor_ms = ops["HGMMA"] * 64 * 96 * 8 * 2 * pairs / 2048 \
+            / PEAK_TF32 * 1e3
+        print(f"probe any hit SASS {name[-40:]}: step loop {n} "
+              f"instructions a warp ({n / 512:.3f} a pair): "
+              + ", ".join(f"{k} {v}" for k, v in ops.most_common(10))
+              + f"; issue {issue_ms:.4f} ms at {mhz:.0f} MHz on {sms} SMs, "
+              f"tensor {tensor_ms:.4f} ms at 495 TFLOP/s")
+
+
 def phase_probes(dev, record, launches):
     """Phase 28: the stage probes (restir_tpu_torch.prof). (a) Each new
     kernel of csrc/prof/ against its plain twin at the shapes its probe
     gives it (1920x1080; the hall's NEE segments for the key, the sort,
     the gather and the copy; the headline scene's 512 padded plane rows
-    for the any hit; R = 1920 x 1088, K = 8192 for the table gathers):
+    for the any hit; R = 1920 x 1088, K = 1024 and 8192 for the table
+    gathers, the kernels line K = 8192's):
     the key, the sort's permutation, the gathers, the scatters and the
     chains bit for bit (`probe_ray_order`), the any hit's two forms
     within the reference's primitive gate (mismatch <= 0.2 %; FP32 and
@@ -3613,6 +3648,7 @@ def phase_probes(dev, record, launches):
     from restir_tpu_torch.prof import kernels as pk
     from restir_tpu_torch.prof import (
         prof_fma,
+        prof_gather,
         prof_gvariants,
         prof_v3,
         prof_vissplit,
@@ -3649,6 +3685,12 @@ def phase_probes(dev, record, launches):
           f"{float((occ['mma3'] != occ['fma']).float().mean()):.2e}")
     if max(mis.values()) > prof_fma.GATE:
         fails.append(f"the any hit is over the primitive gate: {mis}")
+    print(f"probe builds: anyhit_mma_kernel "
+          f"{ptxas_report('prof/anyhit.cu', 'anyhit_mma_kernel')}, "
+          f"gather_shared_kernel "
+          f"{ptxas_report('prof/mem.cu', 'gather_shared_kernel')}")
+    anyhit_sass_report(lambda: pk.anyhit(rays, planes, "mma3"),
+                       nr * planes.shape[0])
     pairs = nr * planes.shape[0]
     nbytes = 32 * nr + planes.numel() * 4 + nr
     for f in splits:
@@ -3659,33 +3701,42 @@ def phase_probes(dev, record, launches):
             t["matmul"][0], mis[f], tensor_flops=mma * pairs)
         events[f"prof_anyhit_{f}"] = t[f][1]
 
-    rg, k = 1920 * 1088, 8192
-    table = torch.arange(k, dtype=torch.float32, device=dev) * 0.5
-    idx = pk.gather_index(rg, k, dev)
-    idx_l = idx.long()
-    want = table.index_select(0, idx_l)
-    tex = pk.texture(table)
-    try:
-        errs = {}
-        for where in pk.GATHER_WHERE:
-            got = pk.table_gather(table, idx, where, tex=tex)
-            if not torch.equal(got, want):
-                fails.append(f"the {where} table gather differs")
-            errs[where] = max_err(got, want)
-        t = probe_ms({w: (lambda w=w: pk.table_gather(table, idx, w,
-                                                      tex=tex))
-                      for w in pk.GATHER_WHERE}
-                     | {"twin": lambda: table.index_select(0, idx.long()),
-                        "index_select": lambda: table.index_select(0,
-                                                                   idx_l)})
-        for where in pk.GATHER_WHERE:
-            record[f"prof_table_gather_{where}"] = probe_record(
-                t[where][0], t["twin"][0], 8 * rg + 4 * k, 0.0,
-                t["index_select"][0], errs[where])
-            events[f"prof_table_gather_{where}"] = t[where][1]
-    finally:
-        torch.cuda.synchronize()
-        pk.free_texture(tex)
+    rg = 1920 * 1088
+    for k in (1024, 8192):  # the kernels line keeps K = 8192's
+        table = torch.arange(k, dtype=torch.float32, device=dev) * 0.5
+        idx = pk.gather_index(rg, k, dev)
+        idx_l = idx.long()
+        want = table.index_select(0, idx_l)
+        tex = pk.texture(table)
+        try:
+            errs = {}
+            for where in pk.GATHER_WHERE:
+                got = pk.table_gather(table, idx, where, tex=tex)
+                if not torch.equal(got, want):
+                    fails.append(f"the {where} table gather differs at "
+                                 f"K = {k}")
+                errs[where] = max_err(got, want)
+            # index and output cold in L2, as the bound assumes
+            t = probe_ms({w: prof_gather.cold(
+                lambda ix, w=w: pk.table_gather(table, ix, w, tex=tex), idx)
+                for w in pk.GATHER_WHERE}
+                | {"twin": prof_gather.cold(
+                    lambda ix: table.index_select(0, ix.long()), idx),
+                   "index_select": prof_gather.cold(
+                       lambda ix: table.index_select(0, ix), idx_l)})
+            print(f"probe table gather K = {k}: device ms "
+                  + ", ".join(f"{w} {v[0]:.4f} (events {v[1]:.4f})"
+                              for w, v in t.items()))
+            if k != 8192:
+                continue
+            for where in pk.GATHER_WHERE:
+                record[f"prof_table_gather_{where}"] = probe_record(
+                    t[where][0], t["twin"][0], 8 * rg + 4 * k, 0.0,
+                    t["index_select"][0], errs[where])
+                events[f"prof_table_gather_{where}"] = t[where][1]
+        finally:
+            torch.cuda.synchronize()
+            pk.free_texture(tex)
     cpack = prof_v3.pack(WIDTH * HEIGHT, dev)
     rc = cpack.shape[1]
     want = pk.chain_ref(cpack)

@@ -1,7 +1,7 @@
 """Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11, B12, B13
-and B14 and the ray-order probe kernels P4 and P14 of several checkouts
-of restir_tpu_torch on one card, in turns, and check which write the
-same packs.
+and B14 and the probe kernels P1, P2, P3, P4 and P14 of several
+checkouts of restir_tpu_torch on one card, in turns, and check which
+write the same packs.
 
     python3 kernel_ab.py _chip/parent . . _chip/parent
 
@@ -63,7 +63,18 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   the indexed store its wavefront probe ran); B13's any hit in pixel
   order and, in each key order, `prof_wavefront`'s sorted path whole
   (key, sort, gather, walk, scatter) and step by step
-  (`sorted_pieces`), every input warm in L2 from the calls before.
+  (`sorted_pieces`), every input warm in L2 from the calls before;
+- the brute-force any hit (`prof_fma`'s 1920 x 1080 random rays in the
+  headline scene's box against its 512 padded plane rows) in its three
+  forms: FP32 (P2), 3xTF32 and 6xTF32 on the tensor cores (P1); and the
+  table gathers (P3) from shared memory, through __ldg and from a
+  texture at K = 1024 and 8192 (R = 1920 x 1088, index (i * 7919) % K),
+  beside index_select, each call on the next of 8 copies of the index
+  so that index and output are cold in L2 (the shared form and
+  index_select also warm, on one index). The tensor-core forms sum in another order than
+  an earlier build's, so their flags are compared ray by ray: this
+  script prints, per form, the rays whose flag differs from the first
+  run's.
 It prints one JSON line (card, ms, the device ms of each call's
 kernels from a torch.profiler trace of 20 more calls, and the SHA-256 of
 each kernel's output packs). The device ms is the kernel's time where
@@ -137,6 +148,7 @@ def _child() -> None:
     # the checkout under test, ahead of this script's own directory
     sys.path.insert(0, os.getcwd())
     import inspect
+    import itertools
 
     import numpy as np
     import torch
@@ -498,7 +510,63 @@ def _child() -> None:
             for step, fn in steps.items():
                 timed(f"wavefront {o}.{step}", fn)
 
+    def probes():
+        """P1 / P2's any hit and P3's table gathers (`prof_fma`,
+        `prof_gather`); the any hit's flags saved for `main`."""
+        from restir_tpu_torch.ops import intersect
+        from restir_tpu_torch.prof import _scenes, prof_fma
+        from restir_tpu_torch.prof import kernels as pk
+
+        fr = _scenes.headline(dev)
+        xform = intersect.traversal_arrays(fr.scene, "brute").tri_xform
+        planes = pk.plane_rows(xform, prof_fma.N_PAD)
+        rays = prof_fma.random_rays(*_scenes.scene_box(fr), WIDTH * HEIGHT,
+                                    dev)
+        flags = {}
+        for f in pk.ANYHIT_FORMS:
+            name = f"{'P2' if f == 'fma' else 'P1'} any hit {f}"
+            timed(name, lambda f=f: pk.anyhit(rays, planes, f))
+            flags[name] = np.packbits(pk.anyhit(rays, planes, f).cpu()
+                                      .numpy())
+        if os.environ.get("KERNEL_AB_FLAGS"):
+            np.savez(os.environ["KERNEL_AB_FLAGS"], **flags)
+        def cold(fn, ix, sets=8):
+            """fn on the next of `sets` copies of the index, each output
+            kept until its copy comes round again: index and output cold
+            in L2 (prof_gather.cold, which an earlier tree may lack)."""
+            copies = [ix.clone() for _ in range(sets)]
+            kept = [None] * sets
+            turn = itertools.count()
+
+            def call():
+                i = next(turn) % sets
+                kept[i] = None
+                kept[i] = fn(copies[i])
+                return kept[i]
+
+            return call
+
+        for k in (1024, 8192):
+            table = torch.arange(k, dtype=torch.float32, device=dev) * 0.5
+            idx = pk.gather_index(1920 * 1088, k, dev)
+            idx_l = idx.long()
+            tex = pk.texture(table)
+            for w in pk.GATHER_WHERE:
+                timed(f"P3 gather K{k} {w}", cold(
+                    lambda ix, w=w: pk.table_gather(table, ix, w, tex=tex),
+                    idx))
+            timed(f"P3 gather K{k} index_select",
+                  cold(lambda ix: table.index_select(0, ix), idx_l))
+            # the same calls with index and output warm in L2
+            timed(f"P3 gather K{k} shared, warm",
+                  lambda: pk.table_gather(table, idx, "shared"))
+            timed(f"P3 gather K{k} index_select, warm",
+                  lambda: table.index_select(0, idx_l))
+            torch.cuda.synchronize()
+            pk.free_texture(tex)
+
     ray_order()
+    probes()
     import restir_tpu_torch
 
     print(json.dumps({
@@ -513,10 +581,17 @@ def main(trees) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    import tempfile
+
+    import numpy as np
+
     runs = []
+    flag_dir = tempfile.TemporaryDirectory()
     for tree in trees:
         root = os.path.abspath(tree)
-        env = {**os.environ, "PYTHONPATH": root}
+        env = {**os.environ, "PYTHONPATH": root,
+               "KERNEL_AB_FLAGS": os.path.join(flag_dir.name,
+                                               f"run{len(runs)}.npz")}
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--child"], cwd=root, env=env,
                              capture_output=True, text=True, timeout=1200)
@@ -545,6 +620,15 @@ def main(trees) -> int:
                 else f"by run {marks}")
         print(f"{name}: ms by run [{times}], device ms [{dtimes}] "
               f"({' / '.join(trees)}); packs {same}")
+    flags = [np.load(os.path.join(flag_dir.name, f"run{i}.npz"))
+             for i in range(len(runs))]
+    for name in flags[0].files:
+        first = np.unpackbits(flags[0][name])
+        diff = [int((np.unpackbits(f[name]) != first).sum())
+                if name in f.files else -1 for f in flags]
+        print(f"{name}: rays whose flag differs from run 1's, by run "
+              f"{diff} of {first.size}")
+    flag_dir.cleanup()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

@@ -16,7 +16,13 @@
 // memory and reads it there; "ldg": read through the read-only cache;
 // "tex": a texture object on the linear table (tex1Dfetch). Bound:
 // bytes (idx read, out written: 8 bytes a lane); the table stays in L1 /
-// L2.
+// L2. The shared form runs a grid of as many 1024-thread blocks as the
+// card holds at once with K * 4 bytes each (resident.cuh), no more than
+// the lanes need: each block stages the table once with 16-byte loads
+// (132 SMs x 2 blocks x 32 KB: 8.4 MB from L2 at K = 8192, where one
+// block per 256 lanes read 267 MB), then walks the lanes grid-stride,
+// four a thread (one int4 index load, one float4 store), R % 4 lanes in
+// a scalar tail.
 //
 // Chains: a (3), b (3), mask m per pixel; 90 rounds of a = m ? a c_i + b
 // : a with c_i = float32(0.5 + i 1e-3). "soa": channel-major [8, R] in,
@@ -27,20 +33,67 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
+
+#include "resident.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRounds = 90;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGatherThreads = 1024;
+
+// The four lanes (x, y, z, w) of one int4 / float4, rotated by `by`
+// (0..3) to the left: rot(v, 1) = (y, z, w, x).
+template <typename T4>
+__device__ __forceinline__ T4 rot(T4 v, int by) {
+  if (by & 1) v = T4{v.y, v.z, v.w, v.x};
+  if (by & 2) v = T4{v.z, v.w, v.x, v.y};
+  return v;
+}
+
+// Thread q (grid-stride) gathers lanes 4q .. 4q + 3. Reading them in
+// lane order, a warp's 32 reads of one step would be lanes 4q + s of 32
+// consecutive q: with the probe's odd index stride c ((i * c) % K, K a
+// multiple of 32) that is bank (4 c q + c s) % 32, 4 threads a bank.
+// Each step instead reads lane 4q + (s + q / 8) % 4: the 4 threads that
+// share 4 c q % 32 (q % 8 equal) then read lanes of 4 different s, whose
+// c s % 4 differ, so the warp's 32 reads fall in 32 banks as in a lane
+// order of one lane a thread. idx and out are 16-byte aligned (checked
+// by the wrapper).
+__global__ void __launch_bounds__(kGatherThreads, 2)
     gather_shared_kernel(const float* __restrict__ table, int k,
                          const int* __restrict__ idx, int r,
                          float* __restrict__ out) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < k; i += kThreads) tab[i] = table[i];
+  extern __shared__ float4 tab4[];
+  float* tab = reinterpret_cast<float*>(tab4);
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const int quads = r >> 2;
+  const int stride = gridDim.x * kGatherThreads;
+  int q = blockIdx.x * kGatherThreads + threadIdx.x;
+  // the first quad's index is in flight while the table stages
+  int4 i4 = q < quads ? __ldg(idx4 + q) : make_int4(0, 0, 0, 0);
+  // float4 words where the table is 16-byte aligned, then the rest
+  const int k4 = (reinterpret_cast<uintptr_t>(table) & 15) ? 0 : k >> 2;
+  const float4* t4 = reinterpret_cast<const float4*>(table);
+  for (int i = threadIdx.x; i < k4; i += kGatherThreads)
+    tab4[i] = __ldg(t4 + i);
+  for (int i = 4 * k4 + threadIdx.x; i < k; i += kGatherThreads)
+    tab[i] = __ldg(table + i);
   __syncthreads();
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p < r) out[p] = tab[idx[p]];
+  const int turn = (threadIdx.x >> 3) & 3;
+  for (; q < quads; q += stride) {
+    const int4 next = q + stride < quads ? __ldg(idx4 + q + stride) : i4;
+    const int4 j = rot(i4, turn);
+    const float4 v = {tab[j.x], tab[j.y], tab[j.z], tab[j.w]};
+    out4[q] = rot(v, (4 - turn) & 3);
+    i4 = next;
+  }
+  const int p = 4 * quads + threadIdx.x;  // the tail: r % 4 lanes
+  if (blockIdx.x == 0 && p < r) out[p] = tab[__ldg(idx + p)];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -133,7 +186,9 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // out [r] = table[idx] (table [k], idx int32 [r] in [0, k)); where 0
-// shared memory, 1 __ldg, 2 the texture object `tex` (restir_prof_tex).
+// shared memory (k * 4 <= kBlockSmem bytes, else -k * 4 is returned; idx
+// and out 16-byte aligned), 1 __ldg, 2 the texture object `tex`
+// (restir_prof_tex).
 extern "C" int restir_prof_table_gather(const float* table, int k,
                                         const int* idx, int r, int where,
                                         unsigned long long tex, float* out,
@@ -141,22 +196,33 @@ extern "C" int restir_prof_table_gather(const float* table, int k,
   if (r <= 0 || k <= 0 || where < 0 || where > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = (r + kThreads - 1) / kThreads;
   if (where == 0) {
     const size_t smem = (size_t)k * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          gather_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    gather_shared_kernel<<<blocks, kThreads, smem, st>>>(table, k, idx, r,
-                                                         out);
-  } else if (where == 1) {
-    gather_ldg_kernel<<<blocks, kThreads, 0, st>>>(table, idx, r, out);
+    if (smem > restir_prof::kBlockSmem)
+      return -(int)std::min(smem, (size_t)INT_MAX);
+    if ((reinterpret_cast<uintptr_t>(idx) |
+         reinterpret_cast<uintptr_t>(out)) & 15)
+      return (int)cudaErrorInvalidValue;
+    static restir_prof::Resident memo;
+    int resident = 0;
+    const cudaError_t e = restir_prof::resident_blocks(
+        gather_shared_kernel, kGatherThreads, smem, memo, &resident);
+    if (e != cudaSuccess) return (int)e;
+    // no more blocks than quads need (one a thread), at least one (block
+    // 0 writes the r % 4 tail)
+    const int quads = r / 4;
+    const int blocks = std::max(
+        1, std::min(resident, (quads + kGatherThreads - 1) / kGatherThreads));
+    gather_shared_kernel<<<blocks, kGatherThreads, smem, st>>>(table, k, idx,
+                                                               r, out);
+    return (int)cudaGetLastError();
+  }
+  const int grid = (r + kThreads - 1) / kThreads;
+  if (where == 1) {
+    gather_ldg_kernel<<<grid, kThreads, 0, st>>>(table, idx, r, out);
   } else {
-    gather_tex_kernel<<<blocks, kThreads, 0, st>>>(
-        (cudaTextureObject_t)tex, idx, r, out);
+    gather_tex_kernel<<<grid, kThreads, 0, st>>>((cudaTextureObject_t)tex,
+                                                 idx, r, out);
   }
   return (int)cudaGetLastError();
 }

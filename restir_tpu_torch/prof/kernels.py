@@ -12,7 +12,8 @@
   `anyhit_ref` (float32 dots, intersect_bf's test) and, for the tensor-
   core forms, the same dots on operands split into TF32 pieces (3xTF32:
   hi, mid; 6xTF32: hi, mid, lo). Held under the reference's primitive
-  gate, which 3xTF32 misses on shadow segments.
+  gate, which 3xTF32 misses on shadow segments. The kernels take t from
+  a reciprocal where the twins divide (a ray on an edge may differ).
 - `table_gather` ("shared", "ldg", "tex") and `chain` ("soa", "aos",
   "float4") (`csrc/prof/mem.cu`): prof_gather's and prof_v3's memory
   paths; twins `index_select` and the loop in torch, bit for bit.
@@ -371,10 +372,21 @@ def anyhit_ref(rays, planes, split=None, chunk=8192):
     return out
 
 
+def _check_smem(err, what):
+    """`_build.check`, but a negative code is the shared memory (bytes) a
+    block of the kernel would need over the most a block can use
+    (`csrc/prof/resident.cuh` kBlockSmem): a ValueError."""
+    if err < 0:
+        raise ValueError(f"{what}: a block would need {-err} bytes of shared "
+                         "memory, over the 232448 bytes a block can use")
+    _build.check(err, what)
+
+
 def anyhit(rays, planes, form="fma"):
     """bool [R]: `anyhit_ref` on CPU tensors (TF32 pieces for "mma3" /
     "mma6"), `csrc/prof/anyhit.cu` on CUDA ("fma": the FP32 loop; "mma3",
-    "mma6": mma.sync tiles on 3xTF32 / 6xTF32 operands)."""
+    "mma6": wgmma tiles on 3xTF32 / 6xTF32 operands, the test's t from a
+    reciprocal)."""
     if form not in ANYHIT_FORMS:
         raise ValueError(f"unknown any-hit form {form!r}")
     if not _cuda(rays, "anyhit"):
@@ -389,7 +401,7 @@ def anyhit(rays, planes, form="fma"):
         err = _lib().restir_prof_anyhit(p(rays), p(planes), planes.shape[0],
                                         r, ANYHIT_FORMS.index(form), p(occ),
                                         _build.stream_of(rays.device))
-    _build.check(err, "restir_prof_anyhit")
+    _check_smem(err, f"anyhit {form} on {planes.shape[0]} rows")
     launches["anyhit_" + form] += 1
     return occ.bool()
 
@@ -421,8 +433,9 @@ def free_texture(tex):
 
 def table_gather(table, idx, where="ldg", tex=None):
     """table[idx] (table float32 [K], idx int32 [R]): index_select on CPU
-    tensors, `csrc/prof/mem.cu` on CUDA from shared memory, __ldg or a
-    texture object (`tex`, from `texture(table)`)."""
+    tensors, `csrc/prof/mem.cu` on CUDA from shared memory (K * 4 bytes
+    at most 232,448; idx 16-byte aligned), __ldg or a texture object
+    (`tex`, from `texture(table)`)."""
     if where not in GATHER_WHERE:
         raise ValueError(f"unknown gather source {where!r}")
     if not _cuda(table, "table_gather"):
@@ -434,11 +447,14 @@ def table_gather(table, idx, where="ldg", tex=None):
         raise ValueError("table_gather from a texture needs `tex`")
     out = torch.empty(r, dtype=torch.float32, device=table.device)
     p, dev = _build.ptr, table.device
+    if where == "shared" and idx.data_ptr() % 16:
+        raise ValueError("table_gather from shared memory: idx must be "
+                         "16-byte aligned (int4 loads)")
     with _build.on_device(dev):
         err = _lib().restir_prof_table_gather(
             p(table), k, p(idx), r, GATHER_WHERE.index(where),
             ctypes.c_uint64(tex or 0), p(out), _build.stream_of(dev))
-    _build.check(err, "restir_prof_table_gather")
+    _check_smem(err, f"table_gather {where} of {k} floats")
     launches["table_gather_" + where] += 1
     return out
 

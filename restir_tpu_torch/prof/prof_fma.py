@@ -1,6 +1,6 @@
 """The brute-force any hit in two forms at 1920x1080 (random rays in the
 headline scene's box against its triangles' plane rows, padded to 512):
-a per-lane FP32 FMA loop and tensor-core tiles (mma.sync m16n8k8 TF32 on
+a per-lane FP32 FMA loop and tensor-core tiles (wgmma m64n96k8 TF32 on
 operands split into TF32 pieces: 3xTF32, 3 products; 6xTF32, 6),
 `csrc/prof/anyhit.cu`; each held to its plain twin under the reference's
 primitive gate (mismatch <= 0.2 %), the FP32 and 6xTF32 forms to each
