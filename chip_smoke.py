@@ -190,13 +190,17 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      orders, bit for bit, and the sort once on 3840x2160 keys (above the
      parent design's 4,194,304-key cap); the any hit's
      three forms (FP32 FMA, 3xTF32 and 6xTF32 wgmma tiles with the
-     plane pieces split once a block; their ptxas registers and the
-     SASS of the tensor-core step loop) on 1080p random rays against the
+     plane pieces split once a block; their ptxas registers, the SASS
+     of the tensor-core step loop and of the FP32 form's row loops, whose
+     instructions a pair and issue time print) on 1080p random rays against the
      headline's 512 padded plane rows within the primitive gate
      (mismatch <= 0.2 %); the table gathers (shared memory on a grid
      the card holds at once, __ldg, texture; R = 1920 x 1088, K = 1024
      and 8192, the kernels line K = 8192's; timed with index and output
-     cold in L2) and the vec3 chains (SoA, AoS, float4) bit for bit;
+     cold in L2) and the vec3 chains (SoA, AoS, float4) bit for bit,
+     with each chain's SASS a pixel and a round and its issue time (its
+     bound counts each of the 540 rounded operations a pixel as a whole
+     FP32 lane slot);
      each kernel's device time (its kernels' summed durations in a
      torch.profiler trace, the CUDA events around back-to-back calls
      printed beside), its twin's, one PyTorch call's where one computes
@@ -213,7 +217,8 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      csrc/prof/ must launch. Phase 2 builds the probes' libraries with
      the main one.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
-those, 23-25, then 26, 27 and 28, last.
+those, 23-25, then 26, 27 and 28, last. Each phase's wall seconds print
+on a line of their own ("phase wall: <phase>: <s> s") as it ends.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from
@@ -431,6 +436,15 @@ class PhaseError(RuntimeError):
 
 
 MAIN_WALL = {}  # wall ms per frame of each main path run so far
+_PHASE_END = [time.perf_counter()]  # when the last phase ended
+
+
+def phase_wall(what: str) -> None:
+    """Print, on a line of its own, the wall seconds since the last phase
+    ended (since the script started, for the first)."""
+    now = time.perf_counter()
+    print(f"phase wall: {what}: {now - _PHASE_END[0]:.1f} s", flush=True)
+    _PHASE_END[0] = now
 
 
 def card_line() -> str:
@@ -3625,6 +3639,67 @@ def anyhit_sass_report(fn, pairs):
               f"tensor {tensor_ms:.4f} ms at 495 TFLOP/s")
 
 
+def fma_sass_report(fn, pairs):
+    """The FP32 any hit's row loops (the innermost loops of
+    `anyhit_fma_kernel` that divide; the widest is the several-rays-a-lane
+    loop, the other the share's one-ray tail): instructions a pair (a
+    loop's common path over its divisions, one MUFU.RCP a pair) by
+    opcode, and the issue time of `pairs` pairs at that rate (one warp
+    instruction a clock per SM sub-partition) at the SM clock nvidia-smi
+    reads while fn runs for half a second."""
+    mhz = sm_clock_mhz(fn, seconds=0.5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build._variant_path("prof")
+    for name, ls in sorted(sass_loops(lib, "anyhit_fma_kernel").items()):
+        rows = [lp for lp in ls if lp["ops"]["MUFU"]]
+        inner = [lp for lp in rows if not any(
+            o is not lp and int(lp["start"], 16) <= int(o["start"], 16)
+            and int(o["end"], 16) <= int(lp["end"], 16) for o in rows)]
+        for lp in sorted(inner, key=lambda lp: -lp["ops"]["MUFU"]):
+            div = lp["ops"]["MUFU"]
+            per = lp["common"]["all"] / div
+            issue_ms = per * pairs / 32 / (sms * 4) / (mhz * 1e6) * 1e3
+            print(f"probe any hit fma SASS {name[-30:]} loop "
+                  f"{lp['start']}-{lp['end']}: {div} pairs a lane a step, "
+                  f"{lp['common']['all']} instructions on its common path "
+                  f"({lp['whole']['all']} in all), {per:.2f} a pair; the "
+                  f"whole loop's a pair by opcode: "
+                  + ", ".join(f"{k} {v / div:.2f}"
+                              for k, v in lp["ops"].most_common(14))
+                  + f"; issue {issue_ms:.4f} ms for {pairs} pairs at "
+                  f"{mhz:.0f} MHz on {sms} SMs")
+
+
+def chain_sass_report(fns, pixels, rounds=90):
+    """Each chain kernel's SASS (the rounds unrolled: the whole function,
+    less its padding, is one pixel's work): instructions a pixel by
+    opcode, FMUL and FADD a round, and
+    the issue time of `pixels` pixels (one warp instruction a clock per
+    SM sub-partition) at the SM clock nvidia-smi reads while its layout's
+    call (fns[layout]) runs for half a second."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build._variant_path("prof")
+    kernels = {"soa": "chain_soa_kernel", "aos": "chain_aos_kernel",
+               "float4": "chain_f4_kernel"}
+    for layout, kernel in kernels.items():
+        mhz = sm_clock_mhz(fns[layout], seconds=0.5)
+        for name, code in _sass_functions(lib, kernel).items():
+            # less the padding after the end: NOPs and the branch to itself
+            run = [r for r in code
+                   if r[1] != "NOP" and not (r[1] == "BRA" and r[3] == r[0])]
+            ops = collections.Counter(r[1] for r in run)
+            n = len(run)
+            loops = [lp["whole"]["all"] for lp in
+                     sass_loops(lib, kernel).get(name, [])]
+            issue_ms = n * pixels / 32 / (sms * 4) / (mhz * 1e6) * 1e3
+            fp = (ops["FMUL"] + ops["FADD"]) / rounds
+            print(f"probe chain {layout} SASS {name[-30:]}: {n} instructions "
+                  f"a pixel, FMUL + FADD {fp:.2f} a round (loops {loops}): "
+                  + ", ".join(f"{k} {v}" for k, v in ops.most_common(10))
+                  + f"; issue {issue_ms:.4f} ms for {pixels} pixels at "
+                  f"{mhz:.0f} MHz on {sms} SMs")
+
+
 def phase_probes(dev, record, launches):
     """Phase 28: the stage probes (restir_tpu_torch.prof). (a) Each new
     kernel of csrc/prof/ against its plain twin at the shapes its probe
@@ -3691,6 +3766,8 @@ def phase_probes(dev, record, launches):
           f"{ptxas_report('prof/mem.cu', 'gather_shared_kernel')}")
     anyhit_sass_report(lambda: pk.anyhit(rays, planes, "mma3"),
                        nr * planes.shape[0])
+    fma_sass_report(lambda: pk.anyhit(rays, planes, "fma"),
+                    nr * planes.shape[0])
     pairs = nr * planes.shape[0]
     nbytes = 32 * nr + planes.numel() * 4 + nr
     for f in splits:
@@ -3750,11 +3827,16 @@ def phase_probes(dev, record, launches):
         if not torch.equal(got, want):
             fails.append(f"the {layout} chain differs from its twin")
         # the function reads a, b, m (7 floats) and writes 3 a pixel in
-        # every layout; float4's padding is not work it needs
+        # every layout; float4's padding is not work it needs. Each of its
+        # 90 x 3 x 2 operations takes a whole FP32 lane slot (2 flops at
+        # PEAK_FLOPS, which counts an FFMA as two): the twin rounds the
+        # product and the sum apart, so none contracts into an FFMA
         record[f"prof_chain_{layout}"] = probe_record(
-            t[layout][0], ms_ref, (28 + 12) * rc, 90 * 3 * 2 * rc, None,
+            t[layout][0], ms_ref, (28 + 12) * rc, 90 * 3 * 2 * 2 * rc, None,
             max_err(got, want))
         events[f"prof_chain_{layout}"] = t[layout][1]
+    chain_sass_report({c: (lambda c=c: pk.chain_laid(laid[c], c))
+                       for c in pk.CHAIN_LAYOUTS}, rc)
     for name, ev in events.items():
         probe_line(name, record[name], ev)
     gate(fails, "probe kernels")
@@ -3806,7 +3888,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_wall("1 device check")
     phase_build()
+    phase_wall("2 build")
 
     arrays, camkw = many_light_scene(64, 24)
     cfg = render_config(arrays)
@@ -3817,14 +3901,18 @@ def main() -> int:
 
     record, launches = {}, {}
     cv, cv2, pt0, gb_b1, pt_b1 = phase_kernels(scene, cfg, cam, dev, record)
+    phase_wall("3 headline kernels")
     phase_mtbvh_headline(scene, cfg, dev, cv, cv2, pt0, gb_b1, pt_b1)
+    phase_wall("4 MTBVH on the headline")
     phase_small_frames(arrays, cam, dev)
+    phase_wall("5 small frames")
     levels = cfg.eaw_levels
     counts = phase_main("headline", scene, cfg, cam, dev, {
         "fused_di": 2, "spatial": 1, "atrous_eaw": levels})
     launches.update({k: counts[k] for k in ("fused_di", "spatial",
                                             "atrous_eaw")})
     profile_frames("headline", scene, cfg, cam, dev)
+    phase_wall("6 headline main path")
 
     svgf_cfg = cfg.replace(denoiser=DenoiserType.SVGF)
     phase_svgf_kernels(svgf_cfg, gb_b1, dev, record)
@@ -3834,6 +3922,7 @@ def main() -> int:
     launches.update({k: counts[k] for k in (
         "svgf_temporal", "svgf_variance", "atrous_svgf")})
     profile_frames("headline SVGF", scene, svgf_cfg, cam, dev)
+    phase_wall("7 SVGF")
 
     env_arrays, env_kw = env_scene()
     launches["fused_di_env"] = phase_env_tex(
@@ -3842,29 +3931,42 @@ def main() -> int:
     launches["fused_di_textures"] = phase_env_tex(
         "textures", tex_arrays, tex_kw, dict(with_textures=True), dev,
         record)
+    phase_wall("8 env map and textures")
 
     hall_sf, hall_arrays, hall_cam = load_hall()
     hall_cfg = render_config(hall_arrays)
     hall = convert.scene_from_numpy(hall_arrays, dev)
     phase_hall_kernels(hall, hall_cfg, hall_cam, dev, record)
+    phase_wall("9 hall kernels")
     counts = phase_main("hall", hall, hall_cfg, hall_cam, dev, {
         "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
         "atrous_eaw": levels})
     launches.update(gbuffer_bvh=counts["gbuffer_bvh"],
                     reuse_bvh=counts["reuse_bvh"])
     profile_frames("hall", hall, hall_cfg, hall_cam, dev)
+    phase_wall("10 hall main path")
     phase_sky_hall(hall_sf, hall_cam, dev)
+    phase_wall("11 sky hall")
     phase_general(scene, cam, arrays, dev, record, launches)
+    phase_wall("12-14 general path")
     phase_gi(scene, arrays, cam, dev, record, launches)
+    phase_wall("15-18 ReSTIR GI")
     phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
                launches)
+    phase_wall("19-22 the MTBVH walk")
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
+        phase_wall("23 CLI")
         phase_native_hall(dev, tmp)
+        phase_wall("24 native builder and hall CLI")
         phase_viewer(scene, arrays, cam, dev, tmp)
+        phase_wall("25 viewer")
     phase_bands(scene, cfg, cam, dev)
+    phase_wall("26 fused row bands")
     phase_general_bands(scene, arrays, cam, dev)
+    phase_wall("27 general row bands")
     phase_probes(dev, record, launches)
+    phase_wall("28 probes")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

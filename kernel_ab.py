@@ -1,5 +1,5 @@
 """Time kernels B1, B1b, B2, B3, B4, B5, B6, B7, B8, B9, B10, B11, B12, B13
-and B14 and the probe kernels P1, P2, P3, P4 and P14 of several
+and B14 and the probe kernels P1, P2, P3, P4, P5 and P14 of several
 checkouts of restir_tpu_torch on one card, in turns, and check which
 write the same packs.
 
@@ -71,10 +71,13 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   texture at K = 1024 and 8192 (R = 1920 x 1088, index (i * 7919) % K),
   beside index_select, each call on the next of 8 copies of the index
   so that index and output are cold in L2 (the shared form and
-  index_select also warm, on one index). The tensor-core forms sum in another order than
-  an earlier build's, so their flags are compared ray by ray: this
-  script prints, per form, the rays whose flag differs from the first
-  run's.
+  index_select also warm, on one index); the vec3 chains (P5) in their
+  three layouts (SoA, float3 AoS, float4; `prof_v3`'s 1920 x 1080 pack,
+  laid out once, as `prof_v3.run` does). The tensor-core forms sum in
+  another order than an earlier build's, so their flags are compared ray
+  by ray: this script prints, per form, the rays whose flag differs from
+  the first run's, and per chain layout the output values whose bits
+  differ from the first run's.
 It prints one JSON line (card, ms, the device ms of each call's
 kernels from a torch.profiler trace of 20 more calls, and the SHA-256 of
 each kernel's output packs). The device ms is the kernel's time where
@@ -511,8 +514,9 @@ def _child() -> None:
                 timed(f"wavefront {o}.{step}", fn)
 
     def probes():
-        """P1 / P2's any hit and P3's table gathers (`prof_fma`,
-        `prof_gather`); the any hit's flags saved for `main`."""
+        """P1 / P2's any hit, P5's chains and P3's table gathers
+        (`prof_fma`, `prof_v3`, `prof_gather`); the any hit's flags and
+        the chains' outputs saved for `main`."""
         from restir_tpu_torch.ops import intersect
         from restir_tpu_torch.prof import _scenes, prof_fma
         from restir_tpu_torch.prof import kernels as pk
@@ -528,6 +532,17 @@ def _child() -> None:
             timed(name, lambda f=f: pk.anyhit(rays, planes, f))
             flags[name] = np.packbits(pk.anyhit(rays, planes, f).cpu()
                                       .numpy())
+        # P5: the chains on inputs laid out once (prof_v3.run), their
+        # outputs saved beside the flags
+        from restir_tpu_torch.prof import prof_v3
+
+        cpack = prof_v3.pack(WIDTH * HEIGHT, dev)
+        laid = {c: pk.chain_inputs(cpack, c) for c in pk.CHAIN_LAYOUTS}
+        for c in pk.CHAIN_LAYOUTS:
+            name = f"P5 chain {c}"
+            timed(name, lambda c=c: pk.chain_laid(laid[c], c))
+            flags[name] = pk.chain_laid(laid[c], c).cpu().numpy()
+        del cpack, laid
         if os.environ.get("KERNEL_AB_FLAGS"):
             np.savez(os.environ["KERNEL_AB_FLAGS"], **flags)
         def cold(fn, ix, sets=8):
@@ -623,6 +638,13 @@ def main(trees) -> int:
     flags = [np.load(os.path.join(flag_dir.name, f"run{i}.npz"))
              for i in range(len(runs))]
     for name in flags[0].files:
+        if flags[0][name].dtype == np.float32:  # a chain's output values
+            first = flags[0][name].view(np.uint32)
+            diff = [int((f[name].view(np.uint32) != first).sum())
+                    if name in f.files else -1 for f in flags]
+            print(f"{name}: values whose bits differ from run 1's, by run "
+                  f"{diff} of {first.size}")
+            continue
         first = np.unpackbits(flags[0][name])
         diff = [int((np.unpackbits(f[name]) != first).sum())
                 if name in f.files else -1 for f in flags]

@@ -25,7 +25,8 @@
 // and the epilogue about 12 FP32 operations and a division. The
 // tensor-core forms move the dots to the tensor cores and keep the
 // epilogue on the FP32 pipes (`anyhit_mma_kernel` says how). The FP32
-// form stages the rows once per block in shared memory (512 rows: 24 KB).
+// form (`anyhit_fma_kernel`) holds two rays a lane on a persistent grid
+// fed from a queue of ray groups.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,44 +39,102 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Rays a lane of the FP32 any hit; -DPROBE_ANYHIT_RAYS=1 builds the
+// one-ray-a-lane reference (`_build.VARIANTS["prof_ray1"]`), whose flags
+// the two-ray build must equal bit for bit.
+#ifndef PROBE_ANYHIT_RAYS
+#define PROBE_ANYHIT_RAYS 2
+#endif
+constexpr int kRays = PROBE_ANYHIT_RAYS;
+constexpr int kUnroll = 4;     // rows a step (n_pad % 4 == 0)
+constexpr int kFmaBlocks = 4;  // blocks an SM: at most 64 registers
+
+// The IEEE division and nvcc's contraction of `oou + t * ddu` into one
+// FFMA, as in the one-ray form before it. A degenerate pair divides 1 by
+// 1 (its flag is false whatever t is): the -0 / 1 that a zero row padding
+// the table gives would take the division's slow path. The terms are
+// ANDed, not short-circuited, so the test has no branch of its own.
 __device__ __forceinline__ bool blocked(float oou, float oov, float oow,
                                         float ddu, float ddv, float ddw,
                                         float limit) {
   const bool nondeg = fabsf(ddw) >= 1e-12f;
-  const float t = -oow / (nondeg ? ddw : 1.0f);
+  const float t = (nondeg ? -oow : 1.0f) / (nondeg ? ddw : 1.0f);
   const float u = oou + t * ddu, v = oov + t * ddv;
-  return nondeg && t > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-         t < limit;
+  return nondeg & (t > 0.0f) & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f) &
+         (t < limit);
 }
 
-// rays [8, r] channel-major: o (3), d (3), limit, pad.
-__global__ void __launch_bounds__(kThreads)
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, limit;
+};
+
+// Ray p of rays [8, r] channel-major (o (3), d (3), limit, pad); past r
+// a ray whose limit -1 hits nothing.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
+                                        int r, int p) {
+  if (p >= r) return Ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, -1.0f};
+  auto at = [&](int ch) { return __ldg(rays + (size_t)ch * r + p); };
+  return Ray{at(0), at(1), at(2), at(3), at(4), at(5), at(6)};
+}
+
+// The six dots, summed left to right as written (an FMUL, FFMAs, then
+// the w term's FADD), and the test, of ray q against one triangle's plane
+// rows xu, xv, xw.
+__device__ __forceinline__ bool pair(const Ray& q, float4 a, float4 b,
+                                     float4 c) {
+  const float oou = a.x * q.ox + a.y * q.oy + a.z * q.oz + a.w;
+  const float oov = b.x * q.ox + b.y * q.oy + b.z * q.oz + b.w;
+  const float oow = c.x * q.ox + c.y * q.oy + c.z * q.oz + c.w;
+  const float ddu = a.x * q.dx + a.y * q.dy + a.z * q.dz;
+  const float ddv = b.x * q.dx + b.y * q.dy + b.z * q.dz;
+  const float ddw = c.x * q.dx + c.y * q.dy + c.z * q.dz;
+  return blocked(oou, oov, oow, ddu, ddv, ddw, q.limit);
+}
+
+// The FP32 any hit on a persistent grid: a block stages the rows once in
+// shared memory (512 rows: 24 KB), then each warp takes groups of 32
+// kRays rays from a queue (one atomicAdd a group on `next`, zeroed
+// before the launch), kRays rays a lane (p, p + 32, ...), so that a row's
+// three LDS.128 serve them all and their tests interleave; a warp whose
+// sub-partition runs ahead takes more groups, so the SMs end together.
+__global__ void __launch_bounds__(kThreads, kFmaBlocks)
     anyhit_fma_kernel(const float* __restrict__ rays,
                       const float* __restrict__ planes, int n_pad, int r,
-                      uint8_t* __restrict__ occ) {
+                      uint8_t* __restrict__ occ,
+                      unsigned int* __restrict__ next) {
   extern __shared__ float4 rows4[];
   const float4* g4 = reinterpret_cast<const float4*>(planes);
-  for (int i = threadIdx.x; i < 3 * n_pad; i += kThreads) rows4[i] = g4[i];
+  for (int i = threadIdx.x; i < 3 * n_pad; i += kThreads)
+    rows4[i] = __ldg(g4 + i);
   __syncthreads();
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= r) return;
-  const float ox = rays[p], oy = rays[(size_t)r + p],
-              oz = rays[2 * (size_t)r + p];
-  const float dx = rays[3 * (size_t)r + p], dy = rays[4 * (size_t)r + p],
-              dz = rays[5 * (size_t)r + p];
-  const float limit = rays[6 * (size_t)r + p];
-  bool hit = false;
-  for (int j = 0; j < n_pad; ++j) {
-    const float4 a = rows4[3 * j], b = rows4[3 * j + 1], c = rows4[3 * j + 2];
-    const float oou = a.x * ox + a.y * oy + a.z * oz + a.w;
-    const float oov = b.x * ox + b.y * oy + b.z * oz + b.w;
-    const float oow = c.x * ox + c.y * oy + c.z * oz + c.w;
-    const float ddu = a.x * dx + a.y * dy + a.z * dz;
-    const float ddv = b.x * dx + b.y * dy + b.z * dz;
-    const float ddw = c.x * dx + c.y * dy + c.z * dz;
-    hit |= blocked(oou, oov, oow, ddu, ddv, ddw, limit);
+  const int lane = threadIdx.x & 31;
+  const int groups = (r + 32 * kRays - 1) / (32 * kRays);
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = (int)atomicAdd(next, 1u);
+    g = __shfl_sync(0xffffffffu, g, 0);
+    if (g >= groups) return;
+    const int p = g * 32 * kRays + lane;
+    Ray q[kRays];
+    bool hit[kRays];
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      q[k] = load_ray(rays, r, p + 32 * k);
+      hit[k] = false;
+    }
+    for (int j = 0; j < 3 * n_pad; j += 3 * kUnroll) {
+#pragma unroll
+      for (int s = 0; s < 3 * kUnroll; s += 3) {
+        const float4 a = rows4[j + s], b = rows4[j + s + 1],
+                     c = rows4[j + s + 2];
+#pragma unroll
+        for (int k = 0; k < kRays; ++k) hit[k] |= pair(q[k], a, b, c);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRays; ++k)
+      if (p + 32 * k < r) occ[p + 32 * k] = hit[k] ? 1 : 0;
   }
-  occ[p] = hit ? 1 : 0;
 }
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -319,9 +378,10 @@ int launch_mma(const float* rays, const float* planes, int n_pad, int r,
 
 // occ uint8 [r]: 1 where ray p (rays [8, r]: o, d, limit, pad) hits a
 // row of planes [n_pad, 12] at 0 < t < limit. form 0: the FP32 FMA loop;
-// form 1: wgmma 3xTF32 tiles, form 2: 6xTF32 (n_pad % 4 == 0; the
-// tensor-core forms' pieces in at most kBlockSmem bytes of shared memory:
-// n_pad <= 2,400 for 3xTF32, 1,600 for 6xTF32; over it, -bytes needed).
+// form 1: wgmma 3xTF32 tiles, form 2: 6xTF32 (n_pad % 4 == 0; the rows,
+// or the tensor-core forms' pieces, in at most kBlockSmem bytes of shared
+// memory: n_pad <= 4,840 for FP32, 2,400 for 3xTF32, 1,600 for 6xTF32;
+// over it, -bytes needed).
 extern "C" int restir_prof_anyhit(const float* rays, const float* planes,
                                   int n_pad, int r, int form, uint8_t* occ,
                                   void* stream) {
@@ -330,15 +390,31 @@ extern "C" int restir_prof_anyhit(const float* rays, const float* planes,
   const cudaStream_t st = (cudaStream_t)stream;
   if (form == 0) {
     const size_t smem = (size_t)n_pad * 12 * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          anyhit_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
+    if (smem > restir_prof::kBlockSmem)
+      return -(int)std::min(smem, (size_t)INT_MAX);
+    static restir_prof::Resident memo;
+    int resident = 0;
+    cudaError_t e = restir_prof::resident_blocks(anyhit_fma_kernel, kThreads,
+                                                 smem, memo, &resident);
+    if (e != cudaSuccess) return (int)e;
+    // no more blocks than the groups give each warp one
+    const long long per_block = 32LL * kRays * (kThreads / 32);
+    const int blocks = (int)std::min<long long>(
+        resident, (r + per_block - 1) / per_block);
+    // the queue's counter: this launch's own, so launches on two streams
+    // do not share it
+    unsigned int* next = nullptr;
+    e = cudaMallocAsync(reinterpret_cast<void**>(&next), sizeof(unsigned int),
+                        st);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaMemsetAsync(next, 0, sizeof(unsigned int), st);
+    if (e == cudaSuccess) {
+      anyhit_fma_kernel<<<blocks, kThreads, smem, st>>>(rays, planes, n_pad,
+                                                        r, occ, next);
+      e = cudaGetLastError();
     }
-    anyhit_fma_kernel<<<(r + kThreads - 1) / kThreads, kThreads, smem, st>>>(
-        rays, planes, n_pad, r, occ);
-    return (int)cudaGetLastError();
+    const cudaError_t f = cudaFreeAsync(next, st);
+    return (int)(e != cudaSuccess ? e : f);
   }
   return form == 1 ? launch_mma<3>(rays, planes, n_pad, r, occ, st)
                    : launch_mma<6>(rays, planes, n_pad, r, occ, st);

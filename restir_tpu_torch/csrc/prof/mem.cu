@@ -28,20 +28,23 @@
 // : a with c_i = float32(0.5 + i 1e-3). "soa": channel-major [8, R] in,
 // [3, R] out (the TPU's layout); "aos": float3 a [R], float3 b [R], m [R]
 // in, float3 [R] out; "float4": (a, m) and (b, 0) as two float4 [R], out
-// float4 (a, 0) [R]. Bound: about even between bytes (28-32 in, 12-16
-// out a pixel) and FP32 operations (90 x 3 x (mul, add, select)).
+// float4 (a, 0) [R]. Every lane runs the rounds and the mask selects once
+// at the end; the factors are the multiplies' immediates. Bound:
+// operations, 540 a pixel (90 x 3 x (mul, add)), each a whole FP32 lane
+// slot (the product and the sum round apart, so no FFMA), beside 40 bytes
+// a pixel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <climits>
 
+#include "chain_factors.cuh"
 #include "resident.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRounds = 90;
 
 constexpr int kGatherThreads = 1024;
 
@@ -111,76 +114,56 @@ __global__ void __launch_bounds__(kThreads)
   if (p < r) out[p] = tex1Dfetch<float>(tex, __ldg(idx + p));
 }
 
-// The rounds' factors, float32(0.5 + i * 1e-3) as numpy computes them
-// (a rounded double product, then a rounded double sum).
-struct Factors {
-  float c[kRounds];
-};
-
-__device__ __forceinline__ float step(float a, float c, float b, bool m) {
-  return m ? __fadd_rn(__fmul_rn(a, c), b) : a;
+// 90 rounds of a = fl(fl(a c_i) + b) on each component, on every lane;
+// the mask selects once, after the last round (a masked-off lane's chain
+// is discarded, so the lane keeps a's bits, as in a select per round).
+// The factors are immediates of the multiplies (chain_factors.cuh). Each
+// round rounds the product and the sum apart, as the twin does: no FMA.
+__device__ __forceinline__ float3 chain3(float3 a, float3 b, bool m) {
+  float x = a.x, y = a.y, z = a.z;
+#pragma unroll
+  for (int i = 0; i < restir_prof::kChainRounds; ++i) {
+    const float c = restir_prof::chain_factor(i);
+    x = __fadd_rn(__fmul_rn(x, c), b.x);
+    y = __fadd_rn(__fmul_rn(y, c), b.y);
+    z = __fadd_rn(__fmul_rn(z, c), b.z);
+  }
+  return m ? make_float3(x, y, z) : a;
 }
 
 __global__ void __launch_bounds__(kThreads)
     chain_soa_kernel(const float* __restrict__ in, int r,
-                     float* __restrict__ out, const Factors f) {
+                     float* __restrict__ out) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= r) return;
   auto at = [&](int ch) { return __ldg(in + (size_t)ch * r + p); };
-  float ax = at(0), ay = at(1), az = at(2);
-  const float bx = at(3), by = at(4), bz = at(5);
-  const bool m = at(6) > 0.5f;
-#pragma unroll
-  for (int i = 0; i < kRounds; ++i) {
-    const float c = f.c[i];
-    ax = step(ax, c, bx, m);
-    ay = step(ay, c, by, m);
-    az = step(az, c, bz, m);
-  }
-  out[p] = ax;
-  out[(size_t)r + p] = ay;
-  out[2 * (size_t)r + p] = az;
+  const float3 a = chain3(make_float3(at(0), at(1), at(2)),
+                          make_float3(at(3), at(4), at(5)), at(6) > 0.5f);
+  out[p] = a.x;
+  out[(size_t)r + p] = a.y;
+  out[2 * (size_t)r + p] = a.z;
 }
 
-struct F3 {
-  float x, y, z;
-};
-
 __global__ void __launch_bounds__(kThreads)
-    chain_aos_kernel(const F3* __restrict__ a_in, const F3* __restrict__ b_in,
+    chain_aos_kernel(const float3* __restrict__ a_in,
+                     const float3* __restrict__ b_in,
                      const float* __restrict__ m_in, int r,
-                     F3* __restrict__ out, const Factors f) {
+                     float3* __restrict__ out) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= r) return;
-  F3 a = a_in[p];
-  const F3 b = b_in[p];
-  const bool m = m_in[p] > 0.5f;
-#pragma unroll
-  for (int i = 0; i < kRounds; ++i) {
-    const float c = f.c[i];
-    a.x = step(a.x, c, b.x, m);
-    a.y = step(a.y, c, b.y, m);
-    a.z = step(a.z, c, b.z, m);
-  }
-  out[p] = a;
+  out[p] = chain3(a_in[p], b_in[p], m_in[p] > 0.5f);
 }
 
 __global__ void __launch_bounds__(kThreads)
     chain_f4_kernel(const float4* __restrict__ am, const float4* __restrict__ b0,
-                    int r, float4* __restrict__ out, const Factors f) {
+                    int r, float4* __restrict__ out) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= r) return;
-  float4 a = __ldg(am + p);
+  const float4 a = __ldg(am + p);
   const float4 b = __ldg(b0 + p);
-  const bool m = a.w > 0.5f;
-#pragma unroll
-  for (int i = 0; i < kRounds; ++i) {
-    const float c = f.c[i];
-    a.x = step(a.x, c, b.x, m);
-    a.y = step(a.y, c, b.y, m);
-    a.z = step(a.z, c, b.z, m);
-  }
-  out[p] = make_float4(a.x, a.y, a.z, 0.0f);
+  const float3 c = chain3(make_float3(a.x, a.y, a.z),
+                          make_float3(b.x, b.y, b.z), a.w > 0.5f);
+  out[p] = make_float4(c.x, c.y, c.z, 0.0f);
 }
 
 }  // namespace
@@ -254,22 +237,18 @@ extern "C" int restir_prof_chain(const float* in, const float* in2,
   if (r <= 0 || layout < 0 || layout > 2) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (r + kThreads - 1) / kThreads;
-  Factors f;
-  for (int i = 0; i < kRounds; ++i) {
-    volatile double prod = (double)i * 1e-3;  // no contraction
-    f.c[i] = (float)(0.5 + prod);
-  }
   if (layout == 0)
-    chain_soa_kernel<<<blocks, kThreads, 0, st>>>(in, r, out, f);
+    chain_soa_kernel<<<blocks, kThreads, 0, st>>>(in, r, out);
   else if (layout == 1)
     chain_aos_kernel<<<blocks, kThreads, 0, st>>>(
-        reinterpret_cast<const F3*>(in), reinterpret_cast<const F3*>(in2), m,
-        r, reinterpret_cast<F3*>(out), f);
+        reinterpret_cast<const float3*>(in),
+        reinterpret_cast<const float3*>(in2), m, r,
+        reinterpret_cast<float3*>(out));
   else
     chain_f4_kernel<<<blocks, kThreads, 0, st>>>(
         reinterpret_cast<const float4*>(in),
         reinterpret_cast<const float4*>(in2), r,
-        reinterpret_cast<float4*>(out), f);
+        reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -102,6 +102,9 @@ VARIANTS = {
     "b10_fixed_node": (["ris_cdf.cu"], ["-DPROBE_WALK=2"]),
     "b10_no_leaf": (["ris_cdf.cu"], ["-DPROBE_WALK=3"]),
     "prof": (["prof/anyhit.cu", "prof/sort.cu", "prof/mem.cu"], []),
+    # the FP32 any hit one ray a lane: the reference of the probe library's
+    # several-rays-a-lane build (tests/test_torch_prof_cuda.py)
+    "prof_ray1": (["prof/anyhit.cu"], ["-DPROBE_ANYHIT_RAYS=1"]),
 }
 _variant_libs = {}
 

@@ -12,8 +12,10 @@
   `anyhit_ref` (float32 dots, intersect_bf's test) and, for the tensor-
   core forms, the same dots on operands split into TF32 pieces (3xTF32:
   hi, mid; 6xTF32: hi, mid, lo). Held under the reference's primitive
-  gate, which 3xTF32 misses on shadow segments. The kernels take t from
-  a reciprocal where the twins divide (a ray on an edge may differ).
+  gate, which 3xTF32 misses on shadow segments. The tensor-core kernels
+  take t from a reciprocal where the twins divide (a ray on an edge may
+  differ); the FP32 kernel divides, two rays a lane on a persistent grid
+  fed by a queue of ray groups.
 - `table_gather` ("shared", "ldg", "tex") and `chain` ("soa", "aos",
   "float4") (`csrc/prof/mem.cu`): prof_gather's and prof_v3's memory
   paths; twins `index_select` and the loop in torch, bit for bit.

@@ -14,12 +14,14 @@ twins on the CPU, and the exact walks' twins on NaN rays.
   within the primitive gate (mismatch <= 0.2 %): the FP32 and 6xTF32
   forms hold it, 3xTF32 (22 bits an operand) does not on segments that
   end on a surface;
-- the gather and chain twins against numpy, bit for bit;
+- the gather and chain twins against numpy, bit for bit, and the chain
+  kernels' factor table against numpy's;
 - `_build`'s named variants leave the main library's digest alone;
 - the lockstep walks (B13 / B14's twins) on rays with NaN components
   against the JAX walks: every box missed, as the kernels now do.
 """
 
+import re
 import warnings
 
 import jax.numpy as jnp
@@ -204,6 +206,24 @@ def test_gather_and_chain_twins_match_numpy():
         assert np.array_equal(got, a), layout
     with pytest.raises(ValueError):
         pk.chain(torch.tensor(pack), "nope")
+
+
+def test_chain_factors_equal_numpy():
+    """The chain kernels' factors (`csrc/prof/chain_factors.cuh`, hex
+    floats) are numpy's float32(0.5 + i * 1e-3) and the twin's, bit for
+    bit."""
+    src = (_build.PROBE_DIR / "chain_factors.cuh").read_text()
+    body = src.split("constexpr float c[kChainRounds] = {")[1].split("};")[0]
+    lits = re.findall(r"(0x[0-9a-f.]+p-?[0-9]+)f", body)
+    got = np.array([float.fromhex(x) for x in lits], dtype=np.float64)
+    assert len(got) == pk.CHAIN_ROUNDS == 90
+    # each literal is a float32 as written (no rounding on the way in)
+    assert np.array_equal(got.astype(np.float32).astype(np.float64), got)
+    want = np.array([np.float32(0.5 + i * 1e-3) for i in range(90)])
+    assert np.array_equal(got.astype(np.float32).view(np.uint32),
+                          want.view(np.uint32))
+    assert np.array_equal(pk.CHAIN_FACTORS.view(np.uint32),
+                          want.view(np.uint32))
 
 
 def test_variant_builds_leave_the_main_digest():

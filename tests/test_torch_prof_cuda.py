@@ -6,6 +6,13 @@ their twins on a CUDA card, at sizes the probes never use:
   the FP32 form, each within the reference's primitive gate (mismatch
   <= 0.2 %) of its twin, at R not a multiple of 64 and n_pad = 4 * 37
   (no multiple of the 32-triangle step);
+- the FP32 any hit (two rays a lane on a persistent grid fed by a queue
+  of ray groups) equal bit for bit to the one-ray-a-lane build
+  (`_build.VARIANTS["prof_ray1"]`) and within the gate of its twin, at R
+  no multiple of the rays a lane x a block and n_pad = 4 and 512, with
+  rays past their limit and zero padding rows;
+- the vec3 chains in their three layouts equal to their twin bit for bit
+  with the mask all 0, all 1 and mixed, at R that leaves a partial block;
 - the table gather from shared memory (`mem.cu`: a grid the card holds
   at once, four lanes a thread and a scalar tail), bit for bit equal to
   index_select at K in {1, 1000, 8192, 58112} and R with a tail, beside
@@ -24,9 +31,10 @@ import pytest
 import torch
 
 from restir_tpu_torch import convert
+from restir_tpu_torch.ops.kernels import _build
 from restir_tpu_torch.ops import intersect
 from restir_tpu_torch.prof import kernels as pk
-from restir_tpu_torch.prof import prof_fma
+from restir_tpu_torch.prof import prof_fma, prof_v3
 from restir_tpu_torch.scene.procedural import many_light_scene
 
 pytestmark = pytest.mark.cuda
@@ -89,6 +97,53 @@ def test_anyhit_rays_past_the_limit_and_padding_rows(cuda_device,
     rays = prof_fma.random_rays(lo, hi, r, cuda_device, seed=4)
     for form in pk.ANYHIT_FORMS:
         assert not pk.anyhit(rays, zero, form).any(), form
+
+
+def one_ray_a_lane(rays, planes):
+    """The FP32 any hit's flags from the one-ray-a-lane build."""
+    occ = torch.empty(rays.shape[1], dtype=torch.uint8, device=rays.device)
+    lib = _build.variant_library("prof_ray1")
+    err = lib.restir_prof_anyhit(_build.ptr(rays), _build.ptr(planes),
+                                 planes.shape[0], rays.shape[1], 0,
+                                 _build.ptr(occ),
+                                 _build.stream_of(rays.device))
+    _build.check(err, "restir_prof_anyhit (prof_ray1)")
+    return occ.bool()
+
+
+@pytest.mark.parametrize("r", [1, 33, 1000, 262147, 2073601])
+@pytest.mark.parametrize("n_tri,n_pad", [(1, 4), (3, 4), (426, 512),
+                                         (300, 512)])
+def test_anyhit_fma_equals_the_one_ray_build(cuda_device, headline_xform, r,
+                                             n_tri, n_pad):
+    xform, lo, hi = headline_xform
+    planes = pk.plane_rows(xform[:, :3 * n_tri].contiguous(), n_pad)
+    rays = prof_fma.random_rays(lo, hi, r, cuda_device, seed=r + n_tri)
+    rays[6, 0::7] = 0.0  # past their limit at any t > 0
+    rays[6, 3::7] = -1.0
+    got = pk.anyhit(rays, planes, "fma")
+    assert torch.equal(got, one_ray_a_lane(rays, planes))
+    assert not got[0::7].any() and not got[3::7].any()
+    want = pk.anyhit_ref(rays, planes)
+    assert (got != want).float().mean().item() <= GATE
+    if r > 1000 and n_tri > 100:
+        assert 0.05 < got.float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("mask", ["zeros", "ones", "mixed"])
+@pytest.mark.parametrize("r", [1, 255, 1000003])
+def test_chain_layouts_equal_the_twin(cuda_device, mask, r):
+    pack = prof_v3.pack(r, cuda_device, seed=r)
+    if mask != "mixed":
+        pack[6] = 0.0 if mask == "zeros" else 1.0
+    want = pk.chain_ref(pack)
+    if mask == "zeros":
+        assert torch.equal(want, pack[0:3])
+    for layout in pk.CHAIN_LAYOUTS:
+        got = pk.chain(pack, layout)
+        assert got.shape == (3, r)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            layout
 
 
 def test_anyhit_refuses_rows_over_shared_memory(cuda_device,
