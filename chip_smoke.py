@@ -124,8 +124,16 @@ The MTBVH walk of the general path (after phase 18):
      the leaf test), and the ALU-pipe time estimate: ALU-pipe instructions
      per box test x box tests / (SMs x 64 lanes x the SM clock that
      nvidia-smi reads while B14 runs);
+     B13's closest hit sorts its rays (the ray key, then the one-sweep
+     radix sort of csrc/sort.cu) and walks them through the permutation
+     on the octant loops: bit for bit against the twin, its box and
+     triangle tests per ray equal to the primary hit's counting build
+     (exact_closest_walk, ray order), the key and the sort against their
+     twins, the pieces' device ms, and the SASS of its walk loops;
+     phase 19's wall prints on its own;
  20. B13's closest hit through the ray-query entry point
-     (`intersect_closest` on the hall's bounce rays);
+     (`intersect_closest` on the hall's bounce rays: one ray key, one
+     sort of 1 + passes kernels by the sort's own count, one walk);
  21. general main paths through renderer.init_state / step at 1920x1080,
      2 + 8 frames and a profile each: hall PT-direct (intersector auto:
      the walk; launches per frame mt_primary 2, mt_any 1), hall general
@@ -233,6 +241,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import hashlib
 import http.client
 import io
@@ -281,6 +290,7 @@ from restir_tpu_torch.ops.kernels import (
     svgf,
 )
 from restir_tpu_torch.ops.kernels import intersect as hits
+from restir_tpu_torch.ops.kernels import ray_order
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_POS,
@@ -355,16 +365,22 @@ SOURCES = {
                    "restir_tpu/ops/intersect.py:145"),
     "heatmap": ("restir_tpu_torch/csrc/intersect.cu",
                 "restir_tpu/ops/intersect.py:252"),
+    # B13's closest hit sorts its rays: the ray key and the radix sort
+    # (csrc/sort.cu, the probes' sort) on the ray query's path
+    "ray_key": ("restir_tpu_torch/csrc/sort.cu",
+                "restir_tpu/ops/intersect.py:145"),
+    "ray_sort": ("restir_tpu_torch/csrc/sort.cu",
+                 "restir_tpu/ops/intersect.py:145"),
     # the stage probes' kernels (restir_tpu_torch.prof, phase 28)
-    "prof_key": ("restir_tpu_torch/csrc/prof/sort.cu",
+    "prof_key": ("restir_tpu_torch/csrc/sort.cu",
                  "prof/prof_wavefront.py:87"),
-    "prof_radix_sort": ("restir_tpu_torch/csrc/prof/sort.cu",
+    "prof_radix_sort": ("restir_tpu_torch/csrc/sort.cu",
                         "prof/prof_wavefront.py:87"),
-    "prof_gather": ("restir_tpu_torch/csrc/prof/sort.cu",
+    "prof_gather": ("restir_tpu_torch/csrc/sort.cu",
                     "prof/prof_take.py:140"),
-    "prof_scatter": ("restir_tpu_torch/csrc/prof/sort.cu",
+    "prof_scatter": ("restir_tpu_torch/csrc/sort.cu",
                      "prof/prof_wavefront.py:87"),
-    "prof_copy": ("restir_tpu_torch/csrc/prof/sort.cu",
+    "prof_copy": ("restir_tpu_torch/csrc/sort.cu",
                   "prof/prof_take.py:140"),
     "prof_anyhit_fma": ("restir_tpu_torch/csrc/prof/anyhit.cu",
                         "prof/prof_fma.py:139"),
@@ -427,6 +443,13 @@ PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense, FLOP/s
 # 3xTF32, 6 in 6xTF32); the zero K slot of the d-dots' tiles is not work
 # the function needs, so it is not counted.
 FLOP_KEY = 60
+# B13's ray key (csrc/sort.cu ray_key_kernel) on a live ray: 6 NaN tests,
+# the table of -d (3 abs, 5 compares), safe_inv of d (abs, 2 compares and
+# a division an axis) and its 3 zero tests, 3 infinity tests of o, 2 sign
+# tests, 3 abs of d, the root box's 3 extents, and 5 cells (3 of the
+# Morton code, 2 of the direction: subtract, divide, compare, min,
+# multiply, convert each)
+FLOP_RAY_KEY = 6 + 8 + 3 * 4 + 3 + 3 + 2 + 3 + 3 + 5 * 6  # 70
 FLOP_ANY_EPI = 12
 FLOP_ANY_DOTS = 42
 
@@ -541,6 +564,8 @@ def reset_counts():
     hits.mt_any_launches = 0
     hits.mt_primary_launches = 0
     hits.heatmap_launches = 0
+    ray_order.key_launches = 0
+    ray_order.sort_launches = 0
 
 
 def read_counts():
@@ -558,7 +583,9 @@ def read_counts():
             "mt_closest": hits.mt_closest_launches,
             "mt_any": hits.mt_any_launches,
             "mt_primary": hits.mt_primary_launches,
-            "heatmap": hits.heatmap_launches}
+            "heatmap": hits.heatmap_launches,
+            "ray_key": ray_order.key_launches,
+            "ray_sort": ray_order.sort_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -836,23 +863,30 @@ ALU_PIPE = {"FMNMX", "FSETP", "ISETP", "FSEL", "SEL", "PLOP3", "P2R", "R2P",
             "IADD3", "LEA", "SHF", "LOP3", "MOV", "IMNMX", "VIMNMX", "PRMT"}
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_text(lib: str) -> str:
+    """`cuobjdump -sass` of a built library, once per library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise PhaseError(f"cuobjdump failed: {out.stderr[-2000:]}")
+    return out.stdout
+
+
 def _sass_functions(lib, kernel):
     """{symbol: [(address, opcode, predicated, branch target or None)]}
     of every function in `lib` whose symbol holds `kernel`, from
     `cuobjdump -sass`."""
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=600)
-    if out.returncode != 0:
-        raise PhaseError(f"cuobjdump failed: {out.stderr[-2000:]}")
     mangled = f"{len(kernel)}{kernel}"
     funcs, cur, labels, pending = {}, None, {}, []
     ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-    for ln in out.stdout.splitlines():
+    for ln in _sass_text(str(lib)).splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
             cur = funcs.setdefault(name, []) if mangled in name else None
@@ -2359,7 +2393,8 @@ def phase_walk_kernels(hall, cam, dev, record):
                  lambda geom: hits.mt_primary_cuda(
                      trv, attr, mats, ro, rd, live, geom=geom), rb)
 
-    # closest hit on the bounce rays, every lane
+    # closest hit on the bounce rays, every lane: the ray key, the radix
+    # sort and the walk through the permutation
     pk, dk, bk = hits.mt_closest_cuda(trv, ro, rd)
     _, _, _, c_cl = hits.mt_closest_cuda(trv, ro, rd, stats=True)
     (pr, dr, br), ms_ref = twin_ms(
@@ -2371,6 +2406,15 @@ def phase_walk_kernels(hall, cam, dev, record):
     exactness("B13 closest hit on the first bounce rays", pk == pr,
               bits_equal(pk, pr) & bits_equal(dk, dr)
               & bits_equal(bk, br).all(1), close)
+    # its walk counts against the primary hit's counting build, whose walk
+    # (exact_closest_walk, the slab test in ray order) is unchanged
+    _, c_pb = hits.mt_primary_cuda(trv, attr, mats, ro, rd, stats=True)
+    if not torch.equal(c_cl, c_pb):
+        raise PhaseError(
+            "B13 closest hit: box / triangle tests differ from the primary "
+            f"hit's counting build on {int((c_cl != c_pb).any(0).sum())} rays")
+    print("B13 closest hit: box and triangle tests per ray equal the "
+          "primary hit's counting build on every lane")
     boxes, tests = walk_line("B13 closest-hit", c_cl)
     ms = cuda_ms(lambda: hits.mt_closest_cuda(trv, ro, rd), 10)
     b = bound(r * (24 + 16) + tables, boxes * FLOP_BOX + tests * FLOP_MT)
@@ -2379,8 +2423,39 @@ def phase_walk_kernels(hall, cam, dev, record):
     record["mt_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=ms_ref,
                                 bound_ms=b[0], bound_by=b[1],
                                 library_ms=None)
-    print(f"B13 closest hit: kernel {ms:.4f} ms, twin {ms_ref:.1f} ms, "
-          f"bound {b[0]:.4f} ms ({b[1]})")
+    print(f"B13 closest hit: kernel {ms:.4f} ms (key, sort and walk), twin "
+          f"{ms_ref:.1f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    # its pieces: the key and the sort against their twins, bit for bit
+    key = ray_order.ray_key(ro, rd, None, w.rows)
+    passes = ray_order.RAY_SORT_PASSES
+    vals, perm = ray_order.radix_sort(key, passes)
+    vr, pr_ = ray_order.radix_sort_ref(key)
+    if not (torch.equal(key, ray_order.ray_key_ref(ro, rd, None, w.rows))
+            and torch.equal(vals, vr) and torch.equal(perm, pr_)):
+        raise PhaseError("B13 closest hit: the ray key or its sort differs "
+                         "from its twin")
+    t = probe_ms({"key": lambda: ray_order.ray_key(ro, rd, None, w.rows),
+        "key_ref": lambda: ray_order.ray_key_ref(ro, rd, None, w.rows),
+        "sort": lambda: ray_order.radix_sort(key, passes),
+        "sort_ref": lambda: ray_order.radix_sort_ref(key),
+        "walk": lambda: hits.mt_closest_walk(trv, ro, rd, None, perm),
+        "torch.sort": lambda: torch.sort(key, stable=True)})
+    # the key reads o, d (24 B a ray) and the root row (32 B), and writes
+    # the key (4 B); active is None here
+    record["ray_key"] = probe_record(t["key"][0], t["key_ref"][0],
+                                     28 * r + 32, FLOP_RAY_KEY * r, None,
+                                     0.0)
+    record["ray_sort"] = probe_record(t["sort"][0], t["sort_ref"][0], 12 * r,
+                                      0.0, t["torch.sort"][0], 0.0)
+    print(f"B13 closest hit pieces, device ms (events): key "
+          f"{t['key'][0]:.4f} ({t['key'][1]:.4f}), sort {t['sort'][0]:.4f} "
+          f"({t['sort'][1]:.4f}), walk {t['walk'][0]:.4f} "
+          f"({t['walk'][1]:.4f}); torch.sort {t['torch.sort'][0]:.4f}; the "
+          f"key and sort equal their twins")
+    # the warps as the walk launches them: 32 consecutive sorted slots
+    walk_line("B13 closest-hit, sorted order", c_cl[:, perm.long()])
+    walk_sass_report("B13 closest", "mt_closest_kernel", boxes,
+                     lambda: hits.mt_closest_walk(trv, ro, rd, None, perm))
 
     # any hit on NEE segments from the camera hits
     pos, target, shoot = g["pos"], g["target"], g["shoot"]
@@ -2551,20 +2626,30 @@ def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
     """Phases 19-22: the MTBVH walk (B13), the BVH heatmap (B14), the
     general denoisers, the Sobol sampler and the hall's energy."""
     trv, ro, rd = phase_walk_kernels(hall, hall_cam, dev, record)
+    phase_wall("19 walk kernels")
     # No render path casts closest-hit rays (bounces go through the
     # primary build), so B13's closest hit is driven through the ray
-    # query entry point, as B11's is.
+    # query entry point, as B11's is: one ray key, one sort (1 + passes
+    # kernels by the sort's own count) and one walk.
     reset_counts()
+    n0 = ray_order.sort_kernel_launches()
     hit = intersect.intersect_closest(trv, ro, rd)
     torch.cuda.synchronize()
     counts = read_counts()
+    sort_kernels = ray_order.sort_kernel_launches() - n0
+    passes = ray_order.RAY_SORT_PASSES
     print(f"main path ray query (intersect_closest on the hall's {ro.shape[0]} "
-          f"bounce rays, the walk) launches {counts}")
-    if counts != {k: int(k == "mt_closest") for k in counts}:
-        raise PhaseError(f"walk ray query: launch counts {counts}")
+          f"bounce rays, the walk) launches {counts}; the sort's kernels "
+          f"{sort_kernels}")
+    want = {"mt_closest": 1, "ray_key": 1, "ray_sort": 1}
+    if (counts != {k: want.get(k, 0) for k in counts}
+            or sort_kernels != 1 + passes):
+        raise PhaseError(f"walk ray query: launch counts {counts}, sort "
+                         f"kernels {sort_kernels}")
     if not bool((hit.prim_id >= 0).any()):
         raise PhaseError("walk ray query: no hits")
-    launches["mt_closest"] = counts["mt_closest"]
+    for k in want:
+        launches[k] = counts[k]
 
     hall_flags = mat_flags(hall_arrays)
     base = RenderConfig(width=WIDTH, height=HEIGHT, **hall_flags)
@@ -3953,7 +4038,7 @@ def main() -> int:
     phase_wall("15-18 ReSTIR GI")
     phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
                launches)
-    phase_wall("19-22 the MTBVH walk")
+    phase_wall("20-22 the MTBVH walk's main paths")
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(dev, tmp)
         phase_wall("23 CLI")

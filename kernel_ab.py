@@ -50,7 +50,10 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   there): B13's primary hit (`mt_primary_cuda`) on the camera rays and,
   with the mask of live lanes, on the first bounce rays; its any hit
   (`mt_any_cuda`) on the NEE segments with their live lanes; its closest
-  hit (`mt_closest_cuda`) on the bounce rays; B14 (`heatmap_cuda`) on the
+  hit (`mt_closest_cuda`) on the bounce rays (every lane and the live
+  lanes) and on the camera rays, and where the tree sorts the ray query,
+  its pieces alone (ray key, radix sort, the walk through the
+  permutation) on the same batches; B14 (`heatmap_cuda`) on the
   camera rays and on the pixel-centre rays the heatmap casts. The
   primary and any hit and B14 get the batch's geometry (the whole
   frame), as the render paths pass it, where the tree's kernel takes
@@ -261,6 +264,29 @@ def _child() -> None:
             trv, g["pos"], g["target"], g["shoot"], **geom))
         timed("B13 closest hall bounce rays", lambda: hits.mt_closest_cuda(
             trv, g["ro"], g["rd"]))
+        timed("B13 closest hall bounce rays, live lanes",
+              lambda: hits.mt_closest_cuda(trv, g["ro"], g["rd"],
+                                           g["bounce_live"]))
+        timed("B13 closest hall camera rays", lambda: hits.mt_closest_cuda(
+            trv, g["o"], g["d"]))
+        # the sorted ray query's pieces, where the tree has them
+        if hasattr(hits, "mt_closest_walk"):
+            from restir_tpu_torch.ops.kernels import ray_order
+
+            for what, o, d, act in (
+                    ("bounce rays", g["ro"], g["rd"], None),
+                    ("bounce rays, live lanes", g["ro"], g["rd"],
+                     g["bounce_live"]),
+                    ("camera rays", g["o"], g["d"], None)):
+                key = ray_order.ray_key(o, d, act, trv.walk.rows)
+                passes = ray_order.RAY_SORT_PASSES
+                perm = ray_order.radix_sort(key, passes)[1]
+                timed(f"B13 closest {what}: key", lambda: ray_order.ray_key(
+                    o, d, act, trv.walk.rows))
+                timed(f"B13 closest {what}: sort",
+                      lambda: ray_order.radix_sort(key, passes))
+                timed(f"B13 closest {what}: walk",
+                      lambda: hits.mt_closest_walk(trv, o, d, act, perm))
         # B14 takes the batch's geometry since its 8x4-pixel warps; the
         # heatmap casts pixel-centre rays
         from restir_tpu_torch.ops.camera import pixel_centers, sample_rays

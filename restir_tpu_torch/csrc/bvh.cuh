@@ -25,18 +25,21 @@
 // box it points at (the JAX tables' box_id indirection). Kernels whose
 // rays are one per pixel (B6, B7, and B13's primary and any hit when the
 // caller passes the batch's geometry) launch 8x4-pixel warps (common.cuh,
-// tile_pixel), so a warp's walks share their nodes' cache lines; the
-// rest launch one ray per thread in ray order. Refilling a warp's idle
-// lanes from a ray queue does not pay on these walks (intersect.cu).
+// tile_pixel), so a warp's walks share their nodes' cache lines; B13's
+// closest hit walks its rays sorted by their loop and origin (sort.cu,
+// the ray key); the rest launch one ray per thread in ray order.
+// Refilling a warp's idle lanes from a ray queue does not pay on these
+// walks (intersect.cu).
 //
 // The COUNT variants also return the boxes and triangles tested, for
 // the measurement of the walk's work (tests and chip_smoke.py); the
 // builds without counters carry no counting code.
 //
-// B14's walk (heat_walk) picks each box's near and far planes once per
-// ray from the signs of its inverse direction (octant_slab): 4 min / max
-// per box test where `slab` takes 10, with the same differences,
-// products and comparisons, so every descend decision is the same.
+// B14's walk (heat_walk) and B13's closest hit (octant_closest_walk)
+// pick each box's near and far planes once per ray from the signs of its
+// inverse direction (octant_slab): 4 min / max per box test where `slab`
+// takes 10, with the same differences, products and comparisons, so
+// every descend decision is the same.
 #pragma once
 
 #include "common.cuh"
@@ -289,25 +292,49 @@ __device__ __forceinline__ bool exact_occluded_walk(const BvhRows& bvh,
   return false;
 }
 
-// A node row as heat_walk indexes it: one 32-byte unit, so a step's
+// A node row as the octant walks index it: one 32-byte unit, so a step's
 // address is one multiply-add on the row index.
 struct alignas(32) NodeRow {
   float4 lo, hi;
 };
 
-// One octant's loop of heat_walk (OCT as octant_slab's, or -1: `slab`):
+// What an octant walk keeps besides the best distance: B14's count of
+// descended nodes (`step`), or B13's closest hit (`hit`: the primitive
+// and, divided out only here, its barycentrics).
+struct HeatKeep {
+  int descended = 0;
+  __device__ __forceinline__ void step(bool descend) {
+    if (descend) ++descended;
+  }
+  template <class Leaf>
+  __device__ __forceinline__ void hit(int, const Leaf&) {}
+};
+
+struct ClosestKeep {
+  int prim = -1;
+  float bu = 0.0f, bv = 0.0f;
+  __device__ __forceinline__ void step(bool) {}
+  template <class Leaf>
+  __device__ __forceinline__ void hit(int p, const Leaf& leaf) {
+    prim = p;
+    leaf.bary(bu, bv);
+  }
+};
+
+// One octant's loop (OCT as octant_slab's, or -1: `slab`):
 // exact_closest_walk's decisions on the table of rows [base, base +
-// size), keeping only the best distance, and the count of descended
-// nodes. It steps the row index itself, so a step's address and bound
-// need no per-step offset.
-template <bool COUNT, int OCT, class RayT>
-__device__ __forceinline__ int heat_loop(const NodeRow* __restrict__ rows,
-                                         int base, int size,
-                                         const float* __restrict__ leaves,
-                                         const RayT& ray, float ix, float iy,
-                                         float iz, WalkCount& n) {
+// size), returning the best distance (inf on a miss) and telling `keep`
+// each step and each kept hit. It steps the row index itself, so a
+// step's address and bound need no per-step offset.
+template <bool COUNT, int OCT, class RayT, class Keep>
+__device__ __forceinline__ float octant_loop(const NodeRow* __restrict__ rows,
+                                             int base, int size,
+                                             const float* __restrict__ leaves,
+                                             const RayT& ray, float ix,
+                                             float iy, float iz, Keep& keep,
+                                             WalkCount& n) {
   float best = __int_as_float(0x7f800000);
-  int row = base, descended = 0;
+  int row = base;
   const int end = base + size;
   while (row < end) {
     const NodeRow* q = rows + row;
@@ -326,24 +353,29 @@ __device__ __forceinline__ int heat_loop(const NodeRow* __restrict__ rows,
       if (COUNT) ++n.tris;
       typename RayT::Leaf leaf;
       const float t = ray.hit(leaves + (size_t)prim * 12, leaf);
-      if (t > 0.0f && t < best) best = t;
+      if (t > 0.0f && t < best) {
+        best = t;
+        keep.hit(prim, leaf);
+      }
     }
-    if (descend) ++descended;
+    keep.step(descend);
     row = descend ? row + 1 : base + __float_as_int(hi.w);
   }
-  return descended;
+  return best;
 }
 
-// The BVH heatmap's value (intersect_visualize): the number of nodes
-// exact_closest_walk descends for `ray`, each decision the same. Each
-// ray runs the loop of its inverse direction's octant; a ray with an
-// infinite direction component (a zero inverse) or origin component runs
-// the `slab` loop, since (lo - o) * i can be NaN on one plane only there;
-// a ray with a NaN component descends no node (nan_ray).
+// exact_closest_walk's decisions for `ray`, each ray on the loop of its
+// inverse direction's octant; a ray with an infinite direction component
+// (a zero inverse) or origin component runs the `slab` loop, since
+// (lo - o) * i can be NaN on one plane only there; a ray with a NaN
+// component ends at its start (nan_ray). A warp whose lanes take several
+// loops runs them one after another, so B13's closest hit sorts its rays
+// by this choice first (sort.cu, the ray key).
 // The tables' 6B rows fit an int (BvhRows::size is one).
-template <bool COUNT, class RayT>
-__device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
-                                         WalkCount& n) {
+template <bool COUNT, class RayT, class Keep>
+__device__ __forceinline__ float octant_walk(const BvhRows& bvh,
+                                             const RayT& ray, Keep& keep,
+                                             WalkCount& n) {
   const float ix = safe_inv(ray.dx), iy = safe_inv(ray.dy),
               iz = safe_inv(ray.dz);
   const NodeRow* rows = reinterpret_cast<const NodeRow*>(bvh.rows);
@@ -352,25 +384,51 @@ __device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
                        isinf(ray.ox) || isinf(ray.oy) || isinf(ray.oz);
   const int oct = (signbit(ix) ? 1 : 0) | (signbit(iy) ? 2 : 0) |
                   (signbit(iz) ? 4 : 0);
-#define RESTIR_HEAT(O)                                                   \
-  heat_loop<COUNT, O>(rows, base, bvh.size, bvh.planes, ray, ix, iy, iz, \
-                      n)
+#define RESTIR_OCTANT(O)                                                    \
+  octant_loop<COUNT, O>(rows, base, bvh.size, bvh.planes, ray, ix, iy, iz, \
+                        keep, n)
   if (nan_ray(ray)) {
     if (COUNT) ++n.boxes;
-    return 0;
+    return __int_as_float(0x7f800000);
   }
-  if (min_max) return RESTIR_HEAT(-1);
+  if (min_max) return RESTIR_OCTANT(-1);
   switch (oct) {
-    case 0: return RESTIR_HEAT(0);
-    case 1: return RESTIR_HEAT(1);
-    case 2: return RESTIR_HEAT(2);
-    case 3: return RESTIR_HEAT(3);
-    case 4: return RESTIR_HEAT(4);
-    case 5: return RESTIR_HEAT(5);
-    case 6: return RESTIR_HEAT(6);
-    default: return RESTIR_HEAT(7);
+    case 0: return RESTIR_OCTANT(0);
+    case 1: return RESTIR_OCTANT(1);
+    case 2: return RESTIR_OCTANT(2);
+    case 3: return RESTIR_OCTANT(3);
+    case 4: return RESTIR_OCTANT(4);
+    case 5: return RESTIR_OCTANT(5);
+    case 6: return RESTIR_OCTANT(6);
+    default: return RESTIR_OCTANT(7);
   }
-#undef RESTIR_HEAT
+#undef RESTIR_OCTANT
+}
+
+// The BVH heatmap's value (intersect_visualize): the number of nodes
+// exact_closest_walk descends for `ray`, each decision the same.
+template <bool COUNT, class RayT>
+__device__ __forceinline__ int heat_walk(const BvhRows& bvh, const RayT& ray,
+                                         WalkCount& n) {
+  HeatKeep keep;
+  octant_walk<COUNT>(bvh, ray, keep, n);
+  return keep.descended;
+}
+
+// exact_closest_walk's result (distance, prim, barycentrics) on the
+// octant loops.
+template <bool COUNT, class RayT>
+__device__ __forceinline__ float octant_closest_walk(const BvhRows& bvh,
+                                                     const RayT& ray,
+                                                     int& prim, float& bu,
+                                                     float& bv,
+                                                     WalkCount& n) {
+  ClosestKeep keep;
+  const float best = octant_walk<COUNT>(bvh, ray, keep, n);
+  prim = keep.prim;
+  bu = keep.bu;
+  bv = keep.bv;
+  return best;
 }
 
 }  // namespace restir

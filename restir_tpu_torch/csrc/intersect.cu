@@ -39,15 +39,20 @@
 // fewer cache lines. The walks wait on those loads rather than on lanes
 // that idle in a warp: persistent warps that refill idle lanes from a ray
 // queue ran slower at every refill threshold tried, since refilled lanes
-// hold unrelated rays (PERF.md, the B13 redesign). B12, B13's closest
-// hit and batches without geometry launch in ray order. B13's primary
-// hit reads the winner's attribute row as float4 loads, and the walks
-// divide out a leaf's barycentrics only for a hit they keep. B14's walk
-// (bvh.cuh, heat_walk) keeps only the best distance, steps the absolute
-// row index and runs the slab test of the ray's octant, 4 min / max per
-// box test in place of 10: its loop issues 35 SASS instructions per box
-// test, 15 on the ALU pipe that the min / max share, where
-// exact_closest_walk's issued 42 and 16 (PERF.md, the B14 redesign).
+// hold unrelated rays (PERF.md, the B13 redesign). B12 and batches
+// without geometry launch in ray order. B13's primary hit reads the
+// winner's attribute row as float4 loads, and the walks divide out a
+// leaf's barycentrics only for a hit they keep. B14's walk (bvh.cuh,
+// heat_walk) keeps only the best distance, steps the absolute row index
+// and runs the slab test of the ray's octant, 4 min / max per box test in
+// place of 10: its loop issues 35 SASS instructions per box test, 15 on
+// the ALU pipe that the min / max share, where exact_closest_walk's
+// issued 42 and 16 (PERF.md, the B14 redesign). B13's closest hit, the
+// ray query, has no pixel geometry: its caller keys the rays (sort.cu:
+// the walk's class, the table and octant, first) and sorts them, and
+// slot i walks ray perm[i] on the same octant loops, keeping its hit, so
+// nearly every warp runs one loop on neighbouring rays (PERF.md, the
+// redesign of B13's closest hit).
 //
 // The closest hit keeps the lowest triangle id on ties, as the TPU
 // kernel's argmin and strict block fold do; a miss, and a zero or
@@ -291,23 +296,32 @@ __global__ void __launch_bounds__(L == TILES ? PIX_BLOCK : BLOCK)
   put_counts<COUNT>(counts, r, p, n);
 }
 
-// B13's closest hit: dist inf, bary 0 and prim -1 on a miss and on lanes
-// with active[p] == 0, which are not walked.
+// B13's closest hit, the ray query. Slot i walks ray perm[i] (ray i
+// without perm) on the octant loops (bvh.cuh, octant_closest_walk) and
+// writes dist, bary, prim (and counts) at that ray's index: dist inf,
+// bary 0 and prim -1 on a miss and on lanes with active[p] == 0, which
+// are not walked. The caller sorts the rays by the ray key (sort.cu), so
+// a warp's lanes run one loop on neighbouring rays. Blocks of 64 threads
+// ran as fast, of 256 1.5 % slower, and a persistent grid whose warps
+// take groups of 32 sorted rays from a queue within 1 % on bounce rays
+// and 2 % slower on camera rays (PERF.md).
 template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     mt_closest_kernel(const float* __restrict__ o,
                       const float* __restrict__ d,
-                      const unsigned char* __restrict__ active, BvhRows bvh,
+                      const unsigned char* __restrict__ active,
+                      const int* __restrict__ perm, BvhRows bvh,
                       float* __restrict__ dist, float* __restrict__ bary,
                       int* __restrict__ prim, int* __restrict__ counts,
                       int r) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r) return;
+  const int p = perm != nullptr ? __ldg(perm + i) : i;
   WalkCount n = {0, 0};
   int id = -1;
   float t = __int_as_float(0x7f800000), u = 0.0f, v = 0.0f;
   if (is_live(active, p))
-    t = exact_closest_walk<COUNT>(bvh, load_mt_ray(o, d, p), id, u, v, n);
+    t = octant_closest_walk<COUNT>(bvh, load_mt_ray(o, d, p), id, u, v, n);
   dist[p] = t;
   bary[(size_t)p * 2] = u;
   bary[(size_t)p * 2 + 1] = v;
@@ -428,25 +442,24 @@ extern "C" int restir_primary_hit(const float* o, const float* d,
 // `size`) and the vertex rows [n_pad, 12]; `counts`, unless null, receives
 // int32 [2, R]: the box and triangle tests of each ray.
 
-// o, d: float32 [R, 3]; active: null or bool [R]. Writes dist [R], bary
+// o, d: float32 [R, 3]; active: null or bool [R]; perm: null (ray
+// order) or int32 [R], the order of the slots. Writes dist [R], bary
 // [R, 2], prim [R].
 extern "C" int restir_mt_closest_hit(const float* o, const float* d,
                                      const unsigned char* active,
-                                     const float* rows, int size,
-                                     const float* vrows, float* dist,
-                                     float* bary, int* prim, int* counts,
-                                     int r, void* stream) {
+                                     const int* perm, const float* rows,
+                                     int size, const float* vrows,
+                                     float* dist, float* bary, int* prim,
+                                     int* counts, int r, void* stream) {
   if (r <= 0 || size <= 0) return (int)cudaErrorInvalidValue;
   const BvhRows bvh = bvh_rows(rows, size, vrows);
   const cudaStream_t s = (cudaStream_t)stream;
   if (counts != nullptr)
-    mt_closest_kernel<true><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh,
-                                                      dist, bary, prim,
-                                                      counts, r);
+    mt_closest_kernel<true><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, perm, bvh, dist, bary, prim, counts, r);
   else
-    mt_closest_kernel<false><<<grid(r), BLOCK, 0, s>>>(o, d, active, bvh,
-                                                       dist, bary, prim,
-                                                       counts, r);
+    mt_closest_kernel<false><<<grid(r), BLOCK, 0, s>>>(
+        o, d, active, perm, bvh, dist, bary, prim, counts, r);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,31 @@
-// Ray order for the walks: a 32-bit coherence key, a one-sweep LSD radix
-// sort written by hand, and a permuted gather / scatter of ray channels,
-// with a plain copy of a pack as the gather's floor.
+// Ray order for the walks: coherence keys, a one-sweep LSD radix sort
+// written by hand, and a permuted gather / scatter of ray channels, with
+// a plain copy of a pack as the gather's floor. Part of the main kernel
+// library: B13's closest hit (the ray query, intersect.cu) sorts its rays
+// with the ray key and this sort, and the stage probes (restir_tpu_torch
+// /prof) call the same kernels. The C names keep the `restir_prof_`
+// prefix of the probes that introduced them.
 //
 // Replaces the TPU probes prof/prof_take.py (the payload gather of the
 // 9-channel rp pack by the wavefront permutation, and `_pin` at :140, an
 // identity copy of that pack through VMEM) and prof/prof_wavefront.py
 // (`jnp.argsort` of a coherence key, the payload gather, and the take by
 // the inverse permutation at :213). Plain twins
-// (restir_tpu_torch/prof/kernels.py): the torch key, torch.sort
+// (restir_tpu_torch/ops/kernels/ray_order.py,
+// restir_tpu_torch/prof/kernels.py): the torch keys, torch.sort
 // (stable=True), index_select, an indexed store and clone; every result
 // equals its twin bit for bit.
 //
-// Bound: bytes. The key reads two points and a flag per ray and writes 4
+// The ray key (ray_key_kernel) groups B13's closest-hit rays by the loop
+// their walk runs: its high bits are the ray's class, the MTBVH table of
+// -d and the signs of the inverse direction (bvh.cuh: the table fixes
+// the dominant axis's sign, so 24 classes), or one class for the rays
+// that take `slab` (an infinite direction or origin component); lanes
+// not cast and rays with a NaN component get the dead key, the largest.
+// Its low bits order a class by the origin's Morton code in the scene's
+// box, then a direction cell.
+//
+// Bound: bytes. The keys read a ray's two points and a flag and write 4
 // bytes; the sort reads its keys and writes the sorted keys and the
 // permutation once (each pass moves them again; its look-back words and
 // histograms are a few per cent of that); the gather reads the
@@ -27,10 +41,10 @@
 //
 // The sort, after Adinets and Merrill's one-sweep radix sort (2022):
 // keys compare as unsigned with the sign bit flipped (int32's order),
-// four passes of 8-bit digits (they cover bit 30, which the dead key
-// 0x7FFFFFFF sets; three passes of 11-bit digits, 112 KB of shared memory
-// a tile, took 0.157 ms against 0.083 for 2.07 M keys on an H100), 5
-// launches:
+// passes of 8-bit digits (four cover bit 30, which the dead key
+// 0x7FFFFFFF sets; three cover a key below 2^24; three passes of 11-bit
+// digits, 112 KB of shared memory a tile, took 0.157 ms against 0.083 for
+// 2.07 M keys on an H100), 1 + passes launches:
 //  (1) hist_kernel, a cooperative launch of a few blocks per SM, zeroes
 //      the passes' tickets and first look-back buffer, waits for the
 //      grid, counts the digits of every pass in one read of the keys
@@ -55,6 +69,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bvh.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -146,11 +162,66 @@ __global__ void __launch_bounds__(kThreads)
   key[i] = k;
 }
 
+// The ray key of B13's closest hit (ray_order.ray_key_ref), 24 bits, so
+// three sort passes order it: the class in the top 5 (0-23: table t of
+// -d and the inverse direction's signs on the two other axes, t * 4 +
+// (the lower axis negative) + 2 (the higher axis negative); 24: the
+// `slab` rays), then the origin's Morton code (5 bits an axis) and the
+// direction cell of those two axes (|d_b| / |d_a| for the table's axis
+// a, 2 bits each). Lanes with active 0 and rays with a NaN component get
+// the dead key 2^24 - 1, the largest. The box is the root node's of the
+// walk's rows [6B, 8] (row 0: lo, prim; hi, miss). On the hall's
+// first-bounce rays an H100 walked them in 1.428 ms in this order, 1.488
+// with the direction cells first, 1.557 with 3-bit cells and 6 Morton
+// bits (29 bits, four passes) and 1.42-1.47 in other orders with the
+// origin first (PERF.md).
+constexpr int kRayDirBits = 2, kRayMortonBits = 5;
+constexpr uint32_t kRayDead = 0xFFFFFFu;
+
+__global__ void __launch_bounds__(kThreads)
+    ray_key_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   const uint8_t* __restrict__ active,
+                   const float* __restrict__ rows, int r,
+                   uint32_t* __restrict__ key) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= r) return;
+  const float ov[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+  const float dv[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  const bool nan = isnan(ov[0]) || isnan(ov[1]) || isnan(ov[2]) ||
+                   isnan(dv[0]) || isnan(dv[1]) || isnan(dv[2]);
+  if (nan || (active != nullptr && !active[i])) {
+    key[i] = kRayDead;
+    return;
+  }
+  const float lo[3] = {__ldg(rows), __ldg(rows + 1), __ldg(rows + 2)};
+  const float ext[3] = {__fsub_rn(__ldg(rows + 4), lo[0]),
+                        __fsub_rn(__ldg(rows + 5), lo[1]),
+                        __fsub_rn(__ldg(rows + 6), lo[2])};
+  const int t = restir::mtbvh_id(-dv[0], -dv[1], -dv[2]);
+  const int a = t >> 1, b = a == 0 ? 1 : 0, c = a == 2 ? 1 : 2;
+  const bool slab = restir::safe_inv(dv[0]) == 0.0f ||
+                    restir::safe_inv(dv[1]) == 0.0f ||
+                    restir::safe_inv(dv[2]) == 0.0f || isinf(ov[0]) ||
+                    isinf(ov[1]) || isinf(ov[2]);
+  const uint32_t cls =
+      slab ? 24u
+           : (uint32_t)(t * 4 + (dv[b] < 0.0f ? 1 : 0) +
+                        (dv[c] < 0.0f ? 2 : 0));
+  const float m = fabsf(dv[a]);
+  const uint32_t dir = (cell(fabsf(dv[b]), 0.0f, m, kRayDirBits)
+                        << kRayDirBits) |
+                       cell(fabsf(dv[c]), 0.0f, m, kRayDirBits);
+  key[i] = (cls << (2 * kRayDirBits + 3 * kRayMortonBits)) |
+           (morton(ov[0], ov[1], ov[2], lo, ext, kRayMortonBits)
+            << (2 * kRayDirBits)) |
+           dir;
+}
+
 // ---- the one-sweep radix sort ----------------------------------------------
 
 constexpr int kBits = 8;
 constexpr int kRadix = 1 << kBits;  // 256: a thread owns one digit
-constexpr int kPasses = 4;
+constexpr int kPasses = 4;  // the most passes a sort runs
 constexpr int kSortBlocks = 4;  // tiles an SM holds (64 registers a thread)
 static_assert(kRadix == kThreads, "a thread owns one digit");
 
@@ -181,6 +252,7 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sum) {
 // The digit counts of every pass in one read of the keys. count / first
 // [passes][radix]; zero: the tickets and the first look-back buffer
 // (n_zero words), zeroed before any pass runs.
+template <int PASSES>
 __global__ void __launch_bounds__(kThreads)
     hist_kernel(const uint32_t* __restrict__ keys, int r, int vec,
                 int* __restrict__ count, int* __restrict__ first,
@@ -198,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
   auto add = [&](uint32_t k) {
     k ^= kSign;
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p)
+    for (int p = 0; p < PASSES; ++p)
       atomicAdd(&h[p * kRadix + ((k >> (kBits * p)) & (kRadix - 1))], 1);
   };
   long long done = 0;
@@ -219,7 +291,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < kBins; i += kThreads)
     if (h[i]) atomicAdd(count + i, h[i]);
   grid.sync();
-  for (int p = blockIdx.x; p < kPasses; p += gridDim.x) {
+  for (int p = blockIdx.x; p < PASSES; p += gridDim.x) {
     const int d = p * kRadix + threadIdx.x;
     first[d] = block_exclusive_scan(__ldcg(count + d), warp_sum);
   }
@@ -360,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, kSortBlocks)
 }
 
 // The histogram's grid: two blocks an SM where they fit (enough keys in
-// flight; more add global atomics), cached per device.
+// flight; more add global atomics) for either build, cached per device.
 cudaError_t hist_grid(int* blocks) {
   static int cached[64][2];
   int dev;
@@ -370,9 +442,14 @@ cudaError_t hist_grid(int* blocks) {
   if (c[0] == 0) {
     e = cudaDeviceGetAttribute(&c[1], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c[0], hist_kernel,
+    int fit3;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit3, hist_kernel<3>,
                                                       kThreads, 0);
     if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &c[0], hist_kernel<kPasses>, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    c[0] = c[0] < fit3 ? c[0] : fit3;
     if (c[0] <= 0) return cudaErrorInvalidConfiguration;
   }
   *blocks = (c[0] < 2 ? c[0] : 2) * c[1];
@@ -483,6 +560,18 @@ extern "C" int restir_prof_key(const float* x, const float* y,
   return (int)cudaGetLastError();
 }
 
+// key uint32 [r]: the ray key of ray o -> d (float32 [r, 3] each; active
+// null or bool [r]; ray_key_kernel) in the box of the walk's root row
+// `rows`.
+extern "C" int restir_ray_key(const float* o, const float* d,
+                              const uint8_t* active, const float* rows,
+                              int r, uint32_t* key, void* stream) {
+  if (r <= 0) return (int)cudaErrorInvalidValue;
+  ray_key_kernel<<<(r + kThreads - 1) / kThreads, kThreads, 0,
+                   (cudaStream_t)stream>>>(o, d, active, rows, r, key);
+  return (int)cudaGetLastError();
+}
+
 // Ints of the sort's scratch for r keys (0 < r < 2^30); -1 for another
 // size.
 extern "C" int restir_prof_sort_scratch(int r) {
@@ -498,12 +587,14 @@ extern "C" int restir_prof_sort_launches() { return g_sort_launches; }
 
 // Sort int32 keys [r] (not modified) into keys_a with the permutation in
 // vals_a (keys_b / vals_b: scratch of r each; scratch:
-// restir_prof_sort_scratch(r) ints), stable: 4 passes of 8-bit digits.
+// restir_prof_sort_scratch(r) ints), stable: `passes` passes of 8-bit
+// digits, 4 for any key, 3 for keys in [0, 2^24).
 extern "C" int restir_prof_radix_sort(const uint32_t* keys, uint32_t* keys_a,
                                       int* vals_a, uint32_t* keys_b,
                                       int* vals_b, int* scratch, int r,
-                                      void* stream) {
-  if (r <= 0 || r > (int)kCountMask) return (int)cudaErrorInvalidValue;
+                                      int passes, void* stream) {
+  if (r <= 0 || r > (int)kCountMask || passes < 3 || passes > kPasses)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long tiles = sort_tiles(r);
   uint32_t* ticket = reinterpret_cast<uint32_t*>(scratch);
@@ -518,18 +609,19 @@ extern "C" int restir_prof_radix_sort(const uint32_t* keys, uint32_t* keys_a,
   long long n_zero = kTickets + tiles * kRadix;
   void* args[] = {(void*)&keys, (void*)&r,     (void*)&vec,   (void*)&count,
                   (void*)&first, (void*)&ticket, (void*)&n_zero};
-  e = cudaLaunchCooperativeKernel((const void*)hist_kernel, blocks, kThreads,
-                                  args, 0, st);
+  e = cudaLaunchCooperativeKernel(
+      passes == 3 ? (const void*)hist_kernel<3> : (const void*)hist_kernel<4>,
+      blocks, kThreads, args, 0, st);
   if (e != cudaSuccess) return (int)e;
   ++g_sort_launches;
 
   const uint32_t* kin = keys;
   const int* vin = nullptr;
-  for (int p = 0; p < kPasses; ++p) {
-    const bool to_a = (kPasses - 1 - p) % 2 == 0;  // the last pass: a
+  for (int p = 0; p < passes; ++p) {
+    const bool to_a = (passes - 1 - p) % 2 == 0;  // the last pass: a
     uint32_t* kout = to_a ? keys_a : keys_b;
     int* vout = to_a ? vals_a : vals_b;
-    uint32_t* next = p + 1 < kPasses ? look[(p + 1) % 2] : nullptr;
+    uint32_t* next = p + 1 < passes ? look[(p + 1) % 2] : nullptr;
     onesweep_kernel<<<(int)tiles, kThreads, 0, st>>>(
         kin, vin, kout, vout, r, kBits * p, first + p * kRadix, ticket + p,
         look[p % 2], next);

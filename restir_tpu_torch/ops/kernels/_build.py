@@ -17,6 +17,8 @@ probes of `restir_tpu_torch.prof`: a source of this directory with
 `ris_cdf.cu`, each stubbed where its `#if PROBE_*` blocks say; with no
 flag, the source as the main library has it), or the probe kernels of
 `csrc/prof/`, each into a library of its own under a digest of its own.
+The ray-order kernels the probes share with B13 (`csrc/sort.cu`) are in
+the main library.
 The main library's glob does not recurse into `csrc/prof/`, and no
 variant flag enters its digest.
 """
@@ -101,7 +103,7 @@ VARIANTS = {
     "b10_search": (["ris_cdf.cu"], ["-DPROBE_WALK=1"]),
     "b10_fixed_node": (["ris_cdf.cu"], ["-DPROBE_WALK=2"]),
     "b10_no_leaf": (["ris_cdf.cu"], ["-DPROBE_WALK=3"]),
-    "prof": (["prof/anyhit.cu", "prof/sort.cu", "prof/mem.cu"], []),
+    "prof": (["prof/anyhit.cu", "prof/mem.cu"], []),
     # the FP32 any hit one ray a lane: the reference of the probe library's
     # several-rays-a-lane build (tests/test_torch_prof_cuda.py)
     "prof_ray1": (["prof/anyhit.cu"], ["-DPROBE_ANYHIT_RAYS=1"]),
@@ -232,7 +234,7 @@ _SIGNATURES = {
     "restir_primary_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP],
     "restir_mt_closest_hit": [
-        _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+        _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
     "restir_mt_any_hit": [
         _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     "restir_mt_primary_hit": [
@@ -249,6 +251,16 @@ _SIGNATURES = {
     "restir_gi_resolve": [
         _VP, _VP, _VP, _VP, _I, _I, _I, _I, _U, _U, _I, _I, _I, _VP, _VP,
         _VP],
+    # csrc/sort.cu: ray order (B13's closest hit and the stage probes)
+    "restir_ray_key": [_VP, _VP, _VP, _VP, _I, _VP, _VP],
+    "restir_prof_key": [_VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _I, _VP,
+                        _VP],
+    "restir_prof_sort_scratch": [_I],
+    "restir_prof_radix_sort": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "restir_prof_sort_launches": [],
+    "restir_prof_permute": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I,
+                            _VP],
+    "restir_prof_copy": [_VP, _VP, _L, _VP],
 }
 
 
@@ -272,14 +284,6 @@ def library() -> ctypes.CDLL:
 
 
 _PROF_SIGNATURES = {
-    "restir_prof_key": [_VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _I, _VP,
-                        _VP],
-    "restir_prof_sort_scratch": [_I],
-    "restir_prof_radix_sort": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP],
-    "restir_prof_sort_launches": [],
-    "restir_prof_permute": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I,
-                            _VP],
-    "restir_prof_copy": [_VP, _VP, _L, _VP],
     "restir_prof_anyhit": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "restir_prof_table_gather": [_VP, _I, _VP, _I, _I, ctypes.c_uint64, _VP,
                                  _VP],

@@ -44,11 +44,13 @@ whole frame: pix0 = 0), as every render path's camera rays, bounce
 rays and NEE segments are, and the heatmap's pixel-centre rays. They
 then launch on 8x4-pixel warps, whose rays leave one small
 patch of the image and walk nearly the same nodes. A batch without
-geometry, such as the ray-query entry point `closest_hit`'s, launches in
-ray order. The launch changes which thread walks which ray, never how a
-ray is walked: both write the same bits. The plain versions ignore the
-geometry; a geometry that cannot hold the batch raises `ValueError` on
-any device.
+geometry launches in ray order. B13's closest hit, the ray-query entry
+point `closest_hit`'s, keys its rays by the loop their walk runs, sorts
+them (`ray_order`, `csrc/sort.cu`) and walks them in that order through
+the permutation. The launch and the order change which thread walks
+which ray, never how a ray is walked: every order writes the same bits.
+The plain versions ignore the geometry; a geometry that cannot hold the
+batch raises `ValueError` on any device.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from .. import intersect_bf
-from . import _build
+from . import _build, ray_order
 
 closest_launches = 0  # B11 closest-hit launches
 any_launches = 0  # B11 any-hit launches
@@ -65,6 +67,15 @@ mt_closest_launches = 0  # B13 closest-hit launches
 mt_any_launches = 0  # B13 any-hit launches
 mt_primary_launches = 0  # B13 primary-hit launches
 heatmap_launches = 0  # B14 launches
+
+# B13's closest hit (the ray query) walks a batch of fewer rays in ray
+# order, unsorted: on an H100 the sort's five launches outweigh what it
+# gains up to 128 of the hall's bounce rays (device ms 0.127 against
+# 0.158 sorted at 128 rays, 0.289 against 0.216 at 256; PERF.md)
+QUERY_SORT_MIN = 256
+# ... and a batch of more rays than one sort takes in ray order too, as
+# the walk alone serves any R below 2^31
+QUERY_SORT_MAX = ray_order.SORT_MAX_KEYS
 
 _INT_MAX = 2**31 - 1
 _TILE_ROWS_MAX = 65535 * 8  # tile rows of one launch (gridDim.y * 8)
@@ -349,11 +360,36 @@ def mt_closest_cuda(trv, o, d, active=None, stats=False):
     """B13's closest hit on the card -> (prim [R] i32, dist [R], bary
     [R, 2]); lanes with active False are not walked (prim -1, dist inf,
     bary 0). With `stats` also the int32 [2, R] box and triangle tests
-    of each ray."""
-    global mt_closest_launches
+    of each ray. The rays are keyed (`ray_order.ray_key`), sorted
+    (`ray_order.radix_sort`) and walked in that order
+    (`mt_closest_walk`); a batch of fewer than QUERY_SORT_MIN rays or
+    more than QUERY_SORT_MAX walks in ray order."""
     (o, d), _, r = _walk_args(trv, o, d)
-    dev = o.device
     active = _active(active, r)
+    perm = None
+    if QUERY_SORT_MIN <= r <= QUERY_SORT_MAX:
+        key = ray_order.ray_key(o, d, active, trv.walk.rows)
+        perm = ray_order.radix_sort(key, ray_order.RAY_SORT_PASSES)[1]
+    return _closest_walk(trv, o, d, active, perm, stats)
+
+
+def mt_closest_walk(trv, o, d, active=None, perm=None, stats=False):
+    """B13's closest-hit walk alone: slot i walks ray perm[i] (int32 [R],
+    a permutation; None: ray i) and writes its results at that ray's
+    index, as `mt_closest_cuda` returns them."""
+    (o, d), _, r = _walk_args(trv, o, d)
+    active = _active(active, r)
+    if perm is not None and (tuple(perm.shape) != (r,)
+                             or perm.dtype != torch.int32
+                             or perm.device != o.device):
+        raise ValueError(f"perm: expected int32 [{r}] on {o.device}")
+    return _closest_walk(trv, o, d, active, perm, stats)
+
+
+def _closest_walk(trv, o, d, active, perm, stats):
+    """`mt_closest_walk`'s launch on checked arguments."""
+    global mt_closest_launches
+    r, dev = o.shape[0], o.device
     prim = torch.empty((r,), dtype=torch.int32, device=dev)
     dist = torch.empty((r,), dtype=torch.float32, device=dev)
     bary = torch.empty((r, 2), dtype=torch.float32, device=dev)
@@ -361,8 +397,8 @@ def mt_closest_cuda(trv, o, d, active=None, stats=False):
     p = _build.ptr
     with _build.on_device(dev):
         err = _build.library().restir_mt_closest_hit(
-            p(o), p(d), p(active), *_walk_tables(trv), p(dist), p(bary),
-            p(prim), p(counts), r, _build.stream_of(dev))
+            p(o), p(d), p(active), p(perm), *_walk_tables(trv), p(dist),
+            p(bary), p(prim), p(counts), r, _build.stream_of(dev))
     _build.check(err, "restir_mt_closest_hit")
     mt_closest_launches += 1
     out = (prim, dist, bary)

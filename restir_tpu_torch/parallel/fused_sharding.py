@@ -141,7 +141,8 @@ def make_fused_sharded_step(cfg: RenderConfig,
             if n_tris > fused.RESIDENT_MAX_TRIS:
                 raise ValueError(
                     f"sharded row bands need the resident path: {n_tris} "
-                    f"triangles, over {fused.RESIDENT_MAX_TRIS}")
+                    f"triangles, over {fused.RESIDENT_MAX_TRIS} (ROADMAP "
+                    "A9c)")
 
         gbs, pts = [], []
         for b, d in enumerate(mesh):

@@ -11,7 +11,7 @@ One module per probe file, under its name:
   them, B7 with and without its early exit;
 - `prof_gluesplit2`: the fused frame's host glue, piece by piece;
 - `prof_take`, `prof_wavefront`: the coherence key, the hand-written
-  radix sort and the permuted gather (`csrc/prof/sort.cu`), and B13's
+  radix sort and the permuted gather (`csrc/sort.cu`), and B13's
   any hit on sorted rays;
 - `prof_union`: per-warp unions of the node rows B7's shadow rays visit;
 - `prof_fma`: the brute-force any hit, FP32 FMA against tensor-core

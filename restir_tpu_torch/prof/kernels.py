@@ -1,11 +1,12 @@
 """Wrappers and plain twins of the probe kernels in `csrc/prof/`.
 
 - `coherence_key`, `radix_sort`, `gather_cols`, `gather_rays`,
-  `scatter_cols`, `copy_pack` (`csrc/prof/sort.cu`): the ray order of
-  prof_take / prof_wavefront; twins: the same float32 ops in torch,
-  `torch.sort(stable=True)`, index_select, an indexed store, `clone`.
-  The kernels equal them bit for bit. The sort is one-sweep: a histogram
-  launch, then one launch for each of `SORT_PASSES` passes of
+  `scatter_cols`, `copy_pack` (`csrc/sort.cu`, in the main library,
+  whose sort B13's closest hit runs too: `ops.kernels.ray_order`): the
+  ray order of prof_take / prof_wavefront; twins: the same float32 ops
+  in torch, `torch.sort(stable=True)`, index_select, an indexed store,
+  `clone`. The kernels equal them bit for bit. The sort is one-sweep: a
+  histogram launch, then one launch for each of `SORT_PASSES` passes of
   `SORT_BITS`-bit digits.
 - `anyhit` (`csrc/prof/anyhit.cu`, form "fma", "mma3" or "mma6"):
   prof_fma's brute-force any hit over padded plane rows; twins
@@ -36,9 +37,19 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ops.kernels import _build
+from ..ops.kernels import _build, ray_order
+from ..ops.kernels.ray_order import (  # noqa: F401  (the probes' names)
+    DEAD_KEY,
+    SORT_BITS,
+    SORT_PASSES,
+    _cuda,
+    _need,
+    cell as _cell,
+    morton as _morton,
+    radix_sort_ref,
+    sort_kernel_launches,
+)
 
-DEAD_KEY = 0x7FFFFFFF  # the key of a lane not cast: sorts last
 KEY_ORDERS = ("origin", "target_origin", "direction_origin")
 CHAIN_ROUNDS = 90
 CHAIN_FACTORS = np.array([0.5 + i * 1e-3 for i in range(CHAIN_ROUNDS)],
@@ -64,39 +75,7 @@ def _lib():
     return _build.variant_library("prof")
 
 
-def _cuda(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: unsupported device {t.device}")
-
-
-def _need(t, what, dtype, shape=None):
-    if t.dtype != dtype or not t.is_contiguous() or (
-            shape is not None and tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{what}: need a contiguous {dtype} tensor of shape "
-                         f"{shape}, got {t.dtype} {tuple(t.shape)}")
-
-
 # ---- ray order ---------------------------------------------------------------
-
-def _cell(p, lo, ext, bits):
-    u = (p - lo) / ext
-    u = torch.where(u >= 0.0, u, torch.zeros_like(u))  # NaN too
-    u = torch.clamp(u, max=0.99999994)
-    return (u * float(1 << bits)).to(torch.int64)
-
-
-def _morton(p, lo, ext, bits):
-    q = [_cell(p[:, a], lo[a], ext[a], bits) for a in range(3)]
-    code = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
-    for b in range(bits):
-        for a in range(3):
-            code |= ((q[a] >> b) & 1) << (3 * b + a)
-    return code
-
 
 def _direction(s):
     m = torch.clamp(s.abs().amax(dim=1), min=1e-30)
@@ -131,7 +110,7 @@ def coherence_key_ref(x, y, live, lo, hi, order):
 
 
 def coherence_key(x, y, live, lo, hi, order):
-    """`coherence_key_ref` on CPU tensors, `csrc/prof/sort.cu` on CUDA."""
+    """`coherence_key_ref` on CPU tensors, `csrc/sort.cu` on CUDA."""
     if not _cuda(x, "coherence_key"):
         return coherence_key_ref(x, y, live, lo, hi, order)
     r = x.shape[0]
@@ -141,7 +120,7 @@ def coherence_key(x, y, live, lo, hi, order):
     key = torch.empty(r, dtype=torch.int32, device=x.device)
     p = _build.ptr
     with _build.on_device(x.device):
-        err = _lib().restir_prof_key(
+        err = _build.library().restir_prof_key(
             p(x), p(y), p(live), r, *(ctypes.c_float(float(v))
                                       for v in (*lo, *hi)),
             KEY_ORDERS.index(order), p(key), _build.stream_of(x.device))
@@ -150,52 +129,17 @@ def coherence_key(x, y, live, lo, hi, order):
     return key
 
 
-# the sort's digits: 4 passes of 8 bits reach bit 30, which DEAD_KEY sets
-SORT_BITS = 8
-SORT_PASSES = 4
-
-
-def radix_sort_ref(keys):
-    """(sorted keys, int32 permutation): torch.sort(stable=True)."""
-    s = torch.sort(keys, stable=True)
-    return s.values, s.indices.to(torch.int32)
-
-
 def radix_sort(keys):
-    """The one-sweep LSD radix sort of int32 keys [R] (0 < R < 2^30,
-    stable): `radix_sort_ref` on CPU tensors, the kernels on CUDA
-    (1 + SORT_PASSES launches)."""
-    if not _cuda(keys, "radix_sort"):
-        return radix_sort_ref(keys)
-    r = keys.shape[0]
-    _need(keys, "keys", torch.int32, (r,))
-    dev = keys.device
-    lib = _lib()
-    words = lib.restir_prof_sort_scratch(r)
-    if words < 0:
-        raise ValueError(f"radix_sort: {r} keys outside (0, 2^30)")
-    ka, kb = (torch.empty(r, dtype=torch.int32, device=dev) for _ in "ab")
-    va, vb = (torch.empty(r, dtype=torch.int32, device=dev) for _ in "ab")
-    scratch = torch.empty(words, dtype=torch.int32, device=dev)
-    p = _build.ptr
-    with _build.on_device(dev):
-        err = lib.restir_prof_radix_sort(p(keys), p(ka), p(va), p(kb), p(vb),
-                                         p(scratch), r,
-                                         _build.stream_of(dev))
-    _build.check(err, "restir_prof_radix_sort")
-    launches["radix_sort"] += 1
-    return ka, va
-
-
-def sort_kernel_launches() -> int:
-    """Kernels every `radix_sort` on the card has launched so far in this
-    process (the histogram and each pass, counted by `csrc/prof/sort.cu`
-    where the runtime took the launch); 1 + SORT_PASSES a sort."""
-    return _lib().restir_prof_sort_launches()
+    """`ray_order.radix_sort` (SORT_PASSES passes), counted as a probe
+    sort in `launches`."""
+    out = ray_order.radix_sort(keys)
+    if keys.device.type == "cuda":
+        launches["radix_sort"] += 1
+    return out
 
 
 def _permute(channels, perm, scatter, group=1):
-    """Launch `csrc/prof/sort.cu`'s permute kernel on channels [(source,
+    """Launch `csrc/sort.cu`'s permute kernel on channels [(source,
     its step, output, its step)], each a CUDA tensor of 4-byte or 1-byte
     elements viewed from its first element, `group` channels a block.
     Blocks run group by group, so the rows read (or written) at permuted
@@ -212,10 +156,9 @@ def _permute(channels, perm, scatter, group=1):
                                 for s, _, _, _ in channels))
     dev = perm.device
     with _build.on_device(dev):
-        err = _lib().restir_prof_permute(src, src_step, dst, dst_step, wide,
-                                         n, min(group, n),
-                                         _build.ptr(perm), r, int(scatter),
-                                         _build.stream_of(dev))
+        err = _build.library().restir_prof_permute(
+            src, src_step, dst, dst_step, wide, n, min(group, n),
+            _build.ptr(perm), r, int(scatter), _build.stream_of(dev))
     _build.check(err, "restir_prof_permute")
     launches["scatter" if scatter else "gather"] += 1
 
@@ -291,8 +234,8 @@ def copy_pack(src):
     dst = torch.empty_like(src)
     p = _build.ptr
     with _build.on_device(src.device):
-        err = _lib().restir_prof_copy(p(src), p(dst), src.numel(),
-                                      _build.stream_of(src.device))
+        err = _build.library().restir_prof_copy(
+            p(src), p(dst), src.numel(), _build.stream_of(src.device))
     _build.check(err, "restir_prof_copy")
     launches["copy"] += 1
     return dst

@@ -1,6 +1,6 @@
 """The permuted gather of a 9-channel pack of shadow segments at
 1920x1080 (the hall's NEE segments, sorted by their coherence key): the
-hand-written gather (`csrc/prof/sort.cu`) against index_select and
+hand-written gather (`csrc/sort.cu`) against index_select and
 advanced indexing, its inverse (the kernel's scatter mode) against
 index_copy_, beside a plain copy of the pack (the gather's floor: what
 moving the bytes in order costs) and copy_. Device time a call, the

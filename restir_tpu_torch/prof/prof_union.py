@@ -7,7 +7,7 @@ visits (what a lane walks alone), in pixel order and with the sample's
 rays sorted by their coherence key (groups of 32 consecutive rays).
 On the card the segments are B7's own winners (the candidate pack of
 `reuse.candidates_cuda`) and the sorted order comes from the coherence
-key and radix sort of `csrc/prof/sort.cu`; on the CPU from their twins
+key and radix sort of `csrc/sort.cu`; on the CPU from their twins
 (`fused_di.ris_pixels`, `coherence_key_ref`, torch.sort). The rows a
 lane visits are counted by the lockstep twin of B7's walk
 (`ops/kernels/bvh_walk.py`, the padded walk with B7's leaf test).

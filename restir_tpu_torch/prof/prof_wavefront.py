@@ -1,5 +1,5 @@
 """Ray order for the walks at 1920x1080 on the hall's NEE segments: the
-coherence key (`csrc/prof/sort.cu`) in the three orders of `walk_ab.py
+coherence key (`csrc/sort.cu`) in the three orders of `walk_ab.py
 order`, cut to 30 bits, against its torch twin; the hand-written
 one-sweep radix sort (a histogram launch, then one launch a pass of
 `kernels.SORT_BITS`-bit digits, stable) against torch.sort(stable=True)

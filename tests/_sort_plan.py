@@ -1,4 +1,4 @@
-"""The one-sweep radix sort of `restir_tpu_torch/csrc/prof/sort.cu` as a
+"""The one-sweep radix sort of `restir_tpu_torch/csrc/sort.cu` as a
 numpy pass plan, for the tests (`test_torch_sort.py`, `test_torch_prof.py`).
 """
 

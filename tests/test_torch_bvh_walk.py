@@ -39,17 +39,21 @@ from restir_tpu_torch.utils import math as mathx
 SIZES = {"small": (4, 64, 32), "large": (1400, 32, 16)}  # blocks, W, H
 
 
-def _rays(scene, camkw, w, h, seed):
+def _rays(scene, camkw, w, h, seed, dist=None):
     """Camera rays, bounce rays from their hits and shadow segments from
-    those hits to light points (float32 numpy)."""
+    those hits to light points (float32 numpy). `dist`: (o, d) -> the
+    camera rays' hit distances, the JAX walk's if None."""
     cam = make_camera(**{**camkw, "fov_y": 35.0})
     x, y = pixel_centers(w, h)
     o, d = sample_rays(cam, w, h, x, y, jnp.full_like(x, 0.5),
                        jnp.full_like(y, 0.5))
     o, d = np.asarray(o), np.asarray(d)
-    trv = jsd.traversal_arrays(scene, "bvh")
-    hit = jix.intersect_closest_bvh(trv, jnp.asarray(o), jnp.asarray(d))
-    t = np.asarray(hit.dist)
+    if dist is None:
+        trv = jsd.traversal_arrays(scene, "bvh")
+        t = np.asarray(jix.intersect_closest_bvh(
+            trv, jnp.asarray(o), jnp.asarray(d)).dist)
+    else:
+        t = dist(o, d)
     g = np.random.default_rng(seed)
     r = o.shape[0]
     pos = np.where(np.isfinite(t)[:, None], o + d * np.where(

@@ -5,7 +5,9 @@ B7, the general path's B10,
 B11, B12, B13 and B14 (bit for bit), the general EAW / SVGF step, and
 ReSTIR GI's B8 and B9 on a CUDA card; B13's build and launch errors,
 its primary and any hit on 8x4-pixel warps on bands, ragged widths and
-edge-case rays;
+edge-case rays; its closest hit in sorted ray order (the ray key, the
+radix sort, the walk through the permutation) at several batch sizes,
+on edge-case rays and on a batch of dead lanes;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
 without B12's mask of live lanes.
@@ -42,6 +44,7 @@ from restir_tpu_torch.ops.kernels import (
     svgf,
 )
 from restir_tpu_torch.ops.kernels import intersect as ki
+from restir_tpu_torch.ops.kernels import ray_order as ro
 from restir_tpu_torch.utils import rng
 from restir_tpu_torch.scene.procedural import (
     cornell_box,
@@ -1089,6 +1092,140 @@ def test_b14_octant_walk_on_straddling_and_edge_rays(walk):
     x, y = on.contiguous(), (on + 3.0 * dn).contiguous()
     assert torch.equal(ki.mt_any_cuda(trv, x, y),
                        tix.test_occlusion_bvh(trv.walk, x, y))
+
+
+# B13's closest hit (the sorted ray query) on batches of the `walk`
+# frame's rays: name -> (first ray, rays, tiled copies); "every lane dead"
+# masks every lane
+B13_QUERY_BATCHES = {
+    "one ray": (5 * W + 3, 1, 1),
+    "below one warp": (77, 31, 1),
+    "one below the sort's threshold": (300, ki.QUERY_SORT_MIN - 1, 1),
+    "the sort's threshold": (300, ki.QUERY_SORT_MIN, 1),
+    "one past the sort tile": (1000, 4097, 1),
+    "frame": (0, R, 1),
+    "not a multiple of the sort tile": (123, R - 123, 3),
+    "every lane dead": (0, R, 1),
+}
+
+
+def _query_batch(walk, name):
+    _, _, _, o, d, _, _, _ = walk
+    first, r, copies = B13_QUERY_BATCHES[name]
+    o, d = (t[first:first + r].repeat(copies, 1).contiguous() for t in (o, d))
+    act = torch.arange(o.shape[0], device=o.device) % 5 != 0
+    if name == "every lane dead":
+        act = torch.zeros_like(act)
+    return o, d, act
+
+
+@pytest.mark.parametrize("name", list(B13_QUERY_BATCHES))
+def test_b13_sorted_closest_hit_equals_twin(walk, name):
+    """B13's closest hit (ray key, radix sort, the octant walk read
+    through the permutation) writes intersect_closest_bvh's prim, dist
+    and bary bits on every lane, with and without `active`; its counting
+    build's box and triangle tests per ray equal those of B13's primary
+    counting build (exact_closest_walk) on the same rays; each call
+    counts one walk launch, one key launch and the sort's 1 + passes
+    kernels (a batch under QUERY_SORT_MIN: the walk alone, in ray
+    order)."""
+    scene, _, trv, _, _, _, _, _ = walk
+    o, d, act = _query_batch(walk, name)
+    r = o.shape[0]
+    sorts = int(r >= ki.QUERY_SORT_MIN)
+    passes = ro.RAY_SORT_PASSES
+    for active in (None, act):
+        before = (ki.mt_closest_launches, ro.key_launches,
+                  ro.sort_kernel_launches())
+        got = ki.mt_closest_cuda(trv, o, d, active)
+        torch.cuda.synchronize()
+        assert (ki.mt_closest_launches - before[0],
+                ro.key_launches - before[1],
+                ro.sort_kernel_launches() - before[2]) == (
+                    1, sorts, (1 + passes) * sorts)
+        want = tix.intersect_closest_bvh(trv.walk, o, d, active)
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got, want))
+        *hit, counts = ki.mt_closest_cuda(trv, o, d, active, stats=True)
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(hit, want))
+        _, c13 = ki.mt_primary_cuda(trv, scene.prim_attr, scene.mat_attr, o,
+                                    d, active, stats=True)
+        assert torch.equal(counts, c13)
+    if name == "every lane dead":
+        assert bool((got[0] == -1).all()) and int(counts.sum()) == 0
+    elif r > 100:
+        assert bool((got[0] >= 0).any()) and bool((got[0] < 0).any())
+
+
+def test_b13_closest_hit_over_the_sort_cap_walks_in_ray_order(
+        walk, monkeypatch):
+    """A batch of more rays than one sort takes (QUERY_SORT_MAX, the C
+    sort's own cap) walks in ray order with no key or sort launch and the
+    twin's bits; here the cap is lowered to 4,096 rays for a 4,097-ray
+    batch, while the batch at the cap still sorts."""
+    lib = ro._build.library()
+    assert lib.restir_prof_sort_scratch(ro.SORT_MAX_KEYS) > 0
+    assert lib.restir_prof_sort_scratch(ro.SORT_MAX_KEYS + 1) < 0
+    assert ki.QUERY_SORT_MAX == ro.SORT_MAX_KEYS
+    _, _, trv, _, _, _, _, _ = walk
+    o, d, act = _query_batch(walk, "one past the sort tile")
+    monkeypatch.setattr(ki, "QUERY_SORT_MAX", o.shape[0] - 1)
+    for cut, sorts in ((0, 0), (1, 1)):
+        oo, dd, aa = o[cut:].contiguous(), d[cut:].contiguous(), act[cut:]
+        before = (ki.mt_closest_launches, ro.key_launches,
+                  ro.sort_kernel_launches())
+        got = ki.mt_closest_cuda(trv, oo, dd, aa)
+        torch.cuda.synchronize()
+        assert (ki.mt_closest_launches - before[0],
+                ro.key_launches - before[1],
+                ro.sort_kernel_launches() - before[2]) == (
+                    1, sorts, (1 + ro.RAY_SORT_PASSES) * sorts)
+        want = tix.intersect_closest_bvh(trv.walk, oo, dd, aa)
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got, want))
+
+
+def test_b13_sorted_closest_hit_on_straddling_and_edge_rays(walk):
+    """The sorted closest hit on test_b14_octant_walk_on_straddling_and_
+    edge_rays's rays: warps of all eight octants, components 0.0, -0.0
+    and +-1e-13, NaN and infinite components and infinite origins; every
+    lane equals the twin, its counts B13's primary counting build's, and
+    the walk in ray order (no permutation) writes the same bits."""
+    scene, _, trv, o, d, _, _, _ = walk
+    lane = torch.arange(R, device=o.device)
+    x, y = lane % W, lane // W
+    octant = (x % 2) + 2 * (y % 2) + 4 * ((x // 2) % 2)
+    sign = 1.0 - 2.0 * torch.stack([(octant >> k) & 1 for k in range(3)],
+                                   1).to(torch.float32)
+    ds = (d * sign).contiguous()
+    de = ds.clone()
+    de[0::7, 0] = 0.0
+    de[1::7, 1] = -0.0
+    de[2::7, 2] = 1e-13
+    de[3::7, 0] = -1e-13
+    de[4::7, 1:] = 0.0
+    on, dn = o.clone(), de.clone()
+    dn[0::6, 1] = float("nan")
+    dn[1::6, 2] = float("inf")
+    dn[2::6, 0] = -float("inf")
+    on[3::6, 0] = float("inf")
+    on[4::6, 2] = -float("inf")
+    dn[5::12] = float("nan")
+    for oo, dd in ((o, ds), (o, de), (on, dn)):
+        *hit, counts = ki.mt_closest_cuda(trv, oo, dd, stats=True)
+        want = tix.intersect_closest_bvh(trv.walk, oo, dd)
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(hit, want))
+        _, c13 = ki.mt_primary_cuda(trv, scene.prim_attr, scene.mat_attr,
+                                    oo, dd, stats=True)
+        assert torch.equal(counts, c13)
+        unsorted = ki.mt_closest_walk(trv, oo, dd)
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(unsorted, want))
+    key = ro.ray_key(on, dn, None, trv.walk.rows)
+    assert torch.equal(key, ro.ray_key_ref(on, dn, None, trv.walk.rows))
+    assert int((key == ro.RAY_DEAD_KEY).sum()) == int(
+        (torch.isnan(on).any(1) | torch.isnan(dn).any(1)).sum())
 
 
 @pytest.mark.parametrize("tracer,per_frame", [

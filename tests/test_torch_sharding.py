@@ -199,7 +199,8 @@ def test_refusals(world, case):
             [np.asarray(x) for x in make_camera(**camkw)])
         step = make_fused_sharded_step(cfg, mesh)
         state = shard_fused_state(tfused.init_state(cfg, cam, "cpu"), mesh)
-        with pytest.raises(ValueError, match="resident path"):
+        with pytest.raises(ValueError,
+                           match=r"resident path.*\(ROADMAP A9c\)"):
             step(shard_scene(big, mesh), state, cam)
 
 

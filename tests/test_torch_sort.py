@@ -1,4 +1,4 @@
-"""The ray-order kernels of `csrc/prof/sort.cu` on the CPU: the one-sweep
+"""The ray-order kernels of `csrc/sort.cu` on the CPU: the one-sweep
 radix sort's pass plan and the permuted gather / scatter's twins.
 
 - `sort_plan`, a numpy rendition of the sort's passes (digit counts of

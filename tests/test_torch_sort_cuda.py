@@ -1,8 +1,9 @@
-"""The ray-order kernels of `csrc/prof/sort.cu` against their twins on a
+"""The ray-order kernels of `csrc/sort.cu` against their twins on a
 CUDA card, bit for bit: the coherence key, the one-sweep radix sort
 (sizes around the 4,096-key tile, one above the parent design's
 4,194,304-key cap; 1 + passes launches a sort), the permuted
-gather in both layouts, the scatter, and the copy floor.
+gather in both layouts, the scatter, and the copy floor; B13's ray key
+and the three-pass sort of its 24-bit keys.
 
 These need nvcc and a GPU; without a card they skip (decided inside the
 `cuda_device` fixture). The file imports no JAX, so on a card:
@@ -93,3 +94,37 @@ def test_key_gather_scatter_copy_equal_twins(cuda_device):
     big = torch.tensor(g.normal(size=(3, 1 << 20)).astype(np.float32),
                        device=cuda_device)
     assert torch.equal(pk.copy_pack(big), big)
+
+
+def test_ray_key_and_three_pass_sort_equal_twins(cuda_device):
+    """B13's ray key (`ray_order.ray_key`) equals its twin bit for bit on
+    seeded rays with zero, tiny, infinite and NaN components and dead
+    lanes; its 3-pass sort equals torch.sort (stable), in the launches it
+    counts."""
+    from restir_tpu_torch.ops.kernels import ray_order as ro
+
+    g = np.random.default_rng(24)
+    r = 50001
+    o = g.uniform(-2, 5, size=(r, 3)).astype(np.float32)
+    d = g.normal(size=(r, 3)).astype(np.float32)
+    d[0::13, 0] = 0.0
+    d[1::13, 1] = -0.0
+    d[2::13, 2] = 1e-13
+    d[3::13, 0] = -1e-13
+    d[4::13, 1] = np.inf
+    o[5::13, 2] = -np.inf
+    d[6::13, 2] = np.nan
+    o, d = (torch.tensor(t, device=cuda_device) for t in (o, d))
+    live = torch.tensor(g.random(r) < 0.8, device=cuda_device)
+    rows = torch.tensor(np.array([[-1.0, -1.5, 0.0, 0.0, 4.0, 4.5, 3.0, 0.0]],
+                                 np.float32), device=cuda_device)
+    for active in (None, live):
+        key = ro.ray_key(o, d, active, rows)
+        assert torch.equal(key, ro.ray_key_ref(o, d, active, rows))
+    passes = ro.RAY_SORT_PASSES
+    before = ro.sort_kernel_launches()
+    vals, perm = ro.radix_sort(key, passes)
+    torch.cuda.synchronize()
+    assert ro.sort_kernel_launches() - before == 1 + passes
+    want_v, want_p = ro.radix_sort_ref(key)
+    assert torch.equal(vals, want_v) and torch.equal(perm, want_p)

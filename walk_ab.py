@@ -2,6 +2,7 @@
 per-kernel times:
 
     python3 walk_ab.py order
+    python3 walk_ab.py query
     python3 walk_ab.py busy _chip/parent . . _chip/parent
 
 `order` times B13's any hit on the hall's NEE segments and its primary
@@ -11,6 +12,19 @@ target cell, a quantised direction), in ray order, against the
 unsorted batch: what ray coherence is worth to these walks. Each sorted
 run must write the unsorted run's bits, permuted; torch.argsort's time
 on the keys is printed beside it (the sort is not part of the port).
+
+`query` times B13's closest hit (the ray query, `mt_closest_cuda`) on
+the hall's first-bounce rays (every lane, and with the mask of live
+lanes) and camera rays: the whole call and its pieces (ray key, radix
+sort, the walk through the permutation), the walk in ray order without
+a sort, the sort in 4 passes beside 3, and B13's primary hit on the
+live first-bounce rays on 8x4-pixel warps beside it; then the sorted
+walk against the walk in ray order on the first `n` bounce rays for
+growing n (where a sort starts to pay). The call must write the twin's
+bits, and the walk in ray order the call's. Device ms a
+call (its kernels summed in a torch.profiler trace, least of 3
+interleaved rounds of 5 calls), CUDA-event ms beside it; the walk's
+registers (ptxas) and its loops' SASS per box step (`cuobjdump`).
 
 `busy` runs each checkout given (the one here, or an unpacked `git
 archive` of another commit) in its own process, in the order given:
@@ -111,6 +125,93 @@ def _order() -> None:
         lambda out, perm: out[:, perm])
 
 
+def _query() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from restir_tpu_torch import convert
+    from restir_tpu_torch.ops import intersect
+    from restir_tpu_torch.ops.kernels import intersect as hits
+    from restir_tpu_torch.ops.kernels import ray_order
+    from restir_tpu_torch.prof import _timing
+
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    _, arrays, cam = cs.load_hall()
+    hall = convert.scene_from_numpy(arrays, dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # auto's notice: the walk
+        g = cs.general_rays(hall, cam, dev)
+    trv = g["trv"]
+    rows = trv.walk.rows
+    print(f"ptxas intersect.cu mt_closest_kernel: "
+          f"{cs.ptxas_report('intersect.cu', 'mt_closest_kernel')}")
+
+    def bits(out):
+        return [t.contiguous().view(torch.int32) if t.is_floating_point()
+                else t for t in out]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(bits(a), bits(b)))
+
+    def report(what, fns):
+        t = _timing.interleaved(fns, dev, rounds=3)
+        for name, v in t.items():
+            print(f"query {what} {name}: {min(v.device):.4f} ms device "
+                  f"(events {min(v.events):.4f})", flush=True)
+        return {k: min(v.device) for k, v in t.items()}
+
+    batches = (("first-bounce rays", g["ro"], g["rd"], None),
+               ("first-bounce rays, live lanes", g["ro"], g["rd"],
+                g["bounce_live"]),
+               ("camera rays", g["o"], g["d"], None))
+    for what, o, d, act in batches:
+        want = intersect.intersect_closest_bvh(trv.walk, o, d, act)
+        got = hits.mt_closest_cuda(trv, o, d, act)
+        if not same(got, want):
+            raise SystemExit(f"query {what}: not the twin's bits")
+        *_, counts = hits.mt_closest_cuda(trv, o, d, act, stats=True)
+        boxes = float(counts[0].double().sum())
+        tris = float(counts[1].double().sum())
+        key = ray_order.ray_key(o, d, act, rows)
+        perm = ray_order.radix_sort(key, ray_order.RAY_SORT_PASSES)[1]
+        if not same(hits.mt_closest_walk(trv, o, d, act), got):
+            raise SystemExit(f"query {what}: the walk in ray order writes "
+                             "other bits")
+        fns = {
+            "whole call": lambda: hits.mt_closest_cuda(trv, o, d, act),
+            "key": lambda: ray_order.ray_key(o, d, act, rows),
+            "sort": lambda: ray_order.radix_sort(
+                key, ray_order.RAY_SORT_PASSES),
+            "sort, 4 passes": lambda: ray_order.radix_sort(
+                key, ray_order.SORT_PASSES),
+            "walk": lambda: hits.mt_closest_walk(trv, o, d, act, perm),
+            "walk, ray order": lambda: hits.mt_closest_walk(trv, o, d, act),
+        }
+        if act is not None:
+            fns["B13 primary hit, 8x4 tiles"] = lambda: hits.mt_primary_cuda(
+                trv, hall.prim_attr, hall.mat_attr, o, d, act,
+                geom=(cs.WIDTH, 0))
+        print(f"query {what}: {boxes / o.shape[0]:.2f} box and "
+              f"{tris / o.shape[0]:.2f} triangle tests a ray; bound "
+              f"{cs.bound(0, boxes * cs.FLOP_BOX + tris * cs.FLOP_MT)[0]:.4f}"
+              f" ms (operations)", flush=True)
+        report(what, fns)
+        if act is None and what.startswith("first"):
+            cs.walk_sass_report("B13 closest", "mt_closest_kernel", boxes,
+                                lambda: hits.mt_closest_walk(trv, o, d,
+                                                             None, perm))
+    o, d = g["ro"], g["rd"]
+    for n in (32, 64, 128, 256, 512, 1024, 4096):
+        on, dn = o[:n].contiguous(), d[:n].contiguous()
+        report(f"first {n} bounce rays", {
+            "sorted": lambda: hits.mt_closest_walk(
+                trv, on, dn, None,
+                ray_order.radix_sort(ray_order.ray_key(on, dn, None, rows),
+                                     ray_order.RAY_SORT_PASSES)[1]),
+            "ray order": lambda: hits.mt_closest_walk(trv, on, dn)})
+
+
 def _busy() -> None:
     import inspect
 
@@ -172,6 +273,8 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["order"]:
         _order()
+    elif argv[:1] == ["query"]:
+        _query()
     elif argv[:1] == ["busy"] and argv[1:]:
         for tree in argv[1:]:
             root = os.path.abspath(tree)
