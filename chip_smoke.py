@@ -224,8 +224,30 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      launches a row), with its launch counts: every kernel of
      csrc/prof/ must launch. Phase 2 builds the probes' libraries with
      the main one.
+Many lights (after phase 28):
+ 29. the light tables past a block's shared memory, which B7 and B10
+     stream (their streamed builds, `reuse_bvh_streamed` and
+     `ris_cdf_streamed` in the kernels line): (a) each streamed build
+     forced on tables that fit, bit for bit against the staged build on
+     every lane: B10 on the general G-buffers of the headline and the
+     hall (128 rows each), B7 (and its counting build's counts) on the
+     hall and the sky hall (640 rows with the env tiles) at 1080p; (b)
+     many_light_scene(1225, 24) (2,450 light rows, 2,748 triangles): B7
+     + B1b against their twins on 32 sample tiles and B10 against its
+     twin on a band of 16 rows, with phase 9's and phase 12's gates,
+     B10's two streamed forms (psi rows through shared memory, or read
+     from device memory) equal bit for bit, and each kernel's time,
+     twin's time and bound; the fused RESTIR_DI + EAW frame through
+     renderer.step at 1920x1080 (launches per frame: gbuffer_bvh 1,
+     reuse_bvh_streamed 1, temporal 1, spatial 1, atrous_eaw 5) and the
+     general RESTIR_DI cdf + EAW frame (primary_hit 1, ris_cdf_streamed
+     1, atrous_eaw 5), each with its wall, device busy and idle share
+     (profile), and phase 14's quality gate on this scene at 384x384:
+     energy_ratio_vs_pt within 5 % of 1; (c) many_light_scene(5000, 24)
+     (10,000 light rows; its quads overlap): the same kernel-against-twin
+     checks and times, and 2 + 4 frames of each main path.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
-those, 23-25, then 26, 27 and 28, last. Each phase's wall seconds print
+those, 23-25, then 26, 27, 28 and 29, last. Each phase's wall seconds print
 on a line of their own ("phase wall: <phase>: <s> s") as it ends.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
@@ -400,6 +422,12 @@ SOURCES = {
                        "prof/prof_v3.py:92"),
     "prof_chain_float4": ("restir_tpu_torch/csrc/prof/mem.cu",
                           "prof/prof_v3.py:92"),
+    # the streamed builds of B7 and B10 (phase 29): light tables past a
+    # block's shared memory
+    "reuse_bvh_streamed": ("restir_tpu_torch/csrc/reuse_bvh.cu",
+                           "restir_tpu/ops/pallas/fused_di.py:1558"),
+    "ris_cdf_streamed": ("restir_tpu_torch/csrc/ris_cdf.cu",
+                         "restir_tpu/ops/pallas/ris_kernel.py:138"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -558,6 +586,8 @@ def reset_counts():
     hits.closest_launches = 0
     hits.any_launches = 0
     ris_cdf.launches = 0
+    reuse.streamed_launches = 0
+    ris_cdf.streamed_launches = 0
     gi.trace_launches = 0
     gi.resolve_launches = 0
     hits.mt_closest_launches = 0
@@ -585,7 +615,9 @@ def read_counts():
             "mt_primary": hits.mt_primary_launches,
             "heatmap": hits.heatmap_launches,
             "ray_key": ray_order.key_launches,
-            "ray_sort": ray_order.sort_launches}
+            "ray_sort": ray_order.sort_launches,
+            "reuse_bvh_streamed": reuse.streamed_launches,
+            "ris_cdf_streamed": ris_cdf.streamed_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -1018,7 +1050,7 @@ def walk_lines(name, cnt6, cnt7, t, k, has_env, w, h):
     checkpoint spacing)."""
     print(f"{name} ptxas B6 gbuffer_bvh_kernel<COUNT,ENV,TEX>: "
           f"{ptxas_report('gbuffer_bvh.cu', 'gbuffer_bvh_kernel')}")
-    print(f"{name} ptxas B7 reuse_bvh_kernel<COUNT,ENV>: "
+    print(f"{name} ptxas B7 reuse_bvh_kernel<COUNT,ENV,STREAM>: "
           f"{ptxas_report('reuse_bvh.cu', 'reuse_bvh_kernel')}")
     for what, c in (("B6 box", cnt6[0]), ("B6 plane", cnt6[1]),
                     ("B7 box", cnt7[0]), ("B7 plane", cnt7[1])):
@@ -1089,29 +1121,30 @@ def b1_bound(scene, gb, cam_vec, lcam_vec, cfg, has_env):
     return b[0], b[1], note
 
 
-def phase_main(name, scene, cfg, cam, dev, per_frame):
+def phase_main(name, scene, cfg, cam, dev, per_frame, warmup=WARMUP,
+               timed=TIMED):
     """A main path through renderer.init_state / step; returns the launch
     counts of the run. per_frame: the expected launches of each kernel
     per frame."""
     reset_counts()
     state = renderer.init_state(cfg, cam, scene, device=dev)
     frame = None
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         state, frame = renderer.step(scene, state, cam, cfg)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TIMED):
+    for _ in range(timed):
         state, frame = renderer.step(scene, state, cam, cfg)
     end.record()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
-    dev_ms = start.elapsed_time(end) / TIMED
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    dev_ms = start.elapsed_time(end) / timed
     MAIN_WALL[name] = wall_ms
     counts = read_counts()
-    frames = WARMUP + TIMED
+    frames = warmup + timed
     expect = {k: per_frame.get(k, 0) * frames for k in counts}
     print(f"main path {name} launches {counts} (expected {expect})")
     if counts != expect:
@@ -1979,10 +2012,12 @@ def phase_general_main(name, scene, cfg, cam, dev, per_frame, warmup,
     return counts
 
 
-def phase_quality_gate(dev):
+def phase_quality_gate(dev, arrays=None, camkw=None):
     """bench.py:49-80: fused spatiotemporal frames against the unbiased
-    PT-direct reference on many_light_scene(36, 10) at 384x384."""
-    arrays, camkw = many_light_scene(36, 10)
+    PT-direct reference on many_light_scene(36, 10) (or the scene given)
+    at 384x384."""
+    if arrays is None:
+        arrays, camkw = many_light_scene(36, 10)
     scene = convert.scene_from_numpy(arrays, dev)
     cam = make_camera(**camkw)
     cfg = RenderConfig(width=384, height=384, tracer=TracerType.RESTIR_DI,
@@ -2003,8 +2038,9 @@ def phase_quality_gate(dev):
     ratio = float(got.mean() / max(float(ref.mean()), 1e-9))
     rel_rmse = float(torch.sqrt(((got - ref) ** 2).mean())
                      / max(float(ref.mean()), 1e-9))
-    print(f"quality gate (384x384, 64 fused RESTIR_DI vs 256 PT_DIRECT "
-          f"frames, {time.perf_counter() - t0:.1f} s): energy_ratio_vs_pt "
+    print(f"quality gate (384x384, {scene.tables.n_lights} light rows, 64 "
+          f"fused RESTIR_DI vs 256 PT_DIRECT frames, "
+          f"{time.perf_counter() - t0:.1f} s): energy_ratio_vs_pt "
           f"{ratio:.4f}, rel_rmse_vs_pt_64f {rel_rmse:.4f}")
     if not abs(ratio - 1.0) < 0.05:
         raise PhaseError(f"quality gate: energy ratio {ratio:.4f} is not "
@@ -3964,6 +4000,248 @@ def phase_probes(dev, record, launches):
           f"traces retaken for lost marks: {_timing.retakes}")
 
 
+def b10_input(scene, cam, dev):
+    """B10's input pack on the general G-buffer of a 1080p frame (phase
+    12's) and its shading lanes."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                       tracer=TracerType.RESTIR_DI)
+    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, cfg,
+                                                        1)
+    wo = -ray_dir
+    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
+                               gmat.type, gmat.metallic, gmat.roughness,
+                               shade, it.prim_id)
+    return pack, shade
+
+
+def same_bits(what, a, b):
+    """Gate: two builds' outputs equal bit for bit on every lane."""
+    lanes = bits_equal(a, b).all(0)
+    print(f"{what}: lanes equal bit for bit {float(lanes.float().mean()):.7f}"
+          f" of {lanes.numel()}")
+    if not bool(lanes.all()):
+        raise PhaseError(f"{what}: {int((~lanes).sum())} lanes differ")
+
+
+def b10_twin_gate(what, k10, r10, shade):
+    """Phase 12's gates of B10 against its twin; returns the largest
+    weight error on same-pick lanes."""
+    li, wi_, w_ = ris_cdf.OUT_LI, ris_cdf.OUT_WI, ris_cdf.OUT_W
+    pick = (torch.all(k10[li:li + 3] == r10[li:li + 3], 0)
+            & torch.all(torch.isclose(k10[wi_:wi_ + 3], r10[wi_:wi_ + 3],
+                                      rtol=2e-4, atol=1e-5), 0))
+    pm = float(pick[shade].float().mean())
+    ok = pick & shade
+    wclose = float(torch.isclose(k10[w_][ok], r10[w_][ok], rtol=2e-4,
+                                 atol=1e-7).float().mean())
+    m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
+    print(f"{what}: pick match {pm:.6f}, weights within rtol 2e-4 "
+          f"{wclose:.6f}, M equal {m_eq:.6f}, visible winners "
+          f"{float((k10[w_][shade] > 0).float().mean()):.4f} on "
+          f"{int(shade.sum())} shading lanes")
+    if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
+        raise PhaseError(f"{what}: B10 disagrees with its twin")
+    return float((k10[w_][ok] - r10[w_][ok]).abs().max())
+
+
+B10_FORMS = (1, 2, 3)  # the streamed forms of csrc/ris_cdf.cu
+
+
+def b10_streamed_equals_staged(scene, cam, hall, hall_cam, dev):
+    """(a): B10's streamed forms forced on tables that fit."""
+    for what, sc, c in (("headline", scene, cam), ("hall", hall, hall_cam)):
+        pack, _ = b10_input(sc, c, dev)
+        t = sc.tables
+        k0 = ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=False)
+        for mode in B10_FORMS:
+            k1 = ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=mode)
+            what1 = (f"B10 {what} ({t.psi.shape[0]} rows): streamed form "
+                     f"{mode} against the staged build")
+            if mode == ris_cdf.STREAM_MODE:
+                same_bits(what1, k1, k0)
+            else:  # a form the wrapper does not take: printed only
+                print(f"{what1}: lanes equal bit for bit "
+                      f"{float(bits_equal(k1, k0).all(0).float().mean()):.7f}")
+
+
+def b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev):
+    """(a): B7's streamed build forced on tables that fit."""
+    cam2 = make_camera(position=(0.3, 4.2, 20.3),
+                       rotation=(-90.5, -4.0, 0.0), fov_y=19.5)
+    cv, cv2 = pack_camera(hall_cam, dev), pack_camera(cam2, dev)
+    for what, sky in (("hall", False), ("sky hall", True)):
+        if sky:
+            hall_sf.env_map = gradient_sky(512, 1024)
+            sc = convert.scene_from_numpy(hall_sf.build(), dev)
+        else:
+            sc = hall
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, has_env_map=sky,
+                           tracer=TracerType.RESTIR_DI)
+        gb = gbuffer.gbuffer_cuda(cv2, cv, 1, sc.bvh, width=WIDTH,
+                                  height=HEIGHT, aa_jitter=cfg.aa_jitter,
+                                  single_sided=cfg.single_sided_lights,
+                                  has_env=sky)
+        kw = dict(width=WIDTH, k=cfg.cdf_candidates, has_env=sky,
+                  stats=True)
+        rs0, c0 = reuse.candidates_cuda(gb, 1, sc.tables, sc.bvh,
+                                        _streamed=False, **kw)
+        rs1, c1 = reuse.candidates_cuda(gb, 1, sc.tables, sc.bvh,
+                                        _streamed=True, **kw)
+        n_l = light_count(sc.tables, sky)
+        same_bits(f"B7 {what} ({n_l} light rows): streamed build against "
+                  f"the staged build", rs1, rs0)
+        if not torch.equal(c0, c1):
+            raise PhaseError(f"B7 {what}: the streamed build's walk and "
+                             "target counts differ from the staged build's")
+        n = sc.tables.n_lights
+        print(f"B7 {what}: checkpoints every {reuse.seg_cuda(n, sky)} rows "
+              f"staged, every {reuse.seg_cuda(n, sky, streamed=True)} "
+              f"streamed; walk and target counts equal")
+
+
+def many_light_kernels(name, arrays, camkw, dev, record=None):
+    """(b) and (c): B7 + B1b and B10 against their twins on one scene
+    past the staged builds, with times and bounds."""
+    scene = convert.scene_from_numpy(arrays, dev)
+    t, bvh = scene.tables, scene.bvh
+    n_l = t.n_lights
+    cfg = render_config(arrays)
+    w, h, r, k = cfg.width, cfg.height, cfg.num_pixels, cfg.cdf_candidates
+    if not (reuse.streamed_for(n_l, False)
+            and ris_cdf.streamed_for(t.psi.shape[0])):
+        raise PhaseError(f"{name}: {n_l} light rows fit the staged builds")
+    seg = reuse.seg_cuda(n_l, False, dev, streamed=True)
+    print(f"{name}: {scene.num_tris} triangles, {n_l} light rows (l_pad "
+          f"{t.psi.shape[0]}); B7 streamed: checkpoints every {seg} rows, "
+          f"{reuse.smem_bytes(n_l, False, n_l, seg, streamed=True)} B of "
+          f"shared memory a block; B10 streamed: "
+          f"{2 * 256 * 16} B")
+    cam = make_camera(**camkw)
+    pos = camkw["position"]
+    cam2 = make_camera(**{**camkw, "position": (pos[0] + 0.25, pos[1],
+                                                pos[2])})
+    cv, cv2 = pack_camera(cam, dev), pack_camera(cam2, dev)
+    gkw = dict(width=w, height=h, aa_jitter=cfg.aa_jitter,
+               single_sided=cfg.single_sided_lights)
+    rkw = dict(k=k, single_sided=cfg.single_sided_lights, temporal=True,
+               temporal_clamp=cfg.temporal_clamp,
+               has_met=cfg.scene_has_metallic)
+    gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, bvh, **gkw)
+    pt0 = reuse.reuse_cuda(gb0, torch.zeros((PT_CH, r), device=dev), 0, t,
+                           bvh, width=w, **rkw)
+    gb_k = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw)
+    before = reuse.streamed_launches
+    rs_k, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=k,
+                                       has_met=rkw["has_met"], width=w,
+                                       stats=True)
+    if reuse.streamed_launches != before + 1:
+        raise PhaseError(f"{name}: B7 did not take its streamed build")
+    pt_k = fused_di.temporal_cuda(gb_k, rs_k, pt0, 1, k=k,
+                                  temporal_clamp=rkw["temporal_clamp"])
+    pix = sample_pixels(r, dev)
+    pt_r = reuse.reuse_ref(gb_k[:, pix], pt0, 1, t, pix=pix, **rkw)
+    torch.cuda.synchronize()
+    fails, st7 = parity.pt_report(pt_r, pt_k[:, pix])
+    print(f"{name} B7 reuse_bvh (streamed) + B1b vs twin on {SAMPLE_TILES} "
+          f"tiles: {json.dumps(st7)}")
+    gate(fails, f"{name}: B7 (streamed) disagrees with its twin")
+    ev = cnt7[2]
+    lo, hi = int(ev.min()), int(ev.max())
+    print(f"{name} B7 light targets per pixel: mean "
+          f"{float(ev.double().mean()):.2f}, min {lo}, max {hi} (bound "
+          f"{n_l + k * seg}); shadow walk "
+          f"{float(cnt7[0].double().mean()):.2f} box + "
+          f"{float(cnt7[1].double().mean()):.2f} plane tests per ray")
+    if lo < n_l or hi > n_l + k * seg:
+        raise PhaseError(f"{name}: B7 evaluated {lo}-{hi} light targets")
+    ms7 = cuda_ms(lambda: reuse.candidates_cuda(
+        gb_k, 1, t, bvh, k=k, has_met=rkw["has_met"], width=w), 10)
+    b7 = walk_bound7(t, bvh, r, k, cnt7, False)
+
+    pack, shade = b10_input(scene, cam, dev)
+    kw = dict(k=k, single_sided=cfg.single_sided_lights,
+              has_met=cfg.scene_has_metallic)
+    before = ris_cdf.streamed_launches
+    k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw)
+    if ris_cdf.streamed_launches != before + 1:
+        raise PhaseError(f"{name}: B10 did not take its streamed build")
+    kc10, c10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, **kw)
+    same_bits(f"{name} B10 counting build", kc10, k10)
+    ms10 = {}
+    for mode in B10_FORMS:
+        if mode != ris_cdf.STREAM_MODE:
+            lanes = bits_equal(ris_cdf.ris_cdf_cuda(
+                pack, 1, t, bvh, _streamed=mode, **kw), k10).all(0)
+            print(f"{name} B10 streamed form {mode} against form "
+                  f"{ris_cdf.STREAM_MODE}: lanes equal bit for bit "
+                  f"{float(lanes.float().mean()):.7f}")
+        ms10[mode] = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(
+            pack, 1, t, bvh, _streamed=mode, **kw), 10)
+    p0, n = (h // 2) * w, 16 * w  # a band of 16 rows mid-frame
+    r10 = ris_cdf.ris_cdf_ref(pack[:, p0:p0 + n], 1, t, pix0=p0, **kw)
+    err10 = b10_twin_gate(f"{name} B10 ris_cdf (streamed) vs twin on rows "
+                          f"{h // 2}-{h // 2 + 15}", k10[:, p0:p0 + n], r10,
+                          shade[p0:p0 + n])
+    boxes, tests = walk_line(f"{name} B10 shadow", c10, c10[0] > 0)
+    walk_tables = table_bytes(t.planes[:scene.num_tris], bvh.rows)
+    b10 = bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
+                + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
+                r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
+                + boxes * FLOP_BOX + tests * FLOP_PLANE)
+    forms = ", ".join(f"form {m} {v:.4f} ms" for m, v in ms10.items())
+    print(f"{name} B7 reuse_bvh (streamed): kernel {ms7:.4f} ms, bound "
+          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf streamed: {forms}, bound "
+          f"{b10[0]:.4f} ms ({b10[1]})")
+    if record is not None:
+        ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
+                          warmup=False)
+        ms10_ref = cuda_ms(lambda: ris_cdf.ris_cdf_ref(pack, 1, t, **kw), 1,
+                           warmup=False)
+        print(f"{name} twins over the frame: B7 + B1b {ms7_ref:.1f} ms, B10 "
+              f"{ms10_ref:.1f} ms")
+        record["reuse_bvh_streamed"] = dict(
+            max_abs_err=st7["weight_max_abs_err"], ms=ms7, plain_ms=ms7_ref,
+            bound_ms=b7[0], bound_by=b7[1], library_ms=None)
+        record["ris_cdf_streamed"] = dict(
+            max_abs_err=err10, ms=ms10[ris_cdf.STREAM_MODE],
+            plain_ms=ms10_ref, bound_ms=b10[0], bound_by=b10[1],
+            library_ms=None)
+    return scene, cfg, cam
+
+
+def phase_many_lights(headline, headline_cam, hall, hall_sf, hall_cam, dev,
+                      record, launches):
+    """Phase 29: the streamed builds of B7 and B10."""
+    b10_streamed_equals_staged(headline, headline_cam, hall, hall_cam, dev)
+    b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev)
+    levels = 5
+    fused = {"gbuffer_bvh": 1, "reuse_bvh_streamed": 1, "temporal": 1,
+             "spatial": 1, "atrous_eaw": levels}
+    general = {"primary_hit": 1, "ris_cdf_streamed": 1,
+               "atrous_eaw": levels}
+    for n_quads, full in ((1225, True), (5000, False)):
+        arrays, camkw = many_light_scene(n_quads, 24)
+        name = f"many lights {2 * n_quads}"
+        scene, cfg, cam = many_light_kernels(name, arrays, camkw, dev,
+                                             record if full else None)
+        frames = {} if full else dict(warmup=2, timed=4)
+        counts = phase_main(name, scene, cfg, cam, dev, fused, **frames)
+        if full:
+            launches["reuse_bvh_streamed"] = counts["reuse_bvh_streamed"]
+            profile_frames(name, scene, cfg, cam, dev)
+        gcfg = cfg.replace(ris_mode="cdf")
+        warm, timed = ((GENERAL_WARMUP, GENERAL_TIMED) if full else (2, 4))
+        counts = phase_general_main(f"{name} general DI cdf + EAW", scene,
+                                    gcfg, cam, dev, general, warm, timed,
+                                    with_scene=False)
+        if full:
+            launches["ris_cdf_streamed"] = counts["ris_cdf_streamed"]
+            profile_frames(f"{name} general DI cdf + EAW", scene, gcfg, cam,
+                           dev, with_scene=False)
+            phase_quality_gate(dev, arrays, camkw)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4052,6 +4330,9 @@ def main() -> int:
     phase_wall("27 general row bands")
     phase_probes(dev, record, launches)
     phase_wall("28 probes")
+    phase_many_lights(scene, cam, hall, hall_sf, hall_cam, dev, record,
+                      launches)
+    phase_wall("29 many lights")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -132,6 +132,34 @@ inline dim3 tile_grid(int width, int pix0, int r) {
   return dim3((width + PIX_BW - 1) / PIX_BW, (rows + PIX_BH - 1) / PIX_BH);
 }
 
+// Streams the n_rows 64-byte rows of a table in device memory (4 float4
+// a row) through shared memory, blockDim.x / 4 rows at a time, for light
+// tables too large to stage whole (B7's and B10's streamed builds). buf
+// holds 2 * blockDim.x float4: while a chunk is scanned from one half,
+// each thread holds its float4 of the next chunk in a register, and
+// stores it into the other half after the scan, so one barrier a chunk
+// separates both. scan(rows, l0, n) reads rows l0 .. l0 + n - 1 at
+// rows[4 * (l - l0)]. Every thread of the block must call this, the same
+// number of times with the same n_rows: a thread with nothing to scan
+// (off the frame) still stages and waits at each barrier.
+template <class Scan>
+__device__ __forceinline__ void stream_rows(const float4* __restrict__ rows,
+                                            int n_rows, float4* buf,
+                                            Scan&& scan) {
+  const int t = (int)threadIdx.x, n4 = 4 * n_rows;
+  const int step = (int)blockDim.x;  // float4 a chunk
+  if (t < n4) buf[t] = __ldg(rows + t);
+  __syncthreads();
+  for (int i0 = 0, half = 0; i0 < n4; i0 += step, half ^= step) {
+    const int nx = i0 + step + t;
+    const float4 next =
+        nx < n4 ? __ldg(rows + nx) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    scan(buf + half, i0 / 4, min(step, n4 - i0) / 4);
+    buf[(half ^ step) + t] = next;
+    __syncthreads();
+  }
+}
+
 // Luminance of the demodulated BSDF (base colour 1): Lambert, GGX
 // metallic workflow, dielectric -> 0 (delta). has_met = 0 drops the GGX
 // chain for scenes without metallic materials.

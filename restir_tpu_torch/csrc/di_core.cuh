@@ -484,6 +484,70 @@ __device__ __forceinline__ Surface load_surface(const float* __restrict__ gb,
   return s;
 }
 
+// B7's (and B10's streamed build's) form of light_target, with the FMA
+// fusion spelled out (reuse_bvh.cu's note). The frame the light targets
+// read: the normal facing wo (dielectrics
+// keep theirs), n.p, |p|^2 and -2p.
+struct RisFrame {
+  float px, py, pz, nx, ny, nz, wox, woy, woz, ndx, x2, m2px, m2py, m2pz;
+};
+
+__device__ __forceinline__ RisFrame ris_frame(const Surface& s) {
+  RisFrame f;
+  f.px = s.px;
+  f.py = s.py;
+  f.pz = s.pz;
+  f.wox = -s.dx;
+  f.woy = -s.dy;
+  f.woz = -s.dz;
+  f.nx = s.nx;
+  f.ny = s.ny;
+  f.nz = s.nz;
+  const float ndotwo = __fmaf_rn(
+      s.nz, f.woz, __fmaf_rn(s.nx, f.wox, __fmul_rn(s.ny, f.woy)));
+  if (s.mtype != 2.0f && ndotwo < 0.0f) {
+    f.nx = -f.nx;
+    f.ny = -f.ny;
+    f.nz = -f.nz;
+  }
+  f.ndx = __fmaf_rn(f.nz, s.pz,
+                    __fmaf_rn(f.ny, s.py, __fmul_rn(f.nx, s.px)));
+  f.x2 = __fmaf_rn(s.pz, s.pz,
+                   __fmaf_rn(s.px, s.px, __fmul_rn(s.py, s.py)));
+  f.m2px = -2.0f * s.px;
+  f.m2py = -2.0f * s.py;
+  f.m2pz = -2.0f * s.pz;
+  return f;
+}
+
+// di_core.cuh's light_target at frame f (the same value), reading the
+// psi row as four float4.
+__device__ __forceinline__ float light_target4(const float4* ps4,
+                                               const RisFrame& f,
+                                               int single_sided) {
+  const float4 p0 = ps4[0], p1 = ps4[1], p2 = ps4[2], p3 = ps4[3];
+  const float a = __fmaf_rn(
+      p0.w, -f.ndx,
+      __fmaf_rn(p0.z, f.nz, __fmaf_rn(p0.x, f.nx, __fmul_rn(p0.y, f.ny))));
+  const float bb = __fadd_rn(
+      __fmaf_rn(p1.z, f.pz, __fmaf_rn(p1.x, f.px, __fmul_rn(p1.y, f.py))),
+      p1.w);
+  float d2 = __fmaf_rn(
+      p3.x, f.x2,
+      __fadd_rn(__fmaf_rn(p2.z, f.m2pz,
+                          __fmaf_rn(p2.x, f.m2px, __fmul_rn(p2.y, f.m2py))),
+                p2.w));
+  d2 = fmaxf(d2, 1e-8f);
+  const bool side = single_sided ? bb > 0.0f : fabsf(bb) > 0.0f;
+  const float rad = p3.z;
+  const bool above = __fadd_rn(a, rad) > 0.0f;
+  const float a_eff = fmaxf(a, __fmul_rn(0.1f, rad));
+  return (above && side) ? __fdiv_rn(__fmul_rn(__fmul_rn(p3.y, a_eff),
+                                               fabsf(bb)),
+                                     __fmul_rn(d2, d2))
+                         : 0.0f;
+}
+
 struct Candidate {
   float li[3], wi[3], dist, r_weight;
 };

@@ -42,6 +42,17 @@
 // With an env map (template flag HAS_ENV) the 512 env tiles follow the
 // area lights as virtual lights, and an env winner's shadow ray runs to
 // RESTIR_ENV_DIST.
+//
+// The streamed build (template flag STREAM) takes the tables that do not
+// fit in a block's shared memory staged whole (more than about 2,400 area
+// lights): pass 1 reads the area psi rows through a double buffer of
+// kChunkRows rows in shared memory (common.cuh, stream_rows), every
+// thread of the block at every barrier, threads off the frame included;
+// the env tiles' compact rows stay staged; S grows past kSegs (b7_seg)
+// until the checkpoints fit beside the buffer at the launch bounds'
+// blocks per SM; and each pick re-scans its segment's area rows from
+// device memory through the read-only path. The adds are the same in the
+// same order, so it picks what the staged build picks, bit for bit.
 #include "bvh.cuh"
 #include "di_core.cuh"
 #if defined(PROBE_WALK)
@@ -57,78 +68,17 @@ constexpr int kEnvRows = RESTIR_ENV_TH * RESTIR_ENV_TW;
 // ---- B7's RIS: di_core.cuh's ris_select with the search below ----
 //
 // ris_select's light targets and frame are plain expressions whose FMA
-// fusion nvcc chooses; here they are spelled out with intrinsics as nvcc
-// fused them in the first B1 and B7 builds (read from their SASS; the CPU
-// mirror is ops/kernels/reuse.py), so the search's two scans and the
-// full scan round alike. Left to the compiler, this code fused the frame
+// fusion nvcc chooses; B7 reads them spelled out with intrinsics as nvcc
+// fused them in the first B1 and B7 builds (di_core.cuh, ris_frame and
+// light_target4, read from their SASS; the CPU mirror is
+// ops/kernels/reuse.py), so the search's two scans and the full scan
+// round alike. Left to the compiler, this code fused the frame
 // otherwise and moved B7's packs. ris_finish repeats ris_select's
 // candidate evaluation and winner: B1 and B10 keep their inline copy, as
 // sharing the evaluation slowed B1's env build by 5 % and sharing the
 // winner moved B1's texture build by an ulp (PERF.md §6). The B1 ==
 // B6 + B7 + B1b tests named at di_core.cuh's light_target keep the two
 // copies, and light_target with light_target4 / env_target, equal.
-
-// The frame the light targets read: the normal facing wo (dielectrics
-// keep theirs), n.p, |p|^2 and -2p.
-struct RisFrame {
-  float px, py, pz, nx, ny, nz, wox, woy, woz, ndx, x2, m2px, m2py, m2pz;
-};
-
-__device__ __forceinline__ RisFrame ris_frame(const Surface& s) {
-  RisFrame f;
-  f.px = s.px;
-  f.py = s.py;
-  f.pz = s.pz;
-  f.wox = -s.dx;
-  f.woy = -s.dy;
-  f.woz = -s.dz;
-  f.nx = s.nx;
-  f.ny = s.ny;
-  f.nz = s.nz;
-  const float ndotwo = __fmaf_rn(
-      s.nz, f.woz, __fmaf_rn(s.nx, f.wox, __fmul_rn(s.ny, f.woy)));
-  if (s.mtype != 2.0f && ndotwo < 0.0f) {
-    f.nx = -f.nx;
-    f.ny = -f.ny;
-    f.nz = -f.nz;
-  }
-  f.ndx = __fmaf_rn(f.nz, s.pz,
-                    __fmaf_rn(f.ny, s.py, __fmul_rn(f.nx, s.px)));
-  f.x2 = __fmaf_rn(s.pz, s.pz,
-                   __fmaf_rn(s.px, s.px, __fmul_rn(s.py, s.py)));
-  f.m2px = -2.0f * s.px;
-  f.m2py = -2.0f * s.py;
-  f.m2pz = -2.0f * s.pz;
-  return f;
-}
-
-// di_core.cuh's light_target at frame f (the same value), reading the
-// psi row as four float4.
-__device__ __forceinline__ float light_target4(const float4* ps4,
-                                               const RisFrame& f,
-                                               int single_sided) {
-  const float4 p0 = ps4[0], p1 = ps4[1], p2 = ps4[2], p3 = ps4[3];
-  const float a = __fmaf_rn(
-      p0.w, -f.ndx,
-      __fmaf_rn(p0.z, f.nz, __fmaf_rn(p0.x, f.nx, __fmul_rn(p0.y, f.ny))));
-  const float bb = __fadd_rn(
-      __fmaf_rn(p1.z, f.pz, __fmaf_rn(p1.x, f.px, __fmul_rn(p1.y, f.py))),
-      p1.w);
-  float d2 = __fmaf_rn(
-      p3.x, f.x2,
-      __fadd_rn(__fmaf_rn(p2.z, f.m2pz,
-                          __fmaf_rn(p2.x, f.m2px, __fmul_rn(p2.y, f.m2py))),
-                p2.w));
-  d2 = fmaxf(d2, 1e-8f);
-  const bool side = single_sided ? bb > 0.0f : fabsf(bb) > 0.0f;
-  const float rad = p3.z;
-  const bool above = __fadd_rn(a, rad) > 0.0f;
-  const float a_eff = fmaxf(a, __fmul_rn(0.1f, rad));
-  return (above && side) ? __fdiv_rn(__fmul_rn(__fmul_rn(p3.y, a_eff),
-                                               fabsf(bb)),
-                                     __fmul_rn(d2, d2))
-                         : 0.0f;
-}
 
 // The target of an env-tile row, psi (d, 0 | 0, 0, 0, 1 | 0, 0, 0, 1, 0 |
 // lum, rad): b = 1 and d2 = 1, so light_target4 reduces to lum * max(n.d,
@@ -283,23 +233,43 @@ __device__ __forceinline__ Candidate ris_finish(
 
 // The light rows in shared memory and this thread's cdf checkpoints.
 struct LightStage {
-  const float4* area;    // [n_area * 4] psi rows
+  const float4* area;    // [n_area * 4] psi rows (STREAM: device memory)
   const float4* env;     // [n_env] (d_tile, rad)
   const float* env_lum;  // [n_env] luminance x solid angle (psi col 13)
   float* ck;             // checkpoint c of this thread at ck[c * stride]
   int stride, n_area, n_live, seg;  // seg: light rows per checkpoint
+  float4* chunk;         // STREAM: stream_rows' buffer, 2 * PIX_BLOCK
 };
+
+// The streamed build's chunk of area rows: one float4 a thread.
+constexpr int kChunkRows = 64;
+static_assert(4 * kChunkRows == PIX_BLOCK, "a float4 a thread a chunk");
+
+// light_target4 of an area psi row in shared memory, or (STREAM) in
+// device memory, read through the read-only path.
+template <bool STREAM>
+__device__ __forceinline__ float area_target(const float4* row,
+                                             const RisFrame& f,
+                                             int single_sided) {
+  if constexpr (STREAM) {
+    const float4 v[4] = {__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                         __ldg(row + 3)};
+    return light_target4(v, f, single_sided);
+  } else {
+    return light_target4(row, f, single_sided);
+  }
+}
 
 // Adds the targets of rows [l0, l1) to cdf in row order and calls
 // visit(l, t, cdf) after each add.
-template <bool HAS_ENV, class Visit>
+template <bool HAS_ENV, bool STREAM, class Visit>
 __device__ __forceinline__ float scan_rows(const LightStage& st,
                                            const RisFrame& f,
                                            int single_sided, int l0, int l1,
                                            float cdf, Visit&& visit) {
   const int la = min(l1, st.n_area);
   for (int l = l0; l < la; ++l) {
-    const float t = light_target4(st.area + 4 * l, f, single_sided);
+    const float t = area_target<STREAM>(st.area + 4 * l, f, single_sided);
     cdf = __fadd_rn(cdf, t);
     visit(l, t, cdf);
   }
@@ -314,22 +284,61 @@ __device__ __forceinline__ float scan_rows(const LightStage& st,
   return cdf;
 }
 
+// Pass 1 of the streamed build: the area rows through stream_rows, then
+// the staged env rows, a checkpoint after every seg-th row and after the
+// last. Every thread of the block calls it; one that is not live only
+// stages. Returns the total; t_last is the last row's target.
+template <bool HAS_ENV>
+__device__ __forceinline__ float stream_pass1(const LightStage& st,
+                                              const RisFrame& f,
+                                              int single_sided, bool live,
+                                              float& t_last) {
+  float cdf = 0.0f;
+  int c = 0, left = st.seg;  // this segment's checkpoint, rows left in it
+  auto add = [&](float t) {
+    cdf = __fadd_rn(cdf, t);
+    t_last = t;
+    if (--left == 0) {
+      st.ck[c++ * st.stride] = cdf;
+      left = st.seg;
+    }
+  };
+  stream_rows(st.area, st.n_area, st.chunk,
+              [&](const float4* rows, int, int n) {
+                if (!live) return;
+                for (int i = 0; i < n; ++i)
+                  add(light_target4(rows + 4 * i, f, single_sided));
+              });
+  if (HAS_ENV && live) {
+    for (int e = 0; e < st.n_live - st.n_area; ++e)
+      add(env_target(st.env[e], st.env_lum[e], f));
+  }
+  if (left != st.seg) st.ck[c * st.stride] = cdf;
+  return cdf;
+}
+
 // The search (module note), then ris_finish. evaluated counts the light
-// targets computed (COUNT builds).
-template <bool COUNT, bool HAS_ENV>
+// targets computed (COUNT builds). STREAM: every thread of the block
+// calls it; one that is not live returns no candidate after pass 1.
+template <bool COUNT, bool HAS_ENV, bool STREAM>
 __device__ __forceinline__ Candidate ris_select_seg(
     const LightStage& st, const float* lights, int l_pad, uint32_t pu,
     uint32_t looper, int k, int single_sided, int has_met, const Surface& s,
-    int& evaluated) {
+    int& evaluated, bool live) {
   const RisFrame f = ris_frame(s);
   const int n_seg = (st.n_live + st.seg - 1) / st.seg;
   float cdf = 0.0f, t_last = 0.0f;
-  for (int c = 0; c < n_seg; ++c) {
-    const int l0 = c * st.seg;
-    cdf = scan_rows<HAS_ENV>(st, f, single_sided, l0,
-                             min(l0 + st.seg, st.n_live), cdf,
-                             [&](int, float t, float) { t_last = t; });
-    st.ck[c * st.stride] = cdf;
+  if constexpr (STREAM) {
+    cdf = stream_pass1<HAS_ENV>(st, f, single_sided, live, t_last);
+    if (!live) return Candidate{};
+  } else {
+    for (int c = 0; c < n_seg; ++c) {
+      const int l0 = c * st.seg;
+      cdf = scan_rows<HAS_ENV, false>(
+          st, f, single_sided, l0, min(l0 + st.seg, st.n_live), cdf,
+          [&](int, float t, float) { t_last = t; });
+      st.ck[c * st.stride] = cdf;
+    }
   }
   const float total = cdf;
   // the fallback row l_pad - 1 is a padding row (target 0) unless every
@@ -364,14 +373,14 @@ __device__ __forceinline__ Candidate ris_select_seg(
     const int l1 = min(l0 + st.seg, st.n_live);
     int hit = -1;
     float tv = 0.0f;
-    scan_rows<HAS_ENV>(st, f, single_sided, l0, l1,
-                       lo ? st.ck[(lo - 1) * st.stride] : 0.0f,
-                       [&](int l, float t, float run) {
-                         if (hit < 0 && run > thr) {
-                           hit = l;
-                           tv = t;
-                         }
-                       });
+    scan_rows<HAS_ENV, STREAM>(st, f, single_sided, l0, l1,
+                               lo ? st.ck[(lo - 1) * st.stride] : 0.0f,
+                               [&](int l, float t, float run) {
+                                 if (hit < 0 && run > thr) {
+                                   hit = l;
+                                   tv = t;
+                                 }
+                               });
     if (COUNT) evaluated += l1 - l0;
 #pragma unroll
     for (int jj = 0; jj < MAX_K; ++jj) {
@@ -393,20 +402,22 @@ __device__ __forceinline__ Candidate ris_select_seg(
 constexpr int kBlocksPerSm = 4, kBlocksPerSmEnv = 3;
 constexpr int kSegs[] = {8, 16, 32};
 
-// Shared memory per block: the area lights' psi rows (64 B), the env
-// tiles' (d_tile, rad | lum) (20 B) and a cdf checkpoint every seg rows
-// for each thread (ops/kernels/reuse.py, smem_bytes).
-size_t b7_smem(int n_area, bool has_env, int seg) {
+// Shared memory per block: the area lights' psi rows (64 B; STREAM:
+// stream_rows' buffer of 2 x kChunkRows rows), the env tiles' (d_tile,
+// rad | lum) (20 B) and a cdf checkpoint every seg rows for each thread
+// (ops/kernels/reuse.py, smem_bytes).
+size_t b7_smem(int n_area, bool has_env, int seg, bool stream) {
   const int n_env = has_env ? kEnvRows : 0;
   const int n_seg = (n_area + n_env + seg - 1) / seg;
-  return (size_t)n_area * 64 + (size_t)n_env * 20 +
-         (size_t)n_seg * PIX_BLOCK * sizeof(float);
+  return (size_t)(stream ? 2 * kChunkRows : n_area) * 64 +
+         (size_t)n_env * 20 + (size_t)n_seg * PIX_BLOCK * sizeof(float);
 }
 
-// The checkpoint spacing: the smallest of kSegs whose shared memory lets
-// the blocks per SM of the launch bounds share an SM of this device, else
-// the largest.
-cudaError_t b7_seg(int n_area, bool has_env, int* seg) {
+// The checkpoint spacing: the smallest whose shared memory lets the
+// blocks per SM of the launch bounds share an SM of this device. The
+// staged build takes one of kSegs, else the largest; the streamed build
+// doubles S from kSegs[0] until it fits (one checkpoint at most).
+cudaError_t b7_seg(int n_area, bool has_env, bool stream, int* seg) {
   int dev, sm_smem, reserved;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -419,9 +430,16 @@ cudaError_t b7_seg(int n_area, bool has_env, int* seg) {
   const size_t cap =
       (size_t)(sm_smem / (has_env ? kBlocksPerSmEnv : kBlocksPerSm)) -
       (size_t)reserved;
+  if (stream) {
+    const int n_live = n_area + (has_env ? kEnvRows : 0);
+    int s = kSegs[0];
+    while (s < n_live && b7_smem(n_area, has_env, s, true) > cap) s *= 2;
+    *seg = s;
+    return cudaSuccess;
+  }
   *seg = kSegs[sizeof(kSegs) / sizeof(kSegs[0]) - 1];
   for (int s : kSegs) {
-    if (b7_smem(n_area, has_env, s) <= cap) {
+    if (b7_smem(n_area, has_env, s, false) <= cap) {
       *seg = s;
       break;
     }
@@ -429,7 +447,7 @@ cudaError_t b7_seg(int n_area, bool has_env, int* seg) {
   return cudaSuccess;
 }
 
-template <bool COUNT, bool HAS_ENV>
+template <bool COUNT, bool HAS_ENV, bool STREAM>
 __global__ void __launch_bounds__(PIX_BLOCK,
                                   HAS_ENV ? kBlocksPerSmEnv : kBlocksPerSm)
     reuse_bvh_kernel(const float* __restrict__ gb, uint32_t looper,
@@ -440,11 +458,13 @@ __global__ void __launch_bounds__(PIX_BLOCK,
                      int single_sided, int k, int has_met) {
   extern __shared__ float4 smem4[];
   const int n_env = HAS_ENV ? kEnvRows : 0;
-  float4* area = smem4;
-  float4* env = area + 4 * n_area;
+  float4* area = smem4;  // STREAM: stream_rows' buffer
+  float4* env = area + (STREAM ? 2 * PIX_BLOCK : 4 * n_area);
   float* env_lum = reinterpret_cast<float*>(env + n_env);
-  for (int i = threadIdx.x; i < 4 * n_area; i += blockDim.x)
-    area[i] = psi_g[i];
+  if constexpr (!STREAM) {
+    for (int i = threadIdx.x; i < 4 * n_area; i += blockDim.x)
+      area[i] = psi_g[i];
+  }
   for (int i = threadIdx.x; i < n_env; i += blockDim.x) {
     const float4 a = psi_g[4 * (n_area + i)];
     const float4 c = psi_g[4 * (n_area + i) + 3];
@@ -454,17 +474,27 @@ __global__ void __launch_bounds__(PIX_BLOCK,
   __syncthreads();
 
   const int g = tile_pixel(width, pix0, r);
-  if (g < 0) return;
+  // the streamed build's pass 1 has barriers: a thread off the frame
+  // stays for them and returns after it
+  if (!STREAM && g < 0) return;
+  const bool live = g >= 0;
   const int p = g - pix0;  // the band's pack column
-  const LightStage st = {area,           env,
-                         env_lum,        env_lum + n_env + threadIdx.x,
-                         (int)blockDim.x, n_area,
-                         n_area + n_env, seg};
-  const Surface s = load_surface(gb, p, r);
+  const LightStage st = {STREAM ? psi_g : area,
+                         env,
+                         env_lum,
+                         env_lum + n_env + threadIdx.x,
+                         (int)blockDim.x,
+                         n_area,
+                         n_area + n_env,
+                         seg,
+                         area};
+  Surface s = {};
+  if (live) s = load_surface(gb, p, r);
   int evaluated = 0;
-  const Candidate c = ris_select_seg<COUNT, HAS_ENV>(
+  const Candidate c = ris_select_seg<COUNT, HAS_ENV, STREAM>(
       st, lights_g, l_pad, (uint32_t)g, looper, k, single_sided, has_met, s,
-      evaluated);
+      evaluated, live);
+  if (!live) return;
   WalkCount n = {0, 0};
 #if defined(PROBE_WALK)
   if (PROBE_WALK == 2) n = {stats[p], stats[(size_t)r + p]};
@@ -482,23 +512,23 @@ __global__ void __launch_bounds__(PIX_BLOCK,
   }
 }
 
-template <bool COUNT, bool HAS_ENV>
+template <bool COUNT, bool HAS_ENV, bool STREAM>
 int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
                      const float* psi, int l_pad, int n_area,
                      const BvhRows& bvh, float* rs, int* stats, int r,
                      int width, int pix0, int single_sided, int k,
                      int has_met, cudaStream_t stream) {
   int seg;
-  cudaError_t e = b7_seg(n_area, HAS_ENV, &seg);
+  cudaError_t e = b7_seg(n_area, HAS_ENV, STREAM, &seg);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = b7_smem(n_area, HAS_ENV, seg);
+  const size_t smem = b7_smem(n_area, HAS_ENV, seg, STREAM);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(reuse_bvh_kernel<COUNT, HAS_ENV>,
+    e = cudaFuncSetAttribute(reuse_bvh_kernel<COUNT, HAS_ENV, STREAM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  reuse_bvh_kernel<COUNT, HAS_ENV>
+  reuse_bvh_kernel<COUNT, HAS_ENV, STREAM>
       <<<tile_grid(width, pix0, r), PIX_BLOCK, smem, stream>>>(
       gb, looper, lights, reinterpret_cast<const float4*>(psi), l_pad,
       n_area, seg, bvh, rs, stats, r, width, pix0, single_sided, k,
@@ -508,11 +538,11 @@ int launch_reuse_bvh(const float* gb, uint32_t looper, const float* lights,
 
 }  // namespace
 
-// B7's light rows per cdf checkpoint on the current device, or minus a
-// CUDA error code.
-extern "C" int restir_reuse_bvh_seg(int n_area, int has_env) {
+// B7's light rows per cdf checkpoint on the current device (the streamed
+// build's when `stream`), or minus a CUDA error code.
+extern "C" int restir_reuse_bvh_seg(int n_area, int has_env, int stream) {
   int seg;
-  const cudaError_t e = b7_seg(n_area, has_env != 0, &seg);
+  const cudaError_t e = b7_seg(n_area, has_env != 0, stream != 0, &seg);
   return e == cudaSuccess ? seg : -(int)e;
 }
 
@@ -522,28 +552,33 @@ extern "C" int restir_reuse_bvh_seg(int n_area, int has_env) {
 // frame: pix0 = 0), tiled in 2-D over the rows they touch; the RIS draws
 // key on the global pixel. stats: null, or int32 [3, r] that receives
 // each shadow ray's box and triangle test counts and the light targets
-// the pixel evaluated.
+// the pixel evaluated. stream: 0 the staged build (a launch error when
+// its shared memory passes the device's limit), 1 the streamed build.
 extern "C" int restir_reuse_bvh(const float* gb, uint32_t looper,
                                 const float* lights, const float* psi,
                                 int l_pad, int n_area, int has_env,
-                                const float* rows, int size,
+                                int stream, const float* rows, int size,
                                 const float* planes, float* rs,
                                 int* stats, int r, int width, int pix0,
                                 int single_sided, int k, int has_met,
-                                void* stream) {
+                                void* stream_) {
   if (k < 1 || k > MAX_K || r <= 0 || size <= 0 || width <= 0 ||
       pix0 < 0 || n_area < 0 ||
       n_area + (has_env ? kEnvRows : 0) > l_pad)
     return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(psi) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
-  const cudaStream_t st = (cudaStream_t)stream;
-#define RESTIR_B7_LAUNCH(C, E)                                              \
-  launch_reuse_bvh<C, E>(gb, looper, lights, psi, l_pad, n_area, bvh, rs, \
-                         stats, r, width, pix0, single_sided, k, has_met, st)
+  const cudaStream_t st = (cudaStream_t)stream_;
+#define RESTIR_B7_LAUNCH(C, E, S)                                      \
+  launch_reuse_bvh<C, E, S>(gb, looper, lights, psi, l_pad, n_area, bvh, \
+                            rs, stats, r, width, pix0, single_sided, k,  \
+                            has_met, st)
+#define RESTIR_B7_ENV(C, S) \
+  (has_env ? RESTIR_B7_LAUNCH(C, true, S) : RESTIR_B7_LAUNCH(C, false, S))
   if (stats)
-    return has_env ? RESTIR_B7_LAUNCH(true, true)
-                   : RESTIR_B7_LAUNCH(true, false);
-  return has_env ? RESTIR_B7_LAUNCH(false, true)
-                 : RESTIR_B7_LAUNCH(false, false);
+    return stream ? RESTIR_B7_ENV(true, true) : RESTIR_B7_ENV(true, false);
+  return stream ? RESTIR_B7_ENV(false, true) : RESTIR_B7_ENV(false, false);
+#undef RESTIR_B7_ENV
 #undef RESTIR_B7_LAUNCH
 }

@@ -25,6 +25,14 @@
 // node and plane rows from global memory through the read-only cache.
 // Lanes whose winner carries no weight do not walk. The COUNT build also
 // returns each walk's box and plane tests.
+//
+// Light tables larger than a block's shared memory (more than 1,792 rows)
+// take a streamed build (MODE): 1 runs ris_select's two scans over psi
+// rows staged kChunkRows at a time (common.cuh, stream_rows; every thread
+// of the block at every barrier, threads past r included), 3 the same
+// with B7's spelled-out frame and targets (di_core.cuh, ris_frame and
+// light_target4), 2 runs ris_select itself on the tables in device
+// memory. Each reads the K candidate rows from device memory.
 #include "bvh.cuh"
 #include "di_core.cuh"
 #if defined(PROBE_WALK)
@@ -36,6 +44,158 @@ using namespace restir;
 namespace {
 
 constexpr int BLOCK = 256;
+constexpr int kChunkRows = BLOCK / 4;  // streamed psi rows a chunk
+
+// di_core.cuh's ris_select without env tiles, its two scans over the psi
+// rows streamed through shared memory (buf: 2 * BLOCK float4), the
+// candidates' light rows read from device memory. SPELLED: the frame and
+// targets of ris_frame / light_target4 (B7's). Every thread of the block
+// calls it; one that is not live only stages.
+template <bool SPELLED>
+__device__ __forceinline__ Candidate ris_select_streamed(
+    const float4* psi4, const float* lights, float4* buf, int l_pad,
+    uint32_t pu, uint32_t looper, int k, int single_sided, int has_met,
+    const Surface& s, bool live) {
+  const float px = s.px, py = s.py, pz = s.pz;
+  const float mtype = s.mtype;
+  const float wox = -s.dx, woy = -s.dy, woz = -s.dz;
+  const RisFrame f = ris_frame(s);
+  float nx = s.nx, ny = s.ny, nz = s.nz;
+  if (SPELLED) {
+    nx = f.nx;
+    ny = f.ny;
+    nz = f.nz;
+  } else if (mtype != 2.0f && (nx * wox + ny * woy + nz * woz) < 0.0f) {
+    nx = -nx;
+    ny = -ny;
+    nz = -nz;
+  }
+  const float ndx = nx * px + ny * py + nz * pz;
+  const float x2 = px * px + py * py + pz * pz;
+  auto target = [&](const float4* row) {
+    return SPELLED ? light_target4(row, f, single_sided)
+                   : light_target(reinterpret_cast<const float*>(row), nx,
+                                  ny, nz, ndx, px, py, pz, x2, single_sided);
+  };
+
+  float total = 0.0f;
+  stream_rows(psi4, l_pad, buf, [&](const float4* rows, int, int n) {
+    if (!live) return;
+    for (int i = 0; i < n; ++i) total += target(rows + 4 * i);
+  });
+
+  float r2[MAX_K], r3[MAX_K], thr[MAX_K], tq[MAX_K], r4_0 = 0.0f;
+  int idx[MAX_K];
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j) {
+    r2[j] = r3[j] = thr[j] = tq[j] = 0.0f;
+    idx[j] = -1;
+    if (j < k) {
+      uint32_t h[4];
+      pcg4d(pu, looper, (uint32_t)(CTR_RIS + j), SALT_RESTIR, h);
+      thr[j] = unit(h[0]) * total;
+      r2[j] = unit(h[1]);
+      r3[j] = unit(h[2]);
+      if (j == 0) r4_0 = unit(h[3]);
+    }
+  }
+  float cdf = 0.0f, t_last = 0.0f;
+  stream_rows(psi4, l_pad, buf, [&](const float4* rows, int l0, int n) {
+    if (!live) return;
+    for (int i = 0; i < n; ++i) {
+      const float t = target(rows + 4 * i);
+      cdf += t;
+      t_last = t;
+#pragma unroll
+      for (int j = 0; j < MAX_K; ++j) {
+        if (j < k && idx[j] < 0 && cdf > thr[j]) {
+          idx[j] = l0 + i;
+          tq[j] = t;
+        }
+      }
+    }
+  });
+  if (!live) return Candidate{};
+
+  float w[MAX_K], cli[MAX_K][3], cwi[MAX_K][3], cdist[MAX_K];
+  const float total_safe = fmaxf(total, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j) {
+    w[j] = 0.0f;
+    cli[j][0] = cli[j][1] = cli[j][2] = 0.0f;
+    cwi[j][0] = cwi[j][1] = cwi[j][2] = 0.0f;
+    cdist[j] = 0.0f;
+    if (j >= k) continue;
+    if (idx[j] < 0) {
+      idx[j] = l_pad - 1;
+      tq[j] = t_last;
+    }
+    const float* L = lights + idx[j] * 16;
+    const float q = tq[j] / total_safe;
+    const float sr = sqrtf(fmaxf(r3[j], 0.0f));
+    const float b_u = 1.0f - sr;
+    const float b_v = r2[j] * sr;
+    const float sx = L[0] + b_u * L[3] + b_v * L[6];
+    const float sy = L[1] + b_u * L[4] + b_v * L[7];
+    const float sz = L[2] + b_u * L[5] + b_v * L[8];
+    const float tx = sx - px, ty = sy - py, tz = sz - pz;
+    const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
+    const float inv_dist = 1.0f / sqrtf(dist2);
+    const float wix = tx * inv_dist, wiy = ty * inv_dist,
+                wiz = tz * inv_dist;
+    const float cos_l = L[9] * wix + L[10] * wiy + L[11] * wiz;
+    float pdf = q * dist2 / fmaxf(L[15] * fabsf(cos_l), 1e-20f);
+    if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
+    pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
+    const float dist = dist2 * inv_dist;
+    const float f_lum = bsdf_lum(mtype, s.metallic, s.roughness, nx, ny, nz,
+                                 wox, woy, woz, wix, wiy, wiz, has_met);
+    const float li_lum = 0.2126f * L[12] + 0.7152f * L[13] + 0.0722f * L[14];
+    const float cos_s = fmaxf(nx * wix + ny * wiy + nz * wiz, 0.0f);
+    const float wj = li_lum * f_lum * cos_s / pdf;
+    const bool bad = isnan(wj) || isinf(wj) || pdf <= 0.0f;
+    w[j] = (bad || !s.shade) ? 0.0f : wj;
+    cli[j][0] = L[12];
+    cli[j][1] = L[13];
+    cli[j][2] = L[14];
+    cwi[j][0] = wix;
+    cwi[j][1] = wiy;
+    cwi[j][2] = wiz;
+    cdist[j] = dist;
+  }
+
+  // single-draw winner over the cumulative candidate weights
+  float c = w[0], cums[MAX_K];
+#pragma unroll
+  for (int j = 1; j < MAX_K; ++j) {
+    cums[j - 1] = c;
+    if (j < k) c += w[j];
+  }
+  Candidate out;
+  out.r_weight = c;
+  const float thresh = r4_0 * c;
+  int jsel = 0;
+#pragma unroll
+  for (int j = 0; j < MAX_K - 1; ++j)
+    if (j < k - 1 && cums[j] <= thresh) ++jsel;
+  const bool gate = c > 0.0f && s.shade;
+  out.li[0] = out.li[1] = out.li[2] = 0.0f;
+  out.wi[0] = out.wi[1] = out.wi[2] = 0.0f;
+  out.dist = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j) {
+    if (gate && j == jsel) {
+      out.li[0] = cli[j][0];
+      out.li[1] = cli[j][1];
+      out.li[2] = cli[j][2];
+      out.wi[0] = cwi[j][0];
+      out.wi[1] = cwi[j][1];
+      out.wi[2] = cwi[j][2];
+      out.dist = cdist[j];
+    }
+  }
+  return out;
+}
 
 // input / output pack channels (ris_kernel.py:37-41)
 enum {
@@ -44,7 +204,9 @@ enum {
 };
 enum { O_LI = 0, O_WI = 3, O_DIST = 6, O_W = 7, O_M = 8, O_PAD = 9 };
 
-template <bool COUNT>
+// MODE 0: the tables staged in shared memory; 1, 2, 3: streamed (module
+// note).
+template <bool COUNT, int MODE>
 __global__ void __launch_bounds__(BLOCK)
     ris_cdf_kernel(const float* __restrict__ in, uint32_t looper,
                    uint32_t pix0, const float* __restrict__ lights_g,
@@ -55,16 +217,21 @@ __global__ void __launch_bounds__(BLOCK)
   extern __shared__ float4 smem4[];
   float* psi = reinterpret_cast<float*>(smem4);
   float* lights = psi + l_pad * 16;
-  for (int i = threadIdx.x; i < l_pad * 16; i += blockDim.x) {
-    psi[i] = psi_g[i];
-    lights[i] = lights_g[i];
+  if constexpr (MODE == 0) {
+    for (int i = threadIdx.x; i < l_pad * 16; i += blockDim.x) {
+      psi[i] = psi_g[i];
+      lights[i] = lights_g[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r) return;
+  // the streamed build's scans have barriers: a thread past r stays for
+  // them and returns after them
+  if ((MODE == 0 || MODE == 2) && p >= r) return;
+  const bool live = p < r;
   const float* g = in + p;
-  auto at = [&](int ch) { return g[(size_t)ch * r]; };
+  auto at = [&](int ch) { return live ? g[(size_t)ch * r] : 0.0f; };
   Surface s = {};
   s.px = at(I_POS);
   s.py = at(I_POS + 1);
@@ -80,9 +247,22 @@ __global__ void __launch_bounds__(BLOCK)
   s.roughness = at(I_ROUGH);
   s.shade = at(I_SHADE) > 0.5f;
   s.prim = __float2int_rz(at(I_PRIM));
-  const Candidate c = ris_select<false>(psi, lights, l_pad, n_area,
-                                        pix0 + (uint32_t)p, looper, k,
-                                        single_sided, has_met, s);
+  Candidate c;
+  if constexpr (MODE == 0) {
+    c = ris_select<false>(psi, lights, l_pad, n_area, pix0 + (uint32_t)p,
+                          looper, k, single_sided, has_met, s);
+  } else if constexpr (MODE == 1 || MODE == 3) {
+    c = ris_select_streamed<MODE == 3>(
+        reinterpret_cast<const float4*>(psi_g), lights_g, smem4, l_pad,
+        pix0 + (uint32_t)p, looper, k, single_sided, has_met, s, live);
+    if (!live) return;
+  } else {
+    c = ris_select<false>(
+        static_cast<const float*>(__builtin_assume_aligned(psi_g, 64)),
+        static_cast<const float*>(__builtin_assume_aligned(lights_g, 64)),
+        l_pad, n_area, pix0 + (uint32_t)p, looper, k, single_sided, has_met,
+        s);
+  }
 
   WalkCount n = {0, 0};
 #if defined(PROBE_WALK)
@@ -113,23 +293,26 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <bool COUNT>
+template <bool COUNT, int MODE>
 int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
                    const float* lights,
                    const float* psi, int l_pad, int n_area,
                    const BvhRows& bvh, float* out, int* stats, int r,
                    int single_sided, int k, int has_met,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)l_pad * 32 * sizeof(float);
+  const size_t smem = MODE == 0   ? (size_t)l_pad * 32 * sizeof(float)
+                      : MODE == 2 ? 0
+                                  : 2 * BLOCK * sizeof(float4);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ris_cdf_kernel<COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        ris_cdf_kernel<COUNT, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ris_cdf_kernel<COUNT><<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
-      in, looper, pix0, lights, psi, l_pad, n_area, bvh, out, stats, r,
-      single_sided, k, has_met);
+  ris_cdf_kernel<COUNT, MODE>
+      <<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
+          in, looper, pix0, lights, psi, l_pad, n_area, bvh, out, stats, r,
+          single_sided, k, has_met);
   return (int)cudaGetLastError();
 }
 
@@ -141,23 +324,34 @@ int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
 // (3), dist, weight (zero when the winner is occluded), M, 0. stats:
 // null, or int32 [2, R] that receives each shadow walk's box and plane
 // test counts. pix0: the global index of pixel 0 of the pack, the key of
-// its draws.
+// its draws. stream: 0 the staged build (a launch error when its shared
+// memory passes the device's limit), 1, 2 or 3 a streamed build (module
+// note).
 extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
                               uint32_t pix0, const float* lights,
                               const float* psi,
-                              int l_pad, int n_area, const float* rows,
-                              int size, const float* planes, float* out,
+                              int l_pad, int n_area, int stream,
+                              const float* rows, int size,
+                              const float* planes, float* out,
                               int* stats, int r, int single_sided, int k,
-                              int has_met, void* stream) {
-  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0)
+                              int has_met, void* stream_) {
+  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0 ||
+      stream < 0 || stream > 3)
     return (int)cudaErrorInvalidValue;
+  if (stream && ((reinterpret_cast<uintptr_t>(psi) |
+                  reinterpret_cast<uintptr_t>(lights)) & 63) != 0)
+    return (int)cudaErrorMisalignedAddress;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (stats)
-    return launch_ris_cdf<true>(in, looper, pix0, lights, psi, l_pad, n_area,
-                                bvh, out, stats, r, single_sided, k, has_met,
-                                st);
-  return launch_ris_cdf<false>(in, looper, pix0, lights, psi, l_pad, n_area,
-                               bvh, out, stats, r, single_sided, k, has_met,
-                               st);
+  const cudaStream_t st = (cudaStream_t)stream_;
+#define RESTIR_B10_LAUNCH(C, M)                                          \
+  launch_ris_cdf<C, M>(in, looper, pix0, lights, psi, l_pad, n_area, bvh, \
+                       out, stats, r, single_sided, k, has_met, st)
+#define RESTIR_B10_MODE(C)                                  \
+  (stream == 0   ? RESTIR_B10_LAUNCH(C, 0)                  \
+   : stream == 1 ? RESTIR_B10_LAUNCH(C, 1)                  \
+   : stream == 2 ? RESTIR_B10_LAUNCH(C, 2)                  \
+                 : RESTIR_B10_LAUNCH(C, 3))
+  return stats ? RESTIR_B10_MODE(true) : RESTIR_B10_MODE(false);
+#undef RESTIR_B10_MODE
+#undef RESTIR_B10_LAUNCH
 }

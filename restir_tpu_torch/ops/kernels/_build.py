@@ -222,9 +222,9 @@ _SIGNATURES = {
         _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
         _F, _I, _I, _VP],
     "restir_reuse_bvh": [
-        _VP, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
+        _VP, _U, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
         _I, _I, _I, _I, _VP],
-    "restir_reuse_bvh_seg": [_I, _I],
+    "restir_reuse_bvh_seg": [_I, _I, _I],
     "restir_svgf_temporal": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "restir_svgf_variance": [_VP, _L, _L, _VP, _VP, _I, _I, _VP],
     "restir_svgf_filter_variance": [_VP, _VP, _I, _I, _VP],
@@ -243,8 +243,8 @@ _SIGNATURES = {
     "restir_bvh_heatmap": [
         _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     "restir_ris_cdf": [
-        _VP, _U, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I,
-        _I, _VP],
+        _VP, _U, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
+        _I, _I, _VP],
     "restir_gi_trace": [
         _VP, _I, _U, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _I, _F, _I, _I,
         _I, _I, _I, _VP, _VP, _VP],

@@ -18,7 +18,7 @@ import torch
 
 from ...scene.bvh import get_mtbvh_id
 from ...utils.math import fma
-from .fused_di import BIG
+from .fused_di import BIG, _fma32
 from .tables import BvhTables
 
 CULL_SLACK = 1.0001220703125  # 1 + 2^-13, RESTIR_CULL_SLACK in bvh.cuh
@@ -70,12 +70,6 @@ def di_plane(planes, prim, o, d):
     nondeg = torch.abs(ddw) >= 1e-12
     t = -oow / torch.where(nondeg, ddw, 1.0)
     return _hit(nondeg, t, oou + t * ddu, oov + t * ddv)
-
-
-def _fma32(a, b, c):
-    """a * b + c rounded once to float32 (the product is exact in
-    float64), on either device."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 def gi_plane(planes, prim, o, d):

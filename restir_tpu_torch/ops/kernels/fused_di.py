@@ -459,38 +459,70 @@ def gbuffer_pixels(pix, cam, lcam, looper, tables, *, width, height,
     return torch.stack(chans)
 
 
+def _fma32(a, b, c):
+    """a * b + c rounded once to float32 (the product is exact in
+    float64), on either device."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def ris_frame(gb):
+    """The shading frame the light targets read, as csrc/di_core.cuh's
+    `ris_frame` computes it: the normal facing wo (dielectrics keep
+    theirs), n.p, |p|^2 and p."""
+    px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
+    nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
+    dx, dy, dz = gb[G_DIR], gb[G_DIR + 1], gb[G_DIR + 2]
+    ndotwo = _fma32(nz, -dz, _fma32(nx, -dx, ny * -dy))
+    flip = (gb[G_MTYPE] != DIELECTRIC) & (ndotwo < 0.0)
+    nx, ny, nz = (torch.where(flip, -c, c) for c in (nx, ny, nz))
+    ndx = _fma32(nz, pz, _fma32(ny, py, nx * px))
+    x2 = _fma32(pz, pz, _fma32(px, px, py * py))
+    return dict(n=(nx, ny, nz), p=(px, py, pz), ndx=ndx, x2=x2)
+
+
+def light_target_rows(psi, f, single_sided):
+    """Light targets [b, rows] of psi rows at frame f: csrc/di_core.cuh's
+    `light_target` (`light_target4`), with its products fused into FMAs
+    where the CUDA builds fuse them."""
+    nx, ny, nz = (c[:, None] for c in f["n"])
+    px, py, pz = (c[:, None] for c in f["p"])
+    ndx, x2 = f["ndx"][:, None], f["x2"][:, None]
+    q = [psi[:, c][None] for c in range(15)]
+    a = _fma32(q[3], -ndx, _fma32(q[2], nz, _fma32(q[0], nx, q[1] * ny)))
+    bb = _fma32(q[6], pz, _fma32(q[4], px, q[5] * py)) + q[7]
+    d2 = _fma32(q[12], x2, _fma32(q[10], -2.0 * pz, _fma32(
+        q[8], -2.0 * px, q[9] * (-2.0 * py))) + q[11])
+    d2 = torch.clamp(d2, min=1e-8)
+    side = bb > 0.0 if single_sided else torch.abs(bb) > 0.0
+    rad = q[14]
+    above = (a + rad) > 0.0
+    a_eff = torch.maximum(a, 0.1 * rad)
+    return torch.where(above & side,
+                       q[13] * a_eff * torch.abs(bb) / (d2 * d2), 0.0)
+
+
 def ris_targets(gb, psi, single_sided):
     """The RIS core's shading normal (flipped to face wo unless
     dielectric) and the light target of every psi row [b, l_pad] at the gb
     columns' shading points (fused_di._ris_select_core's three psi
-    products)."""
-    px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
-    nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
-    wox, woy, woz = -gb[G_DIR], -gb[G_DIR + 1], -gb[G_DIR + 2]
-    ndotwo = nx * wox + ny * woy + nz * woz
-    flip = (gb[G_MTYPE] != DIELECTRIC) & (ndotwo < 0.0)
-    sgn = torch.where(flip, -1.0, 1.0)
-    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+    products), rounded as the kernels round them (`ris_frame`,
+    `light_target_rows`): with thousands of lights, a target left
+    unfused moves the sum of the near ones by more than the gates'
+    rtol."""
+    f = ris_frame(gb)
+    return f["n"], light_target_rows(psi, f, single_sided)
 
-    ndx = nx * px + ny * py + nz * pz
-    a = (psi[:, 0][None] * nx[:, None] + psi[:, 1][None] * ny[:, None]
-         + psi[:, 2][None] * nz[:, None] + psi[:, 3][None] * (-ndx)[:, None])
-    bb = (psi[:, 4][None] * px[:, None] + psi[:, 5][None] * py[:, None]
-          + psi[:, 6][None] * pz[:, None] + psi[:, 7][None])
-    x2 = px * px + py * py + pz * pz
-    d2 = (psi[:, 8][None] * (-2.0 * px)[:, None]
-          + psi[:, 9][None] * (-2.0 * py)[:, None]
-          + psi[:, 10][None] * (-2.0 * pz)[:, None]
-          + psi[:, 11][None] + psi[:, 12][None] * x2[:, None])
-    d2 = torch.clamp(d2, min=1e-8)
-    side = bb > 0.0 if single_sided else torch.abs(bb) > 0.0
-    lum_area = psi[:, 13][None]
-    rad = psi[:, 14][None]
-    above = (a + rad) > 0.0
-    a_eff = torch.maximum(a, 0.1 * rad)
-    t = torch.where(above & side,
-                    lum_area * a_eff * torch.abs(bb) / (d2 * d2), 0.0)
-    return (nx, ny, nz), t
+
+def cdf_rows(t):
+    """Running sums of t [b, l] along l, one float32 add a row in row
+    order: the kernels' scan. torch.cumsum adds in another order on the
+    card (and in float64 on the CPU), which moves the picks of thousands
+    of lights."""
+    out = torch.empty_like(t)
+    out[:, 0] = t[:, 0]
+    for l in range(1, t.shape[1]):
+        torch.add(out[:, l - 1], t[:, l], out=out[:, l])
+    return out
 
 
 def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
@@ -505,7 +537,7 @@ def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
     mtype, metallic, roughness = gb[G_MTYPE], gb[G_METAL], gb[G_ROUGH]
     shade = gb[G_SHADE] > 0.5
     (nx, ny, nz), t = ris_targets(gb, psi, single_sided)
-    cdf = torch.cumsum(t, dim=1)
+    cdf = cdf_rows(t)
     total = cdf[:, l_pad - 1]
 
     w_list, li_list, wi_list, dist_list = [], [], [], []

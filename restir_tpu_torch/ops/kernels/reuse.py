@@ -27,6 +27,14 @@ its threshold. The adds are the full two-pass scan's, in its order, so
 the picks are its picks bit for bit. `ris_search` / `search_seg` and
 `search_full` mirror the two on CPU tensors (sequential float32 adds
 over rows, vectorised over pixels) for the tests.
+
+Light tables whose staged build would pass a block's shared memory
+(`SMEM_MAX`: more than about 2,400 area lights) take B7's streamed build:
+pass 1 reads the area rows through a double buffer of `CHUNK_ROWS` rows,
+S grows past `SEGS` until the checkpoints fit (`seg_for(...,
+streamed=True)`), and each pick re-scans its segment from device memory.
+It picks the same rows bit for bit. The wrapper picks the build from the
+table size (`streamed_for`); nothing else chooses it.
 """
 
 from __future__ import annotations
@@ -37,8 +45,7 @@ import torch
 
 from ...utils import rng
 from . import _build, fused_di
-from .bvh_walk import _fma32
-from .fused_di import (
+from .fused_di import (  # noqa: F401 (the search's mirror reads these)
     CTR_RIS,
     ENV_TH,
     ENV_TW,
@@ -52,93 +59,84 @@ from .fused_di import (
     RS_CH,
     SMEM_MAX,
     _check,
+    _fma32,
+    light_target_rows,
+    ris_frame,
 )
 from .gbuffer import BLOCK, _check_bvh
 from .tables import BvhTables, ResidentTables
 
-launches = 0  # reuse_bvh kernel launches
+launches = 0  # launches of reuse_bvh's staged build
+streamed_launches = 0  # launches of its streamed build
 
 N_ENV = ENV_TH * ENV_TW  # env-tile light rows after the area lights
 # Host mirror of csrc/reuse_bvh.cu's b7_seg, for the CPU search and the
-# tests: kSegs, the blocks per SM of its launch bounds (kBlocksPerSm,
-# kBlocksPerSmEnv) and an H100 SM's shared memory. The tests hold the
-# first two against the source and the mirror against the kernel's S.
-SEGS = (8, 16, 32)  # light rows per cdf checkpoint B7 may take
+# tests: kSegs, kChunkRows, the blocks per SM of its launch bounds
+# (kBlocksPerSm, kBlocksPerSmEnv) and an H100 SM's shared memory. The
+# tests hold the first three against the source and the mirror against
+# the kernel's S.
+SEGS = (8, 16, 32)  # light rows per cdf checkpoint of the staged build
+CHUNK_ROWS = 64  # area rows a chunk of the streamed build's pass 1
 BLOCKS_PER_SM = {False: 4, True: 3}  # by env build
 SMEM_SM = 233472  # shared memory of one Hopper SM (bytes)
 SMEM_BLOCK_RESERVED = 1024  # shared memory the system keeps per block
 
 
-def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int) -> int:
-    """B7's shared memory per block: the area lights' psi rows (64 B),
-    the env tiles' compact rows (d_tile, radius | luminance: 20 B) and
-    one cdf checkpoint per `seg` rows for each of the BLOCK threads."""
+def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int,
+               streamed: bool = False) -> int:
+    """B7's shared memory per block: the area lights' psi rows (64 B;
+    streamed: the double buffer of 2 x CHUNK_ROWS rows), the env tiles'
+    compact rows (d_tile, radius | luminance: 20 B) and one cdf
+    checkpoint per `seg` rows for each of the BLOCK threads."""
     n_env = N_ENV if has_env else 0
-    return n_area * 64 + n_env * 20 + -(-n_live // seg) * BLOCK * 4
+    rows = 2 * CHUNK_ROWS if streamed else n_area
+    return rows * 64 + n_env * 20 + -(-n_live // seg) * BLOCK * 4
 
 
-def seg_for(n_area: int, has_env: bool) -> int:
+def seg_for(n_area: int, has_env: bool, streamed: bool = False) -> int:
     """B7's checkpoint spacing on an H100 (the host mirror of the
-    kernel's b7_seg): the smallest of SEGS (each pick re-scans that many
-    rows) whose checkpoints still leave room in shared memory for the
-    blocks per SM its launch bounds ask for; else the largest. 8 on 128
-    light rows, 16 on 640 (128 area lights and the env tiles)."""
+    kernel's b7_seg): the smallest whose checkpoints still leave room in
+    shared memory for the blocks per SM its launch bounds ask for. The
+    staged build takes one of SEGS (each pick re-scans that many rows),
+    else the largest: 8 on 128 light rows, 16 on 640 (128 area lights and
+    the env tiles). The streamed build doubles S from SEGS[0] until it
+    fits: 64 on 2,450 area rows, 256 on 10,000."""
     n_live = n_area + (N_ENV if has_env else 0)
     cap = SMEM_SM // BLOCKS_PER_SM[has_env] - SMEM_BLOCK_RESERVED
+    if streamed:
+        seg = SEGS[0]
+        while (seg < n_live and
+               smem_bytes(n_area, has_env, n_live, seg, True) > cap):
+            seg *= 2
+        return seg
     for seg in SEGS:
         if smem_bytes(n_area, has_env, n_live, seg) <= cap:
             return seg
     return SEGS[-1]
 
 
-def seg_cuda(n_area: int, has_env: bool, device=None) -> int:
-    """The checkpoint spacing B7 takes on `device` (the current CUDA
-    device when None; its b7_seg)."""
+def streamed_for(n_area: int, has_env: bool, seg: int | None = None) -> bool:
+    """Whether B7 takes its streamed build: when the staged build, at its
+    spacing `seg` (by default the host mirror's), would pass SMEM_MAX."""
+    n_live = n_area + (N_ENV if has_env else 0)
+    if seg is None:
+        seg = seg_for(n_area, has_env)
+    return smem_bytes(n_area, has_env, n_live, seg) > SMEM_MAX
+
+
+def seg_cuda(n_area: int, has_env: bool, device=None,
+             streamed: bool = False) -> int:
+    """The checkpoint spacing B7's build (staged, or `streamed`) takes on
+    `device` (the current CUDA device when None; its b7_seg)."""
     lib = _build.library()
     with _build.on_device(device):
-        seg = lib.restir_reuse_bvh_seg(n_area, int(has_env))
+        seg = lib.restir_reuse_bvh_seg(n_area, int(has_env), int(streamed))
     if seg < 0:
         _build.check(-seg, "restir_reuse_bvh_seg")
     return seg
 
 
 # ---- mirror of B7's light search (CPU tests) ----
-
-
-def ris_frame(gb):
-    """The shading frame the search reads, as csrc/reuse_bvh.cu's
-    `ris_frame` computes it: the normal facing wo (dielectrics keep
-    theirs), n.p, |p|^2 and p."""
-    px, py, pz = gb[G_POS], gb[G_POS + 1], gb[G_POS + 2]
-    nx, ny, nz = gb[G_NORM], gb[G_NORM + 1], gb[G_NORM + 2]
-    dx, dy, dz = gb[G_DIR], gb[G_DIR + 1], gb[G_DIR + 2]
-    ndotwo = _fma32(nz, -dz, _fma32(nx, -dx, ny * -dy))
-    flip = (gb[G_MTYPE] != fused_di.DIELECTRIC) & (ndotwo < 0.0)
-    nx, ny, nz = (torch.where(flip, -c, c) for c in (nx, ny, nz))
-    ndx = _fma32(nz, pz, _fma32(ny, py, nx * px))
-    x2 = _fma32(pz, pz, _fma32(px, px, py * py))
-    return dict(n=(nx, ny, nz), p=(px, py, pz), ndx=ndx, x2=x2)
-
-
-def light_target_rows(psi, f, single_sided):
-    """Light targets [b, rows] of psi rows at frame f: csrc/di_core.cuh's
-    `light_target` (B7's `light_target4`), with its products fused into
-    FMAs where the CUDA builds fuse them."""
-    nx, ny, nz = (c[:, None] for c in f["n"])
-    px, py, pz = (c[:, None] for c in f["p"])
-    ndx, x2 = f["ndx"][:, None], f["x2"][:, None]
-    q = [psi[:, c][None] for c in range(15)]
-    a = _fma32(q[3], -ndx, _fma32(q[2], nz, _fma32(q[0], nx, q[1] * ny)))
-    bb = _fma32(q[6], pz, _fma32(q[4], px, q[5] * py)) + q[7]
-    d2 = _fma32(q[12], x2, _fma32(q[10], -2.0 * pz, _fma32(
-        q[8], -2.0 * px, q[9] * (-2.0 * py))) + q[11])
-    d2 = torch.clamp(d2, min=1e-8)
-    side = bb > 0.0 if single_sided else torch.abs(bb) > 0.0
-    rad = q[14]
-    above = (a + rad) > 0.0
-    a_eff = torch.maximum(a, 0.1 * rad)
-    return torch.where(above & side,
-                       q[13] * a_eff * torch.abs(bb) / (d2 * d2), 0.0)
 
 
 def env_target_rows(psi_env, f):
@@ -254,11 +252,12 @@ def ris_search(gb, pix, looper, tables: ResidentTables, *, k, single_sided,
                has_env=False, seg=None):
     """B7's picks for the gb columns of pixels `pix`: (idx [k, b], tq [k,
     b], total [b], targets evaluated per pixel [b]); `seg` defaults to the
-    kernel's (`seg_for`)."""
+    kernel's (`seg_for` of the build `streamed_for` picks)."""
     t, n_live = search_targets(gb, tables, single_sided=single_sided,
                                has_env=has_env)
     if seg is None:
-        seg = seg_for(tables.n_lights, has_env)
+        n = tables.n_lights
+        seg = seg_for(n, has_env, streamed_for(n, has_env))
     cdf = torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
     for l in range(n_live):
         cdf = cdf + t[:, l]
@@ -297,7 +296,7 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
                     width, k=4, single_sided=True, has_met=True,
                     has_env=False, stats=False, pix0=0, lib=None,
-                    counts=None):
+                    counts=None, _streamed=None):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, r] (li, wi, dist, W
     after visibility) for gb's r pixels from global pixel `pix0` of a
     frame `width` pixels wide (the whole frame by default), on 2-D pixel
@@ -306,8 +305,10 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     targets each pixel evaluated. `lib`: a library of a stage probe's
     build (`_build.variant_library`) in place of the main one; `counts`:
     an int32 [3, r] buffer passed as the counts (the "fixed-node" probe
-    reads the full walk's counts from it)."""
-    global launches
+    reads the full walk's counts from it). The build follows the table
+    size (`streamed_for`); `_streamed` forces one (tests and the card's
+    checks)."""
+    global launches, streamed_launches
     r = gb.shape[1]
     dev = gb.device
     if not 1 <= k <= MAX_K:
@@ -316,14 +317,10 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
         raise ValueError(f"width={width} or pix0={pix0} out of range")
     lights, psi = tables.light_rows(has_env)
     l_pad = psi.shape[0]
-    n_live = tables.n_lights + (N_ENV if has_env else 0)
-    seg = seg_cuda(tables.n_lights, has_env, dev)
-    smem = smem_bytes(tables.n_lights, has_env, n_live, seg)
-    if smem > SMEM_MAX:
-        raise ValueError(f"B7 stages {tables.n_lights} area-light psi rows, "
-                         f"{N_ENV if has_env else 0} env-tile rows and "
-                         f"{-(-n_live // seg)} cdf checkpoints per thread: "
-                         f"{smem} bytes, over the {SMEM_MAX} a block can use")
+    streamed = _streamed
+    if streamed is None:
+        streamed = streamed_for(tables.n_lights, has_env,
+                                seg_cuda(tables.n_lights, has_env, dev))
     _check(gb, "gb", (GB_CH, r), dev)
     _check(lights, "lights", psi.shape, dev)
     _check(psi, "psi", psi.shape, dev)
@@ -336,11 +333,15 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     with _build.on_device(dev):
         err = lib.restir_reuse_bvh(
             p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-            l_pad, tables.n_lights, int(has_env), p(bvh.rows), bvh.size,
-            p(bvh.planes), p(rs), p(counts), r, width, pix0,
-            int(single_sided), k, int(has_met), _build.stream_of(dev))
+            l_pad, tables.n_lights, int(has_env), int(streamed),
+            p(bvh.rows), bvh.size, p(bvh.planes), p(rs), p(counts), r,
+            width, pix0, int(single_sided), k, int(has_met),
+            _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
-    launches += 1
+    if streamed:
+        streamed_launches += 1
+    else:
+        launches += 1
     return (rs, counts) if counts is not None else rs
 
 

@@ -18,6 +18,12 @@ Both take `pix0`, the global index of the pack's first pixel: a row band
 (`restir_tpu_torch.parallel`) draws its pixel p's candidates as pixel
 pix0 + p of the whole frame, and reads and writes the packs at p.
 
+Light tables that do not fit in a block's shared memory (l_pad * 128 B
+over `SMEM_MAX`: more than 1,792 rows) take the kernel's streamed build,
+which scans the psi rows through a double buffer of 64 rows and reads
+the candidates' rows from device memory, with the same bits. The
+wrapper picks the build from the table size (`streamed_for`).
+
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
 
@@ -44,7 +50,9 @@ from .fused_di import (
 from .gbuffer import _check_bvh
 from .tables import BvhTables, ResidentTables
 
-launches = 0  # B10 launches
+launches = 0  # launches of B10's staged build
+streamed_launches = 0  # launches of its streamed build
+STREAM_MODE = 3  # the streamed build restir_ris_cdf takes (csrc/ris_cdf.cu)
 
 # input pack [CIN, R] and output pack [COUT, R] (ris_kernel.py:37-41)
 IN_POS, IN_NORM, IN_WO = 0, 3, 6
@@ -103,14 +111,31 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
     return out
 
 
+CHUNK_ROWS = 64  # psi rows a chunk of the streamed build (kChunkRows)
+
+
+def smem_bytes(l_pad: int, streamed: bool = False) -> int:
+    """B10's shared memory per block: both [l_pad, 16] tables (staged),
+    or the streamed build's double buffer of 2 x CHUNK_ROWS psi rows."""
+    return 2 * CHUNK_ROWS * 64 if streamed else l_pad * 32 * 4
+
+
+def streamed_for(l_pad: int) -> bool:
+    """Whether B10 takes its streamed build: when the staged build's
+    tables would pass SMEM_MAX."""
+    return smem_bytes(l_pad) > SMEM_MAX
+
+
 def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
                  k=4, single_sided=True, has_met=True, pix0=0, stats=False,
-                 lib=None, counts=None):
+                 lib=None, counts=None, _streamed=None):
     """B10 on the card: the [COUT, R] output pack, pixel p drawn as
     global pixel pix0 + p. With `stats`, also the int32 [2, R] box and
     plane test counts of each shadow walk. `lib` and `counts` as
-    `reuse.candidates_cuda`'s (the stage probes)."""
-    global launches
+    `reuse.candidates_cuda`'s (the stage probes). The build follows the
+    table size (`streamed_for`); `_streamed` forces one (tests and the
+    card's checks): False, True (STREAM_MODE) or a mode number."""
+    global launches, streamed_launches
     r = pack.shape[1]
     dev = pack.device
     if not 1 <= k <= MAX_K:
@@ -125,10 +150,8 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
             raise ValueError(f"light tables must be float32 on {dev}")
     _check_bvh(bvh, dev)
     l_pad = psi.shape[0]
-    smem = l_pad * 32 * 4
-    if smem > SMEM_MAX:
-        raise ValueError(f"B10 holds {l_pad} light rows in shared memory: "
-                         f"{smem} bytes, over the {SMEM_MAX} a block can use")
+    streamed = streamed_for(l_pad) if _streamed is None else _streamed
+    mode = STREAM_MODE if streamed is True else int(streamed)
     pack = pack.contiguous()
     out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
     if counts is None and stats:
@@ -138,10 +161,13 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
         err = (lib or _build.library()).restir_ris_cdf(
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
-            p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
+            mode, p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
             int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
-    launches += 1
+    if mode:
+        streamed_launches += 1
+    else:
+        launches += 1
     return (out, counts) if counts is not None else out
 
 

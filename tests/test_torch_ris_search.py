@@ -4,8 +4,11 @@
 - The segmented search (pass 1 keeps the running cdf after every S-th
   row; each pick re-scans one segment) picks the same rows and targets,
   bit for bit, as the full two-pass scan over every row, on env_scene()'s
-  640-row tables (has_env) and many_light_scene(64, 24)'s 128-row tables
-  at random shading points, for k = 1, 4, 8 and S = 8, 16, 32, and on
+  640-row tables (has_env), many_light_scene(64, 24)'s 128-row tables,
+  and the tables past the staged build: env_scene(n_lights=1100)'s 2,200
+  area rows with the env tiles and many_light_scene(1225, 24)'s 2,450
+  rows, at random shading points, for k = 1, 4, 8 and S = 8, 16, 32
+  (and the streamed build's S: its own, 64, 128, 256), and on
   hand-made target rows for the edge cases (a zero total, thresholds at
   or past the last cdf or NaN, a cdf equal to a threshold at a segment
   boundary, segments of zero targets, a light count that is not a
@@ -16,6 +19,11 @@
   tests/test_fused_di.py.
 - The reduced target of env-tile rows equals the full light target bit
   for bit on every env row, and padding rows have target 0.
+- The host mirror picks each wrapper's build (staged or streamed), its
+  spacing and its shared memory as the kernels do, within SMEM_MAX and
+  the blocks per SM of B7's launch bounds, around the staged builds'
+  limits (1,792 rows for B10; 2,416 area rows for B7, 2,144 with env
+  tiles) and at 2,450 and 10,000 rows; its constants are the sources'.
 - The tile map of B6 / B7 covers every pixel once on ragged frames.
 """
 
@@ -26,7 +34,7 @@ import pytest
 import torch
 
 from restir_tpu_torch import convert
-from restir_tpu_torch.ops.kernels import _build, fused_di, gbuffer, reuse
+from restir_tpu_torch.ops.kernels import _build, fused_di, gbuffer, reuse, ris_cdf
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_MTYPE,
@@ -41,16 +49,30 @@ B = 512  # shading points per case
 LOOPER = 7
 
 
+WORLDS = {  # scene, has_env: 640, 128, 2,712 and 2,450 light rows
+    "env": (lambda: env_scene(), True),
+    "many_lights": (lambda: many_light_scene(64, 24), False),
+    "env_2200": (lambda: env_scene(n_lights=1100), True),
+    "many_lights_2450": (lambda: many_light_scene(1225, 24), False),
+}
+
+
 @pytest.fixture(scope="module", params=["env", "many_lights"])
 def world(request):
     """(tables, has_env, gb [GB_CH, B], pix) with random shading points
     around the scene's lights, from a numpy seed."""
-    if request.param == "env":
-        arrays, _ = env_scene()
-        has_env = True
-    else:
-        arrays, _ = many_light_scene(64, 24)
-        has_env = False
+    return _world(request.param)
+
+
+@pytest.fixture(scope="module", params=["env_2200", "many_lights_2450"])
+def big_world(request):
+    """As `world`, on tables past the staged builds."""
+    return _world(request.param)
+
+
+def _world(name):
+    make, has_env = WORLDS[name]
+    arrays, _ = make()
     tables = convert.scene_from_numpy(arrays, "cpu").tables
     g = np.random.default_rng(3)
     lc = np.asarray(arrays.light_center, np.float32)
@@ -98,18 +120,24 @@ def test_segmented_search_equals_full_scan(world, k, seg):
 
 
 def test_picks_match_twin(world):
-    """The search's picks against the plain twin's cumsum picks."""
+    """The search's picks against the plain twin's (row-order scan)."""
+    _twin_picks_match(world, 0.995)
+
+
+def _twin_picks_match(world, share):
+    """The search's picks equal the plain twin's (`cdf_rows` of
+    `ris_targets`) on at least `share` of the lanes."""
     tables, has_env, gb, pix = world
     k = 4
     idx, _, _, _ = reuse.ris_search(gb, pix, LOOPER, tables, k=k,
                                     single_sided=True, has_env=has_env)
     _, psi = tables.light_rows(has_env)
     _, t = fused_di.ris_targets(gb, psi, True)
-    cdf = torch.cumsum(t, dim=1)
+    cdf = fused_di.cdf_rows(t)
     thr = reuse.thresholds(pix, LOOPER, k, cdf[:, -1])
     twin = torch.clamp((cdf[None] <= thr[:, :, None]).sum(dim=2),
                        max=psi.shape[0] - 1)
-    assert float((idx == twin).float().mean()) >= 0.995
+    assert float((idx == twin).float().mean()) >= share
 
 
 def test_env_target_equals_light_target(world):
@@ -192,17 +220,20 @@ def test_search_fallback_takes_last_light_row():
 
 
 def _b7_source_constants():
-    """(blocks per SM by env build, the spacings) as csrc/reuse_bvh.cu
-    declares them for its launch bounds and b7_seg."""
+    """(blocks per SM by env build, the spacings, the streamed build's
+    chunk rows) as csrc/reuse_bvh.cu declares them for its launch bounds,
+    b7_seg and b7_smem."""
     src = (_build.SRC_DIR / "reuse_bvh.cu").read_text()
     blocks = re.search(r"constexpr int kBlocksPerSm = (\d+), "
                        r"kBlocksPerSmEnv = (\d+);", src)
     segs = re.search(r"constexpr int kSegs\[\] = \{([\d, ]+)\};", src)
-    assert blocks and segs
+    chunk = re.search(r"constexpr int kChunkRows = (\d+);", src)
+    assert blocks and segs and chunk
     assert re.search(r"__launch_bounds__\(PIX_BLOCK,\s*HAS_ENV \? "
                      r"kBlocksPerSmEnv : kBlocksPerSm\)", src)
+    assert re.search(r"\(stream \? 2 \* kChunkRows : n_area\) \* 64", src)
     return ({False: int(blocks[1]), True: int(blocks[2])},
-            tuple(int(x) for x in segs[1].split(",")))
+            tuple(int(x) for x in segs[1].split(",")), int(chunk[1]))
 
 
 @pytest.mark.parametrize("n_area,has_env,seg", [(128, False, 8),
@@ -214,7 +245,8 @@ def test_seg_fits_the_blocks_per_sm(n_area, has_env, seg):
     host mirror's constants are the kernel's); and at 640 light rows it
     stages less than the 80 KB of psi and light rows the first design
     held."""
-    assert _b7_source_constants() == (reuse.BLOCKS_PER_SM, reuse.SEGS)
+    assert _b7_source_constants() == (reuse.BLOCKS_PER_SM, reuse.SEGS,
+                                      reuse.CHUNK_ROWS)
     assert reuse.seg_for(n_area, has_env) == seg
     n_live = n_area + (reuse.N_ENV if has_env else 0)
     smem = reuse.smem_bytes(n_area, has_env, n_live, seg)
@@ -225,6 +257,81 @@ def test_seg_fits_the_blocks_per_sm(n_area, has_env, seg):
         assert blocks * (smaller + reuse.SMEM_BLOCK_RESERVED) > reuse.SMEM_SM
     if n_live == 640:
         assert smem < 640 * 128
+
+
+# the largest light counts the staged builds hold: B10 l_pad 1,792 (both
+# tables in shared memory), B7 2,416 area rows (2,144 with the env tiles)
+B10_STAGED_MAX, B7_STAGED_MAX = 1792, {False: 2416, True: 2144}
+
+
+@pytest.mark.parametrize("has_env", [False, True])
+@pytest.mark.parametrize("n_area", [1792, 1920, 2144, 2145, 2416, 2417,
+                                    2450, 10000])
+def test_build_choice_fits_shared_memory(n_area, has_env):
+    """Each wrapper's choice of build from the table size: the staged
+    build while its tables fit SMEM_MAX, else the streamed one, whose
+    shared memory fits the blocks per SM of B7's launch bounds with the
+    smallest spacing S that does (a power of two from 8: 64 at 2,450
+    rows, 256 at 10,000)."""
+    b7_src, b10_src = (_build.SRC_DIR / "reuse_bvh.cu").read_text(), (
+        _build.SRC_DIR / "ris_cdf.cu").read_text()
+    assert "constexpr int BLOCK = 256;" in b10_src
+    assert "constexpr int kChunkRows = BLOCK / 4;" in b10_src
+    assert ris_cdf.CHUNK_ROWS == 256 // 4
+    assert _b7_source_constants()[2] == reuse.CHUNK_ROWS == gbuffer.BLOCK // 4
+    assert "MODE == 0   ? (size_t)l_pad * 32 * sizeof(float)" in b10_src
+    assert "2 * BLOCK * sizeof(float4)" in b10_src
+    # B10 (no env rows): l_pad rows of 128 B staged
+    l_pad = -(-max(n_area, 128) // 128) * 128
+    b10_streamed = ris_cdf.streamed_for(l_pad)
+    assert b10_streamed == (l_pad > B10_STAGED_MAX)
+    assert ris_cdf.smem_bytes(l_pad, b10_streamed) <= fused_di.SMEM_MAX
+    assert ris_cdf.smem_bytes(l_pad, True) == 8192
+    # B7
+    streamed = reuse.streamed_for(n_area, has_env)
+    assert streamed == (n_area > B7_STAGED_MAX[has_env])
+    assert "b7_seg(n_area, HAS_ENV, STREAM, &seg)" in b7_src
+    seg = reuse.seg_for(n_area, has_env, streamed)
+    n_live = n_area + (reuse.N_ENV if has_env else 0)
+    smem = reuse.smem_bytes(n_area, has_env, n_live, seg, streamed)
+    assert smem <= fused_di.SMEM_MAX
+    blocks = reuse.BLOCKS_PER_SM[has_env]
+    if streamed:
+        assert blocks * (smem + reuse.SMEM_BLOCK_RESERVED) <= reuse.SMEM_SM
+        assert seg >= reuse.SEGS[0] and seg & (seg - 1) == 0
+        if seg > reuse.SEGS[0]:  # the next smaller spacing would not fit
+            smaller = reuse.smem_bytes(n_area, has_env, n_live, seg // 2,
+                                       True)
+            assert (blocks * (smaller + reuse.SMEM_BLOCK_RESERVED)
+                    > reuse.SMEM_SM)
+        # a pick re-scans one segment: at most n_live + K * S targets
+        assert seg <= max(64, n_live // 32)
+    else:
+        assert seg in reuse.SEGS
+    if n_area in (2450, 10000) and not has_env:
+        assert seg == {2450: 64, 10000: 256}[n_area]
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_streamed_spacing_search_equals_full_scan(big_world, k):
+    """The search at the streamed build's spacings (the mirror's S for
+    the scene, and 256, the spacing at 10,000 rows) picks what the full
+    scan picks, bit for bit, and the twin's picks are the search's."""
+    tables, has_env, gb, pix = big_world
+    idx_f, tq_f, total_f = _full(big_world, k)
+    n = tables.n_lights
+    assert reuse.streamed_for(n, has_env)
+    if k == 4:
+        _twin_picks_match(big_world, 1.0)
+    for seg in sorted({reuse.seg_for(n, has_env, True), 256}):
+        idx, tq, total, evaluated = reuse.ris_search(
+            gb, pix, LOOPER, tables, k=k, single_sided=True,
+            has_env=has_env, seg=seg)
+        assert torch.equal(total, total_f)
+        assert torch.equal(idx, idx_f)
+        assert torch.equal(tq, tq_f)
+        n_live = n + (reuse.N_ENV if has_env else 0)
+        assert int(evaluated.max()) <= n_live + k * seg
 
 
 @pytest.mark.parametrize("w,h", [(200, 72), (1920, 1080), (37, 5)])
