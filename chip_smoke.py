@@ -235,9 +235,7 @@ Many lights (after phase 28):
      many_light_scene(1225, 24) (2,450 light rows, 2,748 triangles): B7
      + B1b against their twins on 32 sample tiles and B10 against its
      twin on a band of 16 rows, with phase 9's and phase 12's gates,
-     B10's two streamed forms (psi rows through shared memory, or read
-     from device memory) equal bit for bit, and each kernel's time,
-     twin's time and bound; the fused RESTIR_DI + EAW frame through
+     and each kernel's time, twin's time and bound; the fused RESTIR_DI + EAW frame through
      renderer.step at 1920x1080 (launches per frame: gbuffer_bvh 1,
      reuse_bvh_streamed 1, temporal 1, spatial 1, atrous_eaw 5) and the
      general RESTIR_DI cdf + EAW frame (primary_hit 1, ris_cdf_streamed
@@ -4045,24 +4043,15 @@ def b10_twin_gate(what, k10, r10, shade):
     return float((k10[w_][ok] - r10[w_][ok]).abs().max())
 
 
-B10_FORMS = (1, 2, 3)  # the streamed forms of csrc/ris_cdf.cu
-
-
 def b10_streamed_equals_staged(scene, cam, hall, hall_cam, dev):
-    """(a): B10's streamed forms forced on tables that fit."""
+    """(a): B10's streamed build forced on tables that fit."""
     for what, sc, c in (("headline", scene, cam), ("hall", hall, hall_cam)):
         pack, _ = b10_input(sc, c, dev)
         t = sc.tables
-        k0 = ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=False)
-        for mode in B10_FORMS:
-            k1 = ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=mode)
-            what1 = (f"B10 {what} ({t.psi.shape[0]} rows): streamed form "
-                     f"{mode} against the staged build")
-            if mode == ris_cdf.STREAM_MODE:
-                same_bits(what1, k1, k0)
-            else:  # a form the wrapper does not take: printed only
-                print(f"{what1}: lanes equal bit for bit "
-                      f"{float(bits_equal(k1, k0).all(0).float().mean()):.7f}")
+        same_bits(f"B10 {what} ({t.psi.shape[0]} rows): streamed build "
+                  f"against the staged build",
+                  ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=True),
+                  ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=False))
 
 
 def b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev):
@@ -4116,7 +4105,7 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
           f"{t.psi.shape[0]}); B7 streamed: checkpoints every {seg} rows, "
           f"{reuse.smem_bytes(n_l, False, n_l, seg, streamed=True)} B of "
           f"shared memory a block; B10 streamed: "
-          f"{2 * 256 * 16} B")
+          f"{ris_cdf.smem_bytes(t.psi.shape[0], streamed=True)} B")
     cam = make_camera(**camkw)
     pos = camkw["position"]
     cam2 = make_camera(**{**camkw, "position": (pos[0] + 0.25, pos[1],
@@ -4168,16 +4157,7 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
         raise PhaseError(f"{name}: B10 did not take its streamed build")
     kc10, c10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, **kw)
     same_bits(f"{name} B10 counting build", kc10, k10)
-    ms10 = {}
-    for mode in B10_FORMS:
-        if mode != ris_cdf.STREAM_MODE:
-            lanes = bits_equal(ris_cdf.ris_cdf_cuda(
-                pack, 1, t, bvh, _streamed=mode, **kw), k10).all(0)
-            print(f"{name} B10 streamed form {mode} against form "
-                  f"{ris_cdf.STREAM_MODE}: lanes equal bit for bit "
-                  f"{float(lanes.float().mean()):.7f}")
-        ms10[mode] = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(
-            pack, 1, t, bvh, _streamed=mode, **kw), 10)
+    ms10 = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw), 10)
     p0, n = (h // 2) * w, 16 * w  # a band of 16 rows mid-frame
     r10 = ris_cdf.ris_cdf_ref(pack[:, p0:p0 + n], 1, t, pix0=p0, **kw)
     err10 = b10_twin_gate(f"{name} B10 ris_cdf (streamed) vs twin on rows "
@@ -4189,10 +4169,9 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
                 + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
                 r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
                 + boxes * FLOP_BOX + tests * FLOP_PLANE)
-    forms = ", ".join(f"form {m} {v:.4f} ms" for m, v in ms10.items())
     print(f"{name} B7 reuse_bvh (streamed): kernel {ms7:.4f} ms, bound "
-          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf streamed: {forms}, bound "
-          f"{b10[0]:.4f} ms ({b10[1]})")
+          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf (streamed): kernel "
+          f"{ms10:.4f} ms, bound {b10[0]:.4f} ms ({b10[1]})")
     if record is not None:
         ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
                           warmup=False)
@@ -4204,7 +4183,7 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
             max_abs_err=st7["weight_max_abs_err"], ms=ms7, plain_ms=ms7_ref,
             bound_ms=b7[0], bound_by=b7[1], library_ms=None)
         record["ris_cdf_streamed"] = dict(
-            max_abs_err=err10, ms=ms10[ris_cdf.STREAM_MODE],
+            max_abs_err=err10, ms=ms10,
             plain_ms=ms10_ref, bound_ms=b10[0], bound_by=b10[1],
             library_ms=None)
     return scene, cfg, cam

@@ -45,6 +45,10 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   tiles where the tree's B7 takes the frame's width), and B1b
   (`fused_di.temporal_cuda`) after B7 on the hall and the sky hall, with
   frame 0's pack from the unmoved camera as history;
+- B7's and B10's streamed builds (the light tables past a block's shared
+  memory), where the tree has them: B7 on frame 1's G-buffer and B10 on
+  the general G-buffer of many_light_scene(1225, 24) and (5000, 24)
+  (2,450 and 10,000 light rows), as chip_smoke.py phase 29 builds them;
 - B13 and B14 on the hall's 1080p rays (`general_rays` on the hall, as
   chip_smoke.py phase 19 builds them; "auto" takes the MTBVH walk
   there): B13's primary hit (`mt_primary_cuda`) on the camera rays and,
@@ -499,6 +503,43 @@ def _child() -> None:
         if not sky:
             b13(scene, sf.make_camera())
         del scene
+
+    # B7's and B10's streamed builds, where the tree has them (a tree
+    # without refuses these tables), on many_light_scene(1225, 24) and
+    # (5000, 24): 2,450 and 10,000 light rows, as chip_smoke.py phase 29
+    # builds their inputs
+    if hasattr(reuse, "streamed_launches"):
+        for n_quads in (1225, 5000):
+            ml_arrays, ml_kw = many_light_scene(n_quads, 24)
+            scene = convert.scene_from_numpy(ml_arrays, dev)
+            cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                               tracer=TracerType.RESTIR_DI,
+                               **mat_flags(ml_arrays))
+            pos = ml_kw["position"]
+            cv = pack_camera(make_camera(**ml_kw), dev)
+            cv2 = pack_camera(make_camera(**{**ml_kw, "position": (
+                pos[0] + 0.25, pos[1], pos[2])}), dev)
+            gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
+                                      height=HEIGHT)
+            rows = 2 * n_quads
+            timed(f"B7 streamed, {rows} light rows", lambda: (
+                reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                      k=cfg.cdf_candidates,
+                                      has_met=cfg.scene_has_metallic,
+                                      width=WIDTH)))
+            gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(
+                scene, make_camera(**ml_kw), make_camera(**ml_kw), cfg, 1)
+            wo = -ray_dir
+            flip = (gmat.type != 2) & ((it.norm * wo).sum(-1) < 0)
+            pack = ris_cdf.pack_inputs(
+                it.pos, torch.where(flip[:, None], -it.norm, it.norm), wo,
+                gmat.type, gmat.metallic, gmat.roughness,
+                it.valid & (gbuf.prim_id != general_gb.LIGHT_ID), it.prim_id)
+            timed(f"B10 streamed, {rows} light rows", lambda: (
+                ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
+                                     k=cfg.cdf_candidates,
+                                     has_met=cfg.scene_has_metallic)))
+            del scene, gb, gbuf, it, gmat, ray_dir, wo, pack
 
     def ray_order():
         """The ray-order probe kernels on the hall's NEE segments."""

@@ -27,12 +27,17 @@
 // returns each walk's box and plane tests.
 //
 // Light tables larger than a block's shared memory (more than 1,792 rows)
-// take a streamed build (MODE): 1 runs ris_select's two scans over psi
-// rows staged kChunkRows at a time (common.cuh, stream_rows; every thread
-// of the block at every barrier, threads past r included), 3 the same
-// with B7's spelled-out frame and targets (di_core.cuh, ris_frame and
-// light_target4), 2 runs ris_select itself on the tables in device
-// memory. Each reads the K candidate rows from device memory.
+// take the streamed build (template flag STREAM): both scans read the psi
+// rows through a double buffer of kChunkRows rows in shared memory
+// (common.cuh, stream_rows), every thread of the block at every barrier,
+// threads past r included, and the K candidates' rows come from device
+// memory. Its light targets and frame are B7's (di_core.cuh, ris_frame
+// and light_target4: the FMA fusion spelled out), which round as the
+// staged build's do: a copy of ris_select's plain expressions, inlined
+// into the streamed loops, fused the total's adds otherwise and moved 2 %
+// of the weights by an ulp. ris_select itself on the tables in device
+// memory kept the bits but ran 41.2 against 29.7 ms at 2,560 rows
+// (PERF.md §6).
 #include "bvh.cuh"
 #include "di_core.cuh"
 #if defined(PROBE_WALK)
@@ -47,11 +52,10 @@ constexpr int BLOCK = 256;
 constexpr int kChunkRows = BLOCK / 4;  // streamed psi rows a chunk
 
 // di_core.cuh's ris_select without env tiles, its two scans over the psi
-// rows streamed through shared memory (buf: 2 * BLOCK float4), the
-// candidates' light rows read from device memory. SPELLED: the frame and
-// targets of ris_frame / light_target4 (B7's). Every thread of the block
-// calls it; one that is not live only stages.
-template <bool SPELLED>
+// rows streamed through shared memory (buf: 2 * kChunkRows rows) with
+// B7's frame and targets (module note), the candidates' light rows read
+// from device memory. Every thread of the block calls it; one that is not
+// live only stages.
 __device__ __forceinline__ Candidate ris_select_streamed(
     const float4* psi4, const float* lights, float4* buf, int l_pad,
     uint32_t pu, uint32_t looper, int k, int single_sided, int has_met,
@@ -60,28 +64,13 @@ __device__ __forceinline__ Candidate ris_select_streamed(
   const float mtype = s.mtype;
   const float wox = -s.dx, woy = -s.dy, woz = -s.dz;
   const RisFrame f = ris_frame(s);
-  float nx = s.nx, ny = s.ny, nz = s.nz;
-  if (SPELLED) {
-    nx = f.nx;
-    ny = f.ny;
-    nz = f.nz;
-  } else if (mtype != 2.0f && (nx * wox + ny * woy + nz * woz) < 0.0f) {
-    nx = -nx;
-    ny = -ny;
-    nz = -nz;
-  }
-  const float ndx = nx * px + ny * py + nz * pz;
-  const float x2 = px * px + py * py + pz * pz;
-  auto target = [&](const float4* row) {
-    return SPELLED ? light_target4(row, f, single_sided)
-                   : light_target(reinterpret_cast<const float*>(row), nx,
-                                  ny, nz, ndx, px, py, pz, x2, single_sided);
-  };
+  const float nx = f.nx, ny = f.ny, nz = f.nz;
 
   float total = 0.0f;
   stream_rows(psi4, l_pad, buf, [&](const float4* rows, int, int n) {
     if (!live) return;
-    for (int i = 0; i < n; ++i) total += target(rows + 4 * i);
+    for (int i = 0; i < n; ++i)
+      total += light_target4(rows + 4 * i, f, single_sided);
   });
 
   float r2[MAX_K], r3[MAX_K], thr[MAX_K], tq[MAX_K], r4_0 = 0.0f;
@@ -103,7 +92,7 @@ __device__ __forceinline__ Candidate ris_select_streamed(
   stream_rows(psi4, l_pad, buf, [&](const float4* rows, int l0, int n) {
     if (!live) return;
     for (int i = 0; i < n; ++i) {
-      const float t = target(rows + 4 * i);
+      const float t = light_target4(rows + 4 * i, f, single_sided);
       cdf += t;
       t_last = t;
 #pragma unroll
@@ -204,9 +193,8 @@ enum {
 };
 enum { O_LI = 0, O_WI = 3, O_DIST = 6, O_W = 7, O_M = 8, O_PAD = 9 };
 
-// MODE 0: the tables staged in shared memory; 1, 2, 3: streamed (module
-// note).
-template <bool COUNT, int MODE>
+// STREAM: the streamed build (module note).
+template <bool COUNT, bool STREAM>
 __global__ void __launch_bounds__(BLOCK)
     ris_cdf_kernel(const float* __restrict__ in, uint32_t looper,
                    uint32_t pix0, const float* __restrict__ lights_g,
@@ -217,7 +205,7 @@ __global__ void __launch_bounds__(BLOCK)
   extern __shared__ float4 smem4[];
   float* psi = reinterpret_cast<float*>(smem4);
   float* lights = psi + l_pad * 16;
-  if constexpr (MODE == 0) {
+  if constexpr (!STREAM) {
     for (int i = threadIdx.x; i < l_pad * 16; i += blockDim.x) {
       psi[i] = psi_g[i];
       lights[i] = lights_g[i];
@@ -228,7 +216,7 @@ __global__ void __launch_bounds__(BLOCK)
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   // the streamed build's scans have barriers: a thread past r stays for
   // them and returns after them
-  if ((MODE == 0 || MODE == 2) && p >= r) return;
+  if (!STREAM && p >= r) return;
   const bool live = p < r;
   const float* g = in + p;
   auto at = [&](int ch) { return live ? g[(size_t)ch * r] : 0.0f; };
@@ -248,20 +236,14 @@ __global__ void __launch_bounds__(BLOCK)
   s.shade = at(I_SHADE) > 0.5f;
   s.prim = __float2int_rz(at(I_PRIM));
   Candidate c;
-  if constexpr (MODE == 0) {
-    c = ris_select<false>(psi, lights, l_pad, n_area, pix0 + (uint32_t)p,
-                          looper, k, single_sided, has_met, s);
-  } else if constexpr (MODE == 1 || MODE == 3) {
-    c = ris_select_streamed<MODE == 3>(
-        reinterpret_cast<const float4*>(psi_g), lights_g, smem4, l_pad,
-        pix0 + (uint32_t)p, looper, k, single_sided, has_met, s, live);
+  if constexpr (STREAM) {
+    c = ris_select_streamed(reinterpret_cast<const float4*>(psi_g), lights_g,
+                            smem4, l_pad, pix0 + (uint32_t)p, looper, k,
+                            single_sided, has_met, s, live);
     if (!live) return;
   } else {
-    c = ris_select<false>(
-        static_cast<const float*>(__builtin_assume_aligned(psi_g, 64)),
-        static_cast<const float*>(__builtin_assume_aligned(lights_g, 64)),
-        l_pad, n_area, pix0 + (uint32_t)p, looper, k, single_sided, has_met,
-        s);
+    c = ris_select<false>(psi, lights, l_pad, n_area, pix0 + (uint32_t)p,
+                          looper, k, single_sided, has_met, s);
   }
 
   WalkCount n = {0, 0};
@@ -293,23 +275,22 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <bool COUNT, int MODE>
+template <bool COUNT, bool STREAM>
 int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
                    const float* lights,
                    const float* psi, int l_pad, int n_area,
                    const BvhRows& bvh, float* out, int* stats, int r,
                    int single_sided, int k, int has_met,
                    cudaStream_t stream) {
-  const size_t smem = MODE == 0   ? (size_t)l_pad * 32 * sizeof(float)
-                      : MODE == 2 ? 0
-                                  : 2 * BLOCK * sizeof(float4);
+  const size_t smem = STREAM ? (size_t)2 * kChunkRows * 64
+                             : (size_t)l_pad * 32 * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ris_cdf_kernel<COUNT, MODE>,
+        ris_cdf_kernel<COUNT, STREAM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ris_cdf_kernel<COUNT, MODE>
+  ris_cdf_kernel<COUNT, STREAM>
       <<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
           in, looper, pix0, lights, psi, l_pad, n_area, bvh, out, stats, r,
           single_sided, k, has_met);
@@ -325,8 +306,7 @@ int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
 // null, or int32 [2, R] that receives each shadow walk's box and plane
 // test counts. pix0: the global index of pixel 0 of the pack, the key of
 // its draws. stream: 0 the staged build (a launch error when its shared
-// memory passes the device's limit), 1, 2 or 3 a streamed build (module
-// note).
+// memory passes the device's limit), 1 the streamed build.
 extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
                               uint32_t pix0, const float* lights,
                               const float* psi,
@@ -335,23 +315,19 @@ extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
                               const float* planes, float* out,
                               int* stats, int r, int single_sided, int k,
                               int has_met, void* stream_) {
-  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0 ||
-      stream < 0 || stream > 3)
+  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0)
     return (int)cudaErrorInvalidValue;
-  if (stream && ((reinterpret_cast<uintptr_t>(psi) |
-                  reinterpret_cast<uintptr_t>(lights)) & 63) != 0)
+  if (stream && (reinterpret_cast<uintptr_t>(psi) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream_;
-#define RESTIR_B10_LAUNCH(C, M)                                          \
-  launch_ris_cdf<C, M>(in, looper, pix0, lights, psi, l_pad, n_area, bvh, \
+#define RESTIR_B10_LAUNCH(C, S)                                           \
+  launch_ris_cdf<C, S>(in, looper, pix0, lights, psi, l_pad, n_area, bvh, \
                        out, stats, r, single_sided, k, has_met, st)
-#define RESTIR_B10_MODE(C)                                  \
-  (stream == 0   ? RESTIR_B10_LAUNCH(C, 0)                  \
-   : stream == 1 ? RESTIR_B10_LAUNCH(C, 1)                  \
-   : stream == 2 ? RESTIR_B10_LAUNCH(C, 2)                  \
-                 : RESTIR_B10_LAUNCH(C, 3))
-  return stats ? RESTIR_B10_MODE(true) : RESTIR_B10_MODE(false);
-#undef RESTIR_B10_MODE
+  if (stats)
+    return stream ? RESTIR_B10_LAUNCH(true, true)
+                  : RESTIR_B10_LAUNCH(true, false);
+  return stream ? RESTIR_B10_LAUNCH(false, true)
+                : RESTIR_B10_LAUNCH(false, false);
 #undef RESTIR_B10_LAUNCH
 }

@@ -20,8 +20,8 @@ pix0 + p of the whole frame, and reads and writes the packs at p.
 
 Light tables that do not fit in a block's shared memory (l_pad * 128 B
 over `SMEM_MAX`: more than 1,792 rows) take the kernel's streamed build,
-which scans the psi rows through a double buffer of 64 rows and reads
-the candidates' rows from device memory, with the same bits. The
+which scans the psi rows through a double buffer of `CHUNK_ROWS` rows
+and reads the candidates' rows from device memory, with the same bits. The
 wrapper picks the build from the table size (`streamed_for`).
 
 CUDA tensors launch the kernel, CPU tensors take the plain version.
@@ -52,7 +52,6 @@ from .tables import BvhTables, ResidentTables
 
 launches = 0  # launches of B10's staged build
 streamed_launches = 0  # launches of its streamed build
-STREAM_MODE = 3  # the streamed build restir_ris_cdf takes (csrc/ris_cdf.cu)
 
 # input pack [CIN, R] and output pack [COUT, R] (ris_kernel.py:37-41)
 IN_POS, IN_NORM, IN_WO = 0, 3, 6
@@ -134,7 +133,7 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
     plane test counts of each shadow walk. `lib` and `counts` as
     `reuse.candidates_cuda`'s (the stage probes). The build follows the
     table size (`streamed_for`); `_streamed` forces one (tests and the
-    card's checks): False, True (STREAM_MODE) or a mode number."""
+    card's checks)."""
     global launches, streamed_launches
     r = pack.shape[1]
     dev = pack.device
@@ -151,7 +150,6 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
     _check_bvh(bvh, dev)
     l_pad = psi.shape[0]
     streamed = streamed_for(l_pad) if _streamed is None else _streamed
-    mode = STREAM_MODE if streamed is True else int(streamed)
     pack = pack.contiguous()
     out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
     if counts is None and stats:
@@ -161,10 +159,11 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
         err = (lib or _build.library()).restir_ris_cdf(
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
-            mode, p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
+            int(streamed), p(bvh.rows), bvh.size, p(bvh.planes), p(out),
+            p(counts), r,
             int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
-    if mode:
+    if streamed:
         streamed_launches += 1
     else:
         launches += 1

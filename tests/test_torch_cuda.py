@@ -10,7 +10,9 @@ radix sort, the walk through the permutation) at several batch sizes,
 on edge-case rays and on a batch of dead lanes;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
-without B12's mask of live lanes.
+without B12's mask of live lanes; B7's and B10's streamed builds equal to
+their staged builds bit for bit, against their twins on 2,450 light rows,
+and through renderer.step there.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -1564,3 +1566,141 @@ def test_general_row_bands_on_one_card(cuda_device, case):
         assert torch.equal(out[n][i], out[1][i]), i
         torch.testing.assert_close(out[n][i], single, rtol=1e-5, atol=1e-6)
     assert float(out[n][-1].mean()) > 0.0
+
+
+# ---- the streamed builds of B7 and B10: light tables past shared memory
+
+
+def _b10_input(scene, cam, w=W, h=H, looper=5):
+    """B10's input pack on the general G-buffer and its shading lanes."""
+    from restir_tpu_torch.models import gbuffer as tgb
+
+    cfg = RenderConfig(width=w, height=h, tracer=TracerType.RESTIR_DI)
+    gb, it, mat, ray_dir = tgb.render_gbuffer(scene, cam, cam, cfg, looper)
+    wo = -ray_dir
+    norm = torch.where(((mat.type != 2) & ((it.norm * wo).sum(-1) < 0))[
+        ..., None], -it.norm, it.norm)
+    shade = it.valid & (gb.prim_id != tgb.LIGHT_ID)
+    return ris_cdf.pack_inputs(it.pos, norm, wo, mat.type, mat.metallic,
+                               mat.roughness, shade, it.prim_id), shade
+
+
+def _b10_twin_gates(k, r, shade):
+    """test_b10_kernel_matches_twin's gates."""
+    pick = torch.all(k[0:3] == r[0:3], 0) & torch.all(
+        torch.isclose(k[3:6], r[3:6], rtol=2e-4, atol=1e-5), 0)
+    assert float(pick[shade].float().mean()) >= 0.995
+    ok = pick & shade
+    close = torch.isclose(k[ris_cdf.OUT_W][ok], r[ris_cdf.OUT_W][ok],
+                          rtol=2e-4, atol=1e-7)
+    assert float(close.float().mean()) >= 0.999
+    assert torch.equal(k[ris_cdf.OUT_M], r[ris_cdf.OUT_M])
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_b7_streamed_equals_staged(ragged, env_tex, k):
+    """B7's streamed build, forced on tables that fit, writes the staged
+    build's packs and counts bit for bit (128 rows on a ragged frame, 640
+    with the env tiles), launching once on its own count."""
+    for scene, gb, w, has_env in _b7_frames(ragged, env_tex):
+        kw = dict(width=w, k=k, has_env=has_env, stats=True)
+        rs0, c0 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                        _streamed=False, **kw)
+        before = (reuse.launches, reuse.streamed_launches)
+        rs1, c1 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                        _streamed=True, **kw)
+        assert (reuse.launches, reuse.streamed_launches) == (
+            before[0], before[1] + 1)
+        assert torch.equal(rs0.view(torch.int32), rs1.view(torch.int32))
+        assert torch.equal(c0, c1)
+
+
+def test_b10_streamed_equals_staged(general):
+    """B10's streamed build, forced on tables that fit (the 32 rows of
+    many_light_scene(16, 6)), writes the staged build's pack bit for
+    bit."""
+    scene, cam, _, _, _ = general
+    pack, _ = _b10_input(scene, cam)
+    k0 = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh,
+                              _streamed=False)
+    before = (ris_cdf.launches, ris_cdf.streamed_launches)
+    k1 = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh,
+                              _streamed=True)
+    assert (ris_cdf.launches, ris_cdf.streamed_launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(k0.view(torch.int32), k1.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_area,has_env", [(2450, False), (2200, True),
+                                            (10000, False)])
+def test_b7_streamed_seg_matches_host_mirror(cuda_device, n_area, has_env):
+    """The streamed build's spacing on the card equals the host mirror's,
+    and the wrapper picks that build for these tables."""
+    assert reuse.streamed_for(n_area, has_env, reuse.seg_cuda(n_area,
+                                                              has_env))
+    assert (reuse.seg_cuda(n_area, has_env, streamed=True)
+            == reuse.seg_for(n_area, has_env, streamed=True))
+
+
+@pytest.fixture(scope="module")
+def many(cuda_device):
+    """many_light_scene(1225, 24): 2,450 light rows, 2,748 triangles."""
+    arrays, camkw = many_light_scene(1225, 24)
+    scene = convert.scene_from_numpy(arrays, cuda_device)
+    return arrays, scene, camkw
+
+
+def test_b7_streamed_matches_twin_at_many_lights(many):
+    """B7 takes its streamed build on 2,450 light rows; with B1b it meets
+    its twin under the pack gates, and each pixel evaluates between n_l
+    and n_l + k * S light targets."""
+    _, scene, camkw = many
+    cv0 = pack_camera(make_camera(**camkw), scene.tables.psi.device)
+    gb = gbuffer.gbuffer_cuda(cv0, cv0, 3, scene.bvh, width=W, height=H)
+    prev = torch.zeros((fused_di.PT_CH, R), device=gb.device)
+    before = (reuse.launches, reuse.streamed_launches)
+    pt_k = reuse.reuse_cuda(gb, prev, 3, scene.tables, scene.bvh, width=W)
+    assert (reuse.launches, reuse.streamed_launches) == (
+        before[0], before[1] + 1)
+    pt_r = reuse.reuse_ref(gb, prev, 3, scene.tables)
+    fails, stats = parity.pt_report(pt_r, pt_k)
+    assert not fails, (fails, stats)
+    _, st = reuse.candidates_cuda(gb, 3, scene.tables, scene.bvh, width=W,
+                                  stats=True)
+    n_l = scene.tables.n_lights
+    seg = reuse.seg_cuda(n_l, False, streamed=True)
+    assert int(st[2].min()) >= n_l and int(st[2].max()) <= n_l + 4 * seg
+
+
+def test_b10_streamed_matches_twin_at_many_lights(many):
+    """B10 takes its streamed build on 2,560 light rows and meets its
+    twin under test_b10_kernel_matches_twin's gates."""
+    _, scene, camkw = many
+    pack, shade = _b10_input(scene, make_camera(**camkw))
+    before = (ris_cdf.launches, ris_cdf.streamed_launches)
+    k = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh)
+    assert (ris_cdf.launches, ris_cdf.streamed_launches) == (
+        before[0], before[1] + 1)
+    _b10_twin_gates(k, ris_cdf.ris_cdf_ref(pack, 5, scene.tables), shade)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_many_lights_renderer_step(many, fused):
+    """Fused and general RESTIR_DI through renderer.step on 2,450 light
+    rows: each frame launches the streamed build once and is finite and
+    lit."""
+    from restir_tpu_torch.config import mat_flags
+
+    arrays, scene, camkw = many
+    cfg = RenderConfig(width=W, height=H, tracer=TracerType.RESTIR_DI,
+                       **mat_flags(arrays))
+    cam = make_camera(**camkw)
+    state = renderer.init_state(cfg, cam, scene if fused else None,
+                                device=scene.tables.psi.device)
+    before = (reuse.streamed_launches, ris_cdf.streamed_launches)
+    for _ in range(3):
+        state, frame = renderer.step(scene, state, cam, cfg)
+    assert (reuse.streamed_launches - before[0],
+            ris_cdf.streamed_launches - before[1]) == (
+        (3, 0) if fused else (0, 3))
+    assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0

@@ -279,8 +279,8 @@ def test_build_choice_fits_shared_memory(n_area, has_env):
     assert "constexpr int kChunkRows = BLOCK / 4;" in b10_src
     assert ris_cdf.CHUNK_ROWS == 256 // 4
     assert _b7_source_constants()[2] == reuse.CHUNK_ROWS == gbuffer.BLOCK // 4
-    assert "MODE == 0   ? (size_t)l_pad * 32 * sizeof(float)" in b10_src
-    assert "2 * BLOCK * sizeof(float4)" in b10_src
+    assert re.search(r"STREAM \? \(size_t\)2 \* kChunkRows \* 64\s*"
+                     r": \(size_t\)l_pad \* 32 \* sizeof\(float\)", b10_src)
     # B10 (no env rows): l_pad rows of 128 B staged
     l_pad = -(-max(n_area, 128) // 128) * 128
     b10_streamed = ris_cdf.streamed_for(l_pad)
