@@ -1913,13 +1913,7 @@ def phase_general_kernels(scene, cam, dev, record, launches, flags):
 
     # B10 on the general G-buffer
     dcfg = cfg.replace(tracer=TracerType.RESTIR_DI)
-    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, dcfg,
-                                                        1)
-    wo = -ray_dir
-    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
-    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
-                               gmat.type, gmat.metallic, gmat.roughness,
-                               shade, it.prim_id)
+    pack, shade = b10_input(scene, cam, dev)
     kw = dict(k=dcfg.cdf_candidates, single_sided=dcfg.single_sided_lights,
               has_met=dcfg.scene_has_metallic)
     k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, **kw)
@@ -1929,23 +1923,8 @@ def phase_general_kernels(scene, cam, dev, record, launches, flags):
     torch.cuda.synchronize()
     if not bool(bits_equal(kc10, k10).all()):
         raise PhaseError("B10's counting build writes another pack")
-    li, wi_, w_ = ris_cdf.OUT_LI, ris_cdf.OUT_WI, ris_cdf.OUT_W
-    pick = (torch.all(k10[li:li + 3] == r10[li:li + 3], 0)
-            & torch.all(torch.isclose(k10[wi_:wi_ + 3], r10[wi_:wi_ + 3],
-                                      rtol=2e-4, atol=1e-5), 0))
-    pm = float(pick[shade].float().mean())
-    ok = pick & shade
-    wclose = float(torch.isclose(k10[w_][ok], r10[w_][ok], rtol=2e-4,
-                                 atol=1e-7).float().mean())
-    m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
-    err10 = float((k10[w_][ok] - r10[w_][ok]).abs().max())
-    occ_eq = float(((k10[w_] == 0) == (r10[w_] == 0))[ok].float().mean())
-    print(f"B10 ris_cdf vs twin on the general G-buffer: pick match {pm:.6f}, "
-          f"weights within rtol 2e-4 {wclose:.6f}, M equal {m_eq:.6f}, "
-          f"occlusion equal on same-pick lanes {occ_eq:.6f}, visible "
-          f"winners {float((k10[w_][shade] > 0).float().mean()):.4f}")
-    if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
-        raise PhaseError("B10 disagrees with its twin")
+    err10 = b10_twin_gate("B10 ris_cdf vs twin on the general G-buffer",
+                          k10, r10, shade)
     ms = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, scene.bvh, **kw),
                  10)
     ms_ref = cuda_ms(lambda: ris_cdf.ris_cdf_ref(pack, 1, t, **kw), 1)
@@ -4034,8 +4013,10 @@ def b10_twin_gate(what, k10, r10, shade):
     wclose = float(torch.isclose(k10[w_][ok], r10[w_][ok], rtol=2e-4,
                                  atol=1e-7).float().mean())
     m_eq = float((k10[ris_cdf.OUT_M] == r10[ris_cdf.OUT_M]).float().mean())
+    occ_eq = float(((k10[w_] == 0) == (r10[w_] == 0))[ok].float().mean())
     print(f"{what}: pick match {pm:.6f}, weights within rtol 2e-4 "
-          f"{wclose:.6f}, M equal {m_eq:.6f}, visible winners "
+          f"{wclose:.6f}, M equal {m_eq:.6f}, occlusion equal on same-pick "
+          f"lanes {occ_eq:.6f}, visible winners "
           f"{float((k10[w_][shade] > 0).float().mean()):.4f} on "
           f"{int(shade.sum())} shading lanes")
     if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:

@@ -73,10 +73,11 @@ constexpr int kEnvRows = RESTIR_ENV_TH * RESTIR_ENV_TW;
 // light_target4, read from their SASS; the CPU mirror is
 // ops/kernels/reuse.py), so the search's two scans and the full scan
 // round alike. Left to the compiler, this code fused the frame
-// otherwise and moved B7's packs. ris_finish repeats ris_select's
-// candidate evaluation and winner: B1 and B10 keep their inline copy, as
-// sharing the evaluation slowed B1's env build by 5 % and sharing the
-// winner moved B1's texture build by an ulp (PERF.md §6). The B1 ==
+// otherwise and moved B7's packs. ris_finish (di_core.cuh) repeats
+// ris_select's candidate evaluation and winner: B1 and B10's staged
+// build keep their inline copy, as sharing the evaluation slowed B1's
+// env build by 5 % and sharing the winner moved B1's texture build by an
+// ulp (PERF.md §6). The B1 ==
 // B6 + B7 + B1b tests named at di_core.cuh's light_target keep the two
 // copies, and light_target with light_target4 / env_target, equal.
 
@@ -90,145 +91,6 @@ __device__ __forceinline__ float env_target(float4 e, float lum,
       __fmaf_rn(e.z, f.nz, __fmaf_rn(e.x, f.nx, __fmul_rn(e.y, f.ny)));
   const bool above = __fadd_rn(a, e.w) > 0.0f;
   return above ? __fmul_rn(lum, fmaxf(a, __fmul_rn(0.1f, e.w))) : 0.0f;
-}
-
-// The candidates' draws: thr_j = u1 * total, the sample uniforms r2, r3
-// and the winner's r4 of candidate 0.
-struct RisDraws {
-  float thr[MAX_K], r2[MAX_K], r3[MAX_K], r4_0;
-};
-
-__device__ __forceinline__ RisDraws ris_draws(uint32_t pu, uint32_t looper,
-                                              int k, float total) {
-  RisDraws d;
-  d.r4_0 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    d.r2[j] = d.r3[j] = d.thr[j] = 0.0f;
-    if (j < k) {
-      uint32_t h[4];
-      pcg4d(pu, looper, (uint32_t)(CTR_RIS + j), SALT_RESTIR, h);
-      d.thr[j] = unit(h[0]) * total;
-      d.r2[j] = unit(h[1]);
-      d.r3[j] = unit(h[2]);
-      if (j == 0) d.r4_0 = unit(h[3]);
-    }
-  }
-  return d;
-}
-
-// The K candidates at the found rows idx_j (targets tq_j) and the
-// single-draw winner, as in ris_select. lights: the [l_pad, 16] rows in
-// global memory, read through the read-only path. Lanes without a winner
-// get li = wi = 0, dist = 0. With HAS_ENV, rows from n_area on are env
-// tiles: a pick there samples a uv-uniform direction in the tile with its
-// exact solid-angle pdf, and its shadow ray runs to RESTIR_ENV_DIST.
-template <bool HAS_ENV>
-__device__ __forceinline__ Candidate ris_finish(
-    const float* lights, int n_area, int k, int single_sided, int has_met,
-    const Surface& s, const RisFrame& f, float total, const RisDraws& d,
-    const int idx[MAX_K], const float tq[MAX_K]) {
-  const float px = s.px, py = s.py, pz = s.pz;
-  const float mtype = s.mtype;
-  const float wox = f.wox, woy = f.woy, woz = f.woz;
-  const float nx = f.nx, ny = f.ny, nz = f.nz;
-  float w[MAX_K], cwi[MAX_K][3], cdist[MAX_K];
-  const float total_safe = fmaxf(total, 1e-20f);
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    w[j] = 0.0f;
-    cwi[j][0] = cwi[j][1] = cwi[j][2] = 0.0f;
-    cdist[j] = 0.0f;
-    if (j >= k) continue;
-    const float* Lp = lights + idx[j] * 16;
-    auto L = [&](int c) { return __ldg(Lp + c); };
-    const float q = tq[j] / total_safe;
-    float wix, wiy, wiz, pdf, dist;
-    if (HAS_ENV && idx[j] >= n_area) {
-      // env tile (u0, v0 | du | dv): uv-uniform point, to_sphere
-      const float u_s = fadd(L(0), fmul(d.r2[j], L(3)));
-      const float v_s = fadd(L(1), fmul(d.r3[j], L(6)));
-      const float phi = fmul(u_s, 6.28318548f);  // float32(2 pi)
-      const float th = fmul(v_s, 3.14159274f);
-      const float st = sinf(th);
-      wix = fmul(cosf(phi), st);
-      wiy = cosf(th);
-      wiz = fmul(sinf(phi), st);
-      pdf = __fdiv_rn(q, fmaxf(fmul(fmul(fmul(L(3), L(6)), 19.7392082f),
-                                    fmaxf(st, 1e-6f)),
-                               1e-20f));
-      pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
-      dist = RESTIR_ENV_DIST;
-    } else {
-      const float sr = sqrtf(fmaxf(d.r3[j], 0.0f));
-      const float b_u = 1.0f - sr;
-      const float b_v = d.r2[j] * sr;
-      const float sx = L(0) + b_u * L(3) + b_v * L(6);
-      const float sy = L(1) + b_u * L(4) + b_v * L(7);
-      const float sz = L(2) + b_u * L(5) + b_v * L(8);
-      const float tx = sx - px, ty = sy - py, tz = sz - pz;
-      const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
-      const float inv_dist = 1.0f / sqrtf(dist2);
-      wix = tx * inv_dist;
-      wiy = ty * inv_dist;
-      wiz = tz * inv_dist;
-      const float cos_l = L(9) * wix + L(10) * wiy + L(11) * wiz;
-      pdf = q * dist2 / fmaxf(L(15) * fabsf(cos_l), 1e-20f);
-      if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
-      pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
-      dist = dist2 * inv_dist;
-    }
-    const float f_lum = bsdf_lum(mtype, s.metallic, s.roughness, nx, ny, nz,
-                                 wox, woy, woz, wix, wiy, wiz, has_met);
-    const float li_lum = 0.2126f * L(12) + 0.7152f * L(13) + 0.0722f * L(14);
-    const float cos_s = fmaxf(nx * wix + ny * wiy + nz * wiz, 0.0f);
-    const float wj = li_lum * f_lum * cos_s / pdf;
-    const bool bad = isnan(wj) || isinf(wj) || pdf <= 0.0f;
-    w[j] = (bad || !s.shade) ? 0.0f : wj;
-    cwi[j][0] = wix;
-    cwi[j][1] = wiy;
-    cwi[j][2] = wiz;
-    cdist[j] = dist;
-  }
-
-  // single-draw winner over the cumulative candidate weights
-  float c = w[0], cums[MAX_K];
-#pragma unroll
-  for (int j = 1; j < MAX_K; ++j) {
-    cums[j - 1] = c;
-    if (j < k) c += w[j];
-  }
-  Candidate out;
-  out.r_weight = c;
-  const float thresh = d.r4_0 * c;
-  int jsel = 0;
-#pragma unroll
-  for (int j = 0; j < MAX_K - 1; ++j)
-    if (j < k - 1 && cums[j] <= thresh) ++jsel;
-  const bool gate = c > 0.0f && s.shade;
-  out.li[0] = out.li[1] = out.li[2] = 0.0f;
-  out.wi[0] = out.wi[1] = out.wi[2] = 0.0f;
-  out.dist = 0.0f;
-  int row = 0;
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    if (gate && j == jsel) {
-      row = idx[j];
-      out.wi[0] = cwi[j][0];
-      out.wi[1] = cwi[j][1];
-      out.wi[2] = cwi[j][2];
-      out.dist = cdist[j];
-    }
-  }
-  // the winner's radiance, read again from its light row rather than
-  // kept for every candidate (registers)
-  if (gate) {
-    const float* Lw = lights + row * 16;
-    out.li[0] = __ldg(Lw + 12);
-    out.li[1] = __ldg(Lw + 13);
-    out.li[2] = __ldg(Lw + 14);
-  }
-  return out;
 }
 
 // The light rows in shared memory and this thread's cdf checkpoints.

@@ -35,7 +35,8 @@
 // and light_target4: the FMA fusion spelled out), which round as the
 // staged build's do: a copy of ris_select's plain expressions, inlined
 // into the streamed loops, fused the total's adds otherwise and moved 2 %
-// of the weights by an ulp. ris_select itself on the tables in device
+// of the weights by an ulp. Its draws, candidates and winner are B7's
+// (ris_draws, ris_finish). ris_select itself on the tables in device
 // memory kept the bits but ran 41.2 against 29.7 ms at 2,560 rows
 // (PERF.md §6).
 #include "bvh.cuh"
@@ -51,44 +52,31 @@ namespace {
 constexpr int BLOCK = 256;
 constexpr int kChunkRows = BLOCK / 4;  // streamed psi rows a chunk
 
-// di_core.cuh's ris_select without env tiles, its two scans over the psi
+// di_core.cuh's ris_select without env tiles: its two scans over the psi
 // rows streamed through shared memory (buf: 2 * kChunkRows rows) with
-// B7's frame and targets (module note), the candidates' light rows read
-// from device memory. Every thread of the block calls it; one that is not
-// live only stages.
+// B7's frame and targets (module note), then B7's draws and candidates
+// (ris_draws, ris_finish), which read the picked rows from device memory.
+// Every thread of the block calls it; one that is not live only stages.
 __device__ __forceinline__ Candidate ris_select_streamed(
     const float4* psi4, const float* lights, float4* buf, int l_pad,
-    uint32_t pu, uint32_t looper, int k, int single_sided, int has_met,
-    const Surface& s, bool live) {
-  const float px = s.px, py = s.py, pz = s.pz;
-  const float mtype = s.mtype;
-  const float wox = -s.dx, woy = -s.dy, woz = -s.dz;
+    int n_area, uint32_t pu, uint32_t looper, int k, int single_sided,
+    int has_met, const Surface& s, bool live) {
   const RisFrame f = ris_frame(s);
-  const float nx = f.nx, ny = f.ny, nz = f.nz;
-
   float total = 0.0f;
   stream_rows(psi4, l_pad, buf, [&](const float4* rows, int, int n) {
     if (!live) return;
     for (int i = 0; i < n; ++i)
       total += light_target4(rows + 4 * i, f, single_sided);
   });
-
-  float r2[MAX_K], r3[MAX_K], thr[MAX_K], tq[MAX_K], r4_0 = 0.0f;
+  const RisDraws d = ris_draws(pu, looper, k, total);
+  // idx_j: the first row whose cdf exceeds thr_j, else l_pad - 1
   int idx[MAX_K];
+  float tq[MAX_K], cdf = 0.0f, t_last = 0.0f;
 #pragma unroll
   for (int j = 0; j < MAX_K; ++j) {
-    r2[j] = r3[j] = thr[j] = tq[j] = 0.0f;
     idx[j] = -1;
-    if (j < k) {
-      uint32_t h[4];
-      pcg4d(pu, looper, (uint32_t)(CTR_RIS + j), SALT_RESTIR, h);
-      thr[j] = unit(h[0]) * total;
-      r2[j] = unit(h[1]);
-      r3[j] = unit(h[2]);
-      if (j == 0) r4_0 = unit(h[3]);
-    }
+    tq[j] = 0.0f;
   }
-  float cdf = 0.0f, t_last = 0.0f;
   stream_rows(psi4, l_pad, buf, [&](const float4* rows, int l0, int n) {
     if (!live) return;
     for (int i = 0; i < n; ++i) {
@@ -97,7 +85,7 @@ __device__ __forceinline__ Candidate ris_select_streamed(
       t_last = t;
 #pragma unroll
       for (int j = 0; j < MAX_K; ++j) {
-        if (j < k && idx[j] < 0 && cdf > thr[j]) {
+        if (j < k && idx[j] < 0 && cdf > d.thr[j]) {
           idx[j] = l0 + i;
           tq[j] = t;
         }
@@ -105,85 +93,15 @@ __device__ __forceinline__ Candidate ris_select_streamed(
     }
   });
   if (!live) return Candidate{};
-
-  float w[MAX_K], cli[MAX_K][3], cwi[MAX_K][3], cdist[MAX_K];
-  const float total_safe = fmaxf(total, 1e-20f);
 #pragma unroll
   for (int j = 0; j < MAX_K; ++j) {
-    w[j] = 0.0f;
-    cli[j][0] = cli[j][1] = cli[j][2] = 0.0f;
-    cwi[j][0] = cwi[j][1] = cwi[j][2] = 0.0f;
-    cdist[j] = 0.0f;
-    if (j >= k) continue;
     if (idx[j] < 0) {
       idx[j] = l_pad - 1;
       tq[j] = t_last;
     }
-    const float* L = lights + idx[j] * 16;
-    const float q = tq[j] / total_safe;
-    const float sr = sqrtf(fmaxf(r3[j], 0.0f));
-    const float b_u = 1.0f - sr;
-    const float b_v = r2[j] * sr;
-    const float sx = L[0] + b_u * L[3] + b_v * L[6];
-    const float sy = L[1] + b_u * L[4] + b_v * L[7];
-    const float sz = L[2] + b_u * L[5] + b_v * L[8];
-    const float tx = sx - px, ty = sy - py, tz = sz - pz;
-    const float dist2 = fmaxf(tx * tx + ty * ty + tz * tz, 1e-20f);
-    const float inv_dist = 1.0f / sqrtf(dist2);
-    const float wix = tx * inv_dist, wiy = ty * inv_dist,
-                wiz = tz * inv_dist;
-    const float cos_l = L[9] * wix + L[10] * wiy + L[11] * wiz;
-    float pdf = q * dist2 / fmaxf(L[15] * fabsf(cos_l), 1e-20f);
-    if (single_sided) pdf = cos_l <= -1e-6f ? pdf : -1.0f;
-    pdf = (total > 0.0f && q > 0.0f) ? pdf : -1.0f;
-    const float dist = dist2 * inv_dist;
-    const float f_lum = bsdf_lum(mtype, s.metallic, s.roughness, nx, ny, nz,
-                                 wox, woy, woz, wix, wiy, wiz, has_met);
-    const float li_lum = 0.2126f * L[12] + 0.7152f * L[13] + 0.0722f * L[14];
-    const float cos_s = fmaxf(nx * wix + ny * wiy + nz * wiz, 0.0f);
-    const float wj = li_lum * f_lum * cos_s / pdf;
-    const bool bad = isnan(wj) || isinf(wj) || pdf <= 0.0f;
-    w[j] = (bad || !s.shade) ? 0.0f : wj;
-    cli[j][0] = L[12];
-    cli[j][1] = L[13];
-    cli[j][2] = L[14];
-    cwi[j][0] = wix;
-    cwi[j][1] = wiy;
-    cwi[j][2] = wiz;
-    cdist[j] = dist;
   }
-
-  // single-draw winner over the cumulative candidate weights
-  float c = w[0], cums[MAX_K];
-#pragma unroll
-  for (int j = 1; j < MAX_K; ++j) {
-    cums[j - 1] = c;
-    if (j < k) c += w[j];
-  }
-  Candidate out;
-  out.r_weight = c;
-  const float thresh = r4_0 * c;
-  int jsel = 0;
-#pragma unroll
-  for (int j = 0; j < MAX_K - 1; ++j)
-    if (j < k - 1 && cums[j] <= thresh) ++jsel;
-  const bool gate = c > 0.0f && s.shade;
-  out.li[0] = out.li[1] = out.li[2] = 0.0f;
-  out.wi[0] = out.wi[1] = out.wi[2] = 0.0f;
-  out.dist = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    if (gate && j == jsel) {
-      out.li[0] = cli[j][0];
-      out.li[1] = cli[j][1];
-      out.li[2] = cli[j][2];
-      out.wi[0] = cwi[j][0];
-      out.wi[1] = cwi[j][1];
-      out.wi[2] = cwi[j][2];
-      out.dist = cdist[j];
-    }
-  }
-  return out;
+  return ris_finish<false>(lights, n_area, k, single_sided, has_met, s, f,
+                           total, d, idx, tq);
 }
 
 // input / output pack channels (ris_kernel.py:37-41)
@@ -238,8 +156,8 @@ __global__ void __launch_bounds__(BLOCK)
   Candidate c;
   if constexpr (STREAM) {
     c = ris_select_streamed(reinterpret_cast<const float4*>(psi_g), lights_g,
-                            smem4, l_pad, pix0 + (uint32_t)p, looper, k,
-                            single_sided, has_met, s, live);
+                            smem4, l_pad, n_area, pix0 + (uint32_t)p, looper,
+                            k, single_sided, has_met, s, live);
     if (!live) return;
   } else {
     c = ris_select<false>(psi, lights, l_pad, n_area, pix0 + (uint32_t)p,

@@ -19,9 +19,10 @@ The pack weights are not held to reuse_pallas's: its light targets are
 3-pass bf16 products (`dot_f32x3`, which drops a 2^-16 term), and with
 thousands of lights some light lies near most shading points, where
 |c|^2 - 2 p.c + |p|^2 cancels. Here the JAX fused kernel's own weights
-agree with its general path's on about 92 % of same-pick lanes, under
-its test's 99.9 % gate; the test asserts that the twin agrees with the
-general path on more of them than the JAX fused kernel does.
+miss its test's gate against its general path (rtol 2e-4 on 99.9 % of
+same-pick lanes, tests/test_fused_di.py:173); the test asserts that, and
+that the twin agrees with the general path on more lanes than the JAX
+fused kernel does.
 """
 
 import jax
@@ -103,6 +104,9 @@ def test_reuse_twin_matches_jax_at_many_lights(world):
             assert (m_ref[same] == p[fk.P_M][same]).all()
     assert close["twin"] >= 0.995, close
     assert close["twin"] > close["jax_fused"], close
+    same = np.all(li_ref == pt_j[fk.P_LI:fk.P_LI + 3].T, axis=-1)
+    assert np.isclose(w_ref[same], pt_j[fk.P_WEIGHT][same], rtol=2e-4,
+                      atol=1e-6).mean() < 0.999
     shade = np.asarray(pack).reshape(fk.GB_CH, R)[fk.G_SHADE] > 0.5
     assert shade.mean() > 0.5
     assert (pt_t[fk.P_WEIGHT][shade] > 0).mean() > 0.3
