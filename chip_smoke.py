@@ -235,8 +235,9 @@ Many lights (after phase 28):
      many_light_scene(1225, 24) (2,450 light rows, 2,748 triangles): B7
      + B1b against their twins on 32 sample tiles and B10 against its
      twin on a band of 16 rows, with phase 9's and phase 12's gates,
-     and each kernel's time, twin's time and bound; the fused RESTIR_DI + EAW frame through
-     renderer.step at 1920x1080 (launches per frame: gbuffer_bvh 1,
+     and each kernel's time, twin's time and bound; the fused RESTIR_DI
+     + EAW frame through renderer.step at 1920x1080 (launches per frame:
+     gbuffer_bvh 1,
      reuse_bvh_streamed 1, temporal 1, spatial 1, atrous_eaw 5) and the
      general RESTIR_DI cdf + EAW frame (primary_hit 1, ris_cdf_streamed
      1, atrous_eaw 5), each with its wall, device busy and idle share
@@ -245,8 +246,8 @@ Many lights (after phase 28):
      (10,000 light rows; its quads overlap): the same kernel-against-twin
      checks and times, and 2 + 4 frames of each main path.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
-those, 23-25, then 26, 27, 28 and 29, last. Each phase's wall seconds print
-on a line of their own ("phase wall: <phase>: <s> s") as it ends.
+those, 23-25, then 26, 27, 28 and 29, last. Each phase's wall seconds
+print on a line of their own ("phase wall: <phase>: <s> s") as it ends.
 After each main path, torch.profiler traces 4 more frames and prints the
 device busy time per frame and the kernels that take it.
 The last three stdout lines are the card's name and power limit (from

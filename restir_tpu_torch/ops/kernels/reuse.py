@@ -45,14 +45,10 @@ import torch
 
 from ...utils import rng
 from . import _build, fused_di
-from .fused_di import (  # noqa: F401 (the search's mirror reads these)
+from .fused_di import (
     CTR_RIS,
     ENV_TH,
     ENV_TW,
-    G_DIR,
-    G_MTYPE,
-    G_NORM,
-    G_POS,
     GB_CH,
     MAX_K,
     PT_CH,

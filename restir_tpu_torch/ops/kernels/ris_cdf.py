@@ -160,8 +160,8 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
             int(streamed), p(bvh.rows), bvh.size, p(bvh.planes), p(out),
-            p(counts), r,
-            int(single_sided), k, int(has_met), _build.stream_of(dev))
+            p(counts), r, int(single_sided), k, int(has_met),
+            _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
     if streamed:
         streamed_launches += 1

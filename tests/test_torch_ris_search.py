@@ -34,7 +34,13 @@ import pytest
 import torch
 
 from restir_tpu_torch import convert
-from restir_tpu_torch.ops.kernels import _build, fused_di, gbuffer, reuse, ris_cdf
+from restir_tpu_torch.ops.kernels import (
+    _build,
+    fused_di,
+    gbuffer,
+    reuse,
+    ris_cdf,
+)
 from restir_tpu_torch.ops.kernels.fused_di import (
     G_DIR,
     G_MTYPE,
