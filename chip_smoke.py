@@ -225,26 +225,25 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      csrc/prof/ must launch. Phase 2 builds the probes' libraries with
      the main one.
 Many lights (after phase 28):
- 29. the light tables past a block's shared memory, which B7 and B10
-     stream (their streamed builds, `reuse_bvh_streamed` and
-     `ris_cdf_streamed` in the kernels line): (a) each streamed build
-     forced on tables that fit, bit for bit against the staged build on
-     every lane: B10 on the general G-buffers of the headline and the
-     hall (128 rows each), B7 (and its counting build's counts) on the
-     hall and the sky hall (640 rows with the env tiles) at 1080p; (b)
+ 29. the light tables past a block's shared memory: B7's streamed build
+     (`reuse_bvh_streamed` in the kernels line) and B10, which runs the
+     same streamed search at every size: (a) B7's streamed build forced
+     on tables that fit, bit for bit against the staged build on every
+     lane (and its counting build's counts) on the hall and the sky
+     hall (640 rows with the env tiles) at 1080p; (b)
      many_light_scene(1225, 24) (2,450 light rows, 2,748 triangles): B7
      + B1b against their twins on 32 sample tiles and B10 against its
      twin on a band of 16 rows, with phase 9's and phase 12's gates,
      and each kernel's time, twin's time and bound; the fused RESTIR_DI
      + EAW frame through renderer.step at 1920x1080 (launches per frame:
-     gbuffer_bvh 1,
-     reuse_bvh_streamed 1, temporal 1, spatial 1, atrous_eaw 5) and the
-     general RESTIR_DI cdf + EAW frame (primary_hit 1, ris_cdf_streamed
-     1, atrous_eaw 5), each with its wall, device busy and idle share
-     (profile), and phase 14's quality gate on this scene at 384x384:
-     energy_ratio_vs_pt within 5 % of 1; (c) many_light_scene(5000, 24)
-     (10,000 light rows; its quads overlap): the same kernel-against-twin
-     checks and times, and 2 + 4 frames of each main path.
+     gbuffer_bvh 1, reuse_bvh_streamed 1, temporal 1, spatial 1,
+     atrous_eaw 5) and the general RESTIR_DI cdf + EAW frame
+     (primary_hit 1, ris_cdf 1, atrous_eaw 5), each with its wall,
+     device busy and idle share (profile), and phase 14's quality gate
+     on this scene at 384x384: energy_ratio_vs_pt within 5 % of 1; (c)
+     many_light_scene(5000, 24) (10,000 light rows; its quads overlap):
+     the same kernel-against-twin checks and times, and 2 + 4 frames of
+     each main path.
 Phases 12-14 run after phase 11, phases 15-18 after them, 19-22 after
 those, 23-25, then 26, 27, 28 and 29, last. Each phase's wall seconds
 print on a line of their own ("phase wall: <phase>: <s> s") as it ends.
@@ -337,7 +336,7 @@ from restir_tpu_torch.scene.procedural import (
 
 from restir_tpu_torch.utils.image_io import encode_png, read_pfm, read_png
 
-from kernel_ab import general_rays
+from kernel_ab import b10_input, general_rays
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1080
@@ -421,12 +420,10 @@ SOURCES = {
                        "prof/prof_v3.py:92"),
     "prof_chain_float4": ("restir_tpu_torch/csrc/prof/mem.cu",
                           "prof/prof_v3.py:92"),
-    # the streamed builds of B7 and B10 (phase 29): light tables past a
-    # block's shared memory
+    # B7's streamed build (phase 29): light tables past a block's shared
+    # memory
     "reuse_bvh_streamed": ("restir_tpu_torch/csrc/reuse_bvh.cu",
                            "restir_tpu/ops/pallas/fused_di.py:1558"),
-    "ris_cdf_streamed": ("restir_tpu_torch/csrc/ris_cdf.cu",
-                         "restir_tpu/ops/pallas/ris_kernel.py:138"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -586,7 +583,6 @@ def reset_counts():
     hits.any_launches = 0
     ris_cdf.launches = 0
     reuse.streamed_launches = 0
-    ris_cdf.streamed_launches = 0
     gi.trace_launches = 0
     gi.resolve_launches = 0
     hits.mt_closest_launches = 0
@@ -615,8 +611,7 @@ def read_counts():
             "heatmap": hits.heatmap_launches,
             "ray_key": ray_order.key_launches,
             "ray_sort": ray_order.sort_launches,
-            "reuse_bvh_streamed": reuse.streamed_launches,
-            "ris_cdf_streamed": ris_cdf.streamed_launches}
+            "reuse_bvh_streamed": reuse.streamed_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -837,6 +832,19 @@ def walk_bound7(t, bvh, r, k, counts, has_env, passes=1):
                  + r * (24 + 8) * 4,
                  r * (targets + k * FLOP_CAND)
                  + boxes * FLOP_BOX + tris * FLOP_PLANE)
+
+
+def ris_bound10(t, r, k, boxes, tests, walk_tables):
+    """(least ms, what binds it) of B10 over this run's shadow-walk
+    tests: the packs, the light rows that hold lights and the walk's
+    tables moved once; one light target per light row (the picks need no
+    second scan: B7's search, which B10 runs, picks the
+    full scan's rows), k candidates and the walk."""
+    n_l = t.n_lights
+    return bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
+                 + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
+                 r * (n_l * FLOP_LIGHT + k * FLOP_CAND)
+                 + boxes * FLOP_BOX + tests * FLOP_PLANE)
 
 
 def warp_spread(counts, width, height):
@@ -1671,11 +1679,6 @@ def phase_sky_hall(sf, cam, dev):
     profile_frames("sky hall", scene, cfg, cam, dev)
 
 
-def _facing(norm, wo, mtype):
-    flip = (mtype != 2) & ((norm * wo).sum(-1) < 0)
-    return torch.where(flip[:, None], -norm, norm)
-
-
 def bits_equal(a, b):
     """Elementwise: a and b hold the same bits (float32 or int32)."""
     if a.dtype == torch.float32:
@@ -1932,10 +1935,7 @@ def phase_general_kernels(scene, cam, dev, record, launches, flags):
     # the shadow walks this run makes: lanes with a live winner
     boxes, tests = walk_line("B10 shadow", c10, c10[0] > 0)
     n_l = t.n_lights
-    b = bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
-              + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
-              r * (2 * n_l * FLOP_LIGHT + dcfg.cdf_candidates * FLOP_CAND)
-              + boxes * FLOP_BOX + tests * FLOP_PLANE)
+    b = ris_bound10(t, r, dcfg.cdf_candidates, boxes, tests, walk_tables)
     record["ris_cdf"] = dict(max_abs_err=err10, ms=ms, plain_ms=ms_ref,
                              bound_ms=b[0], bound_by=b[1], library_ms=None)
     print(f"B10 ris_cdf: kernel {ms:.4f} ms, twin {ms_ref:.4f} ms, bound "
@@ -3202,13 +3202,7 @@ def general_band_kernels(scene, cam, dev):
 
     # B10 on the general G-buffer pack (phase 12's)
     dcfg = RenderConfig(width=w, height=h, tracer=TracerType.RESTIR_DI)
-    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, dcfg,
-                                                        1)
-    wo = -ray_dir
-    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
-    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
-                               gmat.type, gmat.metallic, gmat.roughness,
-                               shade, it.prim_id)
+    pack, shade = b10_input(scene, cam, dev, w, h)
     kw = dict(k=dcfg.cdf_candidates, single_sided=dcfg.single_sided_lights,
               has_met=dcfg.scene_has_metallic)
     band = pack[:, sl].contiguous()
@@ -3230,7 +3224,7 @@ def general_band_kernels(scene, cam, dev):
         fails.append("band B10 disagrees with its twin")
     times["ris_cdf"] = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(
         band, 1, t, scene.bvh, pix0=pix0, **kw), 20)
-    del gbuf, it, gmat, ray_dir, wo, pack, band, r10
+    del pack, band, r10
 
     # B9: frame 0 from a zero pack, frame 1 after the camera turned
     gcfg = RenderConfig(width=w, height=h, tracer=TracerType.RESTIR_GI,
@@ -3691,7 +3685,7 @@ def stage_bounds(dev):
         t, bvh, c = fr.scene.tables, fr.scene.bvh, fr.cfg
         kw = dict(k=c.cdf_candidates, single_sided=c.single_sided_lights,
                   has_met=c.scene_has_metallic)
-        r, n_l = pack.shape[1], t.n_lights
+        r = pack.shape[1]
 
         def b10(lib=None):
             return ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, lib=lib,
@@ -3699,11 +3693,8 @@ def stage_bounds(dev):
 
         def b10_bound(cnt):
             boxes, tests = (float(x.double().sum()) for x in cnt[:2])
-            return bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
-                         + table_bytes(t.lights[:n_l], t.psi[:n_l])
-                         + table_bytes(bvh.planes, bvh.rows),
-                         r * (2 * n_l * FLOP_LIGHT + kw["k"] * FLOP_CAND)
-                         + boxes * FLOP_BOX + tests * FLOP_PLANE)
+            return ris_bound10(t, r, kw["k"], boxes, tests,
+                               table_bytes(bvh.planes, bvh.rows))
 
         report(f"B10 {fr.name}", modes(b10(), b10,
                                        {"no-leaf": "b10_no_leaf"}),
@@ -3978,21 +3969,6 @@ def phase_probes(dev, record, launches):
           f"traces retaken for lost marks: {_timing.retakes}")
 
 
-def b10_input(scene, cam, dev):
-    """B10's input pack on the general G-buffer of a 1080p frame (phase
-    12's) and its shading lanes."""
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT,
-                       tracer=TracerType.RESTIR_DI)
-    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, cfg,
-                                                        1)
-    wo = -ray_dir
-    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
-    pack = ris_cdf.pack_inputs(it.pos, _facing(it.norm, wo, gmat.type), wo,
-                               gmat.type, gmat.metallic, gmat.roughness,
-                               shade, it.prim_id)
-    return pack, shade
-
-
 def same_bits(what, a, b):
     """Gate: two builds' outputs equal bit for bit on every lane."""
     lanes = bits_equal(a, b).all(0)
@@ -4023,17 +3999,6 @@ def b10_twin_gate(what, k10, r10, shade):
     if pm < 0.995 or wclose < 0.999 or m_eq < 0.9999:
         raise PhaseError(f"{what}: B10 disagrees with its twin")
     return float((k10[w_][ok] - r10[w_][ok]).abs().max())
-
-
-def b10_streamed_equals_staged(scene, cam, hall, hall_cam, dev):
-    """(a): B10's streamed build forced on tables that fit."""
-    for what, sc, c in (("headline", scene, cam), ("hall", hall, hall_cam)):
-        pack, _ = b10_input(sc, c, dev)
-        t = sc.tables
-        same_bits(f"B10 {what} ({t.psi.shape[0]} rows): streamed build "
-                  f"against the staged build",
-                  ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=True),
-                  ris_cdf.ris_cdf_cuda(pack, 1, t, sc.bvh, _streamed=False))
 
 
 def b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev):
@@ -4079,15 +4044,13 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
     n_l = t.n_lights
     cfg = render_config(arrays)
     w, h, r, k = cfg.width, cfg.height, cfg.num_pixels, cfg.cdf_candidates
-    if not (reuse.streamed_for(n_l, False)
-            and ris_cdf.streamed_for(t.psi.shape[0])):
-        raise PhaseError(f"{name}: {n_l} light rows fit the staged builds")
+    if not reuse.streamed_for(n_l, False):
+        raise PhaseError(f"{name}: {n_l} light rows fit B7's staged build")
     seg = reuse.seg_cuda(n_l, False, dev, streamed=True)
     print(f"{name}: {scene.num_tris} triangles, {n_l} light rows (l_pad "
-          f"{t.psi.shape[0]}); B7 streamed: checkpoints every {seg} rows, "
-          f"{reuse.smem_bytes(n_l, False, n_l, seg, streamed=True)} B of "
-          f"shared memory a block; B10 streamed: "
-          f"{ris_cdf.smem_bytes(t.psi.shape[0], streamed=True)} B")
+          f"{t.psi.shape[0]}); B7 streamed and B10: checkpoints every {seg} "
+          f"rows, {reuse.smem_bytes(n_l, False, n_l, seg, streamed=True)} "
+          f"and {ris_cdf.smem_bytes(n_l)} B of shared memory a block")
     cam = make_camera(**camkw)
     pos = camkw["position"]
     cam2 = make_camera(**{**camkw, "position": (pos[0] + 0.25, pos[1],
@@ -4133,26 +4096,23 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
     pack, shade = b10_input(scene, cam, dev)
     kw = dict(k=k, single_sided=cfg.single_sided_lights,
               has_met=cfg.scene_has_metallic)
-    before = ris_cdf.streamed_launches
+    before = ris_cdf.launches
     k10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw)
-    if ris_cdf.streamed_launches != before + 1:
-        raise PhaseError(f"{name}: B10 did not take its streamed build")
+    if ris_cdf.launches != before + 1:
+        raise PhaseError(f"{name}: B10 did not launch once")
     kc10, c10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, **kw)
     same_bits(f"{name} B10 counting build", kc10, k10)
     ms10 = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw), 10)
     p0, n = (h // 2) * w, 16 * w  # a band of 16 rows mid-frame
     r10 = ris_cdf.ris_cdf_ref(pack[:, p0:p0 + n], 1, t, pix0=p0, **kw)
-    err10 = b10_twin_gate(f"{name} B10 ris_cdf (streamed) vs twin on rows "
+    err10 = b10_twin_gate(f"{name} B10 ris_cdf vs twin on rows "
                           f"{h // 2}-{h // 2 + 15}", k10[:, p0:p0 + n], r10,
                           shade[p0:p0 + n])
     boxes, tests = walk_line(f"{name} B10 shadow", c10, c10[0] > 0)
     walk_tables = table_bytes(t.planes[:scene.num_tris], bvh.rows)
-    b10 = bound(r * (ris_cdf.CIN + ris_cdf.COUT) * 4
-                + table_bytes(t.lights[:n_l], t.psi[:n_l]) + walk_tables,
-                r * (2 * n_l * FLOP_LIGHT + k * FLOP_CAND)
-                + boxes * FLOP_BOX + tests * FLOP_PLANE)
+    b10 = ris_bound10(t, r, k, boxes, tests, walk_tables)
     print(f"{name} B7 reuse_bvh (streamed): kernel {ms7:.4f} ms, bound "
-          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf (streamed): kernel "
+          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf: kernel "
           f"{ms10:.4f} ms, bound {b10[0]:.4f} ms ({b10[1]})")
     if record is not None:
         ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
@@ -4164,23 +4124,16 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
         record["reuse_bvh_streamed"] = dict(
             max_abs_err=st7["weight_max_abs_err"], ms=ms7, plain_ms=ms7_ref,
             bound_ms=b7[0], bound_by=b7[1], library_ms=None)
-        record["ris_cdf_streamed"] = dict(
-            max_abs_err=err10, ms=ms10,
-            plain_ms=ms10_ref, bound_ms=b10[0], bound_by=b10[1],
-            library_ms=None)
     return scene, cfg, cam
 
 
-def phase_many_lights(headline, headline_cam, hall, hall_sf, hall_cam, dev,
-                      record, launches):
-    """Phase 29: the streamed builds of B7 and B10."""
-    b10_streamed_equals_staged(headline, headline_cam, hall, hall_cam, dev)
+def phase_many_lights(hall, hall_sf, hall_cam, dev, record, launches):
+    """Phase 29: B7's streamed build and B10 past the staged tables."""
     b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev)
     levels = 5
     fused = {"gbuffer_bvh": 1, "reuse_bvh_streamed": 1, "temporal": 1,
              "spatial": 1, "atrous_eaw": levels}
-    general = {"primary_hit": 1, "ris_cdf_streamed": 1,
-               "atrous_eaw": levels}
+    general = {"primary_hit": 1, "ris_cdf": 1, "atrous_eaw": levels}
     for n_quads, full in ((1225, True), (5000, False)):
         arrays, camkw = many_light_scene(n_quads, 24)
         name = f"many lights {2 * n_quads}"
@@ -4197,7 +4150,6 @@ def phase_many_lights(headline, headline_cam, hall, hall_sf, hall_cam, dev,
                                     gcfg, cam, dev, general, warm, timed,
                                     with_scene=False)
         if full:
-            launches["ris_cdf_streamed"] = counts["ris_cdf_streamed"]
             profile_frames(f"{name} general DI cdf + EAW", scene, gcfg, cam,
                            dev, with_scene=False)
             phase_quality_gate(dev, arrays, camkw)
@@ -4291,8 +4243,7 @@ def main() -> int:
     phase_wall("27 general row bands")
     phase_probes(dev, record, launches)
     phase_wall("28 probes")
-    phase_many_lights(scene, cam, hall, hall_sf, hall_cam, dev, record,
-                      launches)
+    phase_many_lights(hall, hall_sf, hall_cam, dev, record, launches)
     phase_wall("29 many lights")
 
     kernels = [

@@ -26,8 +26,9 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   plain twin so every tree gets the same rays), as chip_smoke.py phase
   12 calls them;
 - B10 (`ris_cdf.ris_cdf_cuda`) on the general G-buffer pack of the
-  headline scene, as chip_smoke.py phase 12 builds it (a tree whose B10
-  takes no MTBVH is called without one);
+  headline scene and of the hall (`b10_input`, which chip_smoke.py's
+  phases 12, 27 and 29 also call; a tree whose B10 takes no MTBVH is
+  called without one);
 - B3 (`atrous.atrous_level_cuda`), levels 0-4 in turn, each on the last
   level's output, from the headline frame's demodulated colour (B1, then
   B2 on a seeded accumulator), as chip_smoke.py phase 3 calls it; and B4
@@ -45,10 +46,12 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   tiles where the tree's B7 takes the frame's width), and B1b
   (`fused_di.temporal_cuda`) after B7 on the hall and the sky hall, with
   frame 0's pack from the unmoved camera as history;
-- B7's and B10's streamed builds (the light tables past a block's shared
-  memory), where the tree has them: B7 on frame 1's G-buffer and B10 on
-  the general G-buffer of many_light_scene(1225, 24) and (5000, 24)
-  (2,450 and 10,000 light rows), as chip_smoke.py phase 29 builds them;
+- the light tables past a block's shared memory, where the tree renders
+  them: B7's streamed build forced (`_streamed=True`) beside each staged
+  call above (the headline, the hall and the sky hall), and B7 (on frame
+  1's G-buffer) and B10 (on the general G-buffer) of
+  many_light_scene(1225, 24) and (5000, 24) (2,450 and 10,000 light
+  rows), as chip_smoke.py phase 29 builds them;
 - B13 and B14 on the hall's 1080p rays (`general_rays` on the hall, as
   chip_smoke.py phase 19 builds them; "auto" takes the MTBVH walk
   there): B13's primary hit (`mt_primary_cuda`) on the camera rays and,
@@ -154,6 +157,31 @@ def general_rays(scene, cam, dev, width=WIDTH, height=HEIGHT):
                 shoot=live & (ls.pdf > 0))
 
 
+def b10_input(scene, cam, dev, width=WIDTH, height=HEIGHT):
+    """B10's input pack on the general G-buffer of frame 1 (1080p by
+    default; the shading normal faces wo unless dielectric) and its
+    shading lanes: the pack this script times and chip_smoke.py's phases
+    12, 27 and 29 check."""
+    import torch
+
+    from restir_tpu_torch.config import RenderConfig, TracerType
+    from restir_tpu_torch.models import gbuffer as general_gb
+    from restir_tpu_torch.ops.kernels import ris_cdf
+    from restir_tpu_torch.scene.mesh import DIELECTRIC
+
+    cfg = RenderConfig(width=width, height=height,
+                       tracer=TracerType.RESTIR_DI)
+    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam, cfg,
+                                                        1)
+    wo = -ray_dir
+    flip = (gmat.type != DIELECTRIC) & ((it.norm * wo).sum(-1) < 0)
+    shade = it.valid & (gbuf.prim_id != general_gb.LIGHT_ID)
+    pack = ris_cdf.pack_inputs(
+        it.pos, torch.where(flip[:, None], -it.norm, it.norm), wo,
+        gmat.type, gmat.metallic, gmat.roughness, shade, it.prim_id)
+    return pack, shade
+
+
 def _child() -> None:
     # the checkout under test, ahead of this script's own directory
     sys.path.insert(0, os.getcwd())
@@ -165,7 +193,6 @@ def _child() -> None:
 
     from restir_tpu_torch import convert
     from restir_tpu_torch.config import RenderConfig, TracerType, mat_flags
-    from restir_tpu_torch.models import gbuffer as general_gb
     from restir_tpu_torch.models import restir_di_fused, restir_gi
     from restir_tpu_torch.ops.camera import make_camera, pack_camera
     from restir_tpu_torch.ops.kernels import (
@@ -218,6 +245,10 @@ def _child() -> None:
     # B7 takes the frame's width (2-D pixel tiles) since its search redesign
     b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
         reuse.candidates_cuda).parameters else {})
+    # B7 has a streamed build, which `_streamed=True` forces on tables
+    # that fit the staged one, since the many-light slice
+    forced = ({"_streamed": True} if "_streamed" in inspect.signature(
+        reuse.candidates_cuda).parameters else None)
     # B1's wrapper takes the scene's MTBVH since the walk redesign
     takes_bvh = "bvh" in inspect.signature(
         fused_di.di_resident_cuda).parameters
@@ -396,6 +427,12 @@ def _child() -> None:
     timed("B7 headline", lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
         has_met=cfg.scene_has_metallic, **b7_tiles))
+    if forced:
+        timed("B7 headline, streamed build forced", lambda: (
+            reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                  k=cfg.cdf_candidates,
+                                  has_met=cfg.scene_has_metallic,
+                                  **b7_tiles, **forced)))
     g = general_rays(scene, cam, dev)
     trv, attr, mats = g["trv"], scene.prim_attr, scene.mat_attr
     timed("B12 camera rays", lambda: hits.primary_cuda(
@@ -413,21 +450,15 @@ def _child() -> None:
     # B10 on the general G-buffer; it takes the MTBVH since its walk
     dcfg = RenderConfig(width=WIDTH, height=HEIGHT,
                         tracer=TracerType.RESTIR_DI)
-    gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(scene, cam, cam,
-                                                        dcfg, 1)
-    wo = -ray_dir
-    flip = (gmat.type != 2) & ((it.norm * wo).sum(-1) < 0)
-    pack = ris_cdf.pack_inputs(
-        it.pos, torch.where(flip[:, None], -it.norm, it.norm), wo,
-        gmat.type, gmat.metallic, gmat.roughness,
-        it.valid & (gbuf.prim_id != general_gb.LIGHT_ID), it.prim_id)
+    pack, _ = b10_input(scene, cam, dev)
     b10_bvh = ((scene.bvh,) if "bvh" in inspect.signature(
         ris_cdf.ris_cdf_cuda).parameters else ())
+    b10_kw = dict(k=dcfg.cdf_candidates,
+                  single_sided=dcfg.single_sided_lights,
+                  has_met=dcfg.scene_has_metallic)
     timed("B10 general G-buffer", lambda: ris_cdf.ris_cdf_cuda(
-        pack, 1, scene.tables, *b10_bvh, k=dcfg.cdf_candidates,
-        single_sided=dcfg.single_sided_lights,
-        has_met=dcfg.scene_has_metallic))
-    del gbuf, it, gmat, ray_dir, wo, pack
+        pack, 1, scene.tables, *b10_bvh, **b10_kw))
+    del pack
     del g, trv
     for name, (sc_arrays, sc_kw), flags in (
             ("B1 env", env_scene(), dict(has_env=True)),
@@ -488,6 +519,10 @@ def _child() -> None:
                    has_met=cfg.scene_has_metallic, has_env=sky, **b7_tiles)
         timed(f"B7 {name}", lambda: reuse.candidates_cuda(
             gb, 1, scene.tables, scene.bvh, **ckw))
+        if forced:
+            timed(f"B7 {name}, streamed build forced", lambda: (
+                reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh, **ckw,
+                                      **forced)))
         # B1b after B7, on frame 0's pack from the unmoved camera
         gb0 = gbuffer.gbuffer_cuda(cv, cv, 0, scene.bvh, **gkw)
         pt0 = fused_di.temporal_cuda(
@@ -501,13 +536,18 @@ def _child() -> None:
             temporal_clamp=cfg.temporal_clamp))
         del gb, gb0, pt0, rs
         if not sky:
+            # B10 on the hall's general G-buffer (no env rows)
+            pack, _ = b10_input(scene, sf.make_camera(), dev)
+            timed("B10 hall", lambda: ris_cdf.ris_cdf_cuda(
+                pack, 1, scene.tables, *b10_bvh, **b10_kw))
+            del pack
             b13(scene, sf.make_camera())
         del scene
 
-    # B7's and B10's streamed builds, where the tree has them (a tree
-    # without refuses these tables), on many_light_scene(1225, 24) and
-    # (5000, 24): 2,450 and 10,000 light rows, as chip_smoke.py phase 29
-    # builds their inputs
+    # B7's streamed build and B10 past the tables their first designs
+    # staged, where the tree renders them (a tree without refuses these
+    # tables), on many_light_scene(1225, 24) and (5000, 24): 2,450 and
+    # 10,000 light rows, as chip_smoke.py phase 29 builds their inputs
     if hasattr(reuse, "streamed_launches"):
         for n_quads in (1225, 5000):
             ml_arrays, ml_kw = many_light_scene(n_quads, 24)
@@ -527,19 +567,12 @@ def _child() -> None:
                                       k=cfg.cdf_candidates,
                                       has_met=cfg.scene_has_metallic,
                                       width=WIDTH)))
-            gbuf, it, gmat, ray_dir = general_gb.render_gbuffer(
-                scene, make_camera(**ml_kw), make_camera(**ml_kw), cfg, 1)
-            wo = -ray_dir
-            flip = (gmat.type != 2) & ((it.norm * wo).sum(-1) < 0)
-            pack = ris_cdf.pack_inputs(
-                it.pos, torch.where(flip[:, None], -it.norm, it.norm), wo,
-                gmat.type, gmat.metallic, gmat.roughness,
-                it.valid & (gbuf.prim_id != general_gb.LIGHT_ID), it.prim_id)
-            timed(f"B10 streamed, {rows} light rows", lambda: (
+            pack, _ = b10_input(scene, make_camera(**ml_kw), dev)
+            timed(f"B10, {rows} light rows", lambda: (
                 ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
                                      k=cfg.cdf_candidates,
                                      has_met=cfg.scene_has_metallic)))
-            del scene, gb, gbuf, it, gmat, ray_dir, wo, pack
+            del scene, gb, pack
 
     def ray_order():
         """The ray-order probe kernels on the hall's NEE segments."""

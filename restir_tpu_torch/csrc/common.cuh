@@ -134,7 +134,7 @@ inline dim3 tile_grid(int width, int pix0, int r) {
 
 // Streams the n_rows 64-byte rows of a table in device memory (4 float4
 // a row) through shared memory, blockDim.x / 4 rows at a time, for light
-// tables too large to stage whole (B7's and B10's streamed builds). buf
+// tables too large to stage whole (B7's streamed build, B10). buf
 // holds 2 * blockDim.x float4: while a chunk is scanned from one half,
 // each thread holds its float4 of the next chunk in a register, and
 // stores it into the other half after the scan, so one barrier a chunk

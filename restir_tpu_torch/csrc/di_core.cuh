@@ -484,7 +484,7 @@ __device__ __forceinline__ Surface load_surface(const float* __restrict__ gb,
   return s;
 }
 
-// B7's (and B10's streamed build's) form of light_target, with the FMA
+// B7's (and B10's) form of light_target, with the FMA
 // fusion spelled out (reuse_bvh.cu's note). The frame the light targets
 // read: the normal facing wo (dielectrics
 // keep theirs), n.p, |p|^2 and -2p.
@@ -743,7 +743,7 @@ __device__ __forceinline__ RisDraws ris_draws(uint32_t pu, uint32_t looper,
 }
 
 // The K candidates at the found rows idx_j (targets tq_j) and the
-// single-draw winner, as in ris_select (B7, and B10's streamed build).
+// single-draw winner, as in ris_select (B7 and B10).
 // lights: the [l_pad, 16] rows in global memory, read through the
 // read-only path. Lanes without a winner
 // get li = wi = 0, dist = 0. With HAS_ENV, rows from n_area on are env

@@ -28,11 +28,11 @@
 //   shared memory per row in place of a 64-byte psi row.
 // So a pixel evaluates at most n_lights + K * S targets. S is the
 // smallest of 8, 16, 32 whose checkpoints leave room for the blocks per
-// SM that the launch bounds ask for (b7_seg below; mirrored on the host
-// by ops/kernels/reuse.py, seg_for): 8 on the hall's 128 lights (24 KB
-// per block), 16 on its 640 rows under a sky (58 KB, against the first
-// design's 80 KB of psi and light rows; the K picked light rows are read
-// through the read-only path). Once the search was cheap, the walk took
+// SM that the launch bounds ask for (ris_search.cuh, b7_seg; mirrored on
+// the host by ops/kernels/reuse.py, seg_for): 8 on the hall's 128 lights
+// (24 KB per block), 16 on its 640 rows under a sky (58 KB, against the
+// first design's 80 KB of psi and light rows; the K picked light rows
+// are read through the read-only path). Once the search was cheap, the walk took
 // most of the time: it waits out chains of dependent node loads, so the
 // registers are capped for more warps per SM (launch bounds below), and
 // its leaf test reads plane rows as float4 (PlaneRay4). Its warps are 8x4
@@ -52,9 +52,10 @@
 // until the checkpoints fit beside the buffer at the launch bounds'
 // blocks per SM; and each pick re-scans its segment's area rows from
 // device memory through the read-only path. The adds are the same in the
-// same order, so it picks what the staged build picks, bit for bit.
+// same order, so it picks what the staged build picks, bit for bit. The
+// search lives in ris_search.cuh, which B10 shares.
 #include "bvh.cuh"
-#include "di_core.cuh"
+#include "ris_search.cuh"
 #if defined(PROBE_WALK)
 #include "prof/walk_probe.cuh"  // stage probes (restir_tpu_torch/prof)
 #endif
@@ -62,252 +63,6 @@
 using namespace restir;
 
 namespace {
-
-constexpr int kEnvRows = RESTIR_ENV_TH * RESTIR_ENV_TW;
-
-// ---- B7's RIS: di_core.cuh's ris_select with the search below ----
-//
-// ris_select's light targets and frame are plain expressions whose FMA
-// fusion nvcc chooses; B7 reads them spelled out with intrinsics as nvcc
-// fused them in the first B1 and B7 builds (di_core.cuh, ris_frame and
-// light_target4, read from their SASS; the CPU mirror is
-// ops/kernels/reuse.py), so the search's two scans and the full scan
-// round alike. Left to the compiler, this code fused the frame
-// otherwise and moved B7's packs. ris_finish (di_core.cuh) repeats
-// ris_select's candidate evaluation and winner: B1 and B10's staged
-// build keep their inline copy, as sharing the evaluation slowed B1's
-// env build by 5 % and sharing the winner moved B1's texture build by an
-// ulp (PERF.md §6). The B1 ==
-// B6 + B7 + B1b tests named at di_core.cuh's light_target keep the two
-// copies, and light_target with light_target4 / env_target, equal.
-
-// The target of an env-tile row, psi (d, 0 | 0, 0, 0, 1 | 0, 0, 0, 1, 0 |
-// lum, rad): b = 1 and d2 = 1, so light_target4 reduces to lum * max(n.d,
-// 0.1 rad) above the horizon band, bit for bit (the dropped ps3 * -ndx
-// adds a zero, 1 * x and x / 1 are exact, and side holds). e = (d, rad).
-__device__ __forceinline__ float env_target(float4 e, float lum,
-                                            const RisFrame& f) {
-  const float a =
-      __fmaf_rn(e.z, f.nz, __fmaf_rn(e.x, f.nx, __fmul_rn(e.y, f.ny)));
-  const bool above = __fadd_rn(a, e.w) > 0.0f;
-  return above ? __fmul_rn(lum, fmaxf(a, __fmul_rn(0.1f, e.w))) : 0.0f;
-}
-
-// The light rows in shared memory and this thread's cdf checkpoints.
-struct LightStage {
-  const float4* area;    // [n_area * 4] psi rows (STREAM: device memory)
-  const float4* env;     // [n_env] (d_tile, rad)
-  const float* env_lum;  // [n_env] luminance x solid angle (psi col 13)
-  float* ck;             // checkpoint c of this thread at ck[c * stride]
-  int stride, n_area, n_live, seg;  // seg: light rows per checkpoint
-  float4* chunk;         // STREAM: stream_rows' buffer, 2 * PIX_BLOCK
-};
-
-// The streamed build's chunk of area rows: one float4 a thread.
-constexpr int kChunkRows = 64;
-static_assert(4 * kChunkRows == PIX_BLOCK, "a float4 a thread a chunk");
-
-// light_target4 of an area psi row in shared memory, or (STREAM) in
-// device memory, read through the read-only path.
-template <bool STREAM>
-__device__ __forceinline__ float area_target(const float4* row,
-                                             const RisFrame& f,
-                                             int single_sided) {
-  if constexpr (STREAM) {
-    const float4 v[4] = {__ldg(row), __ldg(row + 1), __ldg(row + 2),
-                         __ldg(row + 3)};
-    return light_target4(v, f, single_sided);
-  } else {
-    return light_target4(row, f, single_sided);
-  }
-}
-
-// Adds the targets of rows [l0, l1) to cdf in row order and calls
-// visit(l, t, cdf) after each add.
-template <bool HAS_ENV, bool STREAM, class Visit>
-__device__ __forceinline__ float scan_rows(const LightStage& st,
-                                           const RisFrame& f,
-                                           int single_sided, int l0, int l1,
-                                           float cdf, Visit&& visit) {
-  const int la = min(l1, st.n_area);
-  for (int l = l0; l < la; ++l) {
-    const float t = area_target<STREAM>(st.area + 4 * l, f, single_sided);
-    cdf = __fadd_rn(cdf, t);
-    visit(l, t, cdf);
-  }
-  if (HAS_ENV) {
-    for (int l = max(l0, st.n_area); l < l1; ++l) {
-      const int e = l - st.n_area;
-      const float t = env_target(st.env[e], st.env_lum[e], f);
-      cdf = __fadd_rn(cdf, t);
-      visit(l, t, cdf);
-    }
-  }
-  return cdf;
-}
-
-// Pass 1 of the streamed build: the area rows through stream_rows, then
-// the staged env rows, a checkpoint after every seg-th row and after the
-// last. Every thread of the block calls it; one that is not live only
-// stages. Returns the total; t_last is the last row's target.
-template <bool HAS_ENV>
-__device__ __forceinline__ float stream_pass1(const LightStage& st,
-                                              const RisFrame& f,
-                                              int single_sided, bool live,
-                                              float& t_last) {
-  float cdf = 0.0f;
-  int c = 0, left = st.seg;  // this segment's checkpoint, rows left in it
-  auto add = [&](float t) {
-    cdf = __fadd_rn(cdf, t);
-    t_last = t;
-    if (--left == 0) {
-      st.ck[c++ * st.stride] = cdf;
-      left = st.seg;
-    }
-  };
-  stream_rows(st.area, st.n_area, st.chunk,
-              [&](const float4* rows, int, int n) {
-                if (!live) return;
-                for (int i = 0; i < n; ++i)
-                  add(light_target4(rows + 4 * i, f, single_sided));
-              });
-  if (HAS_ENV && live) {
-    for (int e = 0; e < st.n_live - st.n_area; ++e)
-      add(env_target(st.env[e], st.env_lum[e], f));
-  }
-  if (left != st.seg) st.ck[c * st.stride] = cdf;
-  return cdf;
-}
-
-// The search (module note), then ris_finish. evaluated counts the light
-// targets computed (COUNT builds). STREAM: every thread of the block
-// calls it; one that is not live returns no candidate after pass 1.
-template <bool COUNT, bool HAS_ENV, bool STREAM>
-__device__ __forceinline__ Candidate ris_select_seg(
-    const LightStage& st, const float* lights, int l_pad, uint32_t pu,
-    uint32_t looper, int k, int single_sided, int has_met, const Surface& s,
-    int& evaluated, bool live) {
-  const RisFrame f = ris_frame(s);
-  const int n_seg = (st.n_live + st.seg - 1) / st.seg;
-  float cdf = 0.0f, t_last = 0.0f;
-  if constexpr (STREAM) {
-    cdf = stream_pass1<HAS_ENV>(st, f, single_sided, live, t_last);
-    if (!live) return Candidate{};
-  } else {
-    for (int c = 0; c < n_seg; ++c) {
-      const int l0 = c * st.seg;
-      cdf = scan_rows<HAS_ENV, false>(
-          st, f, single_sided, l0, min(l0 + st.seg, st.n_live), cdf,
-          [&](int, float t, float) { t_last = t; });
-      st.ck[c * st.stride] = cdf;
-    }
-  }
-  const float total = cdf;
-  // the fallback row l_pad - 1 is a padding row (target 0) unless every
-  // row holds a light
-  if (st.n_live < l_pad) t_last = 0.0f;
-  if (COUNT) evaluated = st.n_live;
-  const RisDraws d = ris_draws(pu, looper, k, total);
-
-  int idx[MAX_K];
-  float tq[MAX_K];
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    idx[j] = l_pad - 1;
-    tq[j] = t_last;
-  }
-#pragma unroll 1
-  for (int j = 0; j < k; ++j) {
-    float thr = d.thr[0];
-#pragma unroll
-    for (int jj = 1; jj < MAX_K; ++jj)
-      if (jj == j) thr = d.thr[jj];
-    int lo = 0, hi = n_seg;  // first checkpoint above thr, n_seg if none
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (st.ck[mid * st.stride] > thr)
-        hi = mid;
-      else
-        lo = mid + 1;
-    }
-    if (lo == n_seg) continue;  // no row exceeds thr: the fallback row
-    const int l0 = lo * st.seg;
-    const int l1 = min(l0 + st.seg, st.n_live);
-    int hit = -1;
-    float tv = 0.0f;
-    scan_rows<HAS_ENV, STREAM>(st, f, single_sided, l0, l1,
-                               lo ? st.ck[(lo - 1) * st.stride] : 0.0f,
-                               [&](int l, float t, float run) {
-                                 if (hit < 0 && run > thr) {
-                                   hit = l;
-                                   tv = t;
-                                 }
-                               });
-    if (COUNT) evaluated += l1 - l0;
-#pragma unroll
-    for (int jj = 0; jj < MAX_K; ++jj) {
-      if (jj == j && hit >= 0) {
-        idx[jj] = hit;
-        tq[jj] = tv;
-      }
-    }
-  }
-  return ris_finish<HAS_ENV>(lights, st.n_area, k, single_sided, has_met,
-                             s, f, total, d, idx, tq);
-}
-
-// Blocks per SM: registers capped at 64 (80 with the env tiles, whose
-// checkpoints leave room for 3 blocks). That spills 84-260 bytes of the
-// RIS part to local memory but lets 32 (24) warps share an SM to hide
-// the walk's load latency, where 93-96 registers allowed 16. b7_seg sizes
-// the checkpoints for the same counts.
-constexpr int kBlocksPerSm = 4, kBlocksPerSmEnv = 3;
-constexpr int kSegs[] = {8, 16, 32};
-
-// Shared memory per block: the area lights' psi rows (64 B; STREAM:
-// stream_rows' buffer of 2 x kChunkRows rows), the env tiles' (d_tile,
-// rad | lum) (20 B) and a cdf checkpoint every seg rows for each thread
-// (ops/kernels/reuse.py, smem_bytes).
-size_t b7_smem(int n_area, bool has_env, int seg, bool stream) {
-  const int n_env = has_env ? kEnvRows : 0;
-  const int n_seg = (n_area + n_env + seg - 1) / seg;
-  return (size_t)(stream ? 2 * kChunkRows : n_area) * 64 +
-         (size_t)n_env * 20 + (size_t)n_seg * PIX_BLOCK * sizeof(float);
-}
-
-// The checkpoint spacing: the smallest whose shared memory lets the
-// blocks per SM of the launch bounds share an SM of this device. The
-// staged build takes one of kSegs, else the largest; the streamed build
-// doubles S from kSegs[0] until it fits (one checkpoint at most).
-cudaError_t b7_seg(int n_area, bool has_env, bool stream, int* seg) {
-  int dev, sm_smem, reserved;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (e != cudaSuccess) return e;
-  const size_t cap =
-      (size_t)(sm_smem / (has_env ? kBlocksPerSmEnv : kBlocksPerSm)) -
-      (size_t)reserved;
-  if (stream) {
-    const int n_live = n_area + (has_env ? kEnvRows : 0);
-    int s = kSegs[0];
-    while (s < n_live && b7_smem(n_area, has_env, s, true) > cap) s *= 2;
-    *seg = s;
-    return cudaSuccess;
-  }
-  *seg = kSegs[sizeof(kSegs) / sizeof(kSegs[0]) - 1];
-  for (int s : kSegs) {
-    if (b7_smem(n_area, has_env, s, false) <= cap) {
-      *seg = s;
-      break;
-    }
-  }
-  return cudaSuccess;
-}
 
 template <bool COUNT, bool HAS_ENV, bool STREAM>
 __global__ void __launch_bounds__(PIX_BLOCK,

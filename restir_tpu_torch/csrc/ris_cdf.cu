@@ -5,42 +5,45 @@
 // Replaces restir_tpu/ops/pallas/ris_kernel.py::_ris_kernel
 // (ris_cdf_pallas). The TPU kernel builds the [L, B] target matrix and its
 // CDF with bf16-split matmuls, then tests the winner's ray against every
-// triangle; here one thread runs B1's RIS core (di_core.cuh's ris_select,
+// triangle; here one thread runs B7's streamed light search
+// (ris_search.cuh, ris_select_seg without env rows: B1's RIS core with
 // the same per-light target, sequential CDF, K candidates and winner
-// pick) on a Surface built from the [14, R] input pack (pos, normal, wo,
-// material type / metallic / roughness, shade, primitive), then walks the
-// stackless MTBVH (bvh.cuh's occluded_walk on BvhRows) with the TPU
-// kernel's contract: origin pushed 1e-5 along wi, a hit counts at
-// 0 < t < dist (1 - 1e-3) - 1e-4 on a triangle other than the pixel's own
-// (shadow_ray, shadow_limit: B7's ray). The leaf test is plane_hit, the
-// twin's, so the walk returns the every-row loop's occlusion. The RNG is
-// pcg4d on the global pixel index pix0 + p (pix0: the first pixel of a
-// row band, 0 for the whole frame), counters CTR_RIS + j, salt
-// SALT_RESTIR; the packs are read and written at p.
+// pick, bit for bit) on a Surface built from the [14, R] input pack (pos,
+// normal, wo, material type / metallic / roughness, shade, primitive),
+// then walks the stackless MTBVH (bvh.cuh's occluded_walk on BvhRows)
+// with the TPU kernel's contract: origin pushed 1e-5 along wi, a hit
+// counts at 0 < t < dist (1 - 1e-3) - 1e-4 on a triangle other than the
+// pixel's own (shadow_ray, shadow_limit: B7's ray). The leaf test is
+// plane_hit, the twin's, so the walk returns the every-row loop's
+// occlusion. The RNG is pcg4d on the global pixel index pix0 + p (pix0:
+// the first pixel of a row band, 0 for the whole frame), counters
+// CTR_RIS + j, salt SALT_RESTIR; the packs are read and written at p.
 //
-// Bound: FMA throughput of the RIS core (2 x l_pad light targets, ~32
-// FLOP each, and K candidates, ~120 FLOP each, per pixel), then the
-// latency of the shadow walk's dependent loads, as B7. Only the light
-// tables (l_pad x 16 floats, twice) stay in shared memory; the walk reads
-// node and plane rows from global memory through the read-only cache.
-// Lanes whose winner carries no weight do not walk. The COUNT build also
-// returns each walk's box and plane tests.
+// The search reads the psi rows through a double buffer of kChunkRows
+// rows in shared memory (common.cuh, stream_rows), keeps a cdf
+// checkpoint every S rows for each thread beside it (S as B7's env-less
+// streamed build takes it, b7_seg: 8 at 128 rows, 64 at 2,450) and
+// re-scans one segment a candidate from device memory, so any light
+// count fits a block: n_l + K * S light targets a pixel. The first
+// designs staged both [l_pad, 16] tables in shared memory (more than
+// 1,792 rows did not fit) and scanned them twice, 2 l_pad targets; on
+// the tables they held the search writes their packs bit for bit and
+// ran 1.81 against 1.91 ms on the headline's 128 rows and 2.00 against
+// 1.98 on the hall's (PERF.md §6). Its targets and frame (ris_frame,
+// light_target4: the FMA fusion spelled out), draws, candidates and
+// winner are B7's and round as ris_select's do: a copy of ris_select's
+// plain expressions, inlined into streamed loops, fused the total's adds
+// otherwise and moved 2 % of the weights by an ulp.
 //
-// Light tables larger than a block's shared memory (more than 1,792 rows)
-// take the streamed build (template flag STREAM): both scans read the psi
-// rows through a double buffer of kChunkRows rows in shared memory
-// (common.cuh, stream_rows), every thread of the block at every barrier,
-// threads past r included, and the K candidates' rows come from device
-// memory. Its light targets and frame are B7's (di_core.cuh, ris_frame
-// and light_target4: the FMA fusion spelled out), which round as the
-// staged build's do: a copy of ris_select's plain expressions, inlined
-// into the streamed loops, fused the total's adds otherwise and moved 2 %
-// of the weights by an ulp. Its draws, candidates and winner are B7's
-// (ris_draws, ris_finish). ris_select itself on the tables in device
-// memory kept the bits but ran 41.2 against 29.7 ms at 2,560 rows
-// (PERF.md §6).
+// Bound: FMA throughput of the light targets (~32 FLOP each) and the K
+// candidates (~120 FLOP each), then the latency of the shadow walk's
+// dependent loads, as B7; the walk reads node and plane rows from global
+// memory through the read-only cache. Every thread of a block reaches
+// every barrier of the search, threads past r included. Lanes whose
+// winner carries no weight do not walk. The COUNT build also returns
+// each walk's box and plane tests.
 #include "bvh.cuh"
-#include "di_core.cuh"
+#include "ris_search.cuh"
 #if defined(PROBE_WALK)
 #include "prof/walk_probe.cuh"  // stage probes (restir_tpu_torch/prof)
 #endif
@@ -50,59 +53,7 @@ using namespace restir;
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int kChunkRows = BLOCK / 4;  // streamed psi rows a chunk
-
-// di_core.cuh's ris_select without env tiles: its two scans over the psi
-// rows streamed through shared memory (buf: 2 * kChunkRows rows) with
-// B7's frame and targets (module note), then B7's draws and candidates
-// (ris_draws, ris_finish), which read the picked rows from device memory.
-// Every thread of the block calls it; one that is not live only stages.
-__device__ __forceinline__ Candidate ris_select_streamed(
-    const float4* psi4, const float* lights, float4* buf, int l_pad,
-    int n_area, uint32_t pu, uint32_t looper, int k, int single_sided,
-    int has_met, const Surface& s, bool live) {
-  const RisFrame f = ris_frame(s);
-  float total = 0.0f;
-  stream_rows(psi4, l_pad, buf, [&](const float4* rows, int, int n) {
-    if (!live) return;
-    for (int i = 0; i < n; ++i)
-      total += light_target4(rows + 4 * i, f, single_sided);
-  });
-  const RisDraws d = ris_draws(pu, looper, k, total);
-  // idx_j: the first row whose cdf exceeds thr_j, else l_pad - 1
-  int idx[MAX_K];
-  float tq[MAX_K], cdf = 0.0f, t_last = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    idx[j] = -1;
-    tq[j] = 0.0f;
-  }
-  stream_rows(psi4, l_pad, buf, [&](const float4* rows, int l0, int n) {
-    if (!live) return;
-    for (int i = 0; i < n; ++i) {
-      const float t = light_target4(rows + 4 * i, f, single_sided);
-      cdf += t;
-      t_last = t;
-#pragma unroll
-      for (int j = 0; j < MAX_K; ++j) {
-        if (j < k && idx[j] < 0 && cdf > d.thr[j]) {
-          idx[j] = l0 + i;
-          tq[j] = t;
-        }
-      }
-    }
-  });
-  if (!live) return Candidate{};
-#pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
-    if (idx[j] < 0) {
-      idx[j] = l_pad - 1;
-      tq[j] = t_last;
-    }
-  }
-  return ris_finish<false>(lights, n_area, k, single_sided, has_met, s, f,
-                           total, d, idx, tq);
-}
+static_assert(BLOCK == PIX_BLOCK, "B7's streamed search: a float4 a thread");
 
 // input / output pack channels (ris_kernel.py:37-41)
 enum {
@@ -111,30 +62,18 @@ enum {
 };
 enum { O_LI = 0, O_WI = 3, O_DIST = 6, O_W = 7, O_M = 8, O_PAD = 9 };
 
-// STREAM: the streamed build (module note).
-template <bool COUNT, bool STREAM>
+template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
     ris_cdf_kernel(const float* __restrict__ in, uint32_t looper,
-                   uint32_t pix0, const float* __restrict__ lights_g,
-                   const float* __restrict__ psi_g, int l_pad, int n_area,
-                   BvhRows bvh, float* __restrict__ out,
+                   uint32_t pix0, const float* __restrict__ lights,
+                   const float* __restrict__ psi, int l_pad, int n_area,
+                   int seg, BvhRows bvh, float* __restrict__ out,
                    int* __restrict__ stats, int r, int single_sided, int k,
                    int has_met) {
   extern __shared__ float4 smem4[];
-  float* psi = reinterpret_cast<float*>(smem4);
-  float* lights = psi + l_pad * 16;
-  if constexpr (!STREAM) {
-    for (int i = threadIdx.x; i < l_pad * 16; i += blockDim.x) {
-      psi[i] = psi_g[i];
-      lights[i] = lights_g[i];
-    }
-    __syncthreads();
-  }
-
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // the streamed build's scans have barriers: a thread past r stays for
-  // them and returns after them
-  if (!STREAM && p >= r) return;
+  // the search has barriers: a thread past r stays for them and returns
+  // after them
   const bool live = p < r;
   const float* g = in + p;
   auto at = [&](int ch) { return live ? g[(size_t)ch * r] : 0.0f; };
@@ -153,16 +92,22 @@ __global__ void __launch_bounds__(BLOCK)
   s.roughness = at(I_ROUGH);
   s.shade = at(I_SHADE) > 0.5f;
   s.prim = __float2int_rz(at(I_PRIM));
-  Candidate c;
-  if constexpr (STREAM) {
-    c = ris_select_streamed(reinterpret_cast<const float4*>(psi_g), lights_g,
-                            smem4, l_pad, n_area, pix0 + (uint32_t)p, looper,
-                            k, single_sided, has_met, s, live);
-    if (!live) return;
-  } else {
-    c = ris_select<false>(psi, lights, l_pad, n_area, pix0 + (uint32_t)p,
-                          looper, k, single_sided, has_met, s);
-  }
+  // the chunk buffer, then this thread's column of checkpoints
+  const LightStage st = {reinterpret_cast<const float4*>(psi),
+                         nullptr,
+                         nullptr,
+                         reinterpret_cast<float*>(smem4 + 2 * BLOCK) +
+                             threadIdx.x,
+                         (int)blockDim.x,
+                         n_area,
+                         n_area,
+                         seg,
+                         smem4};
+  int evaluated = 0;
+  const Candidate c = ris_select_seg<false, false, true>(
+      st, lights, l_pad, pix0 + (uint32_t)p, looper, k, single_sided,
+      has_met, s, evaluated, live);
+  if (!live) return;
 
   WalkCount n = {0, 0};
 #if defined(PROBE_WALK)
@@ -193,59 +138,55 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-template <bool COUNT, bool STREAM>
+template <bool COUNT>
 int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
-                   const float* lights,
-                   const float* psi, int l_pad, int n_area,
-                   const BvhRows& bvh, float* out, int* stats, int r,
-                   int single_sided, int k, int has_met,
+                   const float* lights, const float* psi, int l_pad,
+                   int n_area, const BvhRows& bvh, float* out, int* stats,
+                   int r, int single_sided, int k, int has_met,
                    cudaStream_t stream) {
-  const size_t smem = STREAM ? (size_t)2 * kChunkRows * 64
-                             : (size_t)l_pad * 32 * sizeof(float);
+  int seg;
+  cudaError_t e = b7_seg(n_area, false, true, &seg);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = b7_smem(n_area, false, seg, true);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ris_cdf_kernel<COUNT, STREAM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(ris_cdf_kernel<COUNT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ris_cdf_kernel<COUNT, STREAM>
-      <<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
-          in, looper, pix0, lights, psi, l_pad, n_area, bvh, out, stats, r,
-          single_sided, k, has_met);
+  ris_cdf_kernel<COUNT><<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
+      in, looper, pix0, lights, psi, l_pad, n_area, seg, bvh, out, stats, r,
+      single_sided, k, has_met);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in: float32 [14, R]; lights / psi: [l_pad, 16] (tables.light_tables);
-// rows [6B, 8] (node rows with their boxes), planes [n_pad, 12]: the
-// scene's MTBVH (ops/kernels/tables.py). Writes out [10, R]: li (3), wi
-// (3), dist, weight (zero when the winner is occluded), M, 0. stats:
-// null, or int32 [2, R] that receives each shadow walk's box and plane
-// test counts. pix0: the global index of pixel 0 of the pack, the key of
-// its draws. stream: 0 the staged build (a launch error when its shared
-// memory passes the device's limit), 1 the streamed build.
+// in: float32 [14, R]; lights / psi: [l_pad, 16] (tables.light_tables;
+// psi 16-byte aligned); rows [6B, 8] (node rows with their boxes),
+// planes [n_pad, 12]: the scene's MTBVH (ops/kernels/tables.py). Writes
+// out [10, R]: li (3), wi (3), dist, weight (zero when the winner is
+// occluded), M, 0. stats: null, or int32 [2, R] that receives each
+// shadow walk's box and plane test counts. pix0: the global index of
+// pixel 0 of the pack, the key of its draws.
 extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
                               uint32_t pix0, const float* lights,
-                              const float* psi,
-                              int l_pad, int n_area, int stream,
+                              const float* psi, int l_pad, int n_area,
                               const float* rows, int size,
                               const float* planes, float* out,
                               int* stats, int r, int single_sided, int k,
                               int has_met, void* stream_) {
-  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0)
+  if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0 ||
+      n_area < 0 || n_area > l_pad)
     return (int)cudaErrorInvalidValue;
-  if (stream && (reinterpret_cast<uintptr_t>(psi) & 15) != 0)
+  if ((reinterpret_cast<uintptr_t>(psi) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream_;
-#define RESTIR_B10_LAUNCH(C, S)                                           \
-  launch_ris_cdf<C, S>(in, looper, pix0, lights, psi, l_pad, n_area, bvh, \
-                       out, stats, r, single_sided, k, has_met, st)
-  if (stats)
-    return stream ? RESTIR_B10_LAUNCH(true, true)
-                  : RESTIR_B10_LAUNCH(true, false);
-  return stream ? RESTIR_B10_LAUNCH(false, true)
-                : RESTIR_B10_LAUNCH(false, false);
-#undef RESTIR_B10_LAUNCH
+  return stats ? launch_ris_cdf<true>(in, looper, pix0, lights, psi, l_pad,
+                                      n_area, bvh, out, stats, r,
+                                      single_sided, k, has_met, st)
+               : launch_ris_cdf<false>(in, looper, pix0, lights, psi, l_pad,
+                                       n_area, bvh, out, stats, r,
+                                       single_sided, k, has_met, st);
 }

@@ -243,8 +243,8 @@ _SIGNATURES = {
     "restir_bvh_heatmap": [
         _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     "restir_ris_cdf": [
-        _VP, _U, _U, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I,
-        _I, _I, _VP],
+        _VP, _U, _U, _VP, _VP, _I, _I, _VP, _I, _VP, _VP, _VP, _I, _I, _I,
+        _I, _VP],
     "restir_gi_trace": [
         _VP, _I, _U, _U, _VP, _I, _VP, _VP, _VP, _I, _VP, _I, _F, _I, _I,
         _I, _I, _I, _VP, _VP, _VP],

@@ -515,14 +515,25 @@ def ris_targets(gb, psi, single_sided):
 
 def cdf_rows(t):
     """Running sums of t [b, l] along l, one float32 add a row in row
-    order: the kernels' scan. torch.cumsum adds in another order on the
-    card (and in float64 on the CPU), which moves the picks of thousands
-    of lights."""
-    out = torch.empty_like(t)
-    out[:, 0] = t[:, 0]
-    for l in range(1, t.shape[1]):
-        torch.add(out[:, l - 1], t[:, l], out=out[:, l])
-    return out
+    order: the kernels' scan (torch.cumsum adds in another order on the
+    card, and in float64 on the CPU). Each step adds one contiguous row
+    of the transposed sums; callers pass wide batches (`ris_all`)."""
+    out = t.T.contiguous()
+    for l in range(1, out.shape[0]):
+        torch.add(out[l - 1], out[l], out=out[l])
+    return out.T
+
+
+def ris_all(gb, pix, looper, tables, *, has_env=False, **kw):
+    """`ris_pixels` over every column of gb, in chunks as wide as its
+    [pixels, light rows] intermediates allow (`chunk_pixels` of the light
+    rows): the row-order CDF (`cdf_rows`) then loops once a chunk, not
+    once a brute twin's narrower chunk over triangle rows."""
+    chunk = chunk_pixels(tables.light_rows(has_env)[1].shape[0])
+    parts = [ris_pixels(gb[:, p0:p0 + chunk], pix[p0:p0 + chunk], looper,
+                        tables, has_env=has_env, **kw)
+             for p0 in range(0, pix.shape[0], chunk)]
+    return tuple(torch.cat(xs, dim=-1) for xs in zip(*parts))
 
 
 def ris_pixels(gb, pix, looper, tables, *, k, single_sided, has_met,
@@ -742,21 +753,24 @@ def di_resident_ref(cam_vec, lcam_vec, looper, prev_pt, tables, *, width,
     gb_out = torch.empty((GB_CH, r), dtype=torch.float32, device=dev)
     pt_out = torch.empty((PT_CH, r), dtype=torch.float32, device=dev)
     chunk = chunk_pixels(tables.planes.shape[0])
+    pix = torch.arange(r, device=dev, dtype=torch.int64)
     for p0 in range(0, r, chunk):
-        pix = torch.arange(p0, min(p0 + chunk, r), device=dev,
-                           dtype=torch.int64)
-        gb = gbuffer_pixels(pix, cam_vec, lcam_vec, looper, tables,
-                            width=width, height=height, aa_jitter=aa_jitter,
-                            single_sided=single_sided, has_env=has_env,
-                            with_textures=with_textures)
-        li, wi, dist, w = ris_pixels(gb, pix, looper, tables, k=k,
-                                     single_sided=single_sided,
-                                     has_met=has_met, has_env=has_env)
-        w = shadow_pixels(gb, wi, dist, w, tables.planes)
-        pt_out[:, pix] = temporal_pixels(gb, li, wi, dist, w, pix, looper,
-                                         prev_pt, k=k, temporal=temporal,
-                                         temporal_clamp=temporal_clamp)
-        gb_out[:, pix] = gb
+        gb_out[:, p0:p0 + chunk] = gbuffer_pixels(
+            pix[p0:p0 + chunk], cam_vec, lcam_vec, looper, tables,
+            width=width, height=height, aa_jitter=aa_jitter,
+            single_sided=single_sided, has_env=has_env,
+            with_textures=with_textures)
+    li, wi, dist, w = ris_all(gb_out, pix, looper, tables, k=k,
+                              single_sided=single_sided, has_met=has_met,
+                              has_env=has_env)
+    for p0 in range(0, r, chunk):
+        sl = slice(p0, p0 + chunk)
+        gb = gb_out[:, sl]
+        w_s = shadow_pixels(gb, wi[:, sl], dist[sl], w[sl], tables.planes)
+        pt_out[:, sl] = temporal_pixels(gb, li[:, sl], wi[:, sl], dist[sl],
+                                        w_s, pix[sl], looper, prev_pt, k=k,
+                                        temporal=temporal,
+                                        temporal_clamp=temporal_clamp)
     return gb_out, pt_out
 
 

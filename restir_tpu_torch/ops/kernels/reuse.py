@@ -274,18 +274,19 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
                            dtype=torch.int64)
     out = torch.empty((PT_CH, pix.shape[0]), dtype=torch.float32,
                       device=dev)
+    li, wi, dist, w = fused_di.ris_all(
+        gb, pix, looper, tables, k=k, single_sided=single_sided,
+        has_met=has_met, has_env=has_env)
     chunk = fused_di.chunk_pixels(tables.planes.shape[0])
     for p0 in range(0, pix.shape[0], chunk):
-        g = gb[:, p0:p0 + chunk]
-        px = pix[p0:p0 + chunk]
-        li, wi, dist, w = fused_di.ris_pixels(
-            g, px, looper, tables, k=k, single_sided=single_sided,
-            has_met=has_met, has_env=has_env)
-        w = fused_di.shadow_pixels(g, wi, dist, w, tables.planes)
-        out[:, p0:p0 + chunk] = fused_di.temporal_pixels(
-            g, li, wi, dist, w, px, looper, prev_pt, k=k, temporal=temporal,
-            temporal_clamp=temporal_clamp, prev_base=prev_base,
-            window=window)
+        sl = slice(p0, p0 + chunk)
+        g = gb[:, sl]
+        w_s = fused_di.shadow_pixels(g, wi[:, sl], dist[sl], w[sl],
+                                     tables.planes)
+        out[:, sl] = fused_di.temporal_pixels(
+            g, li[:, sl], wi[:, sl], dist[sl], w_s, pix[sl], looper,
+            prev_pt, k=k, temporal=temporal, temporal_clamp=temporal_clamp,
+            prev_base=prev_base, window=window)
     return out
 
 

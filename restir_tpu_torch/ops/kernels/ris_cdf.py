@@ -6,11 +6,11 @@ Port of `restir_tpu.ops.pallas.ris_kernel.ris_cdf_pallas`
 area lights, a single-draw winner, then an any hit of the winner's
 shadow ray with self-exclusion of the pixel's own triangle and a relative
 distance margin; an occluded winner's weight comes back zero. The math is
-B1's RIS core, so the CUDA kernel (`csrc/ris_cdf.cu`) calls
-`di_core.cuh`'s `ris_select` and walks the scene's MTBVH (`scene.bvh`)
-with the twin's leaf test, and the plain version calls B1's twins
-(`fused_di.ris_pixels`, `fused_di.shadow_pixels`: every triangle row) on
-a G-buffer-shaped view of the input pack. The light rows are
+B1's RIS core, so the CUDA kernel (`csrc/ris_cdf.cu`) picks what
+`di_core.cuh`'s `ris_select` picks and walks the scene's MTBVH
+(`scene.bvh`) with the twin's leaf test, and the plain version calls
+B1's twins (`fused_di.ris_pixels`, `fused_di.shadow_pixels`: every
+triangle row) on a G-buffer-shaped view of the input pack. The light rows are
 `tables.light_tables`'s (`ris_kernel.build_light_tables`' rows, no env
 tiles).
 
@@ -18,11 +18,12 @@ Both take `pix0`, the global index of the pack's first pixel: a row band
 (`restir_tpu_torch.parallel`) draws its pixel p's candidates as pixel
 pix0 + p of the whole frame, and reads and writes the packs at p.
 
-Light tables that do not fit in a block's shared memory (l_pad * 128 B
-over `SMEM_MAX`: more than 1,792 rows) take the kernel's streamed build,
-which scans the psi rows through a double buffer of `CHUNK_ROWS` rows
-and reads the candidates' rows from device memory, with the same bits. The
-wrapper picks the build from the table size (`streamed_for`).
+The kernel finds its K picks with B7's streamed light search
+(`csrc/ris_search.cuh`; `reuse`'s module note): the psi rows pass
+through a double buffer in shared memory with a cdf checkpoint every S
+rows (`reuse.seg_for(n, False, streamed=True)`) and each candidate
+re-scans one segment from device memory, so any light count fits a
+block (`smem_bytes`). It picks what a full scan picks, bit for bit.
 
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
@@ -33,7 +34,7 @@ import ctypes
 
 import torch
 
-from . import _build, fused_di
+from . import _build, fused_di, reuse
 from .fused_di import (
     G_DIR,
     G_METAL,
@@ -45,13 +46,11 @@ from .fused_di import (
     G_SHADE,
     GB_CH,
     MAX_K,
-    SMEM_MAX,
 )
 from .gbuffer import _check_bvh
 from .tables import BvhTables, ResidentTables
 
-launches = 0  # launches of B10's staged build
-streamed_launches = 0  # launches of its streamed build
+launches = 0  # B10 launches
 
 # input pack [CIN, R] and output pack [COUT, R] (ris_kernel.py:37-41)
 IN_POS, IN_NORM, IN_WO = 0, 3, 6
@@ -91,50 +90,41 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
     pixel pix0 + p."""
     r = pack.shape[1]
     out = torch.zeros((COUT, r), dtype=torch.float32, device=pack.device)
-    chunk = fused_di.chunk_pixels(max(tables.planes.shape[0],
-                                      tables.psi.shape[0]))
+    gb = _gb_view(pack)
+    pix = torch.arange(pix0, pix0 + r, device=pack.device)
+    li, wi, dist, w = fused_di.ris_all(gb, pix, looper, tables, k=k,
+                                       single_sided=single_sided,
+                                       has_met=has_met)
+    out[OUT_LI:OUT_LI + 3] = li
+    out[OUT_WI:OUT_WI + 3] = wi
+    out[OUT_DIST] = dist
+    out[OUT_M] = torch.where(gb[G_SHADE] > 0.5, float(k), 0.0)
+    chunk = fused_di.chunk_pixels(tables.planes.shape[0])
     for p0 in range(0, r, chunk):
-        gb = _gb_view(pack[:, p0:p0 + chunk])
-        pix = torch.arange(pix0 + p0, pix0 + p0 + gb.shape[1],
-                           device=pack.device)
-        li, wi, dist, w = fused_di.ris_pixels(
-            gb, pix, looper, tables, k=k, single_sided=single_sided,
-            has_met=has_met)
-        w = fused_di.shadow_pixels(gb, wi, dist, w, tables.planes)
-        out[OUT_LI:OUT_LI + 3, p0:p0 + chunk] = li
-        out[OUT_WI:OUT_WI + 3, p0:p0 + chunk] = wi
-        out[OUT_DIST, p0:p0 + chunk] = dist
-        out[OUT_W, p0:p0 + chunk] = w
-        out[OUT_M, p0:p0 + chunk] = torch.where(gb[G_SHADE] > 0.5, float(k),
-                                                0.0)
+        sl = slice(p0, p0 + chunk)
+        out[OUT_W, sl] = fused_di.shadow_pixels(gb[:, sl], wi[:, sl],
+                                                dist[sl], w[sl],
+                                                tables.planes)
     return out
 
 
-CHUNK_ROWS = 64  # psi rows a chunk of the streamed build (kChunkRows)
-
-
-def smem_bytes(l_pad: int, streamed: bool = False) -> int:
-    """B10's shared memory per block: both [l_pad, 16] tables (staged),
-    or the streamed build's double buffer of 2 x CHUNK_ROWS psi rows."""
-    return 2 * CHUNK_ROWS * 64 if streamed else l_pad * 32 * 4
-
-
-def streamed_for(l_pad: int) -> bool:
-    """Whether B10 takes its streamed build: when the staged build's
-    tables would pass SMEM_MAX."""
-    return smem_bytes(l_pad) > SMEM_MAX
+def smem_bytes(n_area: int) -> int:
+    """B10's shared memory per block over n_area light rows: B7's
+    env-less streamed search, its double buffer of psi rows and its
+    checkpoints (`reuse.smem_bytes` at `reuse.seg_for(n_area, False,
+    streamed=True)`)."""
+    seg = reuse.seg_for(n_area, False, streamed=True)
+    return reuse.smem_bytes(n_area, False, n_area, seg, streamed=True)
 
 
 def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
                  k=4, single_sided=True, has_met=True, pix0=0, stats=False,
-                 lib=None, counts=None, _streamed=None):
+                 lib=None, counts=None):
     """B10 on the card: the [COUT, R] output pack, pixel p drawn as
     global pixel pix0 + p. With `stats`, also the int32 [2, R] box and
     plane test counts of each shadow walk. `lib` and `counts` as
-    `reuse.candidates_cuda`'s (the stage probes). The build follows the
-    table size (`streamed_for`); `_streamed` forces one (tests and the
-    card's checks)."""
-    global launches, streamed_launches
+    `reuse.candidates_cuda`'s (the stage probes)."""
+    global launches
     r = pack.shape[1]
     dev = pack.device
     if not 1 <= k <= MAX_K:
@@ -149,7 +139,6 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
             raise ValueError(f"light tables must be float32 on {dev}")
     _check_bvh(bvh, dev)
     l_pad = psi.shape[0]
-    streamed = streamed_for(l_pad) if _streamed is None else _streamed
     pack = pack.contiguous()
     out = torch.empty((COUT, r), dtype=torch.float32, device=dev)
     if counts is None and stats:
@@ -159,14 +148,10 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
         err = (lib or _build.library()).restir_ris_cdf(
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
-            int(streamed), p(bvh.rows), bvh.size, p(bvh.planes), p(out),
-            p(counts), r, int(single_sided), k, int(has_met),
-            _build.stream_of(dev))
+            p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
+            int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
-    if streamed:
-        streamed_launches += 1
-    else:
-        launches += 1
+    launches += 1
     return (out, counts) if counts is not None else out
 
 

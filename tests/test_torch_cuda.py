@@ -10,9 +10,9 @@ radix sort, the walk through the permutation) at several batch sizes,
 on edge-case rays and on a batch of dead lanes;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
-without B12's mask of live lanes; B7's and B10's streamed builds equal to
-their staged builds bit for bit, against their twins on 2,450 light rows,
-and through renderer.step there.
+without B12's mask of live lanes; B7's streamed build equal to its
+staged build bit for bit, B7 and B10 against their twins on 2,450 light
+rows, and through renderer.step there.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -1568,7 +1568,7 @@ def test_general_row_bands_on_one_card(cuda_device, case):
     assert float(out[n][-1].mean()) > 0.0
 
 
-# ---- the streamed builds of B7 and B10: light tables past shared memory
+# ---- B7's streamed build and B10: light tables past shared memory
 
 
 def _b10_input(scene, cam, w=W, h=H, looper=5):
@@ -1615,22 +1615,6 @@ def test_b7_streamed_equals_staged(ragged, env_tex, k):
         assert torch.equal(c0, c1)
 
 
-def test_b10_streamed_equals_staged(general):
-    """B10's streamed build, forced on tables that fit (the 32 rows of
-    many_light_scene(16, 6)), writes the staged build's pack bit for
-    bit."""
-    scene, cam, _, _, _ = general
-    pack, _ = _b10_input(scene, cam)
-    k0 = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh,
-                              _streamed=False)
-    before = (ris_cdf.launches, ris_cdf.streamed_launches)
-    k1 = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh,
-                              _streamed=True)
-    assert (ris_cdf.launches, ris_cdf.streamed_launches) == (
-        before[0], before[1] + 1)
-    assert torch.equal(k0.view(torch.int32), k1.view(torch.int32))
-
-
 @pytest.mark.parametrize("n_area,has_env", [(2450, False), (2200, True),
                                             (10000, False)])
 def test_b7_streamed_seg_matches_host_mirror(cuda_device, n_area, has_env):
@@ -1672,23 +1656,23 @@ def test_b7_streamed_matches_twin_at_many_lights(many):
     assert int(st[2].min()) >= n_l and int(st[2].max()) <= n_l + 4 * seg
 
 
-def test_b10_streamed_matches_twin_at_many_lights(many):
-    """B10 takes its streamed build on 2,560 light rows and meets its
-    twin under test_b10_kernel_matches_twin's gates."""
+def test_b10_matches_twin_at_many_lights(many):
+    """B10 on 2,560 light rows (past the tables its first design staged)
+    launches once and meets its twin under test_b10_kernel_matches_twin's
+    gates."""
     _, scene, camkw = many
     pack, shade = _b10_input(scene, make_camera(**camkw))
-    before = (ris_cdf.launches, ris_cdf.streamed_launches)
+    before = ris_cdf.launches
     k = ris_cdf.ris_cdf_cuda(pack, 5, scene.tables, scene.bvh)
-    assert (ris_cdf.launches, ris_cdf.streamed_launches) == (
-        before[0], before[1] + 1)
+    assert ris_cdf.launches == before + 1
     _b10_twin_gates(k, ris_cdf.ris_cdf_ref(pack, 5, scene.tables), shade)
 
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_many_lights_renderer_step(many, fused):
     """Fused and general RESTIR_DI through renderer.step on 2,450 light
-    rows: each frame launches the streamed build once and is finite and
-    lit."""
+    rows: each frame launches B7's streamed build (fused) or B10
+    (general) once and is finite and lit."""
     from restir_tpu_torch.config import mat_flags
 
     arrays, scene, camkw = many
@@ -1697,10 +1681,10 @@ def test_many_lights_renderer_step(many, fused):
     cam = make_camera(**camkw)
     state = renderer.init_state(cfg, cam, scene if fused else None,
                                 device=scene.tables.psi.device)
-    before = (reuse.streamed_launches, ris_cdf.streamed_launches)
+    before = (reuse.streamed_launches, ris_cdf.launches)
     for _ in range(3):
         state, frame = renderer.step(scene, state, cam, cfg)
     assert (reuse.streamed_launches - before[0],
-            ris_cdf.streamed_launches - before[1]) == (
+            ris_cdf.launches - before[1]) == (
         (3, 0) if fused else (0, 3))
     assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0

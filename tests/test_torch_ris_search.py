@@ -14,16 +14,20 @@
   boundary, segments of zero targets, a light count that is not a
   multiple of S);
   it evaluates at most n_lights + k * S targets per pixel.
-- Its picks match the plain twin's (`fused_di.ris_pixels`, a cumsum over
-  the rows) on >= 99.5 % of lanes: the pick-match gate of
-  tests/test_fused_di.py.
+- Its picks match, on >= 99.5 % of lanes (the pick-match gate of
+  tests/test_fused_di.py), those of an independent plain formulation
+  (`_plain_ris`: unfused float32 targets, a cumsum) and those of the
+  twin (`fused_di.ris_targets`, rounded as the kernels round, and its
+  row-order `cdf_rows`); on the tables past the staged builds, the
+  twin's on every lane.
 - The reduced target of env-tile rows equals the full light target bit
   for bit on every env row, and padding rows have target 0.
-- The host mirror picks each wrapper's build (staged or streamed), its
-  spacing and its shared memory as the kernels do, within SMEM_MAX and
-  the blocks per SM of B7's launch bounds, around the staged builds'
-  limits (1,792 rows for B10; 2,416 area rows for B7, 2,144 with env
-  tiles) and at 2,450 and 10,000 rows; its constants are the sources'.
+- The host mirror picks B7's build (staged or streamed), its spacing
+  and its shared memory as the kernel does, and B10's (always B7's
+  env-less streamed search), within SMEM_MAX and the blocks per SM of
+  B7's launch bounds, around the limits of B7's staged build (2,416
+  area rows, 2,144 with env tiles) and of B10's first design (1,792
+  rows) and at 2,450 and 10,000 rows; its constants are the sources'.
 - The tile map of B6 / B7 covers every pixel once on ragged frames.
 """
 
@@ -50,6 +54,8 @@ from restir_tpu_torch.ops.kernels.fused_di import (
     GB_CH,
 )
 from restir_tpu_torch.scene.procedural import env_scene, many_light_scene
+
+from _plain_ris import plain_cdf, plain_targets
 
 B = 512  # shading points per case
 LOOPER = 7
@@ -126,20 +132,28 @@ def test_segmented_search_equals_full_scan(world, k, seg):
 
 
 def test_picks_match_twin(world):
-    """The search's picks against the plain twin's (row-order scan)."""
-    _twin_picks_match(world, 0.995)
+    """The search's picks against an independent plain formulation's
+    (`_plain_ris`: targets as unfused float32 products, a cumsum), which
+    shares no code with the search."""
+    _twin_picks_match(world, 0.995, plain_targets, plain_cdf)
 
 
-def _twin_picks_match(world, share):
-    """The search's picks equal the plain twin's (`cdf_rows` of
-    `ris_targets`) on at least `share` of the lanes."""
+def test_picks_match_rounded_twin(world):
+    """The search's picks against the twin's own (`fused_di.ris_targets`,
+    which rounds as the kernels do, and its row-order `cdf_rows`)."""
+    _twin_picks_match(world, 0.995, fused_di.ris_targets, fused_di.cdf_rows)
+
+
+def _twin_picks_match(world, share, targets, cdf_of):
+    """The search's picks equal those of the CDF `cdf_of(targets(...))`
+    on at least `share` of the lanes."""
     tables, has_env, gb, pix = world
     k = 4
     idx, _, _, _ = reuse.ris_search(gb, pix, LOOPER, tables, k=k,
                                     single_sided=True, has_env=has_env)
     _, psi = tables.light_rows(has_env)
-    _, t = fused_di.ris_targets(gb, psi, True)
-    cdf = fused_di.cdf_rows(t)
+    _, t = targets(gb, psi, True)
+    cdf = cdf_of(t)
     thr = reuse.thresholds(pix, LOOPER, k, cdf[:, -1])
     twin = torch.clamp((cdf[None] <= thr[:, :, None]).sum(dim=2),
                        max=psi.shape[0] - 1)
@@ -227,16 +241,17 @@ def test_search_fallback_takes_last_light_row():
 
 def _b7_source_constants():
     """(blocks per SM by env build, the spacings, the streamed build's
-    chunk rows) as csrc/reuse_bvh.cu declares them for its launch bounds,
-    b7_seg and b7_smem."""
-    src = (_build.SRC_DIR / "reuse_bvh.cu").read_text()
+    chunk rows) as csrc/ris_search.cuh declares them for B7's launch
+    bounds (csrc/reuse_bvh.cu), b7_seg and b7_smem."""
+    src = (_build.SRC_DIR / "ris_search.cuh").read_text()
+    b7_src = (_build.SRC_DIR / "reuse_bvh.cu").read_text()
     blocks = re.search(r"constexpr int kBlocksPerSm = (\d+), "
                        r"kBlocksPerSmEnv = (\d+);", src)
     segs = re.search(r"constexpr int kSegs\[\] = \{([\d, ]+)\};", src)
     chunk = re.search(r"constexpr int kChunkRows = (\d+);", src)
     assert blocks and segs and chunk
     assert re.search(r"__launch_bounds__\(PIX_BLOCK,\s*HAS_ENV \? "
-                     r"kBlocksPerSmEnv : kBlocksPerSm\)", src)
+                     r"kBlocksPerSmEnv : kBlocksPerSm\)", b7_src)
     assert re.search(r"\(stream \? 2 \* kChunkRows : n_area\) \* 64", src)
     return ({False: int(blocks[1]), True: int(blocks[2])},
             tuple(int(x) for x in segs[1].split(",")), int(chunk[1]))
@@ -265,34 +280,34 @@ def test_seg_fits_the_blocks_per_sm(n_area, has_env, seg):
         assert smem < 640 * 128
 
 
-# the largest light counts the staged builds hold: B10 l_pad 1,792 (both
-# tables in shared memory), B7 2,416 area rows (2,144 with the env tiles)
-B10_STAGED_MAX, B7_STAGED_MAX = 1792, {False: 2416, True: 2144}
+# the largest light counts B7's staged build holds: 2,416 area rows
+# (2,144 with the env tiles)
+B7_STAGED_MAX = {False: 2416, True: 2144}
 
 
 @pytest.mark.parametrize("has_env", [False, True])
 @pytest.mark.parametrize("n_area", [1792, 1920, 2144, 2145, 2416, 2417,
                                     2450, 10000])
 def test_build_choice_fits_shared_memory(n_area, has_env):
-    """Each wrapper's choice of build from the table size: the staged
-    build while its tables fit SMEM_MAX, else the streamed one, whose
-    shared memory fits the blocks per SM of B7's launch bounds with the
-    smallest spacing S that does (a power of two from 8: 64 at 2,450
-    rows, 256 at 10,000)."""
+    """B7's choice of build from the table size: the staged build while
+    its tables fit SMEM_MAX, else the streamed one, whose shared memory
+    fits the blocks per SM of B7's launch bounds with the smallest
+    spacing S that does (a power of two from 8: 64 at 2,450 rows, 256 at
+    10,000). B10 runs the env-less streamed search at every size (its
+    first design staged l_pad rows of 128 B: at most 1,792)."""
     b7_src, b10_src = (_build.SRC_DIR / "reuse_bvh.cu").read_text(), (
         _build.SRC_DIR / "ris_cdf.cu").read_text()
     assert "constexpr int BLOCK = 256;" in b10_src
-    assert "constexpr int kChunkRows = BLOCK / 4;" in b10_src
-    assert ris_cdf.CHUNK_ROWS == 256 // 4
     assert _b7_source_constants()[2] == reuse.CHUNK_ROWS == gbuffer.BLOCK // 4
-    assert re.search(r"STREAM \? \(size_t\)2 \* kChunkRows \* 64\s*"
-                     r": \(size_t\)l_pad \* 32 \* sizeof\(float\)", b10_src)
-    # B10 (no env rows): l_pad rows of 128 B staged
-    l_pad = -(-max(n_area, 128) // 128) * 128
-    b10_streamed = ris_cdf.streamed_for(l_pad)
-    assert b10_streamed == (l_pad > B10_STAGED_MAX)
-    assert ris_cdf.smem_bytes(l_pad, b10_streamed) <= fused_di.SMEM_MAX
-    assert ris_cdf.smem_bytes(l_pad, True) == 8192
+    assert "b7_seg(n_area, false, true, &seg)" in b10_src
+    assert "b7_smem(n_area, false, seg, true)" in b10_src
+    assert "ris_select_seg<false, false, true>" in b10_src
+    # B10 (no env rows)
+    b10_smem = ris_cdf.smem_bytes(n_area)
+    assert b10_smem == reuse.smem_bytes(
+        n_area, False, n_area, reuse.seg_for(n_area, False, True), True)
+    assert (reuse.BLOCKS_PER_SM[False]
+            * (b10_smem + reuse.SMEM_BLOCK_RESERVED) <= reuse.SMEM_SM)
     # B7
     streamed = reuse.streamed_for(n_area, has_env)
     assert streamed == (n_area > B7_STAGED_MAX[has_env])
@@ -328,7 +343,8 @@ def test_streamed_spacing_search_equals_full_scan(big_world, k):
     n = tables.n_lights
     assert reuse.streamed_for(n, has_env)
     if k == 4:
-        _twin_picks_match(big_world, 1.0)
+        _twin_picks_match(big_world, 1.0, fused_di.ris_targets,
+                          fused_di.cdf_rows)
     for seg in sorted({reuse.seg_for(n, has_env, True), 256}):
         idx, tq, total, evaluated = reuse.ris_search(
             gb, pix, LOOPER, tables, k=k, single_sided=True,
