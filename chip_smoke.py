@@ -225,22 +225,23 @@ The stage probes (`restir_tpu_torch.prof`, after phase 27):
      csrc/prof/ must launch. Phase 2 builds the probes' libraries with
      the main one.
 Many lights (after phase 28):
- 29. the light tables past a block's shared memory: B7's streamed build
-     (`reuse_bvh_streamed` in the kernels line) and B10, which runs the
-     same streamed search at every size: (a) B7's streamed build forced
-     on tables that fit, bit for bit against the staged build on every
-     lane (and its counting build's counts) on the hall and the sky
-     hall (640 rows with the env tiles) at 1080p; (b)
+ 29. light tables past what a block could stage whole: B7 and B10,
+     whose light search (`ris_search` in the kernels line, a kernel of
+     its own that both launch before their shadow walks) streams the
+     light rows through shared memory at every size: (a)
      many_light_scene(1225, 24) (2,450 light rows, 2,748 triangles): B7
-     + B1b against their twins on 32 sample tiles and B10 against its
+     + B1b against their twins on 32 sample tiles, the search alone
+     against its twin (`fused_di.ris_all`) and its CPU mirror's light
+     targets (`reuse.ris_search`) on the same tiles, and B10 against its
      twin on a band of 16 rows, with phase 9's and phase 12's gates,
-     and each kernel's time, twin's time and bound; the fused RESTIR_DI
-     + EAW frame through renderer.step at 1920x1080 (launches per frame:
-     gbuffer_bvh 1, reuse_bvh_streamed 1, temporal 1, spatial 1,
-     atrous_eaw 5) and the general RESTIR_DI cdf + EAW frame
-     (primary_hit 1, ris_cdf 1, atrous_eaw 5), each with its wall,
-     device busy and idle share (profile), and phase 14's quality gate
-     on this scene at 384x384: energy_ratio_vs_pt within 5 % of 1; (c)
+     and each kernel's time (the search and each walk apart), twin's
+     time and bound; the fused RESTIR_DI + EAW frame through
+     renderer.step at 1920x1080 (launches per frame: gbuffer_bvh 1,
+     reuse_bvh 1, ris_search 1, temporal 1, spatial 1, atrous_eaw 5) and
+     the general RESTIR_DI cdf + EAW frame (primary_hit 1, ris_cdf 1,
+     ris_search 1, atrous_eaw 5), each with its wall, device busy and
+     idle share (profile), and phase 14's quality gate on this scene at
+     384x384: energy_ratio_vs_pt within 5 % of 1; (b)
      many_light_scene(5000, 24) (10,000 light rows; its quads overlap):
      the same kernel-against-twin checks and times, and 2 + 4 frames of
      each main path.
@@ -420,10 +421,10 @@ SOURCES = {
                        "prof/prof_v3.py:92"),
     "prof_chain_float4": ("restir_tpu_torch/csrc/prof/mem.cu",
                           "prof/prof_v3.py:92"),
-    # B7's streamed build (phase 29): light tables past a block's shared
-    # memory
-    "reuse_bvh_streamed": ("restir_tpu_torch/csrc/reuse_bvh.cu",
-                           "restir_tpu/ops/pallas/fused_di.py:1558"),
+    # B7's light search, a launch of its own before the walks of B7 and
+    # of B10 (phases 9 and 29)
+    "ris_search": ("restir_tpu_torch/csrc/ris_search.cuh",
+                   "restir_tpu/ops/pallas/fused_di.py:1558"),
 }
 GENERAL_WARMUP, GENERAL_TIMED = 2, 8  # PT_FULL and general DI frames
 # SHA-256 of B1's gb and pt packs in phase 3 (frame 1 of the headline at
@@ -582,7 +583,7 @@ def reset_counts():
     hits.closest_launches = 0
     hits.any_launches = 0
     ris_cdf.launches = 0
-    reuse.streamed_launches = 0
+    reuse.search_launches = 0
     gi.trace_launches = 0
     gi.resolve_launches = 0
     hits.mt_closest_launches = 0
@@ -611,7 +612,7 @@ def read_counts():
             "heatmap": hits.heatmap_launches,
             "ray_key": ray_order.key_launches,
             "ray_sort": ray_order.sort_launches,
-            "reuse_bvh_streamed": reuse.streamed_launches}
+            "ris_search": reuse.search_launches}
 
 
 def packs_digest(*packs) -> str:
@@ -1057,8 +1058,10 @@ def walk_lines(name, cnt6, cnt7, t, k, has_env, w, h):
     checkpoint spacing)."""
     print(f"{name} ptxas B6 gbuffer_bvh_kernel<COUNT,ENV,TEX>: "
           f"{ptxas_report('gbuffer_bvh.cu', 'gbuffer_bvh_kernel')}")
-    print(f"{name} ptxas B7 reuse_bvh_kernel<COUNT,ENV,STREAM>: "
-          f"{ptxas_report('reuse_bvh.cu', 'reuse_bvh_kernel')}")
+    print(f"{name} ptxas B7 ris_search_kernel<COUNT,ENV,Io>: "
+          f"{ptxas_report('reuse_bvh.cu', 'ris_search_kernel')}; "
+          f"reuse_walk_kernel<COUNT>: "
+          f"{ptxas_report('reuse_bvh.cu', 'reuse_walk_kernel')}")
     for what, c in (("B6 box", cnt6[0]), ("B6 plane", cnt6[1]),
                     ("B7 box", cnt7[0]), ("B7 plane", cnt7[1])):
         mean, tile, strip = warp_spread(c, w, h)
@@ -1674,8 +1677,8 @@ def phase_sky_hall(sf, cam, dev):
           f"{float(cnt7[1].double().mean()):.2f} triangle tests per ray")
     walk_lines("sky hall", cnt6, cnt7, t, rkw["k"], True, w, h)
     phase_main("sky hall", scene, cfg, cam, dev, {
-        "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
-        "atrous_eaw": cfg.eaw_levels})
+        "gbuffer_bvh": 1, "reuse_bvh": 1, "ris_search": 1, "temporal": 1,
+        "spatial": 1, "atrous_eaw": cfg.eaw_levels})
     profile_frames("sky hall", scene, cfg, cam, dev)
 
 
@@ -2039,8 +2042,8 @@ def phase_general(scene, cam, arrays, dev, record, launches):
          True),
         ("general DI cdf", base.replace(tracer=TracerType.RESTIR_DI,
                                         denoiser=DenoiserType.NONE),
-         {"primary_hit": 1, "ris_cdf": 1}, GENERAL_WARMUP, GENERAL_TIMED,
-         False),
+         {"primary_hit": 1, "ris_cdf": 1, "ris_search": 1},
+         GENERAL_WARMUP, GENERAL_TIMED, False),
         ("general DI reference",
          base.replace(tracer=TracerType.RESTIR_DI, ris_mode="reference",
                       denoiser=DenoiserType.NONE),
@@ -2282,7 +2285,8 @@ def phase_gi(scene, arrays, cam, dev, record, launches):
     torch.cuda.reset_peak_memory_stats()
     g_counts = phase_general_main(
         "general GI", scene, cfg, cam, dev,
-        {"primary_hit": 1, "ris_cdf": 1, "gi_trace": 1}, GENERAL_WARMUP,
+        {"primary_hit": 1, "ris_cdf": 1, "ris_search": 1, "gi_trace": 1},
+        GENERAL_WARMUP,
         GENERAL_TIMED, with_scene=False)
     print(f"main path general GI: peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -2675,8 +2679,8 @@ def phase_walk(scene, cam, arrays, hall, hall_arrays, hall_cam, dev, record,
         ("hall general DI + SVGF", hall, hall_cam,
          base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
                       ris_mode="cdf", denoiser=DenoiserType.SVGF),
-         {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": levels,
-          "atrous_svgf": levels}),
+         {"mt_primary": 1, "ris_cdf": 1, "ris_search": 1,
+          "svgf_variance": levels, "atrous_svgf": levels}),
         ("hall heatmap", hall, hall_cam,
          base.replace(tracer=TracerType.BVH_VISUALIZE),
          {"heatmap": 1, "mt_primary": 1}),
@@ -2817,8 +2821,8 @@ def phase_native_hall(dev, tmp):
     if not (same and same_scene):
         raise PhaseError("native BVH differs from the numpy builder's")
 
-    per_frame = {"gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1,
-                 "spatial": 1}
+    per_frame = {"gbuffer_bvh": 1, "reuse_bvh": 1, "ris_search": 1,
+                 "temporal": 1, "spatial": 1}
     ck = os.path.join(tmp, "hall_state.npz")
     out = {k: os.path.join(tmp, f"hall_{k}.pfm")
            for k in ("first", "resumed", "straight")}
@@ -3150,7 +3154,7 @@ def phase_bands(scene, cfg, cam, dev):
     dev_ms = start.elapsed_time(end) / TIMED
     counts = read_counts()
     per_frame = {"gbuffer_bvh": BANDS, "reuse_bvh": BANDS,
-                 "temporal": BANDS, "spatial": BANDS,
+                 "ris_search": BANDS, "temporal": BANDS, "spatial": BANDS,
                  "atrous_eaw": BANDS * cfg.eaw_levels}
     expect = {k: per_frame.get(k, 0) * (WARMUP + TIMED) for k in counts}
     print(f"main path headline {BANDS} bands launches {counts} (expected "
@@ -3394,7 +3398,7 @@ def phase_general_bands(scene, arrays, cam, dev):
               f"(CUDA events)")
     # (c) the 3-band general DI cdf + EAW path, timed, beside one device
     per_frame = {"primary_hit": BANDS, "ris_cdf": BANDS,
-                 "atrous_eaw": BANDS * c.eaw_levels}
+                 "ris_search": BANDS, "atrous_eaw": BANDS * c.eaw_levels}
     phase_general_main("general DI cdf + EAW, one device", scene, c, cam,
                        dev, {k: v // BANDS for k, v in per_frame.items()},
                        GENERAL_WARMUP, GENERAL_TIMED, with_scene=False)
@@ -4001,56 +4005,66 @@ def b10_twin_gate(what, k10, r10, shade):
     return float((k10[w_][ok] - r10[w_][ok]).abs().max())
 
 
-def b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev):
-    """(a): B7's streamed build forced on tables that fit."""
-    cam2 = make_camera(position=(0.3, 4.2, 20.3),
-                       rotation=(-90.5, -4.0, 0.0), fov_y=19.5)
-    cv, cv2 = pack_camera(hall_cam, dev), pack_camera(cam2, dev)
-    for what, sky in (("hall", False), ("sky hall", True)):
-        if sky:
-            hall_sf.env_map = gradient_sky(512, 1024)
-            sc = convert.scene_from_numpy(hall_sf.build(), dev)
-        else:
-            sc = hall
-        cfg = RenderConfig(width=WIDTH, height=HEIGHT, has_env_map=sky,
-                           tracer=TracerType.RESTIR_DI)
-        gb = gbuffer.gbuffer_cuda(cv2, cv, 1, sc.bvh, width=WIDTH,
-                                  height=HEIGHT, aa_jitter=cfg.aa_jitter,
-                                  single_sided=cfg.single_sided_lights,
-                                  has_env=sky)
-        kw = dict(width=WIDTH, k=cfg.cdf_candidates, has_env=sky,
-                  stats=True)
-        rs0, c0 = reuse.candidates_cuda(gb, 1, sc.tables, sc.bvh,
-                                        _streamed=False, **kw)
-        rs1, c1 = reuse.candidates_cuda(gb, 1, sc.tables, sc.bvh,
-                                        _streamed=True, **kw)
-        n_l = light_count(sc.tables, sky)
-        same_bits(f"B7 {what} ({n_l} light rows): streamed build against "
-                  f"the staged build", rs1, rs0)
-        if not torch.equal(c0, c1):
-            raise PhaseError(f"B7 {what}: the streamed build's walk and "
-                             "target counts differ from the staged build's")
-        n = sc.tables.n_lights
-        print(f"B7 {what}: checkpoints every {reuse.seg_cuda(n, sky)} rows "
-              f"staged, every {reuse.seg_cuda(n, sky, streamed=True)} "
-              f"streamed; walk and target counts equal")
+def search_bound(t, r, k, seg):
+    """(least ms, what binds it) of the light search: the gb pack's
+    channels it reads and the rs pack it writes, the light rows once;
+    one light target a light row plus the K x S a pixel's picks re-scan,
+    and k candidates."""
+    n_l = t.n_lights
+    return bound(r * (13 + 8) * 4 + table_bytes(t.lights[:n_l], t.psi[:n_l]),
+                 r * ((n_l + k * seg) * FLOP_LIGHT + k * FLOP_CAND))
+
+
+def search_against_twin(name, gb, t, bvh, pix, k, has_met, w, seg):
+    """The light search kernel alone (B7's launch of it, `_parts=1`)
+    against its twin on the sample pixels: the rs pack before visibility
+    against `fused_di.ris_all` (its targets and cdf round as the kernels
+    do: `fused_di.ris_targets`, `cdf_rows`) under phase 9's pick and
+    weight gates, and each pixel's light targets against its CPU
+    mirror's (`reuse.ris_search`: `search_streamed`).
+    Returns the largest weight error on same-pick lanes."""
+    before = reuse.search_launches
+    rs, cnt = reuse.candidates_cuda(gb, 1, t, bvh, k=k, has_met=has_met,
+                                    width=w, stats=True, _parts=1)
+    if reuse.search_launches != before + 1:
+        raise PhaseError(f"{name}: the search did not launch once")
+    g = gb[:, pix]
+    li, wi, _, wt = fused_di.ris_all(g, pix, 1, t, k=k, single_sided=True,
+                                     has_met=has_met)
+    _, _, _, ev = reuse.ris_search(g, pix, 1, t, k=k, single_sided=True,
+                                   seg=seg)
+    rs = rs[:, pix]
+    shade = g[fused_di.G_SHADE] > 0.5
+    pick = (torch.all(rs[RS_LI:RS_LI + 3] == li, 0)
+            & torch.all(torch.isclose(rs[RS_WI:RS_WI + 3], wi, rtol=2e-4,
+                                      atol=1e-5), 0))
+    pm = float(pick[shade].float().mean())
+    ok = pick & shade
+    wclose = float(torch.isclose(rs[RS_W][ok], wt[ok], rtol=2e-4,
+                                 atol=1e-7).float().mean())
+    same_ev = float((cnt[2][pix].long() == ev).float().mean())
+    print(f"{name} search ris_search_kernel vs twin on {SAMPLE_TILES} tiles: "
+          f"pick match {pm:.6f}, weights within rtol 2e-4 {wclose:.6f}, "
+          f"light targets equal to the mirror's {same_ev:.6f} (mean "
+          f"{float(ev.double().mean()):.2f})")
+    if pm < 0.995 or wclose < 0.999 or same_ev < 1.0:
+        raise PhaseError(f"{name}: the light search disagrees with its twin")
+    return float((rs[RS_W][ok] - wt[ok]).abs().max())
 
 
 def many_light_kernels(name, arrays, camkw, dev, record=None):
-    """(b) and (c): B7 + B1b and B10 against their twins on one scene
-    past the staged builds, with times and bounds."""
+    """(a) and (b): B7 + B1b, the light search and B10 against their
+    twins on one scene of many lights, with times and bounds."""
     scene = convert.scene_from_numpy(arrays, dev)
     t, bvh = scene.tables, scene.bvh
     n_l = t.n_lights
     cfg = render_config(arrays)
     w, h, r, k = cfg.width, cfg.height, cfg.num_pixels, cfg.cdf_candidates
-    if not reuse.streamed_for(n_l, False):
-        raise PhaseError(f"{name}: {n_l} light rows fit B7's staged build")
-    seg = reuse.seg_cuda(n_l, False, dev, streamed=True)
+    seg = reuse.seg_cuda(n_l, False, dev)
     print(f"{name}: {scene.num_tris} triangles, {n_l} light rows (l_pad "
-          f"{t.psi.shape[0]}); B7 streamed and B10: checkpoints every {seg} "
-          f"rows, {reuse.smem_bytes(n_l, False, n_l, seg, streamed=True)} "
-          f"and {ris_cdf.smem_bytes(n_l)} B of shared memory a block")
+          f"{t.psi.shape[0]}); the search of B7 and B10: checkpoints every "
+          f"{seg} rows, {reuse.smem_bytes(n_l, False, n_l, seg)} and "
+          f"{ris_cdf.smem_bytes(n_l)} B of shared memory a block")
     cam = make_camera(**camkw)
     pos = camkw["position"]
     cam2 = make_camera(**{**camkw, "position": (pos[0] + 0.25, pos[1],
@@ -4065,21 +4079,23 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
     pt0 = reuse.reuse_cuda(gb0, torch.zeros((PT_CH, r), device=dev), 0, t,
                            bvh, width=w, **rkw)
     gb_k = gbuffer.gbuffer_cuda(cv2, cv, 1, bvh, **gkw)
-    before = reuse.streamed_launches
+    before = reuse.launches, reuse.search_launches
     rs_k, cnt7 = reuse.candidates_cuda(gb_k, 1, t, bvh, k=k,
                                        has_met=rkw["has_met"], width=w,
                                        stats=True)
-    if reuse.streamed_launches != before + 1:
-        raise PhaseError(f"{name}: B7 did not take its streamed build")
+    if (reuse.launches, reuse.search_launches) != (before[0] + 1,
+                                                    before[1] + 1):
+        raise PhaseError(f"{name}: B7 did not launch its search and walk "
+                         "once each")
     pt_k = fused_di.temporal_cuda(gb_k, rs_k, pt0, 1, k=k,
                                   temporal_clamp=rkw["temporal_clamp"])
     pix = sample_pixels(r, dev)
     pt_r = reuse.reuse_ref(gb_k[:, pix], pt0, 1, t, pix=pix, **rkw)
     torch.cuda.synchronize()
     fails, st7 = parity.pt_report(pt_r, pt_k[:, pix])
-    print(f"{name} B7 reuse_bvh (streamed) + B1b vs twin on {SAMPLE_TILES} "
-          f"tiles: {json.dumps(st7)}")
-    gate(fails, f"{name}: B7 (streamed) disagrees with its twin")
+    print(f"{name} B7 reuse_bvh + B1b vs twin on {SAMPLE_TILES} tiles: "
+          f"{json.dumps(st7)}")
+    gate(fails, f"{name}: B7 disagrees with its twin")
     ev = cnt7[2]
     lo, hi = int(ev.min()), int(ev.max())
     print(f"{name} B7 light targets per pixel: mean "
@@ -4089,9 +4105,17 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
           f"{float(cnt7[1].double().mean()):.2f} plane tests per ray")
     if lo < n_l or hi > n_l + k * seg:
         raise PhaseError(f"{name}: B7 evaluated {lo}-{hi} light targets")
-    ms7 = cuda_ms(lambda: reuse.candidates_cuda(
-        gb_k, 1, t, bvh, k=k, has_met=rkw["has_met"], width=w), 10)
-    b7 = walk_bound7(t, bvh, r, k, cnt7, False)
+    def b7():
+        return reuse.candidates_cuda(gb_k, 1, t, bvh, k=k,
+                                     has_met=rkw["has_met"], width=w)
+
+    ms7 = cuda_ms(b7, 10)
+    b7b = walk_bound7(t, bvh, r, k, cnt7, False)
+    err_s = search_against_twin(name, gb_k, t, bvh, pix, k, rkw["has_met"],
+                                w, seg)
+    ms_s = device_ms(b7, 10, "ris_search_kernel")
+    ms_w = device_ms(b7, 10, "reuse_walk_kernel")
+    bs = search_bound(t, r, k, seg)
 
     pack, shade = b10_input(scene, cam, dev)
     kw = dict(k=k, single_sided=cfg.single_sided_lights,
@@ -4102,7 +4126,12 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
         raise PhaseError(f"{name}: B10 did not launch once")
     kc10, c10 = ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, stats=True, **kw)
     same_bits(f"{name} B10 counting build", kc10, k10)
-    ms10 = cuda_ms(lambda: ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw), 10)
+    def b10():
+        return ris_cdf.ris_cdf_cuda(pack, 1, t, bvh, **kw)
+
+    ms10 = cuda_ms(b10, 10)
+    ms10_s = device_ms(b10, 10, "ris_search_kernel")
+    ms10_w = device_ms(b10, 10, "ris_cdf_kernel")
     p0, n = (h // 2) * w, 16 * w  # a band of 16 rows mid-frame
     r10 = ris_cdf.ris_cdf_ref(pack[:, p0:p0 + n], 1, t, pix0=p0, **kw)
     err10 = b10_twin_gate(f"{name} B10 ris_cdf vs twin on rows "
@@ -4111,29 +4140,38 @@ def many_light_kernels(name, arrays, camkw, dev, record=None):
     boxes, tests = walk_line(f"{name} B10 shadow", c10, c10[0] > 0)
     walk_tables = table_bytes(t.planes[:scene.num_tris], bvh.rows)
     b10 = ris_bound10(t, r, k, boxes, tests, walk_tables)
-    print(f"{name} B7 reuse_bvh (streamed): kernel {ms7:.4f} ms, bound "
-          f"{b7[0]:.4f} ms ({b7[1]}); B10 ris_cdf: kernel "
-          f"{ms10:.4f} ms, bound {b10[0]:.4f} ms ({b10[1]})")
+    print(f"{name} B7 reuse_bvh: kernel {ms7:.4f} ms (device: "
+          f"search {ms_s:.4f} + walk {ms_w:.4f}), bound {b7b[0]:.4f} ms "
+          f"({b7b[1]}); B10 ris_cdf: kernel {ms10:.4f} ms (device: search "
+          f"{ms10_s:.4f} + walk {ms10_w:.4f}), bound {b10[0]:.4f} ms "
+          f"({b10[1]}); the search ris_search_kernel: bound {bs[0]:.4f} ms "
+          f"({bs[1]}: one target a light row and K x S = {k * seg} a "
+          f"pixel)")
     if record is not None:
         ms7_ref = cuda_ms(lambda: reuse.reuse_ref(gb_k, pt0, 1, t, **rkw), 1,
                           warmup=False)
         ms10_ref = cuda_ms(lambda: ris_cdf.ris_cdf_ref(pack, 1, t, **kw), 1,
                            warmup=False)
+        pix_all = torch.arange(r, device=dev)
+        ms_s_ref = cuda_ms(lambda: fused_di.ris_all(
+            gb_k, pix_all, 1, t, k=k, single_sided=True,
+            has_met=rkw["has_met"]), 1, warmup=False)
         print(f"{name} twins over the frame: B7 + B1b {ms7_ref:.1f} ms, B10 "
-              f"{ms10_ref:.1f} ms")
-        record["reuse_bvh_streamed"] = dict(
-            max_abs_err=st7["weight_max_abs_err"], ms=ms7, plain_ms=ms7_ref,
-            bound_ms=b7[0], bound_by=b7[1], library_ms=None)
+              f"{ms10_ref:.1f} ms, the search (ris_all) {ms_s_ref:.1f} ms")
+        record["ris_search"] = dict(
+            max_abs_err=err_s, ms=ms_s, plain_ms=ms_s_ref, bound_ms=bs[0],
+            bound_by=bs[1], library_ms=None)
     return scene, cfg, cam
 
 
-def phase_many_lights(hall, hall_sf, hall_cam, dev, record, launches):
-    """Phase 29: B7's streamed build and B10 past the staged tables."""
-    b7_streamed_equals_staged(hall, hall_sf, hall_cam, dev)
+def phase_many_lights(dev, record):
+    """Phase 29: B7 and B10 on light tables past what a block could stage
+    whole."""
     levels = 5
-    fused = {"gbuffer_bvh": 1, "reuse_bvh_streamed": 1, "temporal": 1,
-             "spatial": 1, "atrous_eaw": levels}
-    general = {"primary_hit": 1, "ris_cdf": 1, "atrous_eaw": levels}
+    fused = {"gbuffer_bvh": 1, "reuse_bvh": 1, "ris_search": 1,
+             "temporal": 1, "spatial": 1, "atrous_eaw": levels}
+    general = {"primary_hit": 1, "ris_cdf": 1, "ris_search": 1,
+               "atrous_eaw": levels}
     for n_quads, full in ((1225, True), (5000, False)):
         arrays, camkw = many_light_scene(n_quads, 24)
         name = f"many lights {2 * n_quads}"
@@ -4142,7 +4180,6 @@ def phase_many_lights(hall, hall_sf, hall_cam, dev, record, launches):
         frames = {} if full else dict(warmup=2, timed=4)
         counts = phase_main(name, scene, cfg, cam, dev, fused, **frames)
         if full:
-            launches["reuse_bvh_streamed"] = counts["reuse_bvh_streamed"]
             profile_frames(name, scene, cfg, cam, dev)
         gcfg = cfg.replace(ris_mode="cdf")
         warm, timed = ((GENERAL_WARMUP, GENERAL_TIMED) if full else (2, 4))
@@ -4215,10 +4252,11 @@ def main() -> int:
     phase_hall_kernels(hall, hall_cfg, hall_cam, dev, record)
     phase_wall("9 hall kernels")
     counts = phase_main("hall", hall, hall_cfg, hall_cam, dev, {
-        "gbuffer_bvh": 1, "reuse_bvh": 1, "temporal": 1, "spatial": 1,
-        "atrous_eaw": levels})
+        "gbuffer_bvh": 1, "reuse_bvh": 1, "ris_search": 1, "temporal": 1,
+        "spatial": 1, "atrous_eaw": levels})
     launches.update(gbuffer_bvh=counts["gbuffer_bvh"],
-                    reuse_bvh=counts["reuse_bvh"])
+                    reuse_bvh=counts["reuse_bvh"],
+                    ris_search=counts["ris_search"])
     profile_frames("hall", hall, hall_cfg, hall_cam, dev)
     phase_wall("10 hall main path")
     phase_sky_hall(hall_sf, hall_cam, dev)
@@ -4243,7 +4281,7 @@ def main() -> int:
     phase_wall("27 general row bands")
     phase_probes(dev, record, launches)
     phase_wall("28 probes")
-    phase_many_lights(hall, hall_sf, hall_cam, dev, record, launches)
+    phase_many_lights(dev, record)
     phase_wall("29 many lights")
 
     kernels = [

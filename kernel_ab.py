@@ -47,11 +47,14 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   (`fused_di.temporal_cuda`) after B7 on the hall and the sky hall, with
   frame 0's pack from the unmoved camera as history;
 - the light tables past a block's shared memory, where the tree renders
-  them: B7's streamed build forced (`_streamed=True`) beside each staged
-  call above (the headline, the hall and the sky hall), and B7 (on frame
-  1's G-buffer) and B10 (on the general G-buffer) of
+  them: B7's streamed build forced (`_streamed=True`, in a tree with two
+  builds; B7's one build in a tree whose B7 streams every table) beside
+  each B7 call above (the headline, the hall and the sky hall), and B7
+  (on frame 1's G-buffer) and B10 (on the general G-buffer) of
   many_light_scene(1225, 24) and (5000, 24) (2,450 and 10,000 light
-  rows), as chip_smoke.py phase 29 builds them;
+  rows), as chip_smoke.py phase 29 builds them, with the device time of
+  the light search kernel and of each walk apart where the tree
+  launches them apart;
 - B13 and B14 on the hall's 1080p rays (`general_rays` on the hall, as
   chip_smoke.py phase 19 builds them; "auto" takes the MTBVH walk
   there): B13's primary hit (`mt_primary_cuda`) on the camera rays and,
@@ -221,11 +224,12 @@ def _child() -> None:
     dev = torch.device("cuda", 0)
     ms, sha, dev_ms = {}, {}, {}
 
-    def device_ms(fn, tries=3):
+    def device_ms(fn, tries=3, by_name=None):
         """Mean device time of fn's kernels per call, from a
         torch.profiler trace of REPS calls; a trace that lost kernels
         (their count is no multiple of REPS) is taken again, up to
-        `tries` times, then nan."""
+        `tries` times, then nan. by_name: a dict that receives the device
+        time per call of each kernel name."""
         for _ in range(tries):
             with profile(activities=[ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=1, active=1,
@@ -237,18 +241,25 @@ def _child() -> None:
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-            us = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+            evs = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            us = [e.time_range.elapsed_us() for e in evs]
             if us and len(us) % REPS == 0:
+                for e in evs if by_name is not None else ():
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.time_range.elapsed_us() / REPS
+                                       / 1e3)
                 return sum(us) / REPS / 1e3
         return float("nan")
     # B7 takes the frame's width (2-D pixel tiles) since its search redesign
     b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
         reuse.candidates_cuda).parameters else {})
-    # B7 has a streamed build, which `_streamed=True` forces on tables
-    # that fit the staged one, since the many-light slice
+    # B7 had a streamed build, which `_streamed=True` forced on tables
+    # that fit the staged one, from the many-light slice until it became
+    # B7's one build (`search_launches`)
     forced = ({"_streamed": True} if "_streamed" in inspect.signature(
-        reuse.candidates_cuda).parameters else None)
+        reuse.candidates_cuda).parameters else
+        {} if hasattr(reuse, "search_launches") else None)
     # B1's wrapper takes the scene's MTBVH since the walk redesign
     takes_bvh = "bvh" in inspect.signature(
         fused_di.di_resident_cuda).parameters
@@ -258,7 +269,9 @@ def _child() -> None:
         return fused_di.di_resident_cuda(cam_vec, lcam_vec, looper, prev_pt,
                                          scene.tables, *bvh, **kw)
 
-    def timed(name, fn):
+    def timed(name, fn, parts=None):
+        """parts: {label: kernel name part}: also the device ms of those
+        kernels of the call alone, as "<name>: <label>"."""
         out = fn()
         for _ in range(WARMUP):
             fn()
@@ -275,7 +288,11 @@ def _child() -> None:
         end.record()
         torch.cuda.synchronize()
         ms[name] = start.elapsed_time(end) / REPS
-        dev_ms[name] = device_ms(fn)
+        by_name = {}
+        dev_ms[name] = device_ms(fn, by_name=by_name)
+        for label, part in (parts or {}).items():
+            dev_ms[f"{name}: {label}"] = ms[f"{name}: {label}"] = sum(
+                v for k, v in by_name.items() if part in k)
 
     def b13(hall, cam):
         """B13 and B14 on the hall (chip_smoke.py phase 19)."""
@@ -427,7 +444,7 @@ def _child() -> None:
     timed("B7 headline", lambda: reuse.candidates_cuda(
         gb, 1, scene.tables, scene.bvh, k=cfg.cdf_candidates,
         has_met=cfg.scene_has_metallic, **b7_tiles))
-    if forced:
+    if forced is not None:
         timed("B7 headline, streamed build forced", lambda: (
             reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
                                   k=cfg.cdf_candidates,
@@ -519,7 +536,7 @@ def _child() -> None:
                    has_met=cfg.scene_has_metallic, has_env=sky, **b7_tiles)
         timed(f"B7 {name}", lambda: reuse.candidates_cuda(
             gb, 1, scene.tables, scene.bvh, **ckw))
-        if forced:
+        if forced is not None:
             timed(f"B7 {name}, streamed build forced", lambda: (
                 reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh, **ckw,
                                       **forced)))
@@ -544,11 +561,11 @@ def _child() -> None:
             b13(scene, sf.make_camera())
         del scene
 
-    # B7's streamed build and B10 past the tables their first designs
-    # staged, where the tree renders them (a tree without refuses these
-    # tables), on many_light_scene(1225, 24) and (5000, 24): 2,450 and
-    # 10,000 light rows, as chip_smoke.py phase 29 builds their inputs
-    if hasattr(reuse, "streamed_launches"):
+    # B7 and B10 past the tables their first designs staged, where the
+    # tree renders them (a tree without refuses these tables), on
+    # many_light_scene(1225, 24) and (5000, 24): 2,450 and 10,000 light
+    # rows, as chip_smoke.py phase 29 builds their inputs
+    if forced is not None:
         for n_quads in (1225, 5000):
             ml_arrays, ml_kw = many_light_scene(n_quads, 24)
             scene = convert.scene_from_numpy(ml_arrays, dev)
@@ -562,16 +579,21 @@ def _child() -> None:
             gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
                                       height=HEIGHT)
             rows = 2 * n_quads
+            # the light search and each walk alone, where the tree
+            # launches them apart
             timed(f"B7 streamed, {rows} light rows", lambda: (
                 reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
                                       k=cfg.cdf_candidates,
                                       has_met=cfg.scene_has_metallic,
-                                      width=WIDTH)))
+                                      width=WIDTH)),
+                  {"search": "ris_search_kernel",
+                   "walk": "reuse_walk_kernel"})
             pack, _ = b10_input(scene, make_camera(**ml_kw), dev)
             timed(f"B10, {rows} light rows", lambda: (
                 ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
                                      k=cfg.cdf_candidates,
-                                     has_met=cfg.scene_has_metallic)))
+                                     has_met=cfg.scene_has_metallic)),
+                  {"search": "ris_search_kernel", "walk": "ris_cdf_kernel"})
             del scene, gb, pack
 
     def ray_order():
@@ -734,7 +756,9 @@ def main(trees) -> int:
         same = ("identical in every run" if len(letters) == 1
                 else f"by run {marks}")
         print(f"{name}: ms by run [{times}], device ms [{dtimes}] "
-              f"({' / '.join(trees)}); packs {same}")
+              f"({' / '.join(trees)}); " + (
+                  f"packs {same}" if letters else
+                  "device ms of those kernels of the call above"))
     flags = [np.load(os.path.join(flag_dir.name, f"run{i}.npz"))
              for i in range(len(runs))]
     for name in flags[0].files:

@@ -5,31 +5,30 @@
 // Replaces restir_tpu/ops/pallas/ris_kernel.py::_ris_kernel
 // (ris_cdf_pallas). The TPU kernel builds the [L, B] target matrix and its
 // CDF with bf16-split matmuls, then tests the winner's ray against every
-// triangle; here one thread runs B7's streamed light search
-// (ris_search.cuh, ris_select_seg without env rows: B1's RIS core with
-// the same per-light target, sequential CDF, K candidates and winner
-// pick, bit for bit) on a Surface built from the [14, R] input pack (pos,
-// normal, wo, material type / metallic / roughness, shade, primitive),
-// then walks the stackless MTBVH (bvh.cuh's occluded_walk on BvhRows)
-// with the TPU kernel's contract: origin pushed 1e-5 along wi, a hit
-// counts at 0 < t < dist (1 - 1e-3) - 1e-4 on a triangle other than the
-// pixel's own (shadow_ray, shadow_limit: B7's ray). The leaf test is
+// triangle; here two launches: B7's light search
+// (ris_search.cuh's ris_search_kernel without env rows: B1's RIS core
+// with the same per-light target, sequential CDF, K candidates and
+// winner pick, bit for bit) on a Surface built from the [14, R] input
+// pack (pos, normal, wo, material type / metallic / roughness, shade,
+// primitive) writes each pixel's candidate to the output pack, then
+// ris_cdf_kernel, one pixel a thread, walks the stackless MTBVH
+// (bvh.cuh's occluded_walk on BvhRows) with the TPU kernel's contract:
+// origin pushed 1e-5 along wi, a hit counts at 0 < t < dist (1 - 1e-3) -
+// 1e-4 on a triangle other than the pixel's own (shadow_ray,
+// shadow_limit: B7's ray). The leaf test is
 // plane_hit, the twin's, so the walk returns the every-row loop's
 // occlusion. The RNG is pcg4d on the global pixel index pix0 + p (pix0:
 // the first pixel of a row band, 0 for the whole frame), counters
 // CTR_RIS + j, salt SALT_RESTIR; the packs are read and written at p.
 //
 // The search reads the psi rows through a double buffer of kChunkRows
-// rows in shared memory (common.cuh, stream_rows), keeps a cdf
-// checkpoint every S rows for each thread beside it (S as B7's env-less
-// streamed build takes it, b7_seg: 8 at 128 rows, 64 at 2,450) and
-// re-scans one segment a candidate from device memory, so any light
-// count fits a block: n_l + K * S light targets a pixel. The first
-// designs staged both [l_pad, 16] tables in shared memory (more than
-// 1,792 rows did not fit) and scanned them twice, 2 l_pad targets; on
-// the tables they held the search writes their packs bit for bit and
-// ran 1.81 against 1.91 ms on the headline's 128 rows and 2.00 against
-// 1.98 on the hall's (PERF.md §6). Its targets and frame (ris_frame,
+// rows in shared memory (common.cuh, stream_rows), several pixels a
+// thread, keeps a cdf checkpoint every S rows for each pixel beside it
+// (b7_seg's spacing, B7's) and re-scans one segment a candidate from
+// device memory, so any light count fits a block: n_l + K * S light
+// targets a pixel. The first designs staged both [l_pad, 16] tables in
+// shared memory (more than 1,792 rows did not fit) and scanned them
+// twice, 2 l_pad targets. Its targets and frame (ris_frame,
 // light_target4: the FMA fusion spelled out), draws, candidates and
 // winner are B7's and round as ris_select's do: a copy of ris_select's
 // plain expressions, inlined into streamed loops, fused the total's adds
@@ -38,10 +37,9 @@
 // Bound: FMA throughput of the light targets (~32 FLOP each) and the K
 // candidates (~120 FLOP each), then the latency of the shadow walk's
 // dependent loads, as B7; the walk reads node and plane rows from global
-// memory through the read-only cache. Every thread of a block reaches
-// every barrier of the search, threads past r included. Lanes whose
-// winner carries no weight do not walk. The COUNT build also returns
-// each walk's box and plane tests.
+// memory through the read-only cache. Lanes whose winner carries no
+// weight do not walk. The COUNT build also returns each walk's box and
+// plane tests.
 #include "bvh.cuh"
 #include "ris_search.cuh"
 #if defined(PROBE_WALK)
@@ -53,7 +51,6 @@ using namespace restir;
 namespace {
 
 constexpr int BLOCK = 256;
-static_assert(BLOCK == PIX_BLOCK, "B7's streamed search: a float4 a thread");
 
 // input / output pack channels (ris_kernel.py:37-41)
 enum {
@@ -62,53 +59,68 @@ enum {
 };
 enum { O_LI = 0, O_WI = 3, O_DIST = 6, O_W = 7, O_M = 8, O_PAD = 9 };
 
+// The search reads a pixel's Surface from the input pack and writes its
+// candidate (the weight before visibility), M and the pad channel to the
+// output pack.
+struct CdfIo {
+  const float* __restrict__ in;
+  float* __restrict__ out;
+  int r, k;
+  __device__ __forceinline__ Surface surface(int p) const {
+    const float* g = in + p;
+    auto at = [&](int ch) { return g[(size_t)ch * r]; };
+    Surface s;
+    s.px = at(I_POS);
+    s.py = at(I_POS + 1);
+    s.pz = at(I_POS + 2);
+    s.nx = at(I_NORM);
+    s.ny = at(I_NORM + 1);
+    s.nz = at(I_NORM + 2);
+    s.dx = -at(I_WO);  // the Surface carries the ray direction, -wo
+    s.dy = -at(I_WO + 1);
+    s.dz = -at(I_WO + 2);
+    s.mtype = at(I_MTYPE);
+    s.metallic = at(I_METAL);
+    s.roughness = at(I_ROUGH);
+    s.shade = at(I_SHADE) > 0.5f;
+    s.prim = __float2int_rz(at(I_PRIM));
+    return s;
+  }
+  __device__ __forceinline__ void put(int p, const Surface& s,
+                                      const Candidate& c, int) const {
+    float* o = out + p;
+    auto set = [&](int ch, float val) { o[(size_t)ch * r] = val; };
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      set(O_LI + i, c.li[i]);
+      set(O_WI + i, c.wi[i]);
+    }
+    set(O_DIST, c.dist);
+    set(O_W, c.r_weight);
+    set(O_M, s.shade ? (float)k : 0.0f);
+    set(O_PAD, 0.0f);
+  }
+};
+
+// The walk: the shadow ray of the winner the search wrote to out, from
+// the input pack's shading point; an occluded winner's weight becomes 0.
+// Lanes whose winner carries no weight do not walk.
 template <bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
-    ris_cdf_kernel(const float* __restrict__ in, uint32_t looper,
-                   uint32_t pix0, const float* __restrict__ lights,
-                   const float* __restrict__ psi, int l_pad, int n_area,
-                   int seg, BvhRows bvh, float* __restrict__ out,
-                   int* __restrict__ stats, int r, int single_sided, int k,
-                   int has_met) {
-  extern __shared__ float4 smem4[];
+    ris_cdf_kernel(const float* __restrict__ in, BvhRows bvh,
+                   float* __restrict__ out, int* __restrict__ stats, int r) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // the search has barriers: a thread past r stays for them and returns
-  // after them
-  const bool live = p < r;
-  const float* g = in + p;
-  auto at = [&](int ch) { return live ? g[(size_t)ch * r] : 0.0f; };
+  if (p >= r) return;
   Surface s = {};
-  s.px = at(I_POS);
-  s.py = at(I_POS + 1);
-  s.pz = at(I_POS + 2);
-  s.nx = at(I_NORM);
-  s.ny = at(I_NORM + 1);
-  s.nz = at(I_NORM + 2);
-  s.dx = -at(I_WO);  // the Surface carries the ray direction, -wo
-  s.dy = -at(I_WO + 1);
-  s.dz = -at(I_WO + 2);
-  s.mtype = at(I_MTYPE);
-  s.metallic = at(I_METAL);
-  s.roughness = at(I_ROUGH);
-  s.shade = at(I_SHADE) > 0.5f;
-  s.prim = __float2int_rz(at(I_PRIM));
-  // the chunk buffer, then this thread's column of checkpoints
-  const LightStage st = {reinterpret_cast<const float4*>(psi),
-                         nullptr,
-                         nullptr,
-                         reinterpret_cast<float*>(smem4 + 2 * BLOCK) +
-                             threadIdx.x,
-                         (int)blockDim.x,
-                         n_area,
-                         n_area,
-                         seg,
-                         smem4};
-  int evaluated = 0;
-  const Candidate c = ris_select_seg<false, false, true>(
-      st, lights, l_pad, pix0 + (uint32_t)p, looper, k, single_sided,
-      has_met, s, evaluated, live);
-  if (!live) return;
-
+  s.px = in[(size_t)I_POS * r + p];
+  s.py = in[(size_t)(I_POS + 1) * r + p];
+  s.pz = in[(size_t)(I_POS + 2) * r + p];
+  s.prim = __float2int_rz(in[(size_t)I_PRIM * r + p]);
+  Candidate c = {};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) c.wi[i] = out[(size_t)(O_WI + i) * r + p];
+  c.dist = out[(size_t)O_DIST * r + p];
+  c.r_weight = out[(size_t)O_W * r + p];
   WalkCount n = {0, 0};
 #if defined(PROBE_WALK)
   if (PROBE_WALK == 2) n = {stats[p], stats[(size_t)r + p]};
@@ -121,17 +133,7 @@ __global__ void __launch_bounds__(BLOCK)
       c.r_weight > 0.0f && occluded_walk<COUNT>(bvh, shadow_ray(s, c),
                                                 shadow_limit(c), s.prim, n);
 #endif
-  float* o = out + p;
-  auto put = [&](int ch, float val) { o[(size_t)ch * r] = val; };
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    put(O_LI + i, c.li[i]);
-    put(O_WI + i, c.wi[i]);
-  }
-  put(O_DIST, c.dist);
-  put(O_W, blocked ? 0.0f : c.r_weight);
-  put(O_M, s.shade ? (float)k : 0.0f);
-  put(O_PAD, 0.0f);
+  if (blocked) out[(size_t)O_W * r + p] = 0.0f;
   if (COUNT) {
     stats[p] = n.boxes;
     stats[(size_t)r + p] = n.tris;
@@ -141,23 +143,24 @@ __global__ void __launch_bounds__(BLOCK)
 template <bool COUNT>
 int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
                    const float* lights, const float* psi, int l_pad,
-                   int n_area, const BvhRows& bvh, float* out, int* stats,
-                   int r, int single_sided, int k, int has_met,
+                   int n_area, int parts, const BvhRows& bvh, float* out,
+                   int* stats, int r, int single_sided, int k, int has_met,
                    cudaStream_t stream) {
   int seg;
-  cudaError_t e = b7_seg(n_area, false, true, &seg);
+  cudaError_t e = b7_seg(n_area, false, &seg);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = b7_smem(n_area, false, seg, true);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(ris_cdf_kernel<COUNT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (parts & 1) {
+    e = launch_ris_search<false, false>(CdfIo{in, out, r, k}, lights, psi,
+                                        l_pad, n_area, seg, pix0, looper, r,
+                                        single_sided, k, has_met, stream);
     if (e != cudaSuccess) return (int)e;
   }
-  ris_cdf_kernel<COUNT><<<(r + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
-      in, looper, pix0, lights, psi, l_pad, n_area, seg, bvh, out, stats, r,
-      single_sided, k, has_met);
-  return (int)cudaGetLastError();
+  if (parts & 2) {
+    ris_cdf_kernel<COUNT><<<(r + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+        in, bvh, out, stats, r);
+    e = cudaGetLastError();
+  }
+  return (int)e;
 }
 
 }  // namespace
@@ -168,25 +171,26 @@ int launch_ris_cdf(const float* in, uint32_t looper, uint32_t pix0,
 // out [10, R]: li (3), wi (3), dist, weight (zero when the winner is
 // occluded), M, 0. stats: null, or int32 [2, R] that receives each
 // shadow walk's box and plane test counts. pix0: the global index of
-// pixel 0 of the pack, the key of its draws.
+// pixel 0 of the pack, the key of its draws. parts: 1 the search (out
+// before visibility), 2 the walk (on the out the search wrote), 3 both.
 extern "C" int restir_ris_cdf(const float* in, uint32_t looper,
                               uint32_t pix0, const float* lights,
                               const float* psi, int l_pad, int n_area,
-                              const float* rows, int size,
+                              int parts, const float* rows, int size,
                               const float* planes, float* out,
                               int* stats, int r, int single_sided, int k,
                               int has_met, void* stream_) {
   if (k < 1 || k > MAX_K || r <= 0 || l_pad <= 0 || size <= 0 ||
-      n_area < 0 || n_area > l_pad)
+      n_area < 0 || n_area > l_pad || parts < 1 || parts > 3)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(psi) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   const BvhRows bvh = {reinterpret_cast<const float4*>(rows), planes, size};
   const cudaStream_t st = (cudaStream_t)stream_;
   return stats ? launch_ris_cdf<true>(in, looper, pix0, lights, psi, l_pad,
-                                      n_area, bvh, out, stats, r,
+                                      n_area, parts, bvh, out, stats, r,
                                       single_sided, k, has_met, st)
                : launch_ris_cdf<false>(in, looper, pix0, lights, psi, l_pad,
-                                       n_area, bvh, out, stats, r,
+                                       n_area, parts, bvh, out, stats, r,
                                        single_sided, k, has_met, st);
 }

@@ -19,22 +19,23 @@ its previous pack with +-`window` halos and that pack's first global
 pixel `prev_base`, as the JAX `reuse_pallas(pix0=, prev_base=, window=)`.
 
 B7 finds its K picks with a search that evaluates each light row about
-once (`csrc/reuse_bvh.cu`): pass 1 sums the light targets in row order
-and keeps the running cdf after every S-th row (the kernel picks S for
-the card, `seg_cuda`; `seg_for` is its host mirror: 8 or 16 on an H100),
-then each pick re-scans only the segment whose checkpoint first exceeds
-its threshold. The adds are the full two-pass scan's, in its order, so
-the picks are its picks bit for bit. `ris_search` / `search_seg` and
-`search_full` mirror the two on CPU tensors (sequential float32 adds
-over rows, vectorised over pixels) for the tests.
-
-Light tables whose staged build would pass a block's shared memory
-(`SMEM_MAX`: more than about 2,400 area lights) take B7's streamed build:
-pass 1 reads the area rows through a double buffer of `CHUNK_ROWS` rows,
-S grows past `SEGS` until the checkpoints fit (`seg_for(...,
-streamed=True)`), and each pick re-scans its segment from device memory.
-It picks the same rows bit for bit. The wrapper picks the build from the
-table size (`streamed_for`); nothing else chooses it.
+once, a kernel of its own that B10 shares (`csrc/ris_search.cuh`): pass
+1 sums the light targets in row order and keeps the running cdf after
+every S-th row, then each pick re-scans only the segment whose
+checkpoint first exceeds its threshold. The adds are the full two-pass
+scan's, in its order, so the picks are its picks bit for bit. The search
+streams the psi rows through a double buffer of `CHUNK_ROWS` rows in
+shared memory, `SEARCH_P` pixels a thread, each row read once for all of
+a thread's pixels, so any light count fits a block; S is the smallest
+multiple of `GROUP` whose checkpoints fit (the kernel picks S for the
+card, `seg_cuda`; `seg_for` is its host mirror: 8 on 128 light rows, 16
+on 640 with the env tiles, 48 on 2,450, 200 on 10,000); each pick
+re-scans its segment from device memory. It writes each pixel's
+candidate to rs; the shadow walk, a second launch, zeroes an occluded
+winner's weight. `ris_search` /
+`search_streamed` (the kernel's blocks, chunks and groups), `search_seg`
+and `search_full` mirror the search on CPU tensors (sequential float32
+adds over rows, vectorised over pixels) for the tests.
 """
 
 from __future__ import annotations
@@ -53,80 +54,62 @@ from .fused_di import (
     MAX_K,
     PT_CH,
     RS_CH,
-    SMEM_MAX,
     _check,
     _fma32,
     light_target_rows,
     ris_frame,
 )
-from .gbuffer import BLOCK, _check_bvh
+from .gbuffer import _check_bvh
 from .tables import BvhTables, ResidentTables
 
-launches = 0  # launches of reuse_bvh's staged build
-streamed_launches = 0  # launches of its streamed build
+launches = 0  # B7 launches (its walk)
+search_launches = 0  # launches of the light search (B7 and B10)
 
 N_ENV = ENV_TH * ENV_TW  # env-tile light rows after the area lights
-# Host mirror of csrc/reuse_bvh.cu's b7_seg, for the CPU search and the
-# tests: kSegs, kChunkRows, the blocks per SM of its launch bounds
-# (kBlocksPerSm, kBlocksPerSmEnv) and an H100 SM's shared memory. The
-# tests hold the first three against the source and the mirror against
-# the kernel's S.
-SEGS = (8, 16, 32)  # light rows per cdf checkpoint of the staged build
-CHUNK_ROWS = 64  # area rows a chunk of the streamed build's pass 1
-BLOCKS_PER_SM = {False: 4, True: 3}  # by env build
+# Host mirror of csrc/ris_search.cuh's b7_seg, for the CPU search and the
+# tests: the search's shape (kSearchBlock, kSearchP, kSearchBlocks,
+# kChunkRows, kGroup) and an H100 SM's shared memory. The tests hold
+# these against the source and the mirror against the kernel's S.
+SEARCH_BLOCK = 256  # threads a block of the search
+SEARCH_P = 2  # pixels a thread
+SEARCH_BLOCKS_PER_SM = 2  # blocks an SM of its launch bounds
+CHUNK_ROWS = 64  # area rows a chunk of its pass 1
+GROUP = 8  # rows of an unrolled group; S is a multiple
 SMEM_SM = 233472  # shared memory of one Hopper SM (bytes)
 SMEM_BLOCK_RESERVED = 1024  # shared memory the system keeps per block
 
 
-def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int,
-               streamed: bool = False) -> int:
-    """B7's shared memory per block: the area lights' psi rows (64 B;
-    streamed: the double buffer of 2 x CHUNK_ROWS rows), the env tiles'
-    compact rows (d_tile, radius | luminance: 20 B) and one cdf
-    checkpoint per `seg` rows for each of the BLOCK threads."""
+def smem_bytes(n_area: int, has_env: bool, n_live: int, seg: int) -> int:
+    """The search's shared memory per block: the double buffer of 2 x
+    CHUNK_ROWS psi rows (64 B), the env tiles' compact rows (d_tile,
+    radius | luminance: 20 B) and one cdf checkpoint per `seg` rows for
+    each of the block's SEARCH_BLOCK x SEARCH_P pixels."""
     n_env = N_ENV if has_env else 0
-    rows = 2 * CHUNK_ROWS if streamed else n_area
-    return rows * 64 + n_env * 20 + -(-n_live // seg) * BLOCK * 4
+    return (2 * CHUNK_ROWS * 64 + n_env * 20
+            + -(-n_live // seg) * SEARCH_BLOCK * SEARCH_P * 4)
 
 
-def seg_for(n_area: int, has_env: bool, streamed: bool = False) -> int:
+def seg_for(n_area: int, has_env: bool) -> int:
     """B7's checkpoint spacing on an H100 (the host mirror of the
-    kernel's b7_seg): the smallest whose checkpoints still leave room in
-    shared memory for the blocks per SM its launch bounds ask for. The
-    staged build takes one of SEGS (each pick re-scans that many rows),
-    else the largest: 8 on 128 light rows, 16 on 640 (128 area lights and
-    the env tiles). The streamed build doubles S from SEGS[0] until it
-    fits: 64 on 2,450 area rows, 256 on 10,000."""
+    kernel's b7_seg): the smallest multiple of GROUP whose checkpoints
+    still leave room in shared memory for the search's blocks per SM
+    (each pick re-scans that many rows): 8 on 128 light rows, 16 on 640
+    (128 area lights and the env tiles), 48 on 2,450 area rows, 200 on
+    10,000."""
     n_live = n_area + (N_ENV if has_env else 0)
-    cap = SMEM_SM // BLOCKS_PER_SM[has_env] - SMEM_BLOCK_RESERVED
-    if streamed:
-        seg = SEGS[0]
-        while (seg < n_live and
-               smem_bytes(n_area, has_env, n_live, seg, True) > cap):
-            seg *= 2
-        return seg
-    for seg in SEGS:
-        if smem_bytes(n_area, has_env, n_live, seg) <= cap:
-            return seg
-    return SEGS[-1]
+    cap = SMEM_SM // SEARCH_BLOCKS_PER_SM - SMEM_BLOCK_RESERVED
+    seg = GROUP
+    while seg < n_live and smem_bytes(n_area, has_env, n_live, seg) > cap:
+        seg += GROUP
+    return seg
 
 
-def streamed_for(n_area: int, has_env: bool, seg: int | None = None) -> bool:
-    """Whether B7 takes its streamed build: when the staged build, at its
-    spacing `seg` (by default the host mirror's), would pass SMEM_MAX."""
-    n_live = n_area + (N_ENV if has_env else 0)
-    if seg is None:
-        seg = seg_for(n_area, has_env)
-    return smem_bytes(n_area, has_env, n_live, seg) > SMEM_MAX
-
-
-def seg_cuda(n_area: int, has_env: bool, device=None,
-             streamed: bool = False) -> int:
-    """The checkpoint spacing B7's build (staged, or `streamed`) takes on
-    `device` (the current CUDA device when None; its b7_seg)."""
+def seg_cuda(n_area: int, has_env: bool, device=None) -> int:
+    """The checkpoint spacing B7's search takes on `device` (the current
+    CUDA device when None; its b7_seg)."""
     lib = _build.library()
     with _build.on_device(device):
-        seg = lib.restir_reuse_bvh_seg(n_area, int(has_env), int(streamed))
+        seg = lib.restir_reuse_bvh_seg(n_area, int(has_env))
     if seg < 0:
         _build.check(-seg, "restir_reuse_bvh_seg")
     return seg
@@ -203,16 +186,87 @@ def search_seg(t, n_live, thr, seg):
     one segment whose checkpoint first exceeds thr_j. Returns (idx [k, b],
     tq [k, b], total [b], targets evaluated per pixel [b]); equal to
     `search_full` bit for bit when every target is >= 0."""
-    b, l_pad = t.shape
-    k = thr.shape[0]
-    dev = t.device
-    cdf = torch.zeros(b, dtype=torch.float32, device=dev)
+    cdf = torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
     ck = []
     for l in range(n_live):
         cdf = cdf + t[:, l]
         if (l + 1) % seg == 0 or l == n_live - 1:
             ck.append(cdf)
-    total = cdf
+    return _picks(t, n_live, thr, seg, ck)
+
+
+def search_streamed(t, n_area, n_live, thr, seg, p=SEARCH_P,
+                    block=SEARCH_BLOCK):
+    """The search kernel's form of `search_seg` (rows [0,
+    n_area) area rows, [n_area, n_live) env rows): the pixels in blocks of
+    `block` threads, pixel q of thread i at q * block + i of its block;
+    pass 1 adds each row for a thread's `p` pixels, the area rows chunk by
+    chunk of CHUNK_ROWS in groups of GROUP, testing for a checkpoint once
+    a group, the env rows in groups from the first multiple of GROUP, and
+    keeps pixel q's checkpoint c in column q * block + i of the block's
+    row c; the picks read each pixel's column back. Equal to
+    `search_full` bit for bit when every target is >= 0."""
+    b, _ = t.shape
+    dev = t.device
+    pixels = block * p
+    n_blocks = -(-b // pixels)
+    # [block, p, thread] pixels; the ragged tail's pixels hold target 0
+    tb = torch.zeros((n_blocks * pixels, t.shape[1]), dtype=torch.float32,
+                     device=dev)
+    tb[:b] = t
+    tb = tb.view(n_blocks, p, block, -1)
+    cdf = torch.zeros((n_blocks, p, block), dtype=torch.float32, device=dev)
+    rows = []  # checkpoint rows [n_blocks, p * block]
+
+    def add(l):
+        nonlocal cdf
+        cdf = cdf + tb[..., l]
+
+    def store():
+        rows.append(cdf.reshape(n_blocks, pixels))
+
+    for l0 in range(0, n_area, CHUNK_ROWS):
+        n = min(CHUNK_ROWS, n_area - l0)
+        i = 0
+        while i + GROUP <= n:
+            for u in range(GROUP):
+                add(l0 + i + u)
+            i += GROUP
+            if (l0 + i) % seg == 0:
+                store()
+        for l in range(l0 + i, l0 + n):  # the table's last rows
+            add(l)
+    l = n_area
+    while l < n_live and l % GROUP:
+        add(l)
+        l += 1
+    if l > n_area and l % GROUP == 0 and l % seg == 0:
+        store()
+    while l + GROUP <= n_live:
+        for u in range(GROUP):
+            add(l + u)
+        l += GROUP
+        if l % seg == 0:
+            store()
+    for l in range(l, n_live):
+        add(l)
+    if n_live % seg:
+        store()
+    # pixel j's checkpoints: its block's rows at its column
+    j = torch.arange(b, device=dev)
+    blk, col = j // pixels, j % pixels
+    ck = [r[blk, col] for r in rows]
+    return _picks(t, n_live, thr, seg, ck)
+
+
+def _picks(t, n_live, thr, seg, ck):
+    """The K picks of `search_seg` from pass 1's checkpoints ck (the cdf
+    after every seg-th row and after the last, [b] each)."""
+    b, l_pad = t.shape
+    k = thr.shape[0]
+    dev = t.device
+    total = ck[-1] if ck else torch.zeros(b, dtype=torch.float32,
+                                          device=dev)
     # ck0[:, c]: the cdf before segment c
     ck0 = torch.stack([torch.zeros_like(total)] + ck, dim=1)
     t_last = (t[:, l_pad - 1] if n_live == l_pad else
@@ -247,17 +301,19 @@ def search_seg(t, n_live, thr, seg):
 def ris_search(gb, pix, looper, tables: ResidentTables, *, k, single_sided,
                has_env=False, seg=None):
     """B7's picks for the gb columns of pixels `pix`: (idx [k, b], tq [k,
-    b], total [b], targets evaluated per pixel [b]); `seg` defaults to the
-    kernel's (`seg_for` of the build `streamed_for` picks)."""
+    b], total [b], targets evaluated per pixel [b]), as the search kernel
+    runs it (`search_streamed`); `seg` defaults to the kernel's
+    (`seg_for`)."""
     t, n_live = search_targets(gb, tables, single_sided=single_sided,
                                has_env=has_env)
+    n = tables.n_lights
     if seg is None:
-        n = tables.n_lights
-        seg = seg_for(n, has_env, streamed_for(n, has_env))
+        seg = seg_for(n, has_env)
     cdf = torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
     for l in range(n_live):
         cdf = cdf + t[:, l]
-    return search_seg(t, n_live, thresholds(pix, looper, k, cdf), seg)
+    thr = thresholds(pix, looper, k, cdf)
+    return search_streamed(t, n, n_live, thr, seg)
 
 
 def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
@@ -293,7 +349,7 @@ def reuse_ref(gb, prev_pt, looper, tables: ResidentTables, *, k=4,
 def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
                     width, k=4, single_sided=True, has_met=True,
                     has_env=False, stats=False, pix0=0, lib=None,
-                    counts=None, _streamed=None):
+                    counts=None, _parts=3):
     """Launch `csrc/reuse_bvh.cu` alone: rs [RS_CH, r] (li, wi, dist, W
     after visibility) for gb's r pixels from global pixel `pix0` of a
     frame `width` pixels wide (the whole frame by default), on 2-D pixel
@@ -302,22 +358,20 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     targets each pixel evaluated. `lib`: a library of a stage probe's
     build (`_build.variant_library`) in place of the main one; `counts`:
     an int32 [3, r] buffer passed as the counts (the "fixed-node" probe
-    reads the full walk's counts from it). The build follows the table
-    size (`streamed_for`); `_streamed` forces one (tests and the card's
-    checks)."""
-    global launches, streamed_launches
+    reads the full walk's counts from it). B7 launches its search, then
+    its walk; `_parts=1` launches the search alone: rs before visibility
+    (the card's checks of the search against its twin)."""
+    global launches, search_launches
     r = gb.shape[1]
     dev = gb.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if width <= 0 or pix0 < 0:
         raise ValueError(f"width={width} or pix0={pix0} out of range")
+    if _parts not in (1, 3):
+        raise ValueError(f"_parts={_parts}")
     lights, psi = tables.light_rows(has_env)
     l_pad = psi.shape[0]
-    streamed = _streamed
-    if streamed is None:
-        streamed = streamed_for(tables.n_lights, has_env,
-                                seg_cuda(tables.n_lights, has_env, dev))
     _check(gb, "gb", (GB_CH, r), dev)
     _check(lights, "lights", psi.shape, dev)
     _check(psi, "psi", psi.shape, dev)
@@ -330,15 +384,12 @@ def candidates_cuda(gb, looper, tables: ResidentTables, bvh: BvhTables, *,
     with _build.on_device(dev):
         err = lib.restir_reuse_bvh(
             p(gb), ctypes.c_uint32(looper & 0xFFFFFFFF), p(lights), p(psi),
-            l_pad, tables.n_lights, int(has_env), int(streamed),
-            p(bvh.rows), bvh.size, p(bvh.planes), p(rs), p(counts), r,
-            width, pix0, int(single_sided), k, int(has_met),
-            _build.stream_of(dev))
+            l_pad, tables.n_lights, int(has_env), _parts, p(bvh.rows),
+            bvh.size, p(bvh.planes), p(rs), p(counts), r, width, pix0,
+            int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_reuse_bvh")
-    if streamed:
-        streamed_launches += 1
-    else:
-        launches += 1
+    search_launches += 1
+    launches += _parts == 3
     return (rs, counts) if counts is not None else rs
 
 

@@ -18,12 +18,13 @@ Both take `pix0`, the global index of the pack's first pixel: a row band
 (`restir_tpu_torch.parallel`) draws its pixel p's candidates as pixel
 pix0 + p of the whole frame, and reads and writes the packs at p.
 
-The kernel finds its K picks with B7's streamed light search
-(`csrc/ris_search.cuh`; `reuse`'s module note): the psi rows pass
-through a double buffer in shared memory with a cdf checkpoint every S
-rows (`reuse.seg_for(n, False, streamed=True)`) and each candidate
-re-scans one segment from device memory, so any light count fits a
-block (`smem_bytes`). It picks what a full scan picks, bit for bit.
+The kernel finds its K picks with B7's light search
+(`csrc/ris_search.cuh`; `reuse`'s module note), a launch of its own
+before the walk: the psi rows pass through a double buffer in shared
+memory, several pixels a thread, with a cdf checkpoint every S rows
+(`reuse.seg_for(n, False)`) and each candidate re-scans one segment from
+device memory, so any light count fits a block (`smem_bytes`). It picks
+what a full scan picks, bit for bit.
 
 CUDA tensors launch the kernel, CPU tensors take the plain version.
 """
@@ -50,7 +51,7 @@ from .fused_di import (
 from .gbuffer import _check_bvh
 from .tables import BvhTables, ResidentTables
 
-launches = 0  # B10 launches
+launches = 0  # B10 launches (the walk; its search counts in reuse)
 
 # input pack [CIN, R] and output pack [COUT, R] (ris_kernel.py:37-41)
 IN_POS, IN_NORM, IN_WO = 0, 3, 6
@@ -110,20 +111,21 @@ def ris_cdf_ref(pack, looper, tables: ResidentTables, *, k=4,
 
 def smem_bytes(n_area: int) -> int:
     """B10's shared memory per block over n_area light rows: B7's
-    env-less streamed search, its double buffer of psi rows and its
-    checkpoints (`reuse.smem_bytes` at `reuse.seg_for(n_area, False,
-    streamed=True)`)."""
-    seg = reuse.seg_for(n_area, False, streamed=True)
-    return reuse.smem_bytes(n_area, False, n_area, seg, streamed=True)
+    env-less light search, its double buffer of psi rows and its
+    checkpoints (`reuse.smem_bytes` at `reuse.seg_for(n_area, False)`)."""
+    return reuse.smem_bytes(n_area, False, n_area,
+                            reuse.seg_for(n_area, False))
 
 
 def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
                  k=4, single_sided=True, has_met=True, pix0=0, stats=False,
-                 lib=None, counts=None):
+                 lib=None, counts=None, _parts=3):
     """B10 on the card: the [COUT, R] output pack, pixel p drawn as
     global pixel pix0 + p. With `stats`, also the int32 [2, R] box and
     plane test counts of each shadow walk. `lib` and `counts` as
-    `reuse.candidates_cuda`'s (the stage probes)."""
+    `reuse.candidates_cuda`'s (the stage probes). B10 launches the
+    light search, then its walk; `_parts=1` launches the search alone:
+    the pack before visibility (the card's checks of the search)."""
     global launches
     r = pack.shape[1]
     dev = pack.device
@@ -131,6 +133,8 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
         raise ValueError(f"k={k} outside [1, {MAX_K}]")
     if pix0 < 0:
         raise ValueError(f"pix0 {pix0} < 0")
+    if _parts not in (1, 3):
+        raise ValueError(f"_parts={_parts}")
     if pack.dtype != torch.float32 or tuple(pack.shape) != (CIN, r):
         raise ValueError(f"input pack: expected float32 [{CIN}, {r}]")
     lights, psi = tables.lights, tables.psi
@@ -148,10 +152,11 @@ def ris_cdf_cuda(pack, looper, tables: ResidentTables, bvh: BvhTables, *,
         err = (lib or _build.library()).restir_ris_cdf(
             p(pack), ctypes.c_uint32(looper & 0xFFFFFFFF),
             ctypes.c_uint32(pix0), p(lights), p(psi), l_pad, tables.n_lights,
-            p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts), r,
-            int(single_sided), k, int(has_met), _build.stream_of(dev))
+            _parts, p(bvh.rows), bvh.size, p(bvh.planes), p(out), p(counts),
+            r, int(single_sided), k, int(has_met), _build.stream_of(dev))
     _build.check(err, "restir_ris_cdf")
-    launches += 1
+    reuse.search_launches += 1
+    launches += _parts == 3
     return (out, counts) if counts is not None else out
 
 

@@ -27,10 +27,11 @@ from . import _scenes, _timing, _trace
 from .prof_vissplit import NOTES, b7_calls
 
 FRAMES = 5
-KERNELS = {"B6": "gbuffer_bvh_kernel", "B7": "reuse_bvh_kernel",
-           "B1b": "di_temporal_kernel", "B2": "spatial_shade_kernel",
-           "B3": "atrous_eaw_kernel"}
-LAUNCHES = {"B6": 1, "B7": 1, "B1b": 1, "B2": 1, "B3": 5}
+KERNELS = {"B6": "gbuffer_bvh_kernel", "B7 search": "ris_search_kernel",
+           "B7 walk": "reuse_walk_kernel", "B1b": "di_temporal_kernel",
+           "B2": "spatial_shade_kernel", "B3": "atrous_eaw_kernel"}
+LAUNCHES = {"B6": 1, "B7 search": 1, "B7 walk": 1, "B1b": 1, "B2": 1,
+            "B3": 5}
 # pieces that run inside another wrapped piece ("B7 + B1b twin",
 # `reuse.reuse`, calls both wrappers): left out of the sum of the pieces
 NESTED = ("B7 wrapper", "B1b wrapper")

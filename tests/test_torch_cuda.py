@@ -10,9 +10,9 @@ radix sort, the walk through the permutation) at several batch sizes,
 on edge-case rays and on a batch of dead lanes;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
-without B12's mask of live lanes; B7's streamed build equal to its
-staged build bit for bit, B7 and B10 against their twins on 2,450 light
-rows, and through renderer.step there.
+without B12's mask of live lanes; B7's light search alone against its
+twin, B7 and B10 against their twins on 2,450 light rows, and through
+renderer.step there.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -394,10 +394,12 @@ def test_b7_search_equals_cpu_mirror(ragged, env_tex, k):
 
 @pytest.mark.parametrize("n_area,has_env", [(128, False), (128, True),
                                             (4, True), (2000, False),
-                                            (2000, True)])
+                                            (2000, True), (2450, False),
+                                            (2200, True), (10000, False)])
 def test_b7_seg_matches_host_mirror(cuda_device, n_area, has_env):
     """The spacing B7 takes on the card (b7_seg) equals `reuse.seg_for`,
-    the host mirror the CPU search and the tests use."""
+    the host mirror the CPU search and the tests use, also past the
+    tables a block could stage whole."""
     assert reuse.seg_cuda(n_area, has_env) == reuse.seg_for(n_area, has_env)
 
 
@@ -1568,7 +1570,7 @@ def test_general_row_bands_on_one_card(cuda_device, case):
     assert float(out[n][-1].mean()) > 0.0
 
 
-# ---- B7's streamed build and B10: light tables past shared memory
+# ---- B7's light search and B10: light tables past shared memory
 
 
 def _b10_input(scene, cam, w=W, h=H, looper=5):
@@ -1598,32 +1600,44 @@ def _b10_twin_gates(k, r, shade):
 
 
 @pytest.mark.parametrize("k", [1, 4])
-def test_b7_streamed_equals_staged(ragged, env_tex, k):
-    """B7's streamed build, forced on tables that fit, writes the staged
-    build's packs and counts bit for bit (128 rows on a ragged frame, 640
-    with the env tiles), launching once on its own count."""
+def test_streamed_search_matches_twin(ragged, env_tex, k):
+    """The light search kernel alone (`_parts=1`; 128 rows on a ragged
+    frame, 640 with the env tiles): each pixel evaluates the light
+    targets its CPU mirror
+    (`reuse.search_streamed`) evaluates, its candidates meet the twin's
+    (`fused_di.ris_all`) pick and weight gates, and the walk after it
+    changes only the weights of occluded winners."""
     for scene, gb, w, has_env in _b7_frames(ragged, env_tex):
+        t = scene.tables
         kw = dict(width=w, k=k, has_env=has_env, stats=True)
-        rs0, c0 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
-                                        _streamed=False, **kw)
-        before = (reuse.launches, reuse.streamed_launches)
-        rs1, c1 = reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
-                                        _streamed=True, **kw)
-        assert (reuse.launches, reuse.streamed_launches) == (
-            before[0], before[1] + 1)
-        assert torch.equal(rs0.view(torch.int32), rs1.view(torch.int32))
-        assert torch.equal(c0, c1)
-
-
-@pytest.mark.parametrize("n_area,has_env", [(2450, False), (2200, True),
-                                            (10000, False)])
-def test_b7_streamed_seg_matches_host_mirror(cuda_device, n_area, has_env):
-    """The streamed build's spacing on the card equals the host mirror's,
-    and the wrapper picks that build for these tables."""
-    assert reuse.streamed_for(n_area, has_env, reuse.seg_cuda(n_area,
-                                                              has_env))
-    assert (reuse.seg_cuda(n_area, has_env, streamed=True)
-            == reuse.seg_for(n_area, has_env, streamed=True))
+        before = (reuse.search_launches, reuse.launches)
+        rs, st = reuse.candidates_cuda(gb, 1, t, scene.bvh, _parts=1, **kw)
+        assert (reuse.search_launches, reuse.launches) == (
+            before[0] + 1, before[1])
+        pix = torch.arange(gb.shape[1], device=gb.device)
+        seg = reuse.seg_cuda(t.n_lights, has_env)
+        _, _, _, evaluated = reuse.ris_search(
+            gb, pix, 1, t, k=k, single_sided=True, has_env=has_env,
+            seg=seg)
+        assert torch.equal(st[2].long(), evaluated)
+        li, wi, dist, wt = fused_di.ris_all(gb, pix, 1, t, k=k,
+                                            single_sided=True, has_met=True,
+                                            has_env=has_env)
+        shade = gb[fused_di.G_SHADE] > 0.5
+        pick = (torch.all(rs[fused_di.RS_LI:fused_di.RS_LI + 3] == li, 0)
+                & torch.all(torch.isclose(
+                    rs[fused_di.RS_WI:fused_di.RS_WI + 3], wi, rtol=2e-4,
+                    atol=1e-5), 0))
+        assert float(pick[shade].float().mean()) >= 0.995
+        ok = pick & shade
+        assert float(torch.isclose(rs[fused_di.RS_W][ok], wt[ok], rtol=2e-4,
+                                   atol=1e-7).float().mean()) >= 0.999
+        full = reuse.candidates_cuda(gb, 1, t, scene.bvh, **kw)[0]
+        w_ch = fused_di.RS_W
+        assert torch.equal(full[:w_ch], rs[:w_ch])
+        kept = full[w_ch] == rs[w_ch]
+        assert bool((kept | (full[w_ch] == 0.0)).all())
+        assert float(kept.float().mean()) > 0.5
 
 
 @pytest.fixture(scope="module")
@@ -1635,24 +1649,24 @@ def many(cuda_device):
 
 
 def test_b7_streamed_matches_twin_at_many_lights(many):
-    """B7 takes its streamed build on 2,450 light rows; with B1b it meets
-    its twin under the pack gates, and each pixel evaluates between n_l
-    and n_l + k * S light targets."""
+    """B7 on 2,450 light rows launches its search and its walk once each;
+    with B1b it meets its twin under the pack gates, and each pixel
+    evaluates between n_l and n_l + k * S light targets."""
     _, scene, camkw = many
     cv0 = pack_camera(make_camera(**camkw), scene.tables.psi.device)
     gb = gbuffer.gbuffer_cuda(cv0, cv0, 3, scene.bvh, width=W, height=H)
     prev = torch.zeros((fused_di.PT_CH, R), device=gb.device)
-    before = (reuse.launches, reuse.streamed_launches)
+    before = (reuse.launches, reuse.search_launches)
     pt_k = reuse.reuse_cuda(gb, prev, 3, scene.tables, scene.bvh, width=W)
-    assert (reuse.launches, reuse.streamed_launches) == (
-        before[0], before[1] + 1)
+    assert (reuse.launches, reuse.search_launches) == (
+        before[0] + 1, before[1] + 1)
     pt_r = reuse.reuse_ref(gb, prev, 3, scene.tables)
     fails, stats = parity.pt_report(pt_r, pt_k)
     assert not fails, (fails, stats)
     _, st = reuse.candidates_cuda(gb, 3, scene.tables, scene.bvh, width=W,
                                   stats=True)
     n_l = scene.tables.n_lights
-    seg = reuse.seg_cuda(n_l, False, streamed=True)
+    seg = reuse.seg_cuda(n_l, False)
     assert int(st[2].min()) >= n_l and int(st[2].max()) <= n_l + 4 * seg
 
 
@@ -1671,8 +1685,8 @@ def test_b10_matches_twin_at_many_lights(many):
 @pytest.mark.parametrize("fused", [True, False])
 def test_many_lights_renderer_step(many, fused):
     """Fused and general RESTIR_DI through renderer.step on 2,450 light
-    rows: each frame launches B7's streamed build (fused) or B10
-    (general) once and is finite and lit."""
+    rows: each frame launches B7 (fused) or B10 (general) once, and the
+    light search once, and is finite and lit."""
     from restir_tpu_torch.config import mat_flags
 
     arrays, scene, camkw = many
@@ -1681,10 +1695,10 @@ def test_many_lights_renderer_step(many, fused):
     cam = make_camera(**camkw)
     state = renderer.init_state(cfg, cam, scene if fused else None,
                                 device=scene.tables.psi.device)
-    before = (reuse.streamed_launches, ris_cdf.launches)
+    before = (reuse.launches, ris_cdf.launches, reuse.search_launches)
     for _ in range(3):
         state, frame = renderer.step(scene, state, cam, cfg)
-    assert (reuse.streamed_launches - before[0],
-            ris_cdf.launches - before[1]) == (
-        (3, 0) if fused else (0, 3))
+    assert (reuse.launches - before[0], ris_cdf.launches - before[1],
+            reuse.search_launches - before[2]) == (
+        (3, 0, 3) if fused else (0, 3, 3))
     assert bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.0

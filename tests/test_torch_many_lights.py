@@ -2,11 +2,12 @@
 CPU, against the JAX package.
 
 many_light_scene(1225, 24) has 2,450 light rows and 2,748 triangles: past
-B7's staged build (2,416 area rows) and the tables B10's first design
-staged (1,792 rows), so on the card B7 takes its streamed build
-(`csrc/reuse_bvh.cu`) and B10 (`csrc/ris_cdf.cu`) runs the same streamed
-search, which picks what a full scan picks, bit for bit. Here their
-plain twins run:
+the tables B7's staged design (2,416 area rows) and B10's first design
+(1,792 rows) staged whole in shared memory; on the card B7
+(`csrc/reuse_bvh.cu`) and B10 (`csrc/ris_cdf.cu`) run their light search
+(`csrc/ris_search.cuh`), which streams the rows through shared memory
+and picks what a full scan picks, bit for bit. Here their plain twins
+run:
 - one frame of the port's general RESTIR_DI cdf step (`restir_direct`)
   against the JAX general step, with the gates of
   tests/test_torch_general.py: radiance and reservoir weights within
@@ -50,15 +51,22 @@ def world():
 
 
 def test_tables_pass_the_staged_builds(world):
-    """The scene takes B7's streamed build on the card and is past the
-    tables B10 staged before it ran B7's streamed search."""
+    """The scene is past the tables B7's staged design and B10's first
+    design staged whole, and the light search of both sizes its
+    checkpoints for it: S = 48, its shared memory within a block's and
+    two blocks to an SM."""
     _, tscene, _ = world
     t = tscene.tables
     assert t.n_lights == 2 * N_LIGHTS
     assert tscene.num_tris > fk._RESIDENT_MAX_TRIS
     assert t.psi.shape[0] * 32 * 4 > fused_di.SMEM_MAX  # B10's first design
-    assert ris_cdf.smem_bytes(t.n_lights) <= fused_di.SMEM_MAX
-    assert reuse.streamed_for(t.n_lights, False)
+    assert t.n_lights > 2416  # B7's staged design
+    seg = reuse.seg_for(t.n_lights, False)
+    assert seg == 48
+    smem = reuse.smem_bytes(t.n_lights, False, t.n_lights, seg)
+    assert ris_cdf.smem_bytes(t.n_lights) == smem <= fused_di.SMEM_MAX
+    assert (reuse.SEARCH_BLOCKS_PER_SM * (smem + reuse.SMEM_BLOCK_RESERVED)
+            <= reuse.SMEM_SM)
 
 
 def test_general_cdf_step_matches_jax(world):

@@ -1,33 +1,37 @@
-"""B7's light search (`csrc/reuse_bvh.cu`) through its CPU mirror in
-`restir_tpu_torch.ops.kernels.reuse`, and the 2-D pixel tiles of B6 / B7.
+"""B7's light search (`csrc/ris_search.cuh`, which B10 shares) through its
+CPU mirror in `restir_tpu_torch.ops.kernels.reuse`, and the 2-D pixel
+tiles of B6 / B7.
 
 - The segmented search (pass 1 keeps the running cdf after every S-th
   row; each pick re-scans one segment) picks the same rows and targets,
   bit for bit, as the full two-pass scan over every row, on env_scene()'s
   640-row tables (has_env), many_light_scene(64, 24)'s 128-row tables,
-  and the tables past the staged build: env_scene(n_lights=1100)'s 2,200
-  area rows with the env tiles and many_light_scene(1225, 24)'s 2,450
-  rows, at random shading points, for k = 1, 4, 8 and S = 8, 16, 32
-  (and the streamed build's S: its own, 64, 128, 256), and on
-  hand-made target rows for the edge cases (a zero total, thresholds at
-  or past the last cdf or NaN, a cdf equal to a threshold at a segment
-  boundary, segments of zero targets, a light count that is not a
-  multiple of S);
+  and the tables past the staged design: env_scene(n_lights=1100)'s
+  2,200 area rows with the env tiles and many_light_scene(1225, 24)'s
+  2,450 rows, at random shading points, for k = 1, 4, 8 and S = 8, 16,
+  32 (and past the staged design the kernel's S for the scene, 200 and
+  256), and on hand-made target rows for the edge cases (a zero total,
+  thresholds at or past the last cdf or NaN, a cdf equal to a threshold
+  at a segment boundary, segments of zero targets, a light count that
+  is not a multiple of S); the kernel's blocked pass 1 (`search_streamed`:
+  several pixels a thread, rows by chunk and group, a checkpoint every
+  S rows) equals the full scan on hand-made rows at S = 48, 64 and 256;
   it evaluates at most n_lights + k * S targets per pixel.
 - Its picks match, on >= 99.5 % of lanes (the pick-match gate of
   tests/test_fused_di.py), those of an independent plain formulation
   (`_plain_ris`: unfused float32 targets, a cumsum) and those of the
   twin (`fused_di.ris_targets`, rounded as the kernels round, and its
-  row-order `cdf_rows`); on the tables past the staged builds, the
+  row-order `cdf_rows`); on the tables past the staged design, the
   twin's on every lane.
 - The reduced target of env-tile rows equals the full light target bit
   for bit on every env row, and padding rows have target 0.
-- The host mirror picks B7's build (staged or streamed), its spacing
-  and its shared memory as the kernel does, and B10's (always B7's
-  env-less streamed search), within SMEM_MAX and the blocks per SM of
-  B7's launch bounds, around the limits of B7's staged build (2,416
-  area rows, 2,144 with env tiles) and of B10's first design (1,792
-  rows) and at 2,450 and 10,000 rows; its constants are the sources'.
+- The host mirror sizes the search's checkpoints (its spacing S, the
+  smallest multiple of 8 that fits, and its shared memory) as the
+  kernel does, for B7 and for B10 (the env-less search), within
+  SMEM_MAX and the blocks per SM of the search's launch bounds, around
+  the limits of B7's staged design (2,416 area rows, 2,144 with env
+  tiles) and of B10's first design (1,792 rows) and at 2,450 and 10,000
+  rows; its constants are the sources'.
 - The tile map of B6 / B7 covers every pixel once on ragged frames.
 """
 
@@ -78,7 +82,7 @@ def world(request):
 
 @pytest.fixture(scope="module", params=["env_2200", "many_lights_2450"])
 def big_world(request):
-    """As `world`, on tables past the staged builds."""
+    """As `world`, on tables past the staged design."""
     return _world(request.param)
 
 
@@ -240,21 +244,36 @@ def test_search_fallback_takes_last_light_row():
 
 
 def _b7_source_constants():
-    """(blocks per SM by env build, the spacings, the streamed build's
-    chunk rows) as csrc/ris_search.cuh declares them for B7's launch
-    bounds (csrc/reuse_bvh.cu), b7_seg and b7_smem."""
+    """(threads a block, pixels a thread, blocks per SM, chunk rows, group
+    rows) of the light search as csrc/ris_search.cuh declares them for
+    its launch bounds, b7_seg and b7_smem."""
     src = (_build.SRC_DIR / "ris_search.cuh").read_text()
-    b7_src = (_build.SRC_DIR / "reuse_bvh.cu").read_text()
-    blocks = re.search(r"constexpr int kBlocksPerSm = (\d+), "
-                       r"kBlocksPerSmEnv = (\d+);", src)
-    segs = re.search(r"constexpr int kSegs\[\] = \{([\d, ]+)\};", src)
-    chunk = re.search(r"constexpr int kChunkRows = (\d+);", src)
-    assert blocks and segs and chunk
-    assert re.search(r"__launch_bounds__\(PIX_BLOCK,\s*HAS_ENV \? "
-                     r"kBlocksPerSmEnv : kBlocksPerSm\)", b7_src)
-    assert re.search(r"\(stream \? 2 \* kChunkRows : n_area\) \* 64", src)
-    return ({False: int(blocks[1]), True: int(blocks[2])},
-            tuple(int(x) for x in segs[1].split(",")), int(chunk[1]))
+    block = re.search(r"#define RESTIR_SEARCH_BLOCK (\d+)", src)
+    p = re.search(r"#define RESTIR_SEARCH_P (\d+)", src)
+    search_blocks = re.search(r"#define RESTIR_SEARCH_BLOCKS (\d+)", src)
+    group = re.search(r"constexpr int kChunkRows = kSearchBlock / 4, "
+                      r"kGroup = (\d+);", src)
+    assert block and p and search_blocks and group
+    assert "constexpr int kSearchBlock = RESTIR_SEARCH_BLOCK," in src
+    assert "__launch_bounds__(kSearchBlock, kSearchBlocks)" in src
+    assert "(size_t)2 * kChunkRows * 64 + (size_t)n_env * 20" in src
+    assert "(size_t)n_seg * kSearchPixels * sizeof(float)" in src
+    assert "s += kGroup;" in src
+    return (int(block[1]), int(p[1]), int(search_blocks[1]),
+            int(block[1]) // 4, int(group[1]))
+
+
+def _mirror_constants():
+    return (reuse.SEARCH_BLOCK, reuse.SEARCH_P, reuse.SEARCH_BLOCKS_PER_SM,
+            reuse.CHUNK_ROWS, reuse.GROUP)
+
+
+def _fits(n_area, has_env, seg):
+    """Whether the search's blocks per SM fit an H100 SM at spacing seg."""
+    n_live = n_area + (reuse.N_ENV if has_env else 0)
+    smem = reuse.smem_bytes(n_area, has_env, n_live, seg)
+    return (reuse.SEARCH_BLOCKS_PER_SM * (smem + reuse.SMEM_BLOCK_RESERVED)
+            <= reuse.SMEM_SM)
 
 
 @pytest.mark.parametrize("n_area,has_env,seg", [(128, False, 8),
@@ -262,90 +281,74 @@ def _b7_source_constants():
                                                 (4, True, 16)])
 def test_seg_fits_the_blocks_per_sm(n_area, has_env, seg):
     """B7's checkpoint spacing: 8 rows on 128 area lights, 16 with the
-    env tiles, so that the blocks its launch bounds ask for fit an SM (the
-    host mirror's constants are the kernel's); and at 640 light rows it
-    stages less than the 80 KB of psi and light rows the first design
-    held."""
-    assert _b7_source_constants() == (reuse.BLOCKS_PER_SM, reuse.SEGS,
-                                      reuse.CHUNK_ROWS)
+    env tiles, so that the blocks the search's launch bounds ask for fit
+    an SM (the host mirror's constants are the kernel's) and 8 rows less
+    would not; at 640 light rows a block holds 98 KB: the chunk buffer,
+    the env tiles' compact rows and 40 checkpoints of 512 pixels."""
+    assert _b7_source_constants() == _mirror_constants()
     assert reuse.seg_for(n_area, has_env) == seg
     n_live = n_area + (reuse.N_ENV if has_env else 0)
     smem = reuse.smem_bytes(n_area, has_env, n_live, seg)
-    blocks = reuse.BLOCKS_PER_SM[has_env]
-    assert blocks * (smem + reuse.SMEM_BLOCK_RESERVED) <= reuse.SMEM_SM
-    if seg > reuse.SEGS[0]:  # the next smaller spacing would not fit
-        smaller = reuse.smem_bytes(n_area, has_env, n_live, seg // 2)
-        assert blocks * (smaller + reuse.SMEM_BLOCK_RESERVED) > reuse.SMEM_SM
+    assert _fits(n_area, has_env, seg)
+    if seg > reuse.GROUP:  # the next smaller spacing would not fit
+        assert not _fits(n_area, has_env, seg - reuse.GROUP)
     if n_live == 640:
-        assert smem < 640 * 128
-
-
-# the largest light counts B7's staged build holds: 2,416 area rows
-# (2,144 with the env tiles)
-B7_STAGED_MAX = {False: 2416, True: 2144}
+        assert smem == 2 * 64 * 64 + 512 * 20 + 40 * 512 * 4
 
 
 @pytest.mark.parametrize("has_env", [False, True])
 @pytest.mark.parametrize("n_area", [1792, 1920, 2144, 2145, 2416, 2417,
                                     2450, 10000])
 def test_build_choice_fits_shared_memory(n_area, has_env):
-    """B7's choice of build from the table size: the staged build while
-    its tables fit SMEM_MAX, else the streamed one, whose shared memory
-    fits the blocks per SM of B7's launch bounds with the smallest
-    spacing S that does (a power of two from 8: 64 at 2,450 rows, 256 at
-    10,000). B10 runs the env-less streamed search at every size (its
-    first design staged l_pad rows of 128 B: at most 1,792)."""
+    """The one build's sizing around the tables B7's staged design held
+    (2,416 area rows, 2,144 with the env tiles) and B10's first design
+    staged (1,792 rows), and at 2,450 and 10,000 rows: the search's
+    shared memory fits the blocks per SM of its launch bounds within
+    SMEM_MAX at the smallest spacing S, a multiple of GROUP, that does
+    (48 at 2,450 rows, 200 at 10,000); B7 and B10 size it alike."""
     b7_src, b10_src = (_build.SRC_DIR / "reuse_bvh.cu").read_text(), (
         _build.SRC_DIR / "ris_cdf.cu").read_text()
-    assert "constexpr int BLOCK = 256;" in b10_src
-    assert _b7_source_constants()[2] == reuse.CHUNK_ROWS == gbuffer.BLOCK // 4
-    assert "b7_seg(n_area, false, true, &seg)" in b10_src
-    assert "b7_smem(n_area, false, seg, true)" in b10_src
-    assert "ris_select_seg<false, false, true>" in b10_src
+    assert _b7_source_constants() == _mirror_constants()
+    assert reuse.CHUNK_ROWS == reuse.SEARCH_BLOCK // 4
+    assert "b7_seg(n_area, false, &seg)" in b10_src
+    assert "launch_ris_search<false, false>(CdfIo{" in b10_src
+    assert "b7_seg(n_area, HAS_ENV, &seg)" in b7_src
+    assert "launch_ris_search<COUNT, HAS_ENV>(" in b7_src
     # B10 (no env rows)
     b10_smem = ris_cdf.smem_bytes(n_area)
-    assert b10_smem == reuse.smem_bytes(
-        n_area, False, n_area, reuse.seg_for(n_area, False, True), True)
-    assert (reuse.BLOCKS_PER_SM[False]
-            * (b10_smem + reuse.SMEM_BLOCK_RESERVED) <= reuse.SMEM_SM)
+    assert b10_smem == reuse.smem_bytes(n_area, False, n_area,
+                                        reuse.seg_for(n_area, False))
+    assert _fits(n_area, False, reuse.seg_for(n_area, False))
     # B7
-    streamed = reuse.streamed_for(n_area, has_env)
-    assert streamed == (n_area > B7_STAGED_MAX[has_env])
-    assert "b7_seg(n_area, HAS_ENV, STREAM, &seg)" in b7_src
-    seg = reuse.seg_for(n_area, has_env, streamed)
+    seg = reuse.seg_for(n_area, has_env)
     n_live = n_area + (reuse.N_ENV if has_env else 0)
-    smem = reuse.smem_bytes(n_area, has_env, n_live, seg, streamed)
+    smem = reuse.smem_bytes(n_area, has_env, n_live, seg)
     assert smem <= fused_di.SMEM_MAX
-    blocks = reuse.BLOCKS_PER_SM[has_env]
-    if streamed:
-        assert blocks * (smem + reuse.SMEM_BLOCK_RESERVED) <= reuse.SMEM_SM
-        assert seg >= reuse.SEGS[0] and seg & (seg - 1) == 0
-        if seg > reuse.SEGS[0]:  # the next smaller spacing would not fit
-            smaller = reuse.smem_bytes(n_area, has_env, n_live, seg // 2,
-                                       True)
-            assert (blocks * (smaller + reuse.SMEM_BLOCK_RESERVED)
-                    > reuse.SMEM_SM)
-        # a pick re-scans one segment: at most n_live + K * S targets
-        assert seg <= max(64, n_live // 32)
-    else:
-        assert seg in reuse.SEGS
+    assert _fits(n_area, has_env, seg)
+    assert seg >= reuse.GROUP and seg % reuse.GROUP == 0
+    if seg > reuse.GROUP:  # the next smaller spacing would not fit
+        assert not _fits(n_area, has_env, seg - reuse.GROUP)
+    # a pick re-scans one segment: at most n_live + K * S targets
+    assert seg <= max(64, n_live // 32)
     if n_area in (2450, 10000) and not has_env:
-        assert seg == {2450: 64, 10000: 256}[n_area]
+        assert seg == {2450: 48, 10000: 200}[n_area]
 
 
 @pytest.mark.parametrize("k", [1, 4, 8])
 def test_streamed_spacing_search_equals_full_scan(big_world, k):
-    """The search at the streamed build's spacings (the mirror's S for
-    the scene, and 256, the spacing at 10,000 rows) picks what the full
-    scan picks, bit for bit, and the twin's picks are the search's."""
+    """The search (`reuse.search_streamed`, as the kernel's blocks,
+    chunks and groups run it) at the spacings past the staged design
+    (the mirror's S for the scene, 200, the spacing at 10,000 rows, and
+    256, its first design's there) picks what the full scan picks, bit
+    for bit, and the twin's picks are the search's."""
     tables, has_env, gb, pix = big_world
     idx_f, tq_f, total_f = _full(big_world, k)
     n = tables.n_lights
-    assert reuse.streamed_for(n, has_env)
+    assert reuse.seg_for(n, has_env) > 32  # past the staged design's
     if k == 4:
         _twin_picks_match(big_world, 1.0, fused_di.ris_targets,
                           fused_di.cdf_rows)
-    for seg in sorted({reuse.seg_for(n, has_env, True), 256}):
+    for seg in sorted({reuse.seg_for(n, has_env), 200, 256}):
         idx, tq, total, evaluated = reuse.ris_search(
             gb, pix, LOOPER, tables, k=k, single_sided=True,
             has_env=has_env, seg=seg)
@@ -354,6 +357,71 @@ def test_streamed_spacing_search_equals_full_scan(big_world, k):
         assert torch.equal(tq, tq_f)
         n_live = n + (reuse.N_ENV if has_env else 0)
         assert int(evaluated.max()) <= n_live + k * seg
+
+
+def _blocked_rows(l_pad):
+    """Hand-made targets [75, l_pad] (integers, so every cdf is exact):
+    517 area rows and 45 env rows hold lights, the rest are padding; a
+    zero pixel, a pixel whose one light is the last row, a pixel with
+    zero segments, random pixels."""
+    g = np.random.default_rng(11)
+    t = g.integers(0, 3, (75, l_pad)).astype(np.float32)
+    t[:, 562:] = 0.0
+    t[0] = 0.0  # total 0
+    t[1] = 0.0
+    t[1, 561] = 4.0  # one light, in the last (partial) segment
+    t[2, 64:320] = 0.0  # zero segments at S = 64, one at 256
+    return torch.as_tensor(t)
+
+
+@pytest.mark.parametrize("seg", [48, 64, 256])
+@pytest.mark.parametrize("case", ["random", "at_checkpoint", "at_row",
+                                  "zero", "last_segment", "fallback"])
+def test_blocked_pass1_equals_full_scan(case, seg):
+    """The search kernel's pass 1 (`reuse.search_streamed`: the
+    pixels SEARCH_P a thread in blocks of 8 threads, here 3 with a ragged
+    tail; the area rows by chunk in groups with a checkpoint test once a
+    group, then the env rows from the first group boundary) picks what
+    the full scan picks, bit for bit, and evaluates what the plain
+    segmented search (`search_seg`) evaluates: on random targets,
+    thresholds equal to the cdf at a segment boundary and mid-segment
+    (strict > skips them), zero targets, a light in the last partial
+    segment and the fallback row of a table without padding (its own
+    target)."""
+    n_area, n_live = 517, 562
+    t = _blocked_rows(n_live if case == "fallback" else 600)
+    total = t.sum(dim=1)
+    ck = torch.cumsum(t, dim=1)
+    b = t.shape[0]
+    g = np.random.default_rng(seg)
+    if case == "random":
+        thr = torch.as_tensor(g.random((4, b)), dtype=torch.float32) * total
+    elif case == "at_checkpoint":
+        thr = torch.stack([ck[:, min(c * seg, n_live) - 1]
+                           for c in (1, 2)])
+    elif case == "at_row":
+        thr = torch.stack([ck[:, r] for r in (seg // 2 + 3, n_area + 7)])
+    elif case == "zero":
+        t[:] = 0.0
+        thr = torch.zeros((3, b))
+    elif case == "last_segment":
+        thr = torch.stack([total - 0.5, torch.full((b,), 0.25)])
+    else:
+        thr = torch.stack([total, torch.full((b,), float("inf"))])
+    idx_f, tq_f, total_f = reuse.search_full(t, thr)
+    idx, tq, tot, evaluated = reuse.search_streamed(
+        t, n_area, n_live, thr, seg, p=reuse.SEARCH_P, block=8)
+    assert torch.equal(idx, idx_f)
+    assert torch.equal(tq, tq_f)
+    assert torch.equal(tot, total_f)
+    assert torch.equal(evaluated, reuse.search_seg(t, n_live, thr, seg)[3])
+    assert int(evaluated.max()) <= n_live + thr.shape[0] * seg
+    if case == "last_segment":
+        assert int(idx[0, 1]) == n_live - 1
+    if case in ("zero", "fallback"):
+        assert bool((idx == t.shape[1] - 1).all())
+    if case == "fallback":
+        assert torch.equal(tq[0], t[:, -1])
 
 
 @pytest.mark.parametrize("w,h", [(200, 72), (1920, 1080), (37, 5)])

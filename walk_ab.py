@@ -246,7 +246,8 @@ def _busy() -> None:
             ("hall general DI + SVGF",
              base.replace(tracer=TracerType.RESTIR_DI, intersector="bvh",
                           ris_mode="cdf", denoiser=DenoiserType.SVGF),
-             {"mt_primary": 1, "ris_cdf": 1, "svgf_variance": n_var,
+             {"mt_primary": 1, "ris_cdf": 1, "ris_search": 1,
+              "svgf_variance": n_var,
               "atrous_svgf": levels}),
             ("hall heatmap", base.replace(tracer=TracerType.BVH_VISUALIZE),
              {"heatmap": 1, "mt_primary": 1})):
