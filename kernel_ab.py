@@ -48,8 +48,8 @@ and loads its own kernels. A run times, by CUDA events at 1920x1080
   frame 0's pack from the unmoved camera as history;
 - the light tables past a block's shared memory, where the tree renders
   them: B7's streamed build forced (`_streamed=True`, in a tree with two
-  builds; B7's one build in a tree whose B7 streams every table) beside
-  each B7 call above (the headline, the hall and the sky hall), and B7
+  builds) beside each B7 call above (the headline, the hall and the sky
+  hall), and B7
   (on frame 1's G-buffer) and B10 (on the general G-buffer) of
   many_light_scene(1225, 24) and (5000, 24) (2,450 and 10,000 light
   rows), as chip_smoke.py phase 29 builds them, with the device time of
@@ -254,12 +254,10 @@ def _child() -> None:
     # B7 takes the frame's width (2-D pixel tiles) since its search redesign
     b7_tiles = ({"width": WIDTH} if "width" in inspect.signature(
         reuse.candidates_cuda).parameters else {})
-    # B7 had a streamed build, which `_streamed=True` forced on tables
-    # that fit the staged one, from the many-light slice until it became
-    # B7's one build (`search_launches`)
+    # a tree with two B7 builds forces its streamed one with
+    # `_streamed=True` on tables that fit the staged one
     forced = ({"_streamed": True} if "_streamed" in inspect.signature(
-        reuse.candidates_cuda).parameters else
-        {} if hasattr(reuse, "search_launches") else None)
+        reuse.candidates_cuda).parameters else None)
     # B1's wrapper takes the scene's MTBVH since the walk redesign
     takes_bvh = "bvh" in inspect.signature(
         fused_di.di_resident_cuda).parameters
@@ -562,39 +560,45 @@ def _child() -> None:
         del scene
 
     # B7 and B10 past the tables their first designs staged, where the
-    # tree renders them (a tree without refuses these tables), on
-    # many_light_scene(1225, 24) and (5000, 24): 2,450 and 10,000 light
-    # rows, as chip_smoke.py phase 29 builds their inputs
-    if forced is not None:
-        for n_quads in (1225, 5000):
-            ml_arrays, ml_kw = many_light_scene(n_quads, 24)
-            scene = convert.scene_from_numpy(ml_arrays, dev)
-            cfg = RenderConfig(width=WIDTH, height=HEIGHT,
-                               tracer=TracerType.RESTIR_DI,
-                               **mat_flags(ml_arrays))
-            pos = ml_kw["position"]
-            cv = pack_camera(make_camera(**ml_kw), dev)
-            cv2 = pack_camera(make_camera(**{**ml_kw, "position": (
-                pos[0] + 0.25, pos[1], pos[2])}), dev)
-            gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
-                                      height=HEIGHT)
-            rows = 2 * n_quads
-            # the light search and each walk alone, where the tree
-            # launches them apart
-            timed(f"B7 streamed, {rows} light rows", lambda: (
-                reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
-                                      k=cfg.cdf_candidates,
-                                      has_met=cfg.scene_has_metallic,
-                                      width=WIDTH)),
-                  {"search": "ris_search_kernel",
-                   "walk": "reuse_walk_kernel"})
-            pack, _ = b10_input(scene, make_camera(**ml_kw), dev)
-            timed(f"B10, {rows} light rows", lambda: (
-                ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
-                                     k=cfg.cdf_candidates,
-                                     has_met=cfg.scene_has_metallic)),
-                  {"search": "ris_search_kernel", "walk": "ris_cdf_kernel"})
-            del scene, gb, pack
+    # tree renders them (a tree that stages its tables whole refuses
+    # these with ValueError), on many_light_scene(1225, 24) and (5000,
+    # 24): 2,450 and 10,000 light rows, as chip_smoke.py phase 29 builds
+    # their inputs
+    for n_quads in (1225, 5000):
+        ml_arrays, ml_kw = many_light_scene(n_quads, 24)
+        scene = convert.scene_from_numpy(ml_arrays, dev)
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                           tracer=TracerType.RESTIR_DI,
+                           **mat_flags(ml_arrays))
+        pos = ml_kw["position"]
+        cv = pack_camera(make_camera(**ml_kw), dev)
+        cv2 = pack_camera(make_camera(**{**ml_kw, "position": (
+            pos[0] + 0.25, pos[1], pos[2])}), dev)
+        gb = gbuffer.gbuffer_cuda(cv2, cv, 1, scene.bvh, width=WIDTH,
+                                  height=HEIGHT)
+        rows = 2 * n_quads
+        try:
+            reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                  k=cfg.cdf_candidates, **b7_tiles)
+        except ValueError as e:
+            print(f"{rows} light rows: B7 refuses them ({e})")
+            break
+        # the light search and each walk alone, where the tree
+        # launches them apart
+        timed(f"B7 streamed, {rows} light rows", lambda: (
+            reuse.candidates_cuda(gb, 1, scene.tables, scene.bvh,
+                                  k=cfg.cdf_candidates,
+                                  has_met=cfg.scene_has_metallic,
+                                  width=WIDTH)),
+              {"search": "ris_search_kernel",
+               "walk": "reuse_walk_kernel"})
+        pack, _ = b10_input(scene, make_camera(**ml_kw), dev)
+        timed(f"B10, {rows} light rows", lambda: (
+            ris_cdf.ris_cdf_cuda(pack, 1, scene.tables, scene.bvh,
+                                 k=cfg.cdf_candidates,
+                                 has_met=cfg.scene_has_metallic)),
+              {"search": "ris_search_kernel", "walk": "ris_cdf_kernel"})
+        del scene, gb, pack
 
     def ray_order():
         """The ray-order probe kernels on the hall's NEE segments."""

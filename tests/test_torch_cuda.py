@@ -11,8 +11,9 @@ on edge-case rays and on a batch of dead lanes;
 the MTBVH walk counts of B6, B7, B8, B11 and B12 against the lockstep
 twin, B1a against B6 + B7, and the full path tracer's frames with and
 without B12's mask of live lanes; B7's light search alone against its
-twin, B7 and B10 against their twins on 2,450 light rows, and through
-renderer.step there.
+twin and its mirror, and against B1 bit for bit where its targets leave
+the division's fast path; B7 and B10 against their twins on 2,450 light
+rows, and through renderer.step there.
 
 These need nvcc and a GPU; without a card they skip (the decision is
 made inside the `cuda_device` fixture, never at import). On a card:
@@ -1603,10 +1604,12 @@ def _b10_twin_gates(k, r, shade):
 def test_streamed_search_matches_twin(ragged, env_tex, k):
     """The light search kernel alone (`_parts=1`; 128 rows on a ragged
     frame, 640 with the env tiles): each pixel evaluates the light
-    targets its CPU mirror
-    (`reuse.search_streamed`) evaluates, its candidates meet the twin's
-    (`fused_di.ris_all`) pick and weight gates, and the walk after it
-    changes only the weights of occluded winners."""
+    targets its CPU mirror (`reuse.search_streamed`) evaluates, the
+    mirror's picks equal the full row-order scan's on the same targets
+    (`reuse.search_full`), every shading lane's candidate is the twin's
+    (`fused_di.ris_all`: the same light point, its weight within rtol
+    2e-4), and the walk after it changes only the weights of occluded
+    winners."""
     for scene, gb, w, has_env in _b7_frames(ragged, env_tex):
         t = scene.tables
         kw = dict(width=w, k=k, has_env=has_env, stats=True)
@@ -1616,28 +1619,66 @@ def test_streamed_search_matches_twin(ragged, env_tex, k):
             before[0] + 1, before[1])
         pix = torch.arange(gb.shape[1], device=gb.device)
         seg = reuse.seg_cuda(t.n_lights, has_env)
-        _, _, _, evaluated = reuse.ris_search(
+        idx, tq, total, evaluated = reuse.ris_search(
             gb, pix, 1, t, k=k, single_sided=True, has_env=has_env,
             seg=seg)
         assert torch.equal(st[2].long(), evaluated)
+        targets, _ = reuse.search_targets(gb, t, single_sided=True,
+                                          has_env=has_env)
+        idx_f, tq_f, total_f = reuse.search_full(
+            targets, reuse.thresholds(pix, 1, k, total))
+        assert torch.equal(idx, idx_f)
+        assert torch.equal(tq.view(torch.int32), tq_f.view(torch.int32))
+        assert torch.equal(total.view(torch.int32),
+                           total_f.view(torch.int32))
         li, wi, dist, wt = fused_di.ris_all(gb, pix, 1, t, k=k,
                                             single_sided=True, has_met=True,
                                             has_env=has_env)
         shade = gb[fused_di.G_SHADE] > 0.5
-        pick = (torch.all(rs[fused_di.RS_LI:fused_di.RS_LI + 3] == li, 0)
-                & torch.all(torch.isclose(
-                    rs[fused_di.RS_WI:fused_di.RS_WI + 3], wi, rtol=2e-4,
-                    atol=1e-5), 0))
-        assert float(pick[shade].float().mean()) >= 0.995
-        ok = pick & shade
-        assert float(torch.isclose(rs[fused_di.RS_W][ok], wt[ok], rtol=2e-4,
-                                   atol=1e-7).float().mean()) >= 0.999
+        assert bool(shade.any())
+        assert torch.equal(rs[fused_di.RS_LI:fused_di.RS_LI + 3][:, shade],
+                           li[:, shade])
+        torch.testing.assert_close(
+            rs[fused_di.RS_WI:fused_di.RS_WI + 3][:, shade], wi[:, shade],
+            rtol=2e-4, atol=1e-5)
+        torch.testing.assert_close(rs[fused_di.RS_W][shade], wt[shade],
+                                   rtol=2e-4, atol=1e-7)
         full = reuse.candidates_cuda(gb, 1, t, scene.bvh, **kw)[0]
         w_ch = fused_di.RS_W
         assert torch.equal(full[:w_ch], rs[:w_ch])
         kept = full[w_ch] == rs[w_ch]
         assert bool((kept | (full[w_ch] == 0.0)).all())
         assert float(kept.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("scales", [(2.0 ** -100,), (2.0 ** 80,),
+                                    (2.0 ** -100, 2.0 ** 80)])
+def test_search_off_the_fast_division_equals_b1(frame, scales):
+    """Light rows whose psi column 13 (the light's power) is scaled by
+    2^-100 or 2^80 give lit targets whose numerators leave [2^-60, 2^60],
+    where the search's quotient leaves its fast path
+    (`light_target4_fast`): their groups of 8 rows are added again
+    through `light_target4`, in pass 1 and in the picks' re-scan. B6 +
+    B7 + B1b still write B1's packs bit for bit (B1's targets divide
+    correctly rounded on every row)."""
+    scene, cv0, cv1, pt0 = frame
+    t = scene.tables
+    psi = t.psi.clone()
+    # row 3 of groups 0, 2, ... of 8 rows takes scales[0], of groups 1,
+    # 3, ... scales[1]; the other rows stay on the fast path
+    for i, s in enumerate(scales):
+        rows = torch.arange(3 + 8 * i, t.n_lights, 16)
+        psi[rows, 13] *= s
+    gb_b1, pt_b1 = fused_di.di_resident_cuda(
+        cv1, cv0, 1, pt0, t._replace(psi=psi), scene.bvh, width=W, height=H)
+    gb = gbuffer.gbuffer_cuda(cv1, cv0, 1, scene.bvh, width=W, height=H)
+    # the unscaled numerators of lit rows lie in [2^-20, 2^20] here
+    targets, _ = reuse.search_targets(gb, t, single_sided=True)
+    assert float((targets[:, 3:t.n_lights:8] > 0).float().mean()) > 0.1
+    t = t._replace(psi=psi)
+    pt = reuse.reuse_cuda(gb, pt0, 1, t, scene.bvh, width=W)
+    assert torch.equal(gb.view(torch.int32), gb_b1.view(torch.int32))
+    assert torch.equal(pt.view(torch.int32), pt_b1.view(torch.int32))
 
 
 @pytest.fixture(scope="module")

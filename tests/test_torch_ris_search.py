@@ -248,19 +248,18 @@ def _b7_source_constants():
     rows) of the light search as csrc/ris_search.cuh declares them for
     its launch bounds, b7_seg and b7_smem."""
     src = (_build.SRC_DIR / "ris_search.cuh").read_text()
-    block = re.search(r"#define RESTIR_SEARCH_BLOCK (\d+)", src)
-    p = re.search(r"#define RESTIR_SEARCH_P (\d+)", src)
-    search_blocks = re.search(r"#define RESTIR_SEARCH_BLOCKS (\d+)", src)
+    shape = re.search(r"constexpr int kSearchBlock = (\d+), kSearchP = "
+                      r"(\d+), kSearchBlocks = (\d+);", src)
     group = re.search(r"constexpr int kChunkRows = kSearchBlock / 4, "
                       r"kGroup = (\d+);", src)
-    assert block and p and search_blocks and group
-    assert "constexpr int kSearchBlock = RESTIR_SEARCH_BLOCK," in src
+    assert shape and group
+    block, p, search_blocks = shape.groups()
     assert "__launch_bounds__(kSearchBlock, kSearchBlocks)" in src
     assert "(size_t)2 * kChunkRows * 64 + (size_t)n_env * 20" in src
     assert "(size_t)n_seg * kSearchPixels * sizeof(float)" in src
     assert "s += kGroup;" in src
-    return (int(block[1]), int(p[1]), int(search_blocks[1]),
-            int(block[1]) // 4, int(group[1]))
+    return (int(block), int(p), int(search_blocks), int(block) // 4,
+            int(group[1]))
 
 
 def _mirror_constants():
